@@ -7,23 +7,41 @@ non-zero, printing no result, without them or outside a checkout.
 
 Phases (each raises on failure):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the K1 kernel (csrc/traverse_resident.cu) from source;
-  3. K1 against its plain PyTorch version on the card: the main path's
-     shape (cornell, 1080p chunk of 524,288 rays) and two terrain scenes
-     (20k tris at leaf 32, 80k tris at leaf 128) with 262,144-ray coherent,
-     incoherent and occlusion queues; rows and blocked flags must be
-     equal, and t, u, v bitwise equal;
-  4. the goldens cornell_diffuse and sun_sky rendered on the card, through
-     the kernel: against the port's own CPU render of them (the CPU tests
-     hold that render to the JAX package run op by op) with equal ray
-     counts, at most 1% of pixels over 1e-3 and a relative L1 error of at
-     most 1e-4 (goldens.compare_card), and against tests/goldens/*.pfm at
-     the golden gate of goldens.py;
-  5. the main path: cornell at 1920x1080, 1 spp, depth 9, one warm-up frame
-     and 8 timed frames, with the K1 launch count of that run.
+  2. build: the three traversal kernels from source, one nvcc each, all
+     at once: K1 (csrc/traverse_resident.cu), K2 (csrc/traverse_flat_cull.cu)
+     and K3 (csrc/traverse_precull.cu);
+  3. the cornell main path: 1920x1080, 1 spp, depth 9, one warm-up frame
+     and 4 timed frames, with the K1 launch count of that run;
+  4. the terrain200 path: procedural.terrain(grid=200), 80,000 tris, at
+     1920x1080, 1 spp, depth 9, through the wavefront executor: one
+     warm-up frame and 4 timed frames; K2 and K3 must launch, K1 not
+     (the two timed paths run first, before the plain versions and the
+     CPU renders load the host);
+  5. K1 against its plain PyTorch version on the card: the cornell main
+     path's shape (1080p chunk of 524,288 rays) and two terrain scenes (20k
+     tris at leaf 32, 80k tris at leaf 128) with 262,144-ray coherent,
+     incoherent and occlusion queues; rows and blocked flags must be equal,
+     and t, u, v bitwise equal. On the terrain queues K2 and K3 too (the
+     incoherent ones coherence-sorted, as the renderer sorts its bounce
+     queues): each equal to its plain version and to K1, bitwise;
+  6. K2 and K3 at the terrain200 path's shapes: the 1080p frame's 2,097,152
+     primary lanes (K2, unsorted) and a bounce-1 queue, the primaries' hit
+     points with scattered directions, coherence-sorted (K3); closest and
+     occluded, each equal to its plain version and to K1 bitwise, all three
+     timed with CUDA events beside the bound of the function;
+  7. the goldens cornell_diffuse and sun_sky rendered on the card, through
+     K1: against the port's own CPU render of them (the CPU tests hold that
+     render to the JAX package run op by op) with equal ray counts, at most
+     1% of pixels over 1e-3 and a relative L1 error of at most 1e-4
+     (goldens.compare_card), and against tests/goldens/*.pfm at the golden
+     gate of goldens.py;
+  8. a small terrain (48x48, 8k tris) forced onto the flat-cull route
+     (RPTR_TRAVERSAL_V3=1, the wavefront executor) on the card against the
+     port's CPU render of it: equal ray counts and goldens.compare_card.
 Its last two lines are the kernels' JSON record and the result JSON.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -34,12 +52,29 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "realtimepathtracingresearchframework_tpu_torch"
-KERNEL_SOURCE = f"{PKG}/csrc/traverse_resident.cu"
-KERNEL_REPLACES = "realtimepathtracingresearchframework_tpu/ops/traverse_pallas2.py:363"
+REF = "realtimepathtracingresearchframework_tpu/ops"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "traverse_resident": (f"{PKG}/csrc/traverse_resident.cu",
+                          f"{REF}/traverse_pallas2.py:363"),
+    "traverse_flat_cull": (f"{PKG}/csrc/traverse_flat_cull.cu",
+                           f"{REF}/traverse_pallas3.py:137"),
+    "traverse_precull": (f"{PKG}/csrc/traverse_precull.cu",
+                         f"{REF}/traverse_pallas3.py:723"),
+}
 QUEUE = 262_144
-TIMED_FRAMES = 8
+TIMED_FRAMES = 4
 MAIN_SIZE = (1920, 1080)
 DEVICE = "cuda"
+# the bound of the traversal function (PERF.md): the larger of the bytes
+# over the card's memory rate and the Moller-Trumbore flops over its f32
+# rate (H100 SXM data sheet). 54 flops per ray and triangle, counted from
+# traverse_pallas2._mt_leaf: 9 (p) + 5 (det) + 2 (|det| test) + 1 (1/det)
+# + 3 (tvec) + 6 (u) + 9 (q) + 6 (v) + 6 (t) + 7 (the hit tests).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+MT_FLOPS = 54
+RAY_BYTES = 32  # in: ro3, rd3, tmin, tmax
+HIT_BYTES = 16  # out: t, row, u, v (1 for a blocked flag)
 
 
 def log(*args):
@@ -51,12 +86,13 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, iters):
-    """Mean ms per call of fn() over ``iters`` calls, after one warm-up,
-    timed with CUDA events."""
+def cuda_ms(fn, iters, warm=True):
+    """Mean ms per call of fn() over ``iters`` calls, after one warm-up
+    call unless ``warm`` is False, timed with CUDA events."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -66,6 +102,20 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def env(**kv):
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def phase_device():
@@ -88,10 +138,11 @@ def phase_build():
     from realtimepathtracingresearchframework_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    path = build.build("traverse_resident", verbose=True)
-    build.load("traverse_resident")
+    paths = build.build_many(list(KERNELS), verbose=True)
+    for name in KERNELS:
+        build.load(name)
     secs = time.perf_counter() - t0
-    log(f"build: {os.path.relpath(path, REPO)} in {secs:.2f} s")
+    log(f"build: {[os.path.relpath(p, REPO) for p in paths]} in {secs:.2f} s")
     return secs
 
 
@@ -102,6 +153,16 @@ def _soa(a, dev):
 
     t = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
     return Vec3(t[:, 0].contiguous(), t[:, 1].contiguous(), t[:, 2].contiguous())
+
+
+def _bitwise(a, b):
+    """(mismatches, max |a - b|) of two tensors, compared as bit patterns."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    if a.dtype == np.float32:
+        diff = np.abs(a.astype(np.float64) - b)
+        return int((a.view(np.int32) != b.view(np.int32)).sum()), float(
+            diff.max(initial=0.0))
+    return int((a != b).sum()), 0.0
 
 
 def compare_queue(label, bvh, ro, rd, tmax=None, iters=20):
@@ -186,25 +247,119 @@ def _terrain_queues(lo, hi, rng):
     return coherent, (ro, rd)
 
 
-def phase_parity():
-    """K1 vs plain at the main path's shape and on the terrain queues.
-    Returns (max_abs_err, kernel_ms, plain_ms) at the main path's shape."""
+# ---------------------------------------------------------------------------
+# K1, K2 and K3 on one packed queue
+# ---------------------------------------------------------------------------
+
+
+def _k1(fb, rays, any_hit):
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
+
+    fn = tr.occluded_resident if any_hit else tr.closest_hit_resident
+    return fn(fb, Vec3(*rays[0:3]), Vec3(*rays[3:6]), rays[6], rays[7])
+
+
+def bound(aabbs, leaf_size, rays, t_end, any_hit):
+    """Least time the card could take for this queue's traversal (ms), and
+    what bounds it: the larger of the bytes (32 B in per ray, 16 B out, 1 B
+    for a blocked flag) over the memory rate and of 54 flops times the
+    leaf size times the (ray, leaf) pairs whose box the ray's segment
+    [tmin, min(tmax, t_end)] pierces (the plain feeder's exact test, on
+    this queue's data) over the f32 rate. Returns (ms, bound_by, pairs)."""
     import torch
 
-    from realtimepathtracingresearchframework_tpu.models import procedural
-    from realtimepathtracingresearchframework_tpu.models.camera import (
-        OrientedCamera,
-    )
-    from realtimepathtracingresearchframework_tpu.models.scene import Scene
-    from realtimepathtracingresearchframework_tpu.ops import bvh as bvh_mod
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+
+    seg = rays.clone()
+    seg[7] = torch.minimum(rays[7], t_end)
+    n, lpad = rays.shape[1], aabbs.shape[1]
+    step = max(1, (1 << 23) // lpad)
+    pairs = sum(int(tf.ray_leaf_hits(seg[:, s:s + step], aabbs).sum())
+                for s in range(0, n, step))
+    bytes_ms = n * (RAY_BYTES + (1 if any_hit else HIT_BYTES)) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = MT_FLOPS * leaf_size * pairs / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), pairs
+
+
+def compare_flat_queue(label, fb, rays, kernels, rng, iters=3):
+    """K1, K2 and K3 on one packed (8, n) queue, closest and occluded: each
+    flat-cull kernel equal to its plain version and to K1, bitwise (rows,
+    flags, t/u/v bit patterns). Returns {kernel: record} with the closest
+    mode's times, max error and bound, and K1's time on the queue."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+
+    h1 = _k1(fb, rays, False)
+    k1_ms = cuda_ms(lambda: _k1(fb, rays, False), iters)
+    b_ms, b_by, pairs = bound(fb.aabbs, fb.leaf_size, rays, h1.t, False)
+    # occlusion segments just short of (0.999 t) or past (1.001 t) each hit
+    live = rays[7] > rays[6]
+    scale = torch.from_numpy(np.where(
+        rng.uniform(size=rays.shape[1]) < 0.5, 0.999, 1.001
+    ).astype(np.float32)).to(rays.device)
+    orays = rays.clone()
+    orays[7] = torch.where(live, torch.where(h1.tri >= 0, h1.t * scale, 1e30),
+                           rays[7])
+    b1 = _k1(fb, orays, True)
+    k1_occ_ms = cuda_ms(lambda: _k1(fb, orays, True), iters)
+    out = {}
+    for name, q in kernels:
+        hk = tf.launch(name, fb, rays, q, False)
+        torch.cuda.synchronize()
+        p_ms = cuda_ms(lambda: tf.plain(name, fb, rays, q, False), 1, warm=False)
+        hp = tf.plain(name, fb, rays, q, False)
+        err, bad_p, bad_1 = 0.0, 0, 0
+        for a, p, k1 in zip(hk, hp, h1):
+            m, e = _bitwise(a, p)
+            bad_p += m
+            err = max(err, e)
+            bad_1 += _bitwise(a, k1)[0]
+        k_ms = cuda_ms(lambda: tf.launch(name, fb, rays, q, False), iters)
+        bk = tf.launch(name, fb, orays, q, True)
+        bp = tf.plain(name, fb, orays, q, True)
+        occ_p, occ_1 = _bitwise(bk, bp)[0], _bitwise(bk, b1)[0]
+        occ_ms = cuda_ms(lambda: tf.launch(name, fb, orays, q, True), iters)
+        short = "K2" if name == tf.K2 else "K3"
+        log(f"  {label:26s} {short} (q={q}): closest {bad_p} vs plain, {bad_1} "
+            f"vs K1 not bitwise, {k_ms:.3f} ms (plain {p_ms:.1f}, K1 "
+            f"{k1_ms:.3f}); occluded {occ_p} vs plain, {occ_1} vs K1 "
+            f"mismatched, blocked {bk.float().mean().item():.3f}, {occ_ms:.3f} "
+            f"ms (K1 {k1_occ_ms:.3f}); hit {(h1.tri >= 0).float().mean().item():.3f}, "
+            f"bound {b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs)")
+        check(bad_p == 0 and occ_p == 0,
+              f"{label}: {short} disagrees with its plain version")
+        check(bad_1 == 0 and occ_1 == 0, f"{label}: {short} disagrees with K1")
+        out[name] = {"ms": k_ms, "plain_ms": p_ms, "k1_ms": k1_ms,
+                     "occ_ms": occ_ms, "k1_occ_ms": k1_occ_ms,
+                     "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def phase_parity():
+    """K1 vs plain at the main path's shape and on the terrain queues, and
+    K2/K3 on the terrain queues. Returns K1's record at the main path's
+    shape."""
+    import torch
+
     from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
         Renderer,
         resident_leaf_size,
     )
+    from realtimepathtracingresearchframework_tpu_torch.models import procedural
+    from realtimepathtracingresearchframework_tpu_torch.models.camera import (
+        OrientedCamera,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
+    from realtimepathtracingresearchframework_tpu_torch.ops import bvh as bvh_mod
     from realtimepathtracingresearchframework_tpu_torch.ops import integrator
     from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
-    from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
-        pack_resident,
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
     )
 
     rng = np.random.default_rng(20261016)
@@ -230,6 +385,15 @@ def phase_parity():
     log(f"K1 vs plain, cornell ({bvh.tri_rows.shape[0]} rows, leaf "
         f"{bvh.leaf_size}, {bvh.num_nodes} nodes), {ro.shape[0]} rays:")
     err, k_ms, p_ms, t = compare_queue("cornell primary", bvh, ro, rd)
+    # K1's bound at the main path's shape: the flat cull's leaf boxes of
+    # cornell measure the pierced leaves
+    aabbs = torch.from_numpy(tf.leaf_aabbs_for(
+        bvh.tri_rows.cpu().numpy(), bvh.leaf_size)).to(DEVICE)
+    rays, _ = tr.pack_rays(_soa(ro, DEVICE), _soa(rd, DEVICE), 0.0, 2.0e32)
+    b_ms, b_by, _pairs = bound(aabbs, bvh.leaf_size, rays,
+                               torch.from_numpy(t).to(DEVICE), False)
+    k1 = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b_ms,
+          "bound_by": b_by}
     hit = t < 1e30
     p = ro + rd * np.where(hit, t, 0.0)[:, None]
     d2 = rng.normal(size=rd.shape).astype(np.float32)
@@ -246,17 +410,82 @@ def phase_parity():
             bvh_mod.build_bvh_sah(flat.v0, flat.e1, flat.e2, leaf_size=ls),
             flat.v0, flat.e1, flat.e2,
         )
-        bvh = pack_resident(tb, DEVICE)
+        fb = tf.pack_flat(tb, DEVICE)
         log(f"K1 vs plain, terrain grid={grid} ({flat.num_tris} tris, leaf "
-            f"{ls}, {bvh.num_nodes} nodes), {QUEUE} rays:")
+            f"{ls}, {fb.num_nodes} nodes, {fb.num_leaves} leaves), {QUEUE} rays:")
         lo, hi = flat.v0.min(0), flat.v0.max(0)
         coherent, incoherent = _terrain_queues(lo, hi, rng)
         for name, (qo, qd) in (("coherent", coherent), ("incoherent", incoherent)):
-            e, _, _, t = compare_queue(f"terrain{grid} {name}", bvh, qo, qd)
+            e, _, _, t = compare_queue(f"terrain{grid} {name}", fb, qo, qd)
             err = max(err, e)
-            compare_occlusion(f"terrain{grid} {name}", bvh, qo, qd,
+            compare_occlusion(f"terrain{grid} {name}", fb, qo, qd,
                               _occlusion_tmax(t, rng))
-    return err, k_ms, p_ms
+            # K2 and K3 on the same queue: primaries-like coherent rays
+            # unsorted, incoherent ones coherence-sorted
+            rays, _ = tr.pack_rays(_soa(qo, DEVICE), _soa(qd, DEVICE), 0.0,
+                                   2.0e32, 1024)
+            if name == "incoherent":
+                rays, _ = tr._compact(rays, fb.scene_lo, fb.scene_hi)
+            compare_flat_queue(f"terrain{grid} {name}", fb, rays,
+                               ((tf.K2, 128), (tf.K3, 128)), rng)
+    return k1
+
+
+def phase_flat(smi):
+    """K2 and K3 at the terrain200 path's shapes against their plain
+    versions and K1. Returns {kernel: record}."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+    from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
+    from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    rng = np.random.default_rng(7)
+    width, height = MAIN_SIZE
+    r, cfg = frame_setup("terrain", DEVICE, MAIN_SIZE)
+    fb = r.device_scene.bvh
+    check(isinstance(fb, tf.FlatBVH), "terrain200 is not on the flat-cull route")
+    px, py, valid = (torch.cat(c) for c in r._swizzle)
+    view = integrator.ViewBuffers(*(
+        torch.from_numpy(a).to(DEVICE)
+        for a in cfg.camera.view_basis(width, height)
+    ))
+    state = pointsets.make_state(0, 0, 0, px, py, width)
+    _, ro, rd = integrator.camera_setup(
+        integrator.IntegratorConfig(), view, px, py,
+        (float(width), float(height)), state,
+    )
+    tmax = torch.where(valid, T_MAX, 0.0)
+    prim, _ = tr.pack_rays(ro, rd, 0.0, tmax, 512)
+    log(f"K1, K2, K3 at the terrain200 path's shapes ({fb.num_leaves} leaves "
+        f"of {fb.leaf_size}), {smi}:")
+    rec = compare_flat_queue("frame primaries", fb, prim, ((tf.K2, 128),), rng)
+    # bounce 1: the primaries' hit points, scattered directions, dead where
+    # the primary missed; sorted like the renderer's bounce queues
+    h = _k1(fb, prim, False)
+    hit = h.tri >= 0
+    p = [prim[k] + prim[3 + k] * torch.where(hit, h.t, 0.0) for k in range(3)]
+    d = torch.from_numpy(rng.normal(size=(3, prim.shape[1])).astype(np.float32)
+                         ).to(DEVICE)
+    d = d / torch.sqrt((d * d).sum(0))
+    tmin = (torch.sqrt(p[0] * p[0] + p[1] * p[1] + p[2] * p[2])
+            + torch.where(hit, h.t, 0.0)) * integrator.RAY_EPSILON
+    bounce, _ = tr.pack_rays(Vec3(*p), Vec3(*d), tmin,
+                             torch.where(hit, T_MAX, 0.0), 1024)
+    bounce, _ = tr._compact(bounce, fb.scene_lo, fb.scene_hi)
+    rec.update(compare_flat_queue(
+        f"bounce 1 sorted ({int(hit.sum())} live)", fb, bounce,
+        ((tf.K3, 128),), rng,
+    ))
+    return rec
 
 
 def phase_goldens():
@@ -281,39 +510,45 @@ def phase_goldens():
         check(launched > 0, f"golden {name} did not launch K1")
 
 
-def phase_main_path():
-    """Cornell at MAIN_SIZE (1920x1080), 1 spp, depth 9, through the port's
-    Renderer.
-    Returns the K1 launch count of this run."""
+def phase_small_terrain():
+    """A small terrain forced onto the flat-cull route, on the card against
+    the port's CPU render."""
+    from realtimepathtracingresearchframework_tpu_torch import goldens
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    out = {}
+    with env(RPTR_TRAVERSAL_V3="1"):
+        for device in (DEVICE, "cpu"):
+            before = (tf.launches_k2, tf.launches_k3)
+            r, cfg = frame_setup("terrain", device, (48, 48), grid=64)
+            rays = []
+            for _ in range(2):
+                r.render(cfg)
+                rays.append(r.last_ray_count())
+            out[device] = (r.readback_accumulation()[..., :3], rays,
+                           (tf.launches_k2 - before[0], tf.launches_k3 - before[1]))
+    (img, rays, launched), (cpu_img, cpu_rays, _) = out[DEVICE], out["cpu"]
+    vs_cpu = goldens.compare_card(img, cpu_img)
+    log(f"terrain grid=64 48x48 depth 9, 2 frames, flat-cull route: vs port "
+        f"CPU render {vs_cpu}; rays {rays} (CPU {cpu_rays}), K2/K3 launches "
+        f"{launched}")
+    check(rays == cpu_rays, f"small terrain: rays {rays}, CPU {cpu_rays}")
+    check(vs_cpu["ok"], f"small terrain: card render off the CPU render: {vs_cpu}")
+    check(min(launched) > 0, "small terrain did not launch K2 and K3")
+
+
+def _timed_frames(label, r, cfg, counters):
+    """Warm-up plus TIMED_FRAMES frames; returns the launch counts of the
+    run (``counters``: name -> (reset, read))."""
     import torch
 
-    from realtimepathtracingresearchframework_tpu.backend.params import (
-        RenderParams,
-    )
-    from realtimepathtracingresearchframework_tpu.models import procedural
-    from realtimepathtracingresearchframework_tpu.models.camera import (
-        OrientedCamera,
-    )
-    from realtimepathtracingresearchframework_tpu.models.scene import Scene
-    from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
-        FrameConfig,
-        Renderer,
-    )
-    from realtimepathtracingresearchframework_tpu_torch.ops import (
-        traverse_resident as tr,
-    )
-
-    width, height = MAIN_SIZE
-    r = Renderer(device=DEVICE)
-    r.initialize(width, height)
-    r.set_scene(Scene.from_vkr_scene(procedural.cornell_box()))
-    cfg = FrameConfig(
-        camera=OrientedCamera.look_at([0, 1.0, 3.2], [0, 1.0, 0.0], fovy=50),
-        params=RenderParams(batch_spp=1, max_path_depth=9),
-    )
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tr.reset_launches()
+    for reset, _ in counters.values():
+        reset()
     t0 = time.perf_counter()
     r.render(cfg)  # warm-up
     torch.cuda.synchronize()
@@ -328,21 +563,62 @@ def phase_main_path():
         torch.cuda.synchronize()
         frame_ms.append(start.elapsed_time(end))
         rays.append(r.last_ray_count())
-    launches = tr.launches
+    launches = {k: read() for k, (_, read) in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     img = r.readback_accumulation()
     finite = bool(np.isfinite(img).all())
     nonneg = bool((img >= 0).all())
     mrays = sum(rays) / (sum(frame_ms) * 1e-3) / 1e6
-    log(f"main path cornell {width}x{height} spp 1 depth 9: warm-up "
+    width, height = r.fb_width, r.fb_height
+    log(f"{label} {width}x{height} spp 1 depth 9: warm-up "
         f"{warm_s * 1e3:.1f} ms, frame ms {[round(x, 3) for x in frame_ms]}, "
         f"median {float(np.median(frame_ms)):.3f} ms, {mrays:.3f} Mray/s "
-        f"({rays[0]} rays/frame), K1 launches {launches}, peak memory "
-        f"{peak / 2**20:.1f} MiB, image finite {finite} non-negative {nonneg} "
-        f"mean {float(img[..., :3].mean()):.5f}")
-    check(finite and nonneg, "main-path image is not finite and non-negative")
-    check(img.shape == (height, width, 4), f"main-path image shape {img.shape}")
-    check(launches > 0, "main path did not launch K1")
+        f"({rays[0]} rays/frame), launches {launches}, live lanes per bounce "
+        f"{r.live_profile}, peak memory {peak / 2**20:.1f} MiB, image finite "
+        f"{finite} non-negative {nonneg} mean {float(img[..., :3].mean()):.5f}")
+    check(finite and nonneg, f"{label} image is not finite and non-negative")
+    check(img.shape == (height, width, 4), f"{label} image shape {img.shape}")
+    return launches
+
+
+def phase_main_path():
+    """Cornell at MAIN_SIZE (1920x1080), 1 spp, depth 9, through the port's
+    Renderer. Returns the K1 launch count of this run."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    r, cfg = frame_setup("cornell", DEVICE, MAIN_SIZE)
+    launches = _timed_frames("main path cornell", r, cfg, {
+        "K1": (tr.reset_launches, lambda: tr.launches)})
+    check(launches["K1"] > 0, "main path did not launch K1")
+    return launches["K1"]
+
+
+def phase_terrain_path():
+    """procedural.terrain(grid=200) at MAIN_SIZE, 1 spp, depth 9, through the
+    wavefront executor. Returns the K2 and K3 launch counts of this run."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    r, cfg = frame_setup("terrain", DEVICE, MAIN_SIZE)
+    launches = _timed_frames("terrain200 path", r, cfg, {
+        "K1": (tr.reset_launches, lambda: tr.launches),
+        "K2": (tf.reset_launches, lambda: tf.launches_k2),
+        "K3": (lambda: None, lambda: tf.launches_k3),
+    })
+    check(r._wavefront is not None, "terrain200 did not take the wavefront executor")
+    check(launches["K2"] > 0 and launches["K3"] > 0,
+          f"terrain200 path did not launch K2 and K3: {launches}")
+    check(launches["K1"] == 0, f"terrain200 path launched K1: {launches}")
     return launches
 
 
@@ -357,21 +633,36 @@ def main():
             "the root of a checkout")
         return 1
     sys.path.insert(0, REPO)
-    phase_device()
+    t0 = time.perf_counter()
+    smi = phase_device()
     phase_build()
-    err, k_ms, p_ms = phase_parity()
+    k1_launches = phase_main_path()
+    terrain = phase_terrain_path()
+    k1 = dict(phase_parity(), launches=k1_launches)
+    flat = phase_flat(smi)
     phase_goldens()
-    launches = phase_main_path()
-    log(json.dumps({"kernels": [{
-        "name": "traverse_resident",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    phase_small_terrain()
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+
+    records = {
+        "traverse_resident": k1,
+        tf.K2: dict(flat[tf.K2], launches=terrain["K2"]),
+        tf.K3: dict(flat[tf.K3], launches=terrain["K3"]),
+    }
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        rec = records[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": rec["launches"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            # no single PyTorch call computes a BVH closest hit
+            "library_ms": None,
+        })
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,44 +2,51 @@
 ``backend/renderer.py`` (the fast, planar path only).
 
 ``Renderer(device=...)`` owns the device scene and the per-chunk
-accumulation buffers: ``set_scene`` flattens the scene, builds the SAH BVH
-on the host with the leaf size the reference picks for its resident
-kernel (renderer.py:844-847), packs it for the resident walk and uploads
-the attribute tables in BVH-row order (renderer.py:894-917) plus the
-lights and sky (renderer.py:961-1058). ``render`` runs the host chunk loop
-(renderer.py:1244-1440): one integrator pass per (sample, chunk),
-accumulating in place. ``readback_accumulation`` un-swizzles the planar
-buffers into an (H, W, 4) image.
+accumulation buffers: ``set_scene`` flattens the scene, picks the traversal
+route by triangle count as the reference does on a chip (``route_for``;
+renderer.py:588-608, 815-847), builds the SAH BVH on the host with that
+route's leaf size, packs it for the resident kernels and uploads the
+attribute tables in BVH-row order (renderer.py:894-917) plus the lights
+and sky (renderer.py:961-1058). ``render`` runs the frame: the host chunk
+loop of the monolithic pass (renderer.py:1244-1440), or on large scenes the
+bounce-major wavefront executor (renderer.py:1340-1370;
+``ops/wavefront_host.py``), accumulating in place.
+``readback_accumulation`` un-swizzles the planar buffers into an
+(H, W, 4) image.
 
-Traversal always goes through the resident route: the K1 CUDA kernel on
-``device="cuda"``, its plain version on ``device="cpu"`` (the tests'
-device). There is no CPU fallback for a CUDA renderer.
+Routes: up to 16,383 triangles the resident walk K1; from 16,384 to
+90,000 the flat-cull kernels K2 and K3 with coherence-sorted queues and the
+wavefront executor; above 90,000 the streamed kernels, not ported yet
+(``NotImplementedError``). Each kernel runs on ``device="cuda"``, its plain
+version on ``device="cpu"`` (the tests' device). There is no CPU fallback
+for a CUDA renderer.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from types import SimpleNamespace
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from realtimepathtracingresearchframework_tpu.backend.params import (
+from realtimepathtracingresearchframework_tpu_torch.backend.params import (
     REPROJECTION_MODE_ACCUMULATE,
     REPROJECTION_MODE_DISCARD_HISTORY,
     RenderBackendOptions,
     RenderParams,
     SceneConfig,
 )
-from realtimepathtracingresearchframework_tpu.models import lights as lights_mod
-from realtimepathtracingresearchframework_tpu.models.camera import OrientedCamera
-from realtimepathtracingresearchframework_tpu.models.material import (
+from realtimepathtracingresearchframework_tpu_torch.models import lights as lights_mod
+from realtimepathtracingresearchframework_tpu_torch.models.camera import OrientedCamera
+from realtimepathtracingresearchframework_tpu_torch.models.material import (
     BASE_MATERIAL_NOALPHA,
     BASE_MATERIAL_THIN,
 )
-from realtimepathtracingresearchframework_tpu.models.scene import Scene
-from realtimepathtracingresearchframework_tpu.ops import bvh as bvh_mod
+from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
+from realtimepathtracingresearchframework_tpu_torch.ops import bvh as bvh_mod
 from realtimepathtracingresearchframework_tpu_torch.models import sky as sky_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import nee as nee_mod
 from realtimepathtracingresearchframework_tpu_torch.ops.integrator import (
@@ -54,14 +61,68 @@ from realtimepathtracingresearchframework_tpu_torch.ops.integrator import (
     planes_to_image,
     swizzle_host,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops.traverse_flat import (
+    pack_flat,
+)
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     pack_resident,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops.wavefront_host import (
+    WavefrontExecutor,
+)
+
+# resident-kernel policy (renderer.py:113-124, 605-608): the flat cull and
+# the coherence sort from this many triangles, the resident kernels up to
+# the node-table cap
+V3_MIN_TRIS = 16_384
+COMPACT_MIN_TRIS = 16_384
+RESIDENT_MAX_TRIS = 90_000
 
 
 def resident_leaf_size(num_tris: int) -> int:
     """Leaf size of the resident walk (renderer.py:844-847)."""
     return 32 if num_tris <= 24_000 else (64 if num_tris <= 48_000 else 128)
+
+
+class Route(NamedTuple):
+    """Traversal route of a scene (the reference's choices on a chip)."""
+
+    kernel_v3: bool  # K2/K3 flat cull instead of the K1 walk
+    compact: bool  # coherence-sorted dispatch past bounce 0
+    leaf_size: int
+
+
+def _env_flag(name: str, default: bool) -> bool:
+    """The reference's override convention: unset or empty keeps the
+    default, "0" switches off, anything else on."""
+    value = os.environ.get(name, "")
+    return default if value == "" else value != "0"
+
+
+def route_for(num_tris: int) -> Route:
+    """The route the reference's renderer takes for a static, untextured
+    scene of ``num_tris`` triangles on a chip (renderer.py:588-608,
+    815-847), with its overrides: ``RPTR_TRAVERSAL_V3=1/0`` forces the
+    flat cull on or off. Above ``RESIDENT_MAX_TRIS`` the reference streams
+    the BVH (kernels K4/K5), and ``RPTR_TRAVERSAL_V1`` selects the v1
+    walk (K8a/K8b); neither is ported yet."""
+    if num_tris > RESIDENT_MAX_TRIS:
+        raise NotImplementedError(
+            f"{num_tris} triangles: scenes above {RESIDENT_MAX_TRIS} take the "
+            "streamed traversal (K4/K5), not ported yet (port slice D, "
+            "ROADMAP item 17)"
+        )
+    if os.environ.get("RPTR_TRAVERSAL_V1"):
+        raise NotImplementedError(
+            "RPTR_TRAVERSAL_V1: the v1 walk (K8a/K8b) is not ported yet "
+            "(ROADMAP queue 2, last of the kernels)"
+        )
+    v3 = os.environ.get("RPTR_TRAVERSAL_V3")
+    return Route(
+        kernel_v3=num_tris >= V3_MIN_TRIS if v3 is None else v3 != "0",
+        compact=num_tris >= COMPACT_MIN_TRIS,
+        leaf_size=resident_leaf_size(num_tris),
+    )
 
 
 @dataclass
@@ -96,7 +157,10 @@ class Renderer:
         self._swizzle = None  # (px, py, valid) per-chunk device tensors
         self._num_lights = 0
         self._has_thin = False
+        self._route: Optional[Route] = None
+        self._wavefront: Optional[WavefrontExecutor] = None
         self._last_rays: List[torch.Tensor] = []
+        self.live_profile: List[int] = []  # wavefront live lanes per bounce
 
     def initialize(self, fb_width: int, fb_height: int) -> None:
         """Framebuffer (re)allocation (render_vulkan.cpp:246-370)."""
@@ -118,6 +182,7 @@ class Renderer:
             )
             for _ in range(nc)
         ]
+        self._wavefront = None
         self.frame_id = 0
 
     def set_scene(self, scene: Scene,
@@ -132,7 +197,8 @@ class Renderer:
             raise NotImplementedError(
                 "LoD re-selection is not ported yet (ROADMAP item 21)"
             )
-        leaf_size = resident_leaf_size(flat.num_tris)
+        self._route = route = route_for(flat.num_tris)
+        leaf_size = route.leaf_size
         # static scenes get the binned-SAH builder, animated ones the fast
         # Morton median split (renderer.py:855-859)
         animated = any(a.num_animated for a in getattr(scene, "animation_data", []))
@@ -157,7 +223,7 @@ class Renderer:
         self._has_thin = any(m.flags & BASE_MATERIAL_THIN for m in scene.materials)
 
         dev = self.device
-        bvh = pack_resident(tb, dev)
+        bvh = (pack_flat if route.kernel_v3 else pack_resident)(tb, dev)
         attr = pack_attr_table(rows, rows).to(dev)
         mats = pack_material_table(mat_table).to(dev)
 
@@ -174,8 +240,17 @@ class Renderer:
         self.device_scene = DeviceScene(
             bvh=bvh, attr_packed=attr, mat_packed=mats, lights=lights, sky=sky
         )
+        self._wavefront = None
 
     def _integrator_config(self, params: RenderParams) -> IntegratorConfig:
+        """renderer.py:1104-1157 for the ported options. Carry compaction
+        (``RPTR_COMPACT_LANES``, default on with the flat cull) is the
+        monolith's, and the wavefront executor supersedes it; the per-
+        dispatch sort (``RPTR_COMPACT``) defaults on from 16,384 triangles;
+        ``RPTR_KERNEL_V4=0`` keeps the sorted queues on K2."""
+        route = self._route
+        compact_lanes = _env_flag("RPTR_COMPACT_LANES",
+                                  route.kernel_v3)
         return IntegratorConfig(
             max_path_depth=int(params.max_path_depth),
             light_bin_size=int(self.options.light_sampling_bucket_count),
@@ -187,6 +262,26 @@ class Renderer:
             enable_dof=bool(self.options.enable_raytraced_dof)
             and float(params.aperture_radius) > 0.0,
             debug_mode=int(self.options.debug_mode),
+            compact=_env_flag("RPTR_COMPACT", route.compact)
+            and not compact_lanes,
+            compact_lanes=compact_lanes,
+            kernel_v3=route.kernel_v3,
+            kernel_v4=route.kernel_v3
+            and os.environ.get("RPTR_KERNEL_V4", "1") != "0",
+        )
+
+    def _use_wavefront_host(self, cfg: IntegratorConfig) -> bool:
+        """renderer.py:480-499: the bounce-major executor by default where
+        the flat cull runs; ``RPTR_HOST_WAVEFRONT=1/0`` forces it. Never
+        with debug counters, the wavefront variant or depth 1."""
+        want = _env_flag("RPTR_HOST_WAVEFRONT",
+                         self._route.kernel_v3)
+        return (
+            want
+            and not cfg.debug_mode
+            and not cfg.wavefront
+            and cfg.max_path_depth > 1
+            and self.device_scene is not None
         )
 
     def render(self, config: FrameConfig, batch_spp: Optional[int] = None) -> None:
@@ -217,19 +312,34 @@ class Renderer:
             shot_offset=self.shot_offset,
             pixel_radius=float(params.pixel_radius),
         )
-        pass_fn = make_pass_fn(self.device_scene,
-                               self._integrator_config(params),
-                               self.fb_width, self.fb_height)
+        cfg = self._integrator_config(params)
         # DISCARD_HISTORY (postprocess/reprojection.h:11-18): each frame
         # stands alone, blended as if the accumulator were empty
         discard = params.reprojection_mode == REPROJECTION_MODE_DISCARD_HISTORY
         base_k = 0 if discard else self.frame_id
         px_c, py_c, valid_c = self._swizzle
         rays = []
-        for s in range(spp):
-            for c, acc in enumerate(self._acc_chunks):
-                rays.append(pass_fn(fp, view, acc, px_c[c], py_c[c],
-                                    valid_c[c], s, base_k))
+        if self._use_wavefront_host(cfg):
+            wf = self._wavefront
+            if wf is None or wf.cfg != cfg._replace(compact=False,
+                                                    compact_lanes=False):
+                wf = self._wavefront = WavefrontExecutor(
+                    self.device_scene, cfg, self.fb_width, self.fb_height,
+                    torch.cat(px_c), torch.cat(py_c), torch.cat(valid_c),
+                    px_c[0].shape[0],
+                )
+            for s in range(spp):
+                rays.append(wf.render_sample(fp, view, self._acc_chunks, s,
+                                             base_k))
+            self.live_profile = wf.live_profile
+        else:
+            self.live_profile = []
+            pass_fn = make_pass_fn(self.device_scene, cfg, self.fb_width,
+                                   self.fb_height)
+            for s in range(spp):
+                for c, acc in enumerate(self._acc_chunks):
+                    rays.append(pass_fn(fp, view, acc, px_c[c], py_c[c],
+                                        valid_c[c], s, base_k))
         self._last_rays = rays
         self.frame_id += spp
 

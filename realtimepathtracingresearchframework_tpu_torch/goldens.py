@@ -33,15 +33,15 @@ import os
 
 import numpy as np
 
-from realtimepathtracingresearchframework_tpu.backend.params import (
+from realtimepathtracingresearchframework_tpu_torch.backend.params import (
     RenderParams,
     SceneConfig,
 )
-from realtimepathtracingresearchframework_tpu.models import procedural
-from realtimepathtracingresearchframework_tpu.models.camera import OrientedCamera
-from realtimepathtracingresearchframework_tpu.models.scene import Scene
-from realtimepathtracingresearchframework_tpu.utils import image_io
-from realtimepathtracingresearchframework_tpu.utils.compare import compare_images
+from realtimepathtracingresearchframework_tpu_torch.models import procedural
+from realtimepathtracingresearchframework_tpu_torch.models.camera import OrientedCamera
+from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
+from realtimepathtracingresearchframework_tpu_torch.utils import image_io
+from realtimepathtracingresearchframework_tpu_torch.utils.compare import compare_images
 
 GOLDEN_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "goldens"

@@ -51,38 +51,57 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """The library's path; its digest covers the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    data = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        data += header.read_bytes()
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_many(names, verbose: bool = False) -> list:
+    """Compile each ``csrc/<name>.cu`` that is not built yet, one nvcc
+    process per source, all started together; returns the library paths.
+    ``verbose`` rebuilds, adds ``-Xptxas -v`` and prints the compiler's
+    report (registers, shared memory, spills)."""
+    outs = [library_path(name) for name in names]
+    todo = [(n, o) for n, o in zip(names, outs) if verbose or not o.exists()]
+    if not todo:
+        return outs
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, out in todo:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {name}.cu (exit "
+                          f"{proc.returncode}):\n{stderr}{stdout}")
+            continue
+        if verbose:
+            print(f"{name}.cu:\n{stderr.strip()}")
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build(name: str, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library path. ``verbose`` adds ``-Xptxas -v`` and prints
-    the compiler's report (registers, shared memory, spills)."""
-    out = library_path(name)
-    if out.exists() and not verbose:
-        return out
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(
-        cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stderr}{proc.stdout}"
-        )
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, out)
-    return out
+    returns the library path (see ``build_many``)."""
+    return build_many([name], verbose)[0]
 
 
 def load(name: str) -> ctypes.CDLL:

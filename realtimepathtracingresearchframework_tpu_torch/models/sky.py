@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from realtimepathtracingresearchframework_tpu.models import sky_hosek
+from realtimepathtracingresearchframework_tpu_torch.models import sky_hosek
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
 SUN_APPARENT_ANGLE_DEG = 0.53

@@ -9,10 +9,16 @@ swizzle tables (:1969-2065) and the pass body with its in-place
 blend (:2067-2151). Semantics, RNG draw order and expression order follow the
 reference line by line; see its module docstring for the GLSL sources.
 
-Traversal always takes the resident route (``ops/traverse_resident.py``):
-the K1 kernel on CUDA tensors, its plain version on CPU tensors. Attribute
-tables are in BVH-row order, so a hit's row is its attribute index, and a
-fetch is plain indexing (the reference's one-hot MXU fetch is TPU-only).
+Traversal goes where the reference's ``_closest_hit_dispatch`` and
+``occluded_alpha`` send it (integrator.py:485-578, 642-739): the resident
+walk K1 (``ops/traverse_resident.py``), or on large scenes
+(``cfg.kernel_v3``) the flat-cull kernels K2 and K3
+(``ops/traverse_flat.py``), with the coherence sort where ``compact``,
+``presorted`` and ``sort_shadow`` ask for it. Each launches its CUDA
+kernel on CUDA tensors and runs its plain version on CPU tensors.
+Attribute tables are in BVH-row order, so a hit's row is its attribute
+index, and a fetch is plain indexing (the reference's one-hot MXU fetch is
+TPU-only).
 
 Configurations outside the slice raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
@@ -25,7 +31,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from realtimepathtracingresearchframework_tpu.models.material import (
+from realtimepathtracingresearchframework_tpu_torch.models.material import (
     BASE_MATERIAL_ONESIDED,
     BASE_MATERIAL_THIN,
 )
@@ -47,8 +53,10 @@ from realtimepathtracingresearchframework_tpu_torch.ops.rng import M32
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
     ResidentBVH,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     closest_hit_resident,
+    coherence_key,
     occluded_resident,
     pack_resident,
 )
@@ -84,7 +92,7 @@ _M_CCGLOSS = 13  # clearcoat_gloss (thin-transmission reflective roughness)
 class DeviceScene(NamedTuple):
     """Everything the integrator reads, on one device."""
 
-    bvh: ResidentBVH
+    bvh: ResidentBVH  # or traverse_flat.FlatBVH when cfg.kernel_v3
     attr_packed: torch.Tensor  # (ATTR_W, R) f32 per-row attributes
     mat_packed: torch.Tensor  # (MAT_W, M) f32 material rows
     lights: nee_mod.TriLightBuffers
@@ -238,10 +246,12 @@ class IntegratorConfig(NamedTuple):
     enable_dof: bool = False
     two_level: bool = False
     streamed: bool = False
-    compact: bool = False
+    compact: bool = False  # coherence sort before each dispatch past bounce 0
     compact_lanes: bool = False
     wavefront: bool = False
     debug_mode: int = 0
+    kernel_v3: bool = False  # K2/K3 flat cull instead of the K1 walk
+    kernel_v4: bool = False  # sorted queues on K3 instead of K2
 
 
 _UNPORTED = (
@@ -251,8 +261,7 @@ _UNPORTED = (
     ("use_light_bins", "binned RIS light sampling", 14),
     ("enable_dof", "thin-lens depth of field", 14),
     ("debug_mode", "debug variants", 14),
-    ("compact", "coherence-sorted dispatch", 15),
-    ("compact_lanes", "carry compaction", 16),
+    ("compact_lanes", "carry compaction of the monolithic bounce loop", 16),
     ("streamed", "streamed traversal", 17),
     ("two_level", "two-level instancing", 19),
 )
@@ -394,10 +403,51 @@ def _nee_candidate(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
     )
 
 
+def _closest_hit_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
+                          rd: Vec3, t_min, t_max, compact: bool = False,
+                          presorted: bool = False):
+    """The closest-hit route of integrator.py:485-578 (resident scenes).
+    ``presorted``: the caller already coherence-sorted the lanes (the
+    wavefront executor); skip the sort but keep the sorted-queue policy:
+    K3 at block 1024 in 8 groups (``cfg.kernel_v4``), else K2 at block 1024.
+    Unsorted queues (camera primaries) take K2 at block 512."""
+    if cfg.kernel_v3:
+        if (compact or presorted) and cfg.kernel_v4:
+            return traverse_flat.closest_hit_precull(
+                ds.bvh, ro, rd, t_min, t_max, block=1024, groups=8,
+                compact=compact,
+            )
+        return traverse_flat.closest_hit_flat(
+            ds.bvh, ro, rd, t_min, t_max,
+            block=1024 if (compact or presorted) else 512, compact=compact,
+        )
+    return closest_hit_resident(ds.bvh, ro, rd, t_min, t_max, compact=compact)
+
+
+def _occluded_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
+                       rd: Vec3, t_min, t_max, compact: bool = False,
+                       sort_shadow: bool = False):
+    """The occlusion route of occluded_alpha (integrator.py:642-739,
+    scenes without alpha cutouts). ``sort_shadow`` coherence-sorts this
+    queue by its own origins (fresh hit points past bounce 0): K3 at block
+    1024 in 8 groups (``cfg.kernel_v4``), else K2 sorted."""
+    if cfg.kernel_v3:
+        if sort_shadow and cfg.kernel_v4:
+            return traverse_flat.occluded_precull(
+                ds.bvh, ro, rd, t_min, t_max, block=1024, groups=8,
+                compact=True,
+            )
+        return traverse_flat.occluded_flat(
+            ds.bvh, ro, rd, t_min, t_max, compact=sort_shadow
+        )
+    return occluded_resident(ds.bvh, ro, rd, t_min, t_max, compact=compact)
+
+
 def _sample_direct_light(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
                          hit_n: Vec3, hit_gn: Vec3, mat: GLTFMaterial,
                          w_o: Vec3, dir_sample, sel_sample, total_t,
-                         active) -> Vec3:
+                         active, compact: bool = False,
+                         sort_shadow: bool = False) -> Vec3:
     """sample_direct_light (mc/nee.glsl:32-90) + immediate visibility ray.
 
     Lanes outside ``active`` get an empty shadow segment: their result is
@@ -406,9 +456,10 @@ def _sample_direct_light(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
         ds, cfg, hit_p, hit_n, hit_gn, mat, w_o, dir_sample, sel_sample,
         total_t,
     )
-    blocked = occluded_resident(
-        ds.bvh, hit_p, cand.dir, t_min=cand.eps,
-        t_max=torch.where(active, cand.shadow_tmax, cand.eps),
+    blocked = _occluded_dispatch(
+        ds, cfg, hit_p, cand.dir, cand.eps,
+        torch.where(active, cand.shadow_tmax, cand.eps),
+        compact=compact, sort_shadow=sort_shadow,
     )
     visible = (cand.traced & ~blocked) | cand.uncond
     return v3.where(visible, cand.contrib, v3.splat(torch.zeros_like(cand.eps)))
@@ -430,18 +481,50 @@ class Carry(NamedTuple):
     rays: torch.Tensor  # per-lane traced-ray count (closest + shadow)
 
 
+def _map_lanes(fn, tree, *others):
+    """``fn`` over matching tensors of same-shaped (nested) tuples."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *others)
+    return type(tree)(*(_map_lanes(fn, *xs) for xs in zip(tree, *others)))
+
+
+def _permute_lanes(tree, perm):
+    """Index every (N,) tensor of a (nested) tuple of lanes by ``perm``
+    (integrator.py:923-958, without its int32 carrier: a gather of float
+    tensors is bitwise here)."""
+    return _map_lanes(lambda a: a[perm], tree)
+
+
+def _scene_bounds_of(ds: DeviceScene):
+    """(lo, hi) world box of the coherence morton grid (integrator.py:
+    961-972): the flat BVH's scene box, else the resident root node."""
+    lo = getattr(ds.bvh, "scene_lo", None)
+    if lo is not None:
+        return lo, ds.bvh.scene_hi
+    return ds.bvh.bounds[0, 0:3], ds.bvh.bounds[0, 3:6]
+
+
+def _carry_coherence_key(ro: Vec3, rd: Vec3, live, lo, hi):
+    """Lane sort key of carry-level compaction (integrator.py:975-1002):
+    the contract of traverse_pallas2._coherence_key2 from the SoA carry."""
+    return coherence_key(*ro, *rd, live, lo, hi)
+
+
 def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
     """The per-bounce closures (visit_hit + scatter_tail), elementwise
-    over the lane axis."""
+    over the lane axis: any caller may run them on any lane prefix (the
+    monolithic ``trace_paths`` and the wavefront executor)."""
     num_bins = max(cfg.num_lights // max(cfg.light_bin_size, 1), 1)
 
-    def visit_hit(carry: Carry):
+    def visit_hit(carry: Carry, compact: bool = False,
+                  presorted: bool = False):
         """Traverse + hit attributes + emitter MIS. Returns (carry with
         the miss handled, hit shading context)."""
         ro, rd, active = carry.ro, carry.rd, carry.active
         rays = carry.rays + active.to(carry.rays.dtype)
         tmax_eff = torch.where(active, T_MAX, 0.0)
-        hit = closest_hit_resident(ds.bvh, ro, rd, carry.t_min, tmax_eff)
+        hit = _closest_hit_dispatch(ds, cfg, ro, rd, carry.t_min, tmax_eff,
+                                    compact=compact, presorted=presorted)
         was_miss = hit.tri < 0
 
         # ---- miss: sky (pt_megakernel.glsl:480-489)
@@ -518,8 +601,11 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
         )
         return carry, (p, n_sh, gn, mat, w_o)
 
-    def scatter_tail(carry: Carry, ctx) -> Carry:
-        """NEE + BSDF sample + RR — skipped on the final bounce."""
+    def scatter_tail(carry: Carry, ctx, compact: bool = False,
+                     sort_shadow: bool = False) -> Carry:
+        """NEE + BSDF sample + RR — skipped on the final bounce.
+        ``sort_shadow``: the NEE occlusion queue (origins = fresh hit
+        points) gets its own coherence sort."""
         p, n_sh, gn, mat, w_o = ctx
         active, throughput = carry.active, carry.throughput
         total_t = carry.total_t
@@ -535,7 +621,7 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
         rays = carry.rays + active.to(carry.rays.dtype)
         nee_contrib = _sample_direct_light(
             ds, cfg, p, n_sh, gn, mat, w_o, pos_sample, sel_sample, total_t,
-            active,
+            active, compact=compact, sort_shadow=sort_shadow,
         )
         illum = v3.where(active, carry.illum + throughput * nee_contrib,
                          carry.illum)
@@ -588,6 +674,27 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
     return visit_hit, scatter_tail
 
 
+def initial_carry(ro: Vec3, rd: Vec3, rng_state, lane_mask=None) -> Carry:
+    """The path state before bounce 0; lanes outside ``lane_mask`` start
+    dead."""
+    n = ro.x.shape[0]
+    dev = ro.x.device
+    zero = torch.zeros(n, dtype=torch.float32, device=dev)
+    one = torch.ones(n, dtype=torch.float32, device=dev)
+    active0 = (
+        torch.ones(n, dtype=torch.bool, device=dev)
+        if lane_mask is None else lane_mask.to(torch.bool)
+    )
+    return Carry(
+        ro=ro, rd=rd, t_min=zero, illum=Vec3(zero, zero, zero),
+        throughput=Vec3(one, one, one), active=active0,
+        prev_pdf=torch.full((n,), 2.0e16, device=dev),  # shading_interface:21
+        bounce_count=torch.zeros(n, dtype=torch.int32, device=dev),
+        total_t=zero, rng_state=rng_state,
+        rays=torch.zeros(n, dtype=torch.int32, device=dev),
+    )
+
+
 def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
                 ro: Vec3, rd: Vec3, rng_state, lane_mask=None):
     """Trace a batch of paths; returns (rgb Vec3, alpha (N,), rays (N,)).
@@ -597,31 +704,21 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
     terms (shade_base_material.glsl:56-57). Once every lane is dead the
     remaining bounces are skipped: they could change nothing (the
     reference's whole-wave early out, pt_megakernel.glsl:445-449).
+    ``cfg.compact`` coherence-sorts every traversal queue past bounce 0,
+    and every NEE queue past bounce 0 sorts by its own origins
+    (integrator.py:1536-1551).
     """
     check_supported(cfg)
-    n = ro.x.shape[0]
-    dev = ro.x.device
-    zero = torch.zeros(n, dtype=torch.float32, device=dev)
-    one = torch.ones(n, dtype=torch.float32, device=dev)
-    active0 = (
-        torch.ones(n, dtype=torch.bool, device=dev)
-        if lane_mask is None else lane_mask.to(torch.bool)
-    )
-    carry = Carry(
-        ro=ro, rd=rd, t_min=zero, illum=Vec3(zero, zero, zero),
-        throughput=Vec3(one, one, one), active=active0,
-        prev_pdf=torch.full((n,), 2.0e16, device=dev),  # shading_interface:21
-        bounce_count=torch.zeros(n, dtype=torch.int32, device=dev),
-        total_t=zero, rng_state=rng_state,
-        rays=torch.zeros(n, dtype=torch.int32, device=dev),
-    )
+    carry = initial_carry(ro, rd, rng_state, lane_mask)
     visit_hit, scatter_tail = _make_bounce_fns(ds, cfg, fp)
     for i in range(cfg.max_path_depth):
         if not bool(carry.active.any()):
             break
-        carry, ctx = visit_hit(carry)
+        compact = cfg.compact and i > 0
+        carry, ctx = visit_hit(carry, compact=compact)
         if i < cfg.max_path_depth - 1:
-            carry = scatter_tail(carry, ctx)
+            carry = scatter_tail(carry, ctx, compact=compact,
+                                 sort_shadow=i > 0)
     alpha = torch.where(carry.bounce_count == 0, 0.0, 1.0)
     return carry.illum, alpha, carry.rays
 
@@ -756,14 +853,21 @@ def make_pass_fn(ds: DeviceScene, cfg: IntegratorConfig, width: int,
         state, ro, rd = camera_setup(cfg, view, px, py, dims, state)
         rgb, alpha, nrays = trace_paths(ds, cfg, fp, ro, rd, state,
                                         lane_mask=valid)
-        # f32 weight, as the reference computes it on the device
-        w = float(np.float32(1.0) / (np.float32(blend_k) + np.float32(1.0)))
-        for a, smp in zip(acc, (rgb.x, rgb.y, rgb.z, alpha)):
-            if blend_k == 0:
-                # exact overwrite: a + (x - a) / 1 would round
-                a.copy_(torch.where(valid, smp, 0.0))
-            else:
-                a.add_((torch.where(valid, smp, a) - a).mul_(w))
+        blend_sample(acc, (rgb.x, rgb.y, rgb.z, alpha), valid, blend_k)
         return nrays.sum()
 
     return pass_fn
+
+
+def blend_sample(acc, samples, valid, blend_k: int) -> None:
+    """The progressive average ``acc += (x - acc) / (k + 1)`` of one sample
+    into the four planar channels ``acc``, in place; invalid lanes keep
+    ``acc`` (process_samples.comp:116-131)."""
+    # f32 weight, as the reference computes it on the device
+    w = float(np.float32(1.0) / (np.float32(blend_k) + np.float32(1.0)))
+    for a, smp in zip(acc, samples):
+        if blend_k == 0:
+            # exact overwrite: a + (x - a) / 1 would round
+            a.copy_(torch.where(valid, smp, 0.0))
+        else:
+            a.add_((torch.where(valid, smp, a) - a).mul_(w))

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from realtimepathtracingresearchframework_tpu.backend.params import (
+from realtimepathtracingresearchframework_tpu_torch.backend.params import (
     RNG_VARIANT_NAMES,
     RNG_VARIANT_UNIFORM,
 )

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from realtimepathtracingresearchframework_tpu.backend.params import (
+from realtimepathtracingresearchframework_tpu_torch.backend.params import (
     TONEMAP_MODE_FAST,
     TONEMAP_MODE_NEUTRAL,
 )

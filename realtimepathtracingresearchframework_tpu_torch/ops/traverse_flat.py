@@ -1,0 +1,397 @@
+"""Flat-cull traversal: the K2 and K3 kernels' wrappers and plain versions.
+
+Counterpart of the reference's ``ops/traverse_pallas3.py``. Both kernels
+return what the resident walk (K1, ``ops/traverse_resident.py``) returns,
+the closest hit (t, row, u, v) or an any-hit blocked flag, without walking
+the tree:
+
+- **K2** (``closest_hit_flat`` / ``occluded_flat``; reference
+  ``_kernel3``): every group of ``block // groups`` consecutive lanes tests
+  its union packet box (origin box x inverse-direction box, the
+  conservative interval test of ``_kernel3``) against every leaf AABB, then
+  runs Möller-Trumbore on the surviving leaves.
+- **K3** (``closest_hit_precull`` / ``occluded_precull``; reference
+  ``_kernel4`` with its feeder ``leaf_masks_xla``): the survivors are the
+  OR over the group of each lane's own exact slab test against every leaf.
+
+A leaf survives for a group whenever any lane's segment pierces its box,
+and the flush merges hits on (t, row) lexicographically, so the result of
+either kernel equals K1's bit for bit, whatever the group composition and
+the flush order.
+
+On a CPU tensor the wrappers run the plain PyTorch version
+(``flat_leaf_masks`` or ``precull_leaf_masks``, then ``_flush``). On a CUDA
+tensor they launch the hand-written kernel (``csrc/traverse_flat_cull.cu``,
+``csrc/traverse_precull.cu``, built by ``kernels/build.py`` at first use)
+or raise; they never fall back to the plain version there.
+``launches_k2``/``launches_k3`` count the kernels' launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse
+from realtimepathtracingresearchframework_tpu_torch.ops.intersect import (
+    T_MAX,
+    safe_inv_dir,
+)
+from realtimepathtracingresearchframework_tpu_torch.ops.traverse import Hit
+from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
+    _check,
+    _compact,
+    _uncompact,
+    pack_rays,
+    pack_resident,
+)
+
+K2 = "traverse_flat_cull"  # csrc/traverse_flat_cull.cu
+K3 = "traverse_precull"  # csrc/traverse_precull.cu
+DEFAULT_BLOCK = 512
+QUARTERS = 4  # default groups per block (traverse_pallas3.QUARTERS)
+BIG = 3.0e38  # empty-box and dead-lane fill (traverse_pallas3.py:118)
+ROW_NONE = 2**31 - 1  # "no hit yet" row of the lexicographic merge
+_CHUNK_ELEMS = 1 << 23  # elements per temporary of the plain versions
+
+launches_k2 = 0  # K2 launches in this process (reset with reset_launches)
+launches_k3 = 0  # K3 launches in this process
+
+
+def reset_launches() -> None:
+    global launches_k2, launches_k3
+    launches_k2 = launches_k3 = 0
+
+
+class FlatBVH(NamedTuple):
+    """The resident BVH (``ResidentBVH``'s fields, so K1 takes it too) plus
+    the flat cull's leaf boxes and the scene box of the coherence sort."""
+
+    bounds: torch.Tensor  # (M, 6) f32 node AABBs
+    links: torch.Tensor  # (M, 2) i32 skip link, leaf index
+    tri_rows: torch.Tensor  # (R, 9) f32 v0, e1, e2, leaf-major
+    row_tri: torch.Tensor  # (R,) i32 source triangle of each row
+    leaf_size: int
+    aabbs: torch.Tensor  # (16, Lpad) f32: rows 0-2 min, 3-5 max
+    num_leaves: int
+    scene_lo: torch.Tensor  # (3,) root node min
+    scene_hi: torch.Tensor  # (3,) root node max
+
+    @property
+    def num_nodes(self) -> int:
+        return self.bounds.shape[0]
+
+
+def leaf_aabbs_for(tri_rows: np.ndarray, leaf_size: int) -> np.ndarray:
+    """(16, Lpad) leaf boxes of the flat cull (traverse_pallas3.py:88-125):
+    rows 0-2 min, 3-5 max of each leaf's rows, with v1 = v0 + e1 and
+    v2 = v0 + e2 in f32; zero-padded rows inside a leaf count (they only
+    loosen its box); padding columns up to a multiple of 128 get an empty
+    box (min = +3e38 > max = -3e38) that no test passes."""
+    rows = np.asarray(tri_rows, np.float32)[:, 0:9]
+    num_leaves = rows.shape[0] // leaf_size
+    v0 = rows[:, 0:3]
+    v1 = v0 + rows[:, 3:6]
+    v2 = v0 + rows[:, 6:9]
+    lo = np.minimum(np.minimum(v0, v1), v2)
+    hi = np.maximum(np.maximum(v0, v1), v2)
+    lo = lo[: num_leaves * leaf_size].reshape(num_leaves, leaf_size, 3).min(1)
+    hi = hi[: num_leaves * leaf_size].reshape(num_leaves, leaf_size, 3).max(1)
+    lpad = -(-num_leaves // 128) * 128
+    out = np.zeros((16, lpad), np.float32)
+    out[0:3] = BIG
+    out[3:6] = -BIG
+    out[0:3, :num_leaves] = lo.T
+    out[3:6, :num_leaves] = hi.T
+    return out
+
+
+def pack_flat(tb, device="cpu") -> FlatBVH:
+    """ThreadedBVH (numpy) -> FlatBVH on ``device`` (pack_for_pallas3)."""
+    res = pack_resident(tb, device)
+    rows = np.asarray(tb.tri_rows, np.float32)
+    return FlatBVH(
+        *res,
+        aabbs=torch.from_numpy(leaf_aabbs_for(rows, res.leaf_size)).to(device),
+        num_leaves=rows.shape[0] // res.leaf_size,
+        scene_lo=res.bounds[0, 0:3].clone(),
+        scene_hi=res.bounds[0, 3:6].clone(),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the survivor masks and the flush
+# ---------------------------------------------------------------------------
+
+
+def group_bounds(rays: torch.Tensor, q: int) -> torch.Tensor:
+    """(14, G) packet bounds of each q-lane group over its live lanes
+    (traverse_pallas2.block_bounds): rows 0-2 origin min, 3-5 origin max,
+    6-8 inverse-direction min, 9-11 inverse-direction max, 12 tmin min,
+    13 tmax max. An all-dead group gets tmax max <= tmin min."""
+    r = rays.reshape(8, -1, q)
+    live = r[7] > r[6]
+    inv = safe_inv_dir(r[3:6])
+
+    def mn(x):
+        return torch.where(live, x, BIG).amin(dim=1)
+
+    def mx(x):
+        return torch.where(live, x, -BIG).amax(dim=1)
+
+    out = [mn(r[k]) for k in range(3)] + [mx(r[k]) for k in range(3)]
+    out += [mn(inv[k]) for k in range(3)] + [mx(inv[k]) for k in range(3)]
+    return torch.stack(out + [mn(r[6]), mx(r[7])])
+
+
+def flat_leaf_masks(rays: torch.Tensor, aabbs: torch.Tensor, q: int):
+    """K2's broad phase: (G, Lpad) bool, True where group g's union packet
+    box may meet leaf l (the interval test of traverse_pallas3.py:187-226)."""
+    b = group_bounds(rays, q)[:, :, None]  # (14, G, 1)
+    tlo, thi = b[12], b[13]
+    lb = tlo.expand(-1, aabbs.shape[1])
+    u = thi.expand(-1, aabbs.shape[1])
+    expand_ok = torch.ones_like(lb, dtype=torch.bool)
+    for k in range(3):
+        olo, ohi, ilo, ihi = b[k], b[3 + k], b[6 + k], b[9 + k]
+        bmn, bmx = aabbs[k][None], aabbs[3 + k][None]
+        alo, ahi = bmn - ohi, bmn - olo
+        blo, bhi = bmx - ohi, bmx - olo
+        t0lo = torch.minimum(torch.minimum(alo * ilo, alo * ihi),
+                             torch.minimum(ahi * ilo, ahi * ihi))
+        t0hi = torch.maximum(torch.maximum(alo * ilo, alo * ihi),
+                             torch.maximum(ahi * ilo, ahi * ihi))
+        t1lo = torch.minimum(torch.minimum(blo * ilo, blo * ihi),
+                             torch.minimum(bhi * ilo, bhi * ihi))
+        t1hi = torch.maximum(torch.maximum(blo * ilo, blo * ihi),
+                             torch.maximum(bhi * ilo, bhi * ihi))
+        lb = torch.maximum(lb, torch.minimum(t0lo, t1lo))
+        u = torch.minimum(u, torch.maximum(t0hi, t1hi))
+        expand_ok = expand_ok & (torch.maximum(alo, -bhi) <= thi)
+    return (lb <= u) & expand_ok & (thi > tlo)
+
+
+def ray_leaf_hits(rays: torch.Tensor, aabbs: torch.Tensor) -> torch.Tensor:
+    """(N, Lpad) bool: each lane's exact slab test of its own segment
+    [tmin, tmax] against every leaf box (traverse_pallas3.py:700-714)."""
+    tmin, tmax = rays[6], rays[7]
+    tn = tmin[:, None].expand(-1, aabbs.shape[1])
+    tf = tmax[:, None].expand(-1, aabbs.shape[1])
+    inv = safe_inv_dir(rays[3:6])
+    for k in range(3):
+        o = rays[k][:, None]
+        t0 = (aabbs[k][None] - o) * inv[k][:, None]
+        t1 = (aabbs[3 + k][None] - o) * inv[k][:, None]
+        tn = torch.maximum(tn, torch.minimum(t0, t1))
+        tf = torch.minimum(tf, torch.maximum(t0, t1))
+    valid = (aabbs[0] <= aabbs[3])[None]
+    return (tn <= tf) & (tmax > tmin)[:, None] & valid
+
+
+def precull_leaf_masks(rays: torch.Tensor, aabbs: torch.Tensor, q: int):
+    """K3's survivors, the plain ``leaf_masks_xla``: (G, Lpad) bool, the OR
+    over each q-lane group of ``ray_leaf_hits``, in chunks of lanes (the
+    whole (N, Lpad) test at 2M lanes would be GBs per temporary)."""
+    n, lpad = rays.shape[1], aabbs.shape[1]
+    step = max(q, (_CHUNK_ELEMS // lpad) // q * q)
+    out = [
+        ray_leaf_hits(rays[:, s:s + step], aabbs).reshape(-1, q, lpad).any(1)
+        for s in range(0, n, step)
+    ]
+    return torch.cat(out)
+
+
+def _flush(bvh: FlatBVH, rays: torch.Tensor, mask: torch.Tensor, q: int,
+           any_hit: bool):
+    """Möller-Trumbore of every (group, surviving leaf) pair over the
+    group's q lanes and the leaf's rows, in the expression order of
+    ``traverse_pallas2._mt_leaf``. Hits merge on (t, row)
+    lexicographically, the order-independent merge of ``_mt_leaf``.
+    Returns (t, row, u, v) or the blocked flags, per lane of ``rays``."""
+    n, dev, ls = rays.shape[1], rays.device, bvh.leaf_size
+    pairs = torch.nonzero(mask[:, : bvh.num_leaves])
+    lane_iota = torch.arange(q, device=dev)
+    sub_iota = torch.arange(ls, device=dev)
+    blocked = torch.zeros(n, dtype=torch.bool, device=dev)
+    t_best = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
+    row_best = torch.full((n,), ROW_NONE, dtype=torch.int64, device=dev)
+    u_best = torch.zeros(n, dtype=torch.float32, device=dev)
+    v_best = torch.zeros(n, dtype=torch.float32, device=dev)
+    step = max(1, _CHUNK_ELEMS // (q * ls))
+    for s in range(0, pairs.shape[0], step):
+        group, leaf = pairs[s:s + step, 0], pairs[s:s + step, 1]
+        lanes = group[:, None] * q + lane_iota  # (c, q)
+        row0 = leaf * ls
+        rows = bvh.tri_rows[row0[:, None] + sub_iota][:, None]  # (c, 1, ls, 9)
+        r = [rays[k][lanes][:, :, None] for k in range(8)]  # (c, q, 1)
+        ok, uu, vv, tt = traverse._mt_rows(rows, *r[0:6])
+        hit = ok & (tt > r[6]) & (tt < r[7])
+        if any_hit:
+            blocked[lanes[hit.any(dim=-1)]] = True
+            continue
+        tt = torch.where(hit, tt, T_MAX)
+        t_leaf = tt.amin(dim=-1)
+        sub = torch.where(hit & (tt <= t_leaf[..., None]), sub_iota, ls).amin(-1)
+        found = sub < ls
+        pick = torch.clamp(sub, max=ls - 1)[..., None]
+        cl = lanes[found]
+        ct = t_leaf[found]
+        crow = (row0[:, None] + sub)[found]
+        cu = uu.gather(-1, pick)[..., 0][found]
+        cv = vv.gather(-1, pick)[..., 0][found]
+        # lexicographic (t, row) minimum per lane within the chunk ...
+        m_t = torch.full_like(t_best, T_MAX).scatter_reduce(
+            0, cl, ct, "amin")
+        at_t = ct == m_t[cl]
+        m_row = torch.full_like(row_best, ROW_NONE).scatter_reduce(
+            0, cl[at_t], crow[at_t], "amin")
+        win = at_t & (crow == m_row[cl])
+        cl, ct, crow, cu, cv = cl[win], ct[win], crow[win], cu[win], cv[win]
+        # ... then against the lanes' best so far
+        better = (ct < t_best[cl]) | ((ct == t_best[cl]) & (crow < row_best[cl]))
+        cl = cl[better]
+        t_best[cl] = ct[better]
+        row_best[cl] = crow[better]
+        u_best[cl] = cu[better]
+        v_best[cl] = cv[better]
+    if any_hit:
+        return blocked
+    miss = row_best == ROW_NONE
+    return (
+        torch.where(miss, T_MAX, t_best),
+        torch.where(miss, -1, row_best).to(torch.int32),
+        u_best,
+        v_best,
+    )
+
+
+def plain(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
+          any_hit: bool):
+    """The plain version of K2 (``name == K2``) or K3 on a packed (8, Np)
+    operand: its survivor masks, then ``_flush``. What the wrappers run on
+    CPU tensors, and what ``launch`` must equal on the card."""
+    masks = flat_leaf_masks if name == K2 else precull_leaf_masks
+    return _flush(bvh, rays, masks(rays, bvh.aabbs, q), q, any_hit)
+
+
+# ---------------------------------------------------------------------------
+# Kernel launch
+# ---------------------------------------------------------------------------
+
+
+def _lib(name: str):
+    from realtimepathtracingresearchframework_tpu_torch.kernels import build
+
+    lib = build.load(name)
+    fn = getattr(lib, f"rptr_{name}")
+    # every pointer and the stream as c_void_p (a bare Python int would be
+    # passed as a 32-bit C int and cut the pointer)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, i, p, i, p, i, i, i] + [p] * 5 + [p]
+    fn.restype = ctypes.c_int
+    lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.rptr_cuda_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
+           any_hit: bool):
+    """One launch of K2 or K3 over a packed (8, Np) operand: one CUDA
+    block per q-lane group. Returns the raw output tensors."""
+    global launches_k2, launches_k3
+    dev = rays.device
+    n = rays.shape[1]
+    ls, lpad = bvh.leaf_size, bvh.aabbs.shape[1]
+    r = bvh.tri_rows.shape[0]
+    _check("aabbs", bvh.aabbs, torch.float32, (16, lpad), dev)
+    _check("tri_rows", bvh.tri_rows, torch.float32, (r, 9), dev)
+    _check("rays", rays, torch.float32, (8, n), dev)
+    if n % q or q % 32 or not 0 < q <= 1024:
+        raise ValueError(f"{name}: {n} lanes in groups of {q}")
+    if any_hit:
+        blocked = torch.empty(n, dtype=torch.bool, device=dev)
+        outs = (None, None, None, None, blocked.data_ptr())
+        result = blocked
+    else:
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        row = torch.empty(n, dtype=torch.int32, device=dev)
+        u = torch.empty(n, dtype=torch.float32, device=dev)
+        v = torch.empty(n, dtype=torch.float32, device=dev)
+        outs = (t.data_ptr(), row.data_ptr(), u.data_ptr(), v.data_ptr(), None)
+        result = (t, row, u, v)
+    if n == 0:
+        return result
+    lib, fn = _lib(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(bvh.aabbs.data_ptr(), lpad, bvh.num_leaves,
+                bvh.tri_rows.data_ptr(), ls, rays.data_ptr(), n, q,
+                int(any_hit), *outs, stream)
+    if rc != 0:
+        msg = lib.rptr_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {rc})")
+    if name == K2:
+        launches_k2 += 1
+    else:
+        launches_k3 += 1
+    return result
+
+
+def _dispatch(name, bvh: FlatBVH, ro, rd, t_min, t_max, block, groups,
+              compact, any_hit):
+    if block % (groups * 128):
+        raise ValueError(
+            f"flat-cull block must be a multiple of {groups * 128} "
+            f"(groups of 128-lane multiples), got {block}"
+        )
+    q = block // groups
+    rays, n = pack_rays(ro, rd, t_min, t_max, block)
+    if compact:
+        rays, inv = _compact(rays, bvh.scene_lo, bvh.scene_hi)
+    if rays.device.type == "cpu":
+        out = plain(name, bvh, rays, q, any_hit)
+    elif rays.device.type == "cuda":
+        out = launch(name, bvh, rays.contiguous(), q, any_hit)
+    else:
+        raise ValueError(f"no traversal for device {rays.device}")
+    if any_hit:
+        return (_uncompact(out, inv) if compact else out)[:n]
+    if compact:
+        out = tuple(_uncompact(x, inv) for x in out)
+    t, row, u, v = (x[:n] for x in out)
+    return Hit(t=t, tri=row, u=u, v=v)
+
+
+def closest_hit_flat(bvh: FlatBVH, ro, rd, t_min=0.0, t_max=T_MAX,
+                     block: int = DEFAULT_BLOCK, groups: int = QUARTERS,
+                     compact: bool = False) -> Hit:
+    """K2 closest hit (closest_hit_pallas3); ``tri`` is the BVH row."""
+    return _dispatch(K2, bvh, ro, rd, t_min, t_max, block, groups, compact,
+                     any_hit=False)
+
+
+def occluded_flat(bvh: FlatBVH, ro, rd, t_min=0.0, t_max=T_MAX,
+                  block: int = DEFAULT_BLOCK, groups: int = QUARTERS,
+                  compact: bool = False) -> torch.Tensor:
+    """K2 any-hit visibility (occluded_pallas3)."""
+    return _dispatch(K2, bvh, ro, rd, t_min, t_max, block, groups, compact,
+                     any_hit=True)
+
+
+def closest_hit_precull(bvh: FlatBVH, ro, rd, t_min=0.0, t_max=T_MAX,
+                        block: int = DEFAULT_BLOCK, groups: int = QUARTERS,
+                        compact: bool = False) -> Hit:
+    """K3 closest hit (closest_hit_pallas4); ``tri`` is the BVH row."""
+    return _dispatch(K3, bvh, ro, rd, t_min, t_max, block, groups, compact,
+                     any_hit=False)
+
+
+def occluded_precull(bvh: FlatBVH, ro, rd, t_min=0.0, t_max=T_MAX,
+                     block: int = DEFAULT_BLOCK, groups: int = QUARTERS,
+                     compact: bool = False) -> torch.Tensor:
+    """K3 any-hit visibility (occluded_pallas4)."""
+    return _dispatch(K3, bvh, ro, rd, t_min, t_max, block, groups, compact,
+                     any_hit=True)

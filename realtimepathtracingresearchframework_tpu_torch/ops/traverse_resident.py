@@ -20,7 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
-from realtimepathtracingresearchframework_tpu.ops.bvh import ThreadedBVH
+from realtimepathtracingresearchframework_tpu_torch.ops.bvh import ThreadedBVH
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse
 from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
@@ -141,11 +141,111 @@ def _ray_operands(ro: Vec3, rd: Vec3, t_min, t_max):
     return comps, full(t_min).contiguous(), full(t_max).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# Packed ray operand and the coherence sort (traverse_pallas.py::_prep_rays,
+# traverse_pallas2.py:587-676). u32 keys ride int64 tensors: CPU torch has no
+# uint32 add, shift or compare. The permutation is a plain index; the
+# reference's int32 bitcast carrier in _uncompact exists for TPU denormal
+# flushing, and a torch gather of floats is bitwise.
+# ---------------------------------------------------------------------------
+
+
+def pack_rays(ro: Vec3, rd: Vec3, t_min, t_max, block: int = 1):
+    """(8, Np) f32 rows [ro3, rd3, tmin, tmax], padded to a multiple of
+    ``block`` with dead lanes (ro 0, rd +x, tmin = tmax = 0). Returns
+    (rays, n)."""
+    comps, tmin, tmax = _ray_operands(ro, rd, t_min, t_max)
+    n = comps[0].shape[0]
+    rays = torch.stack([*comps, tmin, tmax])
+    pad = (-n) % block
+    if pad:
+        fill = torch.zeros((8, pad), dtype=torch.float32, device=rays.device)
+        fill[3] = 1.0
+        rays = torch.cat([rays, fill], dim=1)
+    return rays, n
+
+
+def _part1by2(x):
+    """Spread the low 10 bits of x two apart (morton dilation)."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x30000FF
+    x = (x | (x << 8)) & 0x300F00F
+    x = (x | (x << 4)) & 0x30C30C3
+    x = (x | (x << 2)) & 0x9249249
+    return x
+
+
+def coherence_key(ox, oy, oz, dx, dy, dz, live, lo, hi):
+    """u32 lane sort key (as int64): bit 31 = dead lane (sorts last), bits
+    21-23 = direction octant, bits 0-20 = origin morton on a 128^3 grid
+    over the scene box [lo, hi] (traverse_pallas2._coherence_key2 and
+    integrator._carry_coherence_key). ``lo is None`` keys on liveness
+    alone."""
+    dead = (~live).to(torch.int64) << 31
+    if lo is None:
+        return dead
+    inv = 127.0 / torch.clamp(hi - lo, min=1e-12)
+
+    def q(v, k):
+        return torch.clamp((v - lo[k]) * inv[k], 0.0, 127.0).to(torch.int64)
+
+    morton = (
+        _part1by2(q(ox, 0))
+        | (_part1by2(q(oy, 1)) << 1)
+        | (_part1by2(q(oz, 2)) << 2)
+    )
+    octant = (
+        ((dx < 0.0).to(torch.int64) << 2)
+        | ((dy < 0.0).to(torch.int64) << 1)
+        | (dz < 0.0).to(torch.int64)
+    )
+    return dead | (octant << 21) | morton
+
+
+def _coherence_key2(rays, scene_lo, scene_hi):
+    """Key of a packed (8, Np) operand (traverse_pallas2.py:597-624)."""
+    return coherence_key(*rays[0:6], rays[7] > rays[6], scene_lo, scene_hi)
+
+
+def inverse_permutation(perm):
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel(), device=perm.device)
+    return inv
+
+
+def _compact(rays, scene_lo=None, scene_hi=None):
+    """Stable live-first, coherence-ordered lane sort of a packed (8, Np)
+    operand (traverse_pallas2.py:627-660). Returns (rays_sorted, inv):
+    ``out[..., inv]`` restores the original lane order."""
+    key = _coherence_key2(rays, scene_lo, scene_hi)
+    perm = torch.argsort(key, stable=True)
+    return rays[:, perm], inverse_permutation(perm)
+
+
+def _uncompact(out, inv):
+    """Sorted-order result -> original lane order (out_orig[..., i] =
+    out[..., inv[i]])."""
+    return out[..., inv]
+
+
+def _sorted_rays(bvh, ro, rd, t_min, t_max):
+    """The coherence-sorted operand of a K1 dispatch, scene box = root
+    node (traverse_pallas2.closest_hit_pallas2's ``compact``)."""
+    rays, n = pack_rays(ro, rd, t_min, t_max)
+    rays, inv = _compact(rays, bvh.bounds[0, 0:3], bvh.bounds[0, 3:6])
+    return Vec3(*rays[0:3]), Vec3(*rays[3:6]), rays[6], rays[7], inv
+
+
 def closest_hit_resident(bvh: ResidentBVH, ro: Vec3, rd: Vec3, t_min=0.0,
-                         t_max=T_MAX) -> Hit:
+                         t_max=T_MAX, compact: bool = False) -> Hit:
     """Closest hit per ray. ``tri`` is the BVH row, the attribute index of
     row-ordered tables (``traverse.map_rows_to_tris`` maps it to the
-    source triangle)."""
+    source triangle). ``compact`` coherence-sorts the lanes first; the
+    result is the same, in the caller's lane order."""
+    if compact:
+        o, d, tmin, tmax, inv = _sorted_rays(bvh, ro, rd, t_min, t_max)
+        hit = closest_hit_resident(bvh, o, d, tmin, tmax)
+        return Hit(*(_uncompact(x, inv) for x in hit))
     if ro.x.device.type == "cpu":
         return traverse.closest_hit_threaded(bvh, ro, rd, t_min, t_max)
     if ro.x.device.type == "cuda":
@@ -156,8 +256,11 @@ def closest_hit_resident(bvh: ResidentBVH, ro: Vec3, rd: Vec3, t_min=0.0,
 
 
 def occluded_resident(bvh: ResidentBVH, ro: Vec3, rd: Vec3, t_min=0.0,
-                      t_max=T_MAX) -> torch.Tensor:
+                      t_max=T_MAX, compact: bool = False) -> torch.Tensor:
     """Any-hit visibility per ray: True where (t_min, t_max) is blocked."""
+    if compact:
+        o, d, tmin, tmax, inv = _sorted_rays(bvh, ro, rd, t_min, t_max)
+        return _uncompact(occluded_resident(bvh, o, d, tmin, tmax), inv)
     if ro.x.device.type == "cpu":
         return traverse.occluded_threaded(bvh, ro, rd, t_min, t_max)
     if ro.x.device.type == "cuda":

@@ -1,16 +1,21 @@
-"""Profile of the port's main path on one CUDA card.
+"""Profile of one of the port's 1080p paths on one CUDA card.
 
-Cornell at 1920x1080, 1 spp, depth 9 (the frame of ``chip_smoke.py``
-phase 5): one warm-up frame, ``--frames`` frames timed by the host clock
-with a device sync after each, then ``--profiled`` frames under
-``torch.profiler``. Prints the card's name, power limit and SM clock, the
-frame times, the device kernels per frame, their summed time and the
-union of their intervals (the device busy share is that union over the
-profiled wall), the largest kernels, and the host's launch and sync calls.
-The last line is a JSON summary.
+``--scene cornell`` (default): the cornell box, the main path of
+``chip_smoke.py``, through the monolithic pass and K1. ``--scene
+terrain200``: ``procedural.terrain(grid=200)`` (80,000 triangles) with the
+sun and sky of bench.py's terrain row, through the wavefront executor, K2
+and K3. Both at 1920x1080, 1 spp, depth 9: one warm-up frame, ``--frames``
+frames timed by the host clock with a device sync after each, then
+``--profiled`` frames under ``torch.profiler``. Prints the card's name,
+power limit and SM clock, the frame times, the device kernels per frame,
+their summed time and the union of their intervals (the device busy share
+is that union over the profiled wall), the traversal kernels' launches,
+time and share of device time, the largest kernels, and the host's launch
+and sync calls. The last line is a JSON summary.
 
     python -m realtimepathtracingresearchframework_tpu_torch.profile_frame \
-        [--frames 5] [--profiled 3] [--out tables.txt]
+        [--scene cornell|terrain200] [--frames 5] [--profiled 3] \
+        [--out tables.txt]
 
 ``--out`` also writes torch.profiler's key-average tables to a file.
 """
@@ -26,19 +31,29 @@ import time
 import numpy as np
 import torch
 
-from realtimepathtracingresearchframework_tpu.backend.params import RenderParams
-from realtimepathtracingresearchframework_tpu.models import procedural
-from realtimepathtracingresearchframework_tpu.models.camera import OrientedCamera
-from realtimepathtracingresearchframework_tpu.models.scene import Scene
+from realtimepathtracingresearchframework_tpu_torch.backend.params import (
+    RenderParams,
+    SceneConfig,
+)
+from realtimepathtracingresearchframework_tpu_torch.models import procedural
+from realtimepathtracingresearchframework_tpu_torch.models.camera import OrientedCamera
+from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
 from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
     FrameConfig,
     Renderer,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 from realtimepathtracingresearchframework_tpu_torch.ops import (
     traverse_resident as tr,
 )
 
 SIZE = (1920, 1080)
+# traversal kernels: the launch counter and a substring of the kernel name
+KERNELS = {
+    "K1": (lambda: tr.launches, "traverse_resident"),
+    "K2": (lambda: tf.launches_k2, "flat_cull"),
+    "K3": (lambda: tf.launches_k3, "precull"),
+}
 HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaStreamSynchronize",
               "cudaMemcpyAsync", "aten::item")
 
@@ -56,8 +71,36 @@ def union_length(intervals) -> float:
     return total if cur_e is None else total + cur_e - cur_s
 
 
+def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
+                grid: int = 200):
+    """(Renderer, FrameConfig) of a profiled path: ``"cornell"`` (camera of
+    bench.py:91-99) or ``"terrain"`` (``procedural.terrain(grid)``, sun,
+    sky and camera of bench.py:139-151), at ``size``, 1 spp, ``depth``."""
+    if scene == "cornell":
+        vkr_scene = procedural.cornell_box()
+        cam = OrientedCamera.look_at([0, 1.0, 3.2], [0, 1.0, 0.0], fovy=50)
+        sc = SceneConfig()
+    elif scene == "terrain":
+        vkr_scene = procedural.terrain(grid=grid)
+        cam = OrientedCamera.look_at([0, 5.0, 12.0], [0, 0, 0], fovy=55)
+        sc = SceneConfig(sun_dir=(0.4, 0.7, 0.2), turbidity=3.0)
+    else:
+        raise KeyError(scene)
+    r = Renderer(device=device)
+    r.initialize(*size)
+    r.set_scene(Scene.from_vkr_scene(vkr_scene), scene_config=sc)
+    cfg = FrameConfig(
+        camera=cam,
+        params=RenderParams(batch_spp=1, max_path_depth=depth),
+        scene_config=sc,
+    )
+    return r, cfg
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("cornell", "terrain200"),
+                    default="cornell")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--profiled", type=int, default=3)
     ap.add_argument("--out", default=None)
@@ -71,13 +114,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip(), flush=True)
-    r = Renderer(device="cuda")
-    r.initialize(*SIZE)
-    r.set_scene(Scene.from_vkr_scene(procedural.cornell_box()))
-    cfg = FrameConfig(
-        camera=OrientedCamera.look_at([0, 1.0, 3.2], [0, 1.0, 0.0], fovy=50),
-        params=RenderParams(batch_spp=1, max_path_depth=9),
-    )
+    r, cfg = frame_setup("cornell" if args.scene == "cornell" else "terrain")
     r.render(cfg)  # warm-up
     torch.cuda.synchronize()
 
@@ -92,13 +129,14 @@ def main(argv=None) -> int:
 
     nf = args.profiled
     tr.reset_launches()
+    tf.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(nf):
             r.render(cfg)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / nf
-    k1_per_frame = tr.launches / nf
+    launches = {k: count() / nf for k, (count, _) in KERNELS.items()}
 
     events = prof.events()
     kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -113,13 +151,19 @@ def main(argv=None) -> int:
     device_ms = sum(t for t, _ in by_name.values()) / 1e3 / nf
     union_ms = union_length(
         (e.time_range.start, e.time_range.end) for e in kern) / 1e3 / nf
-    k1_ms = sum(t for n, (t, _) in by_name.items()
-                if "traverse_resident" in n) / 1e3 / nf
-    print(f"profiled frame wall {prof_wall_ms:.3f} ms, device kernels "
-          f"{len(kern) / nf:.0f} per frame, kernel time {device_ms:.3f} ms, "
-          f"union {union_ms:.3f} ms, busy share of profiled wall "
-          f"{union_ms / prof_wall_ms:.4f}, K1 {k1_per_frame:.0f} launches "
-          f"{k1_ms:.3f} ms per frame")
+    kernel_ms = {
+        k: sum(t for n, (t, _) in by_name.items() if sub in n) / 1e3 / nf
+        for k, (_, sub) in KERNELS.items()
+    }
+    print(f"{args.scene}: profiled frame wall {prof_wall_ms:.3f} ms, device "
+          f"kernels {len(kern) / nf:.0f} per frame, kernel time "
+          f"{device_ms:.3f} ms, union {union_ms:.3f} ms, busy share of "
+          f"profiled wall {union_ms / prof_wall_ms:.4f}")
+    for k in KERNELS:
+        print(f"  {k}: {launches[k]:.0f} launches, {kernel_ms[k]:.3f} ms per "
+              f"frame, {kernel_ms[k] / device_ms:.4f} of device time")
+    if r.live_profile:
+        print(f"  live lanes per bounce (last frame): {r.live_profile}")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {t / 1e3 / nf:9.3f} ms/frame {c / nf:8.0f} calls  {name[:100]}")
     for name, (t, c) in sorted(host.items()):
@@ -130,10 +174,15 @@ def main(argv=None) -> int:
             f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40) + "\n")
             f.write(ka.table(sort_by="self_device_time_total", row_limit=40) + "\n")
     print(json.dumps({
+        "scene": args.scene, "rays_per_frame": r.last_ray_count(),
         "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
         "kernels_per_frame": len(kern) / nf, "device_ms": device_ms,
         "union_ms": union_ms, "busy_share_profiled": union_ms / prof_wall_ms,
-        "k1_launches_per_frame": k1_per_frame, "k1_ms": k1_ms,
+        "launches_per_frame": launches, "kernel_ms": kernel_ms,
+        "kernel_share_of_device": {
+            k: kernel_ms[k] / device_ms for k in KERNELS
+        },
+        "live_per_bounce": r.live_profile,
         "host_launches_per_frame": host.get("cudaLaunchKernel", (0, 0))[1] / nf,
         "host_launch_ms": host.get("cudaLaunchKernel", (0, 0))[0] / 1e3 / nf,
     }))

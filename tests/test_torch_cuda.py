@@ -1,0 +1,97 @@
+"""The port's traversal kernels on the card against their plain versions.
+
+This file imports neither JAX nor the JAX package, so it also runs where
+only the port is installed. On a machine with a CUDA card and nvcc:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py configures JAX). Without a card every
+test here skips. ``chip_smoke.py`` runs the same comparisons at the main
+paths' shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from realtimepathtracingresearchframework_tpu_torch.models import procedural
+from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
+from realtimepathtracingresearchframework_tpu_torch.ops import bvh as bvh_mod
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_resident as tr
+from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    return torch.device("cuda")
+
+
+def _terrain_queue(grid, leaf_size, n, seed):
+    """A flat BVH of procedural.terrain(grid) on the card, and a packed
+    (8, n) queue of incoherent rays above it, 30% of them dead."""
+    dev = _card()
+    flat = Scene.from_vkr_scene(procedural.terrain(grid=grid)).flatten_world()
+    tb = bvh_mod.build_threaded_bvh(flat.v0, flat.e1, flat.e2,
+                                    leaf_size=leaf_size, builder="sah")
+    fb = tf.pack_flat(tb, dev)
+    rng = np.random.default_rng(seed)
+    lo, hi = flat.v0.min(0), flat.v0.max(0)
+    ro = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    ro[:, 1] = rng.uniform(hi[1], hi[1] + 2.0, n)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    tmax = np.where(rng.uniform(size=n) < 0.3, 0.0, 2.0e32).astype(np.float32)
+
+    def soa(a):
+        t = torch.from_numpy(a).to(dev)
+        return Vec3(*(t[:, k].contiguous() for k in range(3)))
+
+    rays, _ = tr.pack_rays(soa(ro), soa(rd), 0.0, torch.from_numpy(tmax).to(dev),
+                           1024)
+    return fb, rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_size", [32, 128])
+def test_k1_matches_plain_on_card(leaf_size):
+    fb, rays = _terrain_queue(24, leaf_size, 4096, 1)
+    o, d = Vec3(*rays[0:3]), Vec3(*rays[3:6])
+    before = tr.launches
+    hk = tr.closest_hit_resident(fb, o, d, rays[6], rays[7])
+    hp = traverse.closest_hit_threaded(fb, o, d, rays[6], rays[7])
+    assert tr.launches == before + 1
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+    assert (hk.tri >= 0).any()
+    tmax = torch.where(hk.tri >= 0, hk.t * 1.001, rays[7])
+    assert torch.equal(tr.occluded_resident(fb, o, d, rays[6], tmax),
+                       traverse.occluded_threaded(fb, o, d, rays[6], tmax))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [128, 256])
+@pytest.mark.parametrize("leaf_size", [32, 128])
+@pytest.mark.parametrize("name", [tf.K2, tf.K3])
+def test_flat_cull_matches_plain_and_k1_on_card(name, leaf_size, q):
+    """K2 and K3 equal their plain versions and K1 bitwise, sorted and
+    unsorted, closest and any-hit."""
+    fb, rays = _terrain_queue(24, leaf_size, 4096, 2)
+    for queue in (rays, tr._compact(rays, fb.scene_lo, fb.scene_hi)[0]):
+        o, d = Vec3(*queue[0:3]), Vec3(*queue[3:6])
+        k1 = tr.closest_hit_resident(fb, o, d, queue[6], queue[7])
+        before = tf.launches_k2 + tf.launches_k3
+        k = tf.launch(name, fb, queue, q, False)
+        assert tf.launches_k2 + tf.launches_k3 == before + 1
+        p = tf.plain(name, fb, queue, q, False)
+        for a, b, c in zip(k, p, k1):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        tmax = torch.where(k1.tri >= 0, k1.t * 1.001, queue[7])
+        oq = queue.clone()
+        oq[7] = tmax
+        blocked = tf.launch(name, fb, oq, q, True)
+        assert torch.equal(blocked, tf.plain(name, fb, oq, q, True))
+        assert torch.equal(blocked, tr.occluded_resident(fb, o, d, queue[6], tmax))
+        assert blocked.any()

@@ -1,0 +1,230 @@
+"""The port's flat-cull traversal (K2, K3) and coherence sort against the
+JAX package's.
+
+The plain versions of K2 and K3 (``ops/traverse_flat.py``, what the
+wrappers run on CPU tensors) are held against the reference kernels
+``traverse_pallas3.closest_hit_pallas3`` / ``occluded_pallas3`` (K2) and
+``closest_hit_pallas4`` / ``occluded_pallas4`` (K3) run in Pallas interpret
+mode, on the fixture of tests/test_traverse_kernels.py:676-800
+(``_terrain(24)``, leaf 32 and 128, groups 4 and 8, the coherence sort on
+and off). Hit triangles and blocked flags must be exact; t, u and v agree
+to 1e-5 relative (u, v to 1e-5 absolute), because XLA contracts some of
+Möller-Trumbore's multiply-adds into FMAs and the port does not (as for
+K1, tests/test_torch_traverse.py). Between the port's own plain versions
+there is no such excuse: plain K2, plain K3 and plain K1 agree bitwise.
+
+The cull itself: the port's leaf boxes and per-ray feeder bits equal the
+reference's (``leaf_aabbs_for``, ``leaf_masks_xla``), and K2's union
+survivors contain every leaf the per-ray exact test keeps. The coherence
+sort's u32 keys and permutation equal the reference's bit for bit.
+
+The CUDA kernels are compared with these plain versions bitwise on the
+card, by ``chip_smoke.py`` and by tests/test_torch_cuda.py.
+"""
+
+import functools
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from realtimepathtracingresearchframework_tpu.ops import bvh as jbvh
+from realtimepathtracingresearchframework_tpu.ops import integrator as ji
+from realtimepathtracingresearchframework_tpu.ops import traverse_pallas as tp1
+from realtimepathtracingresearchframework_tpu.ops import traverse_pallas2 as tp2
+from realtimepathtracingresearchframework_tpu.ops import traverse_pallas3 as tp3
+from realtimepathtracingresearchframework_tpu.ops import wavefront_host as jwf
+from realtimepathtracingresearchframework_tpu_torch.ops import integrator as ti
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_resident as tr
+from realtimepathtracingresearchframework_tpu_torch.ops import wavefront_host as twf
+from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
+
+sys.path.insert(0, __file__.rsplit("/", 1)[0])
+from test_traverse_kernels import _rays, _terrain  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _interpret_kernels():
+    tp2.INTERPRET = True
+    tp3.INTERPRET = True
+    yield
+    tp2.INTERPRET = False
+    tp3.INTERPRET = False
+
+
+@functools.lru_cache(maxsize=None)
+def _scene(leaf_size):
+    """(reference v3 buffers, port FlatBVH) of the same threaded BVH."""
+    tb = jbvh.build_threaded_bvh(*_terrain(24), leaf_size=leaf_size)
+    return tp3.pack_for_pallas3(tb), tf.pack_flat(tb)
+
+
+def _soa(a):
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return Vec3(t[:, 0].contiguous(), t[:, 1].contiguous(), t[:, 2].contiguous())
+
+
+def _queue(rng, kind, n=1024, dead=0.0):
+    """(ro, rd, tmax) numpy; a share ``dead`` of lanes has tmax = 0."""
+    ro, rd = _rays(n, rng, kind)
+    tmax = np.where(rng.uniform(size=len(ro)) < dead, 0.0, 2.0e32)
+    return ro, rd, tmax.astype(np.float32)
+
+
+def _assert_hit_close(port, ref, bvh):
+    """Port hit (rows) against a reference hit (tris): ids exact, t/u/v
+    within 1e-5 (see the module docstring)."""
+    hit = traverse.map_rows_to_tris(bvh, port)
+    np.testing.assert_array_equal(hit.tri.numpy(), np.asarray(ref.tri))
+    np.testing.assert_allclose(hit.t.numpy(), np.asarray(ref.t), rtol=1e-5, atol=0)
+    for p, r in ((hit.u, ref.u), (hit.v, ref.v)):
+        np.testing.assert_allclose(p.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
+
+
+def _pack_mask_bits(mask, groups):
+    """(G, Lpad) bool -> (nb, Lpad) i32 with bit qi = group qi of the
+    block: the mask row format of ``leaf_masks_xla``."""
+    bits = mask.reshape(-1, groups, mask.shape[1]).to(torch.int32)
+    w = 1 << torch.arange(groups, dtype=torch.int32)
+    return (bits * w[None, :, None]).sum(1, dtype=torch.int32)
+
+
+def _assert_bitwise(a, b):
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("groups", [4, 8])
+@pytest.mark.parametrize("leaf_size", [32, 128])
+def test_plain_flat_cull_matches_pallas_interpret(rng, leaf_size, groups):
+    """Plain K2 and K3 against pallas3 / pallas4 in interpret mode, sorted
+    and unsorted, closest and occluded; and plain K2 == plain K3 == plain
+    K1 bitwise."""
+    bb3, fb = _scene(leaf_size)
+    block = 128 * groups
+    for kind in ("coherent", "incoherent"):
+        ro, rd, tmax = _queue(rng, kind, dead=0.3)
+        o, d, tm = _soa(ro), _soa(rd), torch.from_numpy(tmax)
+        jo, jd, jtm = jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(tmax)
+        k1 = tr.closest_hit_resident(fb, o, d, 0.0, tm)
+        assert 0.05 < (k1.tri >= 0).float().mean() < 0.7
+        # occlusion segments just short of / past each hit
+        scale = np.where(rng.uniform(size=len(ro)) < 0.5, 0.999, 1.001)
+        otm = np.where(k1.tri.numpy() >= 0, k1.t.numpy() * scale, 8.0)
+        otm = np.where(tmax > 0, otm, 0.0).astype(np.float32)
+        ob1 = tr.occluded_resident(fb, o, d, 0.0, torch.from_numpy(otm))
+        assert ob1.any() and not ob1.all()
+        for compact in (False, True):
+            kw = dict(block=block, groups=groups, compact=compact)
+            for port_c, port_o, ref_c, ref_o in (
+                (tf.closest_hit_flat, tf.occluded_flat,
+                 tp3.closest_hit_pallas3, tp3.occluded_pallas3),
+                (tf.closest_hit_precull, tf.occluded_precull,
+                 tp3.closest_hit_pallas4, tp3.occluded_pallas4),
+            ):
+                hit = port_c(fb, o, d, 0.0, tm, **kw)
+                _assert_bitwise(hit, k1)
+                _assert_hit_close(hit, ref_c(bb3, jo, jd, t_max=jtm, **kw), fb)
+                blocked = port_o(fb, o, d, 0.0, torch.from_numpy(otm), **kw)
+                assert torch.equal(blocked, ob1)
+                ref = ref_o(bb3, jo, jd, t_max=jnp.asarray(otm), **kw)
+                np.testing.assert_array_equal(blocked.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("groups", [4, 8])
+@pytest.mark.parametrize("leaf_size", [32, 128])
+def test_leaf_boxes_and_feeder_match_reference(rng, leaf_size, groups):
+    """The packed operand, the leaf boxes and the per-ray feeder's packed
+    bits equal the reference's (leaf_masks_xla); K2's union survivors
+    contain every leaf the per-ray test keeps."""
+    bb3, fb = _scene(leaf_size)
+    np.testing.assert_array_equal(fb.aabbs.numpy(), np.asarray(bb3.aabbs))
+    assert fb.num_leaves == bb3.num_leaves
+    np.testing.assert_array_equal(fb.scene_lo.numpy(), np.asarray(bb3.scene_lo))
+    np.testing.assert_array_equal(fb.scene_hi.numpy(), np.asarray(bb3.scene_hi))
+    block, q = 128 * groups, 128
+    for kind in ("coherent", "incoherent"):
+        ro, rd, tmax = _queue(rng, kind, n=1000, dead=0.3)
+        rays, n = tr.pack_rays(_soa(ro), _soa(rd), 0.0, torch.from_numpy(tmax),
+                               block)
+        jrays, jn = tp1._prep_rays(jnp.asarray(ro), jnp.asarray(rd), 0.0,
+                                   jnp.asarray(tmax), block)
+        assert n == jn
+        np.testing.assert_array_equal(rays.numpy(), np.asarray(jrays))
+        exact = tf.precull_leaf_masks(rays, fb.aabbs, q)
+        ref_bits, ref_any = tp3.leaf_masks_xla(jrays, bb3.aabbs, block, groups)
+        np.testing.assert_array_equal(
+            _pack_mask_bits(exact, groups).numpy(), np.asarray(ref_bits))
+        assert exact.any()
+        union = tf.flat_leaf_masks(rays, fb.aabbs, q)
+        assert not (exact & ~union).any()  # union survivors are a superset
+        assert union.sum() >= exact.sum()
+
+
+def test_dead_and_pad_lanes_miss(rng):
+    """tmax <= tmin lanes (and the pad lanes of a ragged queue) come out
+    as a miss: t = 2e32, row -1, u = v = 0, not blocked."""
+    _, fb = _scene(32)
+    ro, rd, _ = _queue(rng, "coherent", n=300)
+    o, d = _soa(ro), _soa(rd)
+    for fn in (tf.closest_hit_flat, tf.closest_hit_precull):
+        hit = fn(fb, o, d, 1.0, 1.0)
+        assert hit.t.shape == (len(ro),)
+        assert (hit.tri == -1).all() and (hit.t == 2.0e32).all()
+        assert (hit.u == 0).all() and (hit.v == 0).all()
+    for fn in (tf.occluded_flat, tf.occluded_precull):
+        assert not fn(fb, o, d, 2.0, 0.0).any()
+    with pytest.raises(ValueError, match="multiple of"):
+        tf.closest_hit_flat(fb, o, d, block=500)
+
+
+def test_coherence_sort_matches_reference(rng):
+    """_coherence_key2 bit for bit, _compact's permutation and sorted
+    operand equal, the carry key of compaction equal, and K1's
+    ``compact`` invisible in its result."""
+    bb3, fb = _scene(128)
+    ro, rd, tmax = _queue(rng, "incoherent", n=2048, dead=0.4)
+    rays, _ = tr.pack_rays(_soa(ro), _soa(rd), 0.0, torch.from_numpy(tmax), 512)
+    jrays, _ = tp1._prep_rays(jnp.asarray(ro), jnp.asarray(rd), 0.0,
+                              jnp.asarray(tmax), 512)
+    lo, hi = bb3.scene_lo, bb3.scene_hi
+    key = tr._coherence_key2(rays, fb.scene_lo, fb.scene_hi)
+    jkey = np.asarray(tp2._coherence_key2(jrays, lo, hi)).astype(np.int64)
+    np.testing.assert_array_equal(key.numpy(), jkey)
+    assert len(np.unique(jkey >> 21)) > 8  # octants and dead lanes mixed
+    srt, inv = tr._compact(rays, fb.scene_lo, fb.scene_hi)
+    jsrt, jinv = tp2._compact(jrays, lo, hi)
+    np.testing.assert_array_equal(inv.numpy(), np.asarray(jinv))
+    np.testing.assert_array_equal(srt.numpy(), np.asarray(jsrt))
+    np.testing.assert_array_equal(tr._uncompact(srt, inv).numpy(), rays.numpy())
+
+    live = torch.from_numpy(tmax > 0)
+    ck = ti._carry_coherence_key(_soa(ro), _soa(rd), live, fb.scene_lo,
+                                 fb.scene_hi)
+    jro, jrd = ji.v3.from_array(jnp.asarray(ro)), ji.v3.from_array(jnp.asarray(rd))
+    jck = ji._carry_coherence_key(jro, jrd, jnp.asarray(tmax > 0), lo, hi)
+    np.testing.assert_array_equal(ck.numpy(), np.asarray(jck).astype(np.int64))
+
+    o, d, tm = _soa(ro), _soa(rd), torch.from_numpy(tmax)
+    _assert_bitwise(tr.closest_hit_resident(fb, o, d, 0.0, tm, compact=True),
+                    tr.closest_hit_resident(fb, o, d, 0.0, tm))
+    assert torch.equal(tr.occluded_resident(fb, o, d, 0.0, tm, compact=True),
+                       tr.occluded_resident(fb, o, d, 0.0, tm))
+
+
+def test_ladder_cover_and_ladder():
+    """ladder_cover as tests/test_wavefront_host.py:71-81, and the ladder
+    of wavefront_host.py:143-152."""
+    ladder = (262144, 524288, 786432)
+    for live, want in ((1, 262144), (262144, 262144), (262145, 524288),
+                       (786432, 786432), (10**9, 786432)):
+        assert twf.ladder_cover(ladder, live) == want
+        assert jwf.ladder_cover(ladder, live) == want
+    assert twf.make_ladder(1024) == (1024,)
+    assert twf.make_ladder(2_097_152) == (32768, 65536, 131072) + tuple(
+        range(262144, 2_097_152 + 1, 262144))
+    assert twf.make_ladder(200_000) == (32768, 65536, 131072, 200_000)

@@ -1,0 +1,83 @@
+"""The port's own copies of the JAX package's host modules (scene
+flattening, BVH build, sky cook, ...) give the same arrays as the
+originals, so the port can stop importing the JAX package without changing
+a single input of its kernels.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from realtimepathtracingresearchframework_tpu.models import procedural as jproc
+from realtimepathtracingresearchframework_tpu.models import sky_hosek as jhosek
+from realtimepathtracingresearchframework_tpu.models.scene import Scene as JScene
+from realtimepathtracingresearchframework_tpu.ops import bvh as jbvh
+from realtimepathtracingresearchframework_tpu_torch.models import procedural as tproc
+from realtimepathtracingresearchframework_tpu_torch.models import sky_hosek as thosek
+from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene as TScene
+from realtimepathtracingresearchframework_tpu_torch.ops import bvh as tbvh
+
+SCENES = {
+    "cornell": lambda m: m.cornell_box(),
+    "terrain24": lambda m: m.terrain(grid=24),
+    "village20": lambda m: m.village(grid=20),
+}
+
+
+def _flat(mod, scene_cls, name):
+    return scene_cls.from_vkr_scene(SCENES[name](mod)).flatten_world()
+
+
+def _assert_same(a, b, path="."):
+    """Equal arrays (bitwise), recursively through dataclasses and tuples."""
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            _assert_same(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b, err_msg=path)
+        assert a.dtype == b.dtype, path
+    else:
+        assert a == b, path
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_flatten_world_matches(name):
+    ref = _flat(jproc, JScene, name)
+    port = _flat(tproc, TScene, name)
+    assert port.num_tris == ref.num_tris > 0
+    _assert_same(port, ref)
+
+
+@pytest.mark.parametrize("leaf_size", [32, 128])
+def test_bvh_build_matches(leaf_size):
+    """build_bvh_sah + thread_bvh on terrain(24): nodes, rows and row ids."""
+    flat = _flat(jproc, JScene, "terrain24")
+    args = (flat.v0, flat.e1, flat.e2)
+    ref = jbvh.thread_bvh(jbvh.build_bvh_sah(*args, leaf_size=leaf_size), *args)
+    port = tbvh.thread_bvh(tbvh.build_bvh_sah(*args, leaf_size=leaf_size), *args)
+    for field in ("nodes", "tri_rows", "row_tri"):
+        np.testing.assert_array_equal(getattr(port, field), getattr(ref, field))
+    assert port.leaf_size == ref.leaf_size == leaf_size
+
+
+@pytest.mark.parametrize("turbidity,sun", [(3.0, (0.4, 0.7, 0.2)),
+                                           (6.0, (0.3, 0.2, -0.5))])
+def test_hosek_cook_matches(turbidity, sun):
+    """The port's copy finds its own data file (so the sky is Hosek, not
+    the Preetham fallback) and cooks the same state and sun disc."""
+    assert thosek.hosek_data_available()
+    d = np.asarray(sun, np.float64)
+    d /= np.linalg.norm(d)
+    elev = float(np.arcsin(d[1]))
+    ref = jhosek.rgb_state(turbidity, 0.1, elev)
+    port = thosek.rgb_state(turbidity, 0.1, elev)
+    _assert_same(port, ref)
+    port_sun = thosek.sun_disc_radiance_rgb(float(d[1]), turbidity, 0.1)
+    ref_sun = jhosek.sun_disc_radiance_rgb(float(d[1]), turbidity, 0.1)
+    assert ref_sun is not None
+    np.testing.assert_array_equal(port_sun, ref_sun)

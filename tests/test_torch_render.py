@@ -230,22 +230,29 @@ def test_card_gate():
 
 
 def test_no_jax_in_the_port():
-    """The port imports torch and never jax: render a 16x16 frame on the
-    CPU in a fresh interpreter and look at sys.modules."""
+    """The port imports torch and never jax, nor any module of the JAX
+    package: in a fresh interpreter, import every module of the port and
+    chip_smoke.py, render a 16x16 frame on the CPU with the port's own
+    scene modules, and look at sys.modules."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
+        "import realtimepathtracingresearchframework_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "from realtimepathtracingresearchframework_tpu_torch.backend.renderer"
         " import FrameConfig, Renderer\n"
-        "import realtimepathtracingresearchframework_tpu_torch.profile_frame\n"
-        "from realtimepathtracingresearchframework_tpu.models import procedural\n"
-        "from realtimepathtracingresearchframework_tpu.models.scene import Scene\n"
+        "from realtimepathtracingresearchframework_tpu_torch.models import procedural\n"
+        "from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene\n"
         "r = Renderer(device='cpu')\n"
         "r.initialize(16, 16)\n"
         "r.set_scene(Scene.from_vkr_scene(procedural.cornell_box()))\n"
         "r.render(FrameConfig())\n"
         "img = r.readback_accumulation()\n"
         "assert img.shape == (16, 16, 4) and (img == img).all()\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'realtimepathtracingresearchframework_tpu')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -278,10 +285,15 @@ def test_cuda_renderer_needs_a_card():
             Renderer(device="cuda")
 
 
-@pytest.mark.parametrize("field", [f for f, _, _ in ti._UNPORTED])
+@pytest.mark.parametrize("field", [f for f, _, _ in ti._UNPORTED] + ["compact"])
 def test_unported_configs_raise(field):
+    """Every unported switch raises naming its ROADMAP item; the
+    coherence-sorted dispatch (``compact``) is ported now and runs."""
     value = 1 if field == "debug_mode" else True
     cfg = ti.IntegratorConfig(**{field: value})
+    if field == "compact":
+        ti.check_supported(cfg)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         ti.check_supported(cfg)
 
