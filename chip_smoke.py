@@ -7,37 +7,59 @@ non-zero, printing no result, without them or outside a checkout.
 
 Phases (each raises on failure):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the three traversal kernels from source, one nvcc each, all
-     at once: K1 (csrc/traverse_resident.cu), K2 (csrc/traverse_flat_cull.cu)
-     and K3 (csrc/traverse_precull.cu);
+  2. build: the five traversal kernels from source, one nvcc each, all
+     at once: K1 (csrc/traverse_resident.cu), K2 (csrc/traverse_flat_cull.cu),
+     K3 (csrc/traverse_precull.cu), K4 (csrc/traverse_streamed.cu) and K5
+     (csrc/traverse_binned.cu), with nvcc's registers and spills;
   3. the cornell main path: 1920x1080, 1 spp, depth 9, one warm-up frame
-     and 4 timed frames, with the K1 launch count of that run;
+     and timed frames; K1 must launch, K2-K5 not;
   4. the terrain200 path: procedural.terrain(grid=200), 80,000 tris, at
      1920x1080, 1 spp, depth 9, through the wavefront executor: one
-     warm-up frame and 4 timed frames; K2 and K3 must launch, K1 not
-     (the two timed paths run first, before the plain versions and the
-     CPU renders load the host);
-  5. K1 against its plain PyTorch version on the card: the cornell main
+     warm-up frame and timed frames; K2 and K3 must launch, K1, K4, K5 not;
+  5. the terrain500 paths: procedural.terrain(grid=500), 500,000 tris, on
+     the streamed route (monolithic pass, K4 for closest hits, K5 for
+     shadow rays), at 1920x1080, 1 spp, depth 9 and at the bench's
+     512x384, 1 spp, depth 3: the pack's set-up seconds, one warm-up frame
+     and timed frames; K4 and K5 must launch, K1-K3 not (every count is
+     set to 0 just before each path and read just after; the timed paths
+     run first, before the plain versions and the CPU renders load the
+     host);
+  6. K1 against its plain PyTorch version on the card: the cornell main
      path's shape (1080p chunk of 524,288 rays) and two terrain scenes (20k
      tris at leaf 32, 80k tris at leaf 128) with 262,144-ray coherent,
      incoherent and occlusion queues; rows and blocked flags must be equal,
      and t, u, v bitwise equal. On the terrain queues K2 and K3 too (the
      incoherent ones coherence-sorted, as the renderer sorts its bounce
      queues): each equal to its plain version and to K1, bitwise;
-  6. K2 and K3 at the terrain200 path's shapes: the 1080p frame's 2,097,152
+  7. K2 and K3 at the terrain200 path's shapes: the 1080p frame's 2,097,152
      primary lanes (K2, unsorted) and a bounce-1 queue, the primaries' hit
      points with scattered directions, coherence-sorted (K3); closest and
      occluded, each equal to its plain version and to K1 bitwise, all three
      timed with CUDA events beside the bound of the function;
-  7. the goldens cornell_diffuse and sun_sky rendered on the card, through
+  8. K4 and K5 at the terrain500 1080p path's shapes: its primary chunk
+     (524,288 lanes) with the most hits, a bounce-1 chunk (the primaries' hit points,
+     scattered directions) and a sun shadow queue from those hit points.
+     On each: K4 closest (coherence-sorted, as the renderer dispatches it)
+     and any-hit, K5 closest (2 rounds) and any-hit (1 round), each with
+     its K4 cleanup, against their plain versions (rows and flags equal,
+     t/u/v bitwise), and one K5 launch of the first round against its plain
+     version; across kernels K4 = K5 = K1 (K1 over a resident leaf-128 BVH
+     of the same triangles): triangle ids equal except on exact-t ties,
+     which are counted, and t bitwise equal everywhere. Timed with CUDA
+     events beside the bound of the function;
+  9. the goldens cornell_diffuse and sun_sky rendered on the card, through
      K1: against the port's own CPU render of them (the CPU tests hold that
      render to the JAX package run op by op) with equal ray counts, at most
      1% of pixels over 1e-3 and a relative L1 error of at most 1e-4
      (goldens.compare_card), and against tests/goldens/*.pfm at the golden
      gate of goldens.py;
-  8. a small terrain (48x48, 8k tris) forced onto the flat-cull route
+ 10. a small terrain (48x48, 8k tris) forced onto the flat-cull route
      (RPTR_TRAVERSAL_V3=1, the wavefront executor) on the card against the
-     port's CPU render of it: equal ray counts and goldens.compare_card.
+     port's CPU render of it: equal ray counts and goldens.compare_card;
+ 11. procedural.terrain(grid=48), 4,608 tris in 5 subtrees, forced onto the
+     streamed route (RPTR_FORCE_STREAMED_TRAVERSAL=1) at 48x48 on the card
+     against the port's CPU render: equal ray counts and
+     goldens.compare_card; K4 and K5 must launch.
 Its last two lines are the kernels' JSON record and the result JSON.
 """
 
@@ -60,10 +82,17 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                            f"{REF}/traverse_pallas3.py:137"),
     "traverse_precull": (f"{PKG}/csrc/traverse_precull.cu",
                          f"{REF}/traverse_pallas3.py:723"),
+    "traverse_streamed": (f"{PKG}/csrc/traverse_streamed.cu",
+                          f"{REF}/traverse_stream.py:493"),
+    "traverse_binned": (f"{PKG}/csrc/traverse_binned.cu",
+                        f"{REF}/traverse_binned.py:218"),
 }
 QUEUE = 262_144
 TIMED_FRAMES = 4
+STREAM_FRAMES = 3  # timed frames of the terrain500 1080p path
 MAIN_SIZE = (1920, 1080)
+BENCH_SIZE = (512, 384)  # bench.py's terrain row
+STREAM_GRID = 500  # procedural.terrain(grid=500): 500,000 tris
 DEVICE = "cuda"
 # the bound of the traversal function (PERF.md): the larger of the bytes
 # over the card's memory rate and the Moller-Trumbore flops over its f32
@@ -540,11 +569,34 @@ def phase_small_terrain():
     check(min(launched) > 0, "small terrain did not launch K2 and K3")
 
 
-def _timed_frames(label, r, cfg, counters):
-    """Warm-up plus TIMED_FRAMES frames; returns the launch counts of the
-    run (``counters``: name -> (reset, read))."""
+def _counters():
+    """name -> (reset, read) of every traversal kernel's launch count."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_binned as tb,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_stream as ts,
+    )
+
+    return {
+        "K1": (tr.reset_launches, lambda: tr.launches),
+        "K2": (tf.reset_launches, lambda: tf.launches_k2),
+        "K3": (lambda: None, lambda: tf.launches_k3),
+        "K4": (ts.reset_launches, lambda: ts.launches_k4),
+        "K5": (tb.reset_launches, lambda: tb.launches_k5),
+    }
+
+
+def _timed_frames(label, r, cfg, frames=TIMED_FRAMES):
+    """Warm-up plus ``frames`` frames; returns the launch counts of the
+    run, every count set to 0 just before it and read just after."""
     import torch
 
+    counters = _counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for reset, _ in counters.values():
@@ -554,7 +606,7 @@ def _timed_frames(label, r, cfg, counters):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     frame_ms, rays = [], []
-    for _ in range(TIMED_FRAMES):
+    for _ in range(frames):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -570,7 +622,8 @@ def _timed_frames(label, r, cfg, counters):
     nonneg = bool((img >= 0).all())
     mrays = sum(rays) / (sum(frame_ms) * 1e-3) / 1e6
     width, height = r.fb_width, r.fb_height
-    log(f"{label} {width}x{height} spp 1 depth 9: warm-up "
+    log(f"{label} {width}x{height} spp 1 depth "
+        f"{cfg.params.max_path_depth}: warm-up "
         f"{warm_s * 1e3:.1f} ms, frame ms {[round(x, 3) for x in frame_ms]}, "
         f"median {float(np.median(frame_ms)):.3f} ms, {mrays:.3f} Mray/s "
         f"({rays[0]} rays/frame), launches {launches}, live lanes per bounce "
@@ -584,42 +637,342 @@ def _timed_frames(label, r, cfg, counters):
 def phase_main_path():
     """Cornell at MAIN_SIZE (1920x1080), 1 spp, depth 9, through the port's
     Renderer. Returns the K1 launch count of this run."""
-    from realtimepathtracingresearchframework_tpu_torch.ops import (
-        traverse_resident as tr,
-    )
     from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
         frame_setup,
     )
 
     r, cfg = frame_setup("cornell", DEVICE, MAIN_SIZE)
-    launches = _timed_frames("main path cornell", r, cfg, {
-        "K1": (tr.reset_launches, lambda: tr.launches)})
+    launches = _timed_frames("main path cornell", r, cfg)
     check(launches["K1"] > 0, "main path did not launch K1")
+    check(max(launches[k] for k in ("K2", "K3", "K4", "K5")) == 0,
+          f"main path launched other kernels: {launches}")
     return launches["K1"]
 
 
 def phase_terrain_path():
     """procedural.terrain(grid=200) at MAIN_SIZE, 1 spp, depth 9, through the
     wavefront executor. Returns the K2 and K3 launch counts of this run."""
-    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
-    from realtimepathtracingresearchframework_tpu_torch.ops import (
-        traverse_resident as tr,
-    )
     from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
         frame_setup,
     )
 
     r, cfg = frame_setup("terrain", DEVICE, MAIN_SIZE)
-    launches = _timed_frames("terrain200 path", r, cfg, {
-        "K1": (tr.reset_launches, lambda: tr.launches),
-        "K2": (tf.reset_launches, lambda: tf.launches_k2),
-        "K3": (lambda: None, lambda: tf.launches_k3),
-    })
+    launches = _timed_frames("terrain200 path", r, cfg)
     check(r._wavefront is not None, "terrain200 did not take the wavefront executor")
     check(launches["K2"] > 0 and launches["K3"] > 0,
           f"terrain200 path did not launch K2 and K3: {launches}")
-    check(launches["K1"] == 0, f"terrain200 path launched K1: {launches}")
+    check(launches["K1"] + launches["K4"] + launches["K5"] == 0,
+          f"terrain200 path launched K1, K4 or K5: {launches}")
     return launches
+
+def phase_stream_paths():
+    """procedural.terrain(grid=500) on the streamed route at MAIN_SIZE, 1 spp,
+    depth 9, and at the bench's BENCH_SIZE, 1 spp, depth 3. Returns
+    {label: launches} and the 1080p path's (renderer, frame config)."""
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    out, main = {}, None
+    for label, size, depth, frames in (
+        ("terrain500 1080p", MAIN_SIZE, 9, STREAM_FRAMES),
+        ("terrain500 bench row", BENCH_SIZE, 3, TIMED_FRAMES),
+    ):
+        r, cfg = frame_setup("terrain", DEVICE, size, depth, grid=STREAM_GRID)
+        bb = r.device_scene.bvh
+        check(r._route.streamed, f"{label} is not on the streamed route")
+        log(f"{label}: set-up (streamed pack and upload) {r.setup_seconds:.2f} s, "
+            f"{bb.num_subtrees} subtrees of {bb.sub_leaves} leaves, "
+            f"{bb.num_top_nodes} top nodes")
+        launches = _timed_frames(label, r, cfg, frames)
+        check(r._wavefront is None, f"{label} took the wavefront executor")
+        check(launches["K4"] > 0 and launches["K5"] > 0,
+              f"{label} did not launch K4 and K5: {launches}")
+        check(launches["K1"] + launches["K2"] + launches["K3"] == 0,
+              f"{label} launched K1, K2 or K3: {launches}")
+        out[label] = launches
+        if main is None:
+            main = (r, cfg)
+    return out, main
+
+
+def _plain_ms(fn):
+    """(result, ms) of one call of a plain version, timed with CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _equal(a, b):
+    """(mismatches, max |a - b|) over tuples of tensors compared bitwise."""
+    if not isinstance(a, tuple):
+        a, b = (a,), (b,)
+    bad, err = 0, 0.0
+    for x, y in zip(a, b):
+        m, e = _bitwise(x, y)
+        bad, err = bad + m, max(err, e)
+    return bad, err
+
+
+def _across(label, t_a, tri_a, t_b, tri_b):
+    """Triangle ids equal except on exact-t ties, t bitwise equal
+    everywhere. Returns the number of ties."""
+    t_bad = _bitwise(t_a, t_b)[0]
+    check(t_bad == 0, f"{label}: t differs on {t_bad} lanes")
+    return int((tri_a != tri_b).sum())
+
+
+def stream_bound(bb, rays, t_end, any_hit, sid_lane=None):
+    """The bound of K4 and K5 on this queue (ms, bound_by, pairs): as
+    ``bound`` over the streamed pack's leaf boxes; with ``sid_lane`` (a K5
+    launch) only the leaves of each lane's subtree count."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_stream as ts,
+    )
+
+    aabbs, leaf_sid = ts.leaf_boxes(bb)
+    if sid_lane is None:
+        return bound(aabbs, ts.LEAF, rays, t_end, any_hit)
+    seg = rays.clone()
+    seg[7] = torch.minimum(rays[7], t_end)
+    n, lpad = rays.shape[1], aabbs.shape[1]
+    step = max(1, (1 << 23) // lpad)
+    pairs = sum(
+        int((tf.ray_leaf_hits(seg[:, k:k + step], aabbs)
+             & (leaf_sid[None] == sid_lane[k:k + step, None])).sum())
+        for k in range(0, n, step))
+    bytes_ms = n * (RAY_BYTES + 2 * HIT_BYTES) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = MT_FLOPS * ts.LEAF * pairs / PEAK_F32_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", pairs)
+
+
+def compare_stream_queue(label, bb, fb, rays, rng, orays=None, iters=5):
+    """K4 and K5 on one packed queue against their plain versions and
+    against K1 (``fb``, resident). ``orays``: the any-hit segments, by
+    default just short of (0.999 t) or past (1.001 t) each closest hit.
+    Returns the K4 closest record and the closest t (caller order)."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_binned as tb,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_stream as ts,
+    )
+
+    live = int((rays[7] > rays[6]).sum())
+    srt, inv = ts._sort_operand(bb, rays)
+    hk = ts.launch(bb, srt, False)
+    hp, p_ms = _plain_ms(lambda: ts.plain(bb, srt, False))
+    bad4, err = _equal(hk, hp)
+    k4_ms = cuda_ms(lambda: ts.launch(bb, srt, False), iters)
+    h4 = ts._out_to_hit(bb, tuple(x[inv] for x in hk), rays.shape[1], True)
+    t4, tri4 = h4.t, h4.tri
+    h1 = _k1(fb, rays, False)
+    k1_ms = cuda_ms(lambda: _k1(fb, rays, False), iters)
+    tri1 = traverse.map_rows_to_tris(fb, h1).tri
+    ties41 = _across(f"{label} K4 vs K1", t4, tri4, h1.t, tri1)
+    b_ms, b_by, pairs = stream_bound(bb, rays, t4, False)
+
+    h5 = tb._run_rounds(bb, rays, 512, 2, False)
+    p5, p5_ms = _plain_ms(lambda: tb._run_rounds(bb, rays, 512, 2, False, True))
+    bad5, e5 = _equal(h5, p5)
+    k5_ms = cuda_ms(lambda: tb._run_rounds(bb, rays, 512, 2, False), iters)
+    tri5 = ts._out_to_hit(bb, h5, rays.shape[1], True).tri
+    ties54 = _across(f"{label} K5 vs K4", h5[0], tri5, t4, tri4)
+    ties51 = _across(f"{label} K5 vs K1", h5[0], tri5, h1.t, tri1)
+
+    if orays is None:
+        scale = torch.from_numpy(np.where(
+            rng.uniform(size=rays.shape[1]) < 0.5, 0.999, 1.001
+        ).astype(np.float32)).to(rays.device)
+        orays = rays.clone()
+        orays[7] = torch.where(rays[7] > rays[6],
+                               torch.where(tri4 >= 0, t4 * scale, 1e30), rays[7])
+    ok4 = ts.launch(bb, orays, True)
+    op4, op4_ms = _plain_ms(lambda: ts.plain(bb, orays, True))
+    occ4 = _equal(ok4, op4)[0]
+    occ4_ms = cuda_ms(lambda: ts.launch(bb, orays, True), iters)
+    ok5 = tb._run_rounds(bb, orays, 512, 1, True)
+    op5, op5_ms = _plain_ms(lambda: tb._run_rounds(bb, orays, 512, 1, True, True))
+    occ5 = _equal(ok5, op5)[0]
+    occ5_ms = cuda_ms(lambda: tb._run_rounds(bb, orays, 512, 1, True), iters)
+    b1 = _k1(fb, orays, True)
+    occ1_ms = cuda_ms(lambda: _k1(fb, orays, True), iters)
+    occ41, occ51 = _bitwise(ok4, b1)[0], _bitwise(ok5, b1)[0]
+    log(f"  {label:22s} ({live} live): K4 closest sorted {bad4} vs plain not "
+        f"bitwise, {k4_ms:.3f} ms (plain {p_ms:.1f}), K1 {k1_ms:.3f} ms, "
+        f"hit {(tri4 >= 0).float().mean().item():.3f}, ties vs K1 {ties41}; "
+        f"K5 closest 2 rounds {bad5} vs plain, {k5_ms:.3f} ms (plain "
+        f"{p5_ms:.1f}), ties vs K4 {ties54}, vs K1 {ties51}; any-hit K4 "
+        f"{occ4} vs plain, {occ41} vs K1, {occ4_ms:.3f} ms (plain "
+        f"{op4_ms:.1f}), K5 1 round {occ5} vs plain, {occ51} vs K1, "
+        f"{occ5_ms:.3f} ms (plain {op5_ms:.1f}), K1 {occ1_ms:.3f} ms, "
+        f"blocked {ok4.float().mean().item():.3f}; K4 bound {b_ms:.4f} ms "
+        f"by {b_by} ({pairs} ray-leaf pairs)")
+    check(bad4 == 0 and occ4 == 0, f"{label}: K4 disagrees with its plain version")
+    check(bad5 == 0 and occ5 == 0, f"{label}: K5 disagrees with its plain version")
+    check(occ41 == 0 and occ51 == 0, f"{label}: K4/K5 any-hit disagrees with K1")
+    return {"ms": k4_ms, "plain_ms": p_ms, "k1_ms": k1_ms,
+            "max_abs_err": max(err, e5), "bound_ms": b_ms,
+            "bound_by": b_by}, t4
+
+
+def compare_k5_launch(label, bb, rays, t_end, shadow, iters=5):
+    """One K5 launch, the first round of the binned dispatch of ``rays``,
+    against its plain version. Returns its record."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_binned as tb,
+    )
+
+    n, dev = rays.shape[1], rays.device
+    sb = tb.subtree_bounds(bb)
+    s = sb.shape[0]
+    srt, inv = tb._coherence_perm(bb, rays)
+    entry = tb._entry_table(sb, srt)
+    sid, _ = tb._next_subtree(
+        entry, torch.full((n,), -2.0e32, device=dev),
+        torch.full((n,), -1, dtype=torch.int32, device=dev), srt[7])
+    sid_blk, prays, pbest, pos = tb.round_operand(
+        srt, tb.miss_best(n, dev), sid, s, 512, tb.padded_lanes(n, s, 512))
+    prays = prays.contiguous()
+    pbest = tuple(x.contiguous() for x in pbest)
+    k = tb.launch(bb, sid_blk, prays, pbest, 512, shadow)
+    p, p_ms = _plain_ms(lambda: tb.plain(bb, sid_blk, prays, pbest, 512, shadow))
+    bad, err = _equal(k, p)
+    ms = cuda_ms(lambda: tb.launch(bb, sid_blk, prays, pbest, 512, shadow), iters)
+    # the bound counts the leaves of each lane's one subtree up to its
+    # closest hit, on the source lanes
+    t_sorted = t_end[torch.argsort(inv)]
+    b_ms, b_by, pairs = stream_bound(bb, srt, t_sorted, shadow,
+                                     sid_lane=sid.to(torch.int64))
+    log(f"  {label:22s} K5 launch ({'any-hit' if shadow else 'closest'}, "
+        f"{prays.shape[1]} padded lanes, {int((sid_blk >= 0).sum())} bin "
+        f"blocks): {bad} vs plain not bitwise, {ms:.3f} ms (plain {p_ms:.1f}), "
+        f"bound {b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs)")
+    check(bad == 0, f"{label}: K5 launch disagrees with its plain version")
+    return {"ms": ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def phase_streamed(r, cfg, smi):
+    """K4 and K5 at the terrain500 1080p path's chunk shapes against their
+    plain versions and K1. Returns {kernel: record}."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.models import procedural
+    from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
+    from realtimepathtracingresearchframework_tpu_torch.ops import bvh as bvh_mod
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+    from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_stream as ts,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
+    from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
+
+    rng = np.random.default_rng(500)
+    bb = r.device_scene.bvh
+    t0 = time.perf_counter()
+    flat = Scene.from_vkr_scene(
+        procedural.terrain(grid=STREAM_GRID)).flatten_world()
+    fb = tr.pack_resident(bvh_mod.build_threaded_bvh(
+        flat.v0, flat.e1, flat.e2, leaf_size=128, builder="sah"), DEVICE)
+    log(f"K4, K5 at the terrain500 path's shapes ({bb.num_subtrees} subtrees, "
+        f"{bb.num_top_nodes} top nodes), against K1 over a resident leaf-128 "
+        f"BVH ({fb.num_nodes} nodes, built in {time.perf_counter() - t0:.1f} "
+        f"s), {smi}:")
+    width, height = MAIN_SIZE
+    view = integrator.ViewBuffers(*(
+        torch.from_numpy(a).to(DEVICE)
+        for a in cfg.camera.view_basis(width, height)
+    ))
+
+    def primaries(c):
+        px, py, valid = (x[c] for x in r._swizzle)
+        state = pointsets.make_state(0, 0, 0, px, py, width)
+        _, ro, rd = integrator.camera_setup(
+            integrator.IntegratorConfig(), view, px, py,
+            (float(width), float(height)), state,
+        )
+        return tr.pack_rays(ro, rd, 0.0, torch.where(valid, T_MAX, 0.0), 512)[0]
+
+    # the frame's chunk with the most primary hits (the top chunks of the
+    # 16x16-tile order are mostly sky)
+    hits = [int((ts.launch(bb, primaries(c), False)[1] >= 0).sum())
+            for c in range(len(r._swizzle[0]))]
+    c = int(np.argmax(hits))
+    prim = primaries(c)
+    n = prim.shape[1]
+    rec4, t = compare_stream_queue(f"primary chunk {c}", bb, fb, prim, rng)
+    # bounce 1 and the sun shadow queue start at the primaries' hit points
+    hit = t < 1e30
+    p = [prim[k] + prim[3 + k] * torch.where(hit, t, 0.0) for k in range(3)]
+    eps = (torch.sqrt(p[0] * p[0] + p[1] * p[1] + p[2] * p[2])
+           + torch.where(hit, t, 0.0)) * integrator.RAY_EPSILON
+    d = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)).to(DEVICE)
+    d = d / torch.sqrt((d * d).sum(0))
+    bounce, _ = tr.pack_rays(Vec3(*p), Vec3(*d), eps,
+                             torch.where(hit, T_MAX, 0.0), 512)
+    sun = np.asarray(cfg.scene_config.sun_dir, np.float32)
+    sun = torch.from_numpy(sun / np.linalg.norm(sun)).to(DEVICE)
+    shadow, _ = tr.pack_rays(Vec3(*p), Vec3(*(sun[k].expand(n) for k in range(3))),
+                             eps, torch.where(hit, 2.0e16, 0.0), 512)
+    compare_stream_queue("bounce 1", bb, fb, bounce, rng)
+    _, t_shadow = compare_stream_queue("sun shadow", bb, fb, shadow, rng,
+                                       orays=shadow)
+    rec5 = compare_k5_launch("sun shadow", bb, shadow, t_shadow, True)
+    compare_k5_launch(f"primary chunk {c}", bb, prim, t, False)
+    return {"traverse_streamed": rec4, "traverse_binned": rec5}
+
+
+def phase_small_streamed():
+    """procedural.terrain(grid=48) forced onto the streamed route, on the
+    card against the port's CPU render."""
+    from realtimepathtracingresearchframework_tpu_torch import goldens
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    out = {}
+    with env(RPTR_FORCE_STREAMED_TRAVERSAL="1"):
+        for device in (DEVICE, "cpu"):
+            counters = _counters()
+            for reset, _ in counters.values():
+                reset()
+            r, cfg = frame_setup("terrain", device, (48, 48), grid=48)
+            check(r._route.streamed, "terrain48 is not on the streamed route")
+            rays = []
+            for _ in range(2):
+                r.render(cfg)
+                rays.append(r.last_ray_count())
+            out[device] = (r.readback_accumulation()[..., :3], rays,
+                           {k: read() for k, (_, read) in counters.items()})
+    (img, rays, launched), (cpu_img, cpu_rays, _) = out[DEVICE], out["cpu"]
+    vs_cpu = goldens.compare_card(img, cpu_img)
+    log(f"terrain grid=48 48x48 depth 9, 2 frames, streamed route: vs port CPU "
+        f"render {vs_cpu}; rays {rays} (CPU {cpu_rays}), launches {launched}")
+    check(rays == cpu_rays, f"small streamed terrain: rays {rays}, CPU {cpu_rays}")
+    check(vs_cpu["ok"], f"small streamed terrain: card render off the CPU render: {vs_cpu}")
+    check(launched["K4"] > 0 and launched["K5"] > 0,
+          f"small streamed terrain did not launch K4 and K5: {launched}")
 
 
 def main():
@@ -638,16 +991,25 @@ def main():
     phase_build()
     k1_launches = phase_main_path()
     terrain = phase_terrain_path()
+    stream, (r500, cfg500) = phase_stream_paths()
     k1 = dict(phase_parity(), launches=k1_launches)
     flat = phase_flat(smi)
+    streamed = phase_streamed(r500, cfg500, smi)
+    del r500
     phase_goldens()
     phase_small_terrain()
+    phase_small_streamed()
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 
+    main_stream = stream["terrain500 1080p"]
     records = {
         "traverse_resident": k1,
         tf.K2: dict(flat[tf.K2], launches=terrain["K2"]),
         tf.K3: dict(flat[tf.K3], launches=terrain["K3"]),
+        "traverse_streamed": dict(streamed["traverse_streamed"],
+                                  launches=main_stream["K4"]),
+        "traverse_binned": dict(streamed["traverse_binned"],
+                                launches=main_stream["K5"]),
     }
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -5,26 +5,32 @@
 accumulation buffers: ``set_scene`` flattens the scene, picks the traversal
 route by triangle count as the reference does on a chip (``route_for``;
 renderer.py:588-608, 815-847), builds the SAH BVH on the host with that
-route's leaf size, packs it for the resident kernels and uploads the
-attribute tables in BVH-row order (renderer.py:894-917) plus the lights
-and sky (renderer.py:961-1058). ``render`` runs the frame: the host chunk
-loop of the monolithic pass (renderer.py:1244-1440), or on large scenes the
-bounce-major wavefront executor (renderer.py:1340-1370;
+route's leaf size and packs it for the resident kernels, or packs the
+streamed two-level layout (renderer.py:782-797), and uploads the attribute
+tables (in BVH-row order on the resident routes, in source-triangle order
+on the streamed route; renderer.py:894-917) plus the lights and sky
+(renderer.py:961-1058). ``render`` runs the frame: the host chunk loop of
+the monolithic pass (renderer.py:1244-1440), or on large resident scenes
+the bounce-major wavefront executor (renderer.py:1340-1370;
 ``ops/wavefront_host.py``), accumulating in place.
 ``readback_accumulation`` un-swizzles the planar buffers into an
 (H, W, 4) image.
 
 Routes: up to 16,383 triangles the resident walk K1; from 16,384 to
 90,000 the flat-cull kernels K2 and K3 with coherence-sorted queues and the
-wavefront executor; above 90,000 the streamed kernels, not ported yet
-(``NotImplementedError``). Each kernel runs on ``device="cuda"``, its plain
-version on ``device="cpu"`` (the tests' device). There is no CPU fallback
-for a CUDA renderer.
+wavefront executor; above 90,000 (or with
+``RPTR_FORCE_STREAMED_TRAVERSAL``) the streamed route: the monolithic pass
+with the sorted streamed walk K4 for closest hits and one binned round of
+K5 for shadow rays (``RPTR_STREAM_CLOSEST`` picks the closest-hit
+strategy). Each kernel runs on ``device="cuda"``, its plain version on
+``device="cpu"`` (the tests' device). There is no CPU fallback for a CUDA
+renderer.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import List, NamedTuple, Optional
@@ -51,6 +57,7 @@ from realtimepathtracingresearchframework_tpu_torch.models import sky as sky_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import nee as nee_mod
 from realtimepathtracingresearchframework_tpu_torch.ops.integrator import (
     RAYS_PER_PASS,
+    STREAM_CLOSEST,
     DeviceScene,
     FrameParams,
     IntegratorConfig,
@@ -67,6 +74,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse_flat import (
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     pack_resident,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_stream
 from realtimepathtracingresearchframework_tpu_torch.ops.wavefront_host import (
     WavefrontExecutor,
 )
@@ -90,6 +98,7 @@ class Route(NamedTuple):
     kernel_v3: bool  # K2/K3 flat cull instead of the K1 walk
     compact: bool  # coherence-sorted dispatch past bounce 0
     leaf_size: int
+    streamed: bool = False  # the streamed pack, K4 and K5
 
 
 def _env_flag(name: str, default: bool) -> bool:
@@ -102,16 +111,16 @@ def _env_flag(name: str, default: bool) -> bool:
 def route_for(num_tris: int) -> Route:
     """The route the reference's renderer takes for a static, untextured
     scene of ``num_tris`` triangles on a chip (renderer.py:588-608,
-    815-847), with its overrides: ``RPTR_TRAVERSAL_V3=1/0`` forces the
-    flat cull on or off. Above ``RESIDENT_MAX_TRIS`` the reference streams
-    the BVH (kernels K4/K5), and ``RPTR_TRAVERSAL_V1`` selects the v1
-    walk (K8a/K8b); neither is ported yet."""
-    if num_tris > RESIDENT_MAX_TRIS:
-        raise NotImplementedError(
-            f"{num_tris} triangles: scenes above {RESIDENT_MAX_TRIS} take the "
-            "streamed traversal (K4/K5), not ported yet (port slice D, "
-            "ROADMAP item 17)"
-        )
+    815-847), with its overrides. Above ``RESIDENT_MAX_TRIS``, or with
+    ``RPTR_FORCE_STREAMED_TRAVERSAL`` set, the streamed route (K4/K5; no
+    flat cull, no per-dispatch sort, no wavefront executor). Otherwise
+    ``RPTR_TRAVERSAL_V3=1/0`` forces the flat cull on or off, and
+    ``RPTR_TRAVERSAL_V1`` selects the v1 walk (K8a/K8b), not ported yet."""
+    if os.environ.get("RPTR_FORCE_STREAMED_TRAVERSAL") or (
+        num_tris > RESIDENT_MAX_TRIS
+    ):
+        return Route(kernel_v3=False, compact=False,
+                     leaf_size=traverse_stream.LEAF, streamed=True)
     if os.environ.get("RPTR_TRAVERSAL_V1"):
         raise NotImplementedError(
             "RPTR_TRAVERSAL_V1: the v1 walk (K8a/K8b) is not ported yet "
@@ -159,6 +168,8 @@ class Renderer:
         self._has_thin = False
         self._route: Optional[Route] = None
         self._wavefront: Optional[WavefrontExecutor] = None
+        self.setup_seconds = 0.0  # host build + pack + upload of the BVH
+        self._streamed_topo = None  # for the streamed refit (ROADMAP item 17)
         self._last_rays: List[torch.Tensor] = []
         self.live_profile: List[int] = []  # wavefront live lanes per bounce
 
@@ -187,8 +198,9 @@ class Renderer:
 
     def set_scene(self, scene: Scene,
                   scene_config: SceneConfig = SceneConfig()) -> None:
-        """Scene upload: flatten, BVH build + resident pack, attribute
-        tables in BVH-row order, lights and sky."""
+        """Scene upload: flatten, BVH build + resident pack and attribute
+        tables in BVH-row order, or the streamed pack and attribute tables
+        in source-triangle order; lights and sky."""
         self.scene = scene
         flat = scene.flatten_world(lod_threshold=scene_config.lod_threshold)
         if scene.textures:
@@ -198,17 +210,35 @@ class Renderer:
                 "LoD re-selection is not ported yet (ROADMAP item 21)"
             )
         self._route = route = route_for(flat.num_tris)
-        leaf_size = route.leaf_size
-        # static scenes get the binned-SAH builder, animated ones the fast
-        # Morton median split (renderer.py:855-859)
-        animated = any(a.num_animated for a in getattr(scene, "animation_data", []))
-        builder = bvh_mod.build_bvh if animated else bvh_mod.build_bvh_sah
-        topology = builder(flat.v0, flat.e1, flat.e2, leaf_size=leaf_size)
-        tb = bvh_mod.thread_bvh(topology, flat.v0, flat.e1, flat.e2)
-
-        # attributes in BVH-row order: the kernel's row IS the attribute
-        # index (padded rows clamp to a real tri and can never win a hit)
-        ix = np.clip(np.asarray(tb.row_tri), 0, flat.num_tris - 1)
+        dev = self.device
+        t0 = time.perf_counter()
+        if route.streamed:
+            if self.options.quantized_geometry:
+                raise NotImplementedError(
+                    "quantized streamed geometry is not ported yet "
+                    f"({traverse_stream.QUANTIZED_ITEM})")
+            bvh, self._streamed_topo = traverse_stream.pack_streamed(
+                flat.v0, flat.e1, flat.e2, with_topology=True, device=dev)
+            # hits carry source triangle ids: attributes in source order
+            ix = slice(None)
+        else:
+            # static scenes get the binned-SAH builder, animated ones the
+            # fast Morton median split (renderer.py:855-859)
+            animated = any(a.num_animated
+                           for a in getattr(scene, "animation_data", []))
+            builder = bvh_mod.build_bvh if animated else bvh_mod.build_bvh_sah
+            topology = builder(flat.v0, flat.e1, flat.e2,
+                               leaf_size=route.leaf_size)
+            tb = bvh_mod.thread_bvh(topology, flat.v0, flat.e1, flat.e2)
+            bvh = (pack_flat if route.kernel_v3 else pack_resident)(tb, dev)
+            # attributes in BVH-row order: the kernel's row IS the attribute
+            # index (padded rows clamp to a real tri and never win a hit)
+            ix = np.clip(np.asarray(tb.row_tri), 0, flat.num_tris - 1)
+        self.setup_seconds = time.perf_counter() - t0
+        if route.streamed:
+            print(f"set_scene: streamed pack of {flat.num_tris} tris into "
+                  f"{bvh.num_subtrees} subtrees of {bvh.sub_leaves} leaves in "
+                  f"{self.setup_seconds:.2f} s", flush=True)
         rows = SimpleNamespace(**{
             name: np.asarray(getattr(flat, name))[ix]
             for name in ("e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
@@ -222,8 +252,6 @@ class Renderer:
             raise NotImplementedError("the alpha test is not ported yet (ROADMAP item 12)")
         self._has_thin = any(m.flags & BASE_MATERIAL_THIN for m in scene.materials)
 
-        dev = self.device
-        bvh = (pack_flat if route.kernel_v3 else pack_resident)(tb, dev)
         attr = pack_attr_table(rows, rows).to(dev)
         mats = pack_material_table(mat_table).to(dev)
 
@@ -242,12 +270,23 @@ class Renderer:
         )
         self._wavefront = None
 
+    def _stream_closest_strategy(self) -> str:
+        """``RPTR_STREAM_CLOSEST``, validated as renderer.py:1077-1089
+        validates it: a typo raises ``ValueError``."""
+        v = os.environ.get("RPTR_STREAM_CLOSEST", "sorted")
+        if v not in STREAM_CLOSEST:
+            raise ValueError(
+                f"RPTR_STREAM_CLOSEST={v!r}: expected one of {STREAM_CLOSEST}")
+        return v
+
     def _integrator_config(self, params: RenderParams) -> IntegratorConfig:
         """renderer.py:1104-1157 for the ported options. Carry compaction
         (``RPTR_COMPACT_LANES``, default on with the flat cull) is the
         monolith's, and the wavefront executor supersedes it; the per-
-        dispatch sort (``RPTR_COMPACT``) defaults on from 16,384 triangles;
-        ``RPTR_KERNEL_V4=0`` keeps the sorted queues on K2."""
+        dispatch sort (``RPTR_COMPACT``) defaults on from 16,384 triangles
+        of a resident scene; ``RPTR_KERNEL_V4=0`` keeps the sorted queues
+        on K2; ``RPTR_STREAM_CLOSEST`` picks the streamed closest-hit
+        strategy."""
         route = self._route
         compact_lanes = _env_flag("RPTR_COMPACT_LANES",
                                   route.kernel_v3)
@@ -268,6 +307,8 @@ class Renderer:
             kernel_v3=route.kernel_v3,
             kernel_v4=route.kernel_v3
             and os.environ.get("RPTR_KERNEL_V4", "1") != "0",
+            streamed=route.streamed,
+            stream_closest=self._stream_closest_strategy(),
         )
 
     def _use_wavefront_host(self, cfg: IntegratorConfig) -> bool:

@@ -1,0 +1,145 @@
+// Shared parts of the streamed kernels K4 (traverse_streamed.cu) and K5
+// (traverse_binned.cu): one thread per ray, the slab test, and the walk of
+// one subtree of the streamed pack (ops/traverse_stream.py::pack_streamed)
+// with Moller-Trumbore over the 128 triangles of every entered leaf.
+//
+// A subtree's node block is slots = node_rows * 16 nodes of 8 floats, node
+// i at offset 8 * i: [min3, max3, skip, local leaf id | -1]. The links are
+// float VALUES (exact below 2^24), read with a float -> int conversion; a
+// skip of SUB_EXIT (255) lies past the last slot and leaves the subtree.
+// Leaf l of the subtree owns the field-major tile tile0 + l * 16 * 128: row
+// f holds field f (v0, e1, e2 xyz) of its 128 triangles, so the 32 threads
+// of a warp that test the same triangle read one address (a broadcast).
+//
+// The walk equals the port's plain threaded walk (ops/traverse.py::_walk)
+// on the subtree decoded to the resident layout
+// (traverse_stream.subtree_resident): enter a node when the slab test
+// passes with t_far capped by the ray's best hit, else jump to its skip
+// link; at a leaf, test its triangles in ascending order in the expression
+// order of traverse_pallas2._mt_leaf, accepting tt > tmin and
+// tt < min(t_best, tmax), so a hit improves strictly and the first visited
+// triangle keeps an exact-t tie.
+//
+// Built with --fmad=false and without fast math (kernels/build.py): every
+// multiply and add rounds on its own, as in the plain version's tensor ops.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rptr_stream {
+
+constexpr float kTMax = 2.0e32f;  // ops/intersect.py T_MAX
+constexpr int kLeaf = 128;        // triangles per leaf tile
+constexpr int kThreads = 128;     // threads per CUDA block
+
+__device__ __forceinline__ float safe_inv(float d) {
+  // ops/intersect.py::safe_inv_dir
+  const float sign = d >= 0.0f ? 1.0f : -1.0f;
+  return sign / fmaxf(fabsf(d), 1e-20f);
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, tmin, tmax, ix, iy, iz;
+
+  // lane i of a packed (8, n) operand [ro3, rd3, tmin, tmax]
+  __device__ void load(const float* __restrict__ rays, int n, int i) {
+    ox = rays[i];
+    oy = rays[n + i];
+    oz = rays[2 * n + i];
+    dx = rays[3 * n + i];
+    dy = rays[4 * n + i];
+    dz = rays[5 * n + i];
+    tmin = rays[6 * n + i];
+    tmax = rays[7 * n + i];
+    ix = safe_inv(dx);
+    iy = safe_inv(dy);
+    iz = safe_inv(dz);
+  }
+};
+
+struct Best {
+  float t;  // the segment end while nothing is found
+  int row;  // global row, -1 = none
+  float u, v;
+  bool blocked;
+};
+
+// ops/intersect.py::ray_aabb on the node box b[0:6], segment [tmin, tcap]
+__device__ __forceinline__ bool slab(const float* b, const Ray& r,
+                                     float tcap) {
+  const float t0x = (b[0] - r.ox) * r.ix;
+  const float t0y = (b[1] - r.oy) * r.iy;
+  const float t0z = (b[2] - r.oz) * r.iz;
+  const float t1x = (b[3] - r.ox) * r.ix;
+  const float t1y = (b[4] - r.oy) * r.iy;
+  const float t1z = (b[5] - r.oz) * r.iz;
+  const float tenter = fmaxf(
+      fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z)), r.tmin);
+  const float texit = fminf(
+      fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z)), tcap);
+  return tenter <= texit;
+}
+
+// Walk one subtree: ``nodes`` its node block (shared or global memory),
+// ``tile0`` its first leaf tile, ``row0`` the global row of its first
+// triangle. Closest mode updates b (t, row, u, v); any-hit mode sets
+// b.blocked at the first hit and returns.
+template <bool kAnyHit>
+__device__ void walk_subtree(const float* nodes, int slots,
+                             const float* __restrict__ tile0, int row0,
+                             const Ray& r, Best& b) {
+  int c = 0;
+  while (c < slots) {
+    const float* nd = nodes + 8 * c;
+    const bool hit_box = slab(nd, r, b.t);
+    const int skip = static_cast<int>(nd[6]);
+    const int leaf = static_cast<int>(nd[7]);
+    if (hit_box && leaf >= 0) {
+      const float* tile = tile0 + static_cast<size_t>(leaf) * 16 * kLeaf;
+      for (int k = 0; k < kLeaf; ++k) {
+        const float v0x = __ldg(tile + 0 * kLeaf + k);
+        const float v0y = __ldg(tile + 1 * kLeaf + k);
+        const float v0z = __ldg(tile + 2 * kLeaf + k);
+        const float e1x = __ldg(tile + 3 * kLeaf + k);
+        const float e1y = __ldg(tile + 4 * kLeaf + k);
+        const float e1z = __ldg(tile + 5 * kLeaf + k);
+        const float e2x = __ldg(tile + 6 * kLeaf + k);
+        const float e2y = __ldg(tile + 7 * kLeaf + k);
+        const float e2z = __ldg(tile + 8 * kLeaf + k);
+        const float px = r.dy * e2z - r.dz * e2y;
+        const float py = r.dz * e2x - r.dx * e2z;
+        const float pz = r.dx * e2y - r.dy * e2x;
+        const float det = e1x * px + e1y * py + e1z * pz;
+        const bool det_ok = fabsf(det) > 1e-12f;
+        const float inv_det = det_ok ? 1.0f / det : 0.0f;
+        const float tvx = r.ox - v0x;
+        const float tvy = r.oy - v0y;
+        const float tvz = r.oz - v0z;
+        const float uu = (tvx * px + tvy * py + tvz * pz) * inv_det;
+        const float qx = tvy * e1z - tvz * e1y;
+        const float qy = tvz * e1x - tvx * e1z;
+        const float qz = tvx * e1y - tvy * e1x;
+        const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+        const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+        const bool hit = det_ok && uu >= 0.0f && vv >= 0.0f &&
+                         uu + vv <= 1.0f && tt > r.tmin &&
+                         tt < fminf(b.t, r.tmax);
+        if (hit) {
+          if (kAnyHit) {
+            b.blocked = true;
+            return;
+          }
+          b.t = tt;
+          b.row = row0 + leaf * kLeaf + k;
+          b.u = uu;
+          b.v = vv;
+        }
+      }
+    }
+    c = (hit_box && leaf < 0) ? c + 1 : skip;
+  }
+}
+
+}  // namespace rptr_stream

@@ -1,0 +1,141 @@
+// Streamed two-level walk (K4) for Hopper: closest hit and any-hit.
+//
+// Replaces the Pallas TPU kernel
+// realtimepathtracingresearchframework_tpu/ops/traverse_stream.py::
+// _kernel_streamed (:493, pallas_call at :781), in its default preorder
+// mode (closest_hit_streamed, occluded_streamed, and the cleanup dispatch
+// of the binned traversal). Its plain PyTorch version, which this kernel
+// must equal bit for bit, is ops/traverse_stream.py::plain.
+//
+// What it computes, per ray: walk the top tree over the subtree boxes in
+// preorder from node 0, entering a node when the slab test passes with
+// t_far capped by the ray's best hit so far (tmax at the start); at a top
+// leaf (payload = subtree id) walk that subtree (stream_walk.cuh) and go on
+// at the leaf's skip link. Hits improve strictly, so the first visited
+// triangle keeps an exact-t tie. Closest mode writes t, global row, u, v (a
+// miss: t = 2e32, row = -1, u = v = 0); any-hit mode stops at the first hit
+// and writes blocked = 1.
+//
+// Design: one thread per ray, each running its own stackless walks. The
+// top tree (Mt nodes x 32 B: 4 KB at 64 subtrees) is staged in shared
+// memory by each block; subtree nodes and leaf tiles are read from global
+// memory through the read-only path. The TPU kernel's per-block packet
+// bounds, scalar cursor, 16-leaf SMEM flush list, whole-subtree tile DMA
+// into VMEM and its ordered mode are TPU devices and are not carried over;
+// per-ray results do not depend on them.
+//
+// What bounds it on this card: divergent, dependent loads of node boxes and
+// tile fields, and the Moller-Trumbore work of every entered leaf (128
+// triangles per leaf visit, ~54 flops each), not device-memory bandwidth:
+// the 500k-triangle pack (32.5 MB of tiles) stays in the 50 MB L2. The
+// design does nothing more about it yet; later work can stage an entered
+// leaf's tile in shared memory per warp, sort rays for coherence (the
+// renderer already does), or test leaf boxes before the triangles.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+// --fmad=false (kernels/build.py), no fast math, so results compare
+// bitwise with the plain version.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "stream_walk.cuh"
+
+namespace {
+
+using rptr_stream::Best;
+using rptr_stream::Ray;
+using rptr_stream::kLeaf;
+using rptr_stream::kThreads;
+
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kThreads) traverse_streamed_kernel(
+    const float* __restrict__ top_g, int num_top,
+    const float* __restrict__ sub_nodes, const float* __restrict__ tiles,
+    int node_rows, int sub_leaves, const float* __restrict__ rays, int n,
+    float* __restrict__ out_t, int* __restrict__ out_row,
+    float* __restrict__ out_u, float* __restrict__ out_v,
+    unsigned char* __restrict__ out_blocked) {
+  extern __shared__ float top[];
+  for (int j = threadIdx.x; j < 8 * num_top; j += blockDim.x) {
+    top[j] = __ldg(top_g + j);
+  }
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+
+  Ray r;
+  r.load(rays, n, i);
+  Best b{r.tmax, -1, 0.0f, 0.0f, false};
+  const int slots = node_rows * 16;
+  const size_t sub_floats = static_cast<size_t>(slots) * 8;
+  const size_t tile_floats = static_cast<size_t>(sub_leaves) * 16 * kLeaf;
+
+  // an empty segment (tmax <= tmin) can never hit: it walks nothing
+  int cur = r.tmax > r.tmin ? 0 : num_top;
+  while (cur < num_top) {
+    const float* nd = top + 8 * cur;
+    const bool hit_box = rptr_stream::slab(nd, r, b.t);
+    const int skip = static_cast<int>(nd[6]);
+    const int sid = static_cast<int>(nd[7]);
+    if (hit_box && sid >= 0) {
+      rptr_stream::walk_subtree<kAnyHit>(
+          sub_nodes + sid * sub_floats, slots, tiles + sid * tile_floats,
+          sid * sub_leaves * kLeaf, r, b);
+      if (kAnyHit && b.blocked) break;
+    }
+    cur = (hit_box && sid < 0) ? cur + 1 : skip;
+  }
+
+  if (kAnyHit) {
+    out_blocked[i] = b.blocked ? 1 : 0;
+  } else {
+    out_t[i] = b.row < 0 ? rptr_stream::kTMax : b.t;
+    out_row[i] = b.row;
+    out_u[i] = b.u;
+    out_v[i] = b.v;
+  }
+}
+
+template <bool kAnyHit>
+int launch(const float* top, int num_top, const float* sub_nodes,
+           const float* tiles, int node_rows, int sub_leaves,
+           const float* rays, int n, float* out_t, int* out_row, float* out_u,
+           float* out_v, unsigned char* out_blocked, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 8 * static_cast<size_t>(num_top);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        traverse_streamed_kernel<kAnyHit>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int grid = (n + kThreads - 1) / kThreads;
+  traverse_streamed_kernel<kAnyHit><<<grid, kThreads, smem, stream>>>(
+      top, num_top, sub_nodes, tiles, node_rows, sub_leaves, rays, n, out_t,
+      out_row, out_u, out_v, out_blocked);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry for ctypes. Launches on ``stream`` and returns
+// cudaGetLastError() (0 = launched). The caller allocates every output;
+// any_hit != 0 writes only ``blocked``, otherwise only t, row, u, v.
+extern "C" int rptr_traverse_streamed(
+    const float* top, int num_top, const float* sub_nodes, const float* tiles,
+    int node_rows, int sub_leaves, const float* rays, int n, int any_hit,
+    float* out_t, int* out_row, float* out_u, float* out_v,
+    unsigned char* out_blocked, void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (any_hit) {
+    return launch<true>(top, num_top, sub_nodes, tiles, node_rows, sub_leaves,
+                        rays, n, out_t, out_row, out_u, out_v, out_blocked, s);
+  }
+  return launch<false>(top, num_top, sub_nodes, tiles, node_rows, sub_leaves,
+                       rays, n, out_t, out_row, out_u, out_v, out_blocked, s);
+}
+
+extern "C" const char* rptr_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

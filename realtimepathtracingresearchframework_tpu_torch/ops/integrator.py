@@ -11,14 +11,19 @@ reference line by line; see its module docstring for the GLSL sources.
 
 Traversal goes where the reference's ``_closest_hit_dispatch`` and
 ``occluded_alpha`` send it (integrator.py:485-578, 642-739): the resident
-walk K1 (``ops/traverse_resident.py``), or on large scenes
+walk K1 (``ops/traverse_resident.py``), or on large resident scenes
 (``cfg.kernel_v3``) the flat-cull kernels K2 and K3
 (``ops/traverse_flat.py``), with the coherence sort where ``compact``,
-``presorted`` and ``sort_shadow`` ask for it. Each launches its CUDA
-kernel on CUDA tensors and runs its plain version on CPU tensors.
-Attribute tables are in BVH-row order, so a hit's row is its attribute
-index, and a fetch is plain indexing (the reference's one-hot MXU fetch is
-TPU-only).
+``presorted`` and ``sort_shadow`` ask for it; on streamed scenes
+(``cfg.streamed``) the sorted streamed walk K4 for closest hits
+(``ops/traverse_stream.py``; the binned rounds of K5 with
+``stream_closest="binned"``) and one binned round of K5 with its K4
+cleanup for every shadow ray (``ops/traverse_binned.py``). Each launches
+its CUDA kernel on CUDA tensors and runs its plain version on CPU tensors.
+Attribute tables are in BVH-row order on the resident routes, so a hit's
+row is its attribute index, and in source-triangle order on the streamed
+route, whose hits carry source triangle ids; a fetch is plain indexing
+(the reference's one-hot MXU fetch is TPU-only).
 
 Configurations outside the slice raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
@@ -53,7 +58,9 @@ from realtimepathtracingresearchframework_tpu_torch.ops.rng import M32
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
     ResidentBVH,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_binned
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_stream
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     closest_hit_resident,
     coherence_key,
@@ -92,8 +99,9 @@ _M_CCGLOSS = 13  # clearcoat_gloss (thin-transmission reflective roughness)
 class DeviceScene(NamedTuple):
     """Everything the integrator reads, on one device."""
 
-    bvh: ResidentBVH  # or traverse_flat.FlatBVH when cfg.kernel_v3
-    attr_packed: torch.Tensor  # (ATTR_W, R) f32 per-row attributes
+    bvh: ResidentBVH  # traverse_flat.FlatBVH when cfg.kernel_v3,
+    # traverse_stream.StreamedBVHBuffers when cfg.streamed
+    attr_packed: torch.Tensor  # (ATTR_W, R) f32 per-row (or per-tri) attributes
     mat_packed: torch.Tensor  # (MAT_W, M) f32 material rows
     lights: nee_mod.TriLightBuffers
     sky: SkyParams
@@ -252,6 +260,7 @@ class IntegratorConfig(NamedTuple):
     debug_mode: int = 0
     kernel_v3: bool = False  # K2/K3 flat cull instead of the K1 walk
     kernel_v4: bool = False  # sorted queues on K3 instead of K2
+    stream_closest: str = "sorted"  # streamed closest hits: K4 or "binned"
 
 
 _UNPORTED = (
@@ -262,9 +271,22 @@ _UNPORTED = (
     ("enable_dof", "thin-lens depth of field", 14),
     ("debug_mode", "debug variants", 14),
     ("compact_lanes", "carry compaction of the monolithic bounce loop", 16),
-    ("streamed", "streamed traversal", 17),
     ("two_level", "two-level instancing", 19),
 )
+STREAM_CLOSEST = ("sorted", "ordered", "binned", "multislot")
+_STREAM_CLOSEST_PORTED = ("sorted", "binned")
+
+
+def check_stream_closest(strategy: str) -> None:
+    """The streamed closest-hit strategies of the reference
+    (``IntegratorConfig.stream_closest``): a typo raises ``ValueError``,
+    and the two not ported yet raise ``NotImplementedError``."""
+    if strategy not in STREAM_CLOSEST:
+        raise ValueError(
+            f"stream_closest={strategy!r}: expected one of {STREAM_CLOSEST}")
+    if strategy not in _STREAM_CLOSEST_PORTED:
+        raise NotImplementedError(
+            f"stream_closest={strategy!r} is not ported yet (ROADMAP item 18)")
 
 
 def check_supported(cfg: IntegratorConfig) -> None:
@@ -410,7 +432,17 @@ def _closest_hit_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
     ``presorted``: the caller already coherence-sorted the lanes (the
     wavefront executor); skip the sort but keep the sorted-queue policy:
     K3 at block 1024 in 8 groups (``cfg.kernel_v4``), else K2 at block 1024.
-    Unsorted queues (camera primaries) take K2 at block 512."""
+    Unsorted queues (camera primaries) take K2 at block 512. Streamed
+    scenes (integrator.py:516-535) take the coherence-sorted K4 walk, or
+    the binned rounds of K5 with ``stream_closest="binned"``; their hits
+    carry source triangle ids."""
+    if cfg.streamed:
+        check_stream_closest(cfg.stream_closest)
+        if cfg.stream_closest == "binned":
+            return traverse_binned.closest_hit_binned(ds.bvh, ro, rd, t_min,
+                                                      t_max)
+        return traverse_stream.closest_hit_streamed(ds.bvh, ro, rd, t_min,
+                                                    t_max, sort=True)
     if cfg.kernel_v3:
         if (compact or presorted) and cfg.kernel_v4:
             return traverse_flat.closest_hit_precull(
@@ -430,7 +462,11 @@ def _occluded_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
     """The occlusion route of occluded_alpha (integrator.py:642-739,
     scenes without alpha cutouts). ``sort_shadow`` coherence-sorts this
     queue by its own origins (fresh hit points past bounce 0): K3 at block
-    1024 in 8 groups (``cfg.kernel_v4``), else K2 sorted."""
+    1024 in 8 groups (``cfg.kernel_v4``), else K2 sorted. Streamed scenes
+    take one binned round of K5 and its K4 cleanup (integrator.py:684-696)."""
+    if cfg.streamed:
+        return traverse_binned.occluded_binned(ds.bvh, ro, rd, t_min, t_max,
+                                               rounds=1)
     if cfg.kernel_v3:
         if sort_shadow and cfg.kernel_v4:
             return traverse_flat.occluded_precull(

@@ -1,0 +1,537 @@
+"""Streamed two-level traversal: the K4 kernel's pack, wrappers and plain
+version.
+
+Counterpart of the reference's ``ops/traverse_stream.py``. Scenes above the
+resident cap are chunked into SUBTREES of at most ``CHUNK_TRIS`` triangles
+by recursive spatial median splits (``_split_chunks``); each subtree gets a
+binned-SAH threaded BVH of 128-triangle leaves, and a small TOP tree
+(``_build_top_tree``) covers the subtree boxes. The pack
+(``pack_streamed``, host numpy) lays this out as the kernels read it:
+
+- ``top_nodes`` (Mt, 8) f32: [min3, max3, skip, subtree id or -1], the
+  links as float VALUES (exact below 2^24), not bit patterns;
+- ``sub_nodes`` (S*R, 128) f32: subtree s owns rows [s*R, (s+1)*R), 16
+  nodes of 8 floats per row, node i at flat offset 8*i: [min3, max3,
+  skip or ``SUB_EXIT``, LOCAL leaf id or -1], float values again;
+- ``tri_tiles`` (S*L*16, 128) f32: subtree s, local leaf l owns the
+  field-major tile rows [(s*L + l)*16, +16): row f is field f (v0, e1,
+  e2 xyz) of the leaf's 128 triangles;
+- ``row_tri`` (S*L*128,) i32: global row -> source triangle. A global
+  row is ``(s*L + l)*128 + k``.
+
+K4 (``closest_hit_streamed`` / ``occluded_streamed``; reference
+``_kernel_streamed``) walks, per ray, the top tree in preorder with the
+slab test capped at the ray's best hit, and every subtree it enters with
+the same stackless walk, running Möller-Trumbore over each entered leaf's
+128 triangles. Hits improve strictly, so on an exact t tie the FIRST
+VISITED triangle wins: subtrees in top-tree preorder, leaves in each
+subtree's preorder, the lower row inside a leaf. Subtree ids (and so
+global rows) follow ``_split_chunks`` order, not top-tree preorder, so the
+winner of a tie across subtrees is not the lower row. ``plain`` implements
+this rule with the port's plain threaded walk (``ops/traverse.py``), and
+the CUDA kernel ``csrc/traverse_streamed.cu`` must equal it bitwise.
+
+On a CPU tensor the wrappers run ``plain``; on a CUDA tensor they launch
+the kernel (built by ``kernels/build.py`` at first use) or raise.
+``launches_k4`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import sys
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse
+from realtimepathtracingresearchframework_tpu_torch.ops.bvh import build_threaded_bvh
+from realtimepathtracingresearchframework_tpu_torch.ops.intersect import (
+    T_MAX,
+    ray_aabb,
+    safe_inv_dir,
+)
+from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
+    Hit,
+    ResidentBVH,
+)
+from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
+    _check,
+    _coherence_key2,
+    coherence_key,
+    inverse_permutation,
+    pack_rays,
+)
+from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
+
+KERNEL = "traverse_streamed"  # csrc/traverse_streamed.cu
+LEAF = 128
+SUB_LEAVES = 64  # default leaf slots per subtree
+CHUNK_TRIS = SUB_LEAVES * LEAF  # 8192 -> <= 127 threaded nodes per subtree
+SUB_EXIT = 255  # local skip value meaning "leave the subtree"
+DEFAULT_BLOCK = 512
+QUANTIZED_ITEM = "ROADMAP item 17"
+
+launches_k4 = 0  # K4 launches in this process (reset with reset_launches)
+
+
+def reset_launches() -> None:
+    global launches_k4
+    launches_k4 = 0
+
+
+def node_rows_for(sub_leaves: int) -> int:
+    """Node-block rows of 16 slots for a subtree of ``sub_leaves`` leaves:
+    room for the worst threaded tree (2*leaves - 1 nodes) plus one spare
+    slot (8 rows at 64 leaves)."""
+    return max(1, -(-(2 * sub_leaves) // 16))
+
+
+class StreamedBVHBuffers(NamedTuple):
+    """The streamed pack on one device (see the module docstring)."""
+
+    top_nodes: torch.Tensor  # (Mt, 8) f32: min3, max3, skip, subtree | -1
+    sub_nodes: torch.Tensor  # (S*R, 128) f32: packed subtree nodes
+    tri_tiles: torch.Tensor  # (S*L*16, 128) f32: field-major leaf tiles
+    row_tri: torch.Tensor  # (S*L*128,) i32: global row -> source triangle
+    sub_leaves: int = SUB_LEAVES  # leaf slots per subtree
+
+    @property
+    def num_top_nodes(self) -> int:
+        return self.top_nodes.shape[0]
+
+    @property
+    def sub_node_rows(self) -> int:
+        return node_rows_for(self.sub_leaves)
+
+    @property
+    def num_subtrees(self) -> int:
+        return self.sub_nodes.shape[0] // self.sub_node_rows
+
+
+class StreamedTopology(NamedTuple):
+    """Static structure of a streamed pack, kept for a later refit
+    (``refit_streamed``, ROADMAP item 17): chunk assignment, each subtree's
+    threaded-tree shape and slot gathers. Host numpy."""
+
+    gather: np.ndarray  # (S*L*LEAF,) i64 source tri per slot, -1 pad
+    node_end: np.ndarray  # (S, R*16) i32 preorder subtree-range end
+    node_leaf: np.ndarray  # (S, R*16) i32 LOCAL leaf id of leaf nodes, -1
+    node_count: np.ndarray  # (S,) i32
+    sub_nodes_base: np.ndarray  # (S, R, 128) f32
+    sub_leaves: int = SUB_LEAVES
+
+
+# ---------------------------------------------------------------------------
+# Host pack (traverse_stream.py:106-358), numpy
+# ---------------------------------------------------------------------------
+
+
+def _build_top_tree(cmin: np.ndarray, cmax: np.ndarray) -> np.ndarray:
+    """Threaded preorder top tree over subtree AABBs: largest-axis median
+    splits of the box centroids; a leaf's payload is its subtree id."""
+    n = len(cmin)
+    centroid = 0.5 * (cmin + cmax)
+    nodes: List[np.ndarray] = []
+
+    def emit(idxs: np.ndarray) -> int:
+        """Appends the nodes of ``idxs`` in preorder; returns their count."""
+        my = len(nodes)
+        row = np.zeros(8, np.float32)
+        row[0:3] = cmin[idxs].min(axis=0)
+        row[3:6] = cmax[idxs].max(axis=0)
+        nodes.append(row)
+        if len(idxs) == 1:
+            row[7] = np.float32(int(idxs[0]))
+            count = 1
+        else:
+            ext = centroid[idxs].max(axis=0) - centroid[idxs].min(axis=0)
+            axis = int(np.argmax(ext))
+            order = idxs[np.argsort(centroid[idxs, axis], kind="stable")]
+            half = len(order) // 2
+            row[7] = np.float32(-1.0)
+            count = 1 + emit(order[:half]) + emit(order[half:])
+        row[6] = np.float32(my + count)  # skip: the next preorder subtree
+        return count
+
+    old = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old, 4 * n + 100))
+    try:
+        emit(np.arange(n))
+    finally:
+        sys.setrecursionlimit(old)
+    return np.stack(nodes)
+
+
+def _split_chunks(centroid: np.ndarray,
+                  chunk_tris: int = CHUNK_TRIS) -> List[np.ndarray]:
+    """Recursive largest-axis median splits into chunks of at most
+    ``chunk_tris`` triangles, the split points snapped to multiples of
+    ``chunk_tris`` so chunks stay full."""
+    out: List[np.ndarray] = []
+    stack = [np.arange(len(centroid), dtype=np.int64)]
+    while stack:
+        idx = stack.pop()
+        if len(idx) <= chunk_tris:
+            out.append(idx)
+            continue
+        ext = centroid[idx].max(axis=0) - centroid[idx].min(axis=0)
+        axis = int(np.argmax(ext))
+        order = idx[np.argsort(centroid[idx, axis], kind="stable")]
+        half = (len(order) // 2 + chunk_tris - 1) // chunk_tris * chunk_tris
+        half = min(max(half, chunk_tris), len(order) - 1)
+        stack.append(order[half:])
+        stack.append(order[:half])
+    return out
+
+
+def pick_chunk_tris(num_tris: int) -> int:
+    """Subtree size for a scene: about 64 subtrees, in whole leaves, never
+    below 1024 triangles and never above ``CHUNK_TRIS``."""
+    per = -(-num_tris // 64)
+    per = -(-per // LEAF) * LEAF
+    return int(min(max(per, 1024), CHUNK_TRIS))
+
+
+def pack_streamed(v0, e1, e2, quantize: bool = False,
+                  with_topology: bool = False, chunk_tris: int = None,
+                  device="cpu"):
+    """Chunked two-level build and pack (host numpy), uploaded to
+    ``device``. Returns the buffers, and with ``with_topology`` also the
+    ``StreamedTopology``. ``chunk_tris`` (a multiple of ``LEAF``) defaults
+    to ``pick_chunk_tris``. The 16-bit quantized tiles are not ported."""
+    if quantize:
+        raise NotImplementedError(
+            f"quantized streamed tiles are not ported yet ({QUANTIZED_ITEM})")
+    v0 = np.asarray(v0, np.float32)
+    e1 = np.asarray(e1, np.float32)
+    e2 = np.asarray(e2, np.float32)
+    v1, v2 = v0 + e1, v0 + e2
+    tmin = np.minimum(np.minimum(v0, v1), v2)
+    tmax = np.maximum(np.maximum(v0, v1), v2)
+    centroid = 0.5 * (tmin + tmax)
+
+    if chunk_tris is None:
+        chunk_tris = pick_chunk_tris(len(v0))
+    assert chunk_tris % LEAF == 0 and chunk_tris > 0
+    sub_leaves = chunk_tris // LEAF
+    node_rows = node_rows_for(sub_leaves)
+    if node_rows * 16 > SUB_EXIT:
+        raise ValueError(f"{chunk_tris} tris per subtree: node slots reach "
+                         f"the SUB_EXIT sentinel {SUB_EXIT}")
+
+    chunks = _split_chunks(centroid, chunk_tris)
+    S = len(chunks)
+    sub_nodes = np.zeros((S, node_rows, 128), np.float32)
+    tile_list: List[np.ndarray] = []
+    row_tri_list: List[np.ndarray] = []
+    cmin = np.zeros((S, 3), np.float32)
+    cmax = np.zeros((S, 3), np.float32)
+    if with_topology:
+        topo_gather = np.full((S, chunk_tris), -1, np.int64)
+        topo_end = np.zeros((S, node_rows * 16), np.int32)
+        topo_leaf = np.full((S, node_rows * 16), -1, np.int32)
+        topo_nn = np.zeros((S,), np.int32)
+    for s, idx in enumerate(chunks):
+        cv0, ce1, ce2 = v0[idx], e1[idx], e2[idx]
+        # binned SAH inside each subtree; the balanced median split where
+        # SAH overruns the fixed node or leaf budget
+        tb = build_threaded_bvh(cv0, ce1, ce2, leaf_size=LEAF, builder="sah")
+        node_cap = node_rows * 16
+        if tb.num_nodes > node_cap or tb.tri_rows.shape[0] // LEAF > sub_leaves:
+            tb = build_threaded_bvh(cv0, ce1, ce2, leaf_size=LEAF)
+        nn = tb.num_nodes
+        assert nn <= node_cap, f"subtree too big: {nn}"
+        nodes = tb.nodes.copy()  # (nn, 8): skip, leaf row as int32 bits
+        skip = nodes[:, 6].view(np.int32).copy()
+        leaf_row = nodes[:, 7].view(np.int32).copy()
+        if with_topology:
+            topo_end[s, :nn] = np.minimum(skip, nn)
+        # local exits -> sentinel; leaf rows -> LOCAL leaf ids
+        skip[skip >= nn] = SUB_EXIT
+        is_leaf = leaf_row >= 0
+        leaf_row[is_leaf] = leaf_row[is_leaf] // LEAF
+        nodes[:, 6] = skip.astype(np.float32)
+        nodes[:, 7] = leaf_row.astype(np.float32)
+        sub_nodes[s].reshape(-1)[: nn * 8] = nodes.reshape(-1)
+        rows = tb.tri_rows  # leaf-major rows
+        R = rows.shape[0]
+        num_leaves = R // LEAF
+        assert num_leaves <= sub_leaves
+        tiles = np.zeros((sub_leaves, 16, 128), np.float32)
+        tiles[:num_leaves, 0:9, :] = (
+            rows[:, 0:9].reshape(num_leaves, LEAF, 9).transpose(0, 2, 1))
+        tile_list.append(tiles.reshape(sub_leaves * 16, 128))
+        rt = np.zeros(chunk_tris, np.int32)
+        rt[:R] = idx[tb.row_tri].astype(np.int32)
+        row_tri_list.append(rt)
+        cmin[s] = tb.world_min
+        cmax[s] = tb.world_max
+        if with_topology:
+            topo_gather[s, :R] = idx[tb.row_tri]
+            topo_leaf[s, :nn] = leaf_row
+            topo_nn[s] = nn
+
+    top = _build_top_tree(cmin, cmax)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    bb = StreamedBVHBuffers(
+        top_nodes=up(top),
+        sub_nodes=up(sub_nodes.reshape(S * node_rows, 128)),
+        tri_tiles=up(np.concatenate(tile_list, axis=0)),
+        row_tri=up(np.concatenate(row_tri_list)),
+        sub_leaves=sub_leaves,
+    )
+    if with_topology:
+        return bb, StreamedTopology(
+            gather=topo_gather.reshape(-1), node_end=topo_end,
+            node_leaf=topo_leaf, node_count=topo_nn, sub_nodes_base=sub_nodes,
+            sub_leaves=sub_leaves,
+        )
+    return bb
+
+
+def subtree_resident(bb: StreamedBVHBuffers, s: int) -> ResidentBVH:
+    """Subtree ``s`` decoded to the resident layout of the plain walk:
+    node boxes, integer links (skip, local leaf; ``SUB_EXIT`` lies past the
+    last slot, so the walk leaves there) and the leaf tiles as (L*128, 9)
+    rows, whose row index is the LOCAL row ``l*128 + k``."""
+    slots = bb.sub_node_rows * 16
+    nodes = bb.sub_nodes.view(-1, slots, 8)[s]
+    L = bb.sub_leaves
+    tiles = bb.tri_tiles.view(-1, L, 16, LEAF)[s, :, 0:9, :]
+    return ResidentBVH(
+        bounds=nodes[:, 0:6],
+        links=nodes[:, 6:8].to(torch.int32),
+        tri_rows=tiles.transpose(1, 2).reshape(L * LEAF, 9),
+        row_tri=bb.row_tri[s * L * LEAF:(s + 1) * L * LEAF],
+        leaf_size=LEAF,
+    )
+
+
+def leaf_boxes(bb: StreamedBVHBuffers):
+    """The boxes of every leaf node of every subtree: (16, Lpad) f32 in the
+    layout of ``traverse_flat.leaf_aabbs_for`` (rows 0-2 min, 3-5 max,
+    padding columns empty), and (Lpad,) i64 the subtree of each (-1 in
+    padding). The leaves the bound of K4 and K5 counts."""
+    slots = bb.sub_node_rows * 16
+    nodes = bb.sub_nodes.view(-1, 8)
+    # a real node's skip link lies past it; unused slots are all zero
+    leaf = (nodes[:, 7] >= 0) & (nodes[:, 6] > 0)
+    boxes = nodes[leaf, 0:6]
+    k = boxes.shape[0]
+    lpad = -(-k // 128) * 128
+    out = torch.zeros((16, lpad), dtype=torch.float32, device=nodes.device)
+    out[0:3] = 3.0e38
+    out[3:6] = -3.0e38
+    out[0:6, :k] = boxes.T
+    sid = torch.full((lpad,), -1, dtype=torch.int64, device=nodes.device)
+    sid[:k] = torch.nonzero(leaf).squeeze(1) // slots
+    return out, sid
+
+
+# ---------------------------------------------------------------------------
+# Plain version of K4 and the kernel launch
+# ---------------------------------------------------------------------------
+
+
+def plain(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool):
+    """The plain version of K4 on a packed (8, N) operand: what the
+    wrappers run on CPU tensors, and what ``launch`` must equal on the card.
+
+    Every ray walks the top tree from node 0 in preorder. Rays are
+    processed top node by top node in ascending order: a ray's cursor only
+    moves forward, so when node j is processed every ray whose cursor is j
+    is there. A ray that enters a subtree-leaf of the top tree walks that
+    subtree with the port's plain threaded walk (``traverse._walk``), its
+    segment capped at its best hit so far; a hit replaces the best only
+    when strictly nearer. Returns (t, row, u, v) with global rows, or the
+    blocked flags."""
+    n, dev = rays.shape[1], rays.device
+    top = bb.top_nodes.cpu().numpy()
+    L = bb.sub_leaves
+    ro3 = rays[0:3].T
+    inv3 = safe_inv_dir(rays[3:6].T)
+    tmin, tmax = rays[6], rays[7]
+    t_best = tmax.clone()
+    best_row = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    blocked = torch.zeros(n, dtype=torch.bool, device=dev)
+    mt = top.shape[0]
+    # an empty segment (tmax <= tmin) can never hit: it walks nothing
+    cur = torch.where(tmax > tmin, 0, mt)
+    for j in range(mt):
+        ids = torch.nonzero(cur == j).squeeze(1)
+        if not ids.numel():
+            continue
+        box = bb.top_nodes[j]
+        hit_box, _ = ray_aabb(ro3[ids], inv3[ids], box[0:3], box[3:6],
+                              tmin[ids], t_best[ids])
+        skip, sid = int(top[j, 6]), int(top[j, 7])
+        if sid < 0:
+            cur[ids] = torch.where(hit_box, j + 1, skip)
+            continue
+        cur[ids] = skip
+        vi = ids[hit_box]
+        if not vi.numel():
+            continue
+        sub = subtree_resident(bb, sid)
+        o, d = Vec3(*rays[0:3, vi]), Vec3(*rays[3:6, vi])
+        if any_hit:
+            b = traverse.occluded_threaded(sub, o, d, tmin[vi], t_best[vi])
+            blocked[vi[b]] = True
+            cur[vi[b]] = mt
+            continue
+        h = traverse.closest_hit_threaded(sub, o, d, tmin[vi], t_best[vi])
+        found = h.tri >= 0
+        vf = vi[found]
+        t_best[vf] = h.t[found]
+        best_row[vf] = h.tri[found] + sid * L * LEAF
+        best_u[vf] = h.u[found]
+        best_v[vf] = h.v[found]
+    if any_hit:
+        return blocked
+    return torch.where(best_row < 0, T_MAX, t_best), best_row, best_u, best_v
+
+
+def _lib():
+    from realtimepathtracingresearchframework_tpu_torch.kernels import build
+
+    lib = build.load(KERNEL)
+    # every pointer and the stream as c_void_p (a bare Python int would be
+    # passed as a 32-bit C int and cut the pointer)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rptr_traverse_streamed.argtypes = (
+        [p, i, p, p, i, i, p, i, i] + [p] * 5 + [p])
+    lib.rptr_traverse_streamed.restype = ctypes.c_int
+    lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.rptr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_buffers(bb: StreamedBVHBuffers, dev) -> None:
+    """Device, type, shape and contiguity of the pack's kernel operands."""
+    mt, s, L = bb.num_top_nodes, bb.num_subtrees, bb.sub_leaves
+    _check("top_nodes", bb.top_nodes, torch.float32, (mt, 8), dev)
+    _check("sub_nodes", bb.sub_nodes, torch.float32,
+           (s * bb.sub_node_rows, 128), dev)
+    _check("tri_tiles", bb.tri_tiles, torch.float32, (s * L * 16, 128), dev)
+    if bb.sub_node_rows * 16 > SUB_EXIT:
+        raise ValueError(f"{L} leaves per subtree: too many node slots")
+
+
+def launch(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool):
+    """One K4 launch over a packed (8, N) operand, one thread per ray.
+    Returns the raw output tensors: (t, row, u, v) or the blocked flags."""
+    global launches_k4
+    dev = rays.device
+    n = rays.shape[1]
+    check_buffers(bb, dev)
+    _check("rays", rays, torch.float32, (8, n), dev)
+    if any_hit:
+        blocked = torch.empty(n, dtype=torch.bool, device=dev)
+        outs = (None, None, None, None, blocked.data_ptr())
+        result = blocked
+    else:
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        row = torch.empty(n, dtype=torch.int32, device=dev)
+        u = torch.empty(n, dtype=torch.float32, device=dev)
+        v = torch.empty(n, dtype=torch.float32, device=dev)
+        outs = (t.data_ptr(), row.data_ptr(), u.data_ptr(), v.data_ptr(), None)
+        result = (t, row, u, v)
+    if n == 0:
+        return result
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rptr_traverse_streamed(
+            bb.top_nodes.data_ptr(), bb.num_top_nodes, bb.sub_nodes.data_ptr(),
+            bb.tri_tiles.data_ptr(), bb.sub_node_rows, bb.sub_leaves,
+            rays.data_ptr(), n, int(any_hit), *outs, stream,
+        )
+    if rc != 0:
+        msg = lib.rptr_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{KERNEL} launch failed: {msg} (cudaError {rc})")
+    launches_k4 += 1
+    return result
+
+
+def traverse_rays(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool):
+    """K4 on a packed operand: ``plain`` on the CPU, the kernel on a card."""
+    if rays.device.type == "cpu":
+        return plain(bb, rays, any_hit)
+    if rays.device.type == "cuda":
+        return launch(bb, rays.contiguous(), any_hit)
+    raise ValueError(f"no traversal for device {rays.device}")
+
+
+# ---------------------------------------------------------------------------
+# Coherence order (traverse_stream.py:851-920). u32 keys ride int64 tensors.
+# ---------------------------------------------------------------------------
+
+
+def _coherence_key(bb: StreamedBVHBuffers, comps):
+    """u32 key of the binned dispatch (as int64): the direction octant in
+    bits 21-23 and a 21-bit origin morton code over a 128^3 grid of the top
+    root box in bits 0-20."""
+    live = torch.ones_like(comps[0], dtype=torch.bool)
+    return coherence_key(*comps, live, bb.top_nodes[0, 0:3], bb.top_nodes[0, 3:6])
+
+
+def coherence_order(key, dead):
+    """Stable argsort of ``key`` with dead lanes last (bit 31). Returns
+    (perm, inverse perm)."""
+    perm = torch.argsort(key | (dead.to(torch.int64) << 31), stable=True)
+    return perm, inverse_permutation(perm)
+
+
+def _sort_operand(bb: StreamedBVHBuffers, rays):
+    """Coherence-sort a packed (8, N) operand by ``_coherence_key2`` over
+    the top root box (dead and padding lanes last). Returns (rays_sorted,
+    inv); ``out[..., inv]`` restores the caller's order."""
+    key = _coherence_key2(rays, bb.top_nodes[0, 0:3], bb.top_nodes[0, 3:6])
+    perm = torch.argsort(key, stable=True)
+    return rays[:, perm], inverse_permutation(perm)
+
+
+def _out_to_hit(bb: StreamedBVHBuffers, out, n: int, map_tri: bool) -> Hit:
+    """Kernel output (t, row, u, v) -> Hit of the first ``n`` lanes;
+    ``map_tri`` maps global rows to source triangles (-1 stays -1)."""
+    t, row, u, v = (x[:n] for x in out)
+    if map_tri:
+        tri = torch.where(row < 0, -1, bb.row_tri[torch.clamp(row, min=0).long()])
+        row = tri.to(torch.int32)
+    return Hit(t=t, tri=row, u=u, v=v)
+
+
+def closest_hit_streamed(bb: StreamedBVHBuffers, ro: Vec3, rd: Vec3,
+                         t_min=0.0, t_max=T_MAX, block: int = DEFAULT_BLOCK,
+                         map_tri: bool = True, sort: bool = False) -> Hit:
+    """K4 closest hit. ``tri`` is the source triangle (``map_tri``) or the
+    global row. ``sort`` coherence-sorts the lanes first; the result is
+    the same, in the caller's lane order. The reference's ``ordered``
+    walk is not ported (ROADMAP item 18)."""
+    rays, n = pack_rays(ro, rd, t_min, t_max, block)
+    if sort:
+        rays, inv = _sort_operand(bb, rays)
+    out = traverse_rays(bb, rays, any_hit=False)
+    if sort:
+        out = tuple(x[inv] for x in out)
+    return _out_to_hit(bb, out, n, map_tri)
+
+
+def occluded_streamed(bb: StreamedBVHBuffers, ro: Vec3, rd: Vec3, t_min=0.0,
+                      t_max=T_MAX, block: int = DEFAULT_BLOCK,
+                      sort: bool = False) -> torch.Tensor:
+    """K4 any-hit visibility: True where (t_min, t_max) is blocked."""
+    rays, n = pack_rays(ro, rd, t_min, t_max, block)
+    if sort:
+        rays, inv = _sort_operand(bb, rays)
+    blocked = traverse_rays(bb, rays, any_hit=True)
+    if sort:
+        blocked = blocked[inv]
+    return blocked[:n]

@@ -1,21 +1,25 @@
-"""Profile of one of the port's 1080p paths on one CUDA card.
+"""Profile of one of the port's paths on one CUDA card.
 
 ``--scene cornell`` (default): the cornell box, the main path of
 ``chip_smoke.py``, through the monolithic pass and K1. ``--scene
 terrain200``: ``procedural.terrain(grid=200)`` (80,000 triangles) with the
 sun and sky of bench.py's terrain row, through the wavefront executor, K2
-and K3. Both at 1920x1080, 1 spp, depth 9: one warm-up frame, ``--frames``
-frames timed by the host clock with a device sync after each, then
-``--profiled`` frames under ``torch.profiler``. Prints the card's name,
-power limit and SM clock, the frame times, the device kernels per frame,
+and K3. ``--scene terrain500``: ``procedural.terrain(grid=500)`` (500,000
+triangles), same sun, sky and camera, on the streamed route: the
+monolithic pass, K4 and K5. At ``--size`` (default 1920x1080; bench.py's
+terrain row is ``--size 512x384 --depth 3``), 1 spp, ``--depth`` (default
+9): one warm-up frame, ``--frames`` frames timed by the host clock with a
+device sync after each, then ``--profiled`` frames under
+``torch.profiler``. Prints the card's name, power limit and SM clock, the
+scene's set-up seconds, the frame times, the device kernels per frame,
 their summed time and the union of their intervals (the device busy share
 is that union over the profiled wall), the traversal kernels' launches,
 time and share of device time, the largest kernels, and the host's launch
 and sync calls. The last line is a JSON summary.
 
     python -m realtimepathtracingresearchframework_tpu_torch.profile_frame \
-        [--scene cornell|terrain200] [--frames 5] [--profiled 3] \
-        [--out tables.txt]
+        [--scene cornell|terrain200|terrain500] [--size 1920x1080] \
+        [--depth 9] [--frames 5] [--profiled 3] [--out tables.txt]
 
 ``--out`` also writes torch.profiler's key-average tables to a file.
 """
@@ -42,9 +46,15 @@ from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
     FrameConfig,
     Renderer,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import (
+    traverse_binned as tb,
+)
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 from realtimepathtracingresearchframework_tpu_torch.ops import (
     traverse_resident as tr,
+)
+from realtimepathtracingresearchframework_tpu_torch.ops import (
+    traverse_stream as ts,
 )
 
 SIZE = (1920, 1080)
@@ -53,7 +63,10 @@ KERNELS = {
     "K1": (lambda: tr.launches, "traverse_resident"),
     "K2": (lambda: tf.launches_k2, "flat_cull"),
     "K3": (lambda: tf.launches_k3, "precull"),
+    "K4": (lambda: ts.launches_k4, "traverse_streamed"),
+    "K5": (lambda: tb.launches_k5, "traverse_binned"),
 }
+GRIDS = {"terrain200": 200, "terrain500": 500}
 HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaStreamSynchronize",
               "cudaMemcpyAsync", "aten::item")
 
@@ -99,8 +112,10 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("cornell", "terrain200"),
+    ap.add_argument("--scene", choices=("cornell", "terrain200", "terrain500"),
                     default="cornell")
+    ap.add_argument("--size", default="1920x1080", help="WxH")
+    ap.add_argument("--depth", type=int, default=9)
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--profiled", type=int, default=3)
     ap.add_argument("--out", default=None)
@@ -114,7 +129,14 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip(), flush=True)
-    r, cfg = frame_setup("cornell" if args.scene == "cornell" else "terrain")
+    size = tuple(int(x) for x in args.size.split("x"))
+    if args.scene == "cornell":
+        r, cfg = frame_setup("cornell", size=size, depth=args.depth)
+    else:
+        r, cfg = frame_setup("terrain", size=size, depth=args.depth,
+                             grid=GRIDS[args.scene])
+    print(f"{args.scene} {args.size} depth {args.depth}: set-up "
+          f"{r.setup_seconds:.3f} s", flush=True)
     r.render(cfg)  # warm-up
     torch.cuda.synchronize()
 
@@ -128,8 +150,8 @@ def main(argv=None) -> int:
     print(f"frame wall ms, no profiler: {walls}, median {wall_ms}", flush=True)
 
     nf = args.profiled
-    tr.reset_launches()
-    tf.reset_launches()
+    for mod in (tr, tf, ts, tb):
+        mod.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(nf):
@@ -174,7 +196,8 @@ def main(argv=None) -> int:
             f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40) + "\n")
             f.write(ka.table(sort_by="self_device_time_total", row_limit=40) + "\n")
     print(json.dumps({
-        "scene": args.scene, "rays_per_frame": r.last_ray_count(),
+        "scene": args.scene, "size": args.size, "depth": args.depth,
+        "setup_s": r.setup_seconds, "rays_per_frame": r.last_ray_count(),
         "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
         "kernels_per_frame": len(kern) / nf, "device_ms": device_ms,
         "union_ms": union_ms, "busy_share_profiled": union_ms / prof_wall_ms,

@@ -18,8 +18,10 @@ from realtimepathtracingresearchframework_tpu_torch.models import procedural
 from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
 from realtimepathtracingresearchframework_tpu_torch.ops import bvh as bvh_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_binned as tb
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_resident as tr
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_stream as ts
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
 
@@ -34,9 +36,21 @@ def _terrain_queue(grid, leaf_size, n, seed):
     (8, n) queue of incoherent rays above it, 30% of them dead."""
     dev = _card()
     flat = Scene.from_vkr_scene(procedural.terrain(grid=grid)).flatten_world()
-    tb = bvh_mod.build_threaded_bvh(flat.v0, flat.e1, flat.e2,
-                                    leaf_size=leaf_size, builder="sah")
-    fb = tf.pack_flat(tb, dev)
+    tbvh = bvh_mod.build_threaded_bvh(flat.v0, flat.e1, flat.e2,
+                                      leaf_size=leaf_size, builder="sah")
+    return tf.pack_flat(tbvh, dev), _queue_over(flat, n, seed, dev)
+
+
+def _streamed_queue(grid, n, seed):
+    """The streamed pack of procedural.terrain(grid) on the card, and a
+    queue as ``_terrain_queue``'s."""
+    dev = _card()
+    flat = Scene.from_vkr_scene(procedural.terrain(grid=grid)).flatten_world()
+    bb = ts.pack_streamed(flat.v0, flat.e1, flat.e2, device=dev)
+    return bb, _queue_over(flat, n, seed, dev)
+
+
+def _queue_over(flat, n, seed, dev):
     rng = np.random.default_rng(seed)
     lo, hi = flat.v0.min(0), flat.v0.max(0)
     ro = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
@@ -51,7 +65,7 @@ def _terrain_queue(grid, leaf_size, n, seed):
 
     rays, _ = tr.pack_rays(soa(ro), soa(rd), 0.0, torch.from_numpy(tmax).to(dev),
                            1024)
-    return fb, rays
+    return rays
 
 
 @pytest.mark.cuda
@@ -95,3 +109,37 @@ def test_flat_cull_matches_plain_and_k1_on_card(name, leaf_size, q):
         assert torch.equal(blocked, tf.plain(name, fb, oq, q, True))
         assert torch.equal(blocked, tr.occluded_resident(fb, o, d, queue[6], tmax))
         assert blocked.any()
+
+
+@pytest.mark.cuda
+def test_k4_matches_plain_on_card():
+    """K4 equals its plain version bitwise, sorted and unsorted, closest
+    and any-hit (terrain(64): 8,192 tris in 8 subtrees)."""
+    bb, rays = _streamed_queue(64, 4096, 3)
+    for queue in (rays, ts._sort_operand(bb, rays)[0]):
+        before = ts.launches_k4
+        k = ts.launch(bb, queue, False)
+        assert ts.launches_k4 == before + 1
+        p = ts.plain(bb, queue, False)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+        assert (k[1] >= 0).any()
+        oq = queue.clone()
+        oq[7] = torch.where(k[1] >= 0, k[0] * 1.001, queue[7])
+        blocked = ts.launch(bb, oq, True)
+        assert torch.equal(blocked, ts.plain(bb, oq, True))
+        assert blocked.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds,shadow", [(2, False), (1, True), (0, True)])
+def test_k5_matches_plain_on_card(rounds, shadow):
+    """The binned dispatch through K5 and its K4 cleanup equals the same
+    dispatch through their plain versions, bitwise."""
+    bb, rays = _streamed_queue(64, 4096, 4)
+    before = tb.launches_k5
+    k = tb._run_rounds(bb, rays, 512, rounds, shadow)
+    assert tb.launches_k5 == before + rounds
+    p = tb._run_rounds(bb, rays, 512, rounds, shadow, plain_versions=True)
+    for a, b in zip(k if not shadow else (k,), p if not shadow else (p,)):
+        assert torch.equal(a, b)

@@ -21,8 +21,9 @@ bench.py's terrain row.
 - The route as a function of the triangle count (16,383 / 16,384 / 90,000
   / 90,001 and the overrides), against the JAX renderer's policy as it
   applies on a chip (on the CPU it takes XLA traversal, so the policy is
-  read from its methods, not from a render).
+  read from its methods, not from a render). Above 90,000 both stream.
 """
+import dataclasses
 
 import os
 from types import SimpleNamespace
@@ -58,7 +59,8 @@ from realtimepathtracingresearchframework_tpu_torch.profile_frame import frame_s
 
 SIZE, DEPTH, GRID, FRAMES = 32, 5, 24, 2
 ROUTE_ENV = ("RPTR_TRAVERSAL_V3", "RPTR_HOST_WAVEFRONT", "RPTR_COMPACT_LANES",
-             "RPTR_COMPACT", "RPTR_KERNEL_V4", "RPTR_TRAVERSAL_V1")
+             "RPTR_COMPACT", "RPTR_KERNEL_V4", "RPTR_TRAVERSAL_V1",
+             "RPTR_FORCE_STREAMED_TRAVERSAL", "RPTR_STREAM_CLOSEST")
 
 
 class _env:
@@ -183,16 +185,18 @@ def _jax_policy(num_tris):
     (:480-499), read from its methods on a stand-in renderer."""
     chip = SimpleNamespace(device=SimpleNamespace(platform="tpu"))
     mode = jrend.Renderer._select_traversal(chip, num_tris)
-    if mode != "pallas":
-        return mode, None, None
+    pallas = mode == "pallas"
     v3_env = os.environ.get("RPTR_TRAVERSAL_V3")
     state = SimpleNamespace(
-        _use_pallas=True,
-        _use_pallas3=not os.environ.get("RPTR_TRAVERSAL_V1") and (
+        _use_pallas=pallas,
+        _use_streamed=mode == "streamed",
+        _use_pallas3=pallas and not os.environ.get("RPTR_TRAVERSAL_V1") and (
             num_tris >= jrend._V3_MIN_TRIS if v3_env is None else v3_env != "0"),
-        _compact_default=num_tris >= jrend._COMPACT_MIN_TRIS,
+        _compact_default=pallas and num_tris >= jrend._COMPACT_MIN_TRIS,
         options=jrend.RenderBackendOptions(), _use_bins=False, _num_lights=0,
-        _has_textures=False, _stream_closest_strategy=lambda: "sorted",
+        _has_textures=False,
+        _stream_closest_strategy=lambda: jrend.Renderer._stream_closest_strategy(
+            jrend.Renderer),
         _multi=False, device_scene=object(),
     )
     cfg = jrend.Renderer._integrator_config(state, JaxRenderParams())
@@ -204,34 +208,37 @@ def _jax_policy(num_tris):
     {"RPTR_KERNEL_V4": "0"}, {"RPTR_HOST_WAVEFRONT": "0"},
     {"RPTR_HOST_WAVEFRONT": "1", "RPTR_COMPACT_LANES": "0"},
     {"RPTR_COMPACT": "0", "RPTR_COMPACT_LANES": "0"}, {"RPTR_COMPACT": "1"},
+    {"RPTR_FORCE_STREAMED_TRAVERSAL": "1"},
+    {"RPTR_FORCE_STREAMED_TRAVERSAL": "1", "RPTR_STREAM_CLOSEST": "binned"},
 ], ids=lambda e: ",".join(f"{k}={v}" for k, v in e.items()) or "default")
 @pytest.mark.parametrize("num_tris", [16_383, 16_384, 90_000, 90_001])
 def test_route_by_triangle_count(num_tris, env):
     with _env(**env):
         mode, jcfg, jwave = _jax_policy(num_tris)
-        if mode == "streamed":
-            with pytest.raises(NotImplementedError, match="slice D"):
-                trend.route_for(num_tris)
-            return
-        assert mode == "pallas"
         r = trend.Renderer(device="cpu")
         r._route = route = trend.route_for(num_tris)
         r.device_scene = object()
         cfg = r._integrator_config(RenderParams())
-        assert route.leaf_size == (
-            32 if num_tris <= 24_000 else 64 if num_tris <= 48_000 else 128)
-        for field in ("kernel_v3", "kernel_v4", "compact", "compact_lanes"):
+        assert route.streamed == (mode == "streamed")
+        if mode == "pallas":
+            assert route.leaf_size == (
+                32 if num_tris <= 24_000 else 64 if num_tris <= 48_000 else 128)
+        for field in ("kernel_v3", "kernel_v4", "compact", "compact_lanes",
+                      "streamed", "stream_closest"):
             assert getattr(cfg, field) == getattr(jcfg, field), field
         assert r._use_wavefront_host(cfg) == jwave
 
 
 def test_route_limits(monkeypatch):
-    """Above the resident cap set_scene raises before any BVH build, and the
-    v1 walk (K8a/K8b) and the monolith's carry compaction are not ported."""
+    """Above the resident cap set_scene takes the streamed route, whose
+    quantized tiles raise before any pack, and the v1 walk (K8a/K8b) and
+    the monolith's carry compaction are not ported."""
     r = trend.Renderer(device="cpu")
     r.initialize(16, 16)
-    with pytest.raises(NotImplementedError, match="slice D"):
+    r.options = dataclasses.replace(r.options, quantized_geometry=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         r.set_scene(Scene.from_vkr_scene(tproc.terrain(grid=213)))
+    assert r._route.streamed
     monkeypatch.setenv("RPTR_TRAVERSAL_V1", "1")
     with pytest.raises(NotImplementedError, match="K8a"):
         trend.route_for(1000)
