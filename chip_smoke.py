@@ -7,10 +7,11 @@ non-zero, printing no result, without them or outside a checkout.
 
 Phases (each raises on failure):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the five traversal kernels from source, one nvcc each, all
+  2. build: the seven traversal kernels from source, one nvcc each, all
      at once: K1 (csrc/traverse_resident.cu), K2 (csrc/traverse_flat_cull.cu),
-     K3 (csrc/traverse_precull.cu), K4 (csrc/traverse_streamed.cu) and K5
-     (csrc/traverse_binned.cu), with nvcc's registers and spills;
+     K3 (csrc/traverse_precull.cu), K4 (csrc/traverse_streamed.cu), K5
+     (csrc/traverse_binned.cu), K6 (csrc/traverse_tlas.cu) and K7
+     (csrc/traverse_tlas_stream.cu), with nvcc's registers and spills;
   3. the cornell main path: 1920x1080, 1 spp, depth 9, one warm-up frame
      and timed frames; K1 must launch, K2-K5 not;
   4. the terrain200 path: procedural.terrain(grid=200), 80,000 tris, at
@@ -24,6 +25,14 @@ Phases (each raises on failure):
      set to 0 just before each path and read just after; the timed paths
      run first, before the plain versions and the CPU renders load the
      host);
+  5b. the instanced paths, two-level (options.use_tlas), with a TLAS update
+     (set_animation_frame) before every frame as bench.py's instanced row
+     does: procedural.instanced_field(num_inst=600), 601 instances of four
+     meshes, through K7 at the bench's 512x384, 1 spp, depth 3, 8 frames,
+     and at 1920x1080, 1 spp, depth 9; instanced_field(num_inst=500), 501
+     instances, through K6 at 1920x1080, 1 spp, depth 9: set-up seconds,
+     TLAS update ms, frame ms, Mray/s; the path's kernel must launch and
+     no other;
   6. K1 against its plain PyTorch version on the card: the cornell main
      path's shape (1080p chunk of 524,288 rays) and two terrain scenes (20k
      tris at leaf 32, 80k tris at leaf 128) with 262,144-ray coherent,
@@ -59,7 +68,19 @@ Phases (each raises on failure):
  11. procedural.terrain(grid=48), 4,608 tris in 5 subtrees, forced onto the
      streamed route (RPTR_FORCE_STREAMED_TRAVERSAL=1) at 48x48 on the card
      against the port's CPU render: equal ray counts and
-     goldens.compare_card; K4 and K5 must launch.
+     goldens.compare_card; K4 and K5 must launch;
+ 12. K6 and K7 at the instanced paths' shapes: on each path, the primary
+     chunk with the most hits, a bounce-1 queue (the primaries' hit points,
+     scattered directions) and the sun shadow queue from those hit points,
+     closest and any-hit, each against its plain version (rows, instances,
+     flags equal, t/u/v bitwise), timed with CUDA events beside the bound;
+     on the instanced500 queues K6 = K7 (a K7 pack of the same scene and
+     frame): t bitwise, triangle and instance equal except on exact-t ties,
+     which are counted, flags equal;
+ 13. procedural.instanced_field(num_inst=6) at 48x48, depth 9, two animated
+     frames, through K6 and through K7 (K6's instance cap set to 0), on the
+     card against the port's CPU render: equal ray counts and
+     goldens.compare_card; K6, then K7, must launch.
 Its last two lines are the kernels' JSON record and the result JSON.
 """
 
@@ -86,6 +107,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                           f"{REF}/traverse_stream.py:493"),
     "traverse_binned": (f"{PKG}/csrc/traverse_binned.cu",
                         f"{REF}/traverse_binned.py:218"),
+    "traverse_tlas": (f"{PKG}/csrc/traverse_tlas.cu",
+                      f"{REF}/traverse_tlas.py:202"),
+    "traverse_tlas_stream": (f"{PKG}/csrc/traverse_tlas_stream.cu",
+                             f"{REF}/traverse_tlas_stream.py:276"),
 }
 QUEUE = 262_144
 TIMED_FRAMES = 4
@@ -93,6 +118,12 @@ STREAM_FRAMES = 3  # timed frames of the terrain500 1080p path
 MAIN_SIZE = (1920, 1080)
 BENCH_SIZE = (512, 384)  # bench.py's terrain row
 STREAM_GRID = 500  # procedural.terrain(grid=500): 500,000 tris
+TLAS_PATHS = (  # label, instances, size, depth, timed frames, kernel
+    ("instanced600 bench row", 600, BENCH_SIZE, 3, 8, "K7"),
+    ("instanced600 1080p", 600, MAIN_SIZE, 9, 3, "K7"),
+    ("instanced500 1080p", 500, MAIN_SIZE, 9, 3, "K6"),
+)
+ANIM_FRAMES = 16  # instanced_field's animation length
 DEVICE = "cuda"
 # the bound of the traversal function (PERF.md): the larger of the bytes
 # over the card's memory rate and the Moller-Trumbore flops over its f32
@@ -103,7 +134,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 MT_FLOPS = 54
 RAY_BYTES = 32  # in: ro3, rd3, tmin, tmax
-HIT_BYTES = 16  # out: t, row, u, v (1 for a blocked flag)
+HIT_BYTES = 16  # out: t, row, u, v (1 for a blocked flag); K6 adds inst
 
 
 def log(*args):
@@ -581,6 +612,12 @@ def _counters():
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_stream as ts,
     )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
 
     return {
         "K1": (tr.reset_launches, lambda: tr.launches),
@@ -588,12 +625,27 @@ def _counters():
         "K3": (lambda: None, lambda: tf.launches_k3),
         "K4": (ts.reset_launches, lambda: ts.launches_k4),
         "K5": (tb.reset_launches, lambda: tb.launches_k5),
+        "K6": (tt.reset_launches, lambda: tt.launches_k6),
+        "K7": (tts.reset_launches, lambda: tts.launches_k7),
     }
 
 
-def _timed_frames(label, r, cfg, frames=TIMED_FRAMES):
-    """Warm-up plus ``frames`` frames; returns the launch counts of the
-    run, every count set to 0 just before it and read just after."""
+def _only(label, launches, kernels):
+    """The path launched every kernel of ``kernels`` and no other."""
+    check(all(launches[k] > 0 for k in kernels),
+          f"{label} did not launch {kernels}: {launches}")
+    others = {k: n for k, n in launches.items() if k not in kernels and n}
+    check(not others, f"{label} launched other kernels: {others}")
+
+
+def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
+    """Warm-up plus ``frames`` frames; with ``animate`` a TLAS update
+    (``set_animation_frame``) before each, frame (f + 1) % 16 before timed
+    frame f as bench.py's instanced row does, frame 0 before the warm-up.
+    Returns the launch counts of the run, every count set to 0 just before
+    it and read just after, and its record: median frame ms (CUDA events
+    around ``render``), Mray/s, the TLAS updates' host ms (build, pack and
+    upload, synchronised) and the frames' host ms with their update."""
     import torch
 
     counters = _counters()
@@ -602,17 +654,26 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES):
     for reset, _ in counters.values():
         reset()
     t0 = time.perf_counter()
+    if animate:
+        r.set_animation_frame(0)
     r.render(cfg)  # warm-up
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    frame_ms, rays = [], []
-    for _ in range(frames):
+    frame_ms, update_ms, total_ms, rays = [], [], [], []
+    for f in range(frames):
+        t0 = time.perf_counter()
+        if animate:
+            r.set_animation_frame((f + 1) % ANIM_FRAMES)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         r.render(cfg)
         end.record()
         torch.cuda.synchronize()
+        total_ms.append((time.perf_counter() - t0) * 1e3)
+        update_ms.append((t1 - t0) * 1e3)
         frame_ms.append(start.elapsed_time(end))
         rays.append(r.last_ray_count())
     launches = {k: read() for k, (_, read) in counters.items()}
@@ -622,16 +683,27 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES):
     nonneg = bool((img >= 0).all())
     mrays = sum(rays) / (sum(frame_ms) * 1e-3) / 1e6
     width, height = r.fb_width, r.fb_height
+    anim = ""
+    if animate:
+        anim = (f"TLAS update ms {[round(x, 3) for x in update_ms]} (median "
+                f"{float(np.median(update_ms)):.3f}), frame with update ms "
+                f"median {float(np.median(total_ms)):.3f} "
+                f"({sum(rays) / (sum(total_ms) * 1e-3) / 1e6:.3f} Mray/s), ")
     log(f"{label} {width}x{height} spp 1 depth "
         f"{cfg.params.max_path_depth}: warm-up "
         f"{warm_s * 1e3:.1f} ms, frame ms {[round(x, 3) for x in frame_ms]}, "
         f"median {float(np.median(frame_ms)):.3f} ms, {mrays:.3f} Mray/s "
-        f"({rays[0]} rays/frame), launches {launches}, live lanes per bounce "
+        f"({rays[0]} rays/frame), {anim}launches {launches} ("
+        f"{frames + 1} frames), live lanes per bounce "
         f"{r.live_profile}, peak memory {peak / 2**20:.1f} MiB, image finite "
         f"{finite} non-negative {nonneg} mean {float(img[..., :3].mean()):.5f}")
     check(finite and nonneg, f"{label} image is not finite and non-negative")
     check(img.shape == (height, width, 4), f"{label} image shape {img.shape}")
-    return launches
+    rec = {"frame_ms": float(np.median(frame_ms)), "mrays": mrays,
+           "update_ms": float(np.median(update_ms)),
+           "total_ms": float(np.median(total_ms)),
+           "per_frame": {k: n / (frames + 1) for k, n in launches.items()}}
+    return launches, rec
 
 
 def phase_main_path():
@@ -642,10 +714,8 @@ def phase_main_path():
     )
 
     r, cfg = frame_setup("cornell", DEVICE, MAIN_SIZE)
-    launches = _timed_frames("main path cornell", r, cfg)
-    check(launches["K1"] > 0, "main path did not launch K1")
-    check(max(launches[k] for k in ("K2", "K3", "K4", "K5")) == 0,
-          f"main path launched other kernels: {launches}")
+    launches, _ = _timed_frames("main path cornell", r, cfg)
+    _only("main path", launches, ("K1",))
     return launches["K1"]
 
 
@@ -657,12 +727,9 @@ def phase_terrain_path():
     )
 
     r, cfg = frame_setup("terrain", DEVICE, MAIN_SIZE)
-    launches = _timed_frames("terrain200 path", r, cfg)
+    launches, _ = _timed_frames("terrain200 path", r, cfg)
     check(r._wavefront is not None, "terrain200 did not take the wavefront executor")
-    check(launches["K2"] > 0 and launches["K3"] > 0,
-          f"terrain200 path did not launch K2 and K3: {launches}")
-    check(launches["K1"] + launches["K4"] + launches["K5"] == 0,
-          f"terrain200 path launched K1, K4 or K5: {launches}")
+    _only("terrain200 path", launches, ("K2", "K3"))
     return launches
 
 def phase_stream_paths():
@@ -684,12 +751,9 @@ def phase_stream_paths():
         log(f"{label}: set-up (streamed pack and upload) {r.setup_seconds:.2f} s, "
             f"{bb.num_subtrees} subtrees of {bb.sub_leaves} leaves, "
             f"{bb.num_top_nodes} top nodes")
-        launches = _timed_frames(label, r, cfg, frames)
+        launches, _ = _timed_frames(label, r, cfg, frames)
         check(r._wavefront is None, f"{label} took the wavefront executor")
-        check(launches["K4"] > 0 and launches["K5"] > 0,
-              f"{label} did not launch K4 and K5: {launches}")
-        check(launches["K1"] + launches["K2"] + launches["K3"] == 0,
-              f"{label} launched K1, K2 or K3: {launches}")
+        _only(label, launches, ("K4", "K5"))
         out[label] = launches
         if main is None:
             main = (r, cfg)
@@ -975,6 +1039,299 @@ def phase_small_streamed():
           f"small streamed terrain did not launch K4 and K5: {launched}")
 
 
+# ---------------------------------------------------------------------------
+# Two-level instancing: K6 and K7
+# ---------------------------------------------------------------------------
+
+
+def phase_tlas_paths():
+    """The instanced paths of TLAS_PATHS through the port's Renderer, each
+    with a TLAS update before every frame. Returns {label: (renderer, frame
+    config, launches, record)}."""
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    out = {}
+    for label, num_inst, size, depth, frames, kernel in TLAS_PATHS:
+        r, cfg = frame_setup("instanced", DEVICE, size, depth, num_inst=num_inst)
+        ds = r.device_scene
+        check(r._route.tlas.upper() == kernel,
+              f"{label} took the {r._route.tlas} route, not {kernel}")
+        if kernel == "K6":
+            bb = ds.tlas_k6
+            shape = (f"{bb.num_tlas_nodes} TLAS nodes, "
+                     f"{bb.blas_nodes.shape[0]} BLAS nodes, "
+                     f"{bb.tri_tiles.shape[0] // 16} leaf tiles")
+        else:
+            st, fr = ds.tlas_stream
+            shape = (f"{fr.num_entries} entries of {st.num_chunks} chunks of "
+                     f"{st.chunk_tris} tris, {fr.num_top_nodes} top nodes")
+        log(f"{label}: set-up (BLAS, TLAS, pack and upload) "
+            f"{r.setup_seconds:.2f} s, {len(r.scene.instances)} instances, "
+            f"{r.scene.total_tris} instanced tris, {shape}")
+        launches, rec = _timed_frames(label, r, cfg, frames, animate=True)
+        check(r._wavefront is None, f"{label} took the wavefront executor")
+        _only(label, launches, (kernel,))
+        log(f"{label} summary: set-up {r.setup_seconds:.3f} s, TLAS update "
+            f"{rec['update_ms']:.3f} ms, frame {rec['frame_ms']:.3f} ms "
+            f"({rec['total_ms']:.3f} ms with the update), {rec['mrays']:.3f} "
+            f"Mray/s, {kernel} {rec['per_frame'][kernel]:.2f} launches per frame")
+        out[label] = (r, cfg, launches, rec)
+    return out
+
+
+def _tlas_fns(ds, kernel):
+    """(launch, plain, decode) of the scene's two-level kernel on packed
+    operands."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
+
+    if kernel == "K6":
+        bb = ds.tlas_k6
+        return (lambda q, a: tt.launch(bb, q, a), lambda q, a: tt.plain(bb, q, a),
+                lambda out, n: tt.out_to_hit(bb, out, n))
+    st, fr = ds.tlas_stream
+    return (lambda q, a: tts.launch(st, fr, q, a),
+            lambda q, a: tts.plain(st, fr, q, a),
+            lambda out, n: tts.out_to_hit(st, fr, out, n))
+
+
+def tlas_bound(ds, kernel, rays, t_end, any_hit):
+    """The bound of K6 and K7 on this queue (ms, bound_by, pairs): as
+    ``bound``, with the (ray, leaf) pairs counted in each instance's (K6)
+    or entry's (K7) object space: the object ray's segment [tmin, min(tmax,
+    t_end)] (world t) against the object-space boxes of that BLAS's or
+    chunk's leaves. K6 writes 4 more bytes per ray (the instance)."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops.intersect import (
+        ray_aabb,
+        safe_inv_dir,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops.tlas import object_ray
+    from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
+
+    if kernel == "K6":
+        boxes, table = tt.leaf_boxes(ds.tlas_k6), ds.tlas_k6.inst_table
+    else:
+        st, fr = ds.tlas_stream
+        boxes, table = tts.leaf_boxes(st, fr), fr.entry_table
+    seg_end = torch.minimum(rays[7], t_end)
+    ro, rd = Vec3(*rays[0:3]), Vec3(*rays[3:6])
+    pairs = torch.zeros((), dtype=torch.int64, device=rays.device)
+    for row in table.tolist():
+        b = boxes[int(row[13])]
+        o, d = object_ray(row, ro, rd)
+        hit, _ = ray_aabb(torch.stack(list(o), -1)[None],
+                          safe_inv_dir(torch.stack(list(d), -1))[None],
+                          b[:, None, 0:3], b[:, None, 3:6], rays[6], seg_end)
+        pairs += hit.sum()
+    pairs = int(pairs)
+    n = rays.shape[1]
+    out_bytes = 1 if any_hit else HIT_BYTES + (4 if kernel == "K6" else 0)
+    bytes_ms = n * (RAY_BYTES + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = MT_FLOPS * 128 * pairs / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), pairs
+
+
+def compare_tlas_queue(label, ds, kernel, rays, rng, orays=None, iters=5):
+    """The scene's two-level kernel on one packed queue against its plain
+    version, closest and any-hit (``orays``: by default segments just short
+    of (0.999 t) or past (1.001 t) each closest hit). Returns the closest
+    record, the decoded closest hits and the any-hit flags."""
+    import torch
+
+    launch, plain, decode = _tlas_fns(ds, kernel)
+    n = rays.shape[1]
+    live = int((rays[7] > rays[6]).sum())
+    hk = launch(rays, False)
+    hp, p_ms = _plain_ms(lambda: plain(rays, False))
+    bad, err = _equal(hk, hp)
+    k_ms = cuda_ms(lambda: launch(rays, False), iters)
+    hit = decode(hk, n)
+    b_ms, b_by, pairs = tlas_bound(ds, kernel, rays, hit.t, False)
+    if orays is None:
+        scale = torch.from_numpy(np.where(
+            rng.uniform(size=n) < 0.5, 0.999, 1.001).astype(np.float32)).to(rays.device)
+        orays = rays.clone()
+        orays[7] = torch.where(rays[7] > rays[6],
+                               torch.where(hit.tri >= 0, hit.t * scale, 1e30), rays[7])
+    bk = launch(orays, True)
+    bp, op_ms = _plain_ms(lambda: plain(orays, True))
+    occ = _equal(bk, bp)[0]
+    occ_ms = cuda_ms(lambda: launch(orays, True), iters)
+    ob_ms, ob_by, _ = tlas_bound(ds, kernel, orays, orays[7], True)
+    log(f"  {label:34s} ({live} live): {kernel} closest {bad} vs plain not "
+        f"bitwise, {k_ms:.3f} ms (plain {p_ms:.1f}), hit "
+        f"{(hit.tri >= 0).float().mean().item():.3f}, "
+        f"{len(set(hit.inst[hit.inst >= 0].tolist()))} instances hit, bound "
+        f"{b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs); any-hit {occ} vs "
+        f"plain, {occ_ms:.3f} ms (plain {op_ms:.1f}), blocked "
+        f"{bk.float().mean().item():.3f}, bound {ob_ms:.4f} ms by {ob_by}")
+    check(bad == 0 and occ == 0, f"{label}: {kernel} disagrees with its plain version")
+    return ({"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b_ms,
+             "bound_by": b_by, "occ_ms": occ_ms, "occ_plain_ms": op_ms},
+            hit, bk, orays)
+
+
+def _tlas_queues(r, cfg, rng):
+    """[(name, rays, any-hit rays or None)] of an instanced path at its last
+    animation frame: the primary chunk with the most hits, a bounce-1 queue
+    from its hit points (scattered directions, dead where the primary
+    missed) and the sun shadow queue from the same points."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+    from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
+    from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
+
+    kernel = r._route.tlas.upper()
+    launch, _, decode = _tlas_fns(r.device_scene, kernel)
+    width, height = r.fb_width, r.fb_height
+    view = integrator.ViewBuffers(*(
+        torch.from_numpy(a).to(DEVICE) for a in cfg.camera.view_basis(width, height)))
+
+    def primaries(c):
+        px, py, valid = (x[c] for x in r._swizzle)
+        state = pointsets.make_state(0, 0, 0, px, py, width)
+        _, ro, rd = integrator.camera_setup(
+            integrator.IntegratorConfig(), view, px, py,
+            (float(width), float(height)), state)
+        return tr.pack_rays(ro, rd, 0.0, torch.where(valid, T_MAX, 0.0), 512)[0]
+
+    hits = [int((launch(primaries(c), False)[1] >= 0).sum())
+            for c in range(len(r._swizzle[0]))]
+    c = int(np.argmax(hits))
+    prim = primaries(c)
+    n = prim.shape[1]
+    t = decode(launch(prim, False), n).t
+    hit = t < 1e30
+    p = [prim[k] + prim[3 + k] * torch.where(hit, t, 0.0) for k in range(3)]
+    eps = (torch.sqrt(p[0] * p[0] + p[1] * p[1] + p[2] * p[2])
+           + torch.where(hit, t, 0.0)) * integrator.RAY_EPSILON
+    d = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)).to(DEVICE)
+    d = d / torch.sqrt((d * d).sum(0))
+    bounce, _ = tr.pack_rays(Vec3(*p), Vec3(*d), eps, torch.where(hit, T_MAX, 0.0),
+                             512)
+    sun = np.asarray(cfg.scene_config.sun_dir, np.float32)
+    sun = torch.from_numpy(sun / np.linalg.norm(sun)).to(DEVICE)
+    shadow, _ = tr.pack_rays(Vec3(*p), Vec3(*(sun[k].expand(n) for k in range(3))),
+                             eps, torch.where(hit, 2.0e16, 0.0), 512)
+    return [(f"primary chunk {c}", prim, None), ("bounce 1", bounce, None),
+            ("sun shadow", shadow, shadow)]
+
+
+def phase_tlas(paths, smi):
+    """K6 and K7 against their plain versions on each instanced path's
+    queues, and K6 = K7 on the instanced500 queues. Returns {kernel:
+    record} of the 1080p paths' primary chunks."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
+
+    rng = np.random.default_rng(601)
+    records = {}
+    for label, (r, cfg, _, _) in paths.items():
+        kernel = r._route.tlas.upper()
+        log(f"{kernel} at the {label} path's shapes, {smi}:")
+        queues = _tlas_queues(r, cfg, rng)
+        results = []
+        for qname, rays, orays in queues:
+            rec, hit, blocked, oq = compare_tlas_queue(
+                f"{label} {qname}", r.device_scene, kernel, rays, rng, orays)
+            results.append((qname, rays, hit, blocked, oq))
+            if label.endswith("1080p") and qname.startswith("primary"):
+                records[kernel] = rec
+        if kernel != "K6":
+            continue
+        # K6 = K7: a K7 pack of the same scene at the same frame
+        ds = r.device_scene
+        st = tts.pack_tlas_stream_static(r._mesh_tris, device=DEVICE)
+        fr = tts.pack_tlas_stream_frame(
+            st, r._inst_binding[0], r.scene.instance_transforms(r._scene_frame),
+            r._blas.tri_base)
+        check(torch.equal(ds.tlas_k6.inst_tri_base[fr.entry_inst.long()],
+                          fr.entry_tri_base), "K7 pack of instanced500 is off")
+        for qname, rays, h6, b6, oq in results:
+            n = rays.shape[1]
+            h7 = tts.out_to_hit(st, fr, tts.launch(st, fr, rays, False), n)
+            ties = _across(f"{label} {qname} K6 vs K7", h6.t, h6.tri, h7.t, h7.tri)
+            ties_inst = int((h6.inst != h7.inst).sum())
+            b7 = tts.launch(st, fr, oq, True)
+            occ = _bitwise(b6, b7)[0]
+            log(f"  {label} {qname}: K6 vs K7 ({fr.num_entries} entries, "
+                f"{st.chunk_tris}-tri chunks) t bitwise, {ties} triangle and "
+                f"{ties_inst} instance exact-t ties, any-hit {occ} mismatched")
+            check(occ == 0, f"{label} {qname}: K6 and K7 any-hit disagree")
+            check(ties <= n // 1000 and ties_inst <= n // 1000,
+                  f"{label} {qname}: {ties} K6/K7 ties")
+        del st, fr
+    return records
+
+
+def phase_small_instanced():
+    """instanced_field(num_inst=6) through K6 and through K7, on the card
+    against the port's CPU render."""
+    from realtimepathtracingresearchframework_tpu_torch import goldens
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    for kernel in ("K6", "K7"):
+        out = {}
+        old = tt.MAX_INSTANCES
+        if kernel == "K7":
+            tt.MAX_INSTANCES = 0
+        try:
+            for device in (DEVICE, "cpu"):
+                counters = _counters()
+                for reset, _ in counters.values():
+                    reset()
+                r, cfg = frame_setup("instanced", device, (48, 48), num_inst=6)
+                check(r._route.tlas.upper() == kernel, f"small instanced: {r._route}")
+                rays = []
+                for f in range(2):
+                    r.set_animation_frame(f + 1)
+                    r.render(cfg)
+                    rays.append(r.last_ray_count())
+                out[device] = (r.readback_accumulation()[..., :3], rays,
+                               {k: read() for k, (_, read) in counters.items()})
+        finally:
+            tt.MAX_INSTANCES = old
+        (img, rays, launched), (cpu_img, cpu_rays, _) = out[DEVICE], out["cpu"]
+        vs_cpu = goldens.compare_card(img, cpu_img)
+        log(f"instanced_field(6) 48x48 depth 9, 2 animated frames, {kernel}: vs "
+            f"port CPU render {vs_cpu}; rays {rays} (CPU {cpu_rays}), launches "
+            f"{launched}")
+        check(rays == cpu_rays, f"small instanced {kernel}: rays {rays}, CPU {cpu_rays}")
+        check(vs_cpu["ok"], f"small instanced {kernel}: card render off the CPU "
+              f"render: {vs_cpu}")
+        _only(f"small instanced {kernel}", launched, (kernel,))
+
+
 def main():
     import torch
 
@@ -992,6 +1349,9 @@ def main():
     k1_launches = phase_main_path()
     terrain = phase_terrain_path()
     stream, (r500, cfg500) = phase_stream_paths()
+    tlas_paths = phase_tlas_paths()
+    tlas_k7_launches = tlas_paths["instanced600 1080p"][2]["K7"]
+    tlas_k6_launches = tlas_paths["instanced500 1080p"][2]["K6"]
     k1 = dict(phase_parity(), launches=k1_launches)
     flat = phase_flat(smi)
     streamed = phase_streamed(r500, cfg500, smi)
@@ -999,6 +1359,9 @@ def main():
     phase_goldens()
     phase_small_terrain()
     phase_small_streamed()
+    tlas = phase_tlas(tlas_paths, smi)
+    del tlas_paths
+    phase_small_instanced()
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 
     main_stream = stream["terrain500 1080p"]
@@ -1010,6 +1373,8 @@ def main():
                                   launches=main_stream["K4"]),
         "traverse_binned": dict(streamed["traverse_binned"],
                                 launches=main_stream["K5"]),
+        "traverse_tlas": dict(tlas["K6"], launches=tlas_k6_launches),
+        "traverse_tlas_stream": dict(tlas["K7"], launches=tlas_k7_launches),
     }
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -22,7 +22,14 @@ wavefront executor; above 90,000 (or with
 ``RPTR_FORCE_STREAMED_TRAVERSAL``) the streamed route: the monolithic pass
 with the sorted streamed walk K4 for closest hits and one binned round of
 K5 for shadow rays (``RPTR_STREAM_CLOSEST`` picks the closest-hit
-strategy). Each kernel runs on ``device="cuda"``, its plain version on
+strategy). With ``options.use_tlas`` the scene is instanced two-level
+(renderer.py:692-769): a BLAS per unique mesh in object space and a TLAS
+over the instances, through K6 within its caps (``MAX_INSTANCES``
+instances, ``MAX_TOTAL_NODES`` BLAS + TLAS nodes) and K7 past them, up to
+``MAX_ENTRIES`` (instance, chunk) entries; above that the reference's XLA
+walk is not a route of the port and ``set_scene`` raises.
+``set_animation_frame`` rebuilds only the TLAS side (renderer.py:
+1888-1962). Each kernel runs on ``device="cuda"``, its plain version on
 ``device="cpu"`` (the tests' device). There is no CPU fallback for a CUDA
 renderer.
 """
@@ -74,7 +81,12 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse_flat import (
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     pack_resident,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import tlas as tlas_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_stream
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_tlas
+from realtimepathtracingresearchframework_tpu_torch.ops import (
+    traverse_tlas_stream,
+)
 from realtimepathtracingresearchframework_tpu_torch.ops.wavefront_host import (
     WavefrontExecutor,
 )
@@ -99,6 +111,7 @@ class Route(NamedTuple):
     compact: bool  # coherence-sorted dispatch past bounce 0
     leaf_size: int
     streamed: bool = False  # the streamed pack, K4 and K5
+    tlas: str = ""  # two-level instancing: "k6" or "k7"
 
 
 def _env_flag(name: str, default: bool) -> bool:
@@ -169,6 +182,7 @@ class Renderer:
         self._route: Optional[Route] = None
         self._wavefront: Optional[WavefrontExecutor] = None
         self.setup_seconds = 0.0  # host build + pack + upload of the BVH
+        self.tlas_update_seconds = 0.0  # the last set_animation_frame
         self._streamed_topo = None  # for the streamed refit (ROADMAP item 17)
         self._last_rays: List[torch.Tensor] = []
         self.live_profile: List[int] = []  # wavefront live lanes per bounce
@@ -197,22 +211,41 @@ class Renderer:
         self.frame_id = 0
 
     def set_scene(self, scene: Scene,
-                  scene_config: SceneConfig = SceneConfig()) -> None:
+                  scene_config: SceneConfig = SceneConfig(),
+                  frame: int = 0) -> None:
         """Scene upload: flatten, BVH build + resident pack and attribute
         tables in BVH-row order, or the streamed pack and attribute tables
-        in source-triangle order; lights and sky."""
+        in source-triangle order, or with ``options.use_tlas`` the
+        two-level build and attribute tables in object-space mesh order;
+        lights and sky. ``frame`` is the animation frame of the instance
+        transforms (the reference's ``_rebuild_scene(frame)``)."""
         self.scene = scene
-        flat = scene.flatten_world(lod_threshold=scene_config.lod_threshold)
+        flat = scene.flatten_world(frame=frame,
+                                   lod_threshold=scene_config.lod_threshold)
         if scene.textures:
             raise NotImplementedError("textures are not ported yet (ROADMAP item 11)")
         if scene.has_lod_groups():
             raise NotImplementedError(
                 "LoD re-selection is not ported yet (ROADMAP item 21)"
             )
-        self._route = route = route_for(flat.num_tris)
         dev = self.device
+        self._scene_frame = frame
+        shade, tlas, k6, k7 = flat, None, None, None
+        if self.options.use_tlas:
+            # attributes from the object-space flatten in source order;
+            # the lights still come from the world flatten (renderer.py:769)
+            shade, mesh_tris, *binding = scene.flatten_meshes()
+        else:
+            self._route = route = route_for(flat.num_tris)
         t0 = time.perf_counter()
-        if route.streamed:
+        if self.options.use_tlas:
+            tlas, k6, k7 = self._set_two_level(mesh_tris, binding, frame)
+            self._route = route = Route(
+                kernel_v3=False, compact=False, leaf_size=traverse_tlas.LEAF,
+                tlas="k6" if k6 is not None else "k7")
+            # hits carry global shading rows: attributes in source order
+            bvh, ix = None, slice(None)
+        elif route.streamed:
             if self.options.quantized_geometry:
                 raise NotImplementedError(
                     "quantized streamed geometry is not ported yet "
@@ -239,8 +272,14 @@ class Renderer:
             print(f"set_scene: streamed pack of {flat.num_tris} tris into "
                   f"{bvh.num_subtrees} subtrees of {bvh.sub_leaves} leaves in "
                   f"{self.setup_seconds:.2f} s", flush=True)
+        if route.tlas:
+            print(f"set_scene: two-level {route.tlas.upper()} route, "
+                  f"{len(scene.instances)} instances of "
+                  f"{len(self._mesh_tris)} meshes ({flat.num_tris} instanced "
+                  f"tris), built and uploaded in {self.setup_seconds:.2f} s",
+                  flush=True)
         rows = SimpleNamespace(**{
-            name: np.asarray(getattr(flat, name))[ix]
+            name: np.asarray(getattr(shade, name))[ix]
             for name in ("e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
                          "tangent", "texel_density", "material_id")
         })
@@ -266,9 +305,89 @@ class Renderer:
             has_area_lights=self._num_lights > 0, device=dev,
         )
         self.device_scene = DeviceScene(
-            bvh=bvh, attr_packed=attr, mat_packed=mats, lights=lights, sky=sky
+            bvh=bvh, attr_packed=attr, mat_packed=mats, lights=lights, sky=sky,
+            tlas=tlas, tlas_k6=k6, tlas_stream=k7,
         )
         self._wavefront = None
+
+    def _set_two_level(self, mesh_tris, binding, frame: int):
+        """The two-level build of ``set_scene`` (renderer.py:692-769): the
+        nested walk's BLAS set over the unique meshes (``mesh_tris``), and
+        K6's 128-leaf BLASes when the scene is within its caps, else K7's
+        chunk blocks when its entries fit, else ``NotImplementedError``;
+        then this frame's TLAS side. ``binding`` is (mesh id, material
+        offset) per instance. The entry count comes from the mesh sizes,
+        before any chunk is built (the reference packs first,
+        renderer.py:746). Returns (TwoLevelBuffers, K6 buffers or None, K7
+        (static, frame) or None)."""
+        mesh_ids = binding[0]
+        self._mesh_tris = mesh_tris
+        self._inst_binding = tuple(binding)
+        self._blas = tlas_mod.build_blas_set(mesh_tris)
+        self._blas_dev = tlas_mod.blas_tensors(self._blas, self.device)
+        self._k6_static = self._k7_static = None
+        if len(mesh_ids) <= traverse_tlas.MAX_INSTANCES:
+            static = traverse_tlas.pack_blas(mesh_tris, self.device)
+            if (static.blas_nodes.shape[0] + 2 * len(mesh_ids)
+                    <= traverse_tlas.MAX_TOTAL_NODES):
+                self._k6_static = static
+        if self._k6_static is None:
+            sizes = [len(m[0]) for m in mesh_tris]
+            entries = traverse_tlas_stream.entry_count(sizes, mesh_ids)
+            if entries > traverse_tlas_stream.MAX_ENTRIES:
+                raise NotImplementedError(
+                    f"{entries} (instance, chunk) entries are past K7's cap "
+                    f"of {traverse_tlas_stream.MAX_ENTRIES}; the reference's "
+                    "XLA walk there is not a route of the port")
+            self._k7_static = traverse_tlas_stream.pack_tlas_stream_static(
+                mesh_tris, device=self.device)
+        return self._build_tlas_buffers(self.scene.instance_transforms(frame))
+
+    def _build_tlas_buffers(self, transforms):
+        """One frame's TLAS side (renderer.py:610-650): instance boxes, the
+        TLAS, the instance tables and K6's or K7's frame pack, uploaded;
+        the BLAS and chunk tensors are reused as they are. Returns
+        (TwoLevelBuffers, K6 buffers or None, K7 (static, frame) or None)."""
+        mesh_ids, mat_offsets = self._inst_binding
+        dev = self.device
+        aabbs = tlas_mod.instance_world_aabbs(self._blas, mesh_ids, transforms)
+        nodes, row_inst = tlas_mod.build_tlas_nodes(aabbs)
+        tables = tlas_mod.build_instance_tables(
+            self._blas, mesh_ids, mat_offsets, transforms, dev)
+        tb = tlas_mod.two_level_buffers(self._blas_dev, nodes, row_inst, tables)
+        k6 = k7 = None
+        if self._k6_static is not None:
+            k6 = traverse_tlas.pack_two_level(
+                self._k6_static, mesh_ids, self._blas.tri_base, nodes,
+                row_inst, tables["inst_inv"].cpu().numpy(),
+                tables["inst_cull_scale"].cpu().numpy())
+        else:
+            k7 = (self._k7_static, traverse_tlas_stream.pack_tlas_stream_frame(
+                self._k7_static, mesh_ids, transforms, self._blas.tri_base))
+        return tb, k6, k7
+
+    def set_animation_frame(self, frame: int,
+                            scene_config: Optional[SceneConfig] = None) -> None:
+        """Re-pose the instances at an animation frame (renderer.py:
+        1888-1962, its two-level branch): the TLAS, the instance tables and
+        K6's or K7's frame pack are rebuilt on the host and uploaded; the
+        BLAS and chunk tensors stay the same objects. The accumulation
+        restarts, and a cached wavefront executor is dropped (it holds the
+        old device scene). ``scene_config`` is accepted for the reference's
+        signature; the lights and sky stay those of ``set_scene``, as there.
+        Flattened scenes would refit their BVH, which is not ported."""
+        if self._route is None or not self._route.tlas:
+            raise NotImplementedError(
+                "animating a flattened scene (BVH refit) is not ported yet "
+                "(ROADMAP item 17)")
+        t0 = time.perf_counter()
+        tb, k6, k7 = self._build_tlas_buffers(self.scene.instance_transforms(frame))
+        self.device_scene = self.device_scene._replace(
+            tlas=tb, tlas_k6=k6, tlas_stream=k7)
+        self.tlas_update_seconds = time.perf_counter() - t0
+        self._scene_frame = frame
+        self._wavefront = None
+        self.frame_id = 0  # the next frame blends as the first sample
 
     def _stream_closest_strategy(self) -> str:
         """``RPTR_STREAM_CLOSEST``, validated as renderer.py:1077-1089
@@ -291,6 +410,9 @@ class Renderer:
         compact_lanes = _env_flag("RPTR_COMPACT_LANES",
                                   route.kernel_v3)
         return IntegratorConfig(
+            two_level=bool(route.tlas),
+            tlas_k6=route.tlas == "k6",
+            tlas_stream=route.tlas == "k7",
             max_path_depth=int(params.max_path_depth),
             light_bin_size=int(self.options.light_sampling_bucket_count),
             num_lights=int(self._num_lights),

@@ -1,7 +1,10 @@
 // Shared parts of the streamed kernels K4 (traverse_streamed.cu) and K5
-// (traverse_binned.cu): one thread per ray, the slab test, and the walk of
-// one subtree of the streamed pack (ops/traverse_stream.py::pack_streamed)
-// with Moller-Trumbore over the 128 triangles of every entered leaf.
+// (traverse_binned.cu) and the two-level kernels K6 (traverse_tlas.cu) and
+// K7 (traverse_tlas_stream.cu): one thread per ray, the slab test, the
+// object ray of an instance, and the walk of one subtree of the streamed
+// pack (ops/traverse_stream.py::pack_streamed; K6 walks a BLAS of the same
+// node and tile layout) with Moller-Trumbore over the 128 triangles of
+// every entered leaf.
 //
 // A subtree's node block is slots = node_rows * 16 nodes of 8 floats, node
 // i at offset 8 * i: [min3, max3, skip, local leaf id | -1]. The links are
@@ -58,6 +61,31 @@ struct Ray {
     iz = safe_inv(dz);
   }
 };
+
+// World ray -> object ray of an instance (the two-level kernels K6, K7) by
+// its inverse affine a[0:12] (A^-1 rows, then its translation), the
+// direction NOT renormalised, so object-space t is world t. The sums run in
+// the order of ops/tlas.py::object_ray (and of the reference kernels,
+// traverse_tlas.py:246-251); safe_inv of the OBJECT direction.
+__device__ __forceinline__ Ray object_ray(const float* __restrict__ a,
+                                          const Ray& w) {
+  float m[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) m[k] = __ldg(a + k);
+  Ray r;
+  r.ox = m[0] * w.ox + m[1] * w.oy + m[2] * w.oz + m[9];
+  r.oy = m[3] * w.ox + m[4] * w.oy + m[5] * w.oz + m[10];
+  r.oz = m[6] * w.ox + m[7] * w.oy + m[8] * w.oz + m[11];
+  r.dx = m[0] * w.dx + m[1] * w.dy + m[2] * w.dz;
+  r.dy = m[3] * w.dx + m[4] * w.dy + m[5] * w.dz;
+  r.dz = m[6] * w.dx + m[7] * w.dy + m[8] * w.dz;
+  r.tmin = w.tmin;
+  r.tmax = w.tmax;
+  r.ix = safe_inv(r.dx);
+  r.iy = safe_inv(r.dy);
+  r.iz = safe_inv(r.dz);
+  return r;
+}
 
 struct Best {
   float t;  // the segment end while nothing is found

@@ -18,12 +18,19 @@ walk K1 (``ops/traverse_resident.py``), or on large resident scenes
 (``cfg.streamed``) the sorted streamed walk K4 for closest hits
 (``ops/traverse_stream.py``; the binned rounds of K5 with
 ``stream_closest="binned"``) and one binned round of K5 with its K4
-cleanup for every shadow ray (``ops/traverse_binned.py``). Each launches
-its CUDA kernel on CUDA tensors and runs its plain version on CPU tensors.
-Attribute tables are in BVH-row order on the resident routes, so a hit's
-row is its attribute index, and in source-triangle order on the streamed
-route, whose hits carry source triangle ids; a fetch is plain indexing
-(the reference's one-hot MXU fetch is TPU-only).
+cleanup for every shadow ray (``ops/traverse_binned.py``); on instanced
+scenes (``cfg.two_level``) the two-level walks, K6 (``cfg.tlas_k6``,
+``ops/traverse_tlas.py``) or K7 (``cfg.tlas_stream``,
+``ops/traverse_tlas_stream.py``), whose hits carry a global shading row and
+an instance: ``visit_hit`` takes the edges to world space by the instance's
+A, the shading normal by A^-T, and offsets the material id
+(integrator.py:1158-1169, 1182-1184). Each launches its CUDA kernel on CUDA
+tensors and runs its plain version on CPU tensors. Attribute tables are in
+BVH-row order on the resident routes, so a hit's row is its attribute
+index, in source-triangle order on the streamed route, whose hits carry
+source triangle ids, and in object-space mesh order on the two-level
+routes; a fetch is plain indexing (the reference's one-hot MXU fetch is
+TPU-only).
 
 Configurations outside the slice raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
@@ -61,6 +68,10 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_binned
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_stream
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_tlas
+from realtimepathtracingresearchframework_tpu_torch.ops import (
+    traverse_tlas_stream,
+)
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     closest_hit_resident,
     coherence_key,
@@ -100,11 +111,17 @@ class DeviceScene(NamedTuple):
     """Everything the integrator reads, on one device."""
 
     bvh: ResidentBVH  # traverse_flat.FlatBVH when cfg.kernel_v3,
-    # traverse_stream.StreamedBVHBuffers when cfg.streamed
+    # traverse_stream.StreamedBVHBuffers when cfg.streamed, None when
+    # cfg.two_level
     attr_packed: torch.Tensor  # (ATTR_W, R) f32 per-row (or per-tri) attributes
     mat_packed: torch.Tensor  # (MAT_W, M) f32 material rows
     lights: nee_mod.TriLightBuffers
     sky: SkyParams
+    tlas: object = None  # tlas.TwoLevelBuffers when cfg.two_level: the
+    # instance tables visit_hit reads (and the nested walk's oracle)
+    tlas_k6: object = None  # traverse_tlas.TlasBuffers when cfg.tlas_k6
+    tlas_stream: object = None  # (TlasStreamStatic, TlasStreamFrame) when
+    # cfg.tlas_stream
 
 
 def pack_attr_table(tris, shading) -> torch.Tensor:
@@ -252,7 +269,9 @@ class IntegratorConfig(NamedTuple):
     has_textures: bool = False
     alpha_test: bool = False
     enable_dof: bool = False
-    two_level: bool = False
+    two_level: bool = False  # instanced scene: K6 or K7, world attributes
+    tlas_k6: bool = False  # two-level walk through K6 (within its caps)
+    tlas_stream: bool = False  # two-level walk through K7
     streamed: bool = False
     compact: bool = False  # coherence sort before each dispatch past bounce 0
     compact_lanes: bool = False
@@ -271,9 +290,13 @@ _UNPORTED = (
     ("enable_dof", "thin-lens depth of field", 14),
     ("debug_mode", "debug variants", 14),
     ("compact_lanes", "carry compaction of the monolithic bounce loop", 16),
-    ("two_level", "two-level instancing", 19),
 )
 STREAM_CLOSEST = ("sorted", "ordered", "binned", "multislot")
+# the reference's XLA nested walk, its route past K7's entry cap, is the
+# port's CPU oracle only (ops/tlas.py), never a route on the card
+_NO_TWO_LEVEL_KERNEL = (
+    "two-level scenes past K7's entry cap (the reference's XLA walk) are "
+    "not a route of the port")
 _STREAM_CLOSEST_PORTED = ("sorted", "binned")
 
 
@@ -435,7 +458,21 @@ def _closest_hit_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
     Unsorted queues (camera primaries) take K2 at block 512. Streamed
     scenes (integrator.py:516-535) take the coherence-sorted K4 walk, or
     the binned rounds of K5 with ``stream_closest="binned"``; their hits
-    carry source triangle ids."""
+    carry source triangle ids. Instanced scenes (integrator.py:491-515)
+    take K6, or K7, coherence-sorted only on a ``compact`` queue that the
+    caller has not sorted; their hits carry global shading rows and
+    instances."""
+    if cfg.two_level:
+        if cfg.tlas_k6:
+            return traverse_tlas.closest_hit_tlas(
+                ds.tlas_k6, ro, rd, t_min, t_max,
+                ordered=cfg.stream_closest == "ordered")
+        if cfg.tlas_stream:
+            static, frame = ds.tlas_stream
+            return traverse_tlas_stream.closest_hit_tlas_stream(
+                static, frame, ro, rd, t_min, t_max,
+                sort=compact and not presorted)
+        raise NotImplementedError(_NO_TWO_LEVEL_KERNEL)
     if cfg.streamed:
         check_stream_closest(cfg.stream_closest)
         if cfg.stream_closest == "binned":
@@ -463,7 +500,17 @@ def _occluded_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
     scenes without alpha cutouts). ``sort_shadow`` coherence-sorts this
     queue by its own origins (fresh hit points past bounce 0): K3 at block
     1024 in 8 groups (``cfg.kernel_v4``), else K2 sorted. Streamed scenes
-    take one binned round of K5 and its K4 cleanup (integrator.py:684-696)."""
+    take one binned round of K5 and its K4 cleanup (integrator.py:684-696);
+    instanced scenes K6, or K7 sorted by ``sort_shadow``
+    (integrator.py:660-683)."""
+    if cfg.two_level:
+        if cfg.tlas_k6:
+            return traverse_tlas.occluded_tlas(ds.tlas_k6, ro, rd, t_min, t_max)
+        if cfg.tlas_stream:
+            static, frame = ds.tlas_stream
+            return traverse_tlas_stream.occluded_tlas_stream(
+                static, frame, ro, rd, t_min, t_max, sort=sort_shadow)
+        raise NotImplementedError(_NO_TWO_LEVEL_KERNEL)
     if cfg.streamed:
         return traverse_binned.occluded_binned(ds.bvh, ro, rd, t_min, t_max,
                                                rounds=1)
@@ -533,7 +580,12 @@ def _permute_lanes(tree, perm):
 
 def _scene_bounds_of(ds: DeviceScene):
     """(lo, hi) world box of the coherence morton grid (integrator.py:
-    961-972): the flat BVH's scene box, else the resident root node."""
+    961-972): the flat BVH's scene box, the resident root node, or on an
+    instanced scene the TLAS root (the reference keeps a degenerate 1-tri
+    BVH there; the box only orders lanes, never changes a result)."""
+    if ds.tlas is not None:
+        root = ds.tlas.tlas_nodes[0]
+        return root[0:3], root[3:6]
     lo = getattr(ds.bvh, "scene_lo", None)
     if lo is not None:
         return lo, ds.bvh.scene_hi
@@ -544,6 +596,13 @@ def _carry_coherence_key(ro: Vec3, rd: Vec3, live, lo, hi):
     """Lane sort key of carry-level compaction (integrator.py:975-1002):
     the contract of traverse_pallas2._coherence_key2 from the SoA carry."""
     return coherence_key(*ro, *rd, live, lo, hi)
+
+
+def _mat3_apply(m, x: Vec3) -> Vec3:
+    """Per-lane (N, 9) row-major 3x3 matrices times a Vec3 (the
+    reference's ``einsum("nab,nb->na")``)."""
+    return Vec3(*(m[:, 3 * a] * x.x + m[:, 3 * a + 1] * x.y + m[:, 3 * a + 2] * x.z
+                  for a in range(3)))
 
 
 def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
@@ -584,6 +643,15 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
             c[_A_N0 + 1] * b0 + c[_A_N1 + 1] * b1 + c[_A_N2 + 1] * b2,
             c[_A_N0 + 2] * b0 + c[_A_N1 + 2] * b1 + c[_A_N2 + 2] * b2,
         )
+        if cfg.two_level:
+            # object -> world: edges by the instance's linear part A,
+            # normals by A^-T (integrator.py:1158-1169)
+            inst = torch.clamp(hit.inst, min=0).to(torch.int64)
+            lin = ds.tlas.inst_linear[inst]
+            lin_it = ds.tlas.inst_inv_t[inst]
+            e1 = _mat3_apply(lin, e1)
+            e2 = _mat3_apply(lin, e2)
+            n_sh = _mat3_apply(lin_it, n_sh)
         gn_raw = v3.cross(e1, e2)
         gn_raw = v3.where(v3.dot(n_sh, gn_raw) < 0.0, -gn_raw, gn_raw)
         gn_len = v3.length(gn_raw)  # 2*area
@@ -597,6 +665,8 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
         n_sh = v3.normalize(n_sh)
 
         mid = c[_A_MID].to(torch.int64)
+        if cfg.two_level:
+            mid = mid + ds.tlas.inst_mat_offset[inst]
         mat_ranges = [(_M_BASE, _M_BCTEX)]
         if cfg.thin_transmission:
             mat_ranges = mat_ranges + [(_M_CCGLOSS, _M_CCGLOSS + 1)]

@@ -6,11 +6,16 @@ terrain200``: ``procedural.terrain(grid=200)`` (80,000 triangles) with the
 sun and sky of bench.py's terrain row, through the wavefront executor, K2
 and K3. ``--scene terrain500``: ``procedural.terrain(grid=500)`` (500,000
 triangles), same sun, sky and camera, on the streamed route: the
-monolithic pass, K4 and K5. At ``--size`` (default 1920x1080; bench.py's
-terrain row is ``--size 512x384 --depth 3``), 1 spp, ``--depth`` (default
-9): one warm-up frame, ``--frames`` frames timed by the host clock with a
-device sync after each, then ``--profiled`` frames under
-``torch.profiler``. Prints the card's name, power limit and SM clock, the
+monolithic pass, K4 and K5. ``--scene instanced600`` and ``--scene
+instanced500``: ``procedural.instanced_field(num_inst=600 | 500)`` (601 or
+501 instances of four meshes) with the camera, sun and sky of bench.py's
+instanced row, on the two-level route (``options.use_tlas``): K7 past K6's
+512-instance cap, K6 within it; ``--animate`` updates the TLAS
+(``set_animation_frame``) before every frame, as bench.py's row does. At
+``--size`` (default 1920x1080; bench.py's terrain and instanced rows are
+``--size 512x384 --depth 3``), 1 spp, ``--depth`` (default 9): one warm-up
+frame, ``--frames`` frames timed by the host clock with a device sync after
+each, then ``--profiled`` frames under ``torch.profiler``. Prints the card's name, power limit and SM clock, the
 scene's set-up seconds, the frame times, the device kernels per frame,
 their summed time and the union of their intervals (the device busy share
 is that union over the profiled wall), the traversal kernels' launches,
@@ -18,8 +23,9 @@ time and share of device time, the largest kernels, and the host's launch
 and sync calls. The last line is a JSON summary.
 
     python -m realtimepathtracingresearchframework_tpu_torch.profile_frame \
-        [--scene cornell|terrain200|terrain500] [--size 1920x1080] \
-        [--depth 9] [--frames 5] [--profiled 3] [--out tables.txt]
+        [--scene cornell|terrain200|terrain500|instanced600|instanced500] \
+        [--animate] [--size 1920x1080] [--depth 9] [--frames 5] \
+        [--profiled 3] [--out tables.txt]
 
 ``--out`` also writes torch.profiler's key-average tables to a file.
 """
@@ -56,6 +62,10 @@ from realtimepathtracingresearchframework_tpu_torch.ops import (
 from realtimepathtracingresearchframework_tpu_torch.ops import (
     traverse_stream as ts,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_tlas as tt
+from realtimepathtracingresearchframework_tpu_torch.ops import (
+    traverse_tlas_stream as tts,
+)
 
 SIZE = (1920, 1080)
 # traversal kernels: the launch counter and a substring of the kernel name
@@ -65,8 +75,12 @@ KERNELS = {
     "K3": (lambda: tf.launches_k3, "precull"),
     "K4": (lambda: ts.launches_k4, "traverse_streamed"),
     "K5": (lambda: tb.launches_k5, "traverse_binned"),
+    "K6": (lambda: tt.launches_k6, "traverse_tlas_kernel"),
+    "K7": (lambda: tts.launches_k7, "traverse_tlas_stream"),
 }
 GRIDS = {"terrain200": 200, "terrain500": 500}
+INSTANCES = {"instanced600": 600, "instanced500": 500}
+ANIM_FRAMES = 16  # instanced_field's animation length
 HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaStreamSynchronize",
               "cudaMemcpyAsync", "aten::item")
 
@@ -85,10 +99,13 @@ def union_length(intervals) -> float:
 
 
 def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
-                grid: int = 200):
+                grid: int = 200, num_inst: int = 600):
     """(Renderer, FrameConfig) of a profiled path: ``"cornell"`` (camera of
-    bench.py:91-99) or ``"terrain"`` (``procedural.terrain(grid)``, sun,
-    sky and camera of bench.py:139-151), at ``size``, 1 spp, ``depth``."""
+    bench.py:91-99), ``"terrain"`` (``procedural.terrain(grid)``, sun,
+    sky and camera of bench.py:139-151) or ``"instanced"``
+    (``procedural.instanced_field(num_inst)`` on the two-level route, sun,
+    sky and camera of bench.py:115-136), at ``size``, 1 spp, ``depth``."""
+    use_tlas = False
     if scene == "cornell":
         vkr_scene = procedural.cornell_box()
         cam = OrientedCamera.look_at([0, 1.0, 3.2], [0, 1.0, 0.0], fovy=50)
@@ -97,9 +114,15 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
         vkr_scene = procedural.terrain(grid=grid)
         cam = OrientedCamera.look_at([0, 5.0, 12.0], [0, 0, 0], fovy=55)
         sc = SceneConfig(sun_dir=(0.4, 0.7, 0.2), turbidity=3.0)
+    elif scene == "instanced":
+        vkr_scene = procedural.instanced_field(num_inst=num_inst)
+        cam = OrientedCamera.look_at([0, 14.0, 30.0], [0, 0, 0], fovy=55)
+        sc = SceneConfig(sun_dir=(0.4, 0.8, 0.25), turbidity=3.0)
+        use_tlas = True
     else:
         raise KeyError(scene)
     r = Renderer(device=device)
+    r.options = r.options.replace(use_tlas=use_tlas)
     r.initialize(*size)
     r.set_scene(Scene.from_vkr_scene(vkr_scene), scene_config=sc)
     cfg = FrameConfig(
@@ -112,8 +135,10 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("cornell", "terrain200", "terrain500"),
+    ap.add_argument("--scene", choices=("cornell", *GRIDS, *INSTANCES),
                     default="cornell")
+    ap.add_argument("--animate", action="store_true",
+                    help="update the TLAS before every frame (instanced scenes)")
     ap.add_argument("--size", default="1920x1080", help="WxH")
     ap.add_argument("--depth", type=int, default=9)
     ap.add_argument("--frames", type=int, default=5)
@@ -132,30 +157,50 @@ def main(argv=None) -> int:
     size = tuple(int(x) for x in args.size.split("x"))
     if args.scene == "cornell":
         r, cfg = frame_setup("cornell", size=size, depth=args.depth)
+    elif args.scene in INSTANCES:
+        r, cfg = frame_setup("instanced", size=size, depth=args.depth,
+                             num_inst=INSTANCES[args.scene])
     else:
         r, cfg = frame_setup("terrain", size=size, depth=args.depth,
                              grid=GRIDS[args.scene])
+    if args.animate and not r._route.tlas:
+        ap.error("--animate needs an instanced scene")
     print(f"{args.scene} {args.size} depth {args.depth}: set-up "
-          f"{r.setup_seconds:.3f} s", flush=True)
-    r.render(cfg)  # warm-up
+          f"{r.setup_seconds:.3f} s, route {r._route}", flush=True)
+    frame_no = 0
+    updates = []
+
+    def frame():
+        """One frame, after a TLAS update with ``--animate``."""
+        nonlocal frame_no
+        if args.animate:
+            frame_no += 1
+            r.set_animation_frame(frame_no % ANIM_FRAMES)
+            updates.append(r.tlas_update_seconds * 1e3)
+        r.render(cfg)
+
+    frame()  # warm-up
     torch.cuda.synchronize()
 
     walls = []
     for _ in range(args.frames):
         t0 = time.perf_counter()
-        r.render(cfg)
+        frame()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = float(np.median(walls))
     print(f"frame wall ms, no profiler: {walls}, median {wall_ms}", flush=True)
+    if updates:
+        print(f"TLAS update ms per frame (host build + upload): {updates}",
+              flush=True)
 
     nf = args.profiled
-    for mod in (tr, tf, ts, tb):
+    for mod in (tr, tf, ts, tb, tt, tts):
         mod.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(nf):
-            r.render(cfg)
+            frame()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / nf
     launches = {k: count() / nf for k, (count, _) in KERNELS.items()}
@@ -197,6 +242,7 @@ def main(argv=None) -> int:
             f.write(ka.table(sort_by="self_device_time_total", row_limit=40) + "\n")
     print(json.dumps({
         "scene": args.scene, "size": args.size, "depth": args.depth,
+        "animate": args.animate, "tlas_update_ms": updates,
         "setup_s": r.setup_seconds, "rays_per_frame": r.last_ray_count(),
         "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
         "kernels_per_frame": len(kern) / nf, "device_ms": device_ms,

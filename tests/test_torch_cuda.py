@@ -22,6 +22,11 @@ from realtimepathtracingresearchframework_tpu_torch.ops import traverse_binned a
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_resident as tr
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_stream as ts
+from realtimepathtracingresearchframework_tpu_torch.ops import tlas
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_tlas as tt
+from realtimepathtracingresearchframework_tpu_torch.ops import (
+    traverse_tlas_stream as tts,
+)
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
 
@@ -143,3 +148,71 @@ def test_k5_matches_plain_on_card(rounds, shadow):
     p = tb._run_rounds(bb, rays, 512, rounds, shadow, plain_versions=True)
     for a, b in zip(k if not shadow else (k,), p if not shadow else (p,)):
         assert torch.equal(a, b)
+
+
+def _instanced_queue(num_inst, n, seed):
+    """procedural.instanced_field(num_inst) at animation frame 1 on the
+    card: K6's pack and K7's (static, frame), and a packed (8, n) queue of
+    rays from above the field towards the ground, 30% of them dead."""
+    dev = _card()
+    scene = Scene.from_vkr_scene(procedural.instanced_field(num_inst=num_inst))
+    _, mesh_tris, mesh_ids, mats = scene.flatten_meshes()
+    xfs = scene.instance_transforms(1)
+    blas = tlas.build_blas_set(mesh_tris)
+    nodes, row = tlas.build_tlas_nodes(tlas.instance_world_aabbs(blas, mesh_ids, xfs))
+    tables = tlas.build_instance_tables(blas, mesh_ids, mats, xfs)
+    bb6 = tt.pack_two_level(tt.pack_blas(mesh_tris, dev), mesh_ids, blas.tri_base,
+                            nodes, row, tables["inst_inv"].numpy(),
+                            tables["inst_cull_scale"].numpy())
+    st7 = tts.pack_tlas_stream_static(mesh_tris, device=dev)
+    fr = tts.pack_tlas_stream_frame(st7, mesh_ids, xfs, blas.tri_base)
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform(-30, 30, (n, 3)).astype(np.float32)
+    ro[:, 1] = rng.uniform(3.0, 12.0, n)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd[:, 1] = -np.abs(rd[:, 1])
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    tmax = np.where(rng.uniform(size=n) < 0.3, 0.0, 2.0e32).astype(np.float32)
+
+    def soa(a):
+        t = torch.from_numpy(a).to(dev)
+        return Vec3(*(t[:, k].contiguous() for k in range(3)))
+
+    rays, _ = tr.pack_rays(soa(ro), soa(rd), 0.0, torch.from_numpy(tmax).to(dev),
+                           512)
+    return bb6, (st7, fr), rays
+
+
+@pytest.mark.cuda
+def test_k6_k7_match_plain_on_card():
+    """K6 and K7 equal their plain versions bitwise, closest and any-hit,
+    K7 sorted and unsorted; K6 = K7 bitwise on t, and on the instance but
+    for exact-t ties (40 instances of procedural.instanced_field, within
+    K6's caps)."""
+    bb6, (st7, fr), rays = _instanced_queue(40, 4096, 5)
+    before = tt.launches_k6
+    k6 = tt.launch(bb6, rays, False)
+    assert tt.launches_k6 == before + 1
+    for a, b in zip(k6, tt.plain(bb6, rays, False)):
+        assert torch.equal(a, b)
+    assert (k6[1] >= 0).any()
+    for queue in (rays, tts._sort_operand(fr, rays)[0]):
+        before = tts.launches_k7
+        k7 = tts.launch(st7, fr, queue, False)
+        assert tts.launches_k7 == before + 1
+        for a, b in zip(k7, tts.plain(st7, fr, queue, False)):
+            assert torch.equal(a, b)
+    k7 = tts.launch(st7, fr, rays, False)
+    assert torch.equal(k6[0], k7[0])
+    h6 = tt.out_to_hit(bb6, k6, rays.shape[1])
+    h7 = tts.out_to_hit(st7, fr, k7, rays.shape[1])
+    # the two trees visit instances in other orders: an exact-t tie between
+    # two instances may go either way
+    assert int((h6.inst != h7.inst).sum()) <= rays.shape[1] // 1000
+    oq = rays.clone()
+    oq[7] = torch.where(k6[1] >= 0, k6[0] * 1.001, rays[7])
+    b6 = tt.launch(bb6, oq, True)
+    b7 = tts.launch(st7, fr, oq, True)
+    assert torch.equal(b6, tt.plain(bb6, oq, True))
+    assert torch.equal(b7, tts.plain(st7, fr, oq, True))
+    assert torch.equal(b6, b7) and b6.any()

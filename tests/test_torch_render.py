@@ -231,9 +231,12 @@ def test_card_gate():
 
 def test_no_jax_in_the_port():
     """The port imports torch and never jax, nor any module of the JAX
-    package: in a fresh interpreter, import every module of the port and
-    chip_smoke.py, render a 16x16 frame on the CPU with the port's own
-    scene modules, and look at sys.modules."""
+    package: in a fresh interpreter, import every module of the port
+    (the two-level modules ``ops/tlas.py``, ``ops/traverse_tlas.py`` and
+    ``ops/traverse_tlas_stream.py`` among them) and chip_smoke.py, render a
+    16x16 frame on the CPU with the port's own scene modules, and an
+    animated frame of an instanced scene on the two-level route, and look
+    at sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import realtimepathtracingresearchframework_tpu_torch as pkg\n"
@@ -250,6 +253,14 @@ def test_no_jax_in_the_port():
         "r.render(FrameConfig())\n"
         "img = r.readback_accumulation()\n"
         "assert img.shape == (16, 16, 4) and (img == img).all()\n"
+        "r.options = r.options.replace(use_tlas=True)\n"
+        "r.set_scene(Scene.from_vkr_scene(procedural.instanced_field(4, 2)))\n"
+        "r.set_animation_frame(1)\n"
+        "r.render(FrameConfig())\n"
+        "assert r._route.tlas == 'k6'\n"
+        "assert (r.readback_accumulation() == r.readback_accumulation()).all()\n"
+        "for m in ('tlas', 'traverse_tlas', 'traverse_tlas_stream'):\n"
+        "    assert pkg.__name__ + '.ops.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'realtimepathtracingresearchframework_tpu')]\n"
         "assert not bad, bad\n"
@@ -285,13 +296,15 @@ def test_cuda_renderer_needs_a_card():
             Renderer(device="cuda")
 
 
-@pytest.mark.parametrize("field", [f for f, _, _ in ti._UNPORTED] + ["compact"])
+@pytest.mark.parametrize("field", [f for f, _, _ in ti._UNPORTED]
+                         + ["compact", "two_level"])
 def test_unported_configs_raise(field):
     """Every unported switch raises naming its ROADMAP item; the
-    coherence-sorted dispatch (``compact``) is ported now and runs."""
+    coherence-sorted dispatch (``compact``) and two-level instancing
+    (``two_level``) are ported now and pass the check."""
     value = 1 if field == "debug_mode" else True
     cfg = ti.IntegratorConfig(**{field: value})
-    if field == "compact":
+    if field in ("compact", "two_level"):
         ti.check_supported(cfg)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
