@@ -14,6 +14,19 @@ Phases (each raises on failure):
      (csrc/traverse_tlas_stream.cu), with nvcc's registers and spills;
   3. the cornell main path: 1920x1080, 1 spp, depth 9, one warm-up frame
      and timed frames; K1 must launch, K2-K5 not;
+  3b. the village path: procedural.village(), 80,496 textured triangles, at
+     1920x1080, 1 spp, depth 9, with bench.py's village camera, sun and sky,
+     through K2, K3 and the wavefront executor: set-up seconds, one warm-up
+     frame and timed frames (ms, Mray/s, alpha hops per frame); K2 and K3
+     must launch, K1 and K4-K7 not; then the share of base-colour lookups
+     whose mip level differs between the card and the CPU on one chunk
+     (bounces 0 and 1);
+  3c. the cornell main path through the PT_WAVEFRONT variant, timed as 3:
+     every K1 launch is a merged two-queue launch (the bounce's closest
+     queue and the previous bounce's deferred shadow queue), so K1 launches
+     no separate any-hit; one frame of sample 0 held against the
+     PT_MEGAKERNEL frame of the same sample: equal ray counts and
+     goldens.compare_card;
   4. the terrain200 path: procedural.terrain(grid=200), 80,000 tris, at
      1920x1080, 1 spp, depth 9, through the wavefront executor: one
      warm-up frame and timed frames; K2 and K3 must launch, K1, K4, K5 not;
@@ -56,12 +69,13 @@ Phases (each raises on failure):
      of the same triangles): triangle ids equal except on exact-t ties,
      which are counted, and t bitwise equal everywhere. Timed with CUDA
      events beside the bound of the function;
-  9. the goldens cornell_diffuse and sun_sky rendered on the card, through
-     K1: against the port's own CPU render of them (the CPU tests hold that
-     render to the JAX package run op by op) with equal ray counts, at most
-     1% of pixels over 1e-3 and a relative L1 error of at most 1e-4
-     (goldens.compare_card), and against tests/goldens/*.pfm at the golden
-     gate of goldens.py;
+  9. the goldens cornell_diffuse, sun_sky, cornell_textured and
+     cornell_wavefront rendered on the card, through K1: against the port's
+     own CPU render of them (the CPU tests hold that render to the JAX
+     package run op by op) with equal ray counts, at most 1% of pixels over
+     1e-3 (2% on cornell_textured, goldens.py says why) and a relative L1
+     error of at most 1e-4 (goldens.compare_card), and against
+     tests/goldens/*.pfm at the golden gate of goldens.py;
  10. a small terrain (48x48, 8k tris) forced onto the flat-cull route
      (RPTR_TRAVERSAL_V3=1, the wavefront executor) on the card against the
      port's CPU render of it: equal ray counts and goldens.compare_card;
@@ -80,7 +94,18 @@ Phases (each raises on failure):
  13. procedural.instanced_field(num_inst=6) at 48x48, depth 9, two animated
      frames, through K6 and through K7 (K6's instance cap set to 0), on the
      card against the port's CPU render: equal ray counts and
-     goldens.compare_card; K6, then K7, must launch.
+     goldens.compare_card; K6, then K7, must launch; then the same field with
+     alpha-cut textures on its rock and tree materials (the alpha hops run on
+     the two-level kernels, per-instance material offsets included);
+ 14. the merged two-queue modes on the card, one queue pair each: K1 on the
+     cornell primary chunk and its NEE shadow queue (to points on the area
+     light), K2 on the terrain200 bounce-1 queue (coherence-sorted) and the
+     sun shadow queue of the primaries' hit points, K4 on the terrain500
+     1080p bounce-1 chunk (sorted) and sun shadow queue of phase 8: each
+     merged launch equal to its plain version (the plain closest walk on
+     the first queue, the plain occluded walk on the second) and to the
+     kernel's two separate launches, bitwise; timed with CUDA events beside
+     the sum of the two halves' bounds and the two separate launches.
 Its last two lines are the kernels' JSON record and the result JSON.
 """
 
@@ -399,9 +424,95 @@ def compare_flat_queue(label, fb, rays, kernels, rng, iters=3):
     return out
 
 
-def phase_parity():
+def compare_merged(label, launch, plain, separate, rays, n_closest, b_ms,
+                   iters=5):
+    """One merged two-queue launch over the packed operand ``rays`` (its
+    first ``n_closest`` lanes the closest queue) against its plain version
+    and the kernel's two separate launches (``separate()``), bitwise, and
+    timed with CUDA events. ``b_ms`` is the sum of the two halves' bounds.
+    Returns the merged record."""
+    import torch
+
+    mk = launch(rays, n_closest)
+    torch.cuda.synchronize()
+    mp, p_ms = _plain_ms(lambda: plain(rays, n_closest))
+    ms_ = separate()
+    bad_p, err = _equal((*mk[0], mk[1]), (*mp[0], mp[1]))
+    bad_s = _equal((*mk[0], mk[1]), (*ms_[0], ms_[1]))[0]
+    k_ms = cuda_ms(lambda: launch(rays, n_closest), iters)
+    sep_ms = cuda_ms(separate, iters)
+    live_c = int((rays[7, :n_closest] > rays[6, :n_closest]).sum())
+    live_s = int((rays[7, n_closest:] > rays[6, n_closest:]).sum())
+    log(f"  {label}: merged launch of {n_closest} closest ({live_c} live) + "
+        f"{rays.shape[1] - n_closest} shadow lanes ({live_s} live): {bad_p} vs "
+        f"plain, {bad_s} vs the two separate launches not bitwise; hit "
+        f"{(mk[0][1] >= 0).float().mean().item():.3f}, blocked "
+        f"{mk[1].float().mean().item():.3f}; {k_ms:.3f} ms (separate "
+        f"{sep_ms:.3f} ms, plain {p_ms:.1f} ms), bound {b_ms:.4f} ms")
+    check(bad_p == 0, f"{label}: merged launch disagrees with its plain version")
+    check(bad_s == 0, f"{label}: merged launch disagrees with separate launches")
+    return {"ms": k_ms, "plain_ms": p_ms, "separate_ms": sep_ms,
+            "max_abs_err": err, "bound_ms": b_ms}
+
+
+def merged_k1(bvh, ro, rd, t, lights, rng):
+    """K1's merged mode on the cornell primary chunk (numpy ``ro``, ``rd``,
+    closest ``t``) and its NEE shadow queue: from each primary hit point to
+    a uniform point on a random triangle of the area light."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+
+    n = ro.shape[0]
+    lv = [torch.stack(list(getattr(lights, k)), -1).cpu().numpy().astype(np.float64)
+          for k in ("v0", "v1", "v2")]
+    li = rng.integers(0, lv[0].shape[0], n)
+    su = np.sqrt(rng.uniform(size=n))[:, None]
+    u2 = rng.uniform(size=n)[:, None]
+    q = lv[0][li] * (1 - su) + lv[1][li] * (su * (1 - u2)) + lv[2][li] * (su * u2)
+    hit = t < 1e30
+    p = (ro + rd * np.where(hit, t, 0.0)[:, None]).astype(np.float32)
+    d = q - p
+    dist = np.linalg.norm(d, axis=-1)
+    d = (d / np.maximum(dist, 1e-12)[:, None]).astype(np.float32)
+    eps = ((np.linalg.norm(p, axis=-1) + np.where(hit, t, 0.0))
+           * integrator.RAY_EPSILON).astype(np.float32)
+    tmax = np.where(hit, dist - eps, 0.0).astype(np.float32)
+    dev = torch.device(DEVICE)
+    prim, _ = tr.pack_rays(_soa(ro, dev), _soa(rd, dev), 0.0, 2.0e32, tr.BLOCK)
+    shadow, _ = tr.pack_rays(_soa(p, dev), _soa(d, dev),
+                             torch.from_numpy(eps).to(dev),
+                             torch.from_numpy(tmax).to(dev), tr.BLOCK)
+    nc = prim.shape[1]
+    rays = torch.cat([prim, shadow], dim=1).contiguous()
+    c, sh = rays[:, :nc].contiguous(), rays[:, nc:].contiguous()
+
+    def separate():
+        # the two single-mode launches on the same packed halves, through
+        # the launch the merged one takes (no wrapper around either)
+        h = tr._launch(bvh, tuple(c[0:6]), c[6], c[7], nc // tr.BLOCK)[0]
+        b = tr._launch(bvh, tuple(sh[0:6]), sh[6], sh[7], 0)[1]
+        return h, b
+
+    aabbs = torch.from_numpy(tf.leaf_aabbs_for(
+        bvh.tri_rows.cpu().numpy(), bvh.leaf_size)).to(dev)
+    t_dev = torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(dev)
+    b_ms = (bound(aabbs, bvh.leaf_size, c, t_dev, False)[0]
+            + bound(aabbs, bvh.leaf_size, sh, sh[7], True)[0])
+    return compare_merged(
+        "K1 cornell primary chunk + NEE shadow queue",
+        lambda x, k: tr.merged_launch(bvh, x, k),
+        lambda x, k: tr.merged_plain(bvh, x, k), separate, rays, nc, b_ms)
+
+
+def phase_parity(smi):
     """K1 vs plain at the main path's shape and on the terrain queues, and
-    K2/K3 on the terrain queues. Returns K1's record at the main path's
+    K2/K3 on the terrain queues; K1's merged mode on the cornell primary
+    chunk and its NEE shadow queue. Returns K1's record at the main path's
     shape."""
     import torch
 
@@ -454,6 +565,8 @@ def phase_parity():
                                torch.from_numpy(t).to(DEVICE), False)
     k1 = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b_ms,
           "bound_by": b_by}
+    log(f"K1 merged mode, {smi}:")
+    k1["merged"] = merged_k1(bvh, ro, rd, t, r.device_scene.lights, rng)
     hit = t < 1e30
     p = ro + rd * np.where(hit, t, 0.0)[:, None]
     d2 = rng.normal(size=rd.shape).astype(np.float32)
@@ -545,6 +658,26 @@ def phase_flat(smi):
         f"bounce 1 sorted ({int(hit.sum())} live)", fb, bounce,
         ((tf.K3, 128),), rng,
     ))
+    # K2's merged mode: the sorted bounce-1 queue, then the sun shadow
+    # queue of the primaries' hit points (unsorted, as bounce 0's is)
+    sun = np.asarray(cfg.scene_config.sun_dir, np.float32)
+    sun = torch.from_numpy(sun / np.linalg.norm(sun)).to(DEVICE)
+    n = prim.shape[1]
+    shadow, _ = tr.pack_rays(Vec3(*p), Vec3(*(sun[k].expand(n) for k in range(3))),
+                             tmin, torch.where(hit, 2.0e16, 0.0), 512)
+    nc = bounce.shape[1]
+    rays = torch.cat([bounce, shadow], dim=1).contiguous()
+    t_b = tf.launch(tf.K2, fb, bounce, 128, False)[0]
+    b_ms = (bound(fb.aabbs, fb.leaf_size, bounce, t_b, False)[0]
+            + bound(fb.aabbs, fb.leaf_size, shadow, shadow[7], True)[0])
+    log(f"K2 merged mode, {smi}:")
+    rec[tf.K2]["merged"] = compare_merged(
+        "K2 terrain200 bounce 1 sorted + sun shadow queue",
+        lambda x, k: tf.merged_launch(fb, x, 128, k),
+        lambda x, k: tf.merged_plain(fb, x, 128, k),
+        lambda: (tf.launch(tf.K2, fb, bounce, 128, False),
+                 tf.launch(tf.K2, fb, shadow, 128, True)),
+        rays, nc, b_ms)
     return rec
 
 
@@ -554,7 +687,7 @@ def phase_goldens():
         traverse_resident as tr,
     )
 
-    for name in goldens.NAMES:
+    for name in goldens.ALL_NAMES:
         before = tr.launches
         img, r = goldens.render(name, DEVICE)
         launched = tr.launches - before
@@ -630,6 +763,20 @@ def _counters():
     }
 
 
+def _merged_counts():
+    """Merged two-queue launches of K1, K2 and K4 since their last reset."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_stream as ts,
+    )
+
+    return {"K1": tr.merged_launches, "K2": tf.merged_launches_k2,
+            "K4": ts.merged_launches_k4}
+
+
 def _only(label, launches, kernels):
     """The path launched every kernel of ``kernels`` and no other."""
     check(all(launches[k] > 0 for k in kernels),
@@ -648,11 +795,15 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
     upload, synchronised) and the frames' host ms with their update."""
     import torch
 
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+
     counters = _counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for reset, _ in counters.values():
         reset()
+    integrator.reset_alpha_counts()
+    integrator.reset_nee_dropped()
     t0 = time.perf_counter()
     if animate:
         r.set_animation_frame(0)
@@ -677,6 +828,10 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
         frame_ms.append(start.elapsed_time(end))
         rays.append(r.last_ray_count())
     launches = {k: read() for k, (_, read) in counters.items()}
+    merged = _merged_counts()
+    alpha = {"hops": integrator.alpha_hops / (frames + 1),
+             "reads": integrator.alpha_reads / (frames + 1)}
+    dropped = integrator.nee_dropped() / (frames + 1)
     peak = torch.cuda.max_memory_allocated()
     img = r.readback_accumulation()
     finite = bool(np.isfinite(img).all())
@@ -694,21 +849,30 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
         f"{warm_s * 1e3:.1f} ms, frame ms {[round(x, 3) for x in frame_ms]}, "
         f"median {float(np.median(frame_ms)):.3f} ms, {mrays:.3f} Mray/s "
         f"({rays[0]} rays/frame), {anim}launches {launches} ("
-        f"{frames + 1} frames), live lanes per bounce "
+        f"{frames + 1} frames), of them merged {merged}, alpha test per frame "
+        f"{alpha}, NEE samples dropped as non-finite per frame {dropped}, "
+        f"live lanes per bounce "
         f"{r.live_profile}, peak memory {peak / 2**20:.1f} MiB, image finite "
         f"{finite} non-negative {nonneg} mean {float(img[..., :3].mean()):.5f}")
     check(finite and nonneg, f"{label} image is not finite and non-negative")
+    # the integrator drops a NEE sample whose contribution overflows (a light
+    # sampled from a point in its own plane); more than one per million rays
+    # would be a fault of another cause
+    check(dropped <= 1e-6 * rays[0], f"{label}: {dropped} NEE samples per "
+          f"frame dropped as non-finite, of {rays[0]} rays")
     check(img.shape == (height, width, 4), f"{label} image shape {img.shape}")
     rec = {"frame_ms": float(np.median(frame_ms)), "mrays": mrays,
            "update_ms": float(np.median(update_ms)),
            "total_ms": float(np.median(total_ms)),
-           "per_frame": {k: n / (frames + 1) for k, n in launches.items()}}
+           "per_frame": {k: n / (frames + 1) for k, n in launches.items()},
+           "merged": merged, "alpha": alpha, "nee_dropped": dropped,
+           "rays": rays[0]}
     return launches, rec
 
 
 def phase_main_path():
     """Cornell at MAIN_SIZE (1920x1080), 1 spp, depth 9, through the port's
-    Renderer. Returns the K1 launch count of this run."""
+    Renderer. Returns the K1 launch count of this run and the renderer."""
     from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
         frame_setup,
     )
@@ -716,26 +880,161 @@ def phase_main_path():
     r, cfg = frame_setup("cornell", DEVICE, MAIN_SIZE)
     launches, _ = _timed_frames("main path cornell", r, cfg)
     _only("main path", launches, ("K1",))
-    return launches["K1"]
+    return launches["K1"], r
+
+
+def phase_village_path():
+    """procedural.village() at MAIN_SIZE, 1 spp, depth 9, with bench.py's
+    village camera, sun and sky, through the wavefront executor. Returns the
+    launch counts of this run."""
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    t0 = time.perf_counter()
+    r, cfg = frame_setup("village", DEVICE, MAIN_SIZE)
+    total = time.perf_counter() - t0
+    atlas = r.device_scene.atlas
+    check(r._has_textures and r._route.kernel_v3,
+          f"village: textures {r._has_textures}, route {r._route}")
+    log(f"village: {r.scene.total_tris} tris, {atlas.count} textures "
+        f"({atlas.texels.shape[0]} texels), alpha test {r._has_alpha}; set-up "
+        f"(BVH build, pack and upload) {r.setup_seconds:.2f} s, set_scene with "
+        f"flatten and atlas {total:.2f} s")
+    launches, rec = _timed_frames("village path", r, cfg)
+    check(r._wavefront is not None, "village did not take the wavefront executor")
+    _only("village path", launches, ("K2", "K3"))
+    log(f"village summary: set-up {r.setup_seconds:.3f} s, frame "
+        f"{rec['frame_ms']:.3f} ms, {rec['mrays']:.3f} Mray/s, K2 "
+        f"{rec['per_frame']['K2']:.2f} and K3 {rec['per_frame']['K3']:.2f} "
+        f"launches per frame, alpha hops per frame {rec['alpha']['hops']:.2f}, "
+        f"NEE samples dropped per frame {rec['nee_dropped']:.2f}")
+    village_mip_flips(r, cfg)
+    return launches
+
+
+def village_mip_flips(r, cfg, chunk=2):
+    """The share of texture lookups whose mip level differs between the
+    card and the CPU, on one 1080p chunk of the village's sample 0: the
+    base-colour lookups of bounce 0, and of bounce 1 on the lanes whose
+    paths hit the same triangle on both. The CPU scene takes the K1 route
+    (its plain walk is fast; hits equal K2's and K3's bitwise)."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+    from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    with env(RPTR_TRAVERSAL_V3="0"):
+        r_cpu, _ = frame_setup("village", "cpu", MAIN_SIZE)
+    width, height = MAIN_SIZE
+    dims = (float(width), float(height))
+    out = {}
+    orig = integrator.sample_atlas
+    for label, rr in ((DEVICE, r), ("cpu", r_cpu)):
+        dev = rr.device
+        cfg_i = rr._integrator_config(cfg.params)._replace(
+            compact=False, compact_lanes=False)
+        view = integrator.ViewBuffers(*(
+            torch.from_numpy(a).to(dev) for a in cfg.camera.view_basis(width, height)))
+        px, py, valid = (x[chunk] for x in rr._swizzle)
+        state = pointsets.make_state(0, 0, 0, px, py, width)
+        state, ro, rd = integrator.camera_setup(cfg_i, view, px, py, dims, state)
+        fp = integrator.FrameParams()
+        carry = integrator.initial_carry(
+            ro, rd, state, valid,
+            foot=integrator.camera_footprint0(cfg_i, fp, view, dims, rd))
+        visit, scatter = integrator._make_bounce_fns(rr.device_scene, cfg_i, fp)
+        seen = []
+
+        def spy(atlas, tid, uv, mip):
+            seen.append((tid.cpu(), mip.cpu()))
+            return orig(atlas, tid, uv, mip)
+
+        integrator.sample_atlas = spy
+        try:
+            rows = []
+            for b in range(2):
+                seen.clear()
+                act = carry.active.cpu()
+                carry, ctx = visit(carry)
+                tid, mip = seen[0]  # the base-colour lookup
+                rows.append((act & carry.active.cpu() & (tid >= 0),
+                             torch.round(mip), ctx[0].x.cpu()))
+                carry = scatter(carry, ctx)
+        finally:
+            integrator.sample_atlas = orig
+        out[label] = rows
+    shares = []
+    for b in range(2):
+        (ok_k, mip_k, px_k), (ok_c, mip_c, px_c) = out[DEVICE][b], out["cpu"][b]
+        same = ok_k & ok_c & (px_k == px_c)  # the same hit point on both
+        flips = int((same & (mip_k != mip_c)).sum())
+        shares.append((flips, int(same.sum())))
+    log(f"village mip levels, card against CPU, chunk {chunk} of sample 0: "
+        f"bounce 0 {shares[0][0]} of {shares[0][1]} textured lookups differ, "
+        f"bounce 1 {shares[1][0]} of {shares[1][1]} (lanes with the same hit "
+        f"point on both)")
+    return shares
+
+
+def phase_wavefront_path(mega):
+    """Cornell at MAIN_SIZE, 1 spp, depth 9, through the PT_WAVEFRONT
+    variant; then sample 0 against the PT_MEGAKERNEL renderer ``mega``'s
+    sample 0. Returns (K1 launches, merged K1 launches) of the timed run."""
+    from realtimepathtracingresearchframework_tpu_torch import goldens
+    from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
+        VARIANT_WAVEFRONT,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    r, cfg = frame_setup("cornell", DEVICE, MAIN_SIZE, variant=VARIANT_WAVEFRONT)
+    check(r.active_variant == VARIANT_WAVEFRONT, "PT_WAVEFRONT not selected")
+    launches, rec = _timed_frames("wavefront cornell", r, cfg)
+    _only("wavefront cornell", launches, ("K1",))
+    merged = rec["merged"]["K1"]
+    check(merged == launches["K1"],
+          f"PT_WAVEFRONT: {launches['K1'] - merged} of {launches['K1']} K1 "
+          "launches were not merged")
+    frames = {}
+    for label, rr in (("PT_MEGAKERNEL", mega), ("PT_WAVEFRONT", r)):
+        rr.frame_id = 0  # sample 0, blended as the first sample
+        rr.render(cfg)
+        frames[label] = (rr.readback_accumulation()[..., :3], rr.last_ray_count())
+    (img_m, rays_m), (img_w, rays_w) = frames["PT_MEGAKERNEL"], frames["PT_WAVEFRONT"]
+    vs = goldens.compare_card(img_w, img_m)
+    log(f"wavefront cornell sample 0 vs PT_MEGAKERNEL sample 0: {vs}; rays "
+        f"{rays_w} (megakernel {rays_m}); K1 {rec['per_frame']['K1']:.2f} "
+        f"launches per frame, all merged")
+    check(rays_w == rays_m, f"PT_WAVEFRONT rays {rays_w}, PT_MEGAKERNEL {rays_m}")
+    check(vs["ok"], f"PT_WAVEFRONT frame off the PT_MEGAKERNEL frame: {vs}")
+    return launches["K1"], merged
 
 
 def phase_terrain_path():
     """procedural.terrain(grid=200) at MAIN_SIZE, 1 spp, depth 9, through the
-    wavefront executor. Returns the K2 and K3 launch counts of this run."""
+    wavefront executor. Returns the launch counts of this run and its merged
+    launch counts."""
     from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
         frame_setup,
     )
 
     r, cfg = frame_setup("terrain", DEVICE, MAIN_SIZE)
-    launches, _ = _timed_frames("terrain200 path", r, cfg)
+    launches, rec = _timed_frames("terrain200 path", r, cfg)
     check(r._wavefront is not None, "terrain200 did not take the wavefront executor")
     _only("terrain200 path", launches, ("K2", "K3"))
-    return launches
+    return launches, rec["merged"]
+
 
 def phase_stream_paths():
     """procedural.terrain(grid=500) on the streamed route at MAIN_SIZE, 1 spp,
     depth 9, and at the bench's BENCH_SIZE, 1 spp, depth 3. Returns
-    {label: launches} and the 1080p path's (renderer, frame config)."""
+    {label: (launches, merged launches)} and the 1080p path's (renderer,
+    frame config)."""
     from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
         frame_setup,
     )
@@ -751,10 +1050,10 @@ def phase_stream_paths():
         log(f"{label}: set-up (streamed pack and upload) {r.setup_seconds:.2f} s, "
             f"{bb.num_subtrees} subtrees of {bb.sub_leaves} leaves, "
             f"{bb.num_top_nodes} top nodes")
-        launches, _ = _timed_frames(label, r, cfg, frames)
+        launches, rec = _timed_frames(label, r, cfg, frames)
         check(r._wavefront is None, f"{label} took the wavefront executor")
         _only(label, launches, ("K4", "K5"))
-        out[label] = launches
+        out[label] = launches, rec["merged"]
         if main is None:
             main = (r, cfg)
     return out, main
@@ -1004,6 +1303,20 @@ def phase_streamed(r, cfg, smi):
                                        orays=shadow)
     rec5 = compare_k5_launch("sun shadow", bb, shadow, t_shadow, True)
     compare_k5_launch(f"primary chunk {c}", bb, prim, t, False)
+    # K4's merged mode: the bounce-1 chunk and the sun shadow queue, each
+    # coherence-sorted on its own (closest_and_occluded_streamed's sort)
+    srt_b, srt_s = ts._sort_operand(bb, bounce)[0], ts._sort_operand(bb, shadow)[0]
+    rays = torch.cat([srt_b, srt_s], dim=1).contiguous()
+    t_b = ts.launch(bb, srt_b, False)[0]
+    b_ms = (stream_bound(bb, srt_b, t_b, False)[0]
+            + stream_bound(bb, srt_s, srt_s[7], True)[0])
+    log(f"K4 merged mode, {smi}:")
+    rec4["merged"] = compare_merged(
+        "K4 terrain500 bounce 1 + sun shadow queue, sorted",
+        lambda x, k: ts.merged_launch(bb, x, k),
+        lambda x, k: ts.merged_plain(bb, x, k),
+        lambda: (ts.launch(bb, srt_b, False), ts.launch(bb, srt_s, True)),
+        rays, n, b_ms)
     return {"traverse_streamed": rec4, "traverse_binned": rec5}
 
 
@@ -1289,10 +1602,35 @@ def phase_tlas(paths, smi):
     return records
 
 
+def _alpha_field(r, cfg):
+    """Re-set ``r``'s scene to instanced_field(num_inst=6) with alpha-cut
+    textures on its rock and tree materials (a 4x4 checker of opaque and
+    cut texels over each triangle's default uvs)."""
+    import dataclasses
+
+    from realtimepathtracingresearchframework_tpu_torch.models import procedural
+    from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
+    from realtimepathtracingresearchframework_tpu_torch.models.texture import (
+        Texture,
+    )
+
+    rgba = np.full((4, 4, 4), 200, np.uint8)
+    yy, xx = np.mgrid[0:4, 0:4]
+    rgba[..., 3] = np.where((xx // 2 + yy // 2) % 2 == 0, 255, 0)
+    vs = procedural.instanced_field(num_inst=6)
+    mats = list(vs.materials)
+    for k in (0, 1):  # rock, tree; the ground keeps its own material
+        mats[k] = dataclasses.replace(
+            mats[k], tex_base_color=Texture(4, 4, 37, mips=[rgba], srgb=False))
+    vs.materials = mats
+    r.set_scene(Scene.from_vkr_scene(vs), scene_config=cfg.scene_config)
+
+
 def phase_small_instanced():
     """instanced_field(num_inst=6) through K6 and through K7, on the card
-    against the port's CPU render."""
+    against the port's CPU render; then the same with alpha-cut textures."""
     from realtimepathtracingresearchframework_tpu_torch import goldens
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_tlas as tt,
     )
@@ -1300,36 +1638,46 @@ def phase_small_instanced():
         frame_setup,
     )
 
-    for kernel in ("K6", "K7"):
-        out = {}
-        old = tt.MAX_INSTANCES
-        if kernel == "K7":
-            tt.MAX_INSTANCES = 0
-        try:
-            for device in (DEVICE, "cpu"):
-                counters = _counters()
-                for reset, _ in counters.values():
-                    reset()
-                r, cfg = frame_setup("instanced", device, (48, 48), num_inst=6)
-                check(r._route.tlas.upper() == kernel, f"small instanced: {r._route}")
-                rays = []
-                for f in range(2):
-                    r.set_animation_frame(f + 1)
-                    r.render(cfg)
-                    rays.append(r.last_ray_count())
-                out[device] = (r.readback_accumulation()[..., :3], rays,
-                               {k: read() for k, (_, read) in counters.items()})
-        finally:
-            tt.MAX_INSTANCES = old
-        (img, rays, launched), (cpu_img, cpu_rays, _) = out[DEVICE], out["cpu"]
-        vs_cpu = goldens.compare_card(img, cpu_img)
-        log(f"instanced_field(6) 48x48 depth 9, 2 animated frames, {kernel}: vs "
-            f"port CPU render {vs_cpu}; rays {rays} (CPU {cpu_rays}), launches "
-            f"{launched}")
-        check(rays == cpu_rays, f"small instanced {kernel}: rays {rays}, CPU {cpu_rays}")
-        check(vs_cpu["ok"], f"small instanced {kernel}: card render off the CPU "
-              f"render: {vs_cpu}")
-        _only(f"small instanced {kernel}", launched, (kernel,))
+    for alpha in (False, True):
+        for kernel in ("K6", "K7"):
+            out = {}
+            old = tt.MAX_INSTANCES
+            if kernel == "K7":
+                tt.MAX_INSTANCES = 0
+            try:
+                for device in (DEVICE, "cpu"):
+                    r, cfg = frame_setup("instanced", device, (48, 48), num_inst=6)
+                    if alpha:
+                        _alpha_field(r, cfg)
+                        check(r._has_alpha, "alpha field without the alpha test")
+                    counters = _counters()
+                    for reset, _ in counters.values():
+                        reset()
+                    integrator.reset_alpha_counts()
+                    check(r._route.tlas.upper() == kernel,
+                          f"small instanced: {r._route}")
+                    rays = []
+                    for f in range(2):
+                        r.set_animation_frame(f + 1)
+                        r.render(cfg)
+                        rays.append(r.last_ray_count())
+                    out[device] = (r.readback_accumulation()[..., :3], rays,
+                                   {k: read() for k, (_, read) in counters.items()},
+                                   integrator.alpha_hops)
+            finally:
+                tt.MAX_INSTANCES = old
+            (img, rays, launched, hops), (cpu_img, cpu_rays, _, cpu_hops) = (
+                out[DEVICE], out["cpu"])
+            vs_cpu = goldens.compare_card(img, cpu_img)
+            label = f"instanced_field(6){' alpha-cut' if alpha else ''}"
+            log(f"{label} 48x48 depth 9, 2 animated frames, {kernel}: vs port "
+                f"CPU render {vs_cpu}; rays {rays} (CPU {cpu_rays}), launches "
+                f"{launched}, alpha hops {hops} (CPU {cpu_hops})")
+            check(rays == cpu_rays, f"{label} {kernel}: rays {rays}, CPU {cpu_rays}")
+            check(vs_cpu["ok"], f"{label} {kernel}: card render off the CPU "
+                  f"render: {vs_cpu}")
+            check(not alpha or hops > 0, f"{label} {kernel}: no alpha hops")
+            _only(f"{label} {kernel}", launched, (kernel,))
 
 
 def main():
@@ -1346,13 +1694,17 @@ def main():
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    k1_launches = phase_main_path()
-    terrain = phase_terrain_path()
+    k1_launches, mega = phase_main_path()
+    village = phase_village_path()
+    _, k1_merged = phase_wavefront_path(mega)
+    del mega
+    terrain, terrain_merged = phase_terrain_path()
     stream, (r500, cfg500) = phase_stream_paths()
     tlas_paths = phase_tlas_paths()
     tlas_k7_launches = tlas_paths["instanced600 1080p"][2]["K7"]
     tlas_k6_launches = tlas_paths["instanced500 1080p"][2]["K6"]
-    k1 = dict(phase_parity(), launches=k1_launches)
+    k1 = dict(phase_parity(smi), launches=k1_launches)
+    k1["merged"]["launches"] = k1_merged
     flat = phase_flat(smi)
     streamed = phase_streamed(r500, cfg500, smi)
     del r500
@@ -1364,7 +1716,13 @@ def main():
     phase_small_instanced()
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 
-    main_stream = stream["terrain500 1080p"]
+    main_stream, stream_merged = stream["terrain500 1080p"]
+    # the merged launches of the runs the single-mode counts come from (no
+    # route of the port, nor of the reference, reaches K2's and K4's merged
+    # modes: only tests and this script's parity phases launch them)
+    flat[tf.K2]["merged"]["launches"] = terrain_merged["K2"]
+    streamed["traverse_streamed"]["merged"]["launches"] = stream_merged["K4"]
+    log(f"village path launches {village}")
     records = {
         "traverse_resident": k1,
         tf.K2: dict(flat[tf.K2], launches=terrain["K2"]),
@@ -1388,6 +1746,11 @@ def main():
             # no single PyTorch call computes a BVH closest hit
             "library_ms": None,
         })
+        if "merged" in rec:
+            m = rec["merged"]
+            kernels[-1]["merged"] = {
+                k: m[k] for k in ("launches", "ms", "plain_ms", "separate_ms",
+                                  "bound_ms", "max_abs_err")}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

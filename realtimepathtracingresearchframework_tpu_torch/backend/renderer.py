@@ -29,9 +29,13 @@ instances, ``MAX_TOTAL_NODES`` BLAS + TLAS nodes) and K7 past them, up to
 ``MAX_ENTRIES`` (instance, chunk) entries; above that the reference's XLA
 walk is not a route of the port and ``set_scene`` raises.
 ``set_animation_frame`` rebuilds only the TLAS side (renderer.py:
-1888-1962). Each kernel runs on ``device="cuda"``, its plain version on
-``device="cpu"`` (the tests' device). There is no CPU fallback for a CUDA
-renderer.
+1888-1962). Textured scenes upload a texture atlas and, where a textured
+material can cut, run the alpha test on every route (renderer.py:918-938).
+``set_variant`` selects ``PT_MEGAKERNEL`` (default) or ``PT_WAVEFRONT``, the
+variant that defers each bounce's NEE shadow ray to the next bounce's
+merged dispatch (renderer.py:86-104, 311-321). Each kernel runs on
+``device="cuda"``, its plain version on ``device="cpu"`` (the tests'
+device). There is no CPU fallback for a CUDA renderer.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.integrator import (
     planes_to_image,
     swizzle_host,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import texture_atlas
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_flat import (
     pack_flat,
 )
@@ -97,6 +102,21 @@ from realtimepathtracingresearchframework_tpu_torch.ops.wavefront_host import (
 V3_MIN_TRIS = 16_384
 COMPACT_MIN_TRIS = 16_384
 RESIDENT_MAX_TRIS = 90_000
+
+
+# render variants (renderer.py:86-104): the port runs the megakernel and
+# the wavefront; the others are ROADMAP item 14
+VARIANT_MEGAKERNEL = "PT_MEGAKERNEL"
+VARIANT_WAVEFRONT = "PT_WAVEFRONT"
+VARIANT_PT = "PT"
+VARIANT_TAIL_RECURSIVE = "PT_TAIL_RECURSIVE"
+VARIANT_BTD_SHADE = "PT_BTD_SHADE"
+VARIANT_STACK_RECURSIVE = "PT_STACK_RECURSIVE"
+VARIANT_RTP_MEGAKERNEL = "PT_RTP_MEGAKERNEL"
+VARIANT_RT_DEBUG = "RT_DEBUG"
+VARIANT_GBUFFER = "GBUFFER"
+VARIANT_RQ_CLOSEST = "RQ_CLOSEST"
+PORTED_VARIANTS = (VARIANT_MEGAKERNEL, VARIANT_WAVEFRONT)
 
 
 def resident_leaf_size(num_tris: int) -> int:
@@ -179,6 +199,9 @@ class Renderer:
         self._swizzle = None  # (px, py, valid) per-chunk device tensors
         self._num_lights = 0
         self._has_thin = False
+        self._has_textures = False
+        self._has_alpha = False
+        self.active_variant = VARIANT_MEGAKERNEL
         self._route: Optional[Route] = None
         self._wavefront: Optional[WavefrontExecutor] = None
         self.setup_seconds = 0.0  # host build + pack + upload of the BVH
@@ -186,6 +209,30 @@ class Renderer:
         self._streamed_topo = None  # for the streamed refit (ROADMAP item 17)
         self._last_rays: List[torch.Tensor] = []
         self.live_profile: List[int] = []  # wavefront live lanes per bounce
+
+    def variants(self) -> List[str]:
+        """The variant list in the reference's registration order
+        (renderer.py:290-304)."""
+        return [
+            VARIANT_TAIL_RECURSIVE, VARIANT_BTD_SHADE, VARIANT_STACK_RECURSIVE,
+            VARIANT_MEGAKERNEL, VARIANT_RTP_MEGAKERNEL, VARIANT_PT,
+            VARIANT_WAVEFRONT, VARIANT_RQ_CLOSEST, VARIANT_GBUFFER,
+            VARIANT_RT_DEBUG,
+        ]
+
+    def set_variant(self, name: str) -> bool:
+        """Select the active integrator (renderer.py:311-321). The
+        megakernel and the wavefront are ported; the reference's other
+        variants raise ``NotImplementedError``. An unknown name falls back
+        to the megakernel and returns False, as the reference does."""
+        if name in PORTED_VARIANTS:
+            self.active_variant = name
+            return True
+        if name in self.variants():
+            raise NotImplementedError(
+                f"the {name} variant is not ported yet (ROADMAP item 14)")
+        self.active_variant = VARIANT_MEGAKERNEL
+        return False
 
     def initialize(self, fb_width: int, fb_height: int) -> None:
         """Framebuffer (re)allocation (render_vulkan.cpp:246-370)."""
@@ -222,8 +269,6 @@ class Renderer:
         self.scene = scene
         flat = scene.flatten_world(frame=frame,
                                    lod_threshold=scene_config.lod_threshold)
-        if scene.textures:
-            raise NotImplementedError("textures are not ported yet (ROADMAP item 11)")
         if scene.has_lod_groups():
             raise NotImplementedError(
                 "LoD re-selection is not ported yet (ROADMAP item 21)"
@@ -284,11 +329,16 @@ class Renderer:
                          "tangent", "texel_density", "material_id")
         })
         mat_table = scene.material_table()
-        if any(
+        # the atlas (renderer.py:918-938): a 1-texel dummy without textures;
+        # alpha-tested any-hit only where a textured material can cut
+        atlas = texture_atlas.build_atlas(scene.textures, dev)
+        self._has_textures = atlas is not None
+        if atlas is None:
+            atlas = texture_atlas.dummy_atlas(dev)
+        self._has_alpha = self._has_textures and any(
             m.base_color_tex >= 0 and not (m.flags & BASE_MATERIAL_NOALPHA)
             for m in scene.materials
-        ):
-            raise NotImplementedError("the alpha test is not ported yet (ROADMAP item 12)")
+        )
         self._has_thin = any(m.flags & BASE_MATERIAL_THIN for m in scene.materials)
 
         attr = pack_attr_table(rows, rows).to(dev)
@@ -306,7 +356,7 @@ class Renderer:
         )
         self.device_scene = DeviceScene(
             bvh=bvh, attr_packed=attr, mat_packed=mats, lights=lights, sky=sky,
-            tlas=tlas, tlas_k6=k6, tlas_stream=k7,
+            tlas=tlas, tlas_k6=k6, tlas_stream=k7, atlas=atlas,
         )
         self._wavefront = None
 
@@ -405,7 +455,9 @@ class Renderer:
         dispatch sort (``RPTR_COMPACT``) defaults on from 16,384 triangles
         of a resident scene; ``RPTR_KERNEL_V4=0`` keeps the sorted queues
         on K2; ``RPTR_STREAM_CLOSEST`` picks the streamed closest-hit
-        strategy."""
+        strategy. Textures and the alpha test follow the scene; anisotropic
+        taps are off on two-level scenes, as there; the ``PT_WAVEFRONT``
+        variant sets ``wavefront`` (renderer.py:1234-1235)."""
         route = self._route
         compact_lanes = _env_flag("RPTR_COMPACT_LANES",
                                   route.kernel_v3)
@@ -420,6 +472,10 @@ class Renderer:
             rng_variant=int(self.options.rng_variant),
             has_transmission=True,  # kept on, as the reference keeps it
             thin_transmission=bool(self._has_thin),
+            has_textures=bool(self._has_textures),
+            alpha_test=bool(self._has_alpha),
+            aniso_taps=0 if route.tlas else int(self.options.aniso_taps),
+            wavefront=self.active_variant == VARIANT_WAVEFRONT,
             enable_dof=bool(self.options.enable_raytraced_dof)
             and float(params.aperture_radius) > 0.0,
             debug_mode=int(self.options.debug_mode),
@@ -474,6 +530,7 @@ class Renderer:
             sample_offset=self.frame_id,
             shot_offset=self.shot_offset,
             pixel_radius=float(params.pixel_radius),
+            bump_scale=float((config.scene_config or SceneConfig()).bump_scale),
         )
         cfg = self._integrator_config(params)
         # DISCARD_HISTORY (postprocess/reprojection.h:11-18): each frame

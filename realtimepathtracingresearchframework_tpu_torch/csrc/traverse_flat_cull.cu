@@ -14,7 +14,11 @@
 // test of _kernel3 (traverse_pallas3.py:187-226), and flushes the surviving
 // leaves with Moller-Trumbore (flat_flush.cuh). A leaf any lane's segment
 // pierces always survives, so the closest hit (t, row, u, v) or blocked
-// flag equals the resident walk's (K1) exactly.
+// flag equals the resident walk's (K1) exactly. The mode is per block:
+// blocks from ``shadow_from`` on take the any-hit exit, so one launch can
+// carry a closest queue in its first blocks and a shadow queue after it
+// (the merged mode, traverse_pallas3.closest_and_occluded_pallas3 :1119);
+// any-hit lane i writes blocked[i - shadow_from * q].
 //
 // Design: the TPU kernel's group-major retile, 4-bit-per-leaf mask row,
 // SMEM DMA and scalar scan exist for the TPU's vector and scalar units and
@@ -50,11 +54,13 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <bool kAnyHit>
+// kMode: 0 every block closest, 1 every block any-hit, 2 blocks from
+// shadow_from on any-hit (the merged launch)
+template <int kMode>
 __global__ void flat_cull_kernel(const float* __restrict__ aabbs, int lpad,
                                  int num_leaves, const float* __restrict__ rows,
                                  int ls, const float* __restrict__ rays, int n,
-                                 float* __restrict__ out_t,
+                                 int shadow_from, float* __restrict__ out_t,
                                  int* __restrict__ out_row,
                                  float* __restrict__ out_u,
                                  float* __restrict__ out_v,
@@ -127,34 +133,52 @@ __global__ void flat_cull_kernel(const float* __restrict__ aabbs, int lpad,
   }
   __syncthreads();
 
+  // block-uniform, so the flush's barriers are reached by every thread
+  const bool shadow =
+      kMode == 1 || (kMode == 2 && static_cast<int>(blockIdx.x) >= shadow_from);
   Best b;
-  flush<kAnyHit>(rows, ls, list, count, stage, r, b);
-  write_out<kAnyHit>(i, b, out_t, out_row, out_u, out_v, out_blocked);
+  if (shadow) {
+    flush<true>(rows, ls, list, count, stage, r, b);
+    write_out<true>(i - shadow_from * static_cast<int>(blockDim.x), b, out_t,
+                    out_row, out_u, out_v, out_blocked);
+  } else {
+    flush<false>(rows, ls, list, count, stage, r, b);
+    write_out<false>(i, b, out_t, out_row, out_u, out_v, out_blocked);
+  }
 }
 
 }  // namespace
 
 // Plain C entry for ctypes. ``rays`` is (8, n) f32, n a multiple of q; one
-// block of q threads per group. Launches on ``stream`` and returns
-// cudaGetLastError() (0 = launched). any_hit != 0 writes only ``blocked``,
-// otherwise only t, row, u, v. The caller allocates every output.
+// block of q threads per group. Blocks from ``shadow_from`` on run the
+// any-hit mode and write ``blocked`` (n - shadow_from * q flags), the
+// blocks before it t, row, u, v (their lanes' worth): a closest launch is
+// shadow_from >= n / q, an any-hit launch 0. Launches on ``stream`` and
+// returns cudaGetLastError() (0 = launched). The caller allocates every
+// output.
 extern "C" int rptr_traverse_flat_cull(
     const float* aabbs, int lpad, int num_leaves, const float* rows,
-    int leaf_size, const float* rays, int n, int q, int any_hit, float* out_t,
-    int* out_row, float* out_u, float* out_v, unsigned char* out_blocked,
-    void* stream) {
+    int leaf_size, const float* rays, int n, int q, int shadow_from,
+    float* out_t, int* out_row, float* out_u, float* out_v,
+    unsigned char* out_blocked, void* stream) {
   if (n <= 0) return 0;
-  if (q <= 0 || q > 1024 || q % 32 || n % q) return cudaErrorInvalidValue;
+  if (q <= 0 || q > 1024 || q % 32 || n % q || shadow_from < 0)
+    return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(lpad, leaf_size, false);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit)
-    flat_cull_kernel<true><<<n / q, q, smem, s>>>(
-        aabbs, lpad, num_leaves, rows, leaf_size, rays, n, out_t, out_row,
+  const int grid = n / q;
+  if (shadow_from >= grid)
+    flat_cull_kernel<0><<<grid, q, smem, s>>>(
+        aabbs, lpad, num_leaves, rows, leaf_size, rays, n, grid, out_t,
+        out_row, out_u, out_v, out_blocked);
+  else if (shadow_from == 0)
+    flat_cull_kernel<1><<<grid, q, smem, s>>>(
+        aabbs, lpad, num_leaves, rows, leaf_size, rays, n, 0, out_t, out_row,
         out_u, out_v, out_blocked);
   else
-    flat_cull_kernel<false><<<n / q, q, smem, s>>>(
-        aabbs, lpad, num_leaves, rows, leaf_size, rays, n, out_t, out_row,
-        out_u, out_v, out_blocked);
+    flat_cull_kernel<2><<<grid, q, smem, s>>>(
+        aabbs, lpad, num_leaves, rows, leaf_size, rays, n, shadow_from, out_t,
+        out_row, out_u, out_v, out_blocked);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,7 +14,13 @@
 // hit test tt > tmin && tt < min(t_best, tmax). Closest mode keeps the
 // nearest hit (strict improvement, so the lower row wins an exact-t tie)
 // and writes t, row, u, v; a miss gives t = 2e32, row = -1, u = v = 0.
-// Any-hit mode stops at the first hit and writes blocked = 1.
+// Any-hit mode stops at the first hit and writes blocked = 1. The mode is
+// per block: blocks from ``shadow_from`` on take the any-hit exit (all of
+// them for an any-hit launch, none for a closest launch), so one launch
+// can carry the wavefront's closest queue in its first blocks and the
+// deferred shadow queue after it (the merged mode of
+// traverse_pallas2.closest_and_occluded_pallas2); any-hit lane i writes
+// blocked[i - shadow_from * blockDim.x].
 //
 // Design: one thread per ray, each running its own stackless walk. The
 // TPU kernel's packet cursor, per-block interval bounds, 16-leaf SMEM flush
@@ -57,12 +63,13 @@ __global__ void __launch_bounds__(kBlock) traverse_resident_kernel(
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const float* __restrict__ tmin_in, const float* __restrict__ tmax_in,
-    int n, int any_hit,
+    int n, int shadow_from,
     float* __restrict__ out_t, int* __restrict__ out_row,
     float* __restrict__ out_u, float* __restrict__ out_v,
     unsigned char* __restrict__ out_blocked) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const bool any_hit = static_cast<int>(blockIdx.x) >= shadow_from;
   const float rox = ox[i], roy = oy[i], roz = oz[i];
   const float rdx = dx[i], rdy = dy[i], rdz = dz[i];
   const float tmin = tmin_in[i], tmax = tmax_in[i];
@@ -135,7 +142,7 @@ __global__ void __launch_bounds__(kBlock) traverse_resident_kernel(
   }
 
   if (any_hit) {
-    out_blocked[i] = blocked ? 1 : 0;
+    out_blocked[i - shadow_from * kBlock] = blocked ? 1 : 0;
   } else {
     out_t[i] = best_row < 0 ? kTMax : t_best;
     out_row[i] = best_row;
@@ -147,20 +154,25 @@ __global__ void __launch_bounds__(kBlock) traverse_resident_kernel(
 }  // namespace
 
 // Plain C entry for ctypes. Launches on ``stream`` and returns
-// cudaGetLastError() (0 = launched). The caller allocates every output;
-// any_hit != 0 writes only ``blocked``, otherwise only t, row, u, v.
+// cudaGetLastError() (0 = launched). Blocks of kBlock (128) rays; blocks
+// from ``shadow_from`` on run the any-hit mode and write ``blocked`` (n -
+// shadow_from * 128 flags), the blocks before it t, row, u, v (their
+// lanes' worth). Closest mode: shadow_from >= the grid; any-hit: 0. The
+// caller allocates every output.
 extern "C" int rptr_traverse_resident(
     const float* bounds, const int* links, const float* rows, int num_nodes,
     int leaf_size, const float* ox, const float* oy, const float* oz,
     const float* dx, const float* dy, const float* dz, const float* tmin,
-    const float* tmax, int n, int any_hit, float* out_t, int* out_row,
+    const float* tmax, int n, int shadow_from, float* out_t, int* out_row,
     float* out_u, float* out_v, unsigned char* out_blocked, void* stream) {
   if (n <= 0) return 0;
   const int grid = (n + kBlock - 1) / kBlock;
+  if (shadow_from < 0) return cudaErrorInvalidValue;
+  if (shadow_from > grid) shadow_from = grid;
   traverse_resident_kernel<<<grid, kBlock, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       bounds, links, rows, num_nodes, leaf_size, ox, oy, oz, dx, dy, dz, tmin,
-      tmax, n, any_hit, out_t, out_row, out_u, out_v, out_blocked);
+      tmax, n, shadow_from, out_t, out_row, out_u, out_v, out_blocked);
   return static_cast<int>(cudaGetLastError());
 }
 

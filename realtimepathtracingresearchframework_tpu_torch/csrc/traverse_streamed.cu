@@ -14,7 +14,11 @@
 // at the leaf's skip link. Hits improve strictly, so the first visited
 // triangle keeps an exact-t tie. Closest mode writes t, global row, u, v (a
 // miss: t = 2e32, row = -1, u = v = 0); any-hit mode stops at the first hit
-// and writes blocked = 1.
+// and writes blocked = 1. The mode is per block: blocks from
+// ``shadow_from`` on take the any-hit exit, so one launch can carry a
+// closest queue in its first blocks and a shadow queue after it (the merged
+// mode, traverse_stream.closest_and_occluded_streamed :967); any-hit lane i
+// writes blocked[i - shadow_from * kThreads].
 //
 // Design: one thread per ray, each running its own stackless walks. The
 // top tree (Mt nodes x 32 B: 4 KB at 64 subtrees) is staged in shared
@@ -48,22 +52,15 @@ using rptr_stream::Ray;
 using rptr_stream::kLeaf;
 using rptr_stream::kThreads;
 
+// One ray's walk from top node 0; writes its result at ``o``.
 template <bool kAnyHit>
-__global__ void __launch_bounds__(kThreads) traverse_streamed_kernel(
-    const float* __restrict__ top_g, int num_top,
-    const float* __restrict__ sub_nodes, const float* __restrict__ tiles,
-    int node_rows, int sub_leaves, const float* __restrict__ rays, int n,
+__device__ __forceinline__ void walk_ray(
+    const float* top, int num_top, const float* __restrict__ sub_nodes,
+    const float* __restrict__ tiles, int node_rows, int sub_leaves,
+    const float* __restrict__ rays, int n, int i, int o,
     float* __restrict__ out_t, int* __restrict__ out_row,
     float* __restrict__ out_u, float* __restrict__ out_v,
     unsigned char* __restrict__ out_blocked) {
-  extern __shared__ float top[];
-  for (int j = threadIdx.x; j < 8 * num_top; j += blockDim.x) {
-    top[j] = __ldg(top_g + j);
-  }
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-
   Ray r;
   r.load(rays, n, i);
   Best b{r.tmax, -1, 0.0f, 0.0f, false};
@@ -88,52 +85,92 @@ __global__ void __launch_bounds__(kThreads) traverse_streamed_kernel(
   }
 
   if (kAnyHit) {
-    out_blocked[i] = b.blocked ? 1 : 0;
+    out_blocked[o] = b.blocked ? 1 : 0;
   } else {
-    out_t[i] = b.row < 0 ? rptr_stream::kTMax : b.t;
-    out_row[i] = b.row;
-    out_u[i] = b.u;
-    out_v[i] = b.v;
+    out_t[o] = b.row < 0 ? rptr_stream::kTMax : b.t;
+    out_row[o] = b.row;
+    out_u[o] = b.u;
+    out_v[o] = b.v;
   }
 }
 
-template <bool kAnyHit>
+// kMode: 0 every block closest, 1 every block any-hit, 2 blocks from
+// shadow_from on any-hit (the merged launch)
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) traverse_streamed_kernel(
+    const float* __restrict__ top_g, int num_top,
+    const float* __restrict__ sub_nodes, const float* __restrict__ tiles,
+    int node_rows, int sub_leaves, const float* __restrict__ rays, int n,
+    int shadow_from, float* __restrict__ out_t, int* __restrict__ out_row,
+    float* __restrict__ out_u, float* __restrict__ out_v,
+    unsigned char* __restrict__ out_blocked) {
+  extern __shared__ float top[];
+  for (int j = threadIdx.x; j < 8 * num_top; j += blockDim.x) {
+    top[j] = __ldg(top_g + j);
+  }
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (kMode == 1 ||
+      (kMode == 2 && static_cast<int>(blockIdx.x) >= shadow_from)) {
+    walk_ray<true>(top, num_top, sub_nodes, tiles, node_rows, sub_leaves,
+                   rays, n, i, i - shadow_from * kThreads, out_t, out_row,
+                   out_u, out_v, out_blocked);
+  } else {
+    walk_ray<false>(top, num_top, sub_nodes, tiles, node_rows, sub_leaves,
+                    rays, n, i, i, out_t, out_row, out_u, out_v, out_blocked);
+  }
+}
+
+template <int kMode>
 int launch(const float* top, int num_top, const float* sub_nodes,
            const float* tiles, int node_rows, int sub_leaves,
-           const float* rays, int n, float* out_t, int* out_row, float* out_u,
-           float* out_v, unsigned char* out_blocked, cudaStream_t stream) {
+           const float* rays, int n, int shadow_from, float* out_t,
+           int* out_row, float* out_u, float* out_v,
+           unsigned char* out_blocked, cudaStream_t stream) {
   const size_t smem = sizeof(float) * 8 * static_cast<size_t>(num_top);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        traverse_streamed_kernel<kAnyHit>,
+        traverse_streamed_kernel<kMode>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int grid = (n + kThreads - 1) / kThreads;
-  traverse_streamed_kernel<kAnyHit><<<grid, kThreads, smem, stream>>>(
-      top, num_top, sub_nodes, tiles, node_rows, sub_leaves, rays, n, out_t,
-      out_row, out_u, out_v, out_blocked);
+  traverse_streamed_kernel<kMode><<<grid, kThreads, smem, stream>>>(
+      top, num_top, sub_nodes, tiles, node_rows, sub_leaves, rays, n,
+      shadow_from, out_t, out_row, out_u, out_v, out_blocked);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. Launches on ``stream`` and returns
-// cudaGetLastError() (0 = launched). The caller allocates every output;
-// any_hit != 0 writes only ``blocked``, otherwise only t, row, u, v.
+// Plain C entry for ctypes. Blocks of kThreads (128) rays; blocks from
+// ``shadow_from`` on run the any-hit mode and write ``blocked`` (n -
+// shadow_from * 128 flags), the blocks before it t, row, u, v (their lanes'
+// worth): a closest launch is shadow_from >= the grid, an any-hit launch 0.
+// Launches on ``stream`` and returns cudaGetLastError() (0 = launched). The
+// caller allocates every output.
 extern "C" int rptr_traverse_streamed(
     const float* top, int num_top, const float* sub_nodes, const float* tiles,
-    int node_rows, int sub_leaves, const float* rays, int n, int any_hit,
+    int node_rows, int sub_leaves, const float* rays, int n, int shadow_from,
     float* out_t, int* out_row, float* out_u, float* out_v,
     unsigned char* out_blocked, void* stream) {
   if (n <= 0) return 0;
+  if (shadow_from < 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit) {
-    return launch<true>(top, num_top, sub_nodes, tiles, node_rows, sub_leaves,
-                        rays, n, out_t, out_row, out_u, out_v, out_blocked, s);
+  const int grid = (n + kThreads - 1) / kThreads;
+  if (shadow_from >= grid) {
+    return launch<0>(top, num_top, sub_nodes, tiles, node_rows, sub_leaves,
+                     rays, n, grid, out_t, out_row, out_u, out_v, out_blocked,
+                     s);
   }
-  return launch<false>(top, num_top, sub_nodes, tiles, node_rows, sub_leaves,
-                       rays, n, out_t, out_row, out_u, out_v, out_blocked, s);
+  if (shadow_from == 0) {
+    return launch<1>(top, num_top, sub_nodes, tiles, node_rows, sub_leaves,
+                     rays, n, 0, out_t, out_row, out_u, out_v, out_blocked, s);
+  }
+  return launch<2>(top, num_top, sub_nodes, tiles, node_rows, sub_leaves,
+                   rays, n, shadow_from, out_t, out_row, out_u, out_v,
+                   out_blocked, s);
 }
 
 extern "C" const char* rptr_cuda_error_string(int code) {

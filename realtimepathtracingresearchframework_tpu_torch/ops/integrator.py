@@ -32,6 +32,16 @@ source triangle ids, and in object-space mesh order on the two-level
 routes; a fetch is plain indexing (the reference's one-hot MXU fetch is
 TPU-only).
 
+Textured scenes (``cfg.has_textures``) sample the atlas
+(``ops/texture_atlas.py``) for base colour, specular/roughness and normal
+maps at a mip chosen from the ray-differential footprint that the carry
+transports across bounces (integrator.py:1205-1318, 1432-1443); with
+``cfg.alpha_test`` closest hits and shadow rays re-trace past alpha-cut
+texels (``closest_hit_alpha``, ``occluded_alpha``; integrator.py:446-780).
+The ``PT_WAVEFRONT`` variant (``cfg.wavefront``) defers each bounce's NEE
+shadow ray to the next bounce, where on the K1 route both queues go to the
+card as one merged launch (integrator.py:1021-1115, 1380-1400).
+
 Configurations outside the slice raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
 """
@@ -44,6 +54,7 @@ import numpy as np
 import torch
 
 from realtimepathtracingresearchframework_tpu_torch.models.material import (
+    BASE_MATERIAL_NOALPHA,
     BASE_MATERIAL_ONESIDED,
     BASE_MATERIAL_THIN,
 )
@@ -62,7 +73,14 @@ from realtimepathtracingresearchframework_tpu_torch.ops.bsdf_gltf import (
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
 from realtimepathtracingresearchframework_tpu_torch.ops.rng import M32
+from realtimepathtracingresearchframework_tpu_torch.ops.texture_atlas import (
+    TextureAtlas,
+    sample_atlas,
+    sample_atlas_aniso,
+)
+from realtimepathtracingresearchframework_tpu_torch.ops.tlas import TwoLevelHit
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
+    Hit,
     ResidentBVH,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_binned
@@ -73,6 +91,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops import (
     traverse_tlas_stream,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
+    closest_and_occluded_resident,
     closest_hit_resident,
     coherence_key,
     occluded_resident,
@@ -122,6 +141,8 @@ class DeviceScene(NamedTuple):
     tlas_k6: object = None  # traverse_tlas.TlasBuffers when cfg.tlas_k6
     tlas_stream: object = None  # (TlasStreamStatic, TlasStreamFrame) when
     # cfg.tlas_stream
+    atlas: Optional[TextureAtlas] = None  # the scene's textures (a 1-texel
+    # dummy without): read only when cfg.has_textures
 
 
 def pack_attr_table(tris, shading) -> torch.Tensor:
@@ -280,12 +301,10 @@ class IntegratorConfig(NamedTuple):
     kernel_v3: bool = False  # K2/K3 flat cull instead of the K1 walk
     kernel_v4: bool = False  # sorted queues on K3 instead of K2
     stream_closest: str = "sorted"  # streamed closest hits: K4 or "binned"
+    aniso_taps: int = 0  # anisotropic texture taps (0: isotropic mip)
 
 
 _UNPORTED = (
-    ("has_textures", "textures", 11),
-    ("alpha_test", "the alpha test", 12),
-    ("wavefront", "the wavefront variant", 13),
     ("use_light_bins", "binned RIS light sampling", 14),
     ("enable_dof", "thin-lens depth of field", 14),
     ("debug_mode", "debug variants", 14),
@@ -330,6 +349,7 @@ class FrameParams(NamedTuple):
     sample_offset: int = 0  # accumulation frame offset (u32)
     shot_offset: int = 0  # frame_offset randomization (u32)
     pixel_radius: float = 1.0  # mip footprint scale (camera_footprint0)
+    bump_scale: float = 1.0  # normal-map strength (SceneConfig.bump_scale)
 
 
 def _ocean(y):
@@ -369,6 +389,27 @@ class NEECandidate(NamedTuple):
     shadow_tmax: torch.Tensor
     traced: torch.Tensor  # bool: needs the visibility ray
     uncond: torch.Tensor  # bool: visible without tracing
+    dropped: torch.Tensor  # bool: a candidate dropped for a non-finite
+    # contribution (not in the reference, which keeps the NaN)
+
+
+# NEE samples of active lanes dropped for a non-finite contribution in this
+# process: one device scalar per device, summed without a host read; read
+# with nee_dropped(), reset with reset_nee_dropped()
+_nee_dropped = {}
+
+
+def reset_nee_dropped() -> None:
+    _nee_dropped.clear()
+
+
+def nee_dropped() -> int:
+    """Dropped NEE samples since the last reset (synchronises)."""
+    return sum(int(n) for n in _nee_dropped.values())
+
+
+def _count_nee_dropped(mask) -> None:
+    _nee_dropped[mask.device] = _nee_dropped.get(mask.device, 0) + mask.sum()
 
 
 def _nee_candidate(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
@@ -436,7 +477,17 @@ def _nee_candidate(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
                     cfg.thin_transmission)
     w = nee_mod.nee_mis_heuristic(1.0, mis_pdf, 1.0, bsdf_pdf)
     contrib = illum * f * (w * v3.dot(light_dir, hit_n).abs())
+    # a light triangle sampled from a point nearly in its plane (a path
+    # vertex on an emitter) can overflow the sample's distance and MIS pdf,
+    # and the reference's contribution is then NaN (inf / inf in the
+    # balance heuristic); such a sample is dropped and counted, or it would
+    # poison the pixel's accumulation (seen on an H100 on the village's
+    # window lights; tests/test_torch_shading.py replays that lane)
+    finite = (torch.isfinite(contrib.x) & torch.isfinite(contrib.y)
+              & torch.isfinite(contrib.z))
     base_ok = candidate & (bsdf_pdf >= 0.0)
+    dropped = base_ok & ~finite
+    base_ok = base_ok & finite
     zero3 = v3.splat(torch.zeros_like(w))
     return NEECandidate(
         contrib=v3.where(base_ok, contrib, zero3),
@@ -445,6 +496,7 @@ def _nee_candidate(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
         shadow_tmax=shadow_tmax_eff,
         traced=base_ok & seg_ok,  # apply iff the shadow ray is clear
         uncond=base_ok & ~seg_ok,  # degenerate segment: always visible
+        dropped=dropped,
     )
 
 
@@ -526,6 +578,131 @@ def _occluded_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
     return occluded_resident(ds.bvh, ro, rd, t_min, t_max, compact=compact)
 
 
+MAX_ALPHA_HOPS = 4  # candidate-hit re-trace budget (generate_candidate_hit)
+ALPHA_CUTOFF = 0.5  # punch-through threshold
+# alpha-test work in this process: re-trace dispatches, and host reads of
+# "is any lane still cut" (one before each possible hop); reset with
+# reset_alpha_counts
+alpha_hops = 0
+alpha_reads = 0
+
+
+def reset_alpha_counts() -> None:
+    global alpha_hops, alpha_reads
+    alpha_hops = alpha_reads = 0
+
+
+def _any_cut(mask) -> bool:
+    """One host read: does any lane still sit on a cut texel?"""
+    global alpha_reads
+    alpha_reads += 1
+    return bool(mask.any())
+
+
+def _hit_alpha_cut(ds: DeviceScene, tri, u, v, inst=None):
+    """True where the hit texel is alpha-cut: the any-hit alpha test of
+    ``generate_candidate_hit`` (integrator.py:456-482). Samples mip 0 of
+    the base-colour texture; ``inst`` (two-level hits) applies the
+    per-instance material offset."""
+    c = _fetch_cols_ranges(ds.attr_packed, torch.clamp(tri, min=0).to(torch.int64),
+                           [(_A_UV0, _A_TAN), (_A_MID, _A_MID + 1)])
+    b0 = 1.0 - u - v
+    uv = torch.stack([
+        c[_A_UV0] * b0 + c[_A_UV1] * u + c[_A_UV2] * v,
+        c[_A_UV0 + 1] * b0 + c[_A_UV1 + 1] * u + c[_A_UV2 + 1] * v,
+    ], dim=-1)
+    mid = c[_A_MID].to(torch.int64)
+    if inst is not None:
+        mid = mid + ds.tlas.inst_mat_offset[torch.clamp(inst, min=0).to(torch.int64)]
+    mc = _fetch_cols_ranges(ds.mat_packed, mid, [(_M_FLAGS, _M_BCTEX + 1)])
+    bc_tid = mc[_M_BCTEX].to(torch.int32)
+    flags = mc[_M_FLAGS].to(torch.int32)
+    a = sample_atlas(ds.atlas, bc_tid, uv, torch.zeros_like(u))[:, 3]
+    can_cut = (bc_tid >= 0) & ((flags & BASE_MATERIAL_NOALPHA) == 0)
+    return (tri >= 0) & can_cut & (a < ALPHA_CUTOFF)
+
+
+def _alpha_eps(t):
+    """Re-trace offset past a cut hit (integrator.py:608), in its order."""
+    return t.abs() * 1e-4 + 1e-5
+
+
+def closest_hit_alpha(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
+                      rd: Vec3, t_min, t_max, compact: bool = False,
+                      presorted: bool = False):
+    """Closest hit honouring alpha-cutout textures (integrator.py:581-639):
+    re-traces past cut texels up to MAX_ALPHA_HOPS, each hop one dispatch
+    of the route over every lane (settled lanes trace an empty segment).
+    The loop ends early once no lane is cut, as the reference's
+    ``while_loop`` does: one host read per hop. A lane still cut after the
+    last hop counts as opaque (:632). Plain ``_closest_hit_dispatch``
+    unless ``cfg.alpha_test``."""
+    global alpha_hops
+    hit = _closest_hit_dispatch(ds, cfg, ro, rd, t_min, t_max, compact=compact,
+                                presorted=presorted)
+    if not (cfg.alpha_test and cfg.has_textures):
+        return hit
+    inst = hit.inst if cfg.two_level else None
+    t, tri, u, v = hit.t, hit.tri, hit.u, hit.v
+    cut = _hit_alpha_cut(ds, tri, u, v, inst)
+    for _ in range(MAX_ALPHA_HOPS):
+        if not _any_cut(cut):
+            break
+        alpha_hops += 1
+        eps = _alpha_eps(t)
+        h = _closest_hit_dispatch(
+            ds, cfg, ro, rd, torch.where(cut, t + eps, t_min),
+            torch.where(cut, t_max, 0.0),  # settled lanes trace nothing
+            compact=True)
+        t = torch.where(cut, h.t, t)
+        tri = torch.where(cut, h.tri, tri)
+        u = torch.where(cut, h.u, u)
+        v = torch.where(cut, h.v, v)
+        if cfg.two_level:
+            inst = torch.where(cut, h.inst, inst)
+        cut = cut & _hit_alpha_cut(ds, tri, u, v, inst)
+    if cfg.two_level:
+        return TwoLevelHit(t=t, tri=tri, u=u, v=v, inst=inst)
+    return Hit(t=t, tri=tri, u=u, v=v)
+
+
+def occluded_alpha(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3, rd: Vec3,
+                   t_min, t_max, compact: bool = False,
+                   sort_shadow: bool = False):
+    """Shadow-ray visibility honouring alpha cutouts (integrator.py:
+    642-780): walks candidate closest hits until a solid blocker or the
+    segment's end, one dispatch per hop, ending early as
+    ``closest_hit_alpha`` does. A lane still inside cut geometry after the
+    last hop counts as blocked (:776-777). Plain ``_occluded_dispatch``
+    unless ``cfg.alpha_test``."""
+    global alpha_hops
+    if not (cfg.alpha_test and cfg.has_textures):
+        return _occluded_dispatch(ds, cfg, ro, rd, t_min, t_max,
+                                  compact=compact, sort_shadow=sort_shadow)
+    hit = _closest_hit_dispatch(ds, cfg, ro, rd, t_min, t_max)
+    in_seg = (hit.tri >= 0) & (hit.t < t_max)
+    cut = _hit_alpha_cut(ds, hit.tri, hit.u, hit.v,
+                         hit.inst if cfg.two_level else None)
+    blocked = in_seg & ~cut
+    live = in_seg & cut
+    t = hit.t
+    for _ in range(MAX_ALPHA_HOPS):
+        if not _any_cut(live):
+            break
+        alpha_hops += 1
+        eps = _alpha_eps(t)
+        h = _closest_hit_dispatch(
+            ds, cfg, ro, rd, torch.where(live, t + eps, t_min),
+            torch.where(live, t_max, 0.0), compact=True)
+        in_seg = (h.tri >= 0) & (h.t < t_max) & live
+        cut = _hit_alpha_cut(ds, h.tri, h.u, h.v,
+                             h.inst if cfg.two_level else None)
+        blocked = blocked | (in_seg & ~cut)
+        live = in_seg & cut
+        t = torch.where(live, h.t, t)
+    return blocked | live
+
+
 def _sample_direct_light(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
                          hit_n: Vec3, hit_gn: Vec3, mat: GLTFMaterial,
                          w_o: Vec3, dir_sample, sel_sample, total_t,
@@ -539,7 +716,8 @@ def _sample_direct_light(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
         ds, cfg, hit_p, hit_n, hit_gn, mat, w_o, dir_sample, sel_sample,
         total_t,
     )
-    blocked = _occluded_dispatch(
+    _count_nee_dropped(cand.dropped & active)
+    blocked = occluded_alpha(
         ds, cfg, hit_p, cand.dir, cand.eps,
         torch.where(active, cand.shadow_tmax, cand.eps),
         compact=compact, sort_shadow=sort_shadow,
@@ -548,8 +726,37 @@ def _sample_direct_light(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
     return v3.where(visible, cand.contrib, v3.splat(torch.zeros_like(cand.eps)))
 
 
+class Footprint(NamedTuple):
+    """Per-lane ray-differential texture footprint: the symmetric 2x2
+    covariance (F00, F11, F01) of footprint.glsl."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+
+
+class PendingNEE(NamedTuple):
+    """The wavefront's deferred NEE shadow ray of each lane
+    (integrator.py:1526-1531), resolved by the next ``visit_hit``."""
+
+    dir: Vec3
+    tmin: torch.Tensor
+    tmax: torch.Tensor
+    contrib: Vec3  # throughput-scaled contribution if unblocked
+    traced: torch.Tensor  # bool: a shadow ray is queued for this lane
+
+
+def empty_pend(like) -> PendingNEE:
+    """No queued shadow ray, on ``like``'s lanes."""
+    z = torch.zeros_like(like)
+    return PendingNEE(Vec3(z, z + 1.0, z), z, z, Vec3(z, z, z),
+                      torch.zeros(like.shape, dtype=torch.bool, device=like.device))
+
+
 class Carry(NamedTuple):
-    """Per-lane path state between bounces."""
+    """Per-lane path state between bounces. ``pend`` is the wavefront
+    variant's deferred shadow queue and ``foot`` the texture footprint;
+    each is None when the configuration does not carry it."""
 
     ro: Vec3
     rd: Vec3
@@ -562,10 +769,15 @@ class Carry(NamedTuple):
     total_t: torch.Tensor
     rng_state: pointsets.RngState
     rays: torch.Tensor  # per-lane traced-ray count (closest + shadow)
+    pend: Optional[PendingNEE] = None  # cfg.wavefront
+    foot: Optional[Footprint] = None  # cfg.has_textures
 
 
 def _map_lanes(fn, tree, *others):
-    """``fn`` over matching tensors of same-shaped (nested) tuples."""
+    """``fn`` over matching tensors of same-shaped (nested) tuples; None
+    entries stay None."""
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         return fn(tree, *others)
     return type(tree)(*(_map_lanes(fn, *xs) for xs in zip(tree, *others)))
@@ -611,29 +823,62 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
     monolithic ``trace_paths`` and the wavefront executor)."""
     num_bins = max(cfg.num_lights // max(cfg.light_bin_size, 1), 1)
 
+    def traverse(carry: Carry, compact: bool, presorted: bool):
+        """This bounce's closest hits; in the wavefront variant also the
+        previous bounce's deferred shadow rays, whose unblocked
+        contributions go into ``illum`` before this bounce's sky and
+        emitter terms (integrator.py:1053-1115). Returns (hit, illum)."""
+        ro, rd, active = carry.ro, carry.rd, carry.active
+        tmax_eff = torch.where(active, T_MAX, 0.0)
+        alpha = cfg.alpha_test and cfg.has_textures
+        if not cfg.wavefront:
+            return closest_hit_alpha(ds, cfg, ro, rd, carry.t_min, tmax_eff,
+                                     compact=compact, presorted=presorted), carry.illum
+        pend = carry.pend
+        ntmax_eff = torch.where(pend.traced, pend.tmax, 0.0)
+        if cfg.streamed and not alpha:
+            # K4 for the closest queue, one binned K5 round for the shadows
+            hit = _closest_hit_dispatch(ds, cfg, ro, rd, carry.t_min, tmax_eff)
+            blocked = traverse_binned.occluded_binned(
+                ds.bvh, ro, pend.dir, pend.tmin, ntmax_eff, rounds=1)
+        elif not (cfg.streamed or cfg.kernel_v3 or cfg.two_level or alpha):
+            # the K1 route: both queues in one merged launch
+            hit, blocked = closest_and_occluded_resident(
+                ds.bvh, (*ro, *rd), carry.t_min, tmax_eff,
+                (*ro, *pend.dir), pend.tmin, ntmax_eff, compact=compact)
+        else:
+            # flat cull, two-level and alpha-tested routes: the same
+            # deferred structure in two dispatches
+            hit = closest_hit_alpha(ds, cfg, ro, rd, carry.t_min, tmax_eff,
+                                    compact=compact, presorted=presorted)
+            blocked = occluded_alpha(ds, cfg, ro, pend.dir, pend.tmin,
+                                     ntmax_eff, compact=compact,
+                                     sort_shadow=compact)
+        illum = v3.where(pend.traced & ~blocked, carry.illum + pend.contrib,
+                         carry.illum)
+        return hit, illum
+
     def visit_hit(carry: Carry, compact: bool = False,
                   presorted: bool = False):
-        """Traverse + hit attributes + emitter MIS. Returns (carry with
-        the miss handled, hit shading context)."""
+        """Traverse + hit attributes + textures + emitter MIS. Returns
+        (carry with the miss handled, hit shading context)."""
         ro, rd, active = carry.ro, carry.rd, carry.active
         rays = carry.rays + active.to(carry.rays.dtype)
-        tmax_eff = torch.where(active, T_MAX, 0.0)
-        hit = _closest_hit_dispatch(ds, cfg, ro, rd, carry.t_min, tmax_eff,
-                                    compact=compact, presorted=presorted)
+        hit, illum = traverse(carry, compact, presorted)
+        pend = empty_pend(carry.t_min) if cfg.wavefront else None
         was_miss = hit.tri < 0
 
         # ---- miss: sky (pt_megakernel.glsl:480-489)
         sky = _sky_illum(ds, rd, carry.prev_pdf, cfg)
-        illum = v3.where(
-            active & was_miss, carry.illum + carry.throughput * sky, carry.illum
-        )
+        illum = v3.where(active & was_miss, illum + carry.throughput * sky, illum)
         active = active & ~was_miss
 
-        # ---- hit attributes (rt/hit.glsl:63-92), row-indexed tables
+        # ---- hit attributes (rt/hit.glsl:63-92), row-indexed tables; uv,
+        # tangent and texel density only when texturing
         tri = torch.clamp(hit.tri, min=0).to(torch.int64)
-        c = _fetch_cols_ranges(
-            ds.attr_packed, tri, [(_A_E1, _A_UV0), (_A_MID, _A_MID + 1)]
-        )
+        attr_ranges = ([(_A_E1, _A_MID + 1)] if cfg.has_textures
+                       else [(_A_E1, _A_UV0), (_A_MID, _A_MID + 1)])
+        c = _fetch_cols_ranges(ds.attr_packed, tri, attr_ranges)
         e1 = Vec3(c[_A_E1], c[_A_E1 + 1], c[_A_E1 + 2])
         e2 = Vec3(c[_A_E2], c[_A_E2 + 1], c[_A_E2 + 2])
         b1, b2 = hit.u, hit.v
@@ -667,7 +912,8 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
         mid = c[_A_MID].to(torch.int64)
         if cfg.two_level:
             mid = mid + ds.tlas.inst_mat_offset[inst]
-        mat_ranges = [(_M_BASE, _M_BCTEX)]
+        mat_ranges = ([(_M_BASE, _M_NMTEX + 1)] if cfg.has_textures
+                      else [(_M_BASE, _M_BCTEX)])
         if cfg.thin_transmission:
             mat_ranges = mat_ranges + [(_M_CCGLOSS, _M_CCGLOSS + 1)]
         mc = _fetch_cols_ranges(ds.mat_packed, mid, mat_ranges)
@@ -683,6 +929,11 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
         gn = v3.where(flip, -gn, gn)
 
         total_t = torch.where(active, carry.total_t + hit.t, carry.total_t)
+
+        if cfg.has_textures:
+            mat, n_sh = shade_textures(carry, c, mc, mat, n_sh, gn, rd, total_t,
+                                       inst if cfg.two_level else None,
+                                       lin if cfg.two_level else None, b0, b1, b2)
 
         # ---- emitter hit MIS (shade_base_material.glsl:33-39)
         emit_intensity = mc[_M_EMIT]
@@ -703,15 +954,112 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
         )
         carry = carry._replace(
             illum=illum, active=active, bounce_count=bounce_count,
-            total_t=total_t, rays=rays,
+            total_t=total_t, rays=rays, pend=pend,
         )
         return carry, (p, n_sh, gn, mat, w_o)
+
+    def shade_textures(carry: Carry, c, mc, mat: GLTFMaterial, n_sh: Vec3,
+                       gn: Vec3, rd: Vec3, total_t, inst, lin, b0, b1, b2):
+        """The texture stage of visit_hit (rt/material_textures.glsl,
+        integrator.py:1205-1318): base colour, specular/roughness and the
+        normal map, sampled at the mip of the transported footprint
+        elongated along the grazing tangent and scaled by the path length,
+        or with ``cfg.aniso_taps`` along the footprint's major axis.
+        Returns (material, shading normal)."""
+        uv = torch.stack([
+            c[_A_UV0] * b0 + c[_A_UV1] * b1 + c[_A_UV2] * b2,
+            c[_A_UV0 + 1] * b0 + c[_A_UV1 + 1] * b1 + c[_A_UV2 + 1] * b2,
+        ], dim=-1)
+        density = c[_A_DENS]
+        if inst is not None:
+            # object-space density scales by 1/|s| in world units
+            density = density / torch.clamp(ds.tlas.inst_scale[inst], min=1e-8)
+        dpdx, dpdy = _footprint_to_dpdxy_v(rd, *carry.foot)
+        dt_un = rd - gn * v3.dot(rd, gn)
+        cos2 = torch.clamp(1.0 - v3.dot(dt_un, dt_un), min=0.0)
+        elong_s = 1.0 / torch.clamp(torch.sqrt(cos2) + cos2, min=1e-6)
+        ex = dt_un * elong_s
+        dpdx_e = dpdx + ex * v3.dot(dpdx, dt_un)
+        dpdy_e = dpdy + ex * v3.dot(dpdy, dt_un)
+        footprint_world = (
+            torch.maximum(v3.length(dpdx_e), v3.length(dpdy_e)) * total_t)
+
+        if cfg.aniso_taps > 0 and inst is None:
+            # the (elongated, path-scaled) footprint vectors projected onto
+            # the triangle's uv parametrisation via the edge metric
+            e1v = Vec3(c[_A_E1], c[_A_E1 + 1], c[_A_E1 + 2])
+            e2v = Vec3(c[_A_E2], c[_A_E2 + 1], c[_A_E2 + 2])
+            g11 = v3.dot(e1v, e1v)
+            g12 = v3.dot(e1v, e2v)
+            g22 = v3.dot(e2v, e2v)
+            det = torch.clamp(g11 * g22 - g12 * g12, min=1e-20)
+            du1 = c[_A_UV1] - c[_A_UV0]
+            dv1 = c[_A_UV1 + 1] - c[_A_UV0 + 1]
+            du2 = c[_A_UV2] - c[_A_UV0]
+            dv2 = c[_A_UV2 + 1] - c[_A_UV0 + 1]
+
+            def duv_of(dp):
+                w = dp * total_t
+                p1 = v3.dot(w, e1v)
+                p2 = v3.dot(w, e2v)
+                a = (p1 * g22 - p2 * g12) / det
+                b = (p2 * g11 - p1 * g12) / det
+                return torch.stack([a * du1 + b * du2, a * dv1 + b * dv2], dim=-1)
+
+            duvdx, duvdy = duv_of(dpdx_e), duv_of(dpdy_e)
+
+            def tex_sample(tid):
+                return sample_atlas_aniso(ds.atlas, tid, uv, duvdx, duvdy,
+                                          taps=int(cfg.aniso_taps))
+        else:
+            def tex_sample(tid):
+                base_w = ds.atlas.desc[torch.clamp(tid, min=0).to(torch.int64),
+                                       0, 1].to(torch.float32)
+                mip = torch.log2(torch.clamp(footprint_world * density * base_w,
+                                             min=1.0))
+                return sample_atlas(ds.atlas, tid, uv, mip)
+
+        bc_tid = mc[_M_BCTEX].to(torch.int32)
+        bc = tex_sample(bc_tid)
+        base = v3.where(bc_tid >= 0, Vec3(bc[:, 0], bc[:, 1], bc[:, 2]),
+                        mat.base_color)
+        mat = mat._replace(base_color=base, transmission_color=base)
+
+        sp_tid = mc[_M_SPTEX].to(torch.int32)
+        sp = tex_sample(sp_tid)
+        has_sp = sp_tid >= 0
+        mat = mat._replace(
+            roughness=torch.where(has_sp, sp[:, 1], mat.roughness),
+            metallic=torch.where(has_sp, sp[:, 2], mat.metallic),
+        )
+
+        # normal mapping in the uv tangent frame (pt_megakernel.glsl:636-648)
+        nm_tid = mc[_M_NMTEX].to(torch.int32)
+        nm = tex_sample(nm_tid)
+        tn = Vec3(
+            (nm[:, 0] * 2.0 - 1.0) * fp.bump_scale,
+            (nm[:, 1] * 2.0 - 1.0) * fp.bump_scale,
+            nm[:, 2] * 2.0 - 1.0,
+        )
+        tang = Vec3(c[_A_TAN], c[_A_TAN + 1], c[_A_TAN + 2])
+        if inst is not None:
+            tang = _mat3_apply(lin, tang)
+        tang = v3.normalize(tang - n_sh * v3.dot(tang, n_sh))
+        hand = c[_A_TAN + 3]
+        if inst is not None:
+            hand = hand * ds.tlas.inst_sign[inst]
+        bitan = v3.cross(n_sh, tang) * hand
+        n_mapped = v3.normalize(tang * tn.x + bitan * tn.y + n_sh * tn.z)
+        ok_nm = (nm_tid >= 0) & (v3.length(tn) > 1e-4)
+        return mat, v3.where(ok_nm, n_mapped, n_sh)
 
     def scatter_tail(carry: Carry, ctx, compact: bool = False,
                      sort_shadow: bool = False) -> Carry:
         """NEE + BSDF sample + RR — skipped on the final bounce.
         ``sort_shadow``: the NEE occlusion queue (origins = fresh hit
-        points) gets its own coherence sort."""
+        points) gets its own coherence sort. In the wavefront variant the
+        shadow ray is queued for the next visit instead (integrator.py:
+        1380-1400)."""
         p, n_sh, gn, mat, w_o = ctx
         active, throughput = carry.active, carry.throughput
         total_t = carry.total_t
@@ -725,12 +1073,27 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
 
         # ---- NEE (one shadow ray per active lane)
         rays = carry.rays + active.to(carry.rays.dtype)
-        nee_contrib = _sample_direct_light(
-            ds, cfg, p, n_sh, gn, mat, w_o, pos_sample, sel_sample, total_t,
-            active, compact=compact, sort_shadow=sort_shadow,
-        )
-        illum = v3.where(active, carry.illum + throughput * nee_contrib,
-                         carry.illum)
+        pend = carry.pend
+        if cfg.wavefront:
+            # queue the candidate's shadow ray; a degenerate segment is
+            # visible without tracing and applies here (per lane it is one
+            # or the other, so the megakernel's accumulation order holds)
+            cand = _nee_candidate(ds, cfg, p, n_sh, gn, mat, w_o, pos_sample,
+                                  sel_sample, total_t)
+            _count_nee_dropped(cand.dropped & active)
+            scaled = throughput * cand.contrib
+            illum = v3.where(cand.uncond & active, carry.illum + scaled,
+                             carry.illum)
+            had_nee = active  # lanes owning a queued shadow ray
+            pend = PendingNEE(cand.dir, cand.eps, cand.shadow_tmax, scaled,
+                              cand.traced & active)
+        else:
+            nee_contrib = _sample_direct_light(
+                ds, cfg, p, n_sh, gn, mat, w_o, pos_sample, sel_sample,
+                total_t, active, compact=compact, sort_shadow=sort_shadow,
+            )
+            illum = v3.where(active, carry.illum + throughput * nee_contrib,
+                             carry.illum)
 
         # glossy-only debug mode (shade_base_material.glsl:69-70)
         if fp.glossy_only_mode != 0:
@@ -751,8 +1114,22 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
         prev_pdf = torch.where(keep, mis_wpdf, carry.prev_pdf)
         active = keep
 
+        foot = carry.foot
+        if cfg.has_textures:
+            # transport the texture footprint across the bounce
+            # (pt_megakernel.glsl:698-701)
+            do_ref = active & (v3.dot(w_i, n_sh) * v3.dot(w_o, n_sh) > -0.999)
+            ref = _reflect_footprint_v(w_i, carry.rd, *foot)
+            foot = Footprint(*(torch.where(do_ref, r, f)
+                               for r, f in zip(ref, foot)))
+
         rd = v3.where(active, w_i, carry.rd)
-        ro = v3.where(active, p, carry.ro)
+        if cfg.wavefront:
+            # the next visit's deferred shadow ray starts at THIS hit point,
+            # also on lanes whose path just ended
+            ro = v3.where(active | had_nee, p, carry.ro)
+        else:
+            ro = v3.where(active, p, carry.ro)
         t_min = (v3.length(ro) + total_t) * RAY_EPSILON
 
         # ---- Russian roulette (pt_megakernel.glsl:713-730)
@@ -775,14 +1152,18 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
         return carry._replace(
             ro=ro, rd=rd, t_min=t_min, illum=illum, throughput=throughput,
             active=active, prev_pdf=prev_pdf, rng_state=rng_state, rays=rays,
+            pend=pend, foot=foot,
         )
 
     return visit_hit, scatter_tail
 
 
-def initial_carry(ro: Vec3, rd: Vec3, rng_state, lane_mask=None) -> Carry:
+def initial_carry(ro: Vec3, rd: Vec3, rng_state, lane_mask=None,
+                  foot: Optional[Footprint] = None,
+                  wavefront: bool = False) -> Carry:
     """The path state before bounce 0; lanes outside ``lane_mask`` start
-    dead."""
+    dead. ``foot`` (textured scenes) is the camera footprint, broadcast to
+    the lanes; ``wavefront`` adds the empty deferred shadow queue."""
     n = ro.x.shape[0]
     dev = ro.x.device
     zero = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -791,6 +1172,8 @@ def initial_carry(ro: Vec3, rd: Vec3, rng_state, lane_mask=None) -> Carry:
         torch.ones(n, dtype=torch.bool, device=dev)
         if lane_mask is None else lane_mask.to(torch.bool)
     )
+    if foot is not None:
+        foot = Footprint(*(f.expand(n) for f in foot))
     return Carry(
         ro=ro, rd=rd, t_min=zero, illum=Vec3(zero, zero, zero),
         throughput=Vec3(one, one, one), active=active0,
@@ -798,35 +1181,60 @@ def initial_carry(ro: Vec3, rd: Vec3, rng_state, lane_mask=None) -> Carry:
         bounce_count=torch.zeros(n, dtype=torch.int32, device=dev),
         total_t=zero, rng_state=rng_state,
         rays=torch.zeros(n, dtype=torch.int32, device=dev),
+        pend=empty_pend(zero) if wavefront else None,
+        foot=foot,
     )
 
 
 def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
-                ro: Vec3, rd: Vec3, rng_state, lane_mask=None):
+                ro: Vec3, rd: Vec3, rng_state, lane_mask=None,
+                footprint0=None):
     """Trace a batch of paths; returns (rgb Vec3, alpha (N,), rays (N,)).
 
     The bounce loop is unrolled in Python (the reference's
     ``cfg.unroll``). The last bounce only traverses and adds emitter/sky
-    terms (shade_base_material.glsl:56-57). Once every lane is dead the
-    remaining bounces are skipped: they could change nothing (the
-    reference's whole-wave early out, pt_megakernel.glsl:445-449).
+    terms (shade_base_material.glsl:56-57). Once every lane is dead (and,
+    in the wavefront variant, no shadow ray is queued) the remaining
+    bounces are skipped: they could change nothing (the reference's
+    whole-wave early out, pt_megakernel.glsl:445-449).
     ``cfg.compact`` coherence-sorts every traversal queue past bounce 0,
     and every NEE queue past bounce 0 sorts by its own origins
-    (integrator.py:1536-1551).
+    (integrator.py:1536-1551). ``footprint0`` is the camera's texture
+    footprint (``camera_footprint0``); textured scenes without one start
+    from a zero footprint, as the reference does.
     """
     check_supported(cfg)
-    carry = initial_carry(ro, rd, rng_state, lane_mask)
+    foot = None
+    if cfg.has_textures:
+        foot = footprint0
+        if foot is None:
+            z = torch.zeros((), dtype=torch.float32, device=ro.x.device)
+            foot = (z, z, z)
+    carry = initial_carry(ro, rd, rng_state, lane_mask, foot=foot,
+                          wavefront=cfg.wavefront)
     visit_hit, scatter_tail = _make_bounce_fns(ds, cfg, fp)
     for i in range(cfg.max_path_depth):
-        if not bool(carry.active.any()):
+        live = carry.active.any()
+        if cfg.wavefront:
+            live = live | carry.pend.traced.any()
+        if not bool(live):
             break
         compact = cfg.compact and i > 0
         carry, ctx = visit_hit(carry, compact=compact)
         if i < cfg.max_path_depth - 1:
             carry = scatter_tail(carry, ctx, compact=compact,
                                  sort_shadow=i > 0)
+    illum = carry.illum
+    if cfg.wavefront and bool(carry.pend.traced.any()):
+        # a shadow queue that no later visit resolved (integrator.py:
+        # 1695-1713): never with the standard depth schedule, whose last
+        # bounce queues nothing
+        pend = carry.pend
+        blocked = occluded_alpha(ds, cfg, carry.ro, pend.dir, pend.tmin,
+                                 torch.where(pend.traced, pend.tmax, 0.0))
+        illum = v3.where(pend.traced & ~blocked, illum + pend.contrib, illum)
     alpha = torch.where(carry.bounce_count == 0, 0.0, 1.0)
-    return carry.illum, alpha, carry.rays
+    return illum, alpha, carry.rays
 
 
 def camera_rays_v(view: ViewBuffers, px, py, dims, j0, j1):
@@ -851,6 +1259,12 @@ def camera_rays_v(view: ViewBuffers, px, py, dims, j0, j1):
     return ro, rd
 
 
+# ---------------------------------------------------------------------------
+# Ray-differential texture footprint (rt/footprint.glsl; integrator.py:
+# 1752-1830)
+# ---------------------------------------------------------------------------
+
+
 def _dpdxy_to_footprint_v(rd: Vec3, dpdx: Vec3, dpdy: Vec3):
     """dpdxy_to_footprint (footprint.glsl:10-15): the symmetric 2x2
     covariance of the pixel differentials in the ray-perpendicular basis,
@@ -858,15 +1272,66 @@ def _dpdxy_to_footprint_v(rd: Vec3, dpdx: Vec3, dpdy: Vec3):
     t, b = nee_mod.ortho_frame_v(rd)
     tx, ty = v3.dot(t, dpdx), v3.dot(t, dpdy)
     bx, by = v3.dot(b, dpdx), v3.dot(b, dpdy)
-    return tx * tx + ty * ty, bx * bx + by * by, tx * bx + ty * by
+    return Footprint(tx * tx + ty * ty, bx * bx + by * by, tx * bx + ty * by)
+
+
+def _footprint_to_dpdxy_v(rd: Vec3, fa, fb, fc):
+    """footprint_to_dpdxy (footprint.glsl:44-61): eigen-decompose F back
+    into two world-space differential vectors."""
+    B = fa + fb
+    C = fa * fb - fc * fc
+    D = torch.sqrt(torch.clamp(B * B * 0.25 - C, min=0.0))
+    ev0 = 0.5 * B - D
+    ev1 = 0.5 * B + D
+    use = fc.abs() > 3.0e-39
+    x0x = torch.where(use, fc, 1.0)
+    x0y = torch.where(use, ev0 - fa, 0.0)
+    x1x = torch.where(use, ev1 - fb, 0.0)
+    x1y = torch.where(use, fc, 1.0)
+    inv0 = 1.0 / torch.clamp(torch.sqrt(x0x * x0x + x0y * x0y), min=1e-30)
+    inv1 = 1.0 / torch.clamp(torch.sqrt(x1x * x1x + x1y * x1y), min=1e-30)
+    s0 = torch.sqrt(torch.clamp(ev0, min=0.0)) * inv0
+    s1 = torch.sqrt(torch.clamp(ev1, min=0.0)) * inv1
+    t, b = nee_mod.ortho_frame_v(rd)
+    dpdx = Vec3(
+        (t.x * x0x + b.x * x0y) * s0,
+        (t.y * x0x + b.y * x0y) * s0,
+        (t.z * x0x + b.z * x0y) * s0,
+    )
+    dpdy = Vec3(
+        (t.x * x1x + b.x * x1y) * s1,
+        (t.y * x1x + b.y * x1y) * s1,
+        (t.z * x1x + b.z * x1y) * s1,
+    )
+    return dpdx, dpdy
+
+
+def _reflect_footprint_v(w_i: Vec3, rd: Vec3, fa, fb, fc):
+    """reflect_footprint (footprint.glsl:37-42): mirror the footprint
+    across the half-vector and re-express it in the new ray's basis."""
+    n = v3.normalize(w_i - rd)
+    ts, bs = nee_mod.ortho_frame_v(rd)
+    rt = ts - n * (2.0 * v3.dot(n, ts))
+    rb = bs - n * (2.0 * v3.dot(n, bs))
+    td, bd = nee_mod.ortho_frame_v(w_i)
+    t00, t01 = v3.dot(td, rt), v3.dot(td, rb)
+    t10, t11 = v3.dot(bd, rt), v3.dot(bd, rb)
+    m00 = t00 * fa + t01 * fc
+    m01 = t00 * fc + t01 * fb
+    m10 = t10 * fa + t11 * fc
+    m11 = t10 * fc + t11 * fb
+    return Footprint(
+        m00 * t00 + m01 * t01,
+        m10 * t10 + m11 * t11,
+        m00 * t10 + m01 * t11,
+    )
 
 
 def camera_footprint0(cfg: IntegratorConfig, fp: FrameParams,
                       view: ViewBuffers, dims, rd: Vec3):
     """Initial texture footprint from the pixel differentials
     (pt_megakernel.glsl:340-351): dpdx = cam_du/W * pixel_radius etc.
-    None unless the config traces textures; only texture LOD reads it, so
-    ``trace_paths`` takes it with textures (ROADMAP item 11)."""
+    None unless the config traces textures."""
     if not cfg.has_textures:
         return None
     # f32 scales, as the reference divides f32 scalars on the device
@@ -957,8 +1422,9 @@ def make_pass_fn(ds: DeviceScene, cfg: IntegratorConfig, width: int,
             cfg.rng_variant, sample_index, fp.shot_offset, px, py, width
         )
         state, ro, rd = camera_setup(cfg, view, px, py, dims, state)
-        rgb, alpha, nrays = trace_paths(ds, cfg, fp, ro, rd, state,
-                                        lane_mask=valid)
+        rgb, alpha, nrays = trace_paths(
+            ds, cfg, fp, ro, rd, state, lane_mask=valid,
+            footprint0=camera_footprint0(cfg, fp, view, dims, rd))
         blend_sample(acc, (rgb.x, rgb.y, rgb.z, alpha), valid, blend_k)
         return nrays.sum()
 

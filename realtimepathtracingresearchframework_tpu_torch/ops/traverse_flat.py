@@ -14,6 +14,10 @@ the tree:
   ``_kernel4`` with its feeder ``leaf_masks_xla``): the survivors are the
   OR over the group of each lane's own exact slab test against every leaf.
 
+K2 also has the merged mode of the wavefront (``closest_and_occluded_flat``;
+reference ``closest_and_occluded_pallas3``): one launch whose first blocks
+run a closest queue and whose later blocks run a shadow queue.
+
 A leaf survives for a group whenever any lane's segment pierces its box,
 and the flush merges hits on (t, row) lexicographically, so the result of
 either kernel equals K1's bit for bit, whatever the group composition and
@@ -45,6 +49,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import
     _check,
     _compact,
     _uncompact,
+    merged,
     pack_rays,
     pack_resident,
 )
@@ -59,11 +64,12 @@ _CHUNK_ELEMS = 1 << 23  # elements per temporary of the plain versions
 
 launches_k2 = 0  # K2 launches in this process (reset with reset_launches)
 launches_k3 = 0  # K3 launches in this process
+merged_launches_k2 = 0  # of the K2 launches, merged two-queue ones
 
 
 def reset_launches() -> None:
-    global launches_k2, launches_k3
-    launches_k2 = launches_k3 = 0
+    global launches_k2, launches_k3, merged_launches_k2
+    launches_k2 = launches_k3 = merged_launches_k2 = 0
 
 
 class FlatBVH(NamedTuple):
@@ -297,10 +303,13 @@ def _lib(name: str):
     return lib, fn
 
 
-def launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
-           any_hit: bool):
-    """One launch of K2 or K3 over a packed (8, Np) operand: one CUDA
-    block per q-lane group. Returns the raw output tensors."""
+def _launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
+            n_closest: int, mode: int):
+    """One launch of K2 or K3 over a packed (8, Np) operand, one CUDA block
+    per q-lane group: the closest mode on lanes [0, n_closest), the any-hit
+    mode on the rest. ``mode`` is the kernel's own argument: K2's first
+    any-hit group, K3's any-hit flag (K3 runs one mode per launch). Returns
+    ((t, row, u, v), blocked) of the two parts, raw."""
     global launches_k2, launches_k3
     dev = rays.device
     n = rays.shape[1]
@@ -311,25 +320,21 @@ def launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
     _check("rays", rays, torch.float32, (8, n), dev)
     if n % q or q % 32 or not 0 < q <= 1024:
         raise ValueError(f"{name}: {n} lanes in groups of {q}")
-    if any_hit:
-        blocked = torch.empty(n, dtype=torch.bool, device=dev)
-        outs = (None, None, None, None, blocked.data_ptr())
-        result = blocked
-    else:
-        t = torch.empty(n, dtype=torch.float32, device=dev)
-        row = torch.empty(n, dtype=torch.int32, device=dev)
-        u = torch.empty(n, dtype=torch.float32, device=dev)
-        v = torch.empty(n, dtype=torch.float32, device=dev)
-        outs = (t.data_ptr(), row.data_ptr(), u.data_ptr(), v.data_ptr(), None)
-        result = (t, row, u, v)
+    if n_closest % q or not 0 <= n_closest <= n:
+        raise ValueError(f"{name}: a closest part of {n_closest} of {n} lanes")
+    closest = (torch.empty(n_closest, dtype=torch.float32, device=dev),
+               torch.empty(n_closest, dtype=torch.int32, device=dev),
+               torch.empty(n_closest, dtype=torch.float32, device=dev),
+               torch.empty(n_closest, dtype=torch.float32, device=dev))
+    blocked = torch.empty(n - n_closest, dtype=torch.bool, device=dev)
     if n == 0:
-        return result
+        return closest, blocked
     lib, fn = _lib(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(bvh.aabbs.data_ptr(), lpad, bvh.num_leaves,
-                bvh.tri_rows.data_ptr(), ls, rays.data_ptr(), n, q,
-                int(any_hit), *outs, stream)
+                bvh.tri_rows.data_ptr(), ls, rays.data_ptr(), n, q, mode,
+                *(x.data_ptr() or None for x in (*closest, blocked)), stream)
     if rc != 0:
         msg = lib.rptr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {rc})")
@@ -337,7 +342,33 @@ def launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
         launches_k2 += 1
     else:
         launches_k3 += 1
-    return result
+    return closest, blocked
+
+
+def launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
+           any_hit: bool):
+    """One launch of K2 or K3 over a packed (8, Np) operand in one mode.
+    Returns the raw output tensors: (t, row, u, v) or the blocked flags."""
+    n_closest = 0 if any_hit else rays.shape[1]
+    closest, blocked = _launch(name, bvh, rays, q, n_closest,
+                               int(any_hit) if name == K3 else n_closest // q)
+    return blocked if any_hit else closest
+
+
+def merged_plain(bvh: FlatBVH, rays: torch.Tensor, q: int, n_closest: int):
+    """The plain version of a merged K2 launch: plain K2 closest on lanes
+    [0, n_closest), plain K2 any-hit on the rest. Returns ((t, row, u, v),
+    blocked)."""
+    return (plain(K2, bvh, rays[:, :n_closest], q, False),
+            plain(K2, bvh, rays[:, n_closest:], q, True))
+
+
+def merged_launch(bvh: FlatBVH, rays: torch.Tensor, q: int, n_closest: int):
+    """One merged K2 launch; returns what ``merged_plain`` returns."""
+    global merged_launches_k2
+    out = _launch(K2, bvh, rays.contiguous(), q, n_closest, n_closest // q)
+    merged_launches_k2 += 1
+    return out
 
 
 def _dispatch(name, bvh: FlatBVH, ro, rd, t_min, t_max, block, groups,
@@ -395,3 +426,26 @@ def occluded_precull(bvh: FlatBVH, ro, rd, t_min=0.0, t_max=T_MAX,
     """K3 any-hit visibility (occluded_pallas4)."""
     return _dispatch(K3, bvh, ro, rd, t_min, t_max, block, groups, compact,
                      any_hit=True)
+
+
+def closest_and_occluded_flat(bvh: FlatBVH, comps_c, tmin_c, tmax_c, comps_s,
+                              tmin_s, tmax_s, block: int = DEFAULT_BLOCK,
+                              groups: int = QUARTERS, compact: bool = False):
+    """K2's merged mode (closest_and_occluded_pallas3, :1119): the closest
+    hits of one queue and the any-hit flags of another in ONE launch,
+    through ``traverse_resident.merged``; ``compact`` coherence-sorts each
+    half on its own (traverse_pallas3.py:1140-1160), and the results come
+    back in the caller's order. Returns (Hit of the closest queue, blocked
+    flags)."""
+    if block % (groups * 128):
+        raise ValueError(
+            f"flat-cull block must be a multiple of {groups * 128} "
+            f"(groups of 128-lane multiples), got {block}"
+        )
+    q = block // groups
+    (t, row, u, v), blocked = merged(
+        comps_c, tmin_c, tmax_c, comps_s, tmin_s, tmax_s, block,
+        (lambda r: _compact(r, bvh.scene_lo, bvh.scene_hi)) if compact else None,
+        lambda r, k: merged_plain(bvh, r, q, k),
+        lambda r, k: merged_launch(bvh, r, q, k))
+    return Hit(t=t, tri=row, u=u, v=v), blocked

@@ -3,7 +3,9 @@
 Counterpart of the reference's ``ops/traverse_pallas2.py``: the BVH lives
 on the device as one node table and one triangle-row table, and every ray
 walks it to its closest hit (``closest_hit_resident``) or to its first
-blocker (``occluded_resident``).
+blocker (``occluded_resident``), or both queues of a wavefront bounce go in
+one launch, the closest queue in the first blocks and the shadow queue
+after it (``closest_and_occluded_resident``, the merged mode).
 
 On a CPU tensor the wrapper runs the plain PyTorch version
 (``ops/traverse.py``). On a CUDA tensor it launches the hand-written
@@ -30,12 +32,14 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
 KERNEL = "traverse_resident"
+BLOCK = 128  # rays per CUDA block (kBlock of csrc/traverse_resident.cu)
 launches = 0  # K1 launches in this process (reset with reset_launches)
+merged_launches = 0  # of which merged two-queue launches
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, merged_launches
+    launches = merged_launches = 0
 
 
 def pack_resident(tb: ThreadedBVH, device="cpu") -> ResidentBVH:
@@ -88,8 +92,11 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(bvh: ResidentBVH, comps, tmin, tmax, any_hit: bool):
-    """One K1 launch over n rays; returns the raw output tensors."""
+def _launch(bvh: ResidentBVH, comps, tmin, tmax, shadow_from: int):
+    """One K1 launch over n rays in blocks of BLOCK: blocks before
+    ``shadow_from`` run the closest mode, the rest the any-hit mode.
+    Returns ((t, row, u, v) of the closest lanes, blocked flags of the
+    any-hit lanes); either may have no lanes."""
     global launches
     dev = comps[0].device
     n = comps[0].shape[0]
@@ -101,19 +108,18 @@ def _launch(bvh: ResidentBVH, comps, tmin, tmax, any_hit: bool):
     for k, x in zip(("ox", "oy", "oz", "dx", "dy", "dz", "tmin", "tmax"),
                     (*comps, tmin, tmax)):
         _check(k, x, torch.float32, (n,), dev)
-    if any_hit:
-        blocked = torch.empty(n, dtype=torch.bool, device=dev)
-        outs = (None, None, None, None, blocked.data_ptr())
-        result = blocked
-    else:
-        t = torch.empty(n, dtype=torch.float32, device=dev)
-        row = torch.empty(n, dtype=torch.int32, device=dev)
-        u = torch.empty(n, dtype=torch.float32, device=dev)
-        v = torch.empty(n, dtype=torch.float32, device=dev)
-        outs = (t.data_ptr(), row.data_ptr(), u.data_ptr(), v.data_ptr(), None)
-        result = (t, row, u, v)
+    n_c = min(shadow_from * BLOCK, n)
+    if n_c < n and n_c % BLOCK:
+        raise ValueError(f"{KERNEL}: the closest half ({n_c} lanes) is not "
+                         f"whole blocks of {BLOCK}")
+    closest = (torch.empty(n_c, dtype=torch.float32, device=dev),
+               torch.empty(n_c, dtype=torch.int32, device=dev),
+               torch.empty(n_c, dtype=torch.float32, device=dev),
+               torch.empty(n_c, dtype=torch.float32, device=dev))
+    blocked = torch.empty(n - n_c, dtype=torch.bool, device=dev)
+    ptrs = [x.data_ptr() or None for x in (*closest, blocked)]
     if n == 0:
-        return result
+        return closest, blocked
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -121,13 +127,13 @@ def _launch(bvh: ResidentBVH, comps, tmin, tmax, any_hit: bool):
             bvh.bounds.data_ptr(), bvh.links.data_ptr(),
             bvh.tri_rows.data_ptr(), m, bvh.leaf_size,
             *(x.data_ptr() for x in comps), tmin.data_ptr(), tmax.data_ptr(),
-            n, int(any_hit), *outs, stream,
+            n, shadow_from, *ptrs, stream,
         )
     if rc != 0:
         msg = lib.rptr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{KERNEL} launch failed: {msg} (cudaError {rc})")
     launches += 1
-    return result
+    return closest, blocked
 
 
 def _ray_operands(ro: Vec3, rd: Vec3, t_min, t_max):
@@ -250,7 +256,8 @@ def closest_hit_resident(bvh: ResidentBVH, ro: Vec3, rd: Vec3, t_min=0.0,
         return traverse.closest_hit_threaded(bvh, ro, rd, t_min, t_max)
     if ro.x.device.type == "cuda":
         comps, tmin, tmax = _ray_operands(ro, rd, t_min, t_max)
-        t, row, u, v = _launch(bvh, comps, tmin, tmax, any_hit=False)
+        t, row, u, v = _launch(bvh, comps, tmin, tmax,
+                               -(-comps[0].shape[0] // BLOCK))[0]
         return Hit(t=t, tri=row, u=u, v=v)
     raise ValueError(f"no traversal for device {ro.x.device}")
 
@@ -265,5 +272,80 @@ def occluded_resident(bvh: ResidentBVH, ro: Vec3, rd: Vec3, t_min=0.0,
         return traverse.occluded_threaded(bvh, ro, rd, t_min, t_max)
     if ro.x.device.type == "cuda":
         comps, tmin, tmax = _ray_operands(ro, rd, t_min, t_max)
-        return _launch(bvh, comps, tmin, tmax, any_hit=True)
+        return _launch(bvh, comps, tmin, tmax, 0)[1]
     raise ValueError(f"no traversal for device {ro.x.device}")
+
+
+# ---------------------------------------------------------------------------
+# Merged mode: the wavefront's two per-bounce queues in one launch
+# (traverse_pallas2.closest_and_occluded_pallas2, :736)
+# ---------------------------------------------------------------------------
+
+
+def merged_plain(bvh: ResidentBVH, rays, n_closest: int):
+    """The plain version of a merged launch over a packed (8, N) operand:
+    the plain closest walk on lanes [0, n_closest), the plain occluded walk
+    on the rest. Returns ((t, row, u, v), blocked)."""
+    c, s = rays[:, :n_closest], rays[:, n_closest:]
+    hit = traverse.closest_hit_threaded(bvh, Vec3(*c[0:3]), Vec3(*c[3:6]), c[6], c[7])
+    blocked = traverse.occluded_threaded(bvh, Vec3(*s[0:3]), Vec3(*s[3:6]), s[6], s[7])
+    return tuple(hit), blocked
+
+
+def merged_launch(bvh: ResidentBVH, rays, n_closest: int):
+    """One merged K1 launch over a packed (8, N) operand whose first
+    ``n_closest`` lanes (whole blocks) are the closest queue. Returns
+    ((t, row, u, v), blocked) as ``merged_plain`` does."""
+    global merged_launches
+    rays = rays.contiguous()
+    out = _launch(bvh, tuple(rays[0:6]), rays[6], rays[7], n_closest // BLOCK)
+    merged_launches += 1
+    return out
+
+
+def merged(comps_c, tmin_c, tmax_c, comps_s, tmin_s, tmax_s, block: int,
+           sort, plain, launch):
+    """What the merged modes of K1, K2 and K4 share. ``comps_*`` are (ox,
+    oy, oz, dx, dy, dz). Each queue is packed and padded to whole blocks of
+    ``block`` with dead lanes (tmax = 0); ``sort`` (a packed operand ->
+    (sorted, inv), or None) coherence-sorts each half on its own; ``plain``
+    runs on a CPU operand and ``launch`` on a CUDA one (both (rays,
+    n_closest) -> ((t, row, u, v), blocked)); each half is unsorted BEFORE
+    it is cut to its caller's lanes (sorted order moves dead and padding
+    lanes last). Returns ((t, row, u, v), blocked)."""
+    rays_c, n = pack_rays(Vec3(*comps_c[0:3]), Vec3(*comps_c[3:6]), tmin_c,
+                          tmax_c, block)
+    rays_s, n2 = pack_rays(Vec3(*comps_s[0:3]), Vec3(*comps_s[3:6]), tmin_s,
+                           tmax_s, block)
+    if sort is not None:
+        rays_c, inv_c = sort(rays_c)
+        rays_s, inv_s = sort(rays_s)
+    rays = torch.cat([rays_c, rays_s], dim=1)
+    if rays.device.type == "cpu":
+        out, blocked = plain(rays, rays_c.shape[1])
+    elif rays.device.type == "cuda":
+        out, blocked = launch(rays, rays_c.shape[1])
+    else:
+        raise ValueError(f"no traversal for device {rays.device}")
+    if sort is not None:
+        out = tuple(_uncompact(x, inv_c) for x in out)
+        blocked = _uncompact(blocked, inv_s)
+    return tuple(x[:n] for x in out), blocked[:n2]
+
+
+def closest_and_occluded_resident(bvh: ResidentBVH, comps_c, tmin_c, tmax_c,
+                                  comps_s, tmin_s, tmax_s,
+                                  compact: bool = False):
+    """The closest hits of one queue and the any-hit flags of another in
+    ONE K1 launch (the wavefront's extension rays and the previous
+    bounce's deferred shadow rays), through ``merged``; ``compact``
+    coherence-sorts each half over the root box, and the results come
+    back in the caller's order. Returns (Hit of the closest queue, blocked
+    flags of the shadow queue)."""
+    lo, hi = bvh.bounds[0, 0:3], bvh.bounds[0, 3:6]
+    (t, row, u, v), blocked = merged(
+        comps_c, tmin_c, tmax_c, comps_s, tmin_s, tmax_s, BLOCK,
+        (lambda r: _compact(r, lo, hi)) if compact else None,
+        lambda r, k: merged_plain(bvh, r, k),
+        lambda r, k: merged_launch(bvh, r, k))
+    return Hit(t=t, tri=row, u=u, v=v), blocked

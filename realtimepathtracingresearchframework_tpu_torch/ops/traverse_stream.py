@@ -31,6 +31,10 @@ winner of a tie across subtrees is not the lower row. ``plain`` implements
 this rule with the port's plain threaded walk (``ops/traverse.py``), and
 the CUDA kernel ``csrc/traverse_streamed.cu`` must equal it bitwise.
 
+K4's merged mode (``closest_and_occluded_streamed``; reference :967) runs
+a closest queue in its first blocks and a shadow queue after it, in one
+launch.
+
 On a CPU tensor the wrappers run ``plain``; on a CUDA tensor they launch
 the kernel (built by ``kernels/build.py`` at first use) or raise.
 ``launches_k4`` counts the kernel's launches.
@@ -61,6 +65,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import
     _coherence_key2,
     coherence_key,
     inverse_permutation,
+    merged,
     pack_rays,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
@@ -73,12 +78,15 @@ SUB_EXIT = 255  # local skip value meaning "leave the subtree"
 DEFAULT_BLOCK = 512
 QUANTIZED_ITEM = "ROADMAP item 17"
 
+BLOCK = 128  # rays per CUDA block (kThreads of csrc/stream_walk.cuh)
+
 launches_k4 = 0  # K4 launches in this process (reset with reset_launches)
+merged_launches_k4 = 0  # of which merged two-queue launches
 
 
 def reset_launches() -> None:
-    global launches_k4
-    launches_k4 = 0
+    global launches_k4, merged_launches_k4
+    launches_k4 = merged_launches_k4 = 0
 
 
 def node_rows_for(sub_leaves: int) -> int:
@@ -424,40 +432,62 @@ def check_buffers(bb: StreamedBVHBuffers, dev) -> None:
         raise ValueError(f"{L} leaves per subtree: too many node slots")
 
 
-def launch(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool):
-    """One K4 launch over a packed (8, N) operand, one thread per ray.
-    Returns the raw output tensors: (t, row, u, v) or the blocked flags."""
+def _launch(bb: StreamedBVHBuffers, rays: torch.Tensor, n_closest: int):
+    """One K4 launch over a packed (8, N) operand, one thread per ray, in
+    blocks of BLOCK: the closest mode on lanes [0, n_closest), the any-hit
+    mode on the rest. Returns ((t, row, u, v), blocked) of the two parts."""
     global launches_k4
     dev = rays.device
     n = rays.shape[1]
     check_buffers(bb, dev)
     _check("rays", rays, torch.float32, (8, n), dev)
-    if any_hit:
-        blocked = torch.empty(n, dtype=torch.bool, device=dev)
-        outs = (None, None, None, None, blocked.data_ptr())
-        result = blocked
-    else:
-        t = torch.empty(n, dtype=torch.float32, device=dev)
-        row = torch.empty(n, dtype=torch.int32, device=dev)
-        u = torch.empty(n, dtype=torch.float32, device=dev)
-        v = torch.empty(n, dtype=torch.float32, device=dev)
-        outs = (t.data_ptr(), row.data_ptr(), u.data_ptr(), v.data_ptr(), None)
-        result = (t, row, u, v)
+    if not 0 <= n_closest <= n or (n_closest < n and n_closest % BLOCK):
+        raise ValueError(f"{KERNEL}: a closest part of {n_closest} of {n} "
+                         f"lanes is not whole blocks of {BLOCK}")
+    closest = (torch.empty(n_closest, dtype=torch.float32, device=dev),
+               torch.empty(n_closest, dtype=torch.int32, device=dev),
+               torch.empty(n_closest, dtype=torch.float32, device=dev),
+               torch.empty(n_closest, dtype=torch.float32, device=dev))
+    blocked = torch.empty(n - n_closest, dtype=torch.bool, device=dev)
     if n == 0:
-        return result
+        return closest, blocked
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rptr_traverse_streamed(
             bb.top_nodes.data_ptr(), bb.num_top_nodes, bb.sub_nodes.data_ptr(),
             bb.tri_tiles.data_ptr(), bb.sub_node_rows, bb.sub_leaves,
-            rays.data_ptr(), n, int(any_hit), *outs, stream,
+            rays.data_ptr(), n, -(-n_closest // BLOCK),
+            *(x.data_ptr() or None for x in (*closest, blocked)), stream,
         )
     if rc != 0:
         msg = lib.rptr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{KERNEL} launch failed: {msg} (cudaError {rc})")
     launches_k4 += 1
-    return result
+    return closest, blocked
+
+
+def launch(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool):
+    """One K4 launch over a packed (8, N) operand in one mode. Returns the
+    raw output tensors: (t, row, u, v) or the blocked flags."""
+    closest, blocked = _launch(bb, rays, 0 if any_hit else rays.shape[1])
+    return blocked if any_hit else closest
+
+
+def merged_plain(bb: StreamedBVHBuffers, rays: torch.Tensor, n_closest: int):
+    """The plain version of a merged K4 launch: ``plain`` closest on lanes
+    [0, n_closest), ``plain`` any-hit on the rest. Returns ((t, row, u, v),
+    blocked)."""
+    return (plain(bb, rays[:, :n_closest], False),
+            plain(bb, rays[:, n_closest:], True))
+
+
+def merged_launch(bb: StreamedBVHBuffers, rays: torch.Tensor, n_closest: int):
+    """One merged K4 launch; returns what ``merged_plain`` returns."""
+    global merged_launches_k4
+    out = _launch(bb, rays.contiguous(), n_closest)
+    merged_launches_k4 += 1
+    return out
 
 
 def traverse_rays(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool):
@@ -535,3 +565,21 @@ def occluded_streamed(bb: StreamedBVHBuffers, ro: Vec3, rd: Vec3, t_min=0.0,
     if sort:
         blocked = blocked[inv]
     return blocked[:n]
+
+
+def closest_and_occluded_streamed(bb: StreamedBVHBuffers, comps_c, tmin_c,
+                                  tmax_c, comps_s, tmin_s, tmax_s,
+                                  block: int = DEFAULT_BLOCK,
+                                  map_tri: bool = True, sort: bool = False):
+    """K4's merged mode (closest_and_occluded_streamed, :967): the closest
+    hits of one queue and the any-hit flags of another in ONE launch,
+    through ``traverse_resident.merged``; ``sort`` coherence-sorts each
+    half on its own, and each is unsorted before it is cut to its caller's
+    lanes. Returns (Hit of the closest queue, ``tri`` mapped as
+    ``closest_hit_streamed`` maps it, blocked flags)."""
+    out, blocked = merged(
+        comps_c, tmin_c, tmax_c, comps_s, tmin_s, tmax_s, block,
+        (lambda r: _sort_operand(bb, r)) if sort else None,
+        lambda r, k: merged_plain(bb, r, k),
+        lambda r, k: merged_launch(bb, r, k))
+    return _out_to_hit(bb, out, out[0].shape[0], map_tri), blocked

@@ -107,11 +107,14 @@ class WavefrontExecutor:
             cfg.rng_variant, (fp.sample_offset + s) & M32, fp.shot_offset,
             self.px, self.py, self.width,
         )
-        state, ro, rd = intg.camera_setup(
-            cfg, view, self.px, self.py,
-            (float(self.width), float(self.height)), state,
-        )
-        carry = intg.initial_carry(ro, rd, state, self.valid)
+        dims = (float(self.width), float(self.height))
+        state, ro, rd = intg.camera_setup(cfg, view, self.px, self.py, dims,
+                                          state)
+        # textured scenes: the camera footprint seeds the carry
+        # (wavefront_host.py:179-181)
+        carry = intg.initial_carry(
+            ro, rd, state, self.valid,
+            foot=intg.camera_footprint0(cfg, fp, view, dims, rd))
         lane_id = torch.arange(self.n_total, device=dev)
 
         carry, ctx = visit_hit(carry)

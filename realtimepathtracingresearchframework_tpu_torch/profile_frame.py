@@ -11,7 +11,11 @@ instanced500``: ``procedural.instanced_field(num_inst=600 | 500)`` (601 or
 501 instances of four meshes) with the camera, sun and sky of bench.py's
 instanced row, on the two-level route (``options.use_tlas``): K7 past K6's
 512-instance cap, K6 within it; ``--animate`` updates the TLAS
-(``set_animation_frame``) before every frame, as bench.py's row does. At
+(``set_animation_frame``) before every frame, as bench.py's row does.
+``--scene village``: ``procedural.village()`` (80,496 textured triangles)
+with the camera, sun and sky of bench.py's village row, through K2, K3 and
+the wavefront executor. ``--variant PT_WAVEFRONT`` renders through the
+wavefront variant (on cornell: one merged K1 launch per bounce). At
 ``--size`` (default 1920x1080; bench.py's terrain and instanced rows are
 ``--size 512x384 --depth 3``), 1 spp, ``--depth`` (default 9): one warm-up
 frame, ``--frames`` frames timed by the host clock with a device sync after
@@ -23,9 +27,9 @@ time and share of device time, the largest kernels, and the host's launch
 and sync calls. The last line is a JSON summary.
 
     python -m realtimepathtracingresearchframework_tpu_torch.profile_frame \
-        [--scene cornell|terrain200|terrain500|instanced600|instanced500] \
-        [--animate] [--size 1920x1080] [--depth 9] [--frames 5] \
-        [--profiled 3] [--out tables.txt]
+        [--scene cornell|village|terrain200|terrain500|instanced600|instanced500] \
+        [--variant PT_MEGAKERNEL|PT_WAVEFRONT] [--animate] [--size 1920x1080] \
+        [--depth 9] [--frames 5] [--profiled 3] [--out tables.txt]
 
 ``--out`` also writes torch.profiler's key-average tables to a file.
 """
@@ -49,9 +53,12 @@ from realtimepathtracingresearchframework_tpu_torch.models import procedural
 from realtimepathtracingresearchframework_tpu_torch.models.camera import OrientedCamera
 from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
 from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
+    PORTED_VARIANTS,
+    VARIANT_MEGAKERNEL,
     FrameConfig,
     Renderer,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import integrator
 from realtimepathtracingresearchframework_tpu_torch.ops import (
     traverse_binned as tb,
 )
@@ -99,17 +106,24 @@ def union_length(intervals) -> float:
 
 
 def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
-                grid: int = 200, num_inst: int = 600):
+                grid: int = 200, num_inst: int = 600,
+                variant: str = VARIANT_MEGAKERNEL):
     """(Renderer, FrameConfig) of a profiled path: ``"cornell"`` (camera of
-    bench.py:91-99), ``"terrain"`` (``procedural.terrain(grid)``, sun,
-    sky and camera of bench.py:139-151) or ``"instanced"``
-    (``procedural.instanced_field(num_inst)`` on the two-level route, sun,
-    sky and camera of bench.py:115-136), at ``size``, 1 spp, ``depth``."""
+    bench.py:91-99), ``"village"`` (``procedural.village(grid)``, sun, sky
+    and camera of bench.py:101-113), ``"terrain"``
+    (``procedural.terrain(grid)``, sun, sky and camera of bench.py:139-151)
+    or ``"instanced"`` (``procedural.instanced_field(num_inst)`` on the
+    two-level route, sun, sky and camera of bench.py:115-136), at ``size``,
+    1 spp, ``depth``, through ``variant``."""
     use_tlas = False
     if scene == "cornell":
         vkr_scene = procedural.cornell_box()
         cam = OrientedCamera.look_at([0, 1.0, 3.2], [0, 1.0, 0.0], fovy=50)
         sc = SceneConfig()
+    elif scene == "village":
+        vkr_scene = procedural.village(grid=grid)
+        cam = OrientedCamera.look_at([0, 4.0, 13.0], [0, 0.5, 0], fovy=55)
+        sc = SceneConfig(sun_dir=(0.35, 0.8, 0.3), turbidity=3.0)
     elif scene == "terrain":
         vkr_scene = procedural.terrain(grid=grid)
         cam = OrientedCamera.look_at([0, 5.0, 12.0], [0, 0, 0], fovy=55)
@@ -125,6 +139,7 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
     r.options = r.options.replace(use_tlas=use_tlas)
     r.initialize(*size)
     r.set_scene(Scene.from_vkr_scene(vkr_scene), scene_config=sc)
+    r.set_variant(variant)
     cfg = FrameConfig(
         camera=cam,
         params=RenderParams(batch_spp=1, max_path_depth=depth),
@@ -135,8 +150,10 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("cornell", *GRIDS, *INSTANCES),
+    ap.add_argument("--scene", choices=("cornell", "village", *GRIDS, *INSTANCES),
                     default="cornell")
+    ap.add_argument("--variant", choices=PORTED_VARIANTS,
+                    default=VARIANT_MEGAKERNEL)
     ap.add_argument("--animate", action="store_true",
                     help="update the TLAS before every frame (instanced scenes)")
     ap.add_argument("--size", default="1920x1080", help="WxH")
@@ -155,18 +172,20 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip(), flush=True)
     size = tuple(int(x) for x in args.size.split("x"))
-    if args.scene == "cornell":
-        r, cfg = frame_setup("cornell", size=size, depth=args.depth)
+    if args.scene in ("cornell", "village"):
+        r, cfg = frame_setup(args.scene, size=size, depth=args.depth,
+                             variant=args.variant)
     elif args.scene in INSTANCES:
         r, cfg = frame_setup("instanced", size=size, depth=args.depth,
-                             num_inst=INSTANCES[args.scene])
+                             num_inst=INSTANCES[args.scene], variant=args.variant)
     else:
         r, cfg = frame_setup("terrain", size=size, depth=args.depth,
-                             grid=GRIDS[args.scene])
+                             grid=GRIDS[args.scene], variant=args.variant)
     if args.animate and not r._route.tlas:
         ap.error("--animate needs an instanced scene")
-    print(f"{args.scene} {args.size} depth {args.depth}: set-up "
-          f"{r.setup_seconds:.3f} s, route {r._route}", flush=True)
+    print(f"{args.scene} {args.size} depth {args.depth} {r.active_variant}: "
+          f"set-up {r.setup_seconds:.3f} s, route {r._route}, textures "
+          f"{r._has_textures}, alpha test {r._has_alpha}", flush=True)
     frame_no = 0
     updates = []
 
@@ -197,6 +216,8 @@ def main(argv=None) -> int:
     nf = args.profiled
     for mod in (tr, tf, ts, tb, tt, tts):
         mod.reset_launches()
+    integrator.reset_alpha_counts()
+    integrator.reset_nee_dropped()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(nf):
@@ -204,6 +225,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / nf
     launches = {k: count() / nf for k, (count, _) in KERNELS.items()}
+    merged = {"K1": tr.merged_launches / nf, "K2": tf.merged_launches_k2 / nf,
+              "K4": ts.merged_launches_k4 / nf}
+    alpha = {"hops": integrator.alpha_hops / nf,
+             "reads": integrator.alpha_reads / nf}
+    dropped = integrator.nee_dropped() / nf
 
     events = prof.events()
     kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -229,6 +255,9 @@ def main(argv=None) -> int:
     for k in KERNELS:
         print(f"  {k}: {launches[k]:.0f} launches, {kernel_ms[k]:.3f} ms per "
               f"frame, {kernel_ms[k] / device_ms:.4f} of device time")
+    print(f"  merged two-queue launches per frame {merged}, alpha test "
+          f"per frame {alpha}, NEE samples dropped as non-finite per frame "
+          f"{dropped}")
     if r.live_profile:
         print(f"  live lanes per bounce (last frame): {r.live_profile}")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
@@ -241,7 +270,9 @@ def main(argv=None) -> int:
             f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40) + "\n")
             f.write(ka.table(sort_by="self_device_time_total", row_limit=40) + "\n")
     print(json.dumps({
-        "scene": args.scene, "size": args.size, "depth": args.depth,
+        "scene": args.scene, "variant": r.active_variant, "size": args.size,
+        "depth": args.depth, "merged_launches_per_frame": merged,
+        "alpha_per_frame": alpha, "nee_dropped_per_frame": dropped,
         "animate": args.animate, "tlas_update_ms": updates,
         "setup_s": r.setup_seconds, "rays_per_frame": r.last_ray_count(),
         "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,

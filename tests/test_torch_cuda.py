@@ -7,7 +7,8 @@ only the port is installed. On a machine with a CUDA card and nvcc:
 
 (``--noconftest``: tests/conftest.py configures JAX). Without a card every
 test here skips. ``chip_smoke.py`` runs the same comparisons at the main
-paths' shapes.
+paths' shapes. The merged two-queue launches of K1, K2 and K4 are held
+against their plain versions and against the kernel's separate launches.
 """
 
 import numpy as np
@@ -216,3 +217,99 @@ def test_k6_k7_match_plain_on_card():
     assert torch.equal(b6, tt.plain(bb6, oq, True))
     assert torch.equal(b7, tts.plain(st7, fr, oq, True))
     assert torch.equal(b6, b7) and b6.any()
+
+
+def _merged_operand(kernel, n_closest, seed):
+    """The scene of ``kernel`` on the card and a merged (8, n) operand: its
+    first ``n_closest`` lanes a closest queue, the rest a shadow queue whose
+    segments end just short of (0.999 t) or past (1.001 t) each closest hit
+    of those rays. Returns (scene, operand); the flat BVH of K2 serves K1
+    too."""
+    if kernel == "K4":
+        bb, rays = _streamed_queue(64, 4096, seed)
+        hits = ts.plain(bb, rays, False)
+    else:
+        bb, rays = _terrain_queue(24, 128, 4096, seed)
+        hits = tuple(tr.closest_hit_resident(bb, Vec3(*rays[0:3]), Vec3(*rays[3:6]),
+                                             rays[6], rays[7]))
+    t, row = hits[0], hits[1]
+    scale = torch.where(torch.arange(rays.shape[1], device=rays.device) % 2 == 0,
+                        0.999, 1.001)
+    merged = rays.clone()
+    merged[7, n_closest:] = torch.where(row >= 0, t * scale, rays[7])[n_closest:]
+    return bb, merged
+
+
+def _separate(kernel, bb, rays, n_closest):
+    """The same two queues as two launches of the kernel's own modes."""
+    c, s = rays[:, :n_closest].contiguous(), rays[:, n_closest:].contiguous()
+    if kernel == "K1":
+        def launch(q, any_hit):
+            fn = tr.occluded_resident if any_hit else tr.closest_hit_resident
+            return fn(bb, Vec3(*q[0:3]), Vec3(*q[3:6]), q[6], q[7])
+    elif kernel == "K2":
+        def launch(q, any_hit):
+            return tf.launch(tf.K2, bb, q, 128, any_hit)
+    else:
+        def launch(q, any_hit):
+            return ts.launch(bb, q, any_hit)
+    return tuple(launch(c, False)), launch(s, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4"])
+def test_merged_launch_matches_plain_and_separate_on_card(kernel):
+    """One merged launch (2,048 closest lanes, then 2,048 shadow lanes)
+    equals its plain version and the kernel's two separate launches,
+    bitwise, and counts as one launch."""
+    bb, rays = _merged_operand(kernel, 2048, 6)
+    if kernel == "K1":
+        mod, counts = tr, lambda: (tr.launches, tr.merged_launches)
+        launch, plain = tr.merged_launch, tr.merged_plain
+    elif kernel == "K2":
+        mod, counts = tf, lambda: (tf.launches_k2, tf.merged_launches_k2)
+        launch = lambda b, q, n: tf.merged_launch(b, q, 128, n)  # noqa: E731
+        plain = lambda b, q, n: tf.merged_plain(b, q, 128, n)  # noqa: E731
+    else:
+        mod, counts = ts, lambda: (ts.launches_k4, ts.merged_launches_k4)
+        launch, plain = ts.merged_launch, ts.merged_plain
+    before = counts()
+    (hk, bk) = launch(bb, rays, 2048)
+    assert counts() == (before[0] + 1, before[1] + 1), mod.__name__
+    hp, bp = plain(bb, rays, 2048)
+    hs, bs = _separate(kernel, bb, rays, 2048)
+    for a, b, c in zip(hk, hp, hs):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(bk, bp) and torch.equal(bk, bs)
+    assert (hk[1] >= 0).any() and bk.any() and not bk.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", [False, True])
+def test_merged_wrappers_on_card(sort):
+    """The three public merged wrappers on queues that are not whole blocks
+    (1,500 closest, 1,000 shadow lanes) equal the separate wrappers of the
+    same kernel bitwise, with each half coherence-sorted or not."""
+    fb, rays = _merged_operand("K1", 1500, 7)
+    bb, srays = _merged_operand("K4", 1500, 8)
+    for name, scene, q in (("K1", fb, rays), ("K2", fb, rays), ("K4", bb, srays)):
+        q = q[:, :2500]
+        cc, cs = tuple(q[0:6, :1500]), tuple(q[0:6, 1500:])
+        args = (cc, q[6, :1500], q[7, :1500], cs, q[6, 1500:], q[7, 1500:])
+        oc, os_ = Vec3(*q[0:3, :1500]), Vec3(*q[0:3, 1500:])
+        dc, ds = Vec3(*q[3:6, :1500]), Vec3(*q[3:6, 1500:])
+        if name == "K1":
+            hit, blocked = tr.closest_and_occluded_resident(scene, *args, compact=sort)
+            sep = tr.closest_hit_resident(scene, oc, dc, *args[1:3], compact=sort)
+            sep_b = tr.occluded_resident(scene, os_, ds, *args[4:6], compact=sort)
+        elif name == "K2":
+            hit, blocked = tf.closest_and_occluded_flat(scene, *args, compact=sort)
+            sep = tf.closest_hit_flat(scene, oc, dc, *args[1:3], compact=sort)
+            sep_b = tf.occluded_flat(scene, os_, ds, *args[4:6], compact=sort)
+        else:
+            hit, blocked = ts.closest_and_occluded_streamed(scene, *args, sort=sort)
+            sep = ts.closest_hit_streamed(scene, oc, dc, *args[1:3], sort=sort)
+            sep_b = ts.occluded_streamed(scene, os_, ds, *args[4:6], sort=sort)
+        for a, b in zip(hit, sep):
+            assert torch.equal(a, b), name
+        assert torch.equal(blocked, sep_b), name

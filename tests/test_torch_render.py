@@ -234,9 +234,10 @@ def test_no_jax_in_the_port():
     package: in a fresh interpreter, import every module of the port
     (the two-level modules ``ops/tlas.py``, ``ops/traverse_tlas.py`` and
     ``ops/traverse_tlas_stream.py`` among them) and chip_smoke.py, render a
-    16x16 frame on the CPU with the port's own scene modules, and an
-    animated frame of an instanced scene on the two-level route, and look
-    at sys.modules."""
+    16x16 frame on the CPU with the port's own scene modules, an animated
+    frame of an instanced scene on the two-level route and a textured
+    village through the ``PT_WAVEFRONT`` variant, and look at
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import realtimepathtracingresearchframework_tpu_torch as pkg\n"
@@ -259,7 +260,14 @@ def test_no_jax_in_the_port():
         "r.render(FrameConfig())\n"
         "assert r._route.tlas == 'k6'\n"
         "assert (r.readback_accumulation() == r.readback_accumulation()).all()\n"
-        "for m in ('tlas', 'traverse_tlas', 'traverse_tlas_stream'):\n"
+        "r = Renderer(device='cpu')\n"
+        "r.initialize(16, 16)\n"
+        "r.set_scene(Scene.from_vkr_scene(procedural.village(grid=8)))\n"
+        "assert r.set_variant('PT_WAVEFRONT') and r._has_textures\n"
+        "r.render(FrameConfig())\n"
+        "assert (r.readback_accumulation() == r.readback_accumulation()).all()\n"
+        "for m in ('tlas', 'traverse_tlas', 'traverse_tlas_stream',\n"
+        "          'texture_atlas'):\n"
         "    assert pkg.__name__ + '.ops.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'realtimepathtracingresearchframework_tpu')]\n"
@@ -296,15 +304,20 @@ def test_cuda_renderer_needs_a_card():
             Renderer(device="cuda")
 
 
+PORTED_SWITCHES = ("compact", "two_level", "has_textures", "alpha_test",
+                   "wavefront")
+
+
 @pytest.mark.parametrize("field", [f for f, _, _ in ti._UNPORTED]
-                         + ["compact", "two_level"])
+                         + list(PORTED_SWITCHES))
 def test_unported_configs_raise(field):
     """Every unported switch raises naming its ROADMAP item; the
-    coherence-sorted dispatch (``compact``) and two-level instancing
-    (``two_level``) are ported now and pass the check."""
+    coherence-sorted dispatch (``compact``), two-level instancing
+    (``two_level``), textures, the alpha test and the wavefront variant are
+    ported now and pass the check."""
     value = 1 if field == "debug_mode" else True
     cfg = ti.IntegratorConfig(**{field: value})
-    if field in ("compact", "two_level"):
+    if field in PORTED_SWITCHES:
         ti.check_supported(cfg)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP item"):

@@ -272,3 +272,152 @@ def test_resolve_channels(rng, tonemap):
                                  tonemap)
     for p, r in zip(outt, outj):
         close(p, r)
+
+
+def test_nee_candidate_drops_non_finite_samples(rng, monkeypatch):
+    """A light sample whose pdfs overflow (a triangle seen edge-on from a
+    point in its own plane: the reference's contribution is NaN there) is
+    dropped: no contribution and no shadow ray; every other lane keeps its
+    candidate unchanged."""
+    from types import SimpleNamespace
+
+    n = 256
+    v0 = np.array([[0.0, 2.0, 0.0]], np.float32)
+    lt = tn.light_buffers(v0, v0 + [[1.0, 0.0, 0.0]], v0 + [[0.0, 0.0, 1.0]],
+                          np.full((1, 3), 4.0, np.float32), "cpu")
+    ds = SimpleNamespace(lights=lt, sky=tsky.build_sky((0.3, 0.8, 0.2), 3.0, (0.1, 0.1, 0.1),
+                                                       has_area_lights=True))
+    cfg = ti.IntegratorConfig(num_lights=1)
+    _, mt = _materials(rng, True, False)
+    mt = tb.GLTFMaterial(*(f[:n] if isinstance(f, torch.Tensor) else
+                           (tv.Vec3(*(c[:n] for c in f)) if isinstance(f, tv.Vec3) else f)
+                           for f in mt))
+    p = tv.Vec3(*(torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
+                  for _ in range(3)))
+    up = tv.Vec3(torch.zeros(n), torch.ones(n), torch.zeros(n))
+    w_o = tv.Vec3(*(torch.from_numpy(c.copy()) for c in _unit(rng, n).T))
+    w_o = tv.Vec3(w_o.x, w_o.y.abs(), w_o.z)
+    u = [torch.from_numpy(rng.uniform(size=n).astype(np.float32)) for _ in range(3)]
+    sel = (torch.ones(n), u[2])  # every lane samples the area light
+    args = (ds, cfg, p, up, up, mt, w_o, (u[0], u[1]), sel, torch.zeros(n))
+    ref = ti._nee_candidate(*args)
+    sample = tn.sample_tri_lights_v
+    broken = torch.arange(n) % 4 == 0
+
+    def overflow(*a, **k):
+        s = sample(*a, **k)
+        return s._replace(mis_wpdf=torch.where(broken, float("inf"), s.mis_wpdf))
+
+    monkeypatch.setattr(tn, "sample_tri_lights_v", overflow)
+    got = ti._nee_candidate(*args)
+    assert ref.traced[broken].any()
+    assert not got.traced[broken].any() and not got.uncond[broken].any()
+    for c in got.contrib:
+        assert torch.isfinite(c).all() and (c[broken] == 0).all()
+    for a, b in zip((*got.contrib, got.traced, got.uncond),
+                    (*ref.contrib, ref.traced, ref.uncond)):
+        assert torch.equal(a[~broken], b[~broken])
+    assert torch.equal(got.dropped, broken & (ref.traced | ref.uncond))
+    # the callers count the dropped samples of their active lanes
+    ti.reset_nee_dropped()
+    active = torch.arange(n) % 8 != 0
+    ti._count_nee_dropped(got.dropped & active)
+    ti._count_nee_dropped(got.dropped & active)
+    assert ti.nee_dropped() == 2 * int((got.dropped & active).sum()) > 0
+    ti.reset_nee_dropped()
+    assert ti.nee_dropped() == 0
+
+
+# The village lane whose NEE sample went NaN on an H100 (pixel (1488, 439)
+# of the 1080p frame, sample 3, the vertex of bounce 1 on a window light):
+# the card's hit point, normals, w_o and path length as logged there, the
+# CPU's for the same lane (a few ulps away), and the lane's LCG draws.
+_VILLAGE_LANE = {
+    "card": dict(
+        p=(7.507884502410889, 1.3789480924606323, -0.5721555948257446),
+        n=(-4.094379983143881e-05, 0.8944491147994995, -0.4471699893474579),
+        gn=(-4.108785287826322e-05, 0.8944414258003235, -0.44718509912490845),
+        w_o=(-0.6359391808509827, 0.49052754044532776, -0.5957887768745422),
+        total_t=16.37977409362793),
+    "cpu": dict(
+        p=(7.5078816413879395, 1.3789469003677368, -0.5721580982208252),
+        n=(-4.094379619346e-05, 0.8944490551948547, -0.4471699595451355),
+        gn=(-4.108785287826322e-05, 0.8944414258003235, -0.44718509912490845),
+        w_o=(-0.6359387636184692, 0.4905308783054352, -0.5957863926887512),
+        total_t=16.379770278930664),
+}
+_VILLAGE_DRAWS = dict(dir=(0.3150511384010315, 0.7388033270835876),
+                      sel=(0.8673349022865295, 0.9057645797729492))
+
+
+@pytest.mark.parametrize("inputs", ["card", "cpu"])
+def test_nee_candidate_replays_the_village_lane(inputs):
+    """The reference's _nee_candidate on the card's inputs: the sampled
+    window-light triangle lies nearly in the vertex's plane, its distance
+    and MIS pdf overflow and the balance heuristic gives inf / inf = NaN,
+    with a shadow ray traced. The port computes the same light sample and
+    drops that candidate (no contribution, no shadow ray, counted). On the
+    CPU's inputs both reject the candidate (strict normals) alike."""
+    from types import SimpleNamespace
+
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    r, fc = frame_setup("village", "cpu", (8, 8), 2)
+    cfg = r._integrator_config(fc.params)
+    sky, lights = r.device_scene.sky, r.device_scene.lights
+    rcfg = ji.IntegratorConfig(
+        num_lights=cfg.num_lights, light_bin_size=cfg.light_bin_size,
+        use_light_bins=cfg.use_light_bins, has_transmission=cfg.has_transmission,
+        thin_transmission=cfg.thin_transmission)
+    rds = SimpleNamespace(
+        sky=SimpleNamespace(sun_radiance=jnp.asarray(sky.sun_radiance.numpy()),
+                            sun_dir=jnp.asarray(sky.sun_dir.numpy()),
+                            sun_cos_angle=jnp.float32(sky.sun_cos_angle)),
+        lights=jn.TriLightBuffers(*(
+            jnp.asarray(torch.stack(tuple(col), 1).numpy())
+            for col in (lights.v0, lights.v1, lights.v2, lights.radiance))))
+    lane = _VILLAGE_LANE[inputs]
+    (pj, pt), (nj, nt), (gj, gt), (wj, wt) = (
+        _both_v([lane[k]]) for k in ("p", "n", "gn", "w_o"))
+    tj, tt = _both(np.float32([lane["total_t"]]))
+    dj, dt = zip(*(_both(np.float32([u])) for u in _VILLAGE_DRAWS["dir"]))
+    sj, st = zip(*(_both(np.float32([u])) for u in _VILLAGE_DRAWS["sel"]))
+    # the material there as logged: procedural.village's window emitter
+    base = np.float32([[1.0, 0.85, 0.6]])
+    bj, bt = _both_v(base)
+    fields = dict(metallic=0.0, specular=0.5, roughness=0.49803921580314636,
+                  ior=1.5, specular_transmission=0.0)
+    mj = jb.GLTFMaterial(base_color=bj, transmission_color=bj,
+                         onesided=jnp.asarray([False]),
+                         **{k: jnp.float32([v]) for k, v in fields.items()})
+    mt = tb.GLTFMaterial(base_color=bt, transmission_color=bt,
+                         onesided=torch.tensor([False]),
+                         **{k: torch.tensor([v]) for k, v in fields.items()})
+    ref = ji._nee_candidate(rds, rcfg, pj, nj, gj, mj, wj, dj, sj, tj)
+    got = ti._nee_candidate(SimpleNamespace(sky=sky, lights=lights), cfg, pt,
+                            nt, gt, mt, wt, dt, st, tt)
+    sun_w = float(sky.sun_radiance[3])
+    sel2 = (np.clip((np.float32(_VILLAGE_DRAWS["sel"][0]) - sun_w) / (1 - sun_w),
+                    0, 1).astype(np.float32), np.float32(_VILLAGE_DRAWS["sel"][1]))
+    ls_j = jn.sample_tri_lights_v(rds.lights, pj, nj, dj,
+                                  tuple(jnp.float32([u]) for u in sel2),
+                                  cfg.light_bin_size, False)
+    ls_t = tn.sample_tri_lights_v(lights, pt, nt, dt,
+                                  tuple(torch.tensor([u]) for u in sel2))
+    for a, b in ((ls_t.pdf, ls_j.pdf), (ls_t.mis_wpdf, ls_j.mis_wpdf),
+                 (ls_t.dist, ls_j.dist), *zip(ls_t.dir, ls_j.dir)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    if inputs == "card":
+        assert np.isinf(np.asarray(ls_j.mis_wpdf)).all()
+        assert all(np.isnan(np.asarray(c)).all() for c in ref.contrib)
+        assert bool(ref.traced[0])
+        assert bool(got.dropped[0]) and not bool(got.traced[0] | got.uncond[0])
+        assert all(float(c[0]) == 0.0 for c in got.contrib)
+    else:
+        for a, b in ((got.traced, ref.traced), (got.uncond, ref.uncond)):
+            assert not bool(a[0]) and not bool(b[0])
+        assert not bool(got.dropped[0])
+        for c, d in zip(got.contrib, ref.contrib):
+            assert float(c[0]) == float(d[0]) == 0.0
