@@ -38,6 +38,14 @@ Phases (each raises on failure):
      set to 0 just before each path and read just after; the timed paths
      run first, before the plain versions and the CPU renders load the
      host);
+  5a. this slice's streamed paths at 1920x1080, 1 spp, depth 9: terrain500
+     with 16-bit quantized tiles (options.quantized_geometry; set-up
+     seconds, tile bytes of the f32 and int16 packs), the sorted K4 walk and
+     one binned K5 round on int16 tiles; the f32 terrain500 through K4's
+     ordered walk (RPTR_STREAM_CLOSEST=ordered) and the quantized one
+     through the multislot dispatch (RPTR_STREAM_CLOSEST=multislot; K4 and
+     K5 launches per frame, the share of rays past its 8 slots); K4 and K5
+     must launch, K1-K3 and K6-K7 not;
   5b. the instanced paths, two-level (options.use_tlas), with a TLAS update
      (set_animation_frame) before every frame as bench.py's instanced row
      does: procedural.instanced_field(num_inst=600), 601 instances of four
@@ -46,6 +54,14 @@ Phases (each raises on failure):
      instances, through K6 at 1920x1080, 1 spp, depth 9: set-up seconds,
      TLAS update ms, frame ms, Mray/s; the path's kernel must launch and
      no other;
+  5c. instanced500 1080p depth 9 through K6's ordered instance walk (a TLAS
+     update before every frame), and instanced_field(num_inst=2500), 2,501
+     (instance, chunk) entries past the reference's cap of 2,048, through
+     K7 at 1080p depth 9 (the entry count and K7's mode, staged or global,
+     printed). Every timed path (3-5c) also prints Renderer.stats()'s
+     render time beside the script's CUDA-event time, and its last frame's
+     display image (readback_framebuffer, Reinhard-tonemapped) must be
+     finite and in [0, 1];
   6. K1 against its plain PyTorch version on the card: the cornell main
      path's shape (1080p chunk of 524,288 rays) and two terrain scenes (20k
      tris at leaf 32, 80k tris at leaf 128) with 262,144-ray coherent,
@@ -68,21 +84,32 @@ Phases (each raises on failure):
      version; across kernels K4 = K5 = K1 (K1 over a resident leaf-128 BVH
      of the same triangles): triangle ids equal except on exact-t ties,
      which are counted, and t bitwise equal everywhere. Timed with CUDA
-     events beside the bound of the function;
+     events beside the bound of the function. K4's ordered walk on the
+     primary and bounce-1 chunks: bitwise its plain version, and equal to
+     the sorted walk (t bitwise, ties counted);
+  8b. on the quantized terrain500 pack (int16 tiles): K4 closest sorted,
+     K4 ordered, K5 closest (2 rounds) and any-hit (1 round) and single K5
+     launches, the multislot dispatch (timed against its one K5 launch),
+     each bitwise its plain version; K4 = K5 = multislot except on exact-t
+     ties;
   9. the goldens cornell_diffuse, sun_sky, cornell_textured and
      cornell_wavefront rendered on the card, through K1: against the port's
      own CPU render of them (the CPU tests hold that render to the JAX
      package run op by op) with equal ray counts, at most 1% of pixels over
      1e-3 (2% on cornell_textured, goldens.py says why) and a relative L1
      error of at most 1e-4 (goldens.compare_card), and against
-     tests/goldens/*.pfm at the golden gate of goldens.py;
+     tests/goldens/*.pfm at the golden gate of goldens.py; the display
+     images (readback_framebuffer) against the CPU's display images by
+     goldens.compare_card;
  10. a small terrain (48x48, 8k tris) forced onto the flat-cull route
      (RPTR_TRAVERSAL_V3=1, the wavefront executor) on the card against the
      port's CPU render of it: equal ray counts and goldens.compare_card;
  11. procedural.terrain(grid=48), 4,608 tris in 5 subtrees, forced onto the
      streamed route (RPTR_FORCE_STREAMED_TRAVERSAL=1) at 48x48 on the card
      against the port's CPU render: equal ray counts and
-     goldens.compare_card; K4 and K5 must launch;
+     goldens.compare_card; K4 and K5 must launch; then switched to 16-bit
+     quantized tiles by Renderer.configure_for (which must return True),
+     the same;
  12. K6 and K7 at the instanced paths' shapes: on each path, the primary
      chunk with the most hits, a bounce-1 queue (the primaries' hit points,
      scattered directions) and the sun shadow queue from those hit points,
@@ -90,7 +117,12 @@ Phases (each raises on failure):
      flags equal, t/u/v bitwise), timed with CUDA events beside the bound;
      on the instanced500 queues K6 = K7 (a K7 pack of the same scene and
      frame): t bitwise, triangle and instance equal except on exact-t ties,
-     which are counted, flags equal;
+     which are counted, flags equal; K6's ordered instance walk on the
+     instanced500 primary and bounce-1 queues: bitwise its plain version,
+     and equal to the preorder walk except on exact-t ties (counted); on
+     the instanced2500 primary chunk K7 with its top tree in global memory
+     against K7 staged in shared memory and the plain version, bitwise,
+     both timed;
  13. procedural.instanced_field(num_inst=6) at 48x48, depth 9, two animated
      frames, through K6 and through K7 (K6's instance cap set to 0), on the
      card against the port's CPU render: equal ray counts and
@@ -149,6 +181,8 @@ TLAS_PATHS = (  # label, instances, size, depth, timed frames, kernel
     ("instanced500 1080p", 500, MAIN_SIZE, 9, 3, "K6"),
 )
 ANIM_FRAMES = 16  # instanced_field's animation length
+INST_PAST_CAP = 2500  # instanced_field(num_inst=2500): 2,501 K7 entries
+REF_MAX_ENTRIES = 2048  # the reference's K7 cap (traverse_tlas_stream.py:82)
 DEVICE = "cuda"
 # the bound of the traversal function (PERF.md): the larger of the bytes
 # over the card's memory rate and the Moller-Trumbore flops over its f32
@@ -162,8 +196,12 @@ RAY_BYTES = 32  # in: ro3, rd3, tmin, tmax
 HIT_BYTES = 16  # out: t, row, u, v (1 for a blocked flag); K6 adds inst
 
 
+T0 = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    """Print a line, prefixed with the seconds since the script started."""
+    print(f"[{time.perf_counter() - T0:7.1f} s]", *args, flush=True)
 
 
 def check(cond, msg):
@@ -211,7 +249,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    log(smi)
+    print(smi, flush=True)  # as nvidia-smi gives it, on a line of its own
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -692,13 +730,17 @@ def phase_goldens():
         img, r = goldens.render(name, DEVICE)
         launched = tr.launches - before
         cpu_img, cpu_r = goldens.render(name, "cpu")
-        rays, cpu_rays = r.last_ray_count(), cpu_r.last_ray_count()
+        rays, cpu_rays = r.last_frame_rays(), cpu_r.last_frame_rays()
         vs_cpu = goldens.compare_card(img, cpu_img)
         vs_golden = goldens.compare(name, img)
+        disp = goldens.compare_card(r.readback_framebuffer()[..., :3],
+                                    cpu_r.readback_framebuffer()[..., :3])
         log(f"golden {name}: vs port CPU render {vs_cpu}; vs golden "
-            f"{vs_golden}; rays {rays} (CPU {cpu_rays}), K1 launches {launched}")
+            f"{vs_golden}; display image vs the CPU's {disp}; rays {rays} "
+            f"(CPU {cpu_rays}), K1 launches {launched}")
         check(rays == cpu_rays, f"golden {name}: {rays} rays, CPU {cpu_rays}")
         check(vs_cpu["ok"], f"golden {name}: card render off the CPU render: {vs_cpu}")
+        check(disp["ok"], f"golden {name}: display image off the CPU's: {disp}")
         check(vs_golden["ok"], f"golden {name} outside tolerance: {vs_golden}")
         check(launched > 0, f"golden {name} did not launch K1")
 
@@ -720,7 +762,7 @@ def phase_small_terrain():
             rays = []
             for _ in range(2):
                 r.render(cfg)
-                rays.append(r.last_ray_count())
+                rays.append(r.last_frame_rays())
             out[device] = (r.readback_accumulation()[..., :3], rays,
                            (tf.launches_k2 - before[0], tf.launches_k3 - before[1]))
     (img, rays, launched), (cpu_img, cpu_rays, _) = out[DEVICE], out["cpu"]
@@ -763,6 +805,29 @@ def _counters():
     }
 
 
+def _mode_counts():
+    """Launches of the kernel modes of this slice since the last reset: K4's
+    ordered walk, K6's ordered instance walk, K7's global-memory top tree,
+    the multislot dispatches (one K5 launch and one K4 cleanup each)."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_binned as tb,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_stream as ts,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
+
+    return {"K4 ordered": ts.launches_k4_ordered,
+            "K6 ordered": tt.launches_k6_ordered,
+            "K7 global": tts.launches_k7_global,
+            "multislot": tb.multislot_dispatches}
+
+
 def _merged_counts():
     """Merged two-queue launches of K1, K2 and K4 since their last reset."""
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
@@ -793,10 +858,19 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
     it and read just after, and its record: median frame ms (CUDA events
     around ``render``), Mray/s, the TLAS updates' host ms (build, pack and
     upload, synchronised) and the frames' host ms with their update."""
+    import dataclasses
+
     import torch
 
+    from realtimepathtracingresearchframework_tpu_torch.backend.params import (
+        TONEMAP_MODE_FAST,
+    )
     from realtimepathtracingresearchframework_tpu_torch.ops import integrator
 
+    # the display image's tone map (Reinhard) keeps it in [0, 1]; it only
+    # changes the resolve at readback, not the rendered samples
+    cfg = dataclasses.replace(cfg, params=cfg.params.replace(
+        early_tone_mapping_mode=TONEMAP_MODE_FAST))
     counters = _counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -826,14 +900,19 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
         total_ms.append((time.perf_counter() - t0) * 1e3)
         update_ms.append((t1 - t0) * 1e3)
         frame_ms.append(start.elapsed_time(end))
-        rays.append(r.last_ray_count())
+        rays.append(r.last_frame_rays())
     launches = {k: read() for k, (_, read) in counters.items()}
+    modes = _mode_counts()
     merged = _merged_counts()
     alpha = {"hops": integrator.alpha_hops / (frames + 1),
              "reads": integrator.alpha_reads / (frames + 1)}
     dropped = integrator.nee_dropped() / (frames + 1)
     peak = torch.cuda.max_memory_allocated()
+    stats = r.stats()
     img = r.readback_accumulation()
+    disp = r.readback_framebuffer()
+    disp_ok = bool(np.isfinite(disp).all() and (disp >= 0).all()
+                   and (disp <= 1).all())
     finite = bool(np.isfinite(img).all())
     nonneg = bool((img >= 0).all())
     mrays = sum(rays) / (sum(frame_ms) * 1e-3) / 1e6
@@ -848,13 +927,20 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
         f"{cfg.params.max_path_depth}: warm-up "
         f"{warm_s * 1e3:.1f} ms, frame ms {[round(x, 3) for x in frame_ms]}, "
         f"median {float(np.median(frame_ms)):.3f} ms, {mrays:.3f} Mray/s "
-        f"({rays[0]} rays/frame), {anim}launches {launches} ("
-        f"{frames + 1} frames), of them merged {merged}, alpha test per frame "
+        f"({rays[0]} rays/frame), last frame {frame_ms[-1]:.3f} ms by the "
+        f"script's CUDA events, {stats.render_time:.3f} ms by "
+        f"Renderer.stats().render_time, {anim}launches {launches} ("
+        f"{frames + 1} frames), of them merged {merged}, modes {modes}, "
+        f"alpha test per frame "
         f"{alpha}, NEE samples dropped as non-finite per frame {dropped}, "
         f"live lanes per bounce "
         f"{r.live_profile}, peak memory {peak / 2**20:.1f} MiB, image finite "
-        f"{finite} non-negative {nonneg} mean {float(img[..., :3].mean()):.5f}")
+        f"{finite} non-negative {nonneg} mean {float(img[..., :3].mean()):.5f}, "
+        f"display image (readback_framebuffer) finite and in [0, 1] {disp_ok}, "
+        f"mean {float(disp[..., :3].mean()):.5f}")
     check(finite and nonneg, f"{label} image is not finite and non-negative")
+    check(disp_ok and disp.shape == (height, width, 4),
+          f"{label}: display image not finite and in [0, 1], shape {disp.shape}")
     # the integrator drops a NEE sample whose contribution overflows (a light
     # sampled from a point in its own plane); more than one per million rays
     # would be a fault of another cause
@@ -865,8 +951,8 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
            "update_ms": float(np.median(update_ms)),
            "total_ms": float(np.median(total_ms)),
            "per_frame": {k: n / (frames + 1) for k, n in launches.items()},
-           "merged": merged, "alpha": alpha, "nee_dropped": dropped,
-           "rays": rays[0]}
+           "merged": merged, "modes": modes, "alpha": alpha,
+           "nee_dropped": dropped, "rays": rays[0]}
     return launches, rec
 
 
@@ -1004,7 +1090,7 @@ def phase_wavefront_path(mega):
     for label, rr in (("PT_MEGAKERNEL", mega), ("PT_WAVEFRONT", r)):
         rr.frame_id = 0  # sample 0, blended as the first sample
         rr.render(cfg)
-        frames[label] = (rr.readback_accumulation()[..., :3], rr.last_ray_count())
+        frames[label] = (rr.readback_accumulation()[..., :3], rr.last_frame_rays())
     (img_m, rays_m), (img_w, rays_w) = frames["PT_MEGAKERNEL"], frames["PT_WAVEFRONT"]
     vs = goldens.compare_card(img_w, img_m)
     log(f"wavefront cornell sample 0 vs PT_MEGAKERNEL sample 0: {vs}; rays "
@@ -1057,6 +1143,67 @@ def phase_stream_paths():
         if main is None:
             main = (r, cfg)
     return out, main
+
+
+def phase_stream_strategies(r500, cfg500):
+    """This slice's streamed paths at MAIN_SIZE, 1 spp, depth 9: terrain500
+    with 16-bit quantized tiles (options.quantized_geometry), the sorted K4
+    walk for closest hits and one binned K5 round for shadow rays, both on
+    int16 tiles; then the f32 pack (``r500``) through the ordered K4 walk
+    and the quantized pack through the multislot dispatch
+    (RPTR_STREAM_CLOSEST). Returns {label: record} and the quantized
+    path's (renderer, frame config)."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_binned as tb,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    out = {}
+    t0 = time.perf_counter()
+    rq, cfgq = frame_setup("terrain", DEVICE, MAIN_SIZE, 9, grid=STREAM_GRID,
+                           quantized=True)
+    total = time.perf_counter() - t0
+    bq, bf = rq.device_scene.bvh, r500.device_scene.bvh
+    check(rq._route.streamed and bq.quantized and rq._streamed_topo is None,
+          "terrain500 quantized: not a quantized streamed pack")
+
+    def nbytes(x):
+        return x.numel() * x.element_size()
+
+    log(f"terrain500 quantized 1080p: set-up (quantized streamed pack and "
+        f"upload) {rq.setup_seconds:.2f} s (set_scene {total:.2f} s), "
+        f"{bq.num_subtrees} subtrees; tiles {nbytes(bq.tri_tiles)} B int16 "
+        f"against {nbytes(bf.tri_tiles)} B f32")
+    launches, rec = _timed_frames("terrain500 quantized 1080p", rq, cfgq,
+                                  STREAM_FRAMES)
+    _only("terrain500 quantized 1080p", launches, ("K4", "K5"))
+    out["quantized"] = dict(rec, launches=launches, setup_s=rq.setup_seconds)
+    for label, r, cfg, strategy in (
+        ("terrain500 1080p ordered", r500, cfg500, "ordered"),
+        ("terrain500 quantized 1080p multislot", rq, cfgq, "multislot"),
+    ):
+        with env(RPTR_STREAM_CLOSEST=strategy):
+            launches, rec = _timed_frames(label, r, cfg, 2)
+            overflow = tb.multislot_overflow()
+        _only(label, launches, ("K4", "K5"))
+        modes = rec["modes"]
+        if strategy == "ordered":
+            check(modes["K4 ordered"] > 0, f"{label}: no ordered K4 launch")
+        else:
+            dispatches, over, live = overflow
+            check(modes["multislot"] > 0, f"{label}: no multislot dispatch")
+            log(f"{label}: K4 {rec['per_frame']['K4']:.2f} launches per frame "
+                f"(every one a cleanup), K5 {rec['per_frame']['K5']:.2f}; "
+                f"{dispatches} multislot dispatches, {over} of {live} live "
+                f"rays ({over / max(live, 1):.5f}) past {tb.K_MAX} slots")
+        log(f"{label} summary: frame {rec['frame_ms']:.3f} ms, "
+            f"{rec['mrays']:.3f} Mray/s, K4 {rec['per_frame']['K4']:.2f} "
+            f"launches per frame ({modes['K4 ordered'] / 3:.2f} ordered), K5 "
+            f"{rec['per_frame']['K5']:.2f}")
+        out[strategy] = dict(rec, launches=launches)
+    return out, (rq, cfgq)
 
 
 def _plain_ms(fn):
@@ -1118,6 +1265,98 @@ def stream_bound(bb, rays, t_end, any_hit, sid_lane=None):
     ops_ms = MT_FLOPS * ts.LEAF * pairs / PEAK_F32_FLOPS * 1e3
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", pairs)
+
+
+def _best_chunk(r, cfg, rows):
+    """(c, packed primaries) of the frame's chunk with the most primary hits
+    (the top chunks of the 16x16-tile order are mostly sky): sample 0's
+    camera rays of each chunk of ``r``, counted by ``rows(packed rays)``,
+    a kernel's hit rows (-1 on a miss)."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+    from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
+
+    width, height = r.fb_width, r.fb_height
+    view = integrator.ViewBuffers(*(
+        torch.from_numpy(a).to(DEVICE) for a in cfg.camera.view_basis(width, height)))
+
+    def primaries(c):
+        px, py, valid = (x[c] for x in r._swizzle)
+        state = pointsets.make_state(0, 0, 0, px, py, width)
+        _, ro, rd = integrator.camera_setup(
+            integrator.IntegratorConfig(), view, px, py,
+            (float(width), float(height)), state)
+        return tr.pack_rays(ro, rd, 0.0, torch.where(valid, T_MAX, 0.0), 512)[0]
+
+    hits = [int((rows(primaries(c)) >= 0).sum())
+            for c in range(len(r._swizzle[0]))]
+    c = int(np.argmax(hits))
+    return c, primaries(c)
+
+
+def _next_queues(prim, t, cfg, rng):
+    """(bounce 1, sun shadow) packed queues from the hit points of the
+    packed primaries ``prim`` at their closest ``t`` (2e32 on a miss):
+    scattered directions and the scene's sun direction, dead where the
+    primary missed."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
+    from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
+
+    n = prim.shape[1]
+    hit = t < 1e30
+    p = [prim[k] + prim[3 + k] * torch.where(hit, t, 0.0) for k in range(3)]
+    eps = (torch.sqrt(p[0] * p[0] + p[1] * p[1] + p[2] * p[2])
+           + torch.where(hit, t, 0.0)) * integrator.RAY_EPSILON
+    d = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)).to(DEVICE)
+    d = d / torch.sqrt((d * d).sum(0))
+    bounce, _ = tr.pack_rays(Vec3(*p), Vec3(*d), eps,
+                             torch.where(hit, T_MAX, 0.0), 512)
+    sun = np.asarray(cfg.scene_config.sun_dir, np.float32)
+    sun = torch.from_numpy(sun / np.linalg.norm(sun)).to(DEVICE)
+    shadow, _ = tr.pack_rays(Vec3(*p), Vec3(*(sun[k].expand(n) for k in range(3))),
+                             eps, torch.where(hit, 2.0e16, 0.0), 512)
+    return bounce, shadow
+
+
+def compare_ordered(label, bb, rays, iters=5):
+    """K4's ordered walk on one packed queue, coherence-sorted as the
+    renderer dispatches it: against its plain version bitwise, and against
+    the preorder walk (K4 sorted): t bitwise, triangles equal except on
+    exact-t ties, which are counted. Returns its record."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_stream as ts,
+    )
+
+    srt, _ = ts._sort_operand(bb, rays)
+    hk = ts.launch(bb, srt, False, ordered=True)
+    hp, p_ms = _plain_ms(lambda: ts.plain(bb, srt, False, ordered=True))
+    bad, err = _equal(hk, hp)
+    ms = cuda_ms(lambda: ts.launch(bb, srt, False, ordered=True), iters)
+    h0 = ts.launch(bb, srt, False)
+    sorted_ms = cuda_ms(lambda: ts.launch(bb, srt, False), iters)
+    t_k, tri_k = ts._out_to_hit(bb, hk, srt.shape[1], True)[:2]
+    t_0, tri_0 = ts._out_to_hit(bb, h0, srt.shape[1], True)[:2]
+    ties = _across(f"{label} ordered vs sorted", t_k, tri_k, t_0, tri_0)
+    b_ms, b_by, pairs = stream_bound(bb, srt, t_k, False)
+    log(f"  {label:34s} K4 ordered ({'int16' if bb.quantized else 'f32'} "
+        f"tiles): {bad} vs plain not bitwise, {ms:.3f} ms (plain {p_ms:.1f}, "
+        f"K4 sorted {sorted_ms:.3f} ms), vs K4 sorted t bitwise, {ties} "
+        f"exact-t ties; bound {b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs)")
+    check(bad == 0, f"{label}: K4 ordered disagrees with its plain version")
+    check(ties <= srt.shape[1] // 1000, f"{label}: {ties} ordered/sorted ties")
+    return {"ms": ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b_ms,
+            "bound_by": b_by, "sorted_ms": sorted_ms}
 
 
 def compare_stream_queue(label, bb, fb, rays, rng, orays=None, iters=5):
@@ -1240,16 +1479,12 @@ def phase_streamed(r, cfg, smi):
     from realtimepathtracingresearchframework_tpu_torch.models import procedural
     from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
     from realtimepathtracingresearchframework_tpu_torch.ops import bvh as bvh_mod
-    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
-    from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_resident as tr,
     )
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_stream as ts,
     )
-    from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
-    from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
     rng = np.random.default_rng(500)
     bb = r.device_scene.bvh
@@ -1262,43 +1497,13 @@ def phase_streamed(r, cfg, smi):
         f"{bb.num_top_nodes} top nodes), against K1 over a resident leaf-128 "
         f"BVH ({fb.num_nodes} nodes, built in {time.perf_counter() - t0:.1f} "
         f"s), {smi}:")
-    width, height = MAIN_SIZE
-    view = integrator.ViewBuffers(*(
-        torch.from_numpy(a).to(DEVICE)
-        for a in cfg.camera.view_basis(width, height)
-    ))
-
-    def primaries(c):
-        px, py, valid = (x[c] for x in r._swizzle)
-        state = pointsets.make_state(0, 0, 0, px, py, width)
-        _, ro, rd = integrator.camera_setup(
-            integrator.IntegratorConfig(), view, px, py,
-            (float(width), float(height)), state,
-        )
-        return tr.pack_rays(ro, rd, 0.0, torch.where(valid, T_MAX, 0.0), 512)[0]
-
-    # the frame's chunk with the most primary hits (the top chunks of the
-    # 16x16-tile order are mostly sky)
-    hits = [int((ts.launch(bb, primaries(c), False)[1] >= 0).sum())
-            for c in range(len(r._swizzle[0]))]
-    c = int(np.argmax(hits))
-    prim = primaries(c)
+    c, prim = _best_chunk(r, cfg, lambda q: ts.launch(bb, q, False)[1])
     n = prim.shape[1]
     rec4, t = compare_stream_queue(f"primary chunk {c}", bb, fb, prim, rng)
-    # bounce 1 and the sun shadow queue start at the primaries' hit points
-    hit = t < 1e30
-    p = [prim[k] + prim[3 + k] * torch.where(hit, t, 0.0) for k in range(3)]
-    eps = (torch.sqrt(p[0] * p[0] + p[1] * p[1] + p[2] * p[2])
-           + torch.where(hit, t, 0.0)) * integrator.RAY_EPSILON
-    d = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)).to(DEVICE)
-    d = d / torch.sqrt((d * d).sum(0))
-    bounce, _ = tr.pack_rays(Vec3(*p), Vec3(*d), eps,
-                             torch.where(hit, T_MAX, 0.0), 512)
-    sun = np.asarray(cfg.scene_config.sun_dir, np.float32)
-    sun = torch.from_numpy(sun / np.linalg.norm(sun)).to(DEVICE)
-    shadow, _ = tr.pack_rays(Vec3(*p), Vec3(*(sun[k].expand(n) for k in range(3))),
-                             eps, torch.where(hit, 2.0e16, 0.0), 512)
+    bounce, shadow = _next_queues(prim, t, cfg, rng)
     compare_stream_queue("bounce 1", bb, fb, bounce, rng)
+    rec4["ordered"] = compare_ordered(f"K4 f32 primary chunk {c}", bb, prim)
+    compare_ordered("K4 f32 bounce 1", bb, bounce)
     _, t_shadow = compare_stream_queue("sun shadow", bb, fb, shadow, rng,
                                        orays=shadow)
     rec5 = compare_k5_launch("sun shadow", bb, shadow, t_shadow, True)
@@ -1320,36 +1525,133 @@ def phase_streamed(r, cfg, smi):
     return {"traverse_streamed": rec4, "traverse_binned": rec5}
 
 
+def phase_streamed_quantized(r, cfg, smi):
+    """K4 and K5 on the terrain500 quantized 1080p path's int16 tiles
+    against their plain versions, at its primary chunk with the most hits
+    and the sun shadow queue of its hit points: K4 closest sorted, K4's
+    ordered walk, K5 closest (2 rounds) and one K5 launch closest and
+    any-hit, the multislot dispatch and its one K5 launch; across them K4 =
+    K5 = multislot except on exact-t ties. Returns the records of K4 and
+    K5 on int16 tiles and of the multislot dispatch."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_binned as tb,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_stream as ts,
+    )
+
+    rng = np.random.default_rng(502)
+    bb = r.device_scene.bvh
+    check(bb.quantized, "the quantized path's pack is not int16")
+    log(f"K4, K5 and the multislot dispatch on the terrain500 quantized pack "
+        f"(int16 tiles, {bb.num_subtrees} subtrees), {smi}:")
+    c, prim = _best_chunk(r, cfg, lambda q: ts.launch(bb, q, False)[1])
+    n = prim.shape[1]
+    label = f"primary chunk {c}"
+    srt, inv = ts._sort_operand(bb, prim)
+    hk = ts.launch(bb, srt, False)
+    hp, p_ms = _plain_ms(lambda: ts.plain(bb, srt, False))
+    bad, err = _equal(hk, hp)
+    ms = cuda_ms(lambda: ts.launch(bb, srt, False), 5)
+    h4 = ts._out_to_hit(bb, tuple(x[inv] for x in hk), n, True)
+    b_ms, b_by, pairs = stream_bound(bb, prim, h4.t, False)
+    log(f"  {label:22s} K4 int16 closest sorted: {bad} vs plain not bitwise, "
+        f"{ms:.3f} ms (plain {p_ms:.1f}), hit "
+        f"{(h4.tri >= 0).float().mean().item():.3f}, bound {b_ms:.4f} ms by "
+        f"{b_by} ({pairs} ray-leaf pairs)")
+    check(bad == 0, f"{label}: K4 int16 disagrees with its plain version")
+    rec4 = {"ms": ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b_ms,
+            "bound_by": b_by}
+    rec4_ordered = compare_ordered(f"K4 int16 {label}", bb, prim)
+
+    h5 = tb._run_rounds(bb, prim, 512, 2, False)
+    p5, p5_ms = _plain_ms(lambda: tb._run_rounds(bb, prim, 512, 2, False, True))
+    bad5 = _equal(h5, p5)[0]
+    k5_ms = cuda_ms(lambda: tb._run_rounds(bb, prim, 512, 2, False), 3)
+    tri5 = ts._out_to_hit(bb, h5, n, True).tri
+    ties54 = _across(f"{label} K5 vs K4 int16", h5[0], tri5, h4.t, h4.tri)
+    hm = tb._run_multislot(bb, prim, 512)
+    pm, pm_ms = _plain_ms(lambda: tb._run_multislot(bb, prim, 512,
+                                                    plain_versions=True))
+    badm, errm = _equal(hm, pm)
+    m_ms = cuda_ms(lambda: tb._run_multislot(bb, prim, 512), 3)
+    trim = ts._out_to_hit(bb, hm, n, True).tri
+    tiesm4 = _across(f"{label} multislot vs K4 int16", hm[0], trim, h4.t, h4.tri)
+    tiesm5 = _across(f"{label} multislot vs K5 int16", hm[0], trim, h5[0], tri5)
+    # the dispatch's one K5 launch, on its slot operand
+    *_, overflow, sid_blk, prays, pbest, _ = tb.multislot_operand(bb, prim, 512)
+    prays = prays.contiguous()
+    pbest = tuple(x.contiguous() for x in pbest)
+    k5m_ms = cuda_ms(lambda: tb.launch(bb, sid_blk, prays, pbest, 512, False), 3)
+    lanes = prays.shape[1]
+    del prays, pbest
+    log(f"  {label:22s} K5 int16 closest 2 rounds {bad5} vs plain not bitwise, "
+        f"{k5_ms:.3f} ms (plain {p5_ms:.1f}), {ties54} exact-t ties vs K4; "
+        f"multislot ({tb.K_MAX} slots, {lanes} padded lanes, "
+        f"{int(overflow.sum())} rays past them) {badm} vs plain not bitwise, "
+        f"{m_ms:.3f} ms for the dispatch against {k5m_ms:.3f} ms for its one "
+        f"K5 launch (plain {pm_ms:.1f}), {tiesm4} exact-t ties vs K4, "
+        f"{tiesm5} vs K5")
+    check(bad5 == 0, f"{label}: K5 int16 disagrees with its plain version")
+    check(badm == 0, f"{label}: the multislot dispatch disagrees with its "
+          "plain version")
+    check(max(ties54, tiesm4, tiesm5) <= n // 1000, f"{label}: too many ties")
+    rec_m = {"ms": m_ms, "plain_ms": pm_ms, "max_abs_err": errm,
+             "k5_ms": k5m_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+    _, shadow = _next_queues(prim, h4.t, cfg, rng)
+    t_sh = ts._out_to_hit(bb, ts.launch(bb, shadow, False), n, True).t
+    rec5 = compare_k5_launch("quantized sun shadow", bb, shadow, t_sh, True)
+    compare_k5_launch(f"quantized {label}", bb, prim, h4.t, False)
+    blocked = tb._run_rounds(bb, shadow, 512, 1, True)
+    pblocked = tb._run_rounds(bb, shadow, 512, 1, True, True)
+    occ = _equal(blocked, pblocked)[0]
+    log(f"  quantized sun shadow   K5 any-hit 1 round + K4 cleanup: {occ} vs "
+        f"plain mismatched, blocked {blocked.float().mean().item():.3f}")
+    check(occ == 0, "quantized sun shadow: K5 any-hit disagrees with plain")
+    return rec4, rec4_ordered, rec5, rec_m
+
+
 def phase_small_streamed():
     """procedural.terrain(grid=48) forced onto the streamed route, on the
-    card against the port's CPU render."""
+    card against the port's CPU render; then the same renderers switched to
+    16-bit quantized tiles by ``configure_for``."""
     from realtimepathtracingresearchframework_tpu_torch import goldens
     from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
         frame_setup,
     )
 
-    out = {}
-    with env(RPTR_FORCE_STREAMED_TRAVERSAL="1"):
-        for device in (DEVICE, "cpu"):
-            counters = _counters()
-            for reset, _ in counters.values():
-                reset()
-            r, cfg = frame_setup("terrain", device, (48, 48), grid=48)
-            check(r._route.streamed, "terrain48 is not on the streamed route")
-            rays = []
-            for _ in range(2):
-                r.render(cfg)
-                rays.append(r.last_ray_count())
-            out[device] = (r.readback_accumulation()[..., :3], rays,
-                           {k: read() for k, (_, read) in counters.items()})
-    (img, rays, launched), (cpu_img, cpu_rays, _) = out[DEVICE], out["cpu"]
-    vs_cpu = goldens.compare_card(img, cpu_img)
-    log(f"terrain grid=48 48x48 depth 9, 2 frames, streamed route: vs port CPU "
-        f"render {vs_cpu}; rays {rays} (CPU {cpu_rays}), launches {launched}")
-    check(rays == cpu_rays, f"small streamed terrain: rays {rays}, CPU {cpu_rays}")
-    check(vs_cpu["ok"], f"small streamed terrain: card render off the CPU render: {vs_cpu}")
-    check(launched["K4"] > 0 and launched["K5"] > 0,
-          f"small streamed terrain did not launch K4 and K5: {launched}")
+    for quantized in (False, True):
+        out = {}
+        with env(RPTR_FORCE_STREAMED_TRAVERSAL="1"):
+            for device in (DEVICE, "cpu"):
+                counters = _counters()
+                for reset, _ in counters.values():
+                    reset()
+                r, cfg = frame_setup("terrain", device, (48, 48), grid=48)
+                if quantized:
+                    ok = r.configure_for(
+                        r.options.replace(quantized_geometry=True))
+                    check(ok, "configure_for(quantized_geometry=True) failed")
+                check(r._route.streamed
+                      and r.device_scene.bvh.quantized == quantized,
+                      f"terrain48: route {r._route}, quantized "
+                      f"{r.device_scene.bvh.quantized}")
+                rays = []
+                for _ in range(2):
+                    r.render(cfg)
+                    rays.append(r.last_frame_rays())
+                out[device] = (r.readback_accumulation()[..., :3], rays,
+                               {k: read() for k, (_, read) in counters.items()})
+        (img, rays, launched), (cpu_img, cpu_rays, _) = out[DEVICE], out["cpu"]
+        vs_cpu = goldens.compare_card(img, cpu_img)
+        label = f"terrain grid=48{' quantized' if quantized else ''}"
+        log(f"{label} 48x48 depth 9, 2 frames, streamed route: vs port CPU "
+            f"render {vs_cpu}; rays {rays} (CPU {cpu_rays}), launches {launched}")
+        check(rays == cpu_rays, f"{label}: rays {rays}, CPU {cpu_rays}")
+        check(vs_cpu["ok"], f"{label}: card render off the CPU render: {vs_cpu}")
+        check(launched["K4"] > 0 and launched["K5"] > 0,
+              f"{label} did not launch K4 and K5: {launched}")
 
 
 # ---------------------------------------------------------------------------
@@ -1392,6 +1694,140 @@ def phase_tlas_paths():
             f"Mray/s, {kernel} {rec['per_frame'][kernel]:.2f} launches per frame")
         out[label] = (r, cfg, launches, rec)
     return out
+
+
+def phase_tlas_slice():
+    """This slice's instanced paths at MAIN_SIZE, 1 spp, depth 9:
+    instanced_field(num_inst=500) through K6's ordered instance walk
+    (RPTR_STREAM_CLOSEST=ordered), with a TLAS update before every frame;
+    instanced_field(num_inst=INST_PAST_CAP) through K7, past the reference's
+    cap of 2,048 (instance, chunk) entries. Returns {label: (renderer,
+    frame config, launches, record)}."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    out = {}
+    # a renderer of its own: the instanced500 path's stays at its last
+    # animation frame for phase 12
+    label = "instanced500 1080p ordered"
+    r, cfg = frame_setup("instanced", DEVICE, MAIN_SIZE, 9, num_inst=500)
+    check(r._route.tlas == "k6", f"{label} took the {r._route.tlas} route")
+    with env(RPTR_STREAM_CLOSEST="ordered"):
+        launches, rec = _timed_frames(label, r, cfg, 2, animate=True)
+    _only(label, launches, ("K6",))
+    check(rec["modes"]["K6 ordered"] > 0, f"{label}: no ordered K6 launch")
+    log(f"{label} summary: frame {rec['frame_ms']:.3f} ms, {rec['mrays']:.3f} "
+        f"Mray/s, K6 {rec['per_frame']['K6']:.2f} launches per frame, "
+        f"{rec['modes']['K6 ordered'] / 3:.2f} of them ordered")
+    out[label] = (r, cfg, launches, rec)
+
+    label = f"instanced{INST_PAST_CAP} 1080p"
+    t0 = time.perf_counter()
+    r, cfg = frame_setup("instanced", DEVICE, MAIN_SIZE, 9,
+                         num_inst=INST_PAST_CAP)
+    total = time.perf_counter() - t0
+    check(r._route.tlas == "k7", f"{label} took the {r._route.tlas} route")
+    st, fr = r.device_scene.tlas_stream
+    staged = tts.staged_fits(fr, DEVICE)
+    log(f"{label}: set-up (BLAS, chunks, TLAS, pack and upload) "
+        f"{r.setup_seconds:.2f} s (set_scene {total:.2f} s), "
+        f"{len(r.scene.instances)} instances, {r.scene.total_tris} instanced "
+        f"tris, {fr.num_entries} (instance, chunk) entries of "
+        f"{st.num_chunks} chunks of {st.chunk_tris} tris (the reference's cap "
+        f"2,048), {fr.num_top_nodes} top nodes, {tts.top_bytes(fr)} B of top "
+        f"tree: K7 mode {'staged' if staged else 'global'}")
+    check(fr.num_entries > REF_MAX_ENTRIES, f"{label}: {fr.num_entries} entries")
+    launches, rec = _timed_frames(label, r, cfg, 2)
+    _only(label, launches, ("K7",))
+    log(f"{label} summary: frame {rec['frame_ms']:.3f} ms, {rec['mrays']:.3f} "
+        f"Mray/s, K7 {rec['per_frame']['K7']:.2f} launches per frame, "
+        f"{rec['modes']['K7 global'] / 3:.2f} of them global")
+    out[label] = (r, cfg, launches, rec)
+    return out
+
+
+def compare_k6_ordered(label, ds, rays, iters=5):
+    """K6's ordered instance walk on one packed queue: against its plain
+    version bitwise, and against the preorder walk: t bitwise, triangles
+    and instances equal except on exact-t ties, which are counted. Returns
+    its record."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+
+    bb = ds.tlas_k6
+    n = rays.shape[1]
+    hk = tt.launch(bb, rays, False, ordered=True)
+    hp, p_ms = _plain_ms(lambda: tt.plain(bb, rays, False, ordered=True))
+    bad, err = _equal(hk, hp)
+    ms = cuda_ms(lambda: tt.launch(bb, rays, False, ordered=True), iters)
+    pre_ms = cuda_ms(lambda: tt.launch(bb, rays, False), iters)
+    h = tt.out_to_hit(bb, hk, n)
+    h0 = tt.out_to_hit(bb, tt.launch(bb, rays, False), n)
+    ties = _across(f"{label} K6 ordered vs preorder", h.t, h.tri, h0.t, h0.tri)
+    ties_inst = int((h.inst != h0.inst).sum())
+    b_ms, b_by, pairs = tlas_bound(ds, "K6", rays, h.t, False)
+    log(f"  {label:34s} K6 ordered: {bad} vs plain not bitwise, {ms:.3f} ms "
+        f"(plain {p_ms:.1f}, K6 preorder {pre_ms:.3f}), vs preorder t bitwise, "
+        f"{ties} triangle and {ties_inst} instance exact-t ties; bound "
+        f"{b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs)")
+    check(bad == 0, f"{label}: K6 ordered disagrees with its plain version")
+    check(max(ties, ties_inst) <= n // 1000, f"{label}: {ties} K6 ordered ties")
+    return {"ms": ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b_ms,
+            "bound_by": b_by, "preorder_ms": pre_ms}
+
+
+def compare_k7_modes(label, r, cfg, smi, iters=3):
+    """K7 with the top tree read from global memory against K7 with it
+    staged in shared memory, on the path's primary chunk with the most
+    hits: both against the plain version, bitwise, closest and any-hit,
+    each timed. Returns the global mode's record."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
+
+    st, fr = r.device_scene.tlas_stream
+    c, rays = _best_chunk(r, cfg, lambda q: tts.launch(st, fr, q, False)[1])
+    n = rays.shape[1]
+    log(f"K7 global against K7 staged on the {label} path's primary chunk "
+        f"{c} ({fr.num_entries} entries, {tts.top_bytes(fr)} B of top tree), "
+        f"{smi}:")
+    hs = tts.launch(st, fr, rays, False, staged=True)
+    hg = tts.launch(st, fr, rays, False, staged=False)
+    hp, p_ms = _plain_ms(lambda: tts.plain(st, fr, rays, False))
+    bad_sg, err = _equal(hg, hs)
+    bad_p = _equal(hg, hp)[0] + _equal(hs, hp)[0]
+    s_ms = cuda_ms(lambda: tts.launch(st, fr, rays, False, staged=True), iters)
+    g_ms = cuda_ms(lambda: tts.launch(st, fr, rays, False, staged=False), iters)
+    hit = tts.out_to_hit(st, fr, hs, n)
+    scale = torch.where(torch.arange(n, device=rays.device) % 2 == 0, 0.999, 1.001)
+    orays = rays.clone()
+    orays[7] = torch.where(rays[7] > rays[6],
+                           torch.where(hit.tri >= 0, hit.t * scale, 1e30),
+                           rays[7])
+    occ = _equal(tts.launch(st, fr, orays, True, staged=False),
+                 tts.launch(st, fr, orays, True, staged=True))[0]
+    os_ms = cuda_ms(lambda: tts.launch(st, fr, orays, True, staged=True), iters)
+    og_ms = cuda_ms(lambda: tts.launch(st, fr, orays, True, staged=False), iters)
+    b_ms, b_by, pairs = tlas_bound(r.device_scene, "K7", rays, hit.t, False)
+    log(f"  {label} primary chunk {c}: closest global {bad_sg} vs staged, "
+        f"{bad_p} vs plain not bitwise; staged {s_ms:.3f} ms, global "
+        f"{g_ms:.3f} ms (plain {p_ms:.1f}); any-hit global {occ} vs staged "
+        f"mismatched, staged {os_ms:.3f} ms, global {og_ms:.3f} ms; hit "
+        f"{(hit.tri >= 0).float().mean().item():.3f}, "
+        f"{len(set(hit.inst[hit.inst >= 0].tolist()))} instances hit; bound "
+        f"{b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs)")
+    check(bad_sg == 0 and bad_p == 0 and occ == 0,
+          f"{label}: K7's global and staged modes disagree")
+    return {"ms": g_ms, "plain_ms": p_ms, "max_abs_err": err,
+            "bound_ms": b_ms, "bound_by": b_by, "staged_ms": s_ms,
+            "occ_ms": og_ms, "occ_staged_ms": os_ms}
 
 
 def _tlas_fns(ds, kernel):
@@ -1503,61 +1939,22 @@ def _tlas_queues(r, cfg, rng):
     animation frame: the primary chunk with the most hits, a bounce-1 queue
     from its hit points (scattered directions, dead where the primary
     missed) and the sun shadow queue from the same points."""
-    import torch
-
-    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
-    from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
-    from realtimepathtracingresearchframework_tpu_torch.ops import (
-        traverse_resident as tr,
-    )
-    from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
-    from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
-
     kernel = r._route.tlas.upper()
     launch, _, decode = _tlas_fns(r.device_scene, kernel)
-    width, height = r.fb_width, r.fb_height
-    view = integrator.ViewBuffers(*(
-        torch.from_numpy(a).to(DEVICE) for a in cfg.camera.view_basis(width, height)))
-
-    def primaries(c):
-        px, py, valid = (x[c] for x in r._swizzle)
-        state = pointsets.make_state(0, 0, 0, px, py, width)
-        _, ro, rd = integrator.camera_setup(
-            integrator.IntegratorConfig(), view, px, py,
-            (float(width), float(height)), state)
-        return tr.pack_rays(ro, rd, 0.0, torch.where(valid, T_MAX, 0.0), 512)[0]
-
-    hits = [int((launch(primaries(c), False)[1] >= 0).sum())
-            for c in range(len(r._swizzle[0]))]
-    c = int(np.argmax(hits))
-    prim = primaries(c)
-    n = prim.shape[1]
-    t = decode(launch(prim, False), n).t
-    hit = t < 1e30
-    p = [prim[k] + prim[3 + k] * torch.where(hit, t, 0.0) for k in range(3)]
-    eps = (torch.sqrt(p[0] * p[0] + p[1] * p[1] + p[2] * p[2])
-           + torch.where(hit, t, 0.0)) * integrator.RAY_EPSILON
-    d = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)).to(DEVICE)
-    d = d / torch.sqrt((d * d).sum(0))
-    bounce, _ = tr.pack_rays(Vec3(*p), Vec3(*d), eps, torch.where(hit, T_MAX, 0.0),
-                             512)
-    sun = np.asarray(cfg.scene_config.sun_dir, np.float32)
-    sun = torch.from_numpy(sun / np.linalg.norm(sun)).to(DEVICE)
-    shadow, _ = tr.pack_rays(Vec3(*p), Vec3(*(sun[k].expand(n) for k in range(3))),
-                             eps, torch.where(hit, 2.0e16, 0.0), 512)
+    c, prim = _best_chunk(r, cfg, lambda q: launch(q, False)[1])
+    t = decode(launch(prim, False), prim.shape[1]).t
+    bounce, shadow = _next_queues(prim, t, cfg, rng)
     return [(f"primary chunk {c}", prim, None), ("bounce 1", bounce, None),
             ("sun shadow", shadow, shadow)]
 
 
 def phase_tlas(paths, smi):
     """K6 and K7 against their plain versions on each instanced path's
-    queues, and K6 = K7 on the instanced500 queues. Returns {kernel:
-    record} of the 1080p paths' primary chunks."""
+    queues, K6's ordered walk on the instanced500 closest queues, and K6 =
+    K7 on the instanced500 queues. Returns {kernel: record} of the 1080p
+    paths' primary chunks ("K6 ordered" too)."""
     import torch
 
-    from realtimepathtracingresearchframework_tpu_torch.ops import (
-        traverse_tlas as tt,
-    )
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_tlas_stream as tts,
     )
@@ -1577,6 +1974,11 @@ def phase_tlas(paths, smi):
                 records[kernel] = rec
         if kernel != "K6":
             continue
+        # K6's ordered instance walk on the closest queues
+        for qname, rays, _, _, _ in results[:2]:
+            rec = compare_k6_ordered(f"{label} {qname}", r.device_scene, rays)
+            if qname.startswith("primary"):
+                records["K6 ordered"] = rec
         # K6 = K7: a K7 pack of the same scene at the same frame
         ds = r.device_scene
         st = tts.pack_tlas_stream_static(r._mesh_tris, device=DEVICE)
@@ -1660,7 +2062,7 @@ def phase_small_instanced():
                     for f in range(2):
                         r.set_animation_frame(f + 1)
                         r.render(cfg)
-                        rays.append(r.last_ray_count())
+                        rays.append(r.last_frame_rays())
                     out[device] = (r.readback_accumulation()[..., :3], rays,
                                    {k: read() for k, (_, read) in counters.items()},
                                    integrator.alpha_hops)
@@ -1700,7 +2102,11 @@ def main():
     del mega
     terrain, terrain_merged = phase_terrain_path()
     stream, (r500, cfg500) = phase_stream_paths()
+    strategies, (rq, cfgq) = phase_stream_strategies(r500, cfg500)
     tlas_paths = phase_tlas_paths()
+    tlas_slice = phase_tlas_slice()
+    k6_ordered_launches = (
+        tlas_slice["instanced500 1080p ordered"][3]["modes"]["K6 ordered"])
     tlas_k7_launches = tlas_paths["instanced600 1080p"][2]["K7"]
     tlas_k6_launches = tlas_paths["instanced500 1080p"][2]["K6"]
     k1 = dict(phase_parity(smi), launches=k1_launches)
@@ -1708,11 +2114,18 @@ def main():
     flat = phase_flat(smi)
     streamed = phase_streamed(r500, cfg500, smi)
     del r500
+    rec4q, rec4q_ordered, rec5q, rec_multislot = phase_streamed_quantized(
+        rq, cfgq, smi)
+    del rq
     phase_goldens()
     phase_small_terrain()
     phase_small_streamed()
     tlas = phase_tlas(tlas_paths, smi)
     del tlas_paths
+    past_cap = f"instanced{INST_PAST_CAP} 1080p"
+    r2500, cfg2500, launches2500, rec2500 = tlas_slice[past_cap]
+    k7_global = compare_k7_modes(past_cap, r2500, cfg2500, smi)
+    del r2500, tlas_slice
     phase_small_instanced()
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 
@@ -1722,17 +2135,32 @@ def main():
     # modes: only tests and this script's parity phases launch them)
     flat[tf.K2]["merged"]["launches"] = terrain_merged["K2"]
     streamed["traverse_streamed"]["merged"]["launches"] = stream_merged["K4"]
-    log(f"village path launches {village}")
+    # this slice's modes, each with the launches of the path that runs it
+    quantized = strategies["quantized"]["launches"]
+    streamed["traverse_streamed"]["quantized"] = dict(
+        rec4q, launches=quantized["K4"])
+    streamed["traverse_streamed"]["ordered"] = dict(
+        streamed["traverse_streamed"]["ordered"],
+        launches=strategies["ordered"]["modes"]["K4 ordered"])
+    log(f"K4 ordered on int16 tiles (no path of this script): {rec4q_ordered}")
+    rec5 = dict(streamed["traverse_binned"], quantized=dict(
+        rec5q, launches=quantized["K5"]), multislot=dict(
+        rec_multislot, launches=strategies["multislot"]["modes"]["multislot"]))
+    k6 = dict(tlas["K6"], launches=tlas_k6_launches, ordered=dict(
+        tlas["K6 ordered"], launches=k6_ordered_launches))
+    k7 = dict(tlas["K7"], launches=tlas_k7_launches, **{"global": dict(
+        k7_global, launches=rec2500["modes"]["K7 global"])})
+    log(f"village path launches {village}; {past_cap} launches "
+        f"{launches2500}")
     records = {
         "traverse_resident": k1,
         tf.K2: dict(flat[tf.K2], launches=terrain["K2"]),
         tf.K3: dict(flat[tf.K3], launches=terrain["K3"]),
         "traverse_streamed": dict(streamed["traverse_streamed"],
                                   launches=main_stream["K4"]),
-        "traverse_binned": dict(streamed["traverse_binned"],
-                                launches=main_stream["K5"]),
-        "traverse_tlas": dict(tlas["K6"], launches=tlas_k6_launches),
-        "traverse_tlas_stream": dict(tlas["K7"], launches=tlas_k7_launches),
+        "traverse_binned": dict(rec5, launches=main_stream["K5"]),
+        "traverse_tlas": k6,
+        "traverse_tlas_stream": k7,
     }
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1746,14 +2174,16 @@ def main():
             # no single PyTorch call computes a BVH closest hit
             "library_ms": None,
         })
-        if "merged" in rec:
-            m = rec["merged"]
-            kernels[-1]["merged"] = {
-                k: m[k] for k in ("launches", "ms", "plain_ms", "separate_ms",
-                                  "bound_ms", "max_abs_err")}
+        for mode in ("merged", "quantized", "ordered", "multislot", "global"):
+            if mode in rec:
+                m = rec[mode]
+                kernels[-1][mode] = {
+                    k: m[k] for k in ("launches", "ms", "plain_ms",
+                                      "separate_ms", "k5_ms", "staged_ms",
+                                      "bound_ms", "max_abs_err") if k in m}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"ok": True, "device": {
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -12,9 +12,12 @@ on the streamed route; renderer.py:894-917) plus the lights and sky
 (renderer.py:961-1058). ``render`` runs the frame: the host chunk loop of
 the monolithic pass (renderer.py:1244-1440), or on large resident scenes
 the bounce-major wavefront executor (renderer.py:1340-1370;
-``ops/wavefront_host.py``), accumulating in place.
-``readback_accumulation`` un-swizzles the planar buffers into an
-(H, W, 4) image.
+``ops/wavefront_host.py``), accumulating in place, and returns the
+``RenderStats``. ``readback_accumulation`` un-swizzles the planar buffers
+into an (H, W, 4) image; ``readback_framebuffer`` resolves them first to
+the sRGB display image (``ops/resolve.py``; renderer.py:1525-1552).
+``configure_for`` applies new options, rebuilding the scene where they
+change what ``set_scene`` builds (renderer.py:425-470).
 
 Routes: up to 16,383 triangles the resident walk K1; from 16,384 to
 90,000 the flat-cull kernels K2 and K3 with coherence-sorted queues and the
@@ -22,12 +25,14 @@ wavefront executor; above 90,000 (or with
 ``RPTR_FORCE_STREAMED_TRAVERSAL``) the streamed route: the monolithic pass
 with the sorted streamed walk K4 for closest hits and one binned round of
 K5 for shadow rays (``RPTR_STREAM_CLOSEST`` picks the closest-hit
-strategy). With ``options.use_tlas`` the scene is instanced two-level
-(renderer.py:692-769): a BLAS per unique mesh in object space and a TLAS
-over the instances, through K6 within its caps (``MAX_INSTANCES``
-instances, ``MAX_TOTAL_NODES`` BLAS + TLAS nodes) and K7 past them, up to
-``MAX_ENTRIES`` (instance, chunk) entries; above that the reference's XLA
-walk is not a route of the port and ``set_scene`` raises.
+strategy: sorted, ordered, binned or multislot), on f32 tiles or, with
+``options.quantized_geometry``, 16-bit quantized ones. With
+``options.use_tlas`` the scene is instanced two-level (renderer.py:
+692-769): a BLAS per unique mesh in object space and a TLAS over the
+instances, through K6 within its caps (``MAX_INSTANCES`` instances,
+``MAX_TOTAL_NODES`` BLAS + TLAS nodes) and K7 past them at any number of
+(instance, chunk) entries (the reference's cap of 2,048 is its SMEM entry
+table, and its XLA walk past it is the port's CPU oracle only).
 ``set_animation_frame`` rebuilds only the TLAS side (renderer.py:
 1888-1962). Textured scenes upload a texture atlas and, where a textured
 material can cut, run the alpha test on every route (renderer.py:918-938).
@@ -79,6 +84,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.integrator import (
     planes_to_image,
     swizzle_host,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import resolve as resolve_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import texture_atlas
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_flat import (
     pack_flat,
@@ -95,6 +101,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops import (
 from realtimepathtracingresearchframework_tpu_torch.ops.wavefront_host import (
     WavefrontExecutor,
 )
+from realtimepathtracingresearchframework_tpu_torch.utils.error_io import warning
 
 # resident-kernel policy (renderer.py:113-124, 605-608): the flat cull and
 # the coherence sort from this many triangles, the resident kernels up to
@@ -168,6 +175,18 @@ def route_for(num_tris: int) -> Route:
 
 
 @dataclass
+class RenderStats:
+    """librender/render_backend.h:15-24 (renderer.py:126-134)."""
+
+    render_time: float = 0.0  # ms
+    spp: int = 0
+    rays_per_second: float = -1.0
+    device_bytes_currently_allocated: int = 0
+    max_device_bytes_allocated: int = 0
+    total_device_bytes: int = 0
+
+
+@dataclass
 class FrameConfig:
     """Per-frame inputs (camera, params, scene config)."""
 
@@ -209,6 +228,12 @@ class Renderer:
         self._streamed_topo = None  # for the streamed refit (ROADMAP item 17)
         self._last_rays: List[torch.Tensor] = []
         self.live_profile: List[int] = []  # wavefront live lanes per bounce
+        self._scene_config = SceneConfig()
+        self._scene_frame = 0
+        self._frame_events = None  # CUDA events around the last frame
+        self._last_render_ms = 0.0
+        self._resolve_args = (0.0, -1)  # exposure, early tone mapping mode
+        self._total_device_bytes = None
 
     def variants(self) -> List[str]:
         """The variant list in the reference's registration order
@@ -219,6 +244,11 @@ class Renderer:
             VARIANT_WAVEFRONT, VARIANT_RQ_CLOSEST, VARIANT_GBUFFER,
             VARIANT_RT_DEBUG,
         ]
+
+    def supported_variants(self) -> List[str]:
+        """The variants the port renders, in the reference's order
+        (renderer.py:306)."""
+        return [v for v in self.variants() if v in PORTED_VARIANTS]
 
     def set_variant(self, name: str) -> bool:
         """Select the active integrator (renderer.py:311-321). The
@@ -267,6 +297,7 @@ class Renderer:
         lights and sky. ``frame`` is the animation frame of the instance
         transforms (the reference's ``_rebuild_scene(frame)``)."""
         self.scene = scene
+        self._scene_config = scene_config
         flat = scene.flatten_world(frame=frame,
                                    lod_threshold=scene_config.lod_threshold)
         if scene.has_lod_groups():
@@ -292,11 +323,13 @@ class Renderer:
             bvh, ix = None, slice(None)
         elif route.streamed:
             if self.options.quantized_geometry:
-                raise NotImplementedError(
-                    "quantized streamed geometry is not ported yet "
-                    f"({traverse_stream.QUANTIZED_ITEM})")
-            bvh, self._streamed_topo = traverse_stream.pack_streamed(
-                flat.v0, flat.e1, flat.e2, with_topology=True, device=dev)
+                # 16-bit tiles (renderer.py:788-792): no refit topology
+                bvh = traverse_stream.pack_streamed(
+                    flat.v0, flat.e1, flat.e2, quantize=True, device=dev)
+                self._streamed_topo = None
+            else:
+                bvh, self._streamed_topo = traverse_stream.pack_streamed(
+                    flat.v0, flat.e1, flat.e2, with_topology=True, device=dev)
             # hits carry source triangle ids: attributes in source order
             ix = slice(None)
         else:
@@ -315,7 +348,8 @@ class Renderer:
         self.setup_seconds = time.perf_counter() - t0
         if route.streamed:
             print(f"set_scene: streamed pack of {flat.num_tris} tris into "
-                  f"{bvh.num_subtrees} subtrees of {bvh.sub_leaves} leaves in "
+                  f"{bvh.num_subtrees} subtrees of {bvh.sub_leaves} leaves, "
+                  f"{'int16' if bvh.quantized else 'f32'} tiles, in "
                   f"{self.setup_seconds:.2f} s", flush=True)
         if route.tlas:
             print(f"set_scene: two-level {route.tlas.upper()} route, "
@@ -364,12 +398,11 @@ class Renderer:
         """The two-level build of ``set_scene`` (renderer.py:692-769): the
         nested walk's BLAS set over the unique meshes (``mesh_tris``), and
         K6's 128-leaf BLASes when the scene is within its caps, else K7's
-        chunk blocks when its entries fit, else ``NotImplementedError``;
-        then this frame's TLAS side. ``binding`` is (mesh id, material
-        offset) per instance. The entry count comes from the mesh sizes,
-        before any chunk is built (the reference packs first,
-        renderer.py:746). Returns (TwoLevelBuffers, K6 buffers or None, K7
-        (static, frame) or None)."""
+        chunk blocks at any entry count (rows past int32 raise
+        ``ValueError``, checked from the mesh sizes before any chunk is
+        built); then this frame's TLAS side. ``binding`` is (mesh id,
+        material offset) per instance. Returns (TwoLevelBuffers, K6 buffers
+        or None, K7 (static, frame) or None)."""
         mesh_ids = binding[0]
         self._mesh_tris = mesh_tris
         self._inst_binding = tuple(binding)
@@ -383,12 +416,9 @@ class Renderer:
                 self._k6_static = static
         if self._k6_static is None:
             sizes = [len(m[0]) for m in mesh_tris]
-            entries = traverse_tlas_stream.entry_count(sizes, mesh_ids)
-            if entries > traverse_tlas_stream.MAX_ENTRIES:
-                raise NotImplementedError(
-                    f"{entries} (instance, chunk) entries are past K7's cap "
-                    f"of {traverse_tlas_stream.MAX_ENTRIES}; the reference's "
-                    "XLA walk there is not a route of the port")
+            traverse_tlas_stream.check_rows(
+                traverse_tlas_stream.entry_count(sizes, mesh_ids),
+                traverse_tlas_stream.pick_chunk_tris(sizes))
             self._k7_static = traverse_tlas_stream.pack_tlas_stream_static(
                 mesh_tris, device=self.device)
         return self._build_tlas_buffers(self.scene.instance_transforms(frame))
@@ -503,10 +533,15 @@ class Renderer:
             and self.device_scene is not None
         )
 
-    def render(self, config: FrameConfig, batch_spp: Optional[int] = None) -> None:
+    def render(self, config: FrameConfig,
+               batch_spp: Optional[int] = None) -> RenderStats:
         """One frame: ``batch_spp`` samples per pixel, each as one pass
-        per chunk, accumulated in place. Returns once every pass is
-        queued on the device (no synchronisation)."""
+        per chunk, accumulated in place. Returns ``stats()`` once every
+        pass is queued on the device, without synchronising: on a card the
+        frame is timed by a pair of CUDA events around its queued work,
+        read when it has completed (so the returned ``render_time`` is
+        that of the last completed frame, the reference's delayed-timestamp
+        design, renderer.py:1405-1436); on the CPU by the host clock."""
         params = config.params
         spp = int(batch_spp if batch_spp is not None else params.batch_spp)
         if (
@@ -518,6 +553,12 @@ class Renderer:
                 "reprojection, TAA and upscaling are not ported yet "
                 "(ROADMAP item 20)"
             )
+        cuda = self.device.type == "cuda"
+        t0 = time.perf_counter()
+        self._read_frame_time(wait=False)  # the previous frame's, if done
+        if cuda:
+            events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+            events[0].record()
         pos, du, dv, tl = config.camera.view_basis(self.fb_width, self.fb_height)
 
         def f32(a):
@@ -562,17 +603,124 @@ class Renderer:
                                         valid_c[c], s, base_k))
         self._last_rays = rays
         self.frame_id += spp
+        # the display resolve is deferred to the readback (renderer.py:
+        # 1402-1404)
+        self._resolve_args = (float(params.exposure),
+                              int(params.early_tone_mapping_mode))
+        if cuda:
+            events[1].record()
+            self._frame_events = events
+        else:
+            self._last_render_ms = (time.perf_counter() - t0) * 1e3
+        return self.stats()
 
-    def last_ray_count(self) -> int:
-        """Traced rays (closest + shadow) of the last frame; synchronises."""
+    def reset_accumulation(self) -> None:
+        """The next frame blends as the first sample (renderer.py:1074)."""
+        self.frame_id = 0
+
+    def _validate_options(self, options):
+        """(ok, adjusted): out-of-range options clamped to the supported
+        lattice, the auto-adjust strategy of renderer.py:408-423."""
+        adj = {}
+        if not (0 <= options.rng_variant <= 3):
+            adj["rng_variant"] = min(max(options.rng_variant, 0), 3)
+        if not (1 <= options.light_sampling_bucket_count <= 64):
+            adj["light_sampling_bucket_count"] = min(
+                max(int(options.light_sampling_bucket_count), 1), 64)
+        if options.render_upscale_factor < 1:
+            adj["render_upscale_factor"] = 1
+        if not (0 <= options.aniso_taps <= 16):
+            adj["aniso_taps"] = min(max(int(options.aniso_taps), 0), 16)
+        return (not adj), (options.replace(**adj) if adj else options)
+
+    def configure_for(self, options) -> bool:
+        """Apply options (renderer.py:425-470, without the extensions'
+        negotiation, ROADMAP item 21): invalid values are clamped to the
+        supported lattice (then False is returned); a change of
+        ``use_tlas`` or ``quantized_geometry`` rebuilds the scene with
+        ``set_scene`` at its scene config and animation frame, since those
+        options change what it builds. If the rebuild fails, the exception
+        is logged, the renderer's last good state (options, scene, buffers)
+        is restored and False is returned. Returns True iff the options
+        applied unmodified."""
+        ok, adjusted = self._validate_options(options)
+        if not ok:
+            warning("invalid render options; auto-adjusted to supported values")
+        if adjusted != self.options:
+            rebuild = self.scene is not None and any(
+                getattr(adjusted, f) != getattr(self.options, f)
+                for f in ("use_tlas", "quantized_geometry"))
+            last_good = dict(self.__dict__)  # options, scene and buffers
+            try:
+                self.options = adjusted
+                self._wavefront = None  # its programs hold the old options
+                if rebuild:
+                    self.set_scene(self.scene, self._scene_config,
+                                   frame=self._scene_frame)
+            except Exception as e:  # revert to the last good state
+                warning("option apply failed (%r); reverting", e)
+                self.__dict__.clear()
+                self.__dict__.update(last_good)
+                return False
+        return ok
+
+    def last_frame_rays(self) -> int:
+        """Traced rays (closest + shadow) of the last frame; synchronises
+        (renderer.py:1684-1692)."""
         return int(sum(int(r) for r in self._last_rays))
+
+    def _read_frame_time(self, wait: bool) -> None:
+        """Take the last frame's time from its CUDA events once its work
+        has completed (``wait``: wait for it); no host sync otherwise."""
+        events = self._frame_events
+        if events is not None and (wait or events[1].query()):
+            events[1].synchronize()
+            self._last_render_ms = events[0].elapsed_time(events[1])
+            self._frame_events = None
+
+    def stats(self, force_rays: bool = False) -> RenderStats:
+        """The reference's ``stats`` (renderer.py:1694-1733): the last
+        completed frame's time, the accumulated samples, and the device
+        allocator's current and peak bytes and the card's total (read once;
+        0 on the CPU).
+        ``rays_per_second`` is -1 unless ``force_rays``, which reads the
+        ray count and waits for the last frame."""
+        self._read_frame_time(wait=force_rays)
+        mem = peak = total = 0
+        if self.device.type == "cuda":
+            mem = torch.cuda.memory_allocated(self.device)
+            peak = torch.cuda.max_memory_allocated(self.device)
+            if self._total_device_bytes is None:  # a runtime query: once
+                self._total_device_bytes = torch.cuda.mem_get_info(
+                    self.device)[1]
+            total = self._total_device_bytes
+        rps = -1.0
+        if force_rays and self._last_render_ms > 0:
+            rps = self.last_frame_rays() / (self._last_render_ms * 1e-3)
+        return RenderStats(
+            render_time=self._last_render_ms, spp=self.frame_id,
+            rays_per_second=rps, device_bytes_currently_allocated=mem,
+            max_device_bytes_allocated=peak, total_device_bytes=total)
+
+    def _planes(self):
+        """The accumulation's four channel planes over the whole frame."""
+        return [torch.cat([c[k] for c in self._acc_chunks]) for k in range(4)]
+
+    def readback_framebuffer(self) -> np.ndarray:
+        """The sRGB display image (H, W, 4) float32 (renderer.py:1525-1552):
+        the accumulation resolved by ``ops/resolve.py::resolve_channels``
+        with the last frame's ``params.exposure`` and
+        ``early_tone_mapping_mode`` (renderer.py:1486-1488), on the device,
+        then un-swizzled on the host."""
+        exposure, tonemap = self._resolve_args
+        planes = resolve_mod.resolve_channels(self._planes(), exposure, tonemap)
+        return planes_to_image(
+            np.stack([p.cpu().numpy() for p in planes]), self.fb_width,
+            self.fb_height, self.rays_per_pass)
 
     def readback_accumulation(self) -> np.ndarray:
         """Linear HDR accumulation buffer (H, W, 4) float32."""
-        planes = np.stack([
-            torch.cat([c[k] for c in self._acc_chunks]).cpu().numpy()
-            for k in range(4)
-        ])
+        planes = np.stack([p.cpu().numpy() for p in self._planes()])
         return planes_to_image(
             planes, self.fb_width, self.fb_height, self.rays_per_pass
         )

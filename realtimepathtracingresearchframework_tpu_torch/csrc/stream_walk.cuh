@@ -14,7 +14,7 @@
 // f holds field f (v0, e1, e2 xyz) of its 128 triangles, so the 32 threads
 // of a warp that test the same triangle read one address (a broadcast).
 //
-// The walk equals the port's plain threaded walk (ops/traverse.py::_walk)
+// The walk equals the port's plain threaded walk (ops/traverse.py::walk_ranges)
 // on the subtree decoded to the resident layout
 // (traverse_stream.subtree_resident): enter a node when the slab test
 // passes with t_far capped by the ray's best hit, else jump to its skip
@@ -23,12 +23,27 @@
 // tt < min(t_best, tmax), so a hit improves strictly and the first visited
 // triangle keeps an exact-t tie.
 //
+// Quantized packs (traverse_stream.pack_streamed(quantize=True)) hold int16
+// codes, offset by -32768, in the same tile layout (rows 0-8: q0, q1, q2
+// xyz), and each subtree's grid min and scale in the first six floats of the
+// last slot of its node block, which no walk lands on. The leaf loop decodes
+// a triangle as traverse_stream.dequant_tile does: v0 = c + (q0 + 32768) * s
+// and the edges (qk - q0) * s, the codes going int16 -> int -> float (never
+// through float bit patterns), so the decoded triangle is bitwise
+// traverse_stream.reconstruct_quantized's.
+//
+// The ordered (front-to-back) walks of K4 and K6 (next_ordered) pick, per
+// ray, the top leaf with the least (entry t, preorder index) above the last
+// visited one by re-walking the top tree, instead of the TPU kernels'
+// per-packet candidate list in SMEM: two registers and no list.
+//
 // Built with --fmad=false and without fast math (kernels/build.py): every
 // multiply and add rounds on its own, as in the plain version's tensor ops.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace rptr_stream {
@@ -94,30 +109,122 @@ struct Best {
   bool blocked;
 };
 
-// ops/intersect.py::ray_aabb on the node box b[0:6], segment [tmin, tcap]
-__device__ __forceinline__ bool slab(const float* b, const Ray& r,
-                                     float tcap) {
+// ops/intersect.py::ray_aabb on the node box b[0:6], segment [tmin, tcap];
+// ``tenter`` receives the entry t
+__device__ __forceinline__ bool slab_entry(const float* b, const Ray& r,
+                                           float tcap, float& tenter) {
   const float t0x = (b[0] - r.ox) * r.ix;
   const float t0y = (b[1] - r.oy) * r.iy;
   const float t0z = (b[2] - r.oz) * r.iz;
   const float t1x = (b[3] - r.ox) * r.ix;
   const float t1y = (b[4] - r.oy) * r.iy;
   const float t1z = (b[5] - r.oz) * r.iz;
-  const float tenter = fmaxf(
+  tenter = fmaxf(
       fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z)), r.tmin);
   const float texit = fminf(
       fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z)), tcap);
   return tenter <= texit;
 }
 
+__device__ __forceinline__ bool slab(const float* b, const Ray& r,
+                                     float tcap) {
+  float tenter;
+  return slab_entry(b, r, tcap, tenter);
+}
+
+// A top-tree node's 8 floats into registers: from shared memory, or (kGlobal)
+// from global memory through the read-only path in two 16-byte loads.
+template <bool kGlobal>
+__device__ __forceinline__ void load_node(const float* p, float (&nd)[8]) {
+  if (kGlobal) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    nd[0] = a.x; nd[1] = a.y; nd[2] = a.z; nd[3] = a.w;
+    nd[4] = b.x; nd[5] = b.y; nd[6] = b.z; nd[7] = b.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) nd[k] = p[k];
+  }
+}
+
+// One pick of the ordered walk over a top tree of num_top nodes (min3, max3,
+// skip, payload or -1): the leaf with the least (entry t, preorder index)
+// above (last_e, last_j) among the leaves the slab test enters with t_far
+// capped at ``cap`` (the ray's best t so far). Returns its preorder index
+// (its entry t in ``e``), or -1 when none is left. A subtree whose box is
+// entered later than the best candidate so far cannot hold a better one, so
+// the scan caps t_far at that candidate's entry too. Node boxes contain
+// their children's, so a leaf is found exactly where its own slab test
+// passes: the plain version (ops/tlas.py::ordered_sweep) compares the
+// leaves' entries directly.
+template <bool kGlobal>
+__device__ int next_ordered(const float* top, int num_top, const Ray& r,
+                            float cap, float last_e, int last_j, float& e) {
+  float ce = INFINITY;
+  int cj = -1;
+  int cur = 0;
+  while (cur < num_top) {
+    float nd[8];
+    load_node<kGlobal>(top + 8 * cur, nd);
+    float te;
+    const bool hit_box = slab_entry(nd, r, fminf(cap, ce), te);
+    const int payload = static_cast<int>(nd[7]);
+    if (hit_box && payload >= 0 && te < ce &&
+        (te > last_e || (te == last_e && cur > last_j))) {
+      ce = te;
+      cj = cur;
+    }
+    cur = (hit_box && payload < 0) ? cur + 1 : static_cast<int>(nd[6]);
+  }
+  e = ce;
+  return cj;
+}
+
+// The grid of a quantized subtree: min xyz, scale xyz
+struct Dequant {
+  float c[3], s[3];
+};
+
+// The constants of a subtree from the last slot of its node block
+__device__ __forceinline__ Dequant dequant_of(const float* nodes, int slots) {
+  const float* q = nodes + 8 * (slots - 1);
+  return Dequant{{q[0], q[1], q[2]}, {q[3], q[4], q[5]}};
+}
+
+// Triangle k of a field-major leaf tile: v0, e1, e2 xyz
+__device__ __forceinline__ void load_tri(const float* __restrict__ tile,
+                                         int k, const Dequant&,
+                                         float (&f)[9]) {
+#pragma unroll
+  for (int j = 0; j < 9; ++j) f[j] = __ldg(tile + j * kLeaf + k);
+}
+
+// Triangle k of a quantized tile, decoded in traverse_stream.dequant_tile's
+// expression order
+__device__ __forceinline__ void load_tri(const int16_t* __restrict__ tile,
+                                         int k, const Dequant& dq,
+                                         float (&f)[9]) {
+  float q[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    q[j] = static_cast<float>(static_cast<int>(__ldg(tile + j * kLeaf + k)));
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    f[a] = dq.c[a] + (q[a] + 32768.0f) * dq.s[a];
+    f[3 + a] = (q[3 + a] - q[a]) * dq.s[a];
+    f[6 + a] = (q[6 + a] - q[a]) * dq.s[a];
+  }
+}
+
 // Walk one subtree: ``nodes`` its node block (shared or global memory),
-// ``tile0`` its first leaf tile, ``row0`` the global row of its first
-// triangle. Closest mode updates b (t, row, u, v); any-hit mode sets
-// b.blocked at the first hit and returns.
-template <bool kAnyHit>
+// ``tile0`` its first leaf tile (f32, or int16 codes decoded with ``dq``),
+// ``row0`` the global row of its first triangle. Closest mode updates b (t,
+// row, u, v); any-hit mode sets b.blocked at the first hit and returns.
+template <bool kAnyHit, typename Tile>
 __device__ void walk_subtree(const float* nodes, int slots,
-                             const float* __restrict__ tile0, int row0,
-                             const Ray& r, Best& b) {
+                             const Tile* __restrict__ tile0, int row0,
+                             const Ray& r, Best& b, const Dequant& dq) {
   int c = 0;
   while (c < slots) {
     const float* nd = nodes + 8 * c;
@@ -125,17 +232,13 @@ __device__ void walk_subtree(const float* nodes, int slots,
     const int skip = static_cast<int>(nd[6]);
     const int leaf = static_cast<int>(nd[7]);
     if (hit_box && leaf >= 0) {
-      const float* tile = tile0 + static_cast<size_t>(leaf) * 16 * kLeaf;
+      const Tile* tile = tile0 + static_cast<size_t>(leaf) * 16 * kLeaf;
       for (int k = 0; k < kLeaf; ++k) {
-        const float v0x = __ldg(tile + 0 * kLeaf + k);
-        const float v0y = __ldg(tile + 1 * kLeaf + k);
-        const float v0z = __ldg(tile + 2 * kLeaf + k);
-        const float e1x = __ldg(tile + 3 * kLeaf + k);
-        const float e1y = __ldg(tile + 4 * kLeaf + k);
-        const float e1z = __ldg(tile + 5 * kLeaf + k);
-        const float e2x = __ldg(tile + 6 * kLeaf + k);
-        const float e2y = __ldg(tile + 7 * kLeaf + k);
-        const float e2z = __ldg(tile + 8 * kLeaf + k);
+        float f[9];
+        load_tri(tile, k, dq, f);
+        const float v0x = f[0], v0y = f[1], v0z = f[2];
+        const float e1x = f[3], e1y = f[4], e1z = f[5];
+        const float e2x = f[6], e2y = f[7], e2z = f[8];
         const float px = r.dy * e2z - r.dz * e2y;
         const float py = r.dz * e2x - r.dx * e2z;
         const float pz = r.dx * e2y - r.dy * e2x;

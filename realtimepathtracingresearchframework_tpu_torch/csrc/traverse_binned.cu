@@ -4,8 +4,10 @@
 // Replaces the Pallas TPU kernel
 // realtimepathtracingresearchframework_tpu/ops/traverse_binned.py::
 // _kernel_binned (:218, pallas_call at :422), the kernel of
-// occluded_binned and closest_hit_binned. Its plain PyTorch version, which
-// this kernel must equal bit for bit, is ops/traverse_binned.py::plain.
+// occluded_binned, closest_hit_binned and the multislot closest_hit_binned_all,
+// on f32 tiles or the 16-bit quantized tiles (quantized=True, :300-350).
+// Its plain PyTorch version, which this kernel must equal bit for bit, is
+// ops/traverse_binned.py::plain.
 //
 // What it computes, per lane i of a bin-padded (8, n) operand whose bin
 // block (i / block) has subtree sid = sid_blk[i / block]: seed
@@ -20,7 +22,8 @@
 // Design: CUDA blocks of 128 threads, one lane per thread; a bin block is
 // a multiple of 128 lanes, so every thread of a CUDA block shares its
 // subtree, whose node block (node_rows x 128 f32, 4 KB at 64 leaves) the
-// block stages in shared memory. Leaf tiles are read from global memory
+// block stages in shared memory, the grid constants of a quantized subtree
+// with it (its last slot; stream_walk.cuh::load_tri decodes the codes). Leaf tiles are read from global memory
 // (the L2 holds the pack). The TPU kernel's per-block packet bounds and
 // cap, its scalar cursor, flush list, and the skip of the tile DMA when the
 // previous grid step used the same subtree are TPU devices; per-ray
@@ -43,13 +46,14 @@
 namespace {
 
 using rptr_stream::Best;
+using rptr_stream::Dequant;
 using rptr_stream::Ray;
 using rptr_stream::kLeaf;
 using rptr_stream::kThreads;
 
-template <bool kAnyHit>
+template <bool kAnyHit, typename Tile>
 __global__ void __launch_bounds__(kThreads) traverse_binned_kernel(
-    const float* __restrict__ sub_nodes, const float* __restrict__ tiles,
+    const float* __restrict__ sub_nodes, const Tile* __restrict__ tiles,
     int node_rows, int sub_leaves, const int* __restrict__ sid_blk,
     const float* __restrict__ rays, int n, int block,
     const float* __restrict__ in_t, const int* __restrict__ in_row,
@@ -74,10 +78,12 @@ __global__ void __launch_bounds__(kThreads) traverse_binned_kernel(
   Best b{fminf(in_t[i], r.tmax), in_row[i], in_u[i], in_v[i], false};
   if (sid >= 0 && b.t > r.tmin && !(kAnyHit && b.row >= 0)) {
     const int row0 = sid * sub_leaves * kLeaf;
+    const Dequant dq =
+        sizeof(Tile) == 2 ? rptr_stream::dequant_of(nodes, slots) : Dequant{};
     rptr_stream::walk_subtree<kAnyHit>(
         nodes, slots,
         tiles + static_cast<size_t>(sid) * sub_leaves * 16 * kLeaf, row0, r,
-        b);
+        b, dq);
     if (kAnyHit && b.blocked) b.row = row0;
   }
   out_t[i] = b.row < 0 ? rptr_stream::kTMax : b.t;
@@ -86,31 +92,54 @@ __global__ void __launch_bounds__(kThreads) traverse_binned_kernel(
   out_v[i] = b.v;
 }
 
+template <bool kAnyHit, typename Tile>
+int launch(const float* sub_nodes, const void* tiles, int node_rows,
+           int sub_leaves, const int* sid_blk, const float* rays, int n,
+           int block, const float* in_t, const int* in_row, const float* in_u,
+           const float* in_v, float* out_t, int* out_row, float* out_u,
+           float* out_v, cudaStream_t s) {
+  const int grid = (n + kThreads - 1) / kThreads;
+  const size_t smem = sizeof(float) * 8 * 16 * static_cast<size_t>(node_rows);
+  traverse_binned_kernel<kAnyHit, Tile><<<grid, kThreads, smem, s>>>(
+      sub_nodes, static_cast<const Tile*>(tiles), node_rows, sub_leaves,
+      sid_blk, rays, n, block, in_t, in_row, in_u, in_v, out_t, out_row,
+      out_u, out_v);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry for ctypes. ``n`` is a multiple of ``block``, and ``block``
-// of 128. Launches on ``stream`` and returns cudaGetLastError() (0 =
-// launched). The caller allocates the four outputs.
+// of 128; ``quantized``: ``tiles`` holds int16 codes (else f32). Launches on
+// ``stream`` and returns cudaGetLastError() (0 = launched). The caller
+// allocates the four outputs.
 extern "C" int rptr_traverse_binned(
-    const float* sub_nodes, const float* tiles, int node_rows, int sub_leaves,
+    const float* sub_nodes, const void* tiles, int node_rows, int sub_leaves,
     const int* sid_blk, const float* rays, int n, int block, int any_hit,
-    const float* in_t, const int* in_row, const float* in_u,
+    int quantized, const float* in_t, const int* in_row, const float* in_u,
     const float* in_v, float* out_t, int* out_row, float* out_u,
     float* out_v, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (n + kThreads - 1) / kThreads;
-  const size_t smem = sizeof(float) * 8 * 16 * static_cast<size_t>(node_rows);
-  if (any_hit) {
-    traverse_binned_kernel<true><<<grid, kThreads, smem, s>>>(
-        sub_nodes, tiles, node_rows, sub_leaves, sid_blk, rays, n, block, in_t,
-        in_row, in_u, in_v, out_t, out_row, out_u, out_v);
-  } else {
-    traverse_binned_kernel<false><<<grid, kThreads, smem, s>>>(
-        sub_nodes, tiles, node_rows, sub_leaves, sid_blk, rays, n, block, in_t,
-        in_row, in_u, in_v, out_t, out_row, out_u, out_v);
+  if (quantized) {
+    return any_hit
+               ? launch<true, int16_t>(sub_nodes, tiles, node_rows,
+                                       sub_leaves, sid_blk, rays, n, block,
+                                       in_t, in_row, in_u, in_v, out_t,
+                                       out_row, out_u, out_v, s)
+               : launch<false, int16_t>(sub_nodes, tiles, node_rows,
+                                        sub_leaves, sid_blk, rays, n, block,
+                                        in_t, in_row, in_u, in_v, out_t,
+                                        out_row, out_u, out_v, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return any_hit ? launch<true, float>(sub_nodes, tiles, node_rows,
+                                       sub_leaves, sid_blk, rays, n, block,
+                                       in_t, in_row, in_u, in_v, out_t,
+                                       out_row, out_u, out_v, s)
+                 : launch<false, float>(sub_nodes, tiles, node_rows,
+                                        sub_leaves, sid_blk, rays, n, block,
+                                        in_t, in_row, in_u, in_v, out_t,
+                                        out_row, out_u, out_v, s);
 }
 
 extern "C" const char* rptr_cuda_error_string(int code) {

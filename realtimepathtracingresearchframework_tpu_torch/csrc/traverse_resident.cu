@@ -4,7 +4,7 @@
 // realtimepathtracingresearchframework_tpu/ops/traverse_pallas2.py::_kernel2
 // (closest mode through closest_hit_pallas2, any-hit mode through
 // occluded_pallas2). Its plain PyTorch version, which this kernel must
-// equal bit for bit, is ops/traverse.py::_walk.
+// equal bit for bit, is ops/traverse.py::walk_ranges.
 //
 // What it computes, per ray: walk the preorder node array from node 0.
 // Enter a node when the slab test passes with t_far capped by the ray's best

@@ -167,7 +167,15 @@ def _stats(img: np.ndarray, ref: np.ndarray) -> dict:
 
 def compare(name: str, img: np.ndarray) -> dict:
     """Compare a render with its golden; ``ok`` applies the golden gate."""
-    res = _stats(img, image_io.read_pfm(os.path.join(GOLDEN_DIR, f"{name}.pfm")))
+    return compare_golden_gate(
+        name, img, image_io.read_pfm(os.path.join(GOLDEN_DIR, f"{name}.pfm")))
+
+
+def compare_golden_gate(name: str, img: np.ndarray, ref: np.ndarray) -> dict:
+    """Compare a render of golden ``name`` with ``ref`` at the golden gate:
+    the gate of a render against the XLA-fused programs that made the
+    goldens (the JAX renderer's images of them, linear or display)."""
+    res = _stats(img, ref)
     res["ok"] = (
         res["finite"]
         and res["frac_over_1e-3"] <= FRAC_GATES.get(name, {}).get(

@@ -16,8 +16,9 @@ walk K1 (``ops/traverse_resident.py``), or on large resident scenes
 (``ops/traverse_flat.py``), with the coherence sort where ``compact``,
 ``presorted`` and ``sort_shadow`` ask for it; on streamed scenes
 (``cfg.streamed``) the sorted streamed walk K4 for closest hits
-(``ops/traverse_stream.py``; the binned rounds of K5 with
-``stream_closest="binned"``) and one binned round of K5 with its K4
+(``ops/traverse_stream.py``; with ``stream_closest`` its ordered walk, the
+binned rounds of K5 or the multislot K5 launch) and one binned round of K5
+with its K4
 cleanup for every shadow ray (``ops/traverse_binned.py``); on instanced
 scenes (``cfg.two_level``) the two-level walks, K6 (``cfg.tlas_k6``,
 ``ops/traverse_tlas.py``) or K7 (``cfg.tlas_stream``,
@@ -300,7 +301,10 @@ class IntegratorConfig(NamedTuple):
     debug_mode: int = 0
     kernel_v3: bool = False  # K2/K3 flat cull instead of the K1 walk
     kernel_v4: bool = False  # sorted queues on K3 instead of K2
-    stream_closest: str = "sorted"  # streamed closest hits: K4 or "binned"
+    # streamed closest hits: "sorted" (K4), "ordered" (K4 front to back;
+    # K6's ordered instance walk on the K6 route), "binned" (K5 rounds) or
+    # "multislot" (one K5 launch over every overlapped subtree)
+    stream_closest: str = "sorted"
     aniso_taps: int = 0  # anisotropic texture taps (0: isotropic mip)
 
 
@@ -311,24 +315,14 @@ _UNPORTED = (
     ("compact_lanes", "carry compaction of the monolithic bounce loop", 16),
 )
 STREAM_CLOSEST = ("sorted", "ordered", "binned", "multislot")
-# the reference's XLA nested walk, its route past K7's entry cap, is the
-# port's CPU oracle only (ops/tlas.py), never a route on the card
-_NO_TWO_LEVEL_KERNEL = (
-    "two-level scenes past K7's entry cap (the reference's XLA walk) are "
-    "not a route of the port")
-_STREAM_CLOSEST_PORTED = ("sorted", "binned")
 
 
 def check_stream_closest(strategy: str) -> None:
     """The streamed closest-hit strategies of the reference
-    (``IntegratorConfig.stream_closest``): a typo raises ``ValueError``,
-    and the two not ported yet raise ``NotImplementedError``."""
+    (``IntegratorConfig.stream_closest``): a typo raises ``ValueError``."""
     if strategy not in STREAM_CLOSEST:
         raise ValueError(
             f"stream_closest={strategy!r}: expected one of {STREAM_CLOSEST}")
-    if strategy not in _STREAM_CLOSEST_PORTED:
-        raise NotImplementedError(
-            f"stream_closest={strategy!r} is not ported yet (ROADMAP item 18)")
 
 
 def check_supported(cfg: IntegratorConfig) -> None:
@@ -508,30 +502,35 @@ def _closest_hit_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
     wavefront executor); skip the sort but keep the sorted-queue policy:
     K3 at block 1024 in 8 groups (``cfg.kernel_v4``), else K2 at block 1024.
     Unsorted queues (camera primaries) take K2 at block 512. Streamed
-    scenes (integrator.py:516-535) take the coherence-sorted K4 walk, or
-    the binned rounds of K5 with ``stream_closest="binned"``; their hits
-    carry source triangle ids. Instanced scenes (integrator.py:491-515)
-    take K6, or K7, coherence-sorted only on a ``compact`` queue that the
-    caller has not sorted; their hits carry global shading rows and
-    instances."""
+    scenes (integrator.py:516-535) take the coherence-sorted K4 walk, its
+    ordered walk with ``stream_closest="ordered"``, the binned rounds of
+    K5 with ``"binned"`` or the multislot K5 launch with ``"multislot"``;
+    their hits carry source triangle ids. Instanced scenes
+    (integrator.py:491-515) take K6 (its ordered instance walk with
+    ``"ordered"``), or K7, coherence-sorted only on a ``compact`` queue
+    that the caller has not sorted; their hits carry global shading rows
+    and instances."""
     if cfg.two_level:
         if cfg.tlas_k6:
             return traverse_tlas.closest_hit_tlas(
                 ds.tlas_k6, ro, rd, t_min, t_max,
                 ordered=cfg.stream_closest == "ordered")
-        if cfg.tlas_stream:
-            static, frame = ds.tlas_stream
-            return traverse_tlas_stream.closest_hit_tlas_stream(
-                static, frame, ro, rd, t_min, t_max,
-                sort=compact and not presorted)
-        raise NotImplementedError(_NO_TWO_LEVEL_KERNEL)
+        assert cfg.tlas_stream, "a two-level scene runs on K6 or K7"
+        static, frame = ds.tlas_stream
+        return traverse_tlas_stream.closest_hit_tlas_stream(
+            static, frame, ro, rd, t_min, t_max,
+            sort=compact and not presorted)
     if cfg.streamed:
         check_stream_closest(cfg.stream_closest)
         if cfg.stream_closest == "binned":
             return traverse_binned.closest_hit_binned(ds.bvh, ro, rd, t_min,
                                                       t_max)
-        return traverse_stream.closest_hit_streamed(ds.bvh, ro, rd, t_min,
-                                                    t_max, sort=True)
+        if cfg.stream_closest == "multislot":
+            return traverse_binned.closest_hit_binned_all(ds.bvh, ro, rd,
+                                                          t_min, t_max)
+        return traverse_stream.closest_hit_streamed(
+            ds.bvh, ro, rd, t_min, t_max, sort=True,
+            ordered=cfg.stream_closest == "ordered")
     if cfg.kernel_v3:
         if (compact or presorted) and cfg.kernel_v4:
             return traverse_flat.closest_hit_precull(
@@ -558,11 +557,10 @@ def _occluded_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
     if cfg.two_level:
         if cfg.tlas_k6:
             return traverse_tlas.occluded_tlas(ds.tlas_k6, ro, rd, t_min, t_max)
-        if cfg.tlas_stream:
-            static, frame = ds.tlas_stream
-            return traverse_tlas_stream.occluded_tlas_stream(
-                static, frame, ro, rd, t_min, t_max, sort=sort_shadow)
-        raise NotImplementedError(_NO_TWO_LEVEL_KERNEL)
+        assert cfg.tlas_stream, "a two-level scene runs on K6 or K7"
+        static, frame = ds.tlas_stream
+        return traverse_tlas_stream.occluded_tlas_stream(
+            static, frame, ro, rd, t_min, t_max, sort=sort_shadow)
     if cfg.streamed:
         return traverse_binned.occluded_binned(ds.bvh, ro, rd, t_min, t_max,
                                                rounds=1)

@@ -23,10 +23,12 @@ by the instance's inverse affine WITHOUT renormalising the direction
 (d_o = A^-1 d_w), so object-space t is world t, the segment [tmin, t_best]
 passes through unchanged and hits of different instances compare directly.
 The walk of one instance's BLAS is the port's plain threaded walk
-(``ops/traverse.py::_walk``). This is the CPU oracle that K6
+(``ops/traverse.py::walk_ranges``). This is the CPU oracle that K6
 (``ops/traverse_tlas.py``) and K7 (``ops/traverse_tlas_stream.py``) are held
 to across kernels; it is never a route on the card. ``sweep``, the walk
-over any top tree, is also the core of K6's and K7's plain versions.
+over any top tree, is also the core of K6's and K7's plain versions, and
+``ordered_sweep``, the nearest-first walk over a top tree, that of K4's and
+K6's ordered walks.
 """
 
 from __future__ import annotations
@@ -271,7 +273,7 @@ def sweep(top_boxes, skip, payload, rays, any_hit: bool, enter):
     every ray whose cursor is j is there. The lanes that enter a leaf take
     the object ray (``object_ray``) of ``enter(payload)`` = (ResidentBVH,
     inverse affine a[0:12], row base, instance) and walk that BVH with the
-    port's plain threaded walk (``traverse._walk``), the segment [tmin,
+    port's plain threaded walk (``traverse.walk_ranges``), the segment [tmin,
     t_best] in world t; a hit replaces the best only when strictly nearer,
     and records the row base + the BVH row and the instance. Returns (t,
     row, u, v, inst) with T_MAX and -1 on a miss, or the blocked flags."""
@@ -321,6 +323,80 @@ def sweep(top_boxes, skip, payload, rays, any_hit: bool, enter):
         return blocked
     return (torch.where(best_row < 0, T_MAX, t_best), best_row, best_u,
             best_v, best_inst)
+
+
+def top_entries(top_boxes, leaf_nodes, rays, block: int = 64):
+    """(L, N) f32: ray i's entry t into the box of top node
+    ``leaf_nodes[j]`` by the walk's slab test (``ray_aabb``) with t_far
+    capped at its tmax, +inf where that test fails or the segment is empty
+    (tmax <= tmin). The test passes at a cap c <= tmax exactly where the
+    entry is <= c; boxes of the top trees contain their children's, so a
+    leaf the walk could enter at cap c has every ancestor open at c too."""
+    n = rays.shape[1]
+    ro3 = rays[0:3].T[None]
+    inv3 = safe_inv_dir(rays[3:6].T)[None]
+    tmin, tmax = rays[6], rays[7]
+    live = tmax > tmin
+    out = torch.empty((len(leaf_nodes), n), dtype=torch.float32,
+                      device=rays.device)
+    for a in range(0, len(leaf_nodes), block):
+        box = top_boxes[leaf_nodes[a:a + block]]
+        hit, entry = ray_aabb(ro3, inv3, box[:, None, 0:3], box[:, None, 3:6],
+                              tmin, tmax)
+        out[a:a + block] = torch.where(hit & live, entry, float("inf"))
+    return out
+
+
+def ordered_sweep(top_boxes, payload, rays, visit):
+    """The plain ordered (front-to-back) walk of a top tree, shared by the
+    plain versions of K4's and K6's ordered modes: each ray visits the top
+    leaves its slab test enters, nearest first, in (entry t, preorder
+    index) order, each only while its entry t is within the ray's best t
+    so far; the walk ends at the first leaf past it. ``visit(ids,
+    payload, t_cap)`` walks those rays' leaves (each ray its own leaf's
+    ``payload``) with the segment [tmin, t_cap] and returns their ``Hit``
+    (global rows); a hit replaces the best only when strictly nearer. The
+    kernels reach the same visit order by re-scanning the top tree for the
+    least (entry, index) above the last visited one, so their results are
+    bitwise these. ``payload`` (host ints) is -1 on inner nodes. Returns
+    (t, row, u, v, payload of the winning leaf) with T_MAX and -1 on a
+    miss."""
+    n, dev = rays.shape[1], rays.device
+    leaf = np.nonzero(np.asarray(payload) >= 0)[0]
+    entry = top_entries(top_boxes, torch.from_numpy(leaf).to(dev), rays)
+    pay = torch.from_numpy(np.asarray(payload)[leaf]).to(dev)
+    rank = torch.arange(len(leaf), device=dev)[:, None]
+    tmin, tmax = rays[6], rays[7]
+    t_best = tmax.clone()
+    best_row = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_pay = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    last_e = torch.full((n,), -float("inf"), dtype=torch.float32, device=dev)
+    last_j = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    ids = torch.nonzero(tmax > tmin).squeeze(1)
+    while ids.numel():
+        e = entry[:, ids]
+        le, lj = last_e[ids], last_j[ids]
+        cand = ((e > le) | ((e == le) & (rank > lj))) & (e <= t_best[ids])
+        e_min = torch.where(cand, e, float("inf")).amin(dim=0)
+        j = torch.where(cand & (e == e_min), rank, len(leaf)).amin(dim=0)
+        keep = e_min < float("inf")
+        ids, e_min, j = ids[keep], e_min[keep], j[keep]
+        if not ids.numel():
+            break
+        h = visit(ids, pay[j], t_best[ids])
+        found = h.tri >= 0
+        vf = ids[found]
+        t_best[vf] = h.t[found]
+        best_row[vf] = h.tri[found]
+        best_u[vf] = h.u[found]
+        best_v[vf] = h.v[found]
+        best_pay[vf] = pay[j[found]].to(torch.int32)
+        last_e[ids] = e_min
+        last_j[ids] = j
+    return (torch.where(best_row < 0, T_MAX, t_best), best_row, best_u,
+            best_v, best_pay)
 
 
 def _two_level(tb: TwoLevelBuffers, ro: Vec3, rd: Vec3, t_min, t_max,

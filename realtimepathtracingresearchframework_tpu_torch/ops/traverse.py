@@ -82,16 +82,26 @@ def _mt_rows(rows, rox, roy, roz, rdx, rdy, rdz):
     return ok, uu, vv, tt
 
 
-def _walk(bvh: ResidentBVH, ro: Vec3, rd: Vec3, t_min, t_max, any_hit: bool):
+def walk_ranges(bounds, links, tri_rows, ls: int, ro: Vec3, rd: Vec3, t_min,
+                t_max, any_hit: bool, node0=0, count=None, row0=0):
+    """The plain threaded walk, each ray over its own tree of a
+    concatenation: ray i walks nodes ``node0[i] + c`` for its cursor c from
+    0 until c reaches ``count[i]``, with tree-local skip links and leaf ids
+    (``links``), and leaf l of its tree owns the rows ``row0[i] + l * ls``
+    of ``tri_rows``. ``node0``, ``count`` and ``row0`` are (N,) int64
+    tensors or ints (``count`` defaults to every node). Returns the Hit
+    with rows ``row0 + l * ls + k``, or the blocked flags."""
     n = ro.x.shape[0]
     dev = ro.x.device
-    m = bvh.num_nodes
-    ls = bvh.leaf_size
+    m = bounds.shape[0] if count is None else count
     tmin = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(n)
     tmax = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n)
     ro3 = torch.stack([ro.x, ro.y, ro.z], dim=-1)
     inv3 = safe_inv_dir(torch.stack([rd.x, rd.y, rd.z], dim=-1))
     sub_iota = torch.arange(ls, device=dev)
+
+    def per_ray(x, ids):
+        return x[ids] if isinstance(x, torch.Tensor) else x
 
     t_best = tmax.clone()
     best_row = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -104,18 +114,19 @@ def _walk(bvh: ResidentBVH, ro: Vec3, rd: Vec3, t_min, t_max, any_hit: bool):
     ids = torch.nonzero(tmax > tmin).squeeze(1)
     while ids.numel():
         c = cur[ids]
-        box = bvh.bounds[c]
+        node = c + per_ray(node0, ids)
+        box = bounds[node]
         hit_box, _ = ray_aabb(
             ro3[ids], inv3[ids], box[:, 0:3], box[:, 3:6], tmin[ids], t_best[ids]
         )
-        link = bvh.links[c].to(torch.int64)
+        link = links[node].to(torch.int64)
         skip, leaf = link[:, 0], link[:, 1]
         is_leaf = leaf >= 0
         visit = hit_box & is_leaf
         vi = ids[visit]
         if vi.numel():
-            row0 = leaf[visit] * ls
-            rows = bvh.tri_rows[row0[:, None] + sub_iota]  # (k, ls, 9)
+            row0_v = leaf[visit] * ls + per_ray(row0, vi)
+            rows = tri_rows[row0_v[:, None] + sub_iota]  # (k, ls, 9)
             ok, uu, vv, tt = _mt_rows(
                 rows,
                 ro.x[vi, None], ro.y[vi, None], ro.z[vi, None],
@@ -137,7 +148,7 @@ def _walk(bvh: ResidentBVH, ro: Vec3, rd: Vec3, t_min, t_max, any_hit: bool):
                 pick = torch.clamp(sub, max=ls - 1)[:, None]
                 t_best[vi] = torch.where(found, t_leaf, t_best[vi])
                 best_row[vi] = torch.where(
-                    found, (row0 + sub).to(torch.int32), best_row[vi]
+                    found, (row0_v + sub).to(torch.int32), best_row[vi]
                 )
                 best_u[vi] = torch.where(
                     found, uu.gather(1, pick)[:, 0], best_u[vi]
@@ -146,10 +157,11 @@ def _walk(bvh: ResidentBVH, ro: Vec3, rd: Vec3, t_min, t_max, any_hit: bool):
                     found, vv.gather(1, pick)[:, 0], best_v[vi]
                 )
         nxt = torch.where(hit_box & ~is_leaf, c + 1, skip)
+        end = per_ray(m, ids)
         if any_hit:
-            nxt = torch.where(blocked[ids], m, nxt)
+            nxt = torch.where(blocked[ids], end, nxt)
         cur[ids] = nxt
-        ids = ids[nxt < m]
+        ids = ids[nxt < end]
     if any_hit:
         return blocked
     miss = best_row < 0
@@ -171,10 +183,12 @@ def closest_hit_threaded(bvh: ResidentBVH, ro: Vec3, rd: Vec3, t_min=0.0,
                          t_max=T_MAX) -> Hit:
     """Closest hit of each ray: ``Hit`` of (N,) tensors with ``tri`` the
     BVH row (see ``map_rows_to_tris``)."""
-    return _walk(bvh, ro, rd, t_min, t_max, any_hit=False)
+    return walk_ranges(bvh.bounds, bvh.links, bvh.tri_rows, bvh.leaf_size,
+                       ro, rd, t_min, t_max, any_hit=False)
 
 
 def occluded_threaded(bvh: ResidentBVH, ro: Vec3, rd: Vec3, t_min=0.0,
                       t_max=T_MAX) -> torch.Tensor:
     """Any-hit visibility: True where (t_min, t_max) holds a hit."""
-    return _walk(bvh, ro, rd, t_min, t_max, any_hit=True)
+    return walk_ranges(bvh.bounds, bvh.links, bvh.tri_rows, bvh.leaf_size,
+                       ro, rd, t_min, t_max, any_hit=True)

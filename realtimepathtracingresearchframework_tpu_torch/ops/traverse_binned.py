@@ -14,6 +14,11 @@ their best t as the segment end; a cleanup hit replaces the best only when
 strictly nearer. Closest hits agree with K4's except on exact-t ties
 across subtrees, where K5 keeps the first subtree in (entry t, id) order.
 
+The multislot dispatch (``closest_hit_binned_all``; reference
+``_run_multislot``) gives every ray one slot per subtree it enters, up to
+``K_MAX``, runs all slots in ONE K5 launch and merges them per ray; rays
+past ``K_MAX`` slots finish in a K4 cleanup.
+
 K5 itself (``plain`` / ``launch``; reference ``_kernel_binned``), per lane
 of a block whose subtree is ``sid``: seed t = min(t_in, tmax) and the
 incoming row, u, v; if ``sid >= 0`` walk subtree ``sid`` with the
@@ -26,8 +31,9 @@ inside the float operand is not carried over: rows ride an int32 tensor
 beside the floats.
 
 On a CPU tensor the wrappers run ``plain`` (and K4's plain version); on a
-CUDA tensor they launch ``csrc/traverse_binned.cu`` (and K4) or raise.
-``launches_k5`` counts K5's launches.
+CUDA tensor they launch ``csrc/traverse_binned.cu`` (and K4) or raise; the
+kernel reads f32 or 16-bit quantized tiles. ``launches_k5`` counts K5's
+launches.
 """
 
 from __future__ import annotations
@@ -59,12 +65,17 @@ DEFAULT_BLOCK = 512
 DEFAULT_ROUNDS = 2
 _INF = T_MAX
 
+K_MAX = 8  # multislot slots per ray (traverse_binned.py:552)
+
 launches_k5 = 0  # K5 launches in this process (reset with reset_launches)
+multislot_dispatches = 0  # multislot dispatches since reset_launches
+_overflow = {}  # device -> (2,) i64: overflow rays, live rays of them
 
 
 def reset_launches() -> None:
-    global launches_k5
-    launches_k5 = 0
+    global launches_k5, multislot_dispatches
+    launches_k5 = multislot_dispatches = 0
+    _overflow.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +221,7 @@ def _lib():
     # passed as a 32-bit C int and cut the pointer)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rptr_traverse_binned.argtypes = (
-        [p, p, i, i, p, p, i, i, i] + [p] * 8 + [p])
+        [p, p, i, i, p, p, i, i, i, i] + [p] * 8 + [p])
     lib.rptr_traverse_binned.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rptr_cuda_error_string.restype = ctypes.c_char_p
@@ -243,7 +254,7 @@ def launch(bb: StreamedBVHBuffers, sid_blk, rays, best, block: int,
         rc = lib.rptr_traverse_binned(
             bb.sub_nodes.data_ptr(), bb.tri_tiles.data_ptr(),
             bb.sub_node_rows, bb.sub_leaves, sid_blk.data_ptr(),
-            rays.data_ptr(), n, block, int(any_hit),
+            rays.data_ptr(), n, block, int(any_hit), int(bb.quantized),
             *(x.data_ptr() for x in best), *(x.data_ptr() for x in out),
             stream,
         )
@@ -348,6 +359,101 @@ def _run_rounds(bb: StreamedBVHBuffers, rays, block: int, rounds: int,
     improved = live & (out[1] >= 0)
     best = tuple(torch.where(improved, o, b) for o, b in zip(out, best))
     return tuple(x[inv] for x in best)
+
+
+def multislot_operand(bb: StreamedBVHBuffers, rays, block: int,
+                      k_max: int = None):
+    """The multislot dispatch's K5 operand (traverse_binned.py:572-610):
+    ``rays`` (8, N) coherence-sorted, then every ray given one SLOT per
+    subtree box its segment enters, in subtree-id order, up to ``k_max``
+    (``K_MAX``), slot k of ray i at source lane k*N + i, moved into
+    block-aligned subtree bins (``round_operand``). Returns (sorted rays,
+    inv, sid of each slot (k_max*N,) i32 -1 when empty, rays past k_max,
+    sid_blk, slot rays, slot best, pos)."""
+    k_max = K_MAX if k_max is None else k_max
+    n, dev = rays.shape[1], rays.device
+    sb = subtree_bounds(bb)
+    s = sb.shape[0]
+    rays, inv = _coherence_perm(bb, rays)
+    entry = _entry_table(sb, rays)
+    inside = entry < rays[7][None]  # entered within the ray's segment
+    count = torch.cumsum(inside.to(torch.int32), dim=0)
+    sid_iota = torch.arange(s, dtype=torch.int32, device=dev)[:, None]
+    sid_dup = torch.cat([
+        torch.where(inside & (count == k + 1), sid_iota, s).amin(dim=0)
+        for k in range(k_max)])
+    sid_dup = torch.where(sid_dup >= s, -1, sid_dup)
+    overflow = count[-1] > k_max
+    del entry, inside, count
+    kn = k_max * n
+    sid_blk, prays, pbest, pos = round_operand(
+        rays.repeat(1, k_max), miss_best(kn, dev), sid_dup, s, block,
+        padded_lanes(kn, s, block))
+    return rays, inv, sid_dup, overflow, sid_blk, prays, pbest, pos
+
+
+def _run_multislot(bb: StreamedBVHBuffers, rays, block: int,
+                   k_max: int = None, plain_versions: bool = False):
+    """The multislot closest hit (traverse_binned.py:556-663): all slots of
+    all rays (``multislot_operand``) go through ONE closest K5 launch, each
+    subtree's tiles shared by its bin's blocks. The slots' results merge
+    per ray by a where-chain over the slots with strict ``<``, so the
+    lowest slot keeps an exact-t tie (the reference's code; its docstring
+    says scatter-min) and empty slots never win. Rays that enter more than
+    ``k_max`` subtrees finish in a K4 cleanup over the whole pack with
+    their segment capped at the merged t; a cleanup hit replaces the merged
+    one when found. Returns (t, row, u, v) in the caller's lane order.
+    ``plain_versions`` runs the plain versions of K5 and K4 on any device."""
+    global multislot_dispatches
+    k_max = K_MAX if k_max is None else k_max
+    n, dev = rays.shape[1], rays.device
+    rays, inv, sid_dup, overflow, sid_blk, prays, pbest, pos = (
+        multislot_operand(bb, rays, block, k_max))
+    out = _dispatch(bb, sid_blk, prays, pbest, block, False, plain_versions)
+    del prays, pbest
+    t_k, row_k, u_k, v_k = (x[pos].view(k_max, n) for x in out)
+    t_k = torch.where(sid_dup.view(k_max, n) < 0, _INF, t_k)
+    best_t, best_row, best_u, best_v = miss_best(n, dev)
+    for k in range(k_max):
+        better = (t_k[k] < best_t) & (row_k[k] >= 0)
+        best_t = torch.where(better, t_k[k], best_t)
+        best_row = torch.where(better, row_k[k], best_row)
+        best_u = torch.where(better, u_k[k], best_u)
+        best_v = torch.where(better, v_k[k], best_v)
+    best = (torch.where(best_row < 0, _INF, best_t), best_row, best_u, best_v)
+
+    # cleanup of the rays past k_max slots, capped by the merged best
+    cap = torch.minimum(best[0], rays[7])
+    clean = torch.cat([rays[0:7], torch.where(overflow, cap, 0.0)[None]])
+    k4 = ts.plain if plain_versions else ts.traverse_rays
+    out = k4(bb, clean, any_hit=False)
+    improved = overflow & (out[1] >= 0)
+    best = tuple(torch.where(improved, o, b) for o, b in zip(out, best))
+    multislot_dispatches += 1
+    live = (rays[7] > rays[6]).sum()
+    _overflow[dev] = _overflow.get(dev, 0) + torch.stack(
+        [overflow.sum(), live])
+    return tuple(x[inv] for x in best)
+
+
+def multislot_overflow():
+    """(dispatches, overflow rays, live rays) of the multislot dispatches
+    since ``reset_launches``, summed over devices (reads the device
+    counts)."""
+    counts = [c.tolist() for c in _overflow.values()]
+    return (multislot_dispatches, sum(c[0] for c in counts),
+            sum(c[1] for c in counts))
+
+
+def closest_hit_binned_all(bb: StreamedBVHBuffers, ro: Vec3, rd: Vec3,
+                           t_min=0.0, t_max=T_MAX,
+                           block: int = DEFAULT_BLOCK, map_tri: bool = True,
+                           k_max: int = None) -> Hit:
+    """Closest hit through the single-launch multislot K5 dispatch and its
+    K4 cleanup (traverse_binned.py:666)."""
+    rays, n = pack_rays(ro, rd, t_min, t_max, block)
+    best = _run_multislot(bb, rays, block, k_max)
+    return ts._out_to_hit(bb, best, n, map_tri)
 
 
 def closest_hit_binned(bb: StreamedBVHBuffers, ro: Vec3, rd: Vec3,

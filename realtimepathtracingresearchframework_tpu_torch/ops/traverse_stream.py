@@ -15,7 +15,10 @@ binned-SAH threaded BVH of 128-triangle leaves, and a small TOP tree
   skip or ``SUB_EXIT``, LOCAL leaf id or -1], float values again;
 - ``tri_tiles`` (S*L*16, 128) f32: subtree s, local leaf l owns the
   field-major tile rows [(s*L + l)*16, +16): row f is field f (v0, e1,
-  e2 xyz) of the leaf's 128 triangles;
+  e2 xyz) of the leaf's 128 triangles; or, in a 16-bit quantized pack
+  (``pack_streamed(quantize=True)``), int16 codes offset by -32768 (rows
+  0-8: q0, q1, q2 xyz) of a per-subtree grid whose min and scale ride the
+  spare last slot of the subtree's node block (``dequant_tile``);
 - ``row_tri`` (S*L*128,) i32: global row -> source triangle. A global
   row is ``(s*L + l)*128 + k``.
 
@@ -33,11 +36,14 @@ the CUDA kernel ``csrc/traverse_streamed.cu`` must equal it bitwise.
 
 K4's merged mode (``closest_and_occluded_streamed``; reference :967) runs
 a closest queue in its first blocks and a shadow queue after it, in one
-launch.
+launch. Its ordered mode (``closest_hit_streamed(ordered=True)``; reference
+:650-715, per ray here) visits each ray's subtrees nearest first
+(``plain_ordered``).
 
 On a CPU tensor the wrappers run ``plain``; on a CUDA tensor they launch
 the kernel (built by ``kernels/build.py`` at first use) or raise.
-``launches_k4`` counts the kernel's launches.
+``launches_k4`` counts the kernel's launches (``merged_launches_k4`` and
+``launches_k4_ordered`` those of its modes).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.intersect import (
     ray_aabb,
     safe_inv_dir,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops.tlas import ordered_sweep
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
     Hit,
     ResidentBVH,
@@ -76,17 +83,17 @@ SUB_LEAVES = 64  # default leaf slots per subtree
 CHUNK_TRIS = SUB_LEAVES * LEAF  # 8192 -> <= 127 threaded nodes per subtree
 SUB_EXIT = 255  # local skip value meaning "leave the subtree"
 DEFAULT_BLOCK = 512
-QUANTIZED_ITEM = "ROADMAP item 17"
 
 BLOCK = 128  # rays per CUDA block (kThreads of csrc/stream_walk.cuh)
 
 launches_k4 = 0  # K4 launches in this process (reset with reset_launches)
 merged_launches_k4 = 0  # of which merged two-queue launches
+launches_k4_ordered = 0  # of which ordered (front-to-back) launches
 
 
 def reset_launches() -> None:
-    global launches_k4, merged_launches_k4
-    launches_k4 = merged_launches_k4 = 0
+    global launches_k4, merged_launches_k4, launches_k4_ordered
+    launches_k4 = merged_launches_k4 = launches_k4_ordered = 0
 
 
 def node_rows_for(sub_leaves: int) -> int:
@@ -101,13 +108,18 @@ class StreamedBVHBuffers(NamedTuple):
 
     top_nodes: torch.Tensor  # (Mt, 8) f32: min3, max3, skip, subtree | -1
     sub_nodes: torch.Tensor  # (S*R, 128) f32: packed subtree nodes
-    tri_tiles: torch.Tensor  # (S*L*16, 128) f32: field-major leaf tiles
+    tri_tiles: torch.Tensor  # (S*L*16, 128) f32 field-major leaf tiles,
+    # or int16 codes of a quantized pack
     row_tri: torch.Tensor  # (S*L*128,) i32: global row -> source triangle
     sub_leaves: int = SUB_LEAVES  # leaf slots per subtree
 
     @property
     def num_top_nodes(self) -> int:
         return self.top_nodes.shape[0]
+
+    @property
+    def quantized(self) -> bool:
+        return self.tri_tiles.dtype == torch.int16
 
     @property
     def sub_node_rows(self) -> int:
@@ -194,6 +206,31 @@ def _split_chunks(centroid: np.ndarray,
     return out
 
 
+def quantize_chunk(v0c, v1c, v2c):
+    """Per-subtree 16-bit grid quantization of a chunk's vertices
+    (traverse_stream.py:171-214): the grid spans the chunk's box in 65,535
+    steps per axis (1 on a flat axis). Returns (q0, q1, q2 u16 codes,
+    grid_min f32[3], grid_scale f32[3], v0r, e1r, e2r), where the
+    reconstruction is what the kernels' decode computes:
+    ``v0r = gmin + q0 * scale``, ``e1r = (q1 - q0) * scale``, f32 ops in
+    that order."""
+    gmin = np.minimum(np.minimum(v0c, v1c), v2c).min(axis=0)
+    gmax = np.maximum(np.maximum(v0c, v1c), v2c).max(axis=0)
+    ext = (gmax - gmin).astype(np.float32)
+    scale = np.where(ext > 0, ext / 65535.0, 1.0).astype(np.float32)
+    gmin = gmin.astype(np.float32)
+
+    def q(v):
+        return np.clip(np.rint((v - gmin) / scale), 0, 65535).astype(np.uint16)
+
+    q0, q1, q2 = q(v0c), q(v1c), q(v2c)
+    f0, f1, f2 = (x.astype(np.float32) for x in (q0, q1, q2))
+    v0r = gmin + f0 * scale
+    e1r = (f1 - f0) * scale
+    e2r = (f2 - f0) * scale
+    return q0, q1, q2, gmin, scale, v0r, e1r, e2r
+
+
 def pick_chunk_tris(num_tris: int) -> int:
     """Subtree size for a scene: about 64 subtrees, in whole leaves, never
     below 1024 triangles and never above ``CHUNK_TRIS``."""
@@ -208,10 +245,16 @@ def pack_streamed(v0, e1, e2, quantize: bool = False,
     """Chunked two-level build and pack (host numpy), uploaded to
     ``device``. Returns the buffers, and with ``with_topology`` also the
     ``StreamedTopology``. ``chunk_tris`` (a multiple of ``LEAF``) defaults
-    to ``pick_chunk_tris``. The 16-bit quantized tiles are not ported."""
-    if quantize:
-        raise NotImplementedError(
-            f"quantized streamed tiles are not ported yet ({QUANTIZED_ITEM})")
+    to ``pick_chunk_tris``.
+
+    With ``quantize`` (traverse_stream.py:228-320) the leaf tiles hold
+    per-subtree 16-bit vertex codes (int16, offset by -32768; rows 0-8 are
+    q0, q1, q2 xyz) instead of f32 v0/e1/e2, the six dequant constants
+    (grid min, grid scale) ride the spare last node slot of each subtree's
+    block, and the subtree BVHs are built over the reconstructed triangles
+    (``quantize_chunk``). The quantized pack keeps no refit topology."""
+    if quantize and with_topology:
+        raise ValueError("the refit topology implies f32 tiles")
     v0 = np.asarray(v0, np.float32)
     e1 = np.asarray(e1, np.float32)
     e2 = np.asarray(e2, np.float32)
@@ -243,10 +286,14 @@ def pack_streamed(v0, e1, e2, quantize: bool = False,
         topo_nn = np.zeros((S,), np.int32)
     for s, idx in enumerate(chunks):
         cv0, ce1, ce2 = v0[idx], e1[idx], e2[idx]
+        if quantize:
+            q0, q1, q2, gmin, gscale, cv0, ce1, ce2 = quantize_chunk(
+                cv0, cv0 + ce1, cv0 + ce2)
         # binned SAH inside each subtree; the balanced median split where
         # SAH overruns the fixed node or leaf budget
         tb = build_threaded_bvh(cv0, ce1, ce2, leaf_size=LEAF, builder="sah")
-        node_cap = node_rows * 16
+        # a quantized pack keeps the last slot for the dequant constants
+        node_cap = node_rows * 16 - (1 if quantize else 0)
         if tb.num_nodes > node_cap or tb.tri_rows.shape[0] // LEAF > sub_leaves:
             tb = build_threaded_bvh(cv0, ce1, ce2, leaf_size=LEAF)
         nn = tb.num_nodes
@@ -267,9 +314,20 @@ def pack_streamed(v0, e1, e2, quantize: bool = False,
         R = rows.shape[0]
         num_leaves = R // LEAF
         assert num_leaves <= sub_leaves
-        tiles = np.zeros((sub_leaves, 16, 128), np.float32)
-        tiles[:num_leaves, 0:9, :] = (
-            rows[:, 0:9].reshape(num_leaves, LEAF, 9).transpose(0, 2, 1))
+        if quantize:
+            # the walk never lands on the last slot: nn <= cap, and exits
+            # jump to SUB_EXIT
+            sub_nodes[s, node_rows - 1, 120:123] = gmin
+            sub_nodes[s, node_rows - 1, 123:126] = gscale
+            codes = np.concatenate([q0, q1, q2], axis=1)[tb.row_tri]  # (R, 9)
+            tiles = np.zeros((sub_leaves, 16, 128), np.int16)
+            tiles[:num_leaves, 0:9, :] = (
+                codes.reshape(num_leaves, LEAF, 9).astype(np.int32) - 32768
+            ).astype(np.int16).transpose(0, 2, 1)
+        else:
+            tiles = np.zeros((sub_leaves, 16, 128), np.float32)
+            tiles[:num_leaves, 0:9, :] = (
+                rows[:, 0:9].reshape(num_leaves, LEAF, 9).transpose(0, 2, 1))
         tile_list.append(tiles.reshape(sub_leaves * 16, 128))
         rt = np.zeros(chunk_tris, np.int32)
         rt[:R] = idx[tb.row_tri].astype(np.int32)
@@ -302,19 +360,79 @@ def pack_streamed(v0, e1, e2, quantize: bool = False,
     return bb
 
 
+def reconstruct_quantized(v0, e1, e2, chunk_tris: int = None):
+    """The triangles a quantized pack holds (traverse_stream.py:441): each
+    chunk of ``pack_streamed(quantize=True)`` through ``quantize_chunk``'s
+    reconstruction, in source order. Host numpy (v0, e1, e2)."""
+    v0 = np.asarray(v0, np.float32)
+    e1 = np.asarray(e1, np.float32)
+    e2 = np.asarray(e2, np.float32)
+    v1, v2 = v0 + e1, v0 + e2
+    tmin = np.minimum(np.minimum(v0, v1), v2)
+    tmax = np.maximum(np.maximum(v0, v1), v2)
+    centroid = 0.5 * (tmin + tmax)
+    out0, out1, out2 = np.zeros_like(v0), np.zeros_like(e1), np.zeros_like(e2)
+    if chunk_tris is None:
+        chunk_tris = pick_chunk_tris(len(v0))
+    for idx in _split_chunks(centroid, chunk_tris):
+        *_, v0r, e1r, e2r = quantize_chunk(v0[idx], v1[idx], v2[idx])
+        out0[idx], out1[idx], out2[idx] = v0r, e1r, e2r
+    return out0, out1, out2
+
+
+def dequant_tile(tiles: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
+    """The kernels' decode of quantized leaf tiles (traverse_stream.py:466):
+    int16 codes (..., 16, 128), offset by -32768, and the subtree's
+    constants ``dq`` (6,) = grid min xyz, grid scale xyz -> the f32 v0/e1/e2
+    field tiles (rows 9-15 zero). v0 = c + (f + 32768) * s and the edges
+    (f_k - f_0) * s from code differences, exact in f32, so the decode is
+    bitwise ``quantize_chunk``'s reconstruction. Codes go int16 -> int32 ->
+    f32, never through float bit patterns."""
+    f = tiles[..., 0:9, :].to(torch.int32).to(torch.float32)
+    c = dq[0:3].view(3, 1)
+    sc = dq[3:6].view(3, 1)
+    out = torch.zeros(tiles.shape, dtype=torch.float32, device=tiles.device)
+    out[..., 0:3, :] = c + (f[..., 0:3, :] + 32768.0) * sc
+    out[..., 3:6, :] = (f[..., 3:6, :] - f[..., 0:3, :]) * sc
+    out[..., 6:9, :] = (f[..., 6:9, :] - f[..., 0:3, :]) * sc
+    return out
+
+
+def dequant_constants(bb: StreamedBVHBuffers) -> torch.Tensor:
+    """(S, 6) f32: each subtree's grid min and scale, from the spare last
+    node slot of its block (``pack_streamed(quantize=True)``)."""
+    slots = bb.sub_node_rows * 16
+    return bb.sub_nodes.view(-1, slots, 8)[:, slots - 1, 0:6]
+
+
+def leaf_rows(bb: StreamedBVHBuffers, s: int = None) -> torch.Tensor:
+    """The f32 triangle rows (L*128, 9) of subtree ``s``'s leaf tiles, or
+    (S*L*128, 9) of every subtree, row ``(s*L + l)*128 + k`` (the global
+    row); quantized tiles are decoded by ``dequant_tile``."""
+    L = bb.sub_leaves
+    tiles = bb.tri_tiles.view(-1, L, 16, LEAF)
+    if s is not None:
+        tiles = tiles[s:s + 1]
+    if bb.quantized:
+        dq = dequant_constants(bb)
+        dq = dq if s is None else dq[s:s + 1]
+        tiles = torch.stack([dequant_tile(t, d) for t, d in zip(tiles, dq)])
+    return tiles[:, :, 0:9, :].transpose(2, 3).reshape(-1, 9)
+
+
 def subtree_resident(bb: StreamedBVHBuffers, s: int) -> ResidentBVH:
     """Subtree ``s`` decoded to the resident layout of the plain walk:
     node boxes, integer links (skip, local leaf; ``SUB_EXIT`` lies past the
     last slot, so the walk leaves there) and the leaf tiles as (L*128, 9)
-    rows, whose row index is the LOCAL row ``l*128 + k``."""
+    rows, whose row index is the LOCAL row ``l*128 + k`` (quantized tiles
+    decoded)."""
     slots = bb.sub_node_rows * 16
     nodes = bb.sub_nodes.view(-1, slots, 8)[s]
     L = bb.sub_leaves
-    tiles = bb.tri_tiles.view(-1, L, 16, LEAF)[s, :, 0:9, :]
     return ResidentBVH(
         bounds=nodes[:, 0:6],
         links=nodes[:, 6:8].to(torch.int32),
-        tri_rows=tiles.transpose(1, 2).reshape(L * LEAF, 9),
+        tri_rows=leaf_rows(bb, s),
         row_tri=bb.row_tri[s * L * LEAF:(s + 1) * L * LEAF],
         leaf_size=LEAF,
     )
@@ -346,7 +464,8 @@ def leaf_boxes(bb: StreamedBVHBuffers):
 # ---------------------------------------------------------------------------
 
 
-def plain(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool):
+def plain(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool,
+          ordered: bool = False):
     """The plain version of K4 on a packed (8, N) operand: what the
     wrappers run on CPU tensors, and what ``launch`` must equal on the card.
 
@@ -354,10 +473,14 @@ def plain(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool):
     processed top node by top node in ascending order: a ray's cursor only
     moves forward, so when node j is processed every ray whose cursor is j
     is there. A ray that enters a subtree-leaf of the top tree walks that
-    subtree with the port's plain threaded walk (``traverse._walk``), its
+    subtree with the port's plain threaded walk (``traverse.walk_ranges``), its
     segment capped at its best hit so far; a hit replaces the best only
-    when strictly nearer. Returns (t, row, u, v) with global rows, or the
-    blocked flags."""
+    when strictly nearer. ``ordered`` (closest hits only) visits the
+    subtrees nearest first instead (``plain_ordered``). Returns (t, row, u,
+    v) with global rows, or the blocked flags."""
+    if ordered:
+        assert not any_hit, "the ordered walk is a closest-hit strategy"
+        return plain_ordered(bb, rays)
     n, dev = rays.shape[1], rays.device
     top = bb.top_nodes.cpu().numpy()
     L = bb.sub_leaves
@@ -406,6 +529,32 @@ def plain(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool):
     return torch.where(best_row < 0, T_MAX, t_best), best_row, best_u, best_v
 
 
+def plain_ordered(bb: StreamedBVHBuffers, rays: torch.Tensor):
+    """The plain version of K4's ordered walk (traverse_stream.py:650-715,
+    per ray): ``tlas.ordered_sweep`` over the top tree, every visited
+    subtree walked with the plain threaded walk of K4 (one batched walk
+    per round, each ray in its own subtree). Closest hits only; equal to
+    the preorder walk's except on exact-t ties across subtrees. Returns
+    (t, row, u, v) with global rows."""
+    slots = bb.sub_node_rows * 16
+    span = bb.sub_leaves * LEAF
+    nodes = bb.sub_nodes.view(-1, 8)
+    links = nodes[:, 6:8].to(torch.int32)
+    rows = leaf_rows(bb)
+    top = bb.top_nodes.cpu().numpy()
+
+    def visit(ids, sid, t_cap):
+        sid = sid.to(torch.int64)
+        return traverse.walk_ranges(
+            nodes[:, 0:6], links, rows, LEAF, Vec3(*rays[0:3, ids]),
+            Vec3(*rays[3:6, ids]), rays[6, ids], t_cap, False,
+            node0=sid * slots, count=slots, row0=sid * span)
+
+    out = ordered_sweep(bb.top_nodes[:, 0:6], top[:, 7].astype(np.int64),
+                        rays, visit)
+    return out[:4]
+
+
 def _lib():
     from realtimepathtracingresearchframework_tpu_torch.kernels import build
 
@@ -414,7 +563,7 @@ def _lib():
     # passed as a 32-bit C int and cut the pointer)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rptr_traverse_streamed.argtypes = (
-        [p, i, p, p, i, i, p, i, i] + [p] * 5 + [p])
+        [p, i, p, p, i, i, p, i, i, i, i] + [p] * 5 + [p])
     lib.rptr_traverse_streamed.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rptr_cuda_error_string.restype = ctypes.c_char_p
@@ -422,21 +571,28 @@ def _lib():
 
 
 def check_buffers(bb: StreamedBVHBuffers, dev) -> None:
-    """Device, type, shape and contiguity of the pack's kernel operands."""
+    """Device, type, shape and contiguity of the pack's kernel operands:
+    f32 tiles, or int16 codes with the dequant constants in each node
+    block."""
     mt, s, L = bb.num_top_nodes, bb.num_subtrees, bb.sub_leaves
     _check("top_nodes", bb.top_nodes, torch.float32, (mt, 8), dev)
     _check("sub_nodes", bb.sub_nodes, torch.float32,
            (s * bb.sub_node_rows, 128), dev)
-    _check("tri_tiles", bb.tri_tiles, torch.float32, (s * L * 16, 128), dev)
+    _check("tri_tiles", bb.tri_tiles,
+           torch.int16 if bb.quantized else torch.float32, (s * L * 16, 128),
+           dev)
     if bb.sub_node_rows * 16 > SUB_EXIT:
         raise ValueError(f"{L} leaves per subtree: too many node slots")
 
 
-def _launch(bb: StreamedBVHBuffers, rays: torch.Tensor, n_closest: int):
+def _launch(bb: StreamedBVHBuffers, rays: torch.Tensor, n_closest: int,
+            ordered: bool = False):
     """One K4 launch over a packed (8, N) operand, one thread per ray, in
     blocks of BLOCK: the closest mode on lanes [0, n_closest), the any-hit
-    mode on the rest. Returns ((t, row, u, v), blocked) of the two parts."""
-    global launches_k4
+    mode on the rest; ``ordered`` walks the closest lanes front to back (a
+    closest-only launch). Returns ((t, row, u, v), blocked) of the two
+    parts."""
+    global launches_k4, launches_k4_ordered
     dev = rays.device
     n = rays.shape[1]
     check_buffers(bb, dev)
@@ -444,6 +600,8 @@ def _launch(bb: StreamedBVHBuffers, rays: torch.Tensor, n_closest: int):
     if not 0 <= n_closest <= n or (n_closest < n and n_closest % BLOCK):
         raise ValueError(f"{KERNEL}: a closest part of {n_closest} of {n} "
                          f"lanes is not whole blocks of {BLOCK}")
+    if ordered and n_closest != n:
+        raise ValueError(f"{KERNEL}: the ordered walk is closest-hit only")
     closest = (torch.empty(n_closest, dtype=torch.float32, device=dev),
                torch.empty(n_closest, dtype=torch.int32, device=dev),
                torch.empty(n_closest, dtype=torch.float32, device=dev),
@@ -457,20 +615,24 @@ def _launch(bb: StreamedBVHBuffers, rays: torch.Tensor, n_closest: int):
         rc = lib.rptr_traverse_streamed(
             bb.top_nodes.data_ptr(), bb.num_top_nodes, bb.sub_nodes.data_ptr(),
             bb.tri_tiles.data_ptr(), bb.sub_node_rows, bb.sub_leaves,
-            rays.data_ptr(), n, -(-n_closest // BLOCK),
+            rays.data_ptr(), n, -(-n_closest // BLOCK), int(bb.quantized),
+            int(ordered),
             *(x.data_ptr() or None for x in (*closest, blocked)), stream,
         )
     if rc != 0:
         msg = lib.rptr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{KERNEL} launch failed: {msg} (cudaError {rc})")
     launches_k4 += 1
+    launches_k4_ordered += int(ordered)
     return closest, blocked
 
 
-def launch(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool):
+def launch(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool,
+           ordered: bool = False):
     """One K4 launch over a packed (8, N) operand in one mode. Returns the
     raw output tensors: (t, row, u, v) or the blocked flags."""
-    closest, blocked = _launch(bb, rays, 0 if any_hit else rays.shape[1])
+    closest, blocked = _launch(bb, rays, 0 if any_hit else rays.shape[1],
+                               ordered)
     return blocked if any_hit else closest
 
 
@@ -490,12 +652,13 @@ def merged_launch(bb: StreamedBVHBuffers, rays: torch.Tensor, n_closest: int):
     return out
 
 
-def traverse_rays(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool):
+def traverse_rays(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool,
+                  ordered: bool = False):
     """K4 on a packed operand: ``plain`` on the CPU, the kernel on a card."""
     if rays.device.type == "cpu":
-        return plain(bb, rays, any_hit)
+        return plain(bb, rays, any_hit, ordered)
     if rays.device.type == "cuda":
-        return launch(bb, rays.contiguous(), any_hit)
+        return launch(bb, rays.contiguous(), any_hit, ordered)
     raise ValueError(f"no traversal for device {rays.device}")
 
 
@@ -540,15 +703,16 @@ def _out_to_hit(bb: StreamedBVHBuffers, out, n: int, map_tri: bool) -> Hit:
 
 def closest_hit_streamed(bb: StreamedBVHBuffers, ro: Vec3, rd: Vec3,
                          t_min=0.0, t_max=T_MAX, block: int = DEFAULT_BLOCK,
-                         map_tri: bool = True, sort: bool = False) -> Hit:
+                         map_tri: bool = True, sort: bool = False,
+                         ordered: bool = False) -> Hit:
     """K4 closest hit. ``tri`` is the source triangle (``map_tri``) or the
     global row. ``sort`` coherence-sorts the lanes first; the result is
-    the same, in the caller's lane order. The reference's ``ordered``
-    walk is not ported (ROADMAP item 18)."""
+    the same, in the caller's lane order. ``ordered`` visits each ray's
+    subtrees nearest first (the reference's ``ordered``, per ray)."""
     rays, n = pack_rays(ro, rd, t_min, t_max, block)
     if sort:
         rays, inv = _sort_operand(bb, rays)
-    out = traverse_rays(bb, rays, any_hit=False)
+    out = traverse_rays(bb, rays, any_hit=False, ordered=ordered)
     if sort:
         out = tuple(x[inv] for x in out)
     return _out_to_hit(bb, out, n, map_tri)

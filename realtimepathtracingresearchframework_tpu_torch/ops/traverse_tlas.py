@@ -27,8 +27,10 @@ where the walk found a strictly nearer hit. The first visited triangle
 keeps an exact-t tie: instances in TLAS preorder, leaves in BLAS preorder,
 the lower row inside a leaf. ``plain`` implements this with the port's
 plain threaded walk, and ``csrc/traverse_tlas.cu`` must equal it bitwise.
-The reference's ordered (front-to-back) instance walk is not ported
-(ROADMAP item 18).
+The ordered (front-to-back) instance walk (``closest_hit_tlas(ordered=
+True)``; reference traverse_tlas.py:372-431) visits each ray's instances
+nearest first instead (``plain_ordered``, ``tlas.ordered_sweep``): equal
+results except on exact-t ties across instances.
 
 On a CPU tensor the wrappers run ``plain``; on a CUDA tensor they launch
 the kernel (built by ``kernels/build.py`` at first use) or raise.
@@ -45,9 +47,12 @@ import torch
 
 from realtimepathtracingresearchframework_tpu_torch.ops.bvh import build_threaded_bvh
 from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse
 from realtimepathtracingresearchframework_tpu_torch.ops.tlas import (
     TwoLevelHit,
     _up,
+    object_ray,
+    ordered_sweep,
     sweep,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import ResidentBVH
@@ -66,11 +71,12 @@ MAX_TOTAL_NODES = 1800
 MAX_INSTANCES = 512
 
 launches_k6 = 0  # K6 launches in this process (reset with reset_launches)
+launches_k6_ordered = 0  # of which ordered (front-to-back) launches
 
 
 def reset_launches() -> None:
-    global launches_k6
-    launches_k6 = 0
+    global launches_k6, launches_k6_ordered
+    launches_k6 = launches_k6_ordered = 0
 
 
 class BlasStatic(NamedTuple):
@@ -214,12 +220,17 @@ def leaf_boxes(bb: TlasBuffers):
 # ---------------------------------------------------------------------------
 
 
-def plain(bb: TlasBuffers, rays: torch.Tensor, any_hit: bool):
+def plain(bb: TlasBuffers, rays: torch.Tensor, any_hit: bool,
+          ordered: bool = False):
     """The plain version of K6 on a packed (8, N) operand: what the
     wrappers run on CPU tensors, and what ``launch`` must equal on the
     card: ``tlas.sweep`` over the TLAS, each entered instance walking its
-    mesh's BLAS (``blas_resident``) by the instance table's inverse affine.
-    Returns (t, global row, u, v, inst) or the blocked flags."""
+    mesh's BLAS (``blas_resident``) by the instance table's inverse affine;
+    ``ordered`` (closest hits only) is ``plain_ordered``. Returns (t,
+    global row, u, v, inst) or the blocked flags."""
+    if ordered:
+        assert not any_hit, "the ordered walk is a closest-hit strategy"
+        return plain_ordered(bb, rays)
     top = bb.tlas_nodes.cpu().numpy().astype(np.int64)
     table = bb.inst_table.tolist()
     cache = {}
@@ -235,6 +246,29 @@ def plain(bb: TlasBuffers, rays: torch.Tensor, any_hit: bool):
                  enter)
 
 
+def plain_ordered(bb: TlasBuffers, rays: torch.Tensor):
+    """The plain version of K6's ordered instance walk: ``tlas.ordered_sweep``
+    over the TLAS, each round one batched plain walk in which every ray
+    walks its own instance's BLAS (its node range, tile base and object
+    ray from the instance table). Returns (t, global row, u, v, inst)."""
+    nodes = bb.blas_nodes
+    links = nodes[:, 6:8].to(torch.int32)
+    rows = bb.tri_tiles.view(-1, 16, LEAF)[:, 0:9].transpose(1, 2).reshape(-1, 9)
+    top = bb.tlas_nodes.cpu().numpy()
+
+    def visit(ids, iid, t_cap):
+        row = bb.inst_table[iid.long()]
+        o, d = object_ray([row[:, k] for k in range(12)],
+                          Vec3(*rays[0:3, ids]), Vec3(*rays[3:6, ids]))
+        return traverse.walk_ranges(
+            nodes[:, 0:6], links, rows, LEAF, o, d, rays[6, ids], t_cap, False,
+            node0=row[:, 13].long(), count=row[:, 14].long(),
+            row0=row[:, 15].long() * LEAF)
+
+    return ordered_sweep(bb.tlas_nodes[:, 0:6], top[:, 7].astype(np.int64),
+                         rays, visit)
+
+
 def _lib():
     from realtimepathtracingresearchframework_tpu_torch.kernels import build
 
@@ -242,7 +276,7 @@ def _lib():
     # every pointer and the stream as c_void_p (a bare Python int would be
     # passed as a 32-bit C int and cut the pointer)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rptr_traverse_tlas.argtypes = [p, i, p, p, p, p, i, i] + [p] * 6 + [p]
+    lib.rptr_traverse_tlas.argtypes = [p, i, p, p, p, p, i, i, i] + [p] * 6 + [p]
     lib.rptr_traverse_tlas.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rptr_cuda_error_string.restype = ctypes.c_char_p
@@ -261,11 +295,14 @@ def check_buffers(bb: TlasBuffers, dev) -> None:
         raise ValueError("tri_tiles: rows are not whole 16-row leaf tiles")
 
 
-def launch(bb: TlasBuffers, rays: torch.Tensor, any_hit: bool):
-    """One K6 launch over a packed (8, N) operand, one thread per ray.
-    Returns the raw output tensors: (t, row, u, v, inst) or the blocked
-    flags."""
-    global launches_k6
+def launch(bb: TlasBuffers, rays: torch.Tensor, any_hit: bool,
+           ordered: bool = False):
+    """One K6 launch over a packed (8, N) operand, one thread per ray;
+    ``ordered``: the ordered instance walk (closest hits only). Returns the
+    raw output tensors: (t, row, u, v, inst) or the blocked flags."""
+    global launches_k6, launches_k6_ordered
+    if ordered and any_hit:
+        raise ValueError(f"{KERNEL}: the ordered walk is closest-hit only")
     dev = rays.device
     n = rays.shape[1]
     check_buffers(bb, dev)
@@ -290,22 +327,24 @@ def launch(bb: TlasBuffers, rays: torch.Tensor, any_hit: bool):
         rc = lib.rptr_traverse_tlas(
             bb.tlas_nodes.data_ptr(), bb.num_tlas_nodes,
             bb.blas_nodes.data_ptr(), bb.inst_table.data_ptr(),
-            bb.tri_tiles.data_ptr(), rays.data_ptr(), n, int(any_hit), *outs,
-            stream,
+            bb.tri_tiles.data_ptr(), rays.data_ptr(), n, int(any_hit),
+            int(ordered), *outs, stream,
         )
     if rc != 0:
         msg = lib.rptr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{KERNEL} launch failed: {msg} (cudaError {rc})")
     launches_k6 += 1
+    launches_k6_ordered += int(ordered)
     return result
 
 
-def traverse_rays(bb: TlasBuffers, rays: torch.Tensor, any_hit: bool):
+def traverse_rays(bb: TlasBuffers, rays: torch.Tensor, any_hit: bool,
+                  ordered: bool = False):
     """K6 on a packed operand: ``plain`` on the CPU, the kernel on a card."""
     if rays.device.type == "cpu":
-        return plain(bb, rays, any_hit)
+        return plain(bb, rays, any_hit, ordered)
     if rays.device.type == "cuda":
-        return launch(bb, rays.contiguous(), any_hit)
+        return launch(bb, rays.contiguous(), any_hit, ordered)
     raise ValueError(f"no traversal for device {rays.device}")
 
 
@@ -324,13 +363,11 @@ def out_to_hit(bb: TlasBuffers, out, n: int) -> TwoLevelHit:
 def closest_hit_tlas(bb: TlasBuffers, ro: Vec3, rd: Vec3, t_min=0.0,
                      t_max=T_MAX, block: int = DEFAULT_BLOCK,
                      ordered: bool = False) -> TwoLevelHit:
-    """K6 closest hit with global shading rows and instance ids. The
-    reference's ``ordered`` walk raises (not ported)."""
-    if ordered:
-        raise NotImplementedError(
-            "K6's ordered instance walk is not ported yet (ROADMAP item 18)")
+    """K6 closest hit with global shading rows and instance ids; ``ordered``
+    visits each ray's instances nearest first."""
     rays, n = pack_rays(ro, rd, t_min, t_max, block)
-    return out_to_hit(bb, traverse_rays(bb, rays, any_hit=False), n)
+    return out_to_hit(bb, traverse_rays(bb, rays, any_hit=False,
+                                        ordered=ordered), n)
 
 
 def occluded_tlas(bb: TlasBuffers, ro: Vec3, rd: Vec3, t_min=0.0,

@@ -26,10 +26,18 @@ slab test capped at its best hit; at an entered entry it takes the ray to
 object space by the instance's A^-1 (direction not renormalised: object t
 is world t) and walks the chunk's subtree with the segment [tmin, t_best].
 Rows are ``entry * chunk_tris + leaf * 128 + k``, so one int32 names the
-entry (so the instance) and the chunk row. The first visited triangle keeps
-an exact-t tie (entries in top-tree preorder). ``plain`` implements this
-with the port's plain threaded walk, and ``csrc/traverse_tlas_stream.cu``
-must equal it bitwise.
+entry (so the instance) and the chunk row (``check_rows`` holds them to
+int32). The first visited triangle keeps an exact-t tie (entries in
+top-tree preorder). ``plain`` implements this with the port's plain
+threaded walk, and ``csrc/traverse_tlas_stream.cu`` must equal it bitwise.
+
+The reference caps a scene at 2,048 entries, the size of its SMEM entry
+table (traverse_tlas_stream.py:82), and walks past it with XLA code. That
+is a TPU limit: the CUDA kernel stages the top tree in shared memory while
+it fits the card's opt-in shared memory per block, and past that reads it
+from global memory (``staged=False``). The launcher picks the mode by the
+top tree's size (``staged=None``); ``launches_k7_global`` counts the
+global-mode launches.
 
 On a CPU tensor the wrappers run ``plain``; on a CUDA tensor they launch
 the kernel (built by ``kernels/build.py`` at first use) or raise.
@@ -69,16 +77,15 @@ from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
 KERNEL = "traverse_tlas_stream"  # csrc/traverse_tlas_stream.cu
 DEFAULT_BLOCK = 512
-# the reference renderer's gate (traverse_tlas_stream.py:82): entries of
-# its SMEM entry table; past it the port raises (the reference's XLA walk)
-MAX_ENTRIES = 2048
+INT32_MAX = 2**31 - 1
 
 launches_k7 = 0  # K7 launches in this process (reset with reset_launches)
+launches_k7_global = 0  # of which read the top tree from global memory
 
 
 def reset_launches() -> None:
-    global launches_k7
-    launches_k7 = 0
+    global launches_k7, launches_k7_global
+    launches_k7 = launches_k7_global = 0
 
 
 class TlasStreamStatic(NamedTuple):
@@ -155,6 +162,14 @@ def entry_count(mesh_sizes, mesh_ids, chunk_tris: int = None) -> int:
         chunk_tris = pick_chunk_tris(mesh_sizes)
     per_mesh = np.asarray([chunk_count(int(n), chunk_tris) for n in mesh_sizes])
     return int(per_mesh[np.asarray(mesh_ids, np.int64)].sum())
+
+
+def check_rows(num_entries: int, chunk_tris: int) -> None:
+    """K7's rows ``entry * chunk_tris + leaf * 128 + k`` must fit int32."""
+    if num_entries * chunk_tris - 1 > INT32_MAX:
+        raise ValueError(
+            f"{num_entries} (instance, chunk) entries of {chunk_tris}-tri "
+            "chunks: K7's rows (entry * chunk_tris + chunk row) overflow int32")
 
 
 def pack_tlas_stream_static(mesh_tris: List, chunk_tris: int = None,
@@ -280,6 +295,7 @@ def pack_tlas_stream_frame(static: TlasStreamStatic, mesh_ids, transforms,
     et[:, 13] = static.chunk_node_base[entry_chunk].astype(np.float32)
     et[:, 14] = static.chunk_tile_base[entry_chunk].astype(np.float32)
 
+    check_rows(E, static.chunk_tris)
     tri_base = np.asarray(tri_base, np.int32)
     return TlasStreamFrame(
         top_nodes=_up(top, dev),
@@ -358,8 +374,10 @@ def _lib():
     # passed as a 32-bit C int and cut the pointer)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rptr_traverse_tlas_stream.argtypes = (
-        [p, i, p, p, p, i, i, p, i, i] + [p] * 5 + [p])
+        [p, i, p, p, p, i, i, p, i, i, i] + [p] * 5 + [p])
     lib.rptr_traverse_tlas_stream.restype = ctypes.c_int
+    lib.rptr_max_smem_optin.argtypes = []
+    lib.rptr_max_smem_optin.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rptr_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -376,14 +394,39 @@ def check_buffers(static: TlasStreamStatic, fr: TlasStreamFrame, dev) -> None:
         raise ValueError(f"{L} leaves per chunk: too many node slots")
 
 
+def top_bytes(fr: TlasStreamFrame) -> int:
+    """The shared memory a block needs to stage the frame's top tree."""
+    return fr.top_nodes.numel() * fr.top_nodes.element_size()
+
+
+_smem_optin = {}  # device index -> the card's opt-in shared memory per block
+
+
+def staged_fits(fr: TlasStreamFrame, dev) -> bool:
+    """Whether the top tree fits the card's opt-in shared memory per block
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``): the staged mode."""
+    idx = torch.device(dev).index or 0
+    if idx not in _smem_optin:
+        with torch.cuda.device(idx):
+            limit = _lib().rptr_max_smem_optin()
+        if limit < 0:
+            raise RuntimeError(f"{KERNEL}: cannot read the card's shared memory")
+        _smem_optin[idx] = limit
+    return top_bytes(fr) <= _smem_optin[idx]
+
+
 def launch(static: TlasStreamStatic, fr: TlasStreamFrame, rays: torch.Tensor,
-           any_hit: bool):
+           any_hit: bool, staged: bool = None):
     """One K7 launch over a packed (8, N) operand, one thread per ray.
-    Returns the raw output tensors: (t, row, u, v) or the blocked flags."""
-    global launches_k7
+    ``staged``: each block stages the top tree in shared memory (True) or
+    reads it from global memory (False); None picks by size
+    (``staged_fits``). Returns the raw output tensors: (t, row, u, v) or
+    the blocked flags."""
+    global launches_k7, launches_k7_global
     dev = rays.device
     n = rays.shape[1]
     check_buffers(static, fr, dev)
+    check_rows(fr.num_entries, static.chunk_tris)
     _check("rays", rays, torch.float32, (8, n), dev)
     if any_hit:
         blocked = torch.empty(n, dtype=torch.bool, device=dev)
@@ -399,18 +442,21 @@ def launch(static: TlasStreamStatic, fr: TlasStreamFrame, rays: torch.Tensor,
     if n == 0:
         return result
     lib = _lib()
+    if staged is None:
+        staged = staged_fits(fr, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rptr_traverse_tlas_stream(
             fr.top_nodes.data_ptr(), fr.num_top_nodes,
             fr.entry_table.data_ptr(), static.sub_nodes.data_ptr(),
             static.tri_tiles.data_ptr(), static.node_rows, static.sub_leaves,
-            rays.data_ptr(), n, int(any_hit), *outs, stream,
+            rays.data_ptr(), n, int(any_hit), int(not staged), *outs, stream,
         )
     if rc != 0:
         msg = lib.rptr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{KERNEL} launch failed: {msg} (cudaError {rc})")
     launches_k7 += 1
+    launches_k7_global += int(not staged)
     return result
 
 

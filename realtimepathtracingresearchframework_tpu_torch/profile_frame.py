@@ -6,11 +6,14 @@ terrain200``: ``procedural.terrain(grid=200)`` (80,000 triangles) with the
 sun and sky of bench.py's terrain row, through the wavefront executor, K2
 and K3. ``--scene terrain500``: ``procedural.terrain(grid=500)`` (500,000
 triangles), same sun, sky and camera, on the streamed route: the
-monolithic pass, K4 and K5. ``--scene instanced600`` and ``--scene
-instanced500``: ``procedural.instanced_field(num_inst=600 | 500)`` (601 or
-501 instances of four meshes) with the camera, sun and sky of bench.py's
-instanced row, on the two-level route (``options.use_tlas``): K7 past K6's
-512-instance cap, K6 within it; ``--animate`` updates the TLAS
+monolithic pass, K4 and K5 (``--quantized``: on 16-bit quantized tiles;
+``RPTR_STREAM_CLOSEST=ordered|binned|multislot`` picks the closest-hit
+strategy). ``--scene instanced600``, ``instanced500`` and
+``instanced2500``: ``procedural.instanced_field(num_inst=600 | 500 |
+2500)`` (601, 501 or 2,501 instances of four meshes) with the camera, sun
+and sky of bench.py's instanced row, on the two-level route
+(``options.use_tlas``): K7 past K6's 512-instance cap, K6 within it
+(``RPTR_STREAM_CLOSEST=ordered``: K6's ordered instance walk); ``--animate`` updates the TLAS
 (``set_animation_frame``) before every frame, as bench.py's row does.
 ``--scene village``: ``procedural.village()`` (80,496 textured triangles)
 with the camera, sun and sky of bench.py's village row, through K2, K3 and
@@ -27,8 +30,9 @@ time and share of device time, the largest kernels, and the host's launch
 and sync calls. The last line is a JSON summary.
 
     python -m realtimepathtracingresearchframework_tpu_torch.profile_frame \
-        [--scene cornell|village|terrain200|terrain500|instanced600|instanced500] \
-        [--variant PT_MEGAKERNEL|PT_WAVEFRONT] [--animate] [--size 1920x1080] \
+        [--scene cornell|village|terrain200|terrain500|instanced600|instanced500|instanced2500] \
+        [--variant PT_MEGAKERNEL|PT_WAVEFRONT] [--animate] [--quantized] \
+        [--size 1920x1080] \
         [--depth 9] [--frames 5] [--profiled 3] [--out tables.txt]
 
 ``--out`` also writes torch.profiler's key-average tables to a file.
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -86,7 +91,7 @@ KERNELS = {
     "K7": (lambda: tts.launches_k7, "traverse_tlas_stream"),
 }
 GRIDS = {"terrain200": 200, "terrain500": 500}
-INSTANCES = {"instanced600": 600, "instanced500": 500}
+INSTANCES = {"instanced600": 600, "instanced500": 500, "instanced2500": 2500}
 ANIM_FRAMES = 16  # instanced_field's animation length
 HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaStreamSynchronize",
               "cudaMemcpyAsync", "aten::item")
@@ -107,14 +112,15 @@ def union_length(intervals) -> float:
 
 def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
                 grid: int = 200, num_inst: int = 600,
-                variant: str = VARIANT_MEGAKERNEL):
+                variant: str = VARIANT_MEGAKERNEL, quantized: bool = False):
     """(Renderer, FrameConfig) of a profiled path: ``"cornell"`` (camera of
     bench.py:91-99), ``"village"`` (``procedural.village(grid)``, sun, sky
     and camera of bench.py:101-113), ``"terrain"``
     (``procedural.terrain(grid)``, sun, sky and camera of bench.py:139-151)
     or ``"instanced"`` (``procedural.instanced_field(num_inst)`` on the
     two-level route, sun, sky and camera of bench.py:115-136), at ``size``,
-    1 spp, ``depth``, through ``variant``."""
+    1 spp, ``depth``, through ``variant``; ``quantized`` packs a streamed
+    scene's tiles as 16-bit codes (``options.quantized_geometry``)."""
     use_tlas = False
     if scene == "cornell":
         vkr_scene = procedural.cornell_box()
@@ -136,7 +142,8 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
     else:
         raise KeyError(scene)
     r = Renderer(device=device)
-    r.options = r.options.replace(use_tlas=use_tlas)
+    r.options = r.options.replace(use_tlas=use_tlas,
+                                  quantized_geometry=quantized)
     r.initialize(*size)
     r.set_scene(Scene.from_vkr_scene(vkr_scene), scene_config=sc)
     r.set_variant(variant)
@@ -156,6 +163,8 @@ def main(argv=None) -> int:
                     default=VARIANT_MEGAKERNEL)
     ap.add_argument("--animate", action="store_true",
                     help="update the TLAS before every frame (instanced scenes)")
+    ap.add_argument("--quantized", action="store_true",
+                    help="16-bit quantized tiles on the streamed route")
     ap.add_argument("--size", default="1920x1080", help="WxH")
     ap.add_argument("--depth", type=int, default=9)
     ap.add_argument("--frames", type=int, default=5)
@@ -180,7 +189,8 @@ def main(argv=None) -> int:
                              num_inst=INSTANCES[args.scene], variant=args.variant)
     else:
         r, cfg = frame_setup("terrain", size=size, depth=args.depth,
-                             grid=GRIDS[args.scene], variant=args.variant)
+                             grid=GRIDS[args.scene], variant=args.variant,
+                             quantized=args.quantized)
     if args.animate and not r._route.tlas:
         ap.error("--animate needs an instanced scene")
     print(f"{args.scene} {args.size} depth {args.depth} {r.active_variant}: "
@@ -227,6 +237,10 @@ def main(argv=None) -> int:
     launches = {k: count() / nf for k, (count, _) in KERNELS.items()}
     merged = {"K1": tr.merged_launches / nf, "K2": tf.merged_launches_k2 / nf,
               "K4": ts.merged_launches_k4 / nf}
+    modes = {"K4 ordered": ts.launches_k4_ordered / nf,
+             "K6 ordered": tt.launches_k6_ordered / nf,
+             "K7 global": tts.launches_k7_global / nf,
+             "multislot": tb.multislot_dispatches / nf}
     alpha = {"hops": integrator.alpha_hops / nf,
              "reads": integrator.alpha_reads / nf}
     dropped = integrator.nee_dropped() / nf
@@ -255,7 +269,8 @@ def main(argv=None) -> int:
     for k in KERNELS:
         print(f"  {k}: {launches[k]:.0f} launches, {kernel_ms[k]:.3f} ms per "
               f"frame, {kernel_ms[k] / device_ms:.4f} of device time")
-    print(f"  merged two-queue launches per frame {merged}, alpha test "
+    print(f"  merged two-queue launches per frame {merged}, modes per "
+          f"frame {modes}, alpha test "
           f"per frame {alpha}, NEE samples dropped as non-finite per frame "
           f"{dropped}")
     if r.live_profile:
@@ -271,10 +286,12 @@ def main(argv=None) -> int:
             f.write(ka.table(sort_by="self_device_time_total", row_limit=40) + "\n")
     print(json.dumps({
         "scene": args.scene, "variant": r.active_variant, "size": args.size,
-        "depth": args.depth, "merged_launches_per_frame": merged,
+        "depth": args.depth, "quantized": args.quantized,
+        "stream_closest": os.environ.get("RPTR_STREAM_CLOSEST", "sorted"),
+        "merged_launches_per_frame": merged, "modes_per_frame": modes,
         "alpha_per_frame": alpha, "nee_dropped_per_frame": dropped,
         "animate": args.animate, "tlas_update_ms": updates,
-        "setup_s": r.setup_seconds, "rays_per_frame": r.last_ray_count(),
+        "setup_s": r.setup_seconds, "rays_per_frame": r.last_frame_rays(),
         "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
         "kernels_per_frame": len(kern) / nf, "device_ms": device_ms,
         "union_ms": union_ms, "busy_share_profiled": union_ms / prof_wall_ms,

@@ -111,7 +111,7 @@ def _check_cutout(img):
 
 
 def _check_matches(r, img, jr, ref):
-    assert r.last_ray_count() == sum(int(x) for x in jr._last_rays)
+    assert r.last_frame_rays() == sum(int(x) for x in jr._last_rays)
     if not ref[..., :3].any():  # an all-black frame has no relative error
         assert not img[..., :3].any()
         return
@@ -175,7 +175,7 @@ def test_village_flat_cull_route(monkeypatch):
                              params=JaxRenderParams(batch_spp=1, max_path_depth=3),
                              scene_config=jsc))
     assert jr._has_textures
-    assert r.last_ray_count() == sum(int(x) for x in jr._last_rays)
+    assert r.last_frame_rays() == sum(int(x) for x in jr._last_rays)
     ref = np.asarray(jr.readback_accumulation())
     assert np.isfinite(img).all() and img[..., :3].mean() > 0.01
     res = goldens.compare_card(img[..., :3], ref[..., :3])

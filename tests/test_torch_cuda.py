@@ -47,12 +47,13 @@ def _terrain_queue(grid, leaf_size, n, seed):
     return tf.pack_flat(tbvh, dev), _queue_over(flat, n, seed, dev)
 
 
-def _streamed_queue(grid, n, seed):
-    """The streamed pack of procedural.terrain(grid) on the card, and a
-    queue as ``_terrain_queue``'s."""
+def _streamed_queue(grid, n, seed, quantize=False):
+    """The streamed pack of procedural.terrain(grid) on the card (16-bit
+    tiles with ``quantize``), and a queue as ``_terrain_queue``'s."""
     dev = _card()
     flat = Scene.from_vkr_scene(procedural.terrain(grid=grid)).flatten_world()
-    bb = ts.pack_streamed(flat.v0, flat.e1, flat.e2, device=dev)
+    bb = ts.pack_streamed(flat.v0, flat.e1, flat.e2, quantize=quantize,
+                          device=dev)
     return bb, _queue_over(flat, n, seed, dev)
 
 
@@ -118,10 +119,13 @@ def test_flat_cull_matches_plain_and_k1_on_card(name, leaf_size, q):
 
 
 @pytest.mark.cuda
-def test_k4_matches_plain_on_card():
+@pytest.mark.parametrize("quantize", [False, True])
+def test_k4_matches_plain_on_card(quantize):
     """K4 equals its plain version bitwise, sorted and unsorted, closest
-    and any-hit (terrain(64): 8,192 tris in 8 subtrees)."""
-    bb, rays = _streamed_queue(64, 4096, 3)
+    and any-hit, on f32 and 16-bit tiles (terrain(64): 8,192 tris in 8
+    subtrees)."""
+    bb, rays = _streamed_queue(64, 4096, 3, quantize)
+    assert bb.quantized == quantize
     for queue in (rays, ts._sort_operand(bb, rays)[0]):
         before = ts.launches_k4
         k = ts.launch(bb, queue, False)
@@ -138,17 +142,56 @@ def test_k4_matches_plain_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, True])
+def test_k4_ordered_matches_plain_on_card(quantize):
+    """K4's ordered walk equals its plain version bitwise, and the preorder
+    walk on t bitwise (triangles but for exact-t ties), on f32 and 16-bit
+    tiles; it is one launch, counted as ordered."""
+    bb, rays = _streamed_queue(64, 4096, 9, quantize)
+    queue = ts._sort_operand(bb, rays)[0]
+    before = (ts.launches_k4, ts.launches_k4_ordered)
+    k = ts.launch(bb, queue, False, ordered=True)
+    assert (ts.launches_k4, ts.launches_k4_ordered) == (before[0] + 1,
+                                                        before[1] + 1)
+    for a, b in zip(k, ts.plain(bb, queue, False, ordered=True)):
+        assert torch.equal(a, b)
+    pre = ts.launch(bb, queue, False)
+    assert torch.equal(k[0], pre[0]) and (k[1] >= 0).any()
+    assert int((k[1] != pre[1]).sum()) <= queue.shape[1] // 1000
+    with pytest.raises(ValueError, match="closest-hit only"):
+        ts._launch(bb, queue, 0, ordered=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("rounds,shadow", [(2, False), (1, True), (0, True)])
-def test_k5_matches_plain_on_card(rounds, shadow):
+def test_k5_matches_plain_on_card(rounds, shadow, quantize):
     """The binned dispatch through K5 and its K4 cleanup equals the same
-    dispatch through their plain versions, bitwise."""
-    bb, rays = _streamed_queue(64, 4096, 4)
+    dispatch through their plain versions, bitwise, on f32 and 16-bit
+    tiles."""
+    bb, rays = _streamed_queue(64, 4096, 4, quantize)
     before = tb.launches_k5
     k = tb._run_rounds(bb, rays, 512, rounds, shadow)
     assert tb.launches_k5 == before + rounds
     p = tb._run_rounds(bb, rays, 512, rounds, shadow, plain_versions=True)
     for a, b in zip(k if not shadow else (k,), p if not shadow else (p,)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("k_max", [1, 8])
+def test_multislot_matches_plain_on_card(k_max, quantize):
+    """The multislot dispatch (one K5 launch and the K4 cleanup) equals the
+    same dispatch through the plain versions bitwise, and K4 on t."""
+    bb, rays = _streamed_queue(64, 4096, 10, quantize)
+    before = (tb.launches_k5, ts.launches_k4)
+    k = tb._run_multislot(bb, rays, 512, k_max)
+    assert (tb.launches_k5, ts.launches_k4) == (before[0] + 1, before[1] + 1)
+    p = tb._run_multislot(bb, rays, 512, k_max, plain_versions=True)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.equal(k[0], ts.plain(bb, rays, False)[0])
 
 
 def _instanced_queue(num_inst, n, seed):
@@ -313,3 +356,41 @@ def test_merged_wrappers_on_card(sort):
         for a, b in zip(hit, sep):
             assert torch.equal(a, b), name
         assert torch.equal(blocked, sep_b), name
+
+
+@pytest.mark.cuda
+def test_k6_ordered_matches_plain_on_card():
+    """K6's ordered instance walk equals its plain version bitwise, and the
+    preorder walk on t bitwise (instances but for exact-t ties)."""
+    bb6, _, rays = _instanced_queue(40, 4096, 11)
+    before = (tt.launches_k6, tt.launches_k6_ordered)
+    k = tt.launch(bb6, rays, False, ordered=True)
+    assert (tt.launches_k6, tt.launches_k6_ordered) == (before[0] + 1,
+                                                        before[1] + 1)
+    for a, b in zip(k, tt.plain(bb6, rays, False, ordered=True)):
+        assert torch.equal(a, b)
+    pre = tt.launch(bb6, rays, False)
+    assert torch.equal(k[0], pre[0]) and (k[1] >= 0).any()
+    assert int((k[4] != pre[4]).sum()) <= rays.shape[1] // 1000
+
+
+@pytest.mark.cuda
+def test_k7_global_matches_staged_on_card():
+    """K7 reading its top tree from global memory equals K7 staging it in
+    shared memory and the plain version bitwise, closest and any-hit; the
+    mode picked by size stages a small top tree; each global launch is
+    counted."""
+    _, (st7, fr), rays = _instanced_queue(40, 4096, 12)
+    assert tts.staged_fits(fr, rays.device)
+    before = (tts.launches_k7, tts.launches_k7_global)
+    g = tts.launch(st7, fr, rays, False, staged=False)
+    assert (tts.launches_k7, tts.launches_k7_global) == (before[0] + 1,
+                                                         before[1] + 1)
+    s = tts.launch(st7, fr, rays, False)
+    assert tts.launches_k7_global == before[1] + 1
+    for a, b, c in zip(g, s, tts.plain(st7, fr, rays, False)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    oq = rays.clone()
+    oq[7] = torch.where(g[1] >= 0, g[0] * 1.001, rays[7])
+    assert torch.equal(tts.launch(st7, fr, oq, True, staged=False),
+                       tts.launch(st7, fr, oq, True, staged=True))

@@ -279,13 +279,13 @@ def test_wavefront_matches_megakernel(route, monkeypatch):
 
     monkeypatch.setattr(tr, "merged_plain", count("merged", merged))
     r, mega = _render(VARIANT_MEGAKERNEL, route, monkeypatch)
-    mega_rays = r.last_ray_count()
+    mega_rays = r.last_frame_rays()
     calls.update(merged=0, occluded=0)
     monkeypatch.setattr(traverse, "occluded_threaded", count("occluded", occluded))
     r, wave = _render(VARIANT_WAVEFRONT, route, monkeypatch)
     assert r.active_variant == VARIANT_WAVEFRONT and r._wavefront is None
     assert r._integrator_config(RenderParams()).wavefront
-    assert r.last_ray_count() == mega_rays
+    assert r.last_frame_rays() == mega_rays
     res = goldens.compare_ref(wave[..., :3], mega[..., :3])
     assert res["max_rel"] <= 1e-6, res
     np.testing.assert_array_equal(mega[..., 3], wave[..., 3])

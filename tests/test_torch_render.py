@@ -12,6 +12,8 @@ goldens and against the JAX package's renderer.
 - Path structure, exact against the JAX renderer on the same config: the
   total ray count of the frame and the first-hit triangle of every pixel
   for sample 0.
+- Display image: ``Renderer.readback_framebuffer`` (the resolve of the
+  accumulation to sRGB) against the JAX renderer's, at the golden gate.
 - Radiance against the JAX package run op by op on the same scene arrays
   (``device_scene_from_numpy``), at ``goldens.compare_ref``'s gate: at
   most 1% of pixels over 1e-3 relative and a mean relative error
@@ -48,6 +50,7 @@ from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
 )
 from realtimepathtracingresearchframework_tpu_torch.ops import integrator as ti
 from realtimepathtracingresearchframework_tpu_torch.ops import pointsets as tps
+from realtimepathtracingresearchframework_tpu_torch.ops import resolve
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_resident as tr
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
     map_rows_to_tris,
@@ -72,14 +75,22 @@ def test_golden(name):
     assert res["ok"], res
 
 
-@pytest.mark.parametrize("name", goldens.NAMES)
-def test_path_structure_matches_jax(name):
+@functools.lru_cache(maxsize=None)
+def _golden_renders(name):
+    """The golden rendered by the JAX renderer (XLA) and by the port on the
+    CPU: (JAX renderer, camera, params, port renderer)."""
     jr, cam, params, sc = _jax_renderer(name)
     jr.render(JaxFrameConfig(camera=cam, params=params, scene_config=sc),
               batch_spp=goldens.SPP)
-    jax_rays = sum(int(x) for x in jr._last_rays)
     _, pr = goldens.render(name, "cpu")
-    assert pr.last_ray_count() == jax_rays
+    return jr, cam, params, pr
+
+
+@pytest.mark.parametrize("name", goldens.NAMES)
+def test_path_structure_matches_jax(name):
+    jr, cam, params, pr = _golden_renders(name)
+    jax_rays = sum(int(x) for x in jr._last_rays)
+    assert pr.last_frame_rays() == jax_rays
 
     # first-hit triangle per pixel, sample 0
     px, py, valid, *_ = ti.swizzle_host(W, H)
@@ -131,6 +142,29 @@ def _scene_arrays(jr):
 
 
 @functools.lru_cache(maxsize=None)
+@pytest.mark.parametrize("name", goldens.NAMES)
+def test_readback_framebuffer_matches_jax(name):
+    """The display image (``readback_framebuffer``: the resolve of the
+    accumulation, sRGB) against the JAX renderer's of the same golden
+    frame, at the golden gate (the JAX renderer's images are the XLA-fused
+    programs' that made the goldens), and bitwise the port's own resolve
+    of its accumulation."""
+    jr, _, params, pr = _golden_renders(name)
+    disp = pr.readback_framebuffer()
+    jdisp = np.asarray(jr.readback_framebuffer())
+    assert disp.shape == jdisp.shape == (H, W, 4) and disp.dtype == np.float32
+    res = goldens.compare_golden_gate(name, disp[..., :3],
+                                      jdisp[..., :3].astype(np.float64))
+    assert res["ok"], res
+    acc = pr.readback_accumulation()
+    planes = [torch.from_numpy(np.ascontiguousarray(acc[..., k])).ravel()
+              for k in range(4)]
+    own = resolve.resolve_channels(planes, params.exposure,
+                                   params.early_tone_mapping_mode)
+    np.testing.assert_array_equal(
+        disp, np.stack([c.numpy().reshape(H, W) for c in own], -1))
+
+
 def _op_by_op(name):
     """The golden's 4 samples per pixel through both packages on the same
     scene arrays, the reference run op by op (no XLA fusion, so no FMA

@@ -18,8 +18,15 @@
   and 1) and ``closest_hit_binned`` (2 rounds) in interpret mode and
   against plain K1: flags exact, triangles exact except on exact-t ties,
   which are counted, with the tied t equal.
-- **Integrator and frame.** ``stream_closest`` "sorted" and "binned" pick
-  the same triangles; ``procedural.terrain(48)`` forced onto the streamed
+- **Quantized tiles, the ordered walk, multislot.** The 16-bit quantized
+  pack (``pack_streamed(quantize=True)``) and ``reconstruct_quantized``
+  equal the reference's bit for bit; plain K4 and K5 on int16 tiles, K4's
+  ordered walk and the multislot dispatch (``closest_hit_binned_all``,
+  k_max 1 and 8, and with negative t) against the reference in interpret
+  mode at the tolerances above, and against the port's own preorder walk
+  (t bitwise, triangles except on exact-t ties, which are counted).
+- **Integrator and frame.** The four ``stream_closest`` strategies
+  (sorted, ordered, binned, multislot) pick the same triangles; ``procedural.terrain(48)`` forced onto the streamed
   route (``RPTR_FORCE_STREAMED_TRAVERSAL=1``) renders at 32x32, depth 5,
   two frames, with ray counts, first-hit triangles and the image equal
   bitwise to the port's own K1 route (same triangles, same t/u/v, same
@@ -228,8 +235,19 @@ def test_pack_matches_reference(name):
     for field in jtopo._fields:
         np.testing.assert_array_equal(np.asarray(getattr(topo, field)),
                                       np.asarray(getattr(jtopo, field)))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        ts.pack_streamed(v0, e1, e2, quantize=True)
+    # the 16-bit quantized pack, bit for bit, and its reconstruction
+    jq = jts.pack_streamed(v0, e1, e2, quantize=True)
+    pq = ts.pack_streamed(v0, e1, e2, quantize=True)
+    assert pq.quantized and pq.tri_tiles.dtype == torch.int16
+    for field in ("top_nodes", "sub_nodes", "tri_tiles", "row_tri"):
+        a, b = getattr(pq, field).numpy(), np.asarray(getattr(jq, field))
+        assert a.dtype == b.dtype and a.shape == b.shape, field
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    for a, b in zip(ts.reconstruct_quantized(v0, e1, e2),
+                    jts.reconstruct_quantized(v0, e1, e2)):
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    with pytest.raises(ValueError, match="f32 tiles"):
+        ts.pack_streamed(v0, e1, e2, quantize=True, with_topology=True)
 
 
 def test_pick_chunk_tris():
@@ -409,34 +427,203 @@ def test_k5_kernel_plain_passes_and_seeds(scene):
 
 
 # ---------------------------------------------------------------------------
+# Quantized tiles, the ordered walk, the multislot dispatch
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def qscene(scene):
+    """terrain(48)'s 16-bit quantized packs, the JAX one and the port's."""
+    v0, e1, e2 = _flat(GRID)
+    return dict(jb=jts.pack_streamed(v0, e1, e2, quantize=True),
+                pb=ts.pack_streamed(v0, e1, e2, quantize=True))
+
+
+@pytest.fixture(scope="module")
+def qoracles(scene, qscene):
+    """One interpret-mode call of each reference function of this slice on
+    the queue: K4 on int16 tiles (sorted), K4's ordered walk (f32), K5's
+    any-hit round on int16 tiles, the multislot dispatch on int16 tiles and
+    on f32 tiles with one slot (most rays take the K4 cleanup)."""
+    jts.INTERPRET = tp2.INTERPRET = jtb.INTERPRET = True
+    try:
+        jb, jq = scene["jb"], qscene["jb"]
+        comps = _jax_comps(scene["ro"], scene["rd"])
+        tm, otm = jnp.asarray(scene["tmax"]), jnp.asarray(scene["otm"])
+        return dict(
+            k4_q=jts.closest_hit_streamed(jq, None, None, t_max=tm,
+                                          comps=comps, sort=True),
+            k4_ordered=jts.closest_hit_streamed(jb, None, None, t_max=tm,
+                                                comps=comps, sort=True,
+                                                ordered=True),
+            k5_q_occluded=jtb.occluded_binned(jq, None, None, t_max=otm,
+                                              comps=comps, rounds=1),
+            multislot_q=jtb.closest_hit_binned_all(jq, None, None, t_max=tm,
+                                                   comps=comps),
+            multislot_1=jtb.closest_hit_binned_all(jb, None, None, t_max=tm,
+                                                   comps=comps, k_max=1),
+        )
+    finally:
+        jts.INTERPRET = tp2.INTERPRET = jtb.INTERPRET = False
+
+
+def test_dequant_matches_reference(qscene):
+    """The port's decode of every quantized tile equals the reference's
+    ``dequant_tile`` bit for bit, and the decoded rows of every filled slot
+    are ``reconstruct_quantized``'s triangle."""
+    pb, jb = qscene["pb"], qscene["jb"]
+    L = pb.sub_leaves
+    dq = ts.dequant_constants(pb)
+    tiles = pb.tri_tiles.view(-1, L, 16, ts.LEAF)
+    jtiles = np.asarray(jb.tri_tiles).reshape(-1, L, 16, ts.LEAF)
+    for s in range(pb.num_subtrees):
+        mine = ts.dequant_tile(tiles[s], dq[s]).numpy()
+        for leaf in range(L):
+            ref = np.asarray(jts.dequant_tile(
+                jnp.asarray(jtiles[s, leaf]),
+                tuple(jnp.float32(x) for x in dq[s].tolist())))
+            np.testing.assert_array_equal(mine[leaf].view(np.uint32),
+                                          ref.view(np.uint32))
+    v0, e1, e2 = _flat(GRID)
+    recon = np.concatenate(ts.reconstruct_quantized(v0, e1, e2), axis=1)
+    rows, tri = ts.leaf_rows(pb).numpy(), pb.row_tri.numpy()
+    filled = np.zeros(len(rows), bool)  # the rows of every real leaf
+    for s in range(pb.num_subtrees):
+        links = ts.subtree_resident(pb, s).links
+        for leaf in links[:, 1][(links[:, 1] >= 0) & (links[:, 0] > 0)].tolist():
+            filled[(s * L + leaf) * ts.LEAF:(s * L + leaf + 1) * ts.LEAF] = True
+    np.testing.assert_array_equal(rows[filled].view(np.uint32),
+                                  recon[tri[filled]].view(np.uint32))
+
+
+def test_plain_k4_quantized_and_ordered_match_reference(scene, qscene,
+                                                        qoracles):
+    """Plain K4 on int16 tiles (sorted) and K4's ordered walk (f32 and
+    int16) against the reference kernel in interpret mode; the ordered
+    walk against the preorder walk: t bitwise, no tie on this queue."""
+    o, d = _soa(scene["ro"]), _soa(scene["rd"])
+    tm = torch.from_numpy(scene["tmax"])
+    for pb, ref in ((qscene["pb"], qoracles["k4_q"]),
+                    (scene["pb"], qoracles["k4_ordered"])):
+        pre = ts.closest_hit_streamed(pb, o, d, 0.0, tm, sort=True)
+        ordered = ts.closest_hit_streamed(pb, o, d, 0.0, tm, sort=True,
+                                          ordered=True)
+        _assert_hit_close(pre, ref)
+        _assert_hit_close(ordered, ref)
+        assert _ties("ordered vs preorder", ordered.t, ordered.tri, pre.t,
+                     pre.tri) == 0
+        assert 0.3 < (pre.tri >= 0).float().mean() < 0.95
+    with pytest.raises(AssertionError, match="closest-hit"):
+        ts.plain(scene["pb"], tr.pack_rays(o, d, 0.0, tm, 512)[0], True,
+                 ordered=True)
+
+
+def test_plain_k5_quantized_matches_reference(scene, qscene, qoracles):
+    """Plain K5 on int16 tiles: the any-hit round and its K4 cleanup
+    against the reference in interpret mode, flags exact; two closest
+    rounds against K4 on the same tiles, t bitwise."""
+    pb = qscene["pb"]
+    o, d = _soa(scene["ro"]), _soa(scene["rd"])
+    tm, otm = torch.from_numpy(scene["tmax"]), torch.from_numpy(scene["otm"])
+    blocked = tb.occluded_binned(pb, o, d, 0.0, otm, rounds=1)
+    np.testing.assert_array_equal(blocked.numpy(),
+                                  np.asarray(qoracles["k5_q_occluded"]))
+    assert blocked.any() and not blocked.all()
+    hit = tb.closest_hit_binned(pb, o, d, 0.0, tm, rounds=2)
+    k4 = ts.closest_hit_streamed(pb, o, d, 0.0, tm)
+    assert _ties("K5 vs K4, int16", hit.t, hit.tri, k4.t, k4.tri) == 0
+
+
+@pytest.mark.parametrize("case", ["int16", "f32-one-slot"])
+def test_multislot_matches_reference(scene, qscene, qoracles, case):
+    """``closest_hit_binned_all`` against the reference's in interpret mode
+    (tests/test_traverse_kernels.py:276, :610): on int16 tiles with 8 slots
+    and on f32 tiles with one slot, where most rays overflow into the K4
+    cleanup; against K4, t bitwise."""
+    pb, ref, k_max = ((qscene["pb"], qoracles["multislot_q"], None)
+                      if case == "int16" else
+                      (scene["pb"], qoracles["multislot_1"], 1))
+    o, d = _soa(scene["ro"]), _soa(scene["rd"])
+    tm = torch.from_numpy(scene["tmax"])
+    before = tb.multislot_dispatches
+    hit = tb.closest_hit_binned_all(pb, o, d, 0.0, tm, k_max=k_max)
+    assert tb.multislot_dispatches == before + 1
+    _assert_hit_close(hit, ref)
+    k4 = ts.closest_hit_streamed(pb, o, d, 0.0, tm)
+    assert _ties("multislot vs K4", hit.t, hit.tri, k4.t, k4.tri) == 0
+    dispatches, overflow, live = tb.multislot_overflow()
+    assert dispatches >= 1 and 0 <= overflow <= live
+    rays, _ = tr.pack_rays(o, d, 0.0, tm, 512)
+    *_, over, sid_blk, prays, _, _ = tb.multislot_operand(pb, rays, 512, k_max)
+    assert prays.shape[1] % 512 == 0 and sid_blk.shape[0] == prays.shape[1] // 512
+    assert (over.any() if case != "int16" else True)
+
+
+def test_multislot_negative_t():
+    """The multislot merge keeps the most negative t when t_min < 0
+    (tests/test_traverse_kernels.py:315): two stacked terrains, origins
+    between them looking down, so the upper copy lies behind the origin.
+    Against the reference's dispatch in interpret mode and the port's plain
+    K1 over a resident BVH of the same triangles."""
+    v0, e1, e2 = _terrain(16)
+    v0 = np.concatenate([v0, v0 + np.array([0.0, 30.0, 0.0], np.float32)])
+    e1, e2 = np.concatenate([e1, e1]), np.concatenate([e2, e2])
+    pb = ts.pack_streamed(v0, e1, e2)
+    jb = jts.pack_streamed(v0, e1, e2)
+    rng = np.random.default_rng(7)
+    n = 128
+    ro = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    ro[:, 1] = 15.0
+    rd = np.tile(np.array([[0.0, -1.0, 0.0]], np.float32), (n, 1))
+    rd[:, 0] = rng.uniform(-0.05, 0.05, n)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    o, d = _soa(ro), _soa(rd)
+    hit = tb.closest_hit_binned_all(pb, o, d, -100.0, 100.0, block=256)
+    jts.INTERPRET = tp2.INTERPRET = jtb.INTERPRET = True
+    try:
+        ref = jtb.closest_hit_binned_all(jb, None, None, t_min=-100.0,
+                                         t_max=100.0, comps=_jax_comps(ro, rd),
+                                         block=256)
+    finally:
+        jts.INTERPRET = tp2.INTERPRET = jtb.INTERPRET = False
+    _assert_hit_close(hit, ref)
+    fb = tr.pack_resident(bvh_mod.build_threaded_bvh(v0, e1, e2, leaf_size=128))
+    k1 = traverse.map_rows_to_tris(fb, tr.closest_hit_resident(fb, o, d, -100.0,
+                                                                100.0))
+    assert _ties("multislot vs K1", hit.t, hit.tri, k1.t, k1.tri) == 0
+    assert (hit.t[hit.tri >= 0] < 0).all() and (hit.tri >= 0).float().mean() > 0.9
+
+
+# ---------------------------------------------------------------------------
 # Integrator, renderer
 # ---------------------------------------------------------------------------
 
 
-def test_integrator_stream_closest_strategies(scene):
-    """``stream_closest`` "sorted" (K4) and "binned" (K5) pick the same
-    triangles (tests/test_traverse_kernels.py:636); "ordered" and
-    "multislot" are not ported; a typo raises."""
-    ds = ti.DeviceScene(bvh=scene["pb"], attr_packed=None, mat_packed=None,
-                        lights=None, sky=None)
+def test_integrator_stream_closest_strategies(scene, qscene):
+    """The four ``stream_closest`` strategies, "sorted" (K4), "ordered" (K4
+    front to back), "binned" (K5 rounds) and "multislot" (one K5 launch
+    over every overlapped subtree), pick the same triangles at the same t,
+    on f32 and on 16-bit tiles (tests/test_traverse_kernels.py:636-670);
+    shadow rays take one binned round; a typo raises."""
     o, d = _soa(scene["ro"]), _soa(scene["rd"])
-    hits = {}
-    for strategy in ("sorted", "binned"):
-        cfg = ti.IntegratorConfig(max_path_depth=1, streamed=True,
-                                  stream_closest=strategy)
-        hits[strategy] = ti._closest_hit_dispatch(ds, cfg, o, d, 0.0, 2.0e32)
-    assert (hits["sorted"].tri >= 0).any()
-    assert torch.equal(hits["sorted"].tri, hits["binned"].tri)
-    assert torch.equal(hits["sorted"].t, hits["binned"].t)
-    blocked = ti._occluded_dispatch(
-        ds, ti.IntegratorConfig(streamed=True), o, d, 0.0,
-        torch.from_numpy(scene["otm"]))
-    assert torch.equal(blocked, tb.occluded_binned(
-        scene["pb"], o, d, 0.0, torch.from_numpy(scene["otm"]), rounds=1))
-    for strategy in ("ordered", "multislot"):
-        cfg = ti.IntegratorConfig(streamed=True, stream_closest=strategy)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-            ti._closest_hit_dispatch(ds, cfg, o, d, 0.0, 2.0e32)
+    for pb in (scene["pb"], qscene["pb"]):
+        ds = ti.DeviceScene(bvh=pb, attr_packed=None, mat_packed=None,
+                            lights=None, sky=None)
+        hits = {}
+        for strategy in ti.STREAM_CLOSEST:
+            cfg = ti.IntegratorConfig(max_path_depth=1, streamed=True,
+                                      stream_closest=strategy)
+            hits[strategy] = ti._closest_hit_dispatch(ds, cfg, o, d, 0.0,
+                                                      2.0e32)
+        assert (hits["sorted"].tri >= 0).any()
+        for strategy in ti.STREAM_CLOSEST:
+            assert torch.equal(hits["sorted"].tri, hits[strategy].tri), strategy
+            assert torch.equal(hits["sorted"].t, hits[strategy].t), strategy
+        blocked = ti._occluded_dispatch(
+            ds, ti.IntegratorConfig(streamed=True), o, d, 0.0,
+            torch.from_numpy(scene["otm"]))
+        assert torch.equal(blocked, tb.occluded_binned(
+            pb, o, d, 0.0, torch.from_numpy(scene["otm"]), rounds=1))
     cfg = ti.IntegratorConfig(streamed=True, stream_closest="sortd")
     with pytest.raises(ValueError, match="stream_closest"):
         ti._closest_hit_dispatch(ds, cfg, o, d, 0.0, 2.0e32)
@@ -450,7 +637,7 @@ def _port(**kv):
         rays = []
         for _ in range(FRAMES):
             r.render(cfg)
-            rays.append(r.last_ray_count())
+            rays.append(r.last_frame_rays())
     return r.readback_accumulation(), rays, r, cfg
 
 
@@ -551,21 +738,26 @@ def test_first_hit_triangles_match_jax_and_k1(renders):
 def test_route_overrides_and_limits(monkeypatch):
     """RPTR_FORCE_STREAMED_TRAVERSAL sends any scene to the streamed route
     (renderer.py:601-604); RPTR_STREAM_CLOSEST is validated as
-    renderer.py:1077-1089 validates it (test_torch_wavefront.py's
-    test_route_limits holds the quantized tiles)."""
+    renderer.py:1077-1089 validates it, and each of its four strategies
+    renders the same frame (test_torch_wavefront.py's test_route_limits
+    holds the quantized tiles)."""
     with _env():
         assert trend.route_for(90_001).streamed
         assert not trend.route_for(90_000).streamed
     with _env(RPTR_FORCE_STREAMED_TRAVERSAL="1", RPTR_TRAVERSAL_V3="1"):
         route = trend.route_for(100)
         assert route.streamed and not route.kernel_v3 and not route.compact
-    for value, err in (("sortd", ValueError), ("ordered", NotImplementedError),
-                       ("multislot", NotImplementedError)):
+    with _env(RPTR_STREAM_CLOSEST="sortd", RPTR_FORCE_STREAMED_TRAVERSAL="1"):
+        r, cfg = frame_setup("terrain", "cpu", (16, 16), 2, 16)
+        with pytest.raises(ValueError):
+            r.render(cfg)
+    frames = {}
+    for value in ("sorted", "ordered", "binned", "multislot"):
         with _env(RPTR_STREAM_CLOSEST=value, RPTR_FORCE_STREAMED_TRAVERSAL="1"):
             r, cfg = frame_setup("terrain", "cpu", (16, 16), 2, 16)
-            with pytest.raises(err):
-                r.render(cfg)
-    with _env(RPTR_STREAM_CLOSEST="binned", RPTR_FORCE_STREAMED_TRAVERSAL="1"):
-        r, cfg = frame_setup("terrain", "cpu", (16, 16), 2, 16)
-        r.render(cfg)
-        assert r._integrator_config(cfg.params).stream_closest == "binned"
+            r.render(cfg)
+            assert r._integrator_config(cfg.params).stream_closest == value
+            frames[value] = (r.readback_accumulation(), r.last_frame_rays())
+    for value, (img, rays) in frames.items():
+        assert rays == frames["sorted"][1], value
+        np.testing.assert_array_equal(img, frames["sorted"][0], err_msg=value)

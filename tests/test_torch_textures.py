@@ -290,7 +290,7 @@ def test_textured_floor_renders():
         _floor_scene(jproc, JaxTexture, jax_mip_chain)))
     jr.render(JaxFrameConfig(camera=FLOOR_CAM,
                              params=JaxRenderParams(batch_spp=8, max_path_depth=2)))
-    assert r.last_ray_count() == sum(int(x) for x in jr._last_rays)
+    assert r.last_frame_rays() == sum(int(x) for x in jr._last_rays)
     ref = np.asarray(jr.readback_accumulation())
     res = goldens.compare_ref(img[..., :3], ref[..., :3], "cornell_textured")
     assert res["ok"], res

@@ -21,6 +21,11 @@
   bounded tmax. Across kernels plain K6 = plain K7 = the nested walk:
   triangles and instances equal except on exact-t ties (none on these
   queues), t bitwise.
+- **Past the entry cap.** The reference's K7 cap of 2,048 entries is its
+  SMEM entry table; lowered under a scene's entry count, the reference
+  renderer falls back to its XLA walk and the port stays on K7, with the
+  same rays and image; K7's rows are held to int32. K6's ordered instance
+  walk (plain) against the reference's ``ordered=True`` in interpret mode.
 - **Renderer.** ``instanced_field(num_inst=6, frames=4)`` at 32x32, depth
   3, two animated frames, through the K6 route and the K7 route (forced by
   setting K6's ``MAX_INSTANCES`` to 0, as the reference's tests do) against
@@ -228,6 +233,10 @@ def oracles(scenes, queues):
                                                           block=256)
             out[name, "k6_occ"] = jtt.occluded_tlas_pallas(jbb6, ro, rd, 0.0, otm,
                                                            block=256)
+        jbb6 = scenes["aniso"]["jax"]["bb6"]
+        ro, rd, tm, _ = _jq(queues["aniso"])
+        out["aniso", "k6_ordered"] = jtt.closest_hit_tlas_pallas(
+            jbb6, ro, rd, 0.0, tm, block=256, ordered=True)
         j = scenes["stream"]["jax"]
         ro, rd, tm, otm = _jq(queues["stream"])
         out["stream", "k7"] = jtts.closest_hit_tlas_stream(
@@ -337,6 +346,24 @@ def test_plain_k6_matches_reference(scenes, queues, oracles, name):
     np.testing.assert_array_equal(blocked.numpy(), np.asarray(oracles[name, "k6_occ"]))
 
 
+def test_plain_k6_ordered_matches_reference(scenes, queues, oracles):
+    """K6's ordered instance walk (plain) against the reference's
+    ``ordered=True`` in interpret mode (tests/test_traverse_kernels.py:
+    439-471), and against the preorder walk: t bitwise, triangles and
+    instances equal (no exact-t tie on this queue)."""
+    sc, q = scenes["aniso"], queues["aniso"]
+    o, d = _soa(q["ro"]), _soa(q["rd"])
+    tm = torch.from_numpy(q["tmax"])
+    hit = tt.closest_hit_tlas(sc["bb6"], o, d, 0.0, tm, ordered=True)
+    _assert_hit_close(hit, oracles["aniso", "k6_ordered"])
+    pre = tt.closest_hit_tlas(sc["bb6"], o, d, 0.0, tm)
+    assert torch.equal(hit.t, pre.t)
+    assert torch.equal(hit.tri, pre.tri) and torch.equal(hit.inst, pre.inst)
+    rays, _ = pack_rays(o, d, 0.0, tm, 512)
+    with pytest.raises(AssertionError, match="closest-hit"):
+        tt.plain(sc["bb6"], rays, True, ordered=True)
+
+
 def test_plain_k7_matches_reference(scenes, queues, oracles):
     sc, q = scenes["stream"], queues["stream"]
     o, d = _soa(q["ro"]), _soa(q["rd"])
@@ -429,7 +456,7 @@ def _port_render(route, monkeypatch=None, frames=FRAMES):
     for f in range(frames):
         r.set_animation_frame(f + 1)
         r.render(cfg)
-        rays.append(r.last_ray_count())
+        rays.append(r.last_frame_rays())
     return r.readback_accumulation(), rays, r, cfg
 
 
@@ -529,7 +556,7 @@ def test_animation_frame_equals_fresh_scene(renders, route):
     assert ds.attr_packed is ds0.attr_packed
     r.render(cfg)
     fresh.render(cfg)
-    assert r.last_ray_count() == fresh.last_ray_count()
+    assert r.last_frame_rays() == fresh.last_frame_rays()
     np.testing.assert_array_equal(r.readback_accumulation(),
                                   fresh.readback_accumulation())
 
@@ -559,32 +586,63 @@ def test_use_tlas_reaches_two_level_route():
 
 
 def test_two_level_limits(monkeypatch):
-    """Past K7's entry cap the port raises (the reference's XLA walk is not
-    a route); a flattened scene cannot be animated yet (refit, ROADMAP item
-    17); K6's ordered walk raises naming ROADMAP item 18; the nested walk
-    is no route either."""
+    """Past the reference's K7 cap of 2,048 entries (lowered here to 6) the
+    port still takes K7 (the cap is the TPU's SMEM entry table); K7's rows
+    must fit int32, else ``ValueError``; a flattened scene cannot be
+    animated yet (refit, ROADMAP item 17); K6's ordered walk is a route of
+    the integrator (``stream_closest="ordered"``); a two-level scene runs
+    on K6 or K7, never on the nested walk."""
+    monkeypatch.setattr(jtts, "MAX_ENTRIES", 6)
+    monkeypatch.setattr(tt, "MAX_INSTANCES", 0)
     r = trend.Renderer(device="cpu")
     r.options = r.options.replace(use_tlas=True)
     r.initialize(16, 16)
-    monkeypatch.setattr(tt, "MAX_INSTANCES", 0)
-    monkeypatch.setattr(tts, "MAX_ENTRIES", 6)
-    with pytest.raises(NotImplementedError, match="entries"):
-        r.set_scene(_field("port"), scene_config=SC)
+    r.set_scene(_field("port"), scene_config=SC)
+    assert r._route.tlas == "k7"
+    assert r.device_scene.tlas_stream[1].num_entries > jtts.MAX_ENTRIES
+    tts.check_rows(2**31 // 8192, 8192)
+    with pytest.raises(ValueError, match="int32"):
+        tts.check_rows(2**31 // 8192 + 1, 8192)
     flat_r = trend.Renderer(device="cpu")
     flat_r.initialize(16, 16)
     flat_r.set_scene(_field("port"), scene_config=SC)
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         flat_r.set_animation_frame(1)
-    o = _soa(np.zeros((4, 3), np.float32))
-    d = _soa(np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (4, 1)))
+    sc = _build("iso")
+    o = _soa(np.tile(np.array([[0.0, 20.0, 0.5]], np.float32), (64, 1)))
+    d = _soa(np.tile(np.array([[0.05, -1.0, 0.02]], np.float32), (64, 1)))
     ds = ti.DeviceScene(bvh=None, attr_packed=None, mat_packed=None, lights=None,
-                        sky=None)
+                        sky=None, tlas_k6=sc["bb6"])
     cfg = ti.IntegratorConfig(two_level=True, tlas_k6=True, stream_closest="ordered")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        ti._closest_hit_dispatch(ds, cfg, o, d, 0.0, 2.0e32)
-    with pytest.raises(NotImplementedError, match="XLA walk"):
+    hit = ti._closest_hit_dispatch(ds, cfg, o, d, 0.0, 2.0e32)
+    pre = tt.closest_hit_tlas(sc["bb6"], o, d)
+    assert torch.equal(hit.t, pre.t) and torch.equal(hit.tri, pre.tri)
+    with pytest.raises(AssertionError, match="K6 or K7"):
         ti._occluded_dispatch(ds, ti.IntegratorConfig(two_level=True), o, d,
                               0.0, 2.0e32)
+
+
+def test_past_entry_cap_matches_jax(renders, monkeypatch):
+    """A two-level scene past the reference's K7 entry cap (lowered to 6,
+    under instanced_field(6)'s 7 entries): the reference renderer, its
+    two-level kernels forced on, falls back to its XLA walk
+    (renderer.py:737-757), the port renders through K7; rays exact, the
+    image within ``goldens.compare_ref``'s gate of the JAX renderer's."""
+    monkeypatch.setenv("RPTR_FORCE_TLAS_PALLAS", "1")
+    monkeypatch.setattr(jtt, "MAX_INSTANCES", 0)
+    monkeypatch.setattr(jtts, "MAX_ENTRIES", 6)
+    jr = jrend.Renderer()
+    jr.options = jr.options.replace(use_tlas=True)
+    jr.initialize(SIZE, SIZE)
+    jr.set_scene(_field("jax"), scene_config=SC)
+    assert jr._use_two_level and not jr._use_tlas_stream
+    assert not jr._use_tlas_pallas
+    img, rays, r, _ = renders["k7"]
+    assert r.device_scene.tlas_stream[1].num_entries > jtts.MAX_ENTRIES
+    jimg, jrays, _, _ = renders["jax"]  # the XLA walk, as jr would render
+    assert rays == jrays
+    res = goldens.compare_ref(img[..., :3], jimg[..., :3].astype(np.float64))
+    assert res["ok"], res
 
 
 @pytest.mark.parametrize("route", ["k6", "k7"])

@@ -88,7 +88,7 @@ def _port(**kv):
         rays = []
         for _ in range(FRAMES):
             r.render(cfg)
-            rays.append(r.last_ray_count())
+            rays.append(r.last_frame_rays())
     return r.readback_accumulation(), rays, r, cfg
 
 
@@ -230,15 +230,19 @@ def test_route_by_triangle_count(num_tris, env):
 
 
 def test_route_limits(monkeypatch):
-    """Above the resident cap set_scene takes the streamed route, whose
-    quantized tiles raise before any pack, and the v1 walk (K8a/K8b) and
-    the monolith's carry compaction are not ported."""
+    """Above the resident cap set_scene takes the streamed route; with
+    ``quantized_geometry`` it packs 16-bit tiles and keeps no refit
+    topology (renderer.py:788-792); the v1 walk (K8a/K8b) and the
+    monolith's carry compaction are not ported."""
+    assert trend.route_for(213 * 213 * 2).streamed
+    monkeypatch.setenv("RPTR_FORCE_STREAMED_TRAVERSAL", "1")
     r = trend.Renderer(device="cpu")
     r.initialize(16, 16)
     r.options = dataclasses.replace(r.options, quantized_geometry=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        r.set_scene(Scene.from_vkr_scene(tproc.terrain(grid=213)))
-    assert r._route.streamed
+    r.set_scene(Scene.from_vkr_scene(tproc.terrain(grid=24)))
+    assert r._route.streamed and r.device_scene.bvh.quantized
+    assert r._streamed_topo is None
+    monkeypatch.delenv("RPTR_FORCE_STREAMED_TRAVERSAL")
     monkeypatch.setenv("RPTR_TRAVERSAL_V1", "1")
     with pytest.raises(NotImplementedError, match="K8a"):
         trend.route_for(1000)
