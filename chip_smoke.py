@@ -7,11 +7,12 @@ non-zero, printing no result, without them or outside a checkout.
 
 Phases (each raises on failure):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the seven traversal kernels from source, one nvcc each, all
-     at once: K1 (csrc/traverse_resident.cu), K2 (csrc/traverse_flat_cull.cu),
-     K3 (csrc/traverse_precull.cu), K4 (csrc/traverse_streamed.cu), K5
-     (csrc/traverse_binned.cu), K6 (csrc/traverse_tlas.cu) and K7
-     (csrc/traverse_tlas_stream.cu), with nvcc's registers and spills;
+  2. build: the nine traversal kernels from their eight sources, one nvcc
+     each, all at once: K1 (csrc/traverse_resident.cu), K2
+     (csrc/traverse_flat_cull.cu), K3 (csrc/traverse_precull.cu), K4
+     (csrc/traverse_streamed.cu), K5 (csrc/traverse_binned.cu), K6
+     (csrc/traverse_tlas.cu), K7 (csrc/traverse_tlas_stream.cu), K8a and
+     K8b (csrc/traverse_v1.cu), with nvcc's registers and spills;
   3. the cornell main path: 1920x1080, 1 spp, depth 9, one warm-up frame
      and timed frames; K1 must launch, K2-K5 not;
   3b. the village path: procedural.village(), 80,496 textured triangles, at
@@ -62,6 +63,14 @@ Phases (each raises on failure):
      render time beside the script's CUDA-event time, and its last frame's
      display image (readback_framebuffer, Reinhard-tonemapped) must be
      finite and in [0, 1];
+  5d. the V1 paths (RPTR_TRAVERSAL_V1=1, the v1 packet walk) at 1920x1080,
+     1 spp, depth 9: cornell through K8a (its sample 0 bitwise the K1
+     route's, both trees one node), cornell PT_WAVEFRONT through merged K8a
+     launches only (sample 0 bitwise the V1 megakernel's),
+     procedural.terrain(grid=40) (3,200 tris, a row-major table) through
+     K8a, terrain200 and the village through K8b (field-major tables): the
+     tree's nodes, leaves and padded rows, set-up seconds, timed frames as
+     in 3; the path's kernel must launch and no other;
   6. K1 against its plain PyTorch version on the card: the cornell main
      path's shape (1080p chunk of 524,288 rays) and two terrain scenes (20k
      tris at leaf 32, 80k tris at leaf 128) with 262,144-ray coherent,
@@ -138,7 +147,25 @@ Phases (each raises on failure):
      the first queue, the plain occluded walk on the second) and to the
      kernel's two separate launches, bitwise; timed with CUDA events beside
      the sum of the two halves' bounds and the two separate launches.
-Its last two lines are the kernels' JSON record and the result JSON.
+ 15. K8a and K8b on each V1 path's primary chunk with the most hits, a
+     bounce-1 chunk (unsorted, as V1 dispatches it) and its sun shadow
+     queue: closest, any-hit and merged, each bitwise its plain version and
+     the merged launch bitwise the two single-mode launches, timed with
+     CUDA events beside the bound over the V1 tree's leaf boxes and the
+     plain version; on terrain200 the lanes where K8b's triangles differ
+     from K1's walk of the same leaf-128 tree (a packet and a per-ray walk
+     differ only at grazing corners; at most one in a thousand);
+ 16. Renderer.render_ray_queries, closest-hit and integrator modes, and
+     render_aovs / readback_aov at 64x36 on the card against the port's
+     CPU run: cornell (K1 and V1), terrain200 (K2 and V1), a 48x48-grid
+     streamed terrain and a six-instance field; closest hits equal, the
+     integrator queries at goldens.compare_card, each AOV buffer within
+     1e-4 on at least 99% of its pixels (the camera rays differ in their
+     last bits between the card and the CPU: torch divides a CUDA tensor
+     by a scalar through its reciprocal, so a ray that grazes an edge can
+     hit another triangle).
+Its last two lines are the kernels' JSON record (K8a and K8b each with a
+merged record) and the result JSON.
 """
 
 import contextlib
@@ -168,7 +195,22 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                       f"{REF}/traverse_tlas.py:202"),
     "traverse_tlas_stream": (f"{PKG}/csrc/traverse_tlas_stream.cu",
                              f"{REF}/traverse_tlas_stream.py:276"),
+    "traverse_v1": (f"{PKG}/csrc/traverse_v1.cu",
+                    f"{REF}/traverse_pallas.py:433"),
 }
+# the two records of traverse_v1.cu: K8a (row-major table) replaces
+# traverse_pallas.py::_kernel (pallas_call at :433), K8b (field-major)
+# ::_kernel_lane (pallas_call at :452)
+V1_KERNELS = {"K8a": f"{REF}/traverse_pallas.py:433",
+              "K8b": f"{REF}/traverse_pallas.py:452"}
+V1_PATHS = (  # label, frame_setup scene, grid, timed frames, kernel
+    ("v1 cornell 1080p", "cornell", 200, 2, "K8a"),
+    ("v1 terrain40 1080p", "terrain", 40, 2, "K8a"),
+    ("v1 terrain200 1080p", "terrain", 200, 1, "K8b"),
+    ("v1 village 1080p", "village", 200, 1, "K8b"),
+)
+QUERY_SIZE = (64, 36)  # the AOV passes of the query phase
+N_QUERIES = 1024  # closest-hit queries per scene (128 through the integrator)
 QUEUE = 262_144
 TIMED_FRAMES = 4
 STREAM_FRAMES = 3  # timed frames of the terrain500 1080p path
@@ -793,6 +835,9 @@ def _counters():
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_tlas_stream as tts,
     )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_v1 as tv,
+    )
 
     return {
         "K1": (tr.reset_launches, lambda: tr.launches),
@@ -802,6 +847,8 @@ def _counters():
         "K5": (tb.reset_launches, lambda: tb.launches_k5),
         "K6": (tt.reset_launches, lambda: tt.launches_k6),
         "K7": (tts.reset_launches, lambda: tts.launches_k7),
+        "K8a": (tv.reset_launches, lambda: tv.launches_k8a),
+        "K8b": (lambda: None, lambda: tv.launches_k8b),
     }
 
 
@@ -829,7 +876,8 @@ def _mode_counts():
 
 
 def _merged_counts():
-    """Merged two-queue launches of K1, K2 and K4 since their last reset."""
+    """Merged two-queue launches of K1, K2, K4 and K8 since their last
+    reset."""
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_resident as tr,
@@ -837,9 +885,12 @@ def _merged_counts():
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_stream as ts,
     )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_v1 as tv,
+    )
 
     return {"K1": tr.merged_launches, "K2": tf.merged_launches_k2,
-            "K4": ts.merged_launches_k4}
+            "K4": ts.merged_launches_k4, "K8": tv.merged_launches}
 
 
 def _only(label, launches, kernels):
@@ -2082,6 +2133,329 @@ def phase_small_instanced():
             _only(f"{label} {kernel}", launched, (kernel,))
 
 
+# ---------------------------------------------------------------------------
+# The v1 packet walk: K8a and K8b (RPTR_TRAVERSAL_V1)
+# ---------------------------------------------------------------------------
+
+
+def _same_bits(a, b):
+    """Two float arrays equal bit for bit."""
+    return a.shape == b.shape and bool((np.asarray(a, np.float32).view(np.int32)
+                                        == np.asarray(b, np.float32).view(np.int32)).all())
+
+
+def phase_v1_paths():
+    """The V1 paths of V1_PATHS at MAIN_SIZE, 1 spp, depth 9, under
+    RPTR_TRAVERSAL_V1=1: cornell through K8a, then its sample 0 against the
+    K1 route's bitwise (both trees one node) and the PT_WAVEFRONT variant
+    through merged K8a launches, its sample 0 against the megakernel's
+    bitwise; terrain40 through K8a (a row-major table); terrain200 and the
+    village through K8b. Returns {label: (renderer, frame config, launches,
+    record)}, the wavefront path's under "v1 cornell PT_WAVEFRONT"."""
+    from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
+        VARIANT_WAVEFRONT,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_v1 as tv,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    r_k1, _ = frame_setup("cornell", DEVICE, MAIN_SIZE)
+    out = {}
+    with env(RPTR_TRAVERSAL_V1="1"):
+        for label, scene, grid, frames, kernel in V1_PATHS:
+            r, cfg = frame_setup(scene, DEVICE, MAIN_SIZE, grid=grid)
+            bvh = r.device_scene.bvh
+            leaves = int((bvh.links[:, 1] >= 0).sum())
+            log(f"{label}: {r.scene.total_tris} tris, leaf-128 tree of "
+                f"{bvh.num_nodes} nodes, {leaves} leaves, {bvh.num_rows} padded "
+                f"rows, {'row-major (Rp, 16)' if bvh.wide else 'field-major (16, Rp)'}"
+                f" table; set-up (BVH build, pack and upload) "
+                f"{r.setup_seconds:.2f} s")
+            check(r._route.v1 and isinstance(bvh, tv.V1BVH)
+                  and bvh.wide == (kernel == "K8a")
+                  and bvh.num_rows == tv.LEAF * leaves,
+                  f"{label}: route {r._route}, pack {type(bvh).__name__}")
+            launches, rec = _timed_frames(label, r, cfg, frames)
+            check(r._wavefront is None, f"{label} took the wavefront executor")
+            _only(label, launches, (kernel,))
+            log(f"{label} summary: frame {rec['frame_ms']:.3f} ms, "
+                f"{rec['mrays']:.3f} Mray/s, {kernel} "
+                f"{rec['per_frame'][kernel]:.2f} launches per frame")
+            out[label] = (r, cfg, launches, rec)
+            if scene != "cornell":
+                continue
+            # sample 0 on the K1 route and on V1: one 32-row leaf and one
+            # 128-row leaf whose padded rows never hit
+            check(r_k1.device_scene.bvh.num_nodes == bvh.num_nodes == 1,
+                  "cornell: a tree is not one node")
+            frames0 = {}
+            for name, rr in (("K1", r_k1), ("V1", r)):
+                rr.frame_id = 0
+                rr.render(cfg)
+                frames0[name] = (rr.readback_accumulation(), rr.last_frame_rays())
+            same = _same_bits(frames0["K1"][0], frames0["V1"][0])
+            log(f"{label}: sample 0 on V1 against the K1 route, bitwise equal "
+                f"{same}; rays {frames0['V1'][1]} (K1 {frames0['K1'][1]})")
+            check(same and frames0["K1"][1] == frames0["V1"][1],
+                  "v1 cornell: sample 0 differs from the K1 route's")
+            wlabel = "v1 cornell PT_WAVEFRONT"
+            rw, cfgw = frame_setup("cornell", DEVICE, MAIN_SIZE,
+                                   variant=VARIANT_WAVEFRONT)
+            wl, wrec = _timed_frames(wlabel, rw, cfgw, frames)
+            _only(wlabel, wl, ("K8a",))
+            check(wrec["merged"]["K8"] == wl["K8a"],
+                  f"{wlabel}: {wl['K8a'] - wrec['merged']['K8']} of "
+                  f"{wl['K8a']} K8a launches were not merged")
+            rw.frame_id = 0
+            rw.render(cfgw)
+            same_w = _same_bits(rw.readback_accumulation(), frames0["V1"][0])
+            log(f"{wlabel}: sample 0 against the megakernel's, bitwise equal "
+                f"{same_w}; rays {rw.last_frame_rays()}; K8a "
+                f"{wrec['per_frame']['K8a']:.2f} launches per frame, all merged")
+            check(same_w and rw.last_frame_rays() == frames0["V1"][1],
+                  f"{wlabel}: sample 0 differs from the megakernel's")
+            out[wlabel] = (rw, cfgw, wl, wrec)
+    del r_k1
+    return out
+
+
+def _v1_fields(bvh, out):
+    """(t, row, u, v) of a K8 output in either layout."""
+    import torch
+
+    f = out if bvh.wide else out.t()
+    return (f[0].contiguous(), f[1].contiguous().view(torch.int32),
+            f[2].contiguous(), f[3].contiguous())
+
+
+def compare_v1(label, bvh, rays, any_hit, shadow_from=-1, iters=5):
+    """K8 on one packed (8, n) queue (given to the kernel in its layout)
+    against its plain version, bitwise. Returns ((t, row, u, v), record)
+    with the kernel's and the plain version's ms."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_v1 as tv,
+    )
+
+    op = rays if bvh.wide else rays.t().contiguous()
+    k = tv.launch(bvh, op, any_hit, shadow_from)
+    torch.cuda.synchronize()
+    p, p_ms = _plain_ms(lambda: tv.plain(bvh, op, any_hit, shadow_from))
+    kf, pf = _v1_fields(bvh, k), _v1_fields(bvh, p)
+    bad, err = _equal(kf, pf)
+    k_ms = cuda_ms(lambda: tv.launch(bvh, op, any_hit, shadow_from), iters)
+    name = "K8a" if bvh.wide else "K8b"
+    mode = ("merged" if shadow_from >= 0 else "any-hit" if any_hit else "closest")
+    live = int((rays[7] > rays[6]).sum())
+    log(f"  {label}: {name} {mode} on {rays.shape[1]} lanes ({live} live): "
+        f"{bad} values not bitwise its plain version; hit "
+        f"{(kf[1] >= 0).float().mean().item():.3f}; {k_ms:.3f} ms, plain "
+        f"{p_ms:.1f} ms")
+    check(bad == 0, f"{label}: {name} {mode} disagrees with its plain version")
+    return kf, {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err}
+
+
+def phase_v1_queues(paths, smi):
+    """K8a and K8b on each V1 path's queues: the primary chunk with the most
+    hits, a bounce-1 chunk from its hit points (scattered directions,
+    unsorted, as V1 dispatches it) and the sun shadow queue of those hit
+    points. Closest on the primary and bounce-1 chunks, any-hit on the
+    shadow queue, the merged launch of the bounce-1 and shadow queues:
+    each bitwise its plain version, timed with CUDA events beside the
+    bound. On terrain200 the lanes where K8b's triangles differ from K1's
+    walk over the same leaf-128 tree are counted. Returns {"K8a": record,
+    "K8b": record}, each with a "merged" record."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import bvh as bvh_mod
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_v1 as tv,
+    )
+
+    rng = np.random.default_rng(20261017)
+    records = {}
+    for label, _scene, _grid, _frames, kernel in V1_PATHS:
+        r, cfg, launches, rec = paths[label]
+        bvh = r.device_scene.bvh
+        rows = (bvh.tris[:, 0:9] if bvh.wide else bvh.tris[0:9].t()).cpu().numpy()
+        aabbs = torch.from_numpy(tf.leaf_aabbs_for(rows, tv.LEAF)).to(DEVICE)
+
+        def closest_rows(q, bvh=bvh):
+            return _v1_fields(bvh, tv.launch(
+                bvh, q if bvh.wide else q.t().contiguous(), False))[1]
+
+        c, prim = _best_chunk(r, cfg, closest_rows)
+        log(f"{label} queues ({smi}), primary chunk {c}:")
+        hp, prim_rec = compare_v1(f"{label} primary chunk {c}", bvh, prim, False)
+        b_ms, b_by, pairs = bound(aabbs, tv.LEAF, prim, hp[0], False)
+        bounce, shadow = _next_queues(prim, hp[0], cfg, rng)
+        hb, bounce_rec = compare_v1(f"{label} bounce 1 (unsorted)", bvh, bounce,
+                                    False)
+        hs, shadow_rec = compare_v1(f"{label} sun shadow", bvh, shadow, True)
+        nc = bounce.shape[1]
+        merged = torch.cat([bounce, shadow], dim=1).contiguous()
+        hm, merged_rec = compare_v1(f"{label} bounce 1 + sun shadow", bvh, merged,
+                                    False, nc // tv.BLOCK)
+        sep_bad = (_equal(tuple(x[:nc] for x in hm), hb)[0]
+                   + _equal(tuple(x[nc:] for x in hm), hs)[0])
+        op_b = bounce if bvh.wide else bounce.t().contiguous()
+        op_s = shadow if bvh.wide else shadow.t().contiguous()
+        sep_ms = cuda_ms(lambda: (tv.launch(bvh, op_b, False),
+                                  tv.launch(bvh, op_s, True)), 5)
+        mb_ms = (bound(aabbs, tv.LEAF, bounce, hb[0], False)[0]
+                 + bound(aabbs, tv.LEAF, shadow, shadow[7], True)[0])
+        log(f"  {label}: merged launch against the two single-mode launches: "
+            f"{sep_bad} values not bitwise; merged {merged_rec['ms']:.3f} ms, "
+            f"separate {sep_ms:.3f} ms; {kernel} {rec['per_frame'][kernel]:.2f} "
+            f"launches per frame; bound on the primary chunk {b_ms:.4f} ms by "
+            f"{b_by} ({pairs} ray-leaf pairs), merged pair {mb_ms:.4f} ms")
+        check(sep_bad == 0, f"{label}: merged launch differs from separate launches")
+        if label == "v1 terrain200 1080p":
+            # K1's per-ray walk over the same leaf-128 tree
+            flat = r.scene.flatten_world()
+            tb = bvh_mod.thread_bvh(
+                bvh_mod.build_bvh_sah(flat.v0, flat.e1, flat.e2, leaf_size=tv.LEAF),
+                flat.v0, flat.e1, flat.e2)
+            check(torch.equal(tv.pack_v1(tb, DEVICE).tris, bvh.tris),
+                  "terrain200: the rebuilt tree is not the renderer's")
+            rb = tr.pack_resident(tb, DEVICE)
+            for qname, q, h in (("primary", prim, hp), ("bounce 1", bounce, hb)):
+                h1 = _k1(rb, q, False)
+                differ = int((h1.tri != h[1]).sum())
+                log(f"  {label} {qname}: {differ} of {q.shape[1]} lanes where "
+                    f"K8b's triangle differs from K1's walk of the same tree")
+                check(differ <= q.shape[1] // 1000,
+                      f"{label} {qname}: K8b and K1 differ on {differ} lanes")
+        if kernel in records:
+            continue
+        records[kernel] = dict(prim_rec, launches=launches[kernel],
+                               bound_ms=b_ms, bound_by=b_by, merged=dict(
+                                   merged_rec, separate_ms=sep_ms, bound_ms=mb_ms))
+    return records
+
+
+def _query_rays(cfg, size, n, seed):
+    """n rays from around the camera into its view, and a per-query t_max
+    (short on a third of them), numpy."""
+    rng = np.random.default_rng(seed)
+    pos, du, dv, tl = (np.asarray(a, np.float32)
+                       for a in cfg.camera.view_basis(*size))
+    a, b = rng.uniform(size=(2, n, 1)).astype(np.float32)
+    d = tl + a * du + b * dv
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = pos + rng.uniform(-0.05, 0.05, (n, 3)).astype(np.float32)
+    t_max = np.where(np.arange(n) % 3 == 0, rng.uniform(0.5, 5.0, n),
+                     2.0e32).astype(np.float32)
+    return o.astype(np.float32), d.astype(np.float32), t_max
+
+
+def phase_queries():
+    """Renderer.render_ray_queries (closest-hit mode and the integrator
+    mode) and render_aovs / readback_aov on the card against the port's CPU
+    run of the same calls: cornell on the K1 and V1 routes, terrain200 on
+    the K2 and V1 routes, procedural.terrain(grid=48) on the streamed route
+    and procedural.instanced_field(num_inst=6) on the two-level route.
+    Closest queries (the same rays on both): triangles equal, t, u, v
+    within 1e-5; integrator queries: goldens.compare_card and alpha equal;
+    AOVs (a second pass from a moved camera, so motion is non-zero): each
+    buffer within 1e-4 on at least 99% of its pixels, the share
+    compare_card allows, since the camera rays the pass makes on each
+    device differ in their last bits (torch on the card divides by a
+    scalar through its reciprocal) and a ray at an edge may hit another
+    triangle."""
+    from realtimepathtracingresearchframework_tpu_torch import goldens
+    from realtimepathtracingresearchframework_tpu_torch.backend.params import (
+        RenderParams,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
+        VARIANT_MEGAKERNEL,
+        FrameConfig,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.models.camera import (
+        OrientedCamera,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    v1 = {"RPTR_TRAVERSAL_V1": "1"}
+    cases = (
+        ("cornell K1", "cornell", {}, {}, "K1"),
+        ("cornell V1", "cornell", {}, v1, "K8a"),
+        ("terrain200 K2", "terrain", {"grid": 200}, {}, "K2"),
+        ("terrain200 V1", "terrain", {"grid": 200}, v1, "K8b"),
+        ("terrain48 streamed", "terrain", {"grid": 48},
+         {"RPTR_FORCE_STREAMED_TRAVERSAL": "1"}, "K4"),
+        ("instanced6 two-level", "instanced", {"num_inst": 6}, {}, "K6"),
+    )
+    params = RenderParams(max_path_depth=3)
+    for label, scene, kw, e, kernel in cases:
+        got, secs = {}, {}
+        for device in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            counters = _counters()
+            for reset, _ in counters.values():
+                reset()
+            with env(**e):
+                r, cfg = frame_setup(scene, device, QUERY_SIZE, 3, **kw)
+            o, d, t_max = _query_rays(cfg, QUERY_SIZE, N_QUERIES, 31)
+            closest = r.render_ray_queries(o, d, t_max=t_max)
+            n_i = N_QUERIES // 8
+            radiance = r.render_ray_queries(o[:n_i], d[:n_i], t_max=t_max[:n_i],
+                                            variant=VARIANT_MEGAKERNEL,
+                                            params=params)
+            pos, du, dv, tl = (np.asarray(a, np.float64)
+                               for a in cfg.camera.view_basis(*QUERY_SIZE))
+            look = tl + 0.5 * (du + dv)
+            moved = FrameConfig(camera=OrientedCamera.look_at(
+                pos + [0.05, 0.02, 0.0], pos + 10.0 * look / np.linalg.norm(look)
+                + [0.1, 0.0, 0.0], fovy=50), params=cfg.params,
+                scene_config=cfg.scene_config)
+            r.render_aovs(cfg)
+            r.render_aovs(moved)
+            aovs = [r.readback_aov(k) for k in range(3)]
+            got[device] = (closest, radiance, aovs,
+                           {k: read() for k, (_, read) in counters.items()})
+            secs[device] = time.perf_counter() - t0
+        (ck, rk, ak, launched), (cc, rc, ac, _) = got[DEVICE], got["cpu"]
+        same_tri = bool((ck[1] == cc[1]).all())
+        not_bitwise = sum(int((np.asarray(a).view(np.int32)
+                               != np.asarray(b).view(np.int32)).sum())
+                          for a, b in zip((ck[0], ck[2], ck[3]),
+                                          (cc[0], cc[2], cc[3])))
+        close = all(np.allclose(a, b, rtol=1e-5, atol=1e-5)
+                    for a, b in zip((ck[0], ck[2], ck[3]), (cc[0], cc[2], cc[3])))
+        vs = goldens.compare_card(rk[None, :, :3], rc[None, :, :3])
+        alpha_same = bool((rk[:, 3] == rc[:, 3]).all())
+        aov_err = [float(np.abs(a.astype(np.float64) - b).max())
+                   for a, b in zip(ak, ac)]
+        aov_off = [float((~np.isclose(a, b, rtol=1e-4, atol=1e-4)).any(-1).mean())
+                   for a, b in zip(ak, ac)]
+        aov_ok = max(aov_off) <= 0.01
+        motion = float(np.abs(ak[2][..., 0:2]).max())
+        log(f"queries {label}: closest triangles equal {same_tri} (hit "
+            f"{(ck[1] >= 0).mean():.3f}), t/u/v within 1e-5 {close} "
+            f"({not_bitwise} values not bitwise); integrator queries vs the "
+            f"CPU {vs}, alpha equal {alpha_same}; AOVs: share of pixels off by "
+            f"more than 1e-4 per buffer {aov_off}, max |card - CPU| {aov_err}, "
+            f"max |motion| {motion:.4f};"
+            f" card launches {launched}; seconds, set-up included: card "
+            f"{secs[DEVICE]:.1f}, CPU {secs['cpu']:.1f}")
+        check(same_tri and close, f"queries {label}: closest hits off the CPU's")
+        check(vs["ok"] and alpha_same,
+              f"queries {label}: integrator queries off the CPU's: {vs}")
+        check(aov_ok and motion > 0.0, f"queries {label}: AOVs off the CPU's")
+        check(launched[kernel] > 0, f"queries {label} did not launch {kernel}")
+
+
 def main():
     import torch
 
@@ -2105,6 +2479,7 @@ def main():
     strategies, (rq, cfgq) = phase_stream_strategies(r500, cfg500)
     tlas_paths = phase_tlas_paths()
     tlas_slice = phase_tlas_slice()
+    v1_paths = phase_v1_paths()
     k6_ordered_launches = (
         tlas_slice["instanced500 1080p ordered"][3]["modes"]["K6 ordered"])
     tlas_k7_launches = tlas_paths["instanced600 1080p"][2]["K7"]
@@ -2127,6 +2502,15 @@ def main():
     k7_global = compare_k7_modes(past_cap, r2500, cfg2500, smi)
     del r2500, tlas_slice
     phase_small_instanced()
+    v1 = phase_v1_queues(v1_paths, smi)
+    v1["K8a"]["merged"]["launches"] = (
+        v1_paths["v1 cornell PT_WAVEFRONT"][3]["merged"]["K8"])
+    # no V1 path of this script runs the wavefront variant on a K8b scene
+    v1["K8b"]["merged"]["launches"] = (
+        v1_paths["v1 terrain200 1080p"][3]["merged"]["K8"])
+    v1_launches = {label: p[2] for label, p in v1_paths.items()}
+    del v1_paths
+    phase_queries()
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 
     main_stream, stream_merged = stream["terrain500 1080p"]
@@ -2151,7 +2535,7 @@ def main():
     k7 = dict(tlas["K7"], launches=tlas_k7_launches, **{"global": dict(
         k7_global, launches=rec2500["modes"]["K7 global"])})
     log(f"village path launches {village}; {past_cap} launches "
-        f"{launches2500}")
+        f"{launches2500}; V1 path launches {v1_launches}")
     records = {
         "traverse_resident": k1,
         tf.K2: dict(flat[tf.K2], launches=terrain["K2"]),
@@ -2161,9 +2545,15 @@ def main():
         "traverse_binned": dict(rec5, launches=main_stream["K5"]),
         "traverse_tlas": k6,
         "traverse_tlas_stream": k7,
+        "K8a": v1["K8a"],
+        "K8b": v1["K8b"],
     }
+    # traverse_v1.cu holds two kernels, with a record each
+    sources = {name: sr for name, sr in KERNELS.items() if name != "traverse_v1"}
+    sources.update({name: (KERNELS["traverse_v1"][0], replaces)
+                    for name, replaces in V1_KERNELS.items()})
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in sources.items():
         rec = records[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -18,6 +18,10 @@ into an (H, W, 4) image; ``readback_framebuffer`` resolves them first to
 the sRGB display image (``ops/resolve.py``; renderer.py:1525-1552).
 ``configure_for`` applies new options, rebuilding the scene where they
 change what ``set_scene`` builds (renderer.py:425-470).
+``render_ray_queries`` answers closest-hit ray queries through the route's
+kernel, or traces the full integrator over them (renderer.py:1734-1871);
+``render_aovs`` / ``readback_aov`` render the first-hit AOVs
+(``ops/aov.py``; renderer.py:2085-2126).
 
 Routes: up to 16,383 triangles the resident walk K1; from 16,384 to
 90,000 the flat-cull kernels K2 and K3 with coherence-sorted queues and the
@@ -26,7 +30,11 @@ wavefront executor; above 90,000 (or with
 with the sorted streamed walk K4 for closest hits and one binned round of
 K5 for shadow rays (``RPTR_STREAM_CLOSEST`` picks the closest-hit
 strategy: sorted, ordered, binned or multislot), on f32 tiles or, with
-``options.quantized_geometry``, 16-bit quantized ones. With
+``options.quantized_geometry``, 16-bit quantized ones. Up to 90,000
+triangles ``RPTR_TRAVERSAL_V1`` selects the v1 packet walk K8a/K8b
+(``ops/traverse_v1.py``) at leaf 128: the monolithic pass, unsorted, one
+merged K8 launch per bounce in ``PT_WAVEFRONT`` (renderer.py:815-847,
+1011-1012). With
 ``options.use_tlas`` the scene is instanced two-level (renderer.py:
 692-769): a BLAS per unique mesh in object space and a TLAS over the
 instances, through K6 within its caps (``MAX_INSTANCES`` instances,
@@ -45,6 +53,7 @@ device). There is no CPU fallback for a CUDA renderer.
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from dataclasses import dataclass, field
@@ -71,6 +80,8 @@ from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
 from realtimepathtracingresearchframework_tpu_torch.ops import bvh as bvh_mod
 from realtimepathtracingresearchframework_tpu_torch.models import sky as sky_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import nee as nee_mod
+from realtimepathtracingresearchframework_tpu_torch.ops import aov as aov_mod
+from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
 from realtimepathtracingresearchframework_tpu_torch.ops.integrator import (
     RAYS_PER_PASS,
     STREAM_CLOSEST,
@@ -78,16 +89,22 @@ from realtimepathtracingresearchframework_tpu_torch.ops.integrator import (
     FrameParams,
     IntegratorConfig,
     ViewBuffers,
+    _closest_hit_dispatch,
     make_pass_fn,
     pack_attr_table,
     pack_material_table,
     planes_to_image,
     swizzle_host,
+    trace_paths,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
 from realtimepathtracingresearchframework_tpu_torch.ops import resolve as resolve_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import texture_atlas
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_flat import (
     pack_flat,
+)
+from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
+    map_rows_to_tris,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     pack_resident,
@@ -98,6 +115,8 @@ from realtimepathtracingresearchframework_tpu_torch.ops import traverse_tlas
 from realtimepathtracingresearchframework_tpu_torch.ops import (
     traverse_tlas_stream,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_v1
+from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 from realtimepathtracingresearchframework_tpu_torch.ops.wavefront_host import (
     WavefrontExecutor,
 )
@@ -139,6 +158,7 @@ class Route(NamedTuple):
     leaf_size: int
     streamed: bool = False  # the streamed pack, K4 and K5
     tlas: str = ""  # two-level instancing: "k6" or "k7"
+    v1: bool = False  # the v1 packet walk K8a/K8b (RPTR_TRAVERSAL_V1)
 
 
 def _env_flag(name: str, default: bool) -> bool:
@@ -153,19 +173,21 @@ def route_for(num_tris: int) -> Route:
     scene of ``num_tris`` triangles on a chip (renderer.py:588-608,
     815-847), with its overrides. Above ``RESIDENT_MAX_TRIS``, or with
     ``RPTR_FORCE_STREAMED_TRAVERSAL`` set, the streamed route (K4/K5; no
-    flat cull, no per-dispatch sort, no wavefront executor). Otherwise
-    ``RPTR_TRAVERSAL_V3=1/0`` forces the flat cull on or off, and
-    ``RPTR_TRAVERSAL_V1`` selects the v1 walk (K8a/K8b), not ported yet."""
+    flat cull, no per-dispatch sort, no wavefront executor; V1 is ignored
+    there, as in the reference). Otherwise ``RPTR_TRAVERSAL_V1`` (any
+    non-empty value, as renderer.py:821-838 reads it) selects the v1
+    packet walk K8a/K8b at leaf 128, winning over ``RPTR_TRAVERSAL_V3``,
+    with the sort flag from 16,384 triangles (which the v1 dispatches
+    ignore); else ``RPTR_TRAVERSAL_V3=1/0`` forces the flat cull on or
+    off."""
     if os.environ.get("RPTR_FORCE_STREAMED_TRAVERSAL") or (
         num_tris > RESIDENT_MAX_TRIS
     ):
         return Route(kernel_v3=False, compact=False,
                      leaf_size=traverse_stream.LEAF, streamed=True)
     if os.environ.get("RPTR_TRAVERSAL_V1"):
-        raise NotImplementedError(
-            "RPTR_TRAVERSAL_V1: the v1 walk (K8a/K8b) is not ported yet "
-            "(ROADMAP queue 2, last of the kernels)"
-        )
+        return Route(kernel_v3=False, compact=num_tris >= COMPACT_MIN_TRIS,
+                     leaf_size=traverse_v1.LEAF, v1=True)
     v3 = os.environ.get("RPTR_TRAVERSAL_V3")
     return Route(
         kernel_v3=num_tris >= V3_MIN_TRIS if v3 is None else v3 != "0",
@@ -234,6 +256,8 @@ class Renderer:
         self._last_render_ms = 0.0
         self._resolve_args = (0.0, -1)  # exposure, early tone mapping mode
         self._total_device_bytes = None
+        self._prev_view: Optional[ViewBuffers] = None  # of the last AOV pass
+        self._aovs: Optional[aov_mod.AOVs] = None
 
     def variants(self) -> List[str]:
         """The variant list in the reference's registration order
@@ -341,7 +365,9 @@ class Renderer:
             topology = builder(flat.v0, flat.e1, flat.e2,
                                leaf_size=route.leaf_size)
             tb = bvh_mod.thread_bvh(topology, flat.v0, flat.e1, flat.e2)
-            bvh = (pack_flat if route.kernel_v3 else pack_resident)(tb, dev)
+            pack = (traverse_v1.pack_v1 if route.v1 else
+                    pack_flat if route.kernel_v3 else pack_resident)
+            bvh = pack(tb, dev)
             # attributes in BVH-row order: the kernel's row IS the attribute
             # index (padded rows clamp to a real tri and never win a hit)
             ix = np.clip(np.asarray(tb.row_tri), 0, flat.num_tris - 1)
@@ -513,6 +539,7 @@ class Renderer:
             and not compact_lanes,
             compact_lanes=compact_lanes,
             kernel_v3=route.kernel_v3,
+            traversal_v1=route.v1,
             kernel_v4=route.kernel_v3
             and os.environ.get("RPTR_KERNEL_V4", "1") != "0",
             streamed=route.streamed,
@@ -559,12 +586,7 @@ class Renderer:
         if cuda:
             events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
             events[0].record()
-        pos, du, dv, tl = config.camera.view_basis(self.fb_width, self.fb_height)
-
-        def f32(a):
-            return torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
-
-        view = ViewBuffers(f32(pos), f32(du), f32(dv), f32(tl))
+        view = self._view(config.camera)
         fp = FrameParams(
             rr_path_depth=int(params.rr_path_depth),
             glossy_only_mode=int(params.glossy_only_mode),
@@ -724,3 +746,132 @@ class Renderer:
         return planes_to_image(
             planes, self.fb_width, self.fb_height, self.rays_per_pass
         )
+
+    def _view(self, camera) -> ViewBuffers:
+        """The camera's view basis on the device."""
+        return ViewBuffers(*(
+            torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
+            for a in camera.view_basis(self.fb_width, self.fb_height)))
+
+    # ------------------------------------------------------------------
+    # Ray queries (render_vulkan.cpp:430-455, 1867-1877)
+    # ------------------------------------------------------------------
+
+    def render_ray_queries(self, origins: np.ndarray, dirs: np.ndarray,
+                           t_max=None, variant: Optional[str] = None,
+                           spp_per_query: int = 1,
+                           params: Optional[RenderParams] = None):
+        """The ray-query API (renderer.py:1734-1803).
+
+        ``variant`` None or ``RQ_CLOSEST``: closest-hit queries
+        (vulkan/rt_intersect.comp:31-68) through the scene's route kernel
+        (K1, K2, K8, K4, K6 or K7, as the integrator dispatches a closest
+        hit, without the alpha test), returning numpy (t, tri, u, v) with
+        tri the source triangle (the global shading row on two-level
+        scenes) and -1 on a miss. ``t_max`` is a scalar or one value per
+        query (default 2e32).
+
+        Any other variant of ``variants()``: the full integrator over the
+        queries with ``spp_per_query`` samples each, the radiance capture
+        path (``_render_integrator_queries``); returns (N, 4) float32 RGBA,
+        alpha 1 where the path hit anything."""
+        if variant not in (None, VARIANT_RQ_CLOSEST):
+            return self._render_integrator_queries(
+                origins, dirs, t_max, variant, spp_per_query, params)
+        ro, rd = (self._soa(a) for a in (origins, dirs))
+        tmax = torch.as_tensor(T_MAX if t_max is None else t_max,
+                               dtype=torch.float32, device=self.device)
+        cfg = self._integrator_config(RenderParams())
+        hit = _closest_hit_dispatch(self.device_scene, cfg, ro, rd, 0.0, tmax)
+        if not (self._route.streamed or self._route.tlas):
+            hit = map_rows_to_tris(self.device_scene.bvh, hit)
+        return (hit.t.cpu().numpy(), hit.tri.to(torch.int32).cpu().numpy(),
+                hit.u.cpu().numpy(), hit.v.cpu().numpy())
+
+    def _soa(self, a) -> Vec3:
+        """(N, 3) numpy -> Vec3 on the device."""
+        t = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
+        return Vec3(*(t[:, k].contiguous() for k in range(3)))
+
+    def _render_integrator_queries(self, origins, dirs, t_max, variant: str,
+                                   spp_per_query: int,
+                                   params: Optional[RenderParams]):
+        """Full-integrator ray queries (renderer.py:1805-1871): the queries
+        padded to a multiple of 256 (of 8 up to 256 queries) with dead
+        lanes, laid on a virtual sqrt screen for the RNG's pixel keying
+        (render_vulkan.cpp:3050-3056), traced with the query's t_max
+        bounding the primary segment, and averaged progressively per query
+        over ``spp_per_query`` samples (accumulate.glsl:31-42)."""
+        if variant not in self.variants():
+            raise ValueError(f"unknown variant {variant!r}")
+        params = params or RenderParams()
+        # the monolithic pass without carry compaction (ROADMAP item 16),
+        # which only reorders lanes; the reference turns it off for a
+        # bounded primary segment (integrator.py:1607-1610)
+        cfg = self._integrator_config(params)._replace(
+            wavefront=variant == VARIANT_WAVEFRONT, compact_lanes=False)
+        n = len(origins)
+        side = max(int(math.ceil(math.sqrt(n))), 1)
+        pad = (-n) % 256 if n > 256 else (-n) % 8
+
+        def padv(a, fill):
+            a = np.asarray(a, np.float32)
+            return np.concatenate([a, np.full((pad,) + a.shape[1:], fill,
+                                              np.float32)])
+
+        tmax_in = np.broadcast_to(
+            np.asarray(T_MAX if t_max is None else t_max, np.float32), (n,))
+        ro, rd = self._soa(padv(origins, 0.0)), self._soa(padv(dirs, 1.0))
+        tmax = torch.from_numpy(padv(tmax_in, 0.0)).to(self.device)
+        idx = torch.arange(n + pad, device=self.device)
+        valid = idx < n
+        px, py = (idx % side).to(torch.int32), (idx // side).to(torch.int32)
+        acc = None
+        for s in range(max(int(spp_per_query), 1)):
+            fp = FrameParams(rr_path_depth=int(params.rr_path_depth),
+                             glossy_only_mode=int(params.glossy_only_mode),
+                             sample_offset=s, shot_offset=self.shot_offset)
+            state = pointsets.make_state(cfg.rng_variant, s, fp.shot_offset,
+                                         px, py, side)
+            # the query rays take the camera's place; a lane past its
+            # segment's end starts dead
+            illum, alpha, _ = trace_paths(
+                self.device_scene, cfg, fp, ro, rd, state,
+                lane_mask=valid & (tmax > 0.0),
+                t_max0=tmax if t_max is not None else None)
+            res = torch.stack([illum.x, illum.y, illum.z, alpha], dim=-1)
+            acc = res if acc is None else acc + (res - acc) / (s + 1.0)
+        return acc[:n].cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # AOVs (renderer.py:2085-2126)
+    # ------------------------------------------------------------------
+
+    # AOV buffer indices (util/display/render_graphic.h:12-18)
+    AOV_ALBEDO_ROUGHNESS = 0
+    AOV_NORMAL_DEPTH = 1
+    AOV_MOTION_JITTER = 2
+
+    def render_aovs(self, config: FrameConfig) -> aov_mod.AOVs:
+        """The first-hit AOV pass (``ops/aov.py``) at the next sample's
+        jitter; motion is taken against the previous call's view (the
+        same view on the first call), which this call then replaces."""
+        params = config.params
+        view = self._view(config.camera)
+        prev = self._prev_view if self._prev_view is not None else view
+        fp = FrameParams(rr_path_depth=int(params.rr_path_depth),
+                         glossy_only_mode=int(params.glossy_only_mode),
+                         sample_offset=self.frame_id,
+                         shot_offset=self.shot_offset)
+        self._aovs = aov_mod.render_aovs(
+            self.device_scene, self._integrator_config(params), fp, view,
+            prev, self.fb_width, self.fb_height)
+        self._prev_view = view
+        return self._aovs
+
+    def readback_aov(self, aov_index: int) -> np.ndarray:
+        """One AOV buffer of the last ``render_aovs`` as an (H, W, 4)
+        float32 array (render_graphic.h:40)."""
+        if self._aovs is None:
+            raise RuntimeError("render_aovs() has not been called")
+        return self._aovs[aov_index].cpu().numpy()

@@ -14,7 +14,9 @@ Traversal goes where the reference's ``_closest_hit_dispatch`` and
 walk K1 (``ops/traverse_resident.py``), or on large resident scenes
 (``cfg.kernel_v3``) the flat-cull kernels K2 and K3
 (``ops/traverse_flat.py``), with the coherence sort where ``compact``,
-``presorted`` and ``sort_shadow`` ask for it; on streamed scenes
+``presorted`` and ``sort_shadow`` ask for it; under ``RPTR_TRAVERSAL_V1``
+(``cfg.traversal_v1``) the v1 packet walk K8a/K8b (``ops/traverse_v1.py``),
+never sorted, merged in the wavefront variant; on streamed scenes
 (``cfg.streamed``) the sorted streamed walk K4 for closest hits
 (``ops/traverse_stream.py``; with ``stream_closest`` its ordered walk, the
 binned rounds of K5 or the multislot K5 launch) and one binned round of K5
@@ -91,6 +93,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops import traverse_tlas
 from realtimepathtracingresearchframework_tpu_torch.ops import (
     traverse_tlas_stream,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_v1
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     closest_and_occluded_resident,
     closest_hit_resident,
@@ -131,6 +134,7 @@ class DeviceScene(NamedTuple):
     """Everything the integrator reads, on one device."""
 
     bvh: ResidentBVH  # traverse_flat.FlatBVH when cfg.kernel_v3,
+    # traverse_v1.V1BVH when cfg.traversal_v1,
     # traverse_stream.StreamedBVHBuffers when cfg.streamed, None when
     # cfg.two_level
     attr_packed: torch.Tensor  # (ATTR_W, R) f32 per-row (or per-tri) attributes
@@ -300,6 +304,7 @@ class IntegratorConfig(NamedTuple):
     wavefront: bool = False
     debug_mode: int = 0
     kernel_v3: bool = False  # K2/K3 flat cull instead of the K1 walk
+    traversal_v1: bool = False  # the v1 packet walk K8a/K8b (RPTR_TRAVERSAL_V1)
     kernel_v4: bool = False  # sorted queues on K3 instead of K2
     # streamed closest hits: "sorted" (K4), "ordered" (K4 front to back;
     # K6's ordered instance walk on the K6 route), "binned" (K5 rounds) or
@@ -509,7 +514,8 @@ def _closest_hit_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
     (integrator.py:491-515) take K6 (its ordered instance walk with
     ``"ordered"``), or K7, coherence-sorted only on a ``compact`` queue
     that the caller has not sorted; their hits carry global shading rows
-    and instances."""
+    and instances. The v1 route (``cfg.traversal_v1``) takes K8, which
+    never sorts (integrator.py:572)."""
     if cfg.two_level:
         if cfg.tlas_k6:
             return traverse_tlas.closest_hit_tlas(
@@ -531,6 +537,9 @@ def _closest_hit_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
         return traverse_stream.closest_hit_streamed(
             ds.bvh, ro, rd, t_min, t_max, sort=True,
             ordered=cfg.stream_closest == "ordered")
+    if cfg.traversal_v1:
+        return traverse_v1.closest_hit_v1(ds.bvh, ro, rd, t_min, t_max,
+                                          map_tri=False, compact=compact)
     if cfg.kernel_v3:
         if (compact or presorted) and cfg.kernel_v4:
             return traverse_flat.closest_hit_precull(
@@ -553,7 +562,7 @@ def _occluded_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
     1024 in 8 groups (``cfg.kernel_v4``), else K2 sorted. Streamed scenes
     take one binned round of K5 and its K4 cleanup (integrator.py:684-696);
     instanced scenes K6, or K7 sorted by ``sort_shadow``
-    (integrator.py:660-683)."""
+    (integrator.py:660-683); the v1 route K8 (integrator.py:728)."""
     if cfg.two_level:
         if cfg.tlas_k6:
             return traverse_tlas.occluded_tlas(ds.tlas_k6, ro, rd, t_min, t_max)
@@ -564,6 +573,9 @@ def _occluded_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
     if cfg.streamed:
         return traverse_binned.occluded_binned(ds.bvh, ro, rd, t_min, t_max,
                                                rounds=1)
+    if cfg.traversal_v1:
+        return traverse_v1.occluded_v1(ds.bvh, ro, rd, t_min, t_max,
+                                       compact=compact)
     if cfg.kernel_v3:
         if sort_shadow and cfg.kernel_v4:
             return traverse_flat.occluded_precull(
@@ -815,10 +827,12 @@ def _mat3_apply(m, x: Vec3) -> Vec3:
                   for a in range(3)))
 
 
-def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
+def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
+                     t_max0=None):
     """The per-bounce closures (visit_hit + scatter_tail), elementwise
     over the lane axis: any caller may run them on any lane prefix (the
-    monolithic ``trace_paths`` and the wavefront executor)."""
+    monolithic ``trace_paths`` and the wavefront executor). ``t_max0``
+    (per lane) bounds the primary segment (integrator.py:1047-1052)."""
     num_bins = max(cfg.num_lights // max(cfg.light_bin_size, 1), 1)
 
     def traverse(carry: Carry, compact: bool, presorted: bool):
@@ -828,6 +842,11 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
         emitter terms (integrator.py:1053-1115). Returns (hit, illum)."""
         ro, rd, active = carry.ro, carry.rd, carry.active
         tmax_eff = torch.where(active, T_MAX, 0.0)
+        if t_max0 is not None:
+            # the bounded primary segment of a ray query
+            # (RenderRayQuery.t_max); later bounces are unbounded
+            tmax_eff = torch.where(carry.bounce_count == 0,
+                                   torch.where(active, t_max0, 0.0), tmax_eff)
         alpha = cfg.alpha_test and cfg.has_textures
         if not cfg.wavefront:
             return closest_hit_alpha(ds, cfg, ro, rd, carry.t_min, tmax_eff,
@@ -839,6 +858,13 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams):
             hit = _closest_hit_dispatch(ds, cfg, ro, rd, carry.t_min, tmax_eff)
             blocked = traverse_binned.occluded_binned(
                 ds.bvh, ro, pend.dir, pend.tmin, ntmax_eff, rounds=1)
+        elif cfg.traversal_v1 and not alpha:
+            # the v1 route: both queues in one merged K8 launch
+            # (integrator.py:1070-1080)
+            hit, blocked = traverse_v1.closest_and_occluded_v1(
+                ds.bvh, (*ro, *rd), carry.t_min, tmax_eff,
+                (*ro, *pend.dir), pend.tmin, ntmax_eff, map_tri=False,
+                compact=compact)
         elif not (cfg.streamed or cfg.kernel_v3 or cfg.two_level or alpha):
             # the K1 route: both queues in one merged launch
             hit, blocked = closest_and_occluded_resident(
@@ -1186,7 +1212,7 @@ def initial_carry(ro: Vec3, rd: Vec3, rng_state, lane_mask=None,
 
 def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
                 ro: Vec3, rd: Vec3, rng_state, lane_mask=None,
-                footprint0=None):
+                footprint0=None, t_max0=None):
     """Trace a batch of paths; returns (rgb Vec3, alpha (N,), rays (N,)).
 
     The bounce loop is unrolled in Python (the reference's
@@ -1199,7 +1225,9 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
     and every NEE queue past bounce 0 sorts by its own origins
     (integrator.py:1536-1551). ``footprint0`` is the camera's texture
     footprint (``camera_footprint0``); textured scenes without one start
-    from a zero footprint, as the reference does.
+    from a zero footprint, as the reference does. ``t_max0`` (per lane, or
+    None) bounds the primary segment, as a ray query's t_max does
+    (integrator.py:1047-1052).
     """
     check_supported(cfg)
     foot = None
@@ -1210,7 +1238,7 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
             foot = (z, z, z)
     carry = initial_carry(ro, rd, rng_state, lane_mask, foot=foot,
                           wavefront=cfg.wavefront)
-    visit_hit, scatter_tail = _make_bounce_fns(ds, cfg, fp)
+    visit_hit, scatter_tail = _make_bounce_fns(ds, cfg, fp, t_max0)
     for i in range(cfg.max_path_depth):
         live = carry.active.any()
         if cfg.wavefront:

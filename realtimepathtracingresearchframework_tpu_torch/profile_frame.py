@@ -18,7 +18,10 @@ and sky of bench.py's instanced row, on the two-level route
 ``--scene village``: ``procedural.village()`` (80,496 textured triangles)
 with the camera, sun and sky of bench.py's village row, through K2, K3 and
 the wavefront executor. ``--variant PT_WAVEFRONT`` renders through the
-wavefront variant (on cornell: one merged K1 launch per bounce). At
+wavefront variant (on cornell: one merged K1 launch per bounce).
+``RPTR_TRAVERSAL_V1=1`` puts cornell, terrain200 and the village on the v1
+route (the monolithic pass through K8a, or K8b past 8,192 padded rows;
+merged K8 launches with ``--variant PT_WAVEFRONT``). At
 ``--size`` (default 1920x1080; bench.py's terrain and instanced rows are
 ``--size 512x384 --depth 3``), 1 spp, ``--depth`` (default 9): one warm-up
 frame, ``--frames`` frames timed by the host clock with a device sync after
@@ -78,6 +81,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops import traverse_tlas as 
 from realtimepathtracingresearchframework_tpu_torch.ops import (
     traverse_tlas_stream as tts,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_v1 as tv
 
 SIZE = (1920, 1080)
 # traversal kernels: the launch counter and a substring of the kernel name
@@ -89,6 +93,8 @@ KERNELS = {
     "K5": (lambda: tb.launches_k5, "traverse_binned"),
     "K6": (lambda: tt.launches_k6, "traverse_tlas_kernel"),
     "K7": (lambda: tts.launches_k7, "traverse_tlas_stream"),
+    "K8a": (lambda: tv.launches_k8a, "traverse_v1_kernel<true>"),
+    "K8b": (lambda: tv.launches_k8b, "traverse_v1_kernel<false>"),
 }
 GRIDS = {"terrain200": 200, "terrain500": 500}
 INSTANCES = {"instanced600": 600, "instanced500": 500, "instanced2500": 2500}
@@ -224,7 +230,7 @@ def main(argv=None) -> int:
               flush=True)
 
     nf = args.profiled
-    for mod in (tr, tf, ts, tb, tt, tts):
+    for mod in (tr, tf, ts, tb, tt, tts, tv):
         mod.reset_launches()
     integrator.reset_alpha_counts()
     integrator.reset_nee_dropped()
@@ -236,7 +242,7 @@ def main(argv=None) -> int:
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / nf
     launches = {k: count() / nf for k, (count, _) in KERNELS.items()}
     merged = {"K1": tr.merged_launches / nf, "K2": tf.merged_launches_k2 / nf,
-              "K4": ts.merged_launches_k4 / nf}
+              "K4": ts.merged_launches_k4 / nf, "K8": tv.merged_launches / nf}
     modes = {"K4 ordered": ts.launches_k4_ordered / nf,
              "K6 ordered": tt.launches_k6_ordered / nf,
              "K7 global": tts.launches_k7_global / nf,

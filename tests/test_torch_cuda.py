@@ -9,6 +9,8 @@ only the port is installed. On a machine with a CUDA card and nvcc:
 test here skips. ``chip_smoke.py`` runs the same comparisons at the main
 paths' shapes. The merged two-queue launches of K1, K2 and K4 are held
 against their plain versions and against the kernel's separate launches.
+K8a and K8b (the v1 packet walk) are held against their plain version in
+all three modes, and a CUDA tensor whose kernel does not build raises.
 """
 
 import numpy as np
@@ -28,6 +30,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops import traverse_tlas as 
 from realtimepathtracingresearchframework_tpu_torch.ops import (
     traverse_tlas_stream as tts,
 )
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_v1 as tv
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
 
@@ -394,3 +397,92 @@ def test_k7_global_matches_staged_on_card():
     oq[7] = torch.where(g[1] >= 0, g[0] * 1.001, rays[7])
     assert torch.equal(tts.launch(st7, fr, oq, True, staged=False),
                        tts.launch(st7, fr, oq, True, staged=True))
+
+
+def _v1_queue(grid, n, seed):
+    """The v1 pack of procedural.terrain(grid) (leaf-128 SAH tree) on the
+    card, and a packed (8, n) queue as ``_terrain_queue``'s."""
+    dev = _card()
+    flat = Scene.from_vkr_scene(procedural.terrain(grid=grid)).flatten_world()
+    tbvh = bvh_mod.build_threaded_bvh(flat.v0, flat.e1, flat.e2,
+                                      leaf_size=tv.LEAF, builder="sah")
+    return tv.pack_v1(tbvh, dev), _queue_over(flat, n, seed, dev)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["closest", "anyhit", "merged"])
+@pytest.mark.parametrize("grid", [30, 69])
+def test_k8_matches_plain_on_card(grid, mode):
+    """K8a (terrain(30), 1,800 tris, the row-major table) and K8b
+    (terrain(69), 9,522 tris, the field-major one) against the plain packet
+    walk bitwise (t, row bits, u, v): closest, any-hit on segments just short
+    of or past each closest hit, and a merged launch whose last 2 of 8
+    packets take the any-hit exit; each launch counted on its kernel."""
+    vb, rays8 = _v1_queue(grid, 4096, 13)
+    assert vb.wide == (grid == 30)
+    if mode == "anyhit":
+        t = tv.plain(vb, rays8 if vb.wide else rays8.t().contiguous(), False)
+        t = t[0] if vb.wide else t[:, 0]
+        scale = torch.where(torch.arange(t.shape[0], device=t.device) % 2 == 0,
+                            0.999, 1.001)
+        rays8 = rays8.clone()
+        rays8[7] = torch.where(t < 1e30, t * scale, rays8[7])
+    rays = rays8 if vb.wide else rays8.t().contiguous()
+    any_hit, shadow_from = mode == "anyhit", 6 if mode == "merged" else -1
+    before = (tv.launches_k8a, tv.launches_k8b)
+    k = tv.launch(vb, rays, any_hit, shadow_from)
+    assert (tv.launches_k8a, tv.launches_k8b) == (
+        before[0] + vb.wide, before[1] + (not vb.wide))
+    p = tv.plain(vb, rays, any_hit, shadow_from)
+    assert k.shape == p.shape == ((4, 4096) if vb.wide else (4096, 4))
+    assert torch.equal(_bits(k), _bits(p))
+    rows = _bits(k[1] if vb.wide else k[:, 1])
+    assert (rows >= 0).any() and (rows < 0).any()
+
+
+@pytest.mark.cuda
+def test_k8_wrappers_on_card():
+    """The wrappers on the card: the merged wrapper equals the closest and
+    occluded wrappers bitwise on queues that are not whole packets and
+    counts one merged launch; ``map_tri`` maps rows to source triangles."""
+    for grid in (30, 69):
+        vb, q = _v1_queue(grid, 2500, 14)
+        cc, cs = tuple(q[0:6, :1500]), tuple(q[0:6, 1500:])
+        args = (cc, q[6, :1500], q[7, :1500], cs, q[6, 1500:], q[7, 1500:])
+        merged = tv.merged_launches
+        hit, blocked = tv.closest_and_occluded_v1(vb, *args, map_tri=False)
+        assert tv.merged_launches == merged + 1
+        sep = tv.closest_hit_v1(vb, Vec3(*q[0:3, :1500]), Vec3(*q[3:6, :1500]),
+                                *args[1:3], map_tri=False)
+        sep_b = tv.occluded_v1(vb, Vec3(*q[0:3, 1500:]), Vec3(*q[3:6, 1500:]),
+                               *args[4:6])
+        for a, b in zip(hit, sep):
+            assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(blocked, sep_b)
+        mapped = tv.closest_hit_v1(vb, Vec3(*q[0:3, :1500]), Vec3(*q[3:6, :1500]),
+                                   *args[1:3])
+        assert torch.equal(mapped.tri, traverse.map_rows_to_tris(vb, sep).tri)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_with_broken_build_raises(tmp_path, monkeypatch):
+    """No fallback: with a source that does not compile, a CUDA tensor's
+    wrapper raises nvcc's error instead of running the plain version."""
+    from realtimepathtracingresearchframework_tpu_torch.kernels import build
+
+    vb, q = _v1_queue(8, 600, 15)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / f"{tv.KERNEL}.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_loaded", {})
+    plain_calls = []
+    monkeypatch.setattr(tv, "plain", lambda *a: plain_calls.append(a))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tv.closest_hit_v1(vb, Vec3(*q[0:3]), Vec3(*q[3:6]), q[6], q[7])
+    assert not plain_calls

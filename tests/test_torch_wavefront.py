@@ -210,6 +210,7 @@ def _jax_policy(num_tris):
     {"RPTR_COMPACT": "0", "RPTR_COMPACT_LANES": "0"}, {"RPTR_COMPACT": "1"},
     {"RPTR_FORCE_STREAMED_TRAVERSAL": "1"},
     {"RPTR_FORCE_STREAMED_TRAVERSAL": "1", "RPTR_STREAM_CLOSEST": "binned"},
+    {"RPTR_TRAVERSAL_V1": "1"}, {"RPTR_TRAVERSAL_V1": "1", "RPTR_TRAVERSAL_V3": "1"},
 ], ids=lambda e: ",".join(f"{k}={v}" for k, v in e.items()) or "default")
 @pytest.mark.parametrize("num_tris", [16_383, 16_384, 90_000, 90_001])
 def test_route_by_triangle_count(num_tris, env):
@@ -220,7 +221,9 @@ def test_route_by_triangle_count(num_tris, env):
         r.device_scene = object()
         cfg = r._integrator_config(RenderParams())
         assert route.streamed == (mode == "streamed")
-        if mode == "pallas":
+        if mode == "pallas" and os.environ.get("RPTR_TRAVERSAL_V1"):
+            assert route.v1 and route.leaf_size == 128  # renderer.py:837-838
+        elif mode == "pallas":
             assert route.leaf_size == (
                 32 if num_tris <= 24_000 else 64 if num_tris <= 48_000 else 128)
         for field in ("kernel_v3", "kernel_v4", "compact", "compact_lanes",
@@ -232,8 +235,9 @@ def test_route_by_triangle_count(num_tris, env):
 def test_route_limits(monkeypatch):
     """Above the resident cap set_scene takes the streamed route; with
     ``quantized_geometry`` it packs 16-bit tiles and keeps no refit
-    topology (renderer.py:788-792); the v1 walk (K8a/K8b) and the
-    monolith's carry compaction are not ported."""
+    topology (renderer.py:788-792); ``RPTR_TRAVERSAL_V1`` selects the v1
+    walk (K8a/K8b) at leaf 128 below the cap; the monolith's carry
+    compaction is not ported."""
     assert trend.route_for(213 * 213 * 2).streamed
     monkeypatch.setenv("RPTR_FORCE_STREAMED_TRAVERSAL", "1")
     r = trend.Renderer(device="cpu")
@@ -244,8 +248,9 @@ def test_route_limits(monkeypatch):
     assert r._streamed_topo is None
     monkeypatch.delenv("RPTR_FORCE_STREAMED_TRAVERSAL")
     monkeypatch.setenv("RPTR_TRAVERSAL_V1", "1")
-    with pytest.raises(NotImplementedError, match="K8a"):
-        trend.route_for(1000)
+    route = trend.route_for(1000)
+    assert route.v1 and route.leaf_size == 128 and not route.kernel_v3
+    assert trend.route_for(213 * 213 * 2).streamed
     monkeypatch.delenv("RPTR_TRAVERSAL_V1")
     monkeypatch.setenv("RPTR_COMPACT_LANES", "1")
     monkeypatch.setenv("RPTR_HOST_WAVEFRONT", "0")
