@@ -123,7 +123,12 @@ Phases (each raises on failure):
      chunk with the most hits, a bounce-1 queue (the primaries' hit points,
      scattered directions) and the sun shadow queue from those hit points,
      closest and any-hit, each against its plain version (rows, instances,
-     flags equal, t/u/v bitwise), timed with CUDA events beside the bound;
+     flags equal, t/u/v bitwise), timed with CUDA events beside the bound
+     and its share of the bound, in the placement and block size the
+     launcher picks; each also in both placements of the top tree (staged
+     in shared memory, read from global memory) at 128, 256 and 512
+     threads per block, each bitwise the plain version and timed (the
+     measurement behind the launcher's rule);
      on the instanced500 queues K6 = K7 (a K7 pack of the same scene and
      frame): t bitwise, triangle and instance equal except on exact-t ties,
      which are counted, flags equal; K6's ordered instance walk on the
@@ -131,7 +136,7 @@ Phases (each raises on failure):
      and equal to the preorder walk except on exact-t ties (counted); on
      the instanced2500 primary chunk K7 with its top tree in global memory
      against K7 staged in shared memory and the plain version, bitwise,
-     both timed;
+     both timed, at each block size too;
  13. procedural.instanced_field(num_inst=6) at 48x48, depth 9, two animated
      frames, through K6 and through K7 (K6's instance cap set to 0), on the
      card against the port's CPU render: equal ray counts and
@@ -225,6 +230,7 @@ TLAS_PATHS = (  # label, instances, size, depth, timed frames, kernel
 ANIM_FRAMES = 16  # instanced_field's animation length
 INST_PAST_CAP = 2500  # instanced_field(num_inst=2500): 2,501 K7 entries
 REF_MAX_ENTRIES = 2048  # the reference's K7 cap (traverse_tlas_stream.py:82)
+TLAS_BLOCKS = (128, 256, 512)  # the block sizes phase 12 times for K6 and K7
 DEVICE = "cuda"
 # the bound of the traversal function (PERF.md): the larger of the bytes
 # over the card's memory rate and the Moller-Trumbore flops over its f32
@@ -871,6 +877,7 @@ def _mode_counts():
 
     return {"K4 ordered": ts.launches_k4_ordered,
             "K6 ordered": tt.launches_k6_ordered,
+            "K6 global": tt.launches_k6_global,
             "K7 global": tts.launches_k7_global,
             "multislot": tb.multislot_dispatches}
 
@@ -1755,6 +1762,9 @@ def phase_tlas_slice():
     cap of 2,048 (instance, chunk) entries. Returns {label: (renderer,
     frame config, launches, record)}."""
     from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_tlas_stream as tts,
     )
     from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
@@ -1783,7 +1793,7 @@ def phase_tlas_slice():
     total = time.perf_counter() - t0
     check(r._route.tlas == "k7", f"{label} took the {r._route.tlas} route")
     st, fr = r.device_scene.tlas_stream
-    staged = tts.staged_fits(fr, DEVICE)
+    staged = tt.top_staged(tts.top_bytes(fr))
     log(f"{label}: set-up (BLAS, chunks, TLAS, pack and upload) "
         f"{r.setup_seconds:.2f} s (set_scene {total:.2f} s), "
         f"{len(r.scene.instances)} instances, {r.scene.total_tris} instanced "
@@ -1811,11 +1821,15 @@ def compare_k6_ordered(label, ds, rays, iters=5):
     )
 
     bb = ds.tlas_k6
+    staged, _, placed = _placement(ds, "K6")
     n = rays.shape[1]
     hk = tt.launch(bb, rays, False, ordered=True)
     hp, p_ms = _plain_ms(lambda: tt.plain(bb, rays, False, ordered=True))
     bad, err = _equal(hk, hp)
-    ms = cuda_ms(lambda: tt.launch(bb, rays, False, ordered=True), iters)
+    shapes = _shapes(f"{label} K6 ordered",
+                     lambda q, a, **kw: tt.launch(bb, q, a, ordered=True, **kw),
+                     rays, False, hp, iters)
+    ms = shapes[staged, tt.THREADS]
     pre_ms = cuda_ms(lambda: tt.launch(bb, rays, False), iters)
     h = tt.out_to_hit(bb, hk, n)
     h0 = tt.out_to_hit(bb, tt.launch(bb, rays, False), n)
@@ -1825,7 +1839,9 @@ def compare_k6_ordered(label, ds, rays, iters=5):
     log(f"  {label:34s} K6 ordered: {bad} vs plain not bitwise, {ms:.3f} ms "
         f"(plain {p_ms:.1f}, K6 preorder {pre_ms:.3f}), vs preorder t bitwise, "
         f"{ties} triangle and {ties_inst} instance exact-t ties; bound "
-        f"{b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs)")
+        f"{b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs), {b_ms / ms:.4f} "
+        f"of the bound; ran {placed}; ms by placement and block size: "
+        f"{_shapes_text(shapes)}")
     check(bad == 0, f"{label}: K6 ordered disagrees with its plain version")
     check(max(ties, ties_inst) <= n // 1000, f"{label}: {ties} K6 ordered ties")
     return {"ms": ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b_ms,
@@ -1835,10 +1851,14 @@ def compare_k6_ordered(label, ds, rays, iters=5):
 def compare_k7_modes(label, r, cfg, smi, iters=3):
     """K7 with the top tree read from global memory against K7 with it
     staged in shared memory, on the path's primary chunk with the most
-    hits: both against the plain version, bitwise, closest and any-hit,
-    each timed. Returns the global mode's record."""
+    hits, at each block size of TLAS_BLOCKS: closest against the plain
+    version and any-hit against the global launch, bitwise, each timed.
+    Returns the global mode's record."""
     import torch
 
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_tlas_stream as tts,
     )
@@ -1846,37 +1866,34 @@ def compare_k7_modes(label, r, cfg, smi, iters=3):
     st, fr = r.device_scene.tlas_stream
     c, rays = _best_chunk(r, cfg, lambda q: tts.launch(st, fr, q, False)[1])
     n = rays.shape[1]
+    _, _, placed = _placement(r.device_scene, "K7")
     log(f"K7 global against K7 staged on the {label} path's primary chunk "
         f"{c} ({fr.num_entries} entries, {tts.top_bytes(fr)} B of top tree), "
         f"{smi}:")
-    hs = tts.launch(st, fr, rays, False, staged=True)
-    hg = tts.launch(st, fr, rays, False, staged=False)
+    launch = lambda q, a, **kw: tts.launch(st, fr, q, a, **kw)  # noqa: E731
     hp, p_ms = _plain_ms(lambda: tts.plain(st, fr, rays, False))
-    bad_sg, err = _equal(hg, hs)
-    bad_p = _equal(hg, hp)[0] + _equal(hs, hp)[0]
-    s_ms = cuda_ms(lambda: tts.launch(st, fr, rays, False, staged=True), iters)
-    g_ms = cuda_ms(lambda: tts.launch(st, fr, rays, False, staged=False), iters)
-    hit = tts.out_to_hit(st, fr, hs, n)
+    shapes = _shapes(label, launch, rays, False, hp, iters)
+    s_ms, g_ms = shapes[True, tt.THREADS], shapes[False, tt.THREADS]
+    hit = tts.out_to_hit(st, fr, hp, n)
     scale = torch.where(torch.arange(n, device=rays.device) % 2 == 0, 0.999, 1.001)
     orays = rays.clone()
     orays[7] = torch.where(rays[7] > rays[6],
                            torch.where(hit.tri >= 0, hit.t * scale, 1e30),
                            rays[7])
-    occ = _equal(tts.launch(st, fr, orays, True, staged=False),
-                 tts.launch(st, fr, orays, True, staged=True))[0]
-    os_ms = cuda_ms(lambda: tts.launch(st, fr, orays, True, staged=True), iters)
-    og_ms = cuda_ms(lambda: tts.launch(st, fr, orays, True, staged=False), iters)
+    bg = tts.launch(st, fr, orays, True, staged=False)
+    occ_shapes = _shapes(f"{label} any-hit", launch, orays, True, bg, iters)
+    os_ms, og_ms = occ_shapes[True, tt.THREADS], occ_shapes[False, tt.THREADS]
     b_ms, b_by, pairs = tlas_bound(r.device_scene, "K7", rays, hit.t, False)
-    log(f"  {label} primary chunk {c}: closest global {bad_sg} vs staged, "
-        f"{bad_p} vs plain not bitwise; staged {s_ms:.3f} ms, global "
-        f"{g_ms:.3f} ms (plain {p_ms:.1f}); any-hit global {occ} vs staged "
-        f"mismatched, staged {os_ms:.3f} ms, global {og_ms:.3f} ms; hit "
-        f"{(hit.tri >= 0).float().mean().item():.3f}, "
+    log(f"  {label} primary chunk {c}: closest staged and global bitwise the "
+        f"plain version, staged {s_ms:.3f} ms, global {g_ms:.3f} ms (plain "
+        f"{p_ms:.1f}); any-hit staged bitwise global, staged {os_ms:.3f} ms, "
+        f"global {og_ms:.3f} ms; hit {(hit.tri >= 0).float().mean().item():.3f}, "
         f"{len(set(hit.inst[hit.inst >= 0].tolist()))} instances hit; bound "
-        f"{b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs)")
-    check(bad_sg == 0 and bad_p == 0 and occ == 0,
-          f"{label}: K7's global and staged modes disagree")
-    return {"ms": g_ms, "plain_ms": p_ms, "max_abs_err": err,
+        f"{b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs), global "
+        f"{b_ms / g_ms:.4f} and staged {b_ms / s_ms:.4f} of the bound; the "
+        f"launcher runs {placed}; closest ms by placement and block size: "
+        f"{_shapes_text(shapes)}; any-hit: {_shapes_text(occ_shapes)}")
+    return {"ms": g_ms, "plain_ms": p_ms, "max_abs_err": 0.0,
             "bound_ms": b_ms, "bound_by": b_by, "staged_ms": s_ms,
             "occ_ms": og_ms, "occ_staged_ms": os_ms}
 
@@ -1893,12 +1910,54 @@ def _tlas_fns(ds, kernel):
 
     if kernel == "K6":
         bb = ds.tlas_k6
-        return (lambda q, a: tt.launch(bb, q, a), lambda q, a: tt.plain(bb, q, a),
+        return (lambda q, a, **kw: tt.launch(bb, q, a, **kw),
+                lambda q, a: tt.plain(bb, q, a),
                 lambda out, n: tt.out_to_hit(bb, out, n))
     st, fr = ds.tlas_stream
-    return (lambda q, a: tts.launch(st, fr, q, a),
+    return (lambda q, a, **kw: tts.launch(st, fr, q, a, **kw),
             lambda q, a: tts.plain(st, fr, q, a),
             lambda out, n: tts.out_to_hit(st, fr, out, n))
+
+
+def _placement(ds, kernel):
+    """(staged, top-tree bytes, text) of the scene's two-level kernel: the
+    placement its launcher picks, and the block size it runs."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
+
+    nbytes = (tt.tlas_bytes(ds.tlas_k6) if kernel == "K6"
+              else tts.top_bytes(ds.tlas_stream[1]))
+    staged = tt.top_staged(nbytes)
+    return staged, nbytes, (
+        f"{'staged' if staged else 'global'} ({nbytes} B top tree, staged up "
+        f"to {tt.STAGE_MAX_BYTES} B), {tt.THREADS} threads per block")
+
+
+def _shapes(label, launch, rays, any_hit, ref, iters):
+    """Every placement of the top tree and block size of TLAS_BLOCKS for a
+    two-level launch on one queue: each must equal ``ref`` (its plain
+    version's result) bitwise; each timed. Returns {(staged, threads):
+    ms}."""
+    out = {}
+    for staged in (True, False):
+        for threads in TLAS_BLOCKS:
+            bad = _equal(launch(rays, any_hit, staged=staged, threads=threads),
+                         ref)[0]
+            check(bad == 0, f"{label}: {'staged' if staged else 'global'}, "
+                  f"{threads} threads: {bad} lanes not bitwise the plain version")
+            out[staged, threads] = cuda_ms(
+                lambda: launch(rays, any_hit, staged=staged, threads=threads),
+                iters)
+    return out
+
+
+def _shapes_text(shapes):
+    return ", ".join(f"{'staged' if st else 'global'} {th} {ms:.3f}"
+                     for (st, th), ms in shapes.items())
 
 
 def tlas_bound(ds, kernel, rays, t_end, any_hit):
@@ -1952,13 +2011,19 @@ def compare_tlas_queue(label, ds, kernel, rays, rng, orays=None, iters=5):
     record, the decoded closest hits and the any-hit flags."""
     import torch
 
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+
     launch, plain, decode = _tlas_fns(ds, kernel)
+    staged, _, placed = _placement(ds, kernel)
     n = rays.shape[1]
     live = int((rays[7] > rays[6]).sum())
     hk = launch(rays, False)
     hp, p_ms = _plain_ms(lambda: plain(rays, False))
     bad, err = _equal(hk, hp)
-    k_ms = cuda_ms(lambda: launch(rays, False), iters)
+    shapes = _shapes(label, launch, rays, False, hp, iters)
+    k_ms = shapes[staged, tt.THREADS]
     hit = decode(hk, n)
     b_ms, b_by, pairs = tlas_bound(ds, kernel, rays, hit.t, False)
     if orays is None:
@@ -1970,18 +2035,23 @@ def compare_tlas_queue(label, ds, kernel, rays, rng, orays=None, iters=5):
     bk = launch(orays, True)
     bp, op_ms = _plain_ms(lambda: plain(orays, True))
     occ = _equal(bk, bp)[0]
-    occ_ms = cuda_ms(lambda: launch(orays, True), iters)
+    occ_shapes = _shapes(label, launch, orays, True, bp, iters)
+    occ_ms = occ_shapes[staged, tt.THREADS]
     ob_ms, ob_by, _ = tlas_bound(ds, kernel, orays, orays[7], True)
     log(f"  {label:34s} ({live} live): {kernel} closest {bad} vs plain not "
         f"bitwise, {k_ms:.3f} ms (plain {p_ms:.1f}), hit "
         f"{(hit.tri >= 0).float().mean().item():.3f}, "
         f"{len(set(hit.inst[hit.inst >= 0].tolist()))} instances hit, bound "
-        f"{b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs); any-hit {occ} vs "
-        f"plain, {occ_ms:.3f} ms (plain {op_ms:.1f}), blocked "
-        f"{bk.float().mean().item():.3f}, bound {ob_ms:.4f} ms by {ob_by}")
+        f"{b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs), {b_ms / k_ms:.4f} "
+        f"of the bound; any-hit {occ} vs plain, {occ_ms:.3f} ms (plain "
+        f"{op_ms:.1f}), blocked {bk.float().mean().item():.3f}, bound "
+        f"{ob_ms:.4f} ms by {ob_by}, {ob_ms / occ_ms:.4f} of the bound; ran "
+        f"{placed}; closest ms by placement and block size: "
+        f"{_shapes_text(shapes)}; any-hit: {_shapes_text(occ_shapes)}")
     check(bad == 0 and occ == 0, f"{label}: {kernel} disagrees with its plain version")
     return ({"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b_ms,
-             "bound_by": b_by, "occ_ms": occ_ms, "occ_plain_ms": op_ms},
+             "bound_by": b_by, "occ_ms": occ_ms, "occ_plain_ms": op_ms,
+             "shapes": shapes},
             hit, bk, orays)
 
 
@@ -2484,6 +2554,8 @@ def main():
         tlas_slice["instanced500 1080p ordered"][3]["modes"]["K6 ordered"])
     tlas_k7_launches = tlas_paths["instanced600 1080p"][2]["K7"]
     tlas_k6_launches = tlas_paths["instanced500 1080p"][2]["K6"]
+    k6_global_launches = (
+        tlas_paths["instanced500 1080p"][3]["modes"]["K6 global"])
     k1 = dict(phase_parity(smi), launches=k1_launches)
     k1["merged"]["launches"] = k1_merged
     flat = phase_flat(smi)
@@ -2512,6 +2584,9 @@ def main():
     del v1_paths
     phase_queries()
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
 
     main_stream, stream_merged = stream["terrain500 1080p"]
     # the merged launches of the runs the single-mode counts come from (no
@@ -2530,8 +2605,13 @@ def main():
     rec5 = dict(streamed["traverse_binned"], quantized=dict(
         rec5q, launches=quantized["K5"]), multislot=dict(
         rec_multislot, launches=strategies["multislot"]["modes"]["multislot"]))
+    # K6's TLAS read from global memory (the placement the launcher leaves
+    # to larger TLASes) on the same primary chunk, with its launches there
+    k6_shapes = tlas["K6"]["shapes"]
     k6 = dict(tlas["K6"], launches=tlas_k6_launches, ordered=dict(
-        tlas["K6 ordered"], launches=k6_ordered_launches))
+        tlas["K6 ordered"], launches=k6_ordered_launches), **{"global": dict(
+            ms=k6_shapes[False, tt.THREADS], staged_ms=k6_shapes[True, tt.THREADS],
+            bound_ms=tlas["K6"]["bound_ms"], launches=k6_global_launches)})
     k7 = dict(tlas["K7"], launches=tlas_k7_launches, **{"global": dict(
         k7_global, launches=rec2500["modes"]["K7 global"])})
     log(f"village path launches {village}; {past_cap} launches "

@@ -1,10 +1,10 @@
 // Shared parts of the streamed kernels K4 (traverse_streamed.cu) and K5
-// (traverse_binned.cu) and the two-level kernels K6 (traverse_tlas.cu) and
-// K7 (traverse_tlas_stream.cu): one thread per ray, the slab test, the
-// object ray of an instance, and the walk of one subtree of the streamed
-// pack (ops/traverse_stream.py::pack_streamed; K6 walks a BLAS of the same
-// node and tile layout) with Moller-Trumbore over the 128 triangles of
-// every entered leaf.
+// (traverse_binned.cu): one thread per ray, the slab test and the walk of
+// one subtree of the streamed pack (ops/traverse_stream.py::pack_streamed)
+// with Moller-Trumbore over the 128 triangles of every entered leaf. The
+// two-level kernels K6 (traverse_tlas.cu) and K7 (traverse_tlas_stream.cu)
+// take the ray, the slab test and the object ray of an instance from here;
+// their walk, with warp-shared leaf tests, is tlas_walk.cuh's.
 //
 // A subtree's node block is slots = node_rows * 16 nodes of 8 floats, node
 // i at offset 8 * i: [min3, max3, skip, local leaf id | -1]. The links are
@@ -32,8 +32,9 @@
 // through float bit patterns), so the decoded triangle is bitwise
 // traverse_stream.reconstruct_quantized's.
 //
-// The ordered (front-to-back) walks of K4 and K6 (next_ordered) pick, per
-// ray, the top leaf with the least (entry t, preorder index) above the last
+// The ordered (front-to-back) walk of K4 (next_ordered; K6's is
+// tlas_walk.cuh's copy with 16-byte node loads) picks, per ray, the top
+// leaf with the least (entry t, preorder index) above the last
 // visited one by re-walking the top tree, instead of the TPU kernels'
 // per-packet candidate list in SMEM: two registers and no list.
 //

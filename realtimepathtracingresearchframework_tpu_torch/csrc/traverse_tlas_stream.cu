@@ -15,36 +15,41 @@
 // with the entry's inverse affine (entry_table row: A^-1 row-major, its
 // translation, sigma_min, the chunk's first sub_nodes row, its first
 // tri_tiles row), WITHOUT renormalising the direction, so object-space t is
-// world t; walk the chunk's subtree (stream_walk.cuh::walk_subtree, the
-// node block of node_rows * 16 slots, local links, SUB_EXIT) with the
-// segment [tmin, t_best]. Rows are entry * chunk_tris + leaf * 128 + k, so
-// one int32 names the entry (the instance) and the chunk row. The first
-// visited triangle keeps an exact-t tie. Closest mode writes t, row, u, v
-// (a miss: t = 2e32, row = -1, u = v = 0); any-hit mode stops at the first
-// hit and writes blocked = 1.
+// world t; walk the chunk's subtree (the node block of node_rows * 16
+// slots, local links, SUB_EXIT) with the segment [tmin, t_best]. Rows are
+// entry * chunk_tris + leaf * 128 + k, so one int32 names the entry (the
+// instance) and the chunk row. The first visited triangle keeps an exact-t
+// tie. Closest mode writes t, row, u, v (a miss: t = 2e32, row = -1,
+// u = v = 0); any-hit mode stops at the first hit and writes blocked = 1.
 //
-// Design: one thread per ray, each running its own stackless walks. The
-// top tree (about 2 nodes x 32 B per entry: 38 KB for the bench's 601
-// entries, 160 KB at 2,501) is staged in shared memory by each block (opted
-// into more than 48 KB when a scene needs it); the entry table, the chunk
-// node blocks and the leaf tiles are read from global memory through the
-// read-only path. A top tree past the card's opt-in shared memory per block
-// takes the global mode instead: every thread reads the top-tree nodes from
-// global memory through the read-only path (two 16-byte loads per node),
-// served by L1 and L2. The launcher picks the mode by size, never on a
-// failure; the reference's cap of 2,048 entries (its SMEM entry table) does
-// not apply. Rows must fit int32: the wrapper checks entries * chunk_tris.
-// The TPU kernel's per-block packet bounds, its interval slab test scaled
-// by sigma_min, the 16-leaf SMEM flush list and the per-entry DMA of node
-// and tile blocks into SMEM/VMEM are TPU devices and are not carried over:
-// per-ray results do not depend on them.
+// What bounds it on this card: not device-memory bandwidth (each unique
+// chunk is stored once, a few hundred KB for the bench's instanced field,
+// so the instances' leaves hit L1/L2) but the Moller-Trumbore work of every
+// entered leaf (128 triangles, ~54 flops each) and how much of the warp
+// does it, and, with a large top tree, the blocks an SM can hold. A design
+// with one thread per ray testing its leaves alone (this kernel's first
+// form) left the rest of the warp idle through a leaf's 128 triangles
+// whenever its lanes sat in different leaves, with 9 scalar loads per
+// triangle touching up to 32 cache lines each; its lanes waited on each
+// other between the nested top-tree and chunk loops; and a block of 128
+// threads staged the whole top tree (160 KB at 2,501 entries: one block,
+// 4 warps, per SM).
 //
-// What bounds it on this card: divergent, dependent loads of node boxes and
-// field-major tile rows, and the Moller-Trumbore work of every entered leaf
-// (128 triangles per leaf visit, ~54 flops each), not device-memory
-// bandwidth: each unique chunk is stored once (a few hundred KB for the
-// bench's instanced field), so the instances' leaves hit L1/L2. The design
-// does nothing more about it yet.
+// Design (tlas_walk.cuh): each lane's walk is resumable state, stepped to
+// its next entered leaf; the warp then tests every lane's pending leaf in
+// turn, 4 triangles a lane from 16-byte coalesced tile loads, and reduces
+// to the first least hit, which equals the plain walk bit for bit
+// (tlas_walk.cuh gives the argument). Node loads are 16 bytes. The top
+// tree is staged in shared memory by each block or read from global memory
+// through the read-only path (``global_top``), and the block size is an
+// argument: the launcher (ops/traverse_tlas_stream.py) picks both by the
+// top tree's size against a threshold measured on the card, never on a
+// failure; the reference's cap of 2,048 entries (its SMEM entry table)
+// does not apply. Rows must fit int32: the wrapper checks entries *
+// chunk_tris. The TPU kernel's per-block packet bounds, its interval slab
+// test scaled by sigma_min, the 16-leaf SMEM flush list and the per-entry
+// DMA of node and tile blocks into SMEM/VMEM are TPU devices and are not
+// carried over: per-ray results do not depend on them.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false (kernels/build.py), no fast math, so results compare
@@ -53,18 +58,38 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "stream_walk.cuh"
+#include "tlas_walk.cuh"
 
 namespace {
 
-using rptr_stream::Best;
 using rptr_stream::Ray;
 using rptr_stream::kLeaf;
-using rptr_stream::kThreads;
-using rptr_stream::object_ray;
+using rptr_tlas::kMaxThreads;
+using rptr_tlas::Sub;
+
+// Enters entry eid: its object ray, the chunk's node block, tiles and rows
+struct Chunks {
+  const float* entry_table;
+  const float* sub_nodes;
+  int slots, chunk_tris;
+
+  __device__ __forceinline__ Sub enter(int eid, const Ray& r) const {
+    const float* row = entry_table + static_cast<size_t>(eid) * 16;
+    Sub s;
+    s.o = rptr_stream::object_ray(row, r);
+    const int node_base = static_cast<int>(__ldg(row + 13));
+    s.nodes = reinterpret_cast<const float4*>(
+        sub_nodes + static_cast<size_t>(node_base) * 128);
+    s.count = slots;
+    s.tile0 = static_cast<int>(__ldg(row + 14));
+    s.row0 = eid * chunk_tris;
+    s.id = eid;
+    return s;
+  }
+};
 
 template <bool kAnyHit, bool kGlobal>
-__global__ void __launch_bounds__(kThreads) traverse_tlas_stream_kernel(
+__global__ void __launch_bounds__(kMaxThreads) traverse_tlas_stream_kernel(
     const float* __restrict__ top_g, int num_top,
     const float* __restrict__ entry_table,
     const float* __restrict__ sub_nodes, const float* __restrict__ tiles,
@@ -72,60 +97,36 @@ __global__ void __launch_bounds__(kThreads) traverse_tlas_stream_kernel(
     float* __restrict__ out_t, int* __restrict__ out_row,
     float* __restrict__ out_u, float* __restrict__ out_v,
     unsigned char* __restrict__ out_blocked) {
-  extern __shared__ float staged[];
+  extern __shared__ float4 staged[];
+  const float4* top = reinterpret_cast<const float4*>(top_g);
   if (!kGlobal) {
-    for (int j = threadIdx.x; j < 8 * num_top; j += blockDim.x) {
-      staged[j] = __ldg(top_g + j);
-    }
-    __syncthreads();
+    rptr_tlas::stage_top(staged, top, num_top);
+    top = staged;
   }
-  const float* top = kGlobal ? top_g : staged;
+  // every lane stays to the end: the warp tests the leaves together
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  Ray r{};
+  if (i < n) r.load(rays, n, i);
+  rptr_tlas::Walk<kAnyHit, false, kGlobal, Chunks> w(
+      top, num_top, r, i < n && r.tmax > r.tmin);
+  w.run(Chunks{entry_table, sub_nodes, node_rows * 16, sub_leaves * kLeaf},
+        tiles);
   if (i >= n) return;
-
-  Ray r;
-  r.load(rays, n, i);
-  Best b{r.tmax, -1, 0.0f, 0.0f, false};
-  const int slots = node_rows * 16;
-  const int chunk_tris = sub_leaves * kLeaf;
-
-  // an empty segment (tmax <= tmin) can never hit: it walks nothing
-  int cur = r.tmax > r.tmin ? 0 : num_top;
-  while (cur < num_top) {
-    float nd[8];
-    rptr_stream::load_node<kGlobal>(top + 8 * cur, nd);
-    const bool hit_box = rptr_stream::slab(nd, r, b.t);
-    const int skip = static_cast<int>(nd[6]);
-    const int eid = static_cast<int>(nd[7]);
-    if (hit_box && eid >= 0) {
-      const float* row = entry_table + static_cast<size_t>(eid) * 16;
-      const Ray o = object_ray(row, r);
-      const int node_base = static_cast<int>(__ldg(row + 13));
-      const int tile_base = static_cast<int>(__ldg(row + 14));
-      rptr_stream::walk_subtree<kAnyHit>(
-          sub_nodes + static_cast<size_t>(node_base) * 128, slots,
-          tiles + static_cast<size_t>(tile_base) * 128, eid * chunk_tris, o,
-          b, rptr_stream::Dequant{});
-      if (kAnyHit && b.blocked) break;
-    }
-    cur = (hit_box && eid < 0) ? cur + 1 : skip;
-  }
-
   if (kAnyHit) {
-    out_blocked[i] = b.blocked ? 1 : 0;
+    out_blocked[i] = w.b.blocked ? 1 : 0;
   } else {
-    out_t[i] = b.row < 0 ? rptr_stream::kTMax : b.t;
-    out_row[i] = b.row;
-    out_u[i] = b.u;
-    out_v[i] = b.v;
+    out_t[i] = w.b.row < 0 ? rptr_stream::kTMax : w.b.t;
+    out_row[i] = w.b.row;
+    out_u[i] = w.b.u;
+    out_v[i] = w.b.v;
   }
 }
 
 template <bool kAnyHit, bool kGlobal>
 int launch(const float* top, int num_top, const float* entry_table,
            const float* sub_nodes, const float* tiles, int node_rows,
-           int sub_leaves, const float* rays, int n, float* out_t,
-           int* out_row, float* out_u, float* out_v,
+           int sub_leaves, const float* rays, int n, int threads,
+           float* out_t, int* out_row, float* out_u, float* out_v,
            unsigned char* out_blocked, cudaStream_t stream) {
   const size_t smem =
       kGlobal ? 0 : sizeof(float) * 8 * static_cast<size_t>(num_top);
@@ -135,9 +136,9 @@ int launch(const float* top, int num_top, const float* entry_table,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int grid = (n + kThreads - 1) / kThreads;
+  const int grid = (n + threads - 1) / threads;
   traverse_tlas_stream_kernel<kAnyHit, kGlobal>
-      <<<grid, kThreads, smem, stream>>>(
+      <<<grid, threads, smem, stream>>>(
       top, num_top, entry_table, sub_nodes, tiles, node_rows, sub_leaves,
       rays, n, out_t, out_row, out_u, out_v, out_blocked);
   return static_cast<int>(cudaGetLastError());
@@ -149,18 +150,22 @@ int launch(const float* top, int num_top, const float* entry_table,
 // cudaGetLastError() (0 = launched). The caller allocates every output;
 // any_hit != 0 writes only ``blocked``, otherwise only t, row, u, v.
 // ``global_top`` != 0 reads the top tree from global memory, else each
-// block stages it in shared memory.
+// block stages it in shared memory; ``threads`` per block: a multiple of
+// 32 up to 512. Every float pointer must be 16-byte aligned.
 extern "C" int rptr_traverse_tlas_stream(
     const float* top, int num_top, const float* entry_table,
     const float* sub_nodes, const float* tiles, int node_rows,
     int sub_leaves, const float* rays, int n, int any_hit, int global_top,
-    float* out_t, int* out_row, float* out_u, float* out_v,
+    int threads, float* out_t, int* out_row, float* out_u, float* out_v,
     unsigned char* out_blocked, void* stream) {
   if (n <= 0) return 0;
+  if (threads < 32 || threads > kMaxThreads || threads % 32) {
+    return cudaErrorInvalidValue;
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RPTR_K7_LAUNCH(A, G)                                                 \
   launch<A, G>(top, num_top, entry_table, sub_nodes, tiles, node_rows,      \
-               sub_leaves, rays, n, out_t, out_row, out_u, out_v,           \
+               sub_leaves, rays, n, threads, out_t, out_row, out_u, out_v,  \
                out_blocked, s)
   if (any_hit) {
     return global_top ? RPTR_K7_LAUNCH(true, true)
@@ -169,18 +174,6 @@ extern "C" int rptr_traverse_tlas_stream(
   return global_top ? RPTR_K7_LAUNCH(false, true)
                     : RPTR_K7_LAUNCH(false, false);
 #undef RPTR_K7_LAUNCH
-}
-
-// The card's opt-in shared memory per block, in bytes (the launcher's
-// limit for a staged top tree), or -1 when it cannot be read.
-extern "C" int rptr_max_smem_optin(void) {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess) {
-    return -1;
-  }
-  return bytes;
 }
 
 extern "C" const char* rptr_cuda_error_string(int code) {

@@ -32,9 +32,20 @@ True)``; reference traverse_tlas.py:372-431) visits each ray's instances
 nearest first instead (``plain_ordered``, ``tlas.ordered_sweep``): equal
 results except on exact-t ties across instances.
 
+The kernel (``csrc/traverse_tlas.cu``, with K7 on ``csrc/tlas_walk.cuh``)
+keeps each lane's walk as resumable state and lets the whole warp test
+every entered leaf, 4 triangles a lane. Each block stages the TLAS in
+shared memory, or the kernel reads it from global memory: ``launch``
+picks by the TLAS's bytes (``top_staged``, the threshold
+``STAGE_MAX_BYTES``, measured on the card) unless ``staged`` forces a
+placement, and runs ``THREADS`` threads per block unless ``threads`` says
+otherwise. The same rule and block size serve K7's top tree.
+
 On a CPU tensor the wrappers run ``plain``; on a CUDA tensor they launch
 the kernel (built by ``kernels/build.py`` at first use) or raise.
-``launches_k6`` counts the kernel's launches.
+``launches_k6`` counts the kernel's launches, ``launches_k6_ordered`` and
+``launches_k6_global`` those of its ordered walk and of its global
+placement.
 """
 
 from __future__ import annotations
@@ -70,13 +81,41 @@ DEFAULT_BLOCK = 512
 MAX_TOTAL_NODES = 1800
 MAX_INSTANCES = 512
 
+# K6's and K7's launch shape (csrc/tlas_walk.cuh), measured by
+# chip_smoke.py phase 12 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# §6). THREADS per block: 128 was the fastest of 128, 256 and 512 on
+# every queue of the instanced paths but the staged 160 KB top tree. Each
+# block stages a top tree of up to STAGE_MAX_BYTES in shared memory, and a
+# larger one is read from global memory: staged, K6's 32,032-byte TLAS
+# (instanced500) ran 1-12% faster than from global memory, K7's
+# 38,432-byte top tree (instanced600) within 4% either way (faster on some
+# queues, slower on others), and its 160,032-byte one (instanced2500, one
+# block per SM) 2.4x slower.
+THREADS = 128
+STAGE_MAX_BYTES = 36 * 1024
+
 launches_k6 = 0  # K6 launches in this process (reset with reset_launches)
 launches_k6_ordered = 0  # of which ordered (front-to-back) launches
+launches_k6_global = 0  # of which read the TLAS from global memory
 
 
 def reset_launches() -> None:
-    global launches_k6, launches_k6_ordered
-    launches_k6 = launches_k6_ordered = 0
+    global launches_k6, launches_k6_ordered, launches_k6_global
+    launches_k6 = launches_k6_ordered = launches_k6_global = 0
+
+
+def top_staged(nbytes: int) -> bool:
+    """The placement of K6's TLAS and K7's top tree: every block stages a
+    tree of up to ``STAGE_MAX_BYTES`` in shared memory; a larger one is read
+    from global memory."""
+    return nbytes <= STAGE_MAX_BYTES
+
+
+def check_aligned(**operands) -> None:
+    """The two-level kernels read these operands in 16-byte loads."""
+    for name, x in operands.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: its data must be 16-byte aligned")
 
 
 class BlasStatic(NamedTuple):
@@ -276,7 +315,7 @@ def _lib():
     # every pointer and the stream as c_void_p (a bare Python int would be
     # passed as a 32-bit C int and cut the pointer)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rptr_traverse_tlas.argtypes = [p, i, p, p, p, p, i, i, i] + [p] * 6 + [p]
+    lib.rptr_traverse_tlas.argtypes = [p, i, p, p, p, p, i, i, i, i, i] + [p] * 7
     lib.rptr_traverse_tlas.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rptr_cuda_error_string.restype = ctypes.c_char_p
@@ -293,14 +332,25 @@ def check_buffers(bb: TlasBuffers, dev) -> None:
            (bb.tri_tiles.shape[0], LEAF), dev)
     if bb.tri_tiles.shape[0] % 16:
         raise ValueError("tri_tiles: rows are not whole 16-row leaf tiles")
+    check_aligned(tlas_nodes=bb.tlas_nodes, blas_nodes=bb.blas_nodes,
+                  tri_tiles=bb.tri_tiles)
+
+
+def tlas_bytes(bb: TlasBuffers) -> int:
+    """The shared memory a block needs to stage the TLAS."""
+    return bb.tlas_nodes.numel() * bb.tlas_nodes.element_size()
 
 
 def launch(bb: TlasBuffers, rays: torch.Tensor, any_hit: bool,
-           ordered: bool = False):
-    """One K6 launch over a packed (8, N) operand, one thread per ray;
-    ``ordered``: the ordered instance walk (closest hits only). Returns the
-    raw output tensors: (t, row, u, v, inst) or the blocked flags."""
-    global launches_k6, launches_k6_ordered
+           ordered: bool = False, staged: bool = None, threads: int = None):
+    """One K6 launch over a packed (8, N) operand, one lane per ray;
+    ``ordered``: the ordered instance walk (closest hits only). ``staged``:
+    each block stages the TLAS in shared memory (True) or the kernel reads
+    it from global memory (False); None picks by size (``top_staged``).
+    ``threads`` per block (a multiple of 32 up to 512): ``THREADS`` by
+    default. Returns the raw output tensors: (t, row, u, v, inst) or the
+    blocked flags."""
+    global launches_k6, launches_k6_ordered, launches_k6_global
     if ordered and any_hit:
         raise ValueError(f"{KERNEL}: the ordered walk is closest-hit only")
     dev = rays.device
@@ -322,19 +372,22 @@ def launch(bb: TlasBuffers, rays: torch.Tensor, any_hit: bool,
     if n == 0:
         return result
     lib = _lib()
+    if staged is None:
+        staged = top_staged(tlas_bytes(bb))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rptr_traverse_tlas(
             bb.tlas_nodes.data_ptr(), bb.num_tlas_nodes,
             bb.blas_nodes.data_ptr(), bb.inst_table.data_ptr(),
             bb.tri_tiles.data_ptr(), rays.data_ptr(), n, int(any_hit),
-            int(ordered), *outs, stream,
+            int(ordered), int(not staged), threads or THREADS, *outs, stream,
         )
     if rc != 0:
         msg = lib.rptr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{KERNEL} launch failed: {msg} (cudaError {rc})")
     launches_k6 += 1
     launches_k6_ordered += int(ordered)
+    launches_k6_global += int(not staged)
     return result
 
 

@@ -33,11 +33,13 @@ threaded walk, and ``csrc/traverse_tlas_stream.cu`` must equal it bitwise.
 
 The reference caps a scene at 2,048 entries, the size of its SMEM entry
 table (traverse_tlas_stream.py:82), and walks past it with XLA code. That
-is a TPU limit: the CUDA kernel stages the top tree in shared memory while
-it fits the card's opt-in shared memory per block, and past that reads it
-from global memory (``staged=False``). The launcher picks the mode by the
-top tree's size (``staged=None``); ``launches_k7_global`` counts the
-global-mode launches.
+is a TPU limit: the CUDA kernel (K6's walk, ``csrc/tlas_walk.cuh``) has
+each block stage the top tree in shared memory or reads it from global
+memory, at any size. The launcher picks the placement by the top tree's
+bytes with K6's rule (``traverse_tlas.top_staged``) unless ``staged``
+forces one, and runs ``traverse_tlas.THREADS`` threads per block unless
+``threads`` says otherwise; ``launches_k7_global`` counts the global-mode
+launches.
 
 On a CPU tensor the wrappers run ``plain``; on a CUDA tensor they launch
 the kernel (built by ``kernels/build.py`` at first use) or raise.
@@ -52,6 +54,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_tlas
 from realtimepathtracingresearchframework_tpu_torch.ops.bvh import build_threaded_bvh
 from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
 from realtimepathtracingresearchframework_tpu_torch.ops.tlas import (
@@ -374,10 +377,8 @@ def _lib():
     # passed as a 32-bit C int and cut the pointer)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rptr_traverse_tlas_stream.argtypes = (
-        [p, i, p, p, p, i, i, p, i, i, i] + [p] * 5 + [p])
+        [p, i, p, p, p, i, i, p, i, i, i, i] + [p] * 5 + [p])
     lib.rptr_traverse_tlas_stream.restype = ctypes.c_int
-    lib.rptr_max_smem_optin.argtypes = []
-    lib.rptr_max_smem_optin.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rptr_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -392,6 +393,9 @@ def check_buffers(static: TlasStreamStatic, fr: TlasStreamFrame, dev) -> None:
     _check("tri_tiles", static.tri_tiles, torch.float32, (c * L * 16, 128), dev)
     if R * 16 > SUB_EXIT:
         raise ValueError(f"{L} leaves per chunk: too many node slots")
+    traverse_tlas.check_aligned(top_nodes=fr.top_nodes,
+                                sub_nodes=static.sub_nodes,
+                                tri_tiles=static.tri_tiles)
 
 
 def top_bytes(fr: TlasStreamFrame) -> int:
@@ -399,29 +403,14 @@ def top_bytes(fr: TlasStreamFrame) -> int:
     return fr.top_nodes.numel() * fr.top_nodes.element_size()
 
 
-_smem_optin = {}  # device index -> the card's opt-in shared memory per block
-
-
-def staged_fits(fr: TlasStreamFrame, dev) -> bool:
-    """Whether the top tree fits the card's opt-in shared memory per block
-    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``): the staged mode."""
-    idx = torch.device(dev).index or 0
-    if idx not in _smem_optin:
-        with torch.cuda.device(idx):
-            limit = _lib().rptr_max_smem_optin()
-        if limit < 0:
-            raise RuntimeError(f"{KERNEL}: cannot read the card's shared memory")
-        _smem_optin[idx] = limit
-    return top_bytes(fr) <= _smem_optin[idx]
-
-
 def launch(static: TlasStreamStatic, fr: TlasStreamFrame, rays: torch.Tensor,
-           any_hit: bool, staged: bool = None):
-    """One K7 launch over a packed (8, N) operand, one thread per ray.
+           any_hit: bool, staged: bool = None, threads: int = None):
+    """One K7 launch over a packed (8, N) operand, one lane per ray.
     ``staged``: each block stages the top tree in shared memory (True) or
-    reads it from global memory (False); None picks by size
-    (``staged_fits``). Returns the raw output tensors: (t, row, u, v) or
-    the blocked flags."""
+    the kernel reads it from global memory (False); None picks by size
+    (``traverse_tlas.top_staged``). ``threads`` per block (a multiple of 32
+    up to 512): ``traverse_tlas.THREADS`` by default. Returns the raw output
+    tensors: (t, row, u, v) or the blocked flags."""
     global launches_k7, launches_k7_global
     dev = rays.device
     n = rays.shape[1]
@@ -443,14 +432,15 @@ def launch(static: TlasStreamStatic, fr: TlasStreamFrame, rays: torch.Tensor,
         return result
     lib = _lib()
     if staged is None:
-        staged = staged_fits(fr, dev)
+        staged = traverse_tlas.top_staged(top_bytes(fr))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rptr_traverse_tlas_stream(
             fr.top_nodes.data_ptr(), fr.num_top_nodes,
             fr.entry_table.data_ptr(), static.sub_nodes.data_ptr(),
             static.tri_tiles.data_ptr(), static.node_rows, static.sub_leaves,
-            rays.data_ptr(), n, int(any_hit), int(not staged), *outs, stream,
+            rays.data_ptr(), n, int(any_hit), int(not staged),
+            threads or traverse_tlas.THREADS, *outs, stream,
         )
     if rc != 0:
         msg = lib.rptr_cuda_error_string(rc).decode()

@@ -245,6 +245,7 @@ def main(argv=None) -> int:
               "K4": ts.merged_launches_k4 / nf, "K8": tv.merged_launches / nf}
     modes = {"K4 ordered": ts.launches_k4_ordered / nf,
              "K6 ordered": tt.launches_k6_ordered / nf,
+             "K6 global": tt.launches_k6_global / nf,
              "K7 global": tts.launches_k7_global / nf,
              "multislot": tb.multislot_dispatches / nf}
     alpha = {"hops": integrator.alpha_hops / nf,

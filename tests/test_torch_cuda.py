@@ -265,6 +265,184 @@ def test_k6_k7_match_plain_on_card():
     assert torch.equal(b6, b7) and b6.any()
 
 
+def tie_scene():
+    """A two-level scene built for exact-t ties, in numpy: grids of unit
+    squares in the plane z = 0 (12x12 and 4x4 squares, two triangles each,
+    sharing a diagonal), each with one triangle stored a second time at the
+    mesh's last row, in the same leaf; five instances, two pairs of them
+    with the same transform (the identity; a 2x scale and a shift) and one
+    turned 90 degrees; 512 rays down (some up) that reach the plane at t = 5
+    on the grids' vertices, edge midpoints and square centres (on the shared
+    diagonals). Every coordinate is a small dyadic number and each
+    direction (+-2^-10 or +-2^-11, +-2^-11 or +-2^-10, +-1) keeps a
+    triangle's determinant +-1 (+-1/2 on the scaled instances), so t, u and
+    v are exact in any evaluation order, every tie is exact, and no slab
+    test divides by a zero direction (a ray with dx = 0 on a box's max-x
+    face misses the per-ray slab test but not the reference kernel's packet
+    test, which then tests every leaf of the packet). Segments: 1 lane
+    in 7 dead (tmax = 0), 1 in 5 ending at 4.5, 5 (the hit's t: no hit, the
+    test is strict) or 5.5; any-hit segments end at 4.5, 5 or 5.5. Returns
+    (meshes, mesh ids, (I, 3, 4) transforms, ro, rd, tmax, any-hit tmax)."""
+    def grid(m, dup):
+        v0, e1, e2 = [], [], []
+        for y in range(m):
+            for x in range(m):
+                v0 += [[x, y, 0], [x, y, 0]]
+                e1 += [[1, 0, 0], [1, 1, 0]]
+                e2 += [[1, 1, 0], [0, 1, 0]]
+        tri = [np.asarray(a, np.float32) for a in (v0, e1, e2)]
+        return tuple(np.concatenate([a, a[dup:dup + 1]]) for a in tri)
+
+    meshes = [grid(12, 41), grid(4, 6)]
+    mesh_ids = np.array([0, 0, 1, 1, 1], np.int32)
+    xfs = np.zeros((5, 3, 4), np.float32)
+    xfs[0:2, :, :3] = np.eye(3)
+    xfs[2, :, :3] = [[0, -1, 0], [1, 0, 0], [0, 0, 1]]
+    xfs[2, :, 3] = [20, 0, 0]
+    xfs[3:5, :, :3] = 2 * np.eye(3)
+    xfs[3:5, :, 3] = [-12, 0, 0]
+    rng = np.random.default_rng(31)
+    half = np.arange(25) / 2
+    pts = np.stack(np.meshgrid(half, half), -1).reshape(-1, 2)  # instances 0, 1
+    turned = np.stack(np.meshgrid(16 + half[:9], half[:9]), -1).reshape(-1, 2)
+    scaled = np.stack(np.meshgrid(-12 + np.arange(9.0), np.arange(9.0)),
+                      -1).reshape(-1, 2)
+    # points of the repeated triangles (41 of the 12x12 grid: its square
+    # (8, 1), upper left; 6 of the 4x4 grid: square (3, 0), lower right)
+    ab = np.stack(np.meshgrid(np.arange(5) / 4, np.arange(5) / 4), -1).reshape(-1, 2)
+    upper, lower = ab[ab[:, 0] <= ab[:, 1]], ab[ab[:, 0] >= ab[:, 1]]
+    copies = np.concatenate([
+        [8, 1] + upper,
+        np.stack([20 - lower[:, 1], 3 + lower[:, 0]], 1)[::2],  # turned
+        np.stack([-6 + 2 * lower[:, 0], 2 * lower[:, 1]], 1)[1::2],  # scaled
+    ])
+    n0 = 512 - len(turned) - len(scaled) - len(copies)
+    xy = np.concatenate([pts[rng.choice(len(pts), n0, replace=False)], turned,
+                         scaled, copies])
+    n = len(xy)
+    up = rng.uniform(size=n) < 0.1  # from below, looking up
+    rd = np.stack([rng.choice([-1, 1], n) * rng.choice([2.0**-10, 2.0**-11], n),
+                   rng.choice([-1, 1], n) * rng.choice([2.0**-10, 2.0**-11], n),
+                   np.where(up, 1.0, -1.0)], 1)
+    ro = np.concatenate([xy, np.zeros((n, 1))], 1) - 5.0 * rd
+    tmax = np.full(n, 2.0e32)
+    tmax[::5] = rng.choice([4.5, 5.0, 5.5], len(tmax[::5]))
+    tmax[::7] = 0.0
+    otm = np.where(tmax > 0, rng.choice([4.5, 5.0, 5.5], n), 0.0)
+    f32 = (lambda a: np.asarray(a, np.float32))
+    return meshes, mesh_ids, xfs, f32(ro), f32(rd), f32(tmax), f32(otm)
+
+
+def _packs(meshes, mesh_ids, xfs, dev):
+    """K6's pack and K7's (static, frame) of a two-level scene on ``dev``."""
+    mats = np.zeros(len(mesh_ids), np.int32)
+    blas = tlas.build_blas_set(meshes)
+    nodes, row = tlas.build_tlas_nodes(tlas.instance_world_aabbs(blas, mesh_ids, xfs))
+    tables = tlas.build_instance_tables(blas, mesh_ids, mats, xfs)
+    bb6 = tt.pack_two_level(tt.pack_blas(meshes, dev), mesh_ids, blas.tri_base,
+                            nodes, row, tables["inst_inv"].numpy(),
+                            tables["inst_cull_scale"].numpy())
+    st7 = tts.pack_tlas_stream_static(meshes, device=dev)
+    return bb6, (st7, tts.pack_tlas_stream_frame(st7, mesh_ids, xfs,
+                                                 blas.tri_base))
+
+
+def _packed(ro, rd, tmax, dev, tmin=0.0):
+    """A packed (8, n) operand of numpy rays on ``dev``, not padded."""
+    cols = [ro[:, k] for k in range(3)] + [rd[:, k] for k in range(3)]
+    cols += [np.broadcast_to(np.float32(tmin), tmax.shape), tmax]
+    return torch.from_numpy(np.stack(cols).astype(np.float32)).to(dev)
+
+
+def _two_level_modes(bb6, st7, fr, rays, orays, staged):
+    """(name, kernel launch, plain version) of every K6 and K7 mode."""
+    return (
+        ("K6", lambda: tt.launch(bb6, rays, False, staged=staged),
+         lambda: tt.plain(bb6, rays, False)),
+        ("K6 ordered", lambda: tt.launch(bb6, rays, False, True, staged=staged),
+         lambda: tt.plain(bb6, rays, False, True)),
+        ("K6 any-hit", lambda: tt.launch(bb6, orays, True, staged=staged),
+         lambda: tt.plain(bb6, orays, True)),
+        ("K7", lambda: tts.launch(st7, fr, rays, False, staged=staged),
+         lambda: tts.plain(st7, fr, rays, False)),
+        ("K7 any-hit", lambda: tts.launch(st7, fr, orays, True, staged=staged),
+         lambda: tts.plain(st7, fr, orays, True)),
+    )
+
+
+def _assert_modes_equal_plain(modes):
+    """Each launch equals its plain version bitwise (floats as bit
+    patterns)."""
+    for name, launch, plain in modes:
+        k, p = launch(), plain()
+        for a, b in zip(k, p) if isinstance(k, tuple) else ((k, p),):
+            if a.dtype == torch.float32:
+                a, b = _bits(a), _bits(b)
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+def test_k6_k7_tie_scene_on_card(staged):
+    """On the tie scene every K6 and K7 mode (closest, ordered, any-hit),
+    staged and global, equals its plain version bitwise: a leaf's first
+    least triangle, and the first visited instance, win exact-t ties."""
+    dev = _card()
+    meshes, mesh_ids, xfs, ro, rd, tmax, otm = tie_scene()
+    bb6, (st7, fr) = _packs(meshes, mesh_ids, xfs, dev)
+    rays, orays = _packed(ro, rd, tmax, dev), _packed(ro, rd, otm, dev)
+    before = (tt.launches_k6_global, tts.launches_k7_global)
+    _assert_modes_equal_plain(_two_level_modes(bb6, st7, fr, rays, orays, staged))
+    assert (tt.launches_k6_global - before[0],
+            tts.launches_k7_global - before[1]) == ((0, 0) if staged else (3, 2))
+    hit = tt.launch(bb6, rays, False, staged=staged)
+    assert (hit[1] >= 0).any() and (hit[0][hit[1] >= 0] == 5.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+def test_k6_k7_ragged_queue_on_card(staged):
+    """A queue of 1,000,003 lanes, not a whole warp: every K6 and K7 mode,
+    staged and global, equals its plain version bitwise (the lanes past n
+    of the last warp stay in the walk and write nothing)."""
+    bb6, (st7, fr), _ = _instanced_queue(40, 1, 16)
+    rng = np.random.default_rng(17)
+    n = 1_000_003
+    ro = rng.uniform(-30, 30, (n, 3)).astype(np.float32)
+    ro[:, 1] = rng.uniform(3.0, 12.0, n)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    tmax = np.where(rng.uniform(size=n) < 0.3, 0.0, 2.0e32).astype(np.float32)
+    otm = np.where(tmax > 0, rng.uniform(1.0, 40.0, n), 0.0).astype(np.float32)
+    dev = bb6.tlas_nodes.device
+    rays, orays = _packed(ro, rd, tmax, dev), _packed(ro, rd, otm, dev)
+    _assert_modes_equal_plain(_two_level_modes(bb6, st7, fr, rays, orays, staged))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+def test_k6_k7_empty_segments_on_card(staged):
+    """Warps that mix empty segments (tmax = tmin, tmax < tmin, tmin > 0)
+    with live rays: every K6 and K7 mode, staged and global, equals its
+    plain version bitwise, and no empty segment hits."""
+    bb6, (st7, fr), rays = _instanced_queue(40, 4096, 18)
+    rays = rays.clone()
+    lane = torch.arange(rays.shape[1], device=rays.device)
+    rays[7] = torch.where(lane % 3 == 0, 2.0e32, rays[7])
+    rays[6] = torch.where(lane % 4 == 1, 5.0, 0.0)
+    rays[7] = torch.where(lane % 5 == 2, rays[6], rays[7])  # tmax = tmin
+    rays[7] = torch.where(lane % 7 == 3, rays[6] - 1.0, rays[7])  # tmax < tmin
+    orays = rays.clone()
+    orays[7] = torch.where(rays[7] > rays[6], 20.0, rays[7])
+    modes = _two_level_modes(bb6, st7, fr, rays, orays, staged)
+    _assert_modes_equal_plain(modes)
+    empty = rays[7] <= rays[6]
+    assert empty.any() and (~empty).any()
+    hit = modes[0][1]()
+    assert (hit[1][empty] == -1).all() and (hit[1][~empty] >= 0).any()
+    assert not modes[2][1]()[empty].any()
+
+
 def _merged_operand(kernel, n_closest, seed):
     """The scene of ``kernel`` on the card and a merged (8, n) operand: its
     first ``n_closest`` lanes a closest queue, the rest a shadow queue whose
@@ -384,7 +562,7 @@ def test_k7_global_matches_staged_on_card():
     mode picked by size stages a small top tree; each global launch is
     counted."""
     _, (st7, fr), rays = _instanced_queue(40, 4096, 12)
-    assert tts.staged_fits(fr, rays.device)
+    assert tt.top_staged(tts.top_bytes(fr))
     before = (tts.launches_k7, tts.launches_k7_global)
     g = tts.launch(st7, fr, rays, False, staged=False)
     assert (tts.launches_k7, tts.launches_k7_global) == (before[0] + 1,

@@ -79,6 +79,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from test_tlas_stream import _rand_mesh, _rot  # noqa: E402
+from test_torch_cuda import tie_scene  # noqa: E402
 from test_traverse_kernels import _terrain  # noqa: E402
 
 N_RAYS = 512
@@ -130,7 +131,12 @@ def _instances(name):
 
 def _build(name):
     """The scene's meshes and instances, and both packages' builds of it."""
-    meshes, mesh_ids, xfs, chunk = _instances(name)
+    return _build_from(*_instances(name))
+
+
+def _build_from(meshes, mesh_ids, xfs, chunk):
+    """Both packages' builds of a scene: meshes, mesh ids, transforms and
+    K7's chunk size (None: picked from the meshes)."""
     mats = np.zeros(len(mesh_ids), np.int32)
     jblas = jtlas.build_blas_set(meshes)
     jnodes, jrow = jtlas.build_tlas_nodes(jtlas.instance_world_aabbs(jblas, mesh_ids, xfs))
@@ -421,6 +427,104 @@ def test_kernel_outputs_decode(scenes, queues):
     h6 = tt.out_to_hit(sc["bb6"], (t6, row6, t6, t6, inst6), n)
     h7 = tts.out_to_hit(sc["st7"], sc["fr"], (t7, row7, t7, t7), n)
     assert torch.equal(h6.tri, h7.tri) and (h6.tri >= 0).any()
+
+
+@pytest.fixture(scope="module")
+def ties():
+    """The tie scene (tests/test_torch_cuda.py::tie_scene): both packages'
+    builds, the port's packed queues, and each reference function held to
+    it, once, K6 and K7 in interpret mode."""
+    meshes, mesh_ids, xfs, ro, rd, tmax, otm = tie_scene()
+    sc = _build_from(meshes, mesh_ids, xfs, None)
+    j = sc["jax"]
+    jro, jrd = jnp.asarray(ro), jnp.asarray(rd)
+    jtm, jotm = jnp.asarray(tmax), jnp.asarray(otm)
+    jtt.INTERPRET = jtts.INTERPRET = True
+    try:
+        ref = {
+            "K6": jtt.closest_hit_tlas_pallas(j["bb6"], jro, jrd, 0.0, jtm,
+                                              block=256),
+            "K6 ordered": jtt.closest_hit_tlas_pallas(
+                j["bb6"], jro, jrd, 0.0, jtm, block=256, ordered=True),
+            "K6 any-hit": jtt.occluded_tlas_pallas(j["bb6"], jro, jrd, 0.0, jotm,
+                                                   block=256),
+            "K7": jtts.closest_hit_tlas_stream(j["st7"], j["fr"], jro, jrd, 0.0,
+                                               jtm),
+            "K7 any-hit": jtts.occluded_tlas_stream(j["st7"], j["fr"], jro, jrd,
+                                                    0.0, jotm),
+        }
+    finally:
+        jtt.INTERPRET = jtts.INTERPRET = False
+    return dict(sc=sc, o=_soa(ro), d=_soa(rd), tmax=torch.from_numpy(tmax),
+                otm=torch.from_numpy(otm), ref=ref)
+
+
+def test_tie_scene_holds_ties(ties):
+    """The tie scene is what it claims: each mesh's repeated triangle lies
+    in the leaf of its original, two pairs of instances share a transform,
+    and every hit is at t = 5 exactly."""
+    sc = ties["sc"]
+    bb = sc["bb6"]
+    row_tri = bb.row_tri.numpy()
+    for mesh, (orig, copy) in enumerate(((41, 288), (6, 32))):
+        base = int(bb.inst_table[2 * mesh, 15]) * 128
+        size = len(sc["meshes"][mesh][0])
+        rows = row_tri[base:base + -(-size // 128) * 128]
+        leaf = [int(np.flatnonzero(rows == k)[0]) // 128 for k in (orig, copy)]
+        assert leaf[0] == leaf[1]
+    table = bb.inst_table.numpy()
+    assert (table[0] == table[1]).all() and (table[3] == table[4]).all()
+    hit = tt.closest_hit_tlas(bb, ties["o"], ties["d"], 0.0, ties["tmax"])
+    found = hit.tri >= 0
+    assert 0.3 < found.float().mean() < 0.9 and (hit.t[found] == 5.0).all()
+
+
+@pytest.mark.parametrize("mode", ["K6", "K6 ordered", "K6 any-hit", "K7",
+                                  "K7 any-hit"])
+def test_plain_two_level_on_ties_matches_reference(ties, mode):
+    """Plain K6 (preorder and ordered) and plain K7 on the tie scene against
+    the reference's kernels in interpret mode: the same triangle and
+    instance win every exact-t tie (ids and flags exact, t within 1e-5
+    relative, u and v within 1e-4 absolute, as above)."""
+    sc, o, d, ref = ties["sc"], ties["o"], ties["d"], ties["ref"][mode]
+    if mode == "K6 any-hit":
+        blocked = tt.occluded_tlas(sc["bb6"], o, d, 0.0, ties["otm"])
+    elif mode == "K7 any-hit":
+        blocked = tts.occluded_tlas_stream(sc["st7"], sc["fr"], o, d, 0.0,
+                                           ties["otm"])
+    elif mode == "K7":
+        _assert_hit_close(tts.closest_hit_tlas_stream(
+            sc["st7"], sc["fr"], o, d, 0.0, ties["tmax"]), ref)
+        return
+    else:
+        _assert_hit_close(tt.closest_hit_tlas(
+            sc["bb6"], o, d, 0.0, ties["tmax"], ordered=mode == "K6 ordered"), ref)
+        return
+    np.testing.assert_array_equal(blocked.numpy(), np.asarray(ref))
+    assert blocked.any() and not blocked.all()
+
+
+def test_top_placement_rule(scenes):
+    """K6's TLAS and K7's top tree are staged in shared memory up to
+    ``STAGE_MAX_BYTES`` and read from global memory past it; the launchers
+    measure a tree as 32 bytes a node."""
+    limit = tt.STAGE_MAX_BYTES
+    for nbytes in (32, limit - 32, limit):
+        assert tt.top_staged(nbytes)
+    for nbytes in (limit + 32, 2 * limit, 5001 * 32):
+        assert not tt.top_staged(nbytes)
+    sc = scenes["stream"]
+    assert tt.tlas_bytes(sc["bb6"]) == 32 * sc["bb6"].num_tlas_nodes
+    assert tts.top_bytes(sc["fr"]) == 32 * sc["fr"].num_top_nodes
+
+
+def test_two_level_operands_must_be_16_byte_aligned():
+    """K6 and K7 read nodes and tiles in 16-byte loads: the launchers'
+    operand check refuses a tensor whose data is not 16-byte aligned."""
+    base = torch.zeros(36, dtype=torch.float32)
+    tt.check_aligned(nodes=base[4:].view(4, 8))
+    with pytest.raises(ValueError, match="nodes: its data must be 16-byte"):
+        tt.check_aligned(nodes=base[1:33].view(4, 8))
 
 
 # ---------------------------------------------------------------------------
