@@ -72,8 +72,8 @@ Phases (each raises on failure):
      tree's nodes, leaves and padded rows, set-up seconds, timed frames as
      in 3; the path's kernel must launch and no other;
   6. K1 against its plain PyTorch version on the card: the cornell main
-     path's shape (1080p chunk of 524,288 rays) and two terrain scenes (20k
-     tris at leaf 32, 80k tris at leaf 128) with 262,144-ray coherent,
+     path's shape (1080p chunk of 524,288 rays) and three terrain scenes
+     (20k tris at leaf 32, 39k at 64, 80k at 128) with 262,144-ray coherent,
      incoherent and occlusion queues; rows and blocked flags must be equal,
      and t, u, v bitwise equal. On the terrain queues K2 and K3 too (the
      incoherent ones coherence-sorted, as the renderer sorts its bounce
@@ -82,7 +82,11 @@ Phases (each raises on failure):
      primary lanes (K2, unsorted) and a bounce-1 queue, the primaries' hit
      points with scattered directions, coherence-sorted (K3); closest and
      occluded, each equal to its plain version and to K1 bitwise, all three
-     timed with CUDA events beside the bound of the function;
+     timed with CUDA events beside the bound of the function; K3 (each
+     lane's own leaves) also bitwise the reference's function, the plain
+     version over groups of 128 lanes (here and in 6), with the pairs each
+     tests: the group OR x 128 (the first K3's work), each lane's whole
+     segment, and the bound's, up to K1's closest hit;
   8. K4 and K5 at the terrain500 1080p path's shapes: its primary chunk
      (524,288 lanes) with the most hits, a bounce-1 chunk (the primaries' hit points,
      scattered directions) and a sun shadow queue from those hit points.
@@ -455,11 +459,32 @@ def bound(aabbs, leaf_size, rays, t_end, any_hit):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), pairs
 
 
+def k3_pairs(aabbs, rays, q):
+    """(group-OR pairs x q, per-lane pairs) of K3 on a packed queue: the
+    (lane, leaf) pairs the reference's function tests (every leaf any lane
+    of a q-lane group enters, for every lane of the group: the first K3's
+    work) and those each lane's own exact test of its whole segment
+    enters."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+
+    n, lpad = rays.shape[1], aabbs.shape[1]
+    step = max(q, (1 << 23) // lpad // q * q)
+    group = lane = 0
+    for s in range(0, n, step):
+        hits = tf.ray_leaf_hits(rays[:, s:s + step], aabbs)
+        lane += int(hits.sum())
+        group += int(hits.reshape(-1, q, lpad).any(1).sum()) * q
+    return group, lane
+
+
 def compare_flat_queue(label, fb, rays, kernels, rng, iters=3):
     """K1, K2 and K3 on one packed (8, n) queue, closest and occluded: each
     flat-cull kernel equal to its plain version and to K1, bitwise (rows,
-    flags, t/u/v bit patterns). Returns {kernel: record} with the closest
-    mode's times, max error and bound, and K1's time on the queue."""
+    flags, t/u/v bit patterns); K3 also equal to the reference's function,
+    the group-of-q plain version (each leaf any lane of the group enters,
+    for every lane), with the pairs each tests. Returns {kernel: record}
+    with the closest mode's times, max error and bound, and K1's time on
+    the queue."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
@@ -495,15 +520,41 @@ def compare_flat_queue(label, fb, rays, kernels, rng, iters=3):
         occ_p, occ_1 = _bitwise(bk, bp)[0], _bitwise(bk, b1)[0]
         occ_ms = cuda_ms(lambda: tf.launch(name, fb, orays, q, True), iters)
         short = "K2" if name == tf.K2 else "K3"
+        group = ""
+        bad_g = 0
+        if name == tf.K3:
+            # the reference's function: the q-lane groups' OR of the lanes'
+            # exact tests, then the same flush
+            hg, g_ms = _plain_ms(lambda: tf._flush(
+                fb, rays, tf.precull_leaf_masks(rays, fb.aabbs, q), q, False))
+            bg = tf._flush(fb, orays, tf.precull_leaf_masks(orays, fb.aabbs, q),
+                           q, True)
+            bad_g = _equal(hk, hg)[0] + _bitwise(bk, bg)[0]
+            g_pairs, l_pairs = k3_pairs(fb.aabbs, rays, q)
+            # the two ways of serving a leaf: the warp for each holder in
+            # turn (scan_from 33), each holder alone (1)
+            ways = {}
+            for sf in (33, 1):
+                bad_g += _equal(hk, tf.launch(name, fb, rays, q, False, sf))[0]
+                ways[sf] = cuda_ms(
+                    lambda: tf.launch(name, fb, rays, q, False, sf), iters)
+            group = (f"; {bad_g} vs the group-of-{q} plain version (plain "
+                     f"{g_ms:.1f} ms) and the two ways of serving a leaf not "
+                     f"bitwise; warp-served {ways[33]:.3f} ms, holder scans "
+                     f"{ways[1]:.3f} ms (default scan_from={tf.SCAN_FROM}); "
+                     f"pairs: group OR x q {g_pairs}, per lane {l_pairs}, up "
+                     f"to K1's hit {pairs}")
         log(f"  {label:26s} {short} (q={q}): closest {bad_p} vs plain, {bad_1} "
             f"vs K1 not bitwise, {k_ms:.3f} ms (plain {p_ms:.1f}, K1 "
             f"{k1_ms:.3f}); occluded {occ_p} vs plain, {occ_1} vs K1 "
             f"mismatched, blocked {bk.float().mean().item():.3f}, {occ_ms:.3f} "
             f"ms (K1 {k1_occ_ms:.3f}); hit {(h1.tri >= 0).float().mean().item():.3f}, "
-            f"bound {b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs)")
+            f"bound {b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs){group}")
         check(bad_p == 0 and occ_p == 0,
               f"{label}: {short} disagrees with its plain version")
         check(bad_1 == 0 and occ_1 == 0, f"{label}: {short} disagrees with K1")
+        check(bad_g == 0, f"{label}: K3 disagrees with the group-of-{q} plain "
+              "version or across its ways of serving a leaf")
         out[name] = {"ms": k_ms, "plain_ms": p_ms, "k1_ms": k1_ms,
                      "occ_ms": occ_ms, "k1_occ_ms": k1_occ_ms,
                      "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by}
@@ -662,7 +713,7 @@ def phase_parity(smi):
     compare_occlusion("cornell primary (occlusion)", bvh, ro, rd,
                       _occlusion_tmax(t, rng))
 
-    for grid in (100, 200):
+    for grid in (100, 140, 200):
         flat = Scene.from_vkr_scene(procedural.terrain(grid=grid)).flatten_world()
         ls = resident_leaf_size(flat.num_tris)
         tb = bvh_mod.thread_bvh(
@@ -690,28 +741,24 @@ def phase_parity(smi):
     return k1
 
 
-def phase_flat(smi):
-    """K2 and K3 at the terrain200 path's shapes against their plain
-    versions and K1. Returns {kernel: record}."""
+def flat_queues(r, cfg, rng):
+    """(primaries, bounce 1, sun shadow) packed queues of a 1080p flat-cull
+    path ``r``: the frame's primaries (dead on invalid pixels); the
+    primaries' hit points with scattered directions, dead where the primary
+    missed, coherence-sorted like the renderer's bounce queues; the sun
+    shadow queue from the same points (unsorted, as bounce 0's is)."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import integrator
     from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
-    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_resident as tr,
     )
     from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
     from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
-    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
-        frame_setup,
-    )
 
-    rng = np.random.default_rng(7)
-    width, height = MAIN_SIZE
-    r, cfg = frame_setup("terrain", DEVICE, MAIN_SIZE)
+    width, height = r.fb_width, r.fb_height
     fb = r.device_scene.bvh
-    check(isinstance(fb, tf.FlatBVH), "terrain200 is not on the flat-cull route")
     px, py, valid = (torch.cat(c) for c in r._swizzle)
     view = integrator.ViewBuffers(*(
         torch.from_numpy(a).to(DEVICE)
@@ -722,13 +769,7 @@ def phase_flat(smi):
         integrator.IntegratorConfig(), view, px, py,
         (float(width), float(height)), state,
     )
-    tmax = torch.where(valid, T_MAX, 0.0)
-    prim, _ = tr.pack_rays(ro, rd, 0.0, tmax, 512)
-    log(f"K1, K2, K3 at the terrain200 path's shapes ({fb.num_leaves} leaves "
-        f"of {fb.leaf_size}), {smi}:")
-    rec = compare_flat_queue("frame primaries", fb, prim, ((tf.K2, 128),), rng)
-    # bounce 1: the primaries' hit points, scattered directions, dead where
-    # the primary missed; sorted like the renderer's bounce queues
+    prim, _ = tr.pack_rays(ro, rd, 0.0, torch.where(valid, T_MAX, 0.0), 512)
     h = _k1(fb, prim, False)
     hit = h.tri >= 0
     p = [prim[k] + prim[3 + k] * torch.where(hit, h.t, 0.0) for k in range(3)]
@@ -740,17 +781,36 @@ def phase_flat(smi):
     bounce, _ = tr.pack_rays(Vec3(*p), Vec3(*d), tmin,
                              torch.where(hit, T_MAX, 0.0), 1024)
     bounce, _ = tr._compact(bounce, fb.scene_lo, fb.scene_hi)
-    rec.update(compare_flat_queue(
-        f"bounce 1 sorted ({int(hit.sum())} live)", fb, bounce,
-        ((tf.K3, 128),), rng,
-    ))
-    # K2's merged mode: the sorted bounce-1 queue, then the sun shadow
-    # queue of the primaries' hit points (unsorted, as bounce 0's is)
     sun = np.asarray(cfg.scene_config.sun_dir, np.float32)
     sun = torch.from_numpy(sun / np.linalg.norm(sun)).to(DEVICE)
     n = prim.shape[1]
     shadow, _ = tr.pack_rays(Vec3(*p), Vec3(*(sun[k].expand(n) for k in range(3))),
                              tmin, torch.where(hit, 2.0e16, 0.0), 512)
+    return prim, bounce, shadow
+
+
+def phase_flat(smi):
+    """K2 and K3 at the terrain200 path's shapes against their plain
+    versions and K1. Returns {kernel: record}."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    rng = np.random.default_rng(7)
+    r, cfg = frame_setup("terrain", DEVICE, MAIN_SIZE)
+    fb = r.device_scene.bvh
+    check(isinstance(fb, tf.FlatBVH), "terrain200 is not on the flat-cull route")
+    prim, bounce, shadow = flat_queues(r, cfg, rng)
+    log(f"K1, K2, K3 at the terrain200 path's shapes ({fb.num_leaves} leaves "
+        f"of {fb.leaf_size}), {smi}:")
+    rec = compare_flat_queue("frame primaries", fb, prim, ((tf.K2, 128),), rng)
+    live = int((bounce[7] > bounce[6]).sum())
+    rec.update(compare_flat_queue(
+        f"bounce 1 sorted ({live} live)", fb, bounce, ((tf.K3, 128),), rng))
+    # K2's merged mode: the sorted bounce-1 queue, then the sun shadow queue
     nc = bounce.shape[1]
     rays = torch.cat([bounce, shadow], dim=1).contiguous()
     t_b = tf.launch(tf.K2, fb, bounce, 128, False)[0]

@@ -1,7 +1,8 @@
-// Shared parts of the flat-cull kernels K2 (traverse_flat_cull.cu) and K3
-// (traverse_precull.cu): the per-lane ray, the leaf flush and the output
-// write. One CUDA block is one group of q consecutive lanes (q = blockDim.x,
-// a multiple of 32); each thread owns one lane.
+// The leaf flush of the flat-cull kernel K2 (traverse_flat_cull.cu), the
+// per-lane ray and the output write (K3, traverse_precull.cu, tests each
+// lane's own leaves with tlas_walk.cuh's warp-shared leaf test instead).
+// One CUDA block is one group of q consecutive lanes (q = blockDim.x, a
+// multiple of 32); each thread owns one lane.
 //
 // The flush: for every leaf in the block's survivor list, the block stages
 // the leaf's leaf_size rows (9 floats each, v0, e1, e2) in shared memory,
@@ -135,10 +136,10 @@ __device__ __forceinline__ void write_out(int i, const Best& b,
   }
 }
 
-// Dynamic shared memory of one block: the survivor list (lpad ints), the
-// staged rows (9 * ls floats) and, for K3, one flag per leaf (lpad ints).
-inline size_t smem_bytes(int lpad, int ls, bool flags) {
-  return sizeof(int) * static_cast<size_t>(lpad) * (flags ? 2 : 1) +
+// Dynamic shared memory of one block: the survivor list (lpad ints) and
+// the staged rows (9 * ls floats).
+inline size_t smem_bytes(int lpad, int ls) {
+  return sizeof(int) * static_cast<size_t>(lpad) +
          sizeof(float) * 9 * static_cast<size_t>(ls);
 }
 

@@ -1,10 +1,11 @@
-// Shared parts of the streamed kernels K4 (traverse_streamed.cu) and K5
-// (traverse_binned.cu): one thread per ray, the slab test and the walk of
-// one subtree of the streamed pack (ops/traverse_stream.py::pack_streamed)
-// with Moller-Trumbore over the 128 triangles of every entered leaf. The
-// two-level kernels K6 (traverse_tlas.cu) and K7 (traverse_tlas_stream.cu)
-// take the ray, the slab test and the object ray of an instance from here;
-// their walk, with warp-shared leaf tests, is tlas_walk.cuh's.
+// Shared parts of the streamed and two-level kernels: the ray, the slab
+// test, the object ray of an instance (K6, K7), the quantized grid of a
+// subtree, and K5's walk of one subtree of the streamed pack
+// (ops/traverse_stream.py::pack_streamed, traverse_binned.cu), one thread
+// per ray with Moller-Trumbore over the 128 triangles of every entered
+// leaf. The walks of K4 (traverse_streamed.cu), K6 (traverse_tlas.cu) and
+// K7 (traverse_tlas_stream.cu), with warp-shared leaf tests, are
+// tlas_walk.cuh's.
 //
 // A subtree's node block is slots = node_rows * 16 nodes of 8 floats, node
 // i at offset 8 * i: [min3, max3, skip, local leaf id | -1]. The links are
@@ -31,12 +32,6 @@
 // and the edges (qk - q0) * s, the codes going int16 -> int -> float (never
 // through float bit patterns), so the decoded triangle is bitwise
 // traverse_stream.reconstruct_quantized's.
-//
-// The ordered (front-to-back) walk of K4 (next_ordered; K6's is
-// tlas_walk.cuh's copy with 16-byte node loads) picks, per ray, the top
-// leaf with the least (entry t, preorder index) above the last
-// visited one by re-walking the top tree, instead of the TPU kernels'
-// per-packet candidate list in SMEM: two registers and no list.
 //
 // Built with --fmad=false and without fast math (kernels/build.py): every
 // multiply and add rounds on its own, as in the plain version's tensor ops.
@@ -131,54 +126,6 @@ __device__ __forceinline__ bool slab(const float* b, const Ray& r,
                                      float tcap) {
   float tenter;
   return slab_entry(b, r, tcap, tenter);
-}
-
-// A top-tree node's 8 floats into registers: from shared memory, or (kGlobal)
-// from global memory through the read-only path in two 16-byte loads.
-template <bool kGlobal>
-__device__ __forceinline__ void load_node(const float* p, float (&nd)[8]) {
-  if (kGlobal) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    nd[0] = a.x; nd[1] = a.y; nd[2] = a.z; nd[3] = a.w;
-    nd[4] = b.x; nd[5] = b.y; nd[6] = b.z; nd[7] = b.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) nd[k] = p[k];
-  }
-}
-
-// One pick of the ordered walk over a top tree of num_top nodes (min3, max3,
-// skip, payload or -1): the leaf with the least (entry t, preorder index)
-// above (last_e, last_j) among the leaves the slab test enters with t_far
-// capped at ``cap`` (the ray's best t so far). Returns its preorder index
-// (its entry t in ``e``), or -1 when none is left. A subtree whose box is
-// entered later than the best candidate so far cannot hold a better one, so
-// the scan caps t_far at that candidate's entry too. Node boxes contain
-// their children's, so a leaf is found exactly where its own slab test
-// passes: the plain version (ops/tlas.py::ordered_sweep) compares the
-// leaves' entries directly.
-template <bool kGlobal>
-__device__ int next_ordered(const float* top, int num_top, const Ray& r,
-                            float cap, float last_e, int last_j, float& e) {
-  float ce = INFINITY;
-  int cj = -1;
-  int cur = 0;
-  while (cur < num_top) {
-    float nd[8];
-    load_node<kGlobal>(top + 8 * cur, nd);
-    float te;
-    const bool hit_box = slab_entry(nd, r, fminf(cap, ce), te);
-    const int payload = static_cast<int>(nd[7]);
-    if (hit_box && payload >= 0 && te < ce &&
-        (te > last_e || (te == last_e && cur > last_j))) {
-      ce = te;
-      cj = cur;
-    }
-    cur = (hit_box && payload < 0) ? cur + 1 : static_cast<int>(nd[6]);
-  }
-  e = ce;
-  return cj;
 }
 
 // The grid of a quantized subtree: min xyz, scale xyz

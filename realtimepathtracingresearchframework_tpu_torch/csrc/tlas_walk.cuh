@@ -1,18 +1,20 @@
-// The two-level walk of K6 (traverse_tlas.cu) and K7 (traverse_tlas_stream.cu)
-// for Hopper: resumable per-lane walks whose entered leaves the whole warp
-// tests together.
+// The walks of K4 (traverse_streamed.cu), K6 (traverse_tlas.cu) and K7
+// (traverse_tlas_stream.cu) for Hopper, and the leaf test K3
+// (traverse_precull.cu) shares with them: resumable per-lane walks whose
+// entered leaves the whole warp tests together.
 //
 // Each lane walks one ray, as the plain versions do (ops/tlas.py::sweep,
-// ops/traverse.py::walk_ranges): the top tree in preorder (K6's ordered mode:
-// the next instance by (entry t, preorder index), next_ordered), entering a
-// node when the slab test passes with t_far capped by the ray's best hit;
-// at an entered instance or entry, the object ray (stream_walk.cuh::
-// object_ray) and the walk of that BLAS or chunk subtree, its node skip
-// links local, until it leaves past ``count``. The lane keeps its walk as
-// state (Walk below: the top-tree cursor or the ordered walk's last pick,
-// the object ray, the subtree cursor or "not in one", and its best t, row,
-// u, v and instance), and one step (Walk::step) advances it to its next
-// entered leaf, or to its end.
+// ops/traverse.py::walk_ranges, traverse_stream.plain): the top tree in
+// preorder (the ordered modes of K4 and K6: the next subtree or instance by
+// (entry t, preorder index), next_ordered), entering a node when the slab
+// test passes with t_far capped by the ray's best hit; at an entered
+// subtree, instance or entry, its ray (K4: the world ray; K6, K7: the
+// object ray, stream_walk.cuh::object_ray) and the walk of that subtree,
+// BLAS or chunk subtree, its node skip links local, until it leaves past
+// ``count``. The lane keeps its walk as state (Walk below: the top-tree
+// cursor or the ordered walk's last pick, the subtree's ray, the subtree
+// cursor or "not in one", and its best t, row, u, v and instance), and one
+// step (Walk::step) advances it to its next entered leaf, or to its end.
 //
 // The leaves are tested by the warp (test_leaves): after each step,
 // __ballot_sync finds the lanes that hold a leaf, and the warp serves them
@@ -20,7 +22,9 @@
 // min(best t, tmax)] and its leaf's tile row go to every lane by
 // __shfl_sync; lane j tests triangles 4j..4j+3 of the field-major tile
 // (rows 0-8: v0, e1, e2 xyz of 128 triangles) with one 16-byte __ldg per
-// row, so a leaf is 9 coalesced 512-byte loads; the Moller-Trumbore
+// row, so a leaf is 9 coalesced 512-byte loads (FieldTiles; QuantTiles
+// decodes K4's 16-bit tiles from 8-byte loads, RowTiles reads K3's
+// row-major leaves of 32, 64 or 128 rows); the Moller-Trumbore
 // expressions are stream_walk.cuh::walk_subtree's (mt_hit). A
 // __shfl_xor_sync reduction over (t, k) keeps the least t, then the least
 // k, and the lane holding k hands its u, v to the owner, which takes the
@@ -39,15 +43,15 @@
 // accepted when its turn comes; one with the least tt is accepted unless an
 // earlier one had the same tt (strict <), so the first of them wins and no
 // later triangle beats it. The warp computes exactly that: every lane tests
-// its 4 triangles against the same min(best, tmax) (the leaf's entry
-// value), keeps its first least one, and the reduction orders (t, k) by t,
-// then by k, with t and k moved together, so t keeps the winner's bits
-// (+0 and -0 compare equal and fall to the lower k, as in the scan); u and
-// v are the winner's. Each lane's walk visits its nodes and leaves in the
-// plain order, and a leaf's result is applied before the lane steps again,
-// so every slab test sees the best t the plain walk would. Across leaves
-// and instances a hit must improve strictly: the first visited triangle
-// keeps an exact-t tie, as in the plain version. K6's instance is the one
+// its triangles (4; K3: leaf size / 32) against the same min(best, tmax)
+// (the leaf's entry value), keeps its first least one, and the reduction
+// orders (t, k) by t, then by k, with t and k moved together, so t keeps
+// the winner's bits (+0 and -0 compare equal and fall to the lower k, as
+// in the scan); u and v are the winner's. Each lane's walk visits its
+// nodes and leaves in the plain order, and a leaf's result is applied
+// before the lane steps again, so every slab test sees the best t the plain
+// walk would. Across leaves and instances a hit must improve strictly: the
+// first visited triangle keeps an exact-t tie, as in the plain version. K6's instance is the one
 // whose leaf gave the last accepted hit, which is the plain version's
 // "the walk of this instance lowered best".
 //
@@ -55,7 +59,8 @@
 // memory for a staged top tree (one block copies it in), else through the
 // read-only path from global memory. The wrappers check that every base
 // pointer read as float4 is 16-byte aligned (the packs keep every node and
-// tile offset a multiple of 16 bytes).
+// tile offset a multiple of 16 bytes), K4's 16-bit tiles 8-byte aligned and
+// K3's rows aligned to their load width.
 //
 // Built with --fmad=false and without fast math (kernels/build.py): every
 // multiply and add rounds on its own, as in the plain version's tensor ops.
@@ -74,7 +79,8 @@ using rptr_stream::Ray;
 using rptr_stream::kLeaf;
 
 constexpr unsigned kFull = 0xffffffffu;
-// the launch bound of K6 and K7; the launcher picks the block size up to it
+// the launch bound of K3, K6 and K7; the launcher picks the block size up
+// to it
 constexpr int kMaxThreads = 512;
 constexpr int kNoTri = 0x7fffffff;  // a leaf without a hit
 constexpr int kRow4 = kLeaf / 4;    // float4s in one 128-float tile row
@@ -106,10 +112,17 @@ __device__ __forceinline__ void stage_top(float4* dst,
   __syncthreads();
 }
 
-// One pick of the ordered walk (K6): stream_walk.cuh::next_ordered with
-// 16-byte node loads. The leaf with the least (entry t, preorder index)
-// above (last_e, last_j) among the leaves the slab test enters with t_far
-// capped at ``cap``; its preorder index (entry t in ``e``) or -1.
+// One pick of the ordered walk (K4, K6) over a top tree of num_top nodes
+// (min3, max3, skip, payload or -1): the leaf with the least (entry t,
+// preorder index) above (last_e, last_j) among the leaves the slab test
+// enters with t_far capped at ``cap`` (the ray's best t so far); its
+// preorder index (entry t in ``e``), or -1 when none is left. A subtree
+// whose box is entered later than the best candidate so far cannot hold a
+// better one, so the scan caps t_far at that candidate's entry too. Node
+// boxes contain their children's, so a leaf is found exactly where its own
+// slab test passes: the plain versions (ops/tlas.py::ordered_sweep,
+// traverse_stream.plain_ordered) compare the leaves' entries directly. Per
+// ray, two registers and no candidate list.
 template <bool kGlobal>
 __device__ int next_ordered(const float4* top, int num_top, const Ray& r,
                             float cap, float last_e, int last_j, float& e) {
@@ -133,11 +146,12 @@ __device__ int next_ordered(const float4* top, int num_top, const Ray& r,
   return cj;
 }
 
-// An entered instance (K6) or (instance, chunk) entry (K7): its object ray,
-// its subtree's nodes (node i at nodes[2i], nodes[2i + 1], local links, the
-// walk leaving at ``count`` or past it), the tile row of its leaf 0 (leaf l
-// at tile0 + 16 l, rows of 128 floats), the global row of leaf 0's first
-// triangle (leaf l, triangle k: row0 + 128 l + k) and its id.
+// An entered subtree (K4), instance (K6) or (instance, chunk) entry (K7):
+// its ray (K4: the world ray; K6, K7: the object ray), its subtree's nodes
+// (node i at nodes[2i], nodes[2i + 1], local links, the walk leaving at
+// ``count`` or past it), the tile row of its leaf 0 (leaf l at tile0 + 16 l,
+// rows of 128 floats), the global row of leaf 0's first triangle (leaf l,
+// triangle k: row0 + 128 l + k) and its id.
 struct Sub {
   Ray o;
   const float4* nodes;
@@ -177,6 +191,114 @@ __device__ __forceinline__ float lane_of(const float4& q, int s) {
   return s == 0 ? q.x : s == 1 ? q.y : s == 2 ? q.z : q.w;
 }
 
+// The leaf loaders of test_leaves. Each gives lane ``lane`` its kPerLane
+// triangles kPerLane * lane .. kPerLane * lane + kPerLane - 1 of the leaf
+// ``leaf`` (9 floats each: v0, e1, e2 xyz), from one coalesced load per
+// field row or triangle run.
+
+// Field-major f32 tiles (K4, K6, K7): ``leaf`` is the tile row of its first
+// field; row f holds field f of the leaf's 128 triangles, so a leaf is 9
+// coalesced 512-byte loads, 16 bytes a lane.
+struct FieldTiles {
+  static constexpr int kPerLane = 4;
+  const float* __restrict__ tiles;
+
+  __device__ __forceinline__ void load(int leaf, int lane,
+                                       float (&f)[4][9]) const {
+    const float4* p = reinterpret_cast<const float4*>(
+                          tiles + static_cast<size_t>(leaf) * kLeaf) + lane;
+    float4 q[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) q[j] = __ldg(p + j * kRow4);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int j = 0; j < 9; ++j) f[s][j] = lane_of(q[j], s);
+    }
+  }
+};
+
+// Field-major 16-bit tiles of a quantized streamed pack (K4): int16 codes
+// offset by -32768 (rows 0-8: q0, q1, q2 xyz), 9 coalesced 256-byte loads,
+// 8 bytes a lane, decoded as stream_walk.cuh::load_tri decodes them
+// (traverse_stream.dequant_tile's order: int16 -> int -> float, v0 = c +
+// (q0 + 32768) * s, edges (qk - q0) * s) with the grid min c and scale s
+// of the leaf's subtree, the first six floats of the last slot of its node
+// block (stream_walk.cuh::dequant_of). Subtree s owns the tile rows [s *
+// rows_per_sub, (s + 1) * rows_per_sub), so the leaf's row names it.
+struct QuantTiles {
+  static constexpr int kPerLane = 4;
+  const int16_t* __restrict__ tiles;
+  const float* __restrict__ sub_nodes;
+  int rows_per_sub, slots;
+
+  __device__ __forceinline__ void load(int leaf, int lane,
+                                       float (&f)[4][9]) const {
+    const int sid = leaf / rows_per_sub;
+    const float4* g = reinterpret_cast<const float4*>(
+        sub_nodes + (static_cast<size_t>(sid) * slots + slots - 1) * 8);
+    const float4 g0 = __ldg(g), g1 = __ldg(g + 1);
+    const float c[3] = {g0.x, g0.y, g0.z};
+    const float sc[3] = {g0.w, g1.x, g1.y};
+    const short4* p = reinterpret_cast<const short4*>(
+                          tiles + static_cast<size_t>(leaf) * kLeaf) + lane;
+    float q[9][4];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      const short4 w = __ldg(p + j * (kLeaf / 4));
+      q[j][0] = static_cast<float>(static_cast<int>(w.x));
+      q[j][1] = static_cast<float>(static_cast<int>(w.y));
+      q[j][2] = static_cast<float>(static_cast<int>(w.z));
+      q[j][3] = static_cast<float>(static_cast<int>(w.w));
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        f[s][a] = c[a] + (q[a][s] + 32768.0f) * sc[a];
+        f[s][3 + a] = (q[3 + a][s] - q[a][s]) * sc[a];
+        f[s][6 + a] = (q[6 + a][s] - q[a][s]) * sc[a];
+      }
+    }
+  }
+};
+
+// Row-major (R, 9) rows of a flat BVH with leaves of kLS rows (K3): ``leaf``
+// is the leaf index, leaf l owns rows [l * kLS, (l + 1) * kLS). A lane's
+// kLS / 32 triangles are 9 * kLS / 32 contiguous floats: 9 aligned loads of
+// 16 bytes at kLS = 128, of 8 bytes at 64, of 4 bytes at 32.
+template <int kLS>
+struct RowTiles {
+  static_assert(kLS == 32 || kLS == 64 || kLS == 128, "leaf size");
+  static constexpr int kPerLane = kLS / 32;
+  const float* __restrict__ rows;
+
+  __device__ __forceinline__ void load(int leaf, int lane,
+                                       float (&f)[kPerLane][9]) const {
+    const float* p =
+        rows + (static_cast<size_t>(leaf) * kLS + kPerLane * lane) * 9;
+    float a[9 * kPerLane];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      if constexpr (kPerLane == 4) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(p) + j);
+        a[4 * j] = v.x; a[4 * j + 1] = v.y; a[4 * j + 2] = v.z;
+        a[4 * j + 3] = v.w;
+      } else if constexpr (kPerLane == 2) {
+        const float2 v = __ldg(reinterpret_cast<const float2*>(p) + j);
+        a[2 * j] = v.x; a[2 * j + 1] = v.y;
+      } else {
+        a[j] = __ldg(p + j);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kPerLane; ++s) {
+#pragma unroll
+      for (int j = 0; j < 9; ++j) f[s][j] = a[9 * s + j];
+    }
+  }
+};
+
 // What a leaf gave its owner: the first least hit (k = kNoTri: none; in
 // any-hit mode k = 0 marks a hit)
 struct LeafHit {
@@ -185,14 +307,18 @@ struct LeafHit {
 };
 
 // The warp tests the leaf of every lane in ``pend`` (a ballot), lowest
-// lane first; each lane passes its object ray, its cap min(best t, tmax)
-// and its leaf's tile row, which only count where the lane is in ``pend``.
-// Every lane of the warp must call it. Returns this lane's own result.
-template <bool kAnyHit>
+// lane first; each lane passes its (object) ray, its cap min(best t, tmax)
+// and its leaf (``Tiles``' handle: a tile row, or a leaf index), which only
+// count where the lane is in ``pend``. Lane j tests the leaf's triangles
+// Tiles::kPerLane * j onwards. Every lane of the warp must call it.
+// Returns this lane's own result.
+template <bool kAnyHit, class Tiles>
 __device__ __forceinline__ LeafHit test_leaves(unsigned pend,
-                                               const float* __restrict__ tiles,
+                                               const Tiles& tiles,
                                                const Ray& o, float cap,
-                                               int tile_row) {
+                                               int leaf) {
+  constexpr int kPer = Tiles::kPerLane;
+  constexpr int kShift = kPer == 4 ? 2 : kPer == 2 ? 1 : 0;
   const int lane = threadIdx.x & 31;
   LeafHit mine{0.0f, 0.0f, 0.0f, kNoTri};
   while (pend) {
@@ -206,31 +332,25 @@ __device__ __forceinline__ LeafHit test_leaves(unsigned pend,
     const float dz = __shfl_sync(kFull, o.dz, src);
     const float tmin = __shfl_sync(kFull, o.tmin, src);
     const float tcap = __shfl_sync(kFull, cap, src);
-    const int row = __shfl_sync(kFull, tile_row, src);
-    const float4* p = reinterpret_cast<const float4*>(
-                          tiles + static_cast<size_t>(row) * kLeaf) + lane;
-    float4 q[9];
-#pragma unroll
-    for (int f = 0; f < 9; ++f) q[f] = __ldg(p + f * kRow4);
-    // this lane's 4 triangles in k order: the first least hit
+    const int row = __shfl_sync(kFull, leaf, src);
+    float f[kPer][9];
+    tiles.load(row, lane, f);
+    // this lane's triangles in k order: the first least hit
     float bt = INFINITY, bu = 0.0f, bv = 0.0f;
     int bk = kNoTri;
     bool any = false;
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      float f[9];
-#pragma unroll
-      for (int j = 0; j < 9; ++j) f[j] = lane_of(q[j], s);
+    for (int s = 0; s < kPer; ++s) {
       float tt, uu, vv;
       const bool hit =
-          mt_hit(f, ox, oy, oz, dx, dy, dz, tmin, tcap, tt, uu, vv);
+          mt_hit(f[s], ox, oy, oz, dx, dy, dz, tmin, tcap, tt, uu, vv);
       if (kAnyHit) {
         any = any || hit;
       } else if (hit && tt < bt) {
         bt = tt;
         bu = uu;
         bv = vv;
-        bk = 4 * lane + s;
+        bk = kPer * lane + s;
       }
     }
     if (kAnyHit) {
@@ -250,16 +370,16 @@ __device__ __forceinline__ LeafHit test_leaves(unsigned pend,
       }
     }
     if (k == kNoTri) continue;  // the same on every lane
-    // lane k / 4 holds triangle k's u, v: its own first least hit is k
-    const float u = __shfl_sync(kFull, bu, k >> 2);
-    const float v = __shfl_sync(kFull, bv, k >> 2);
+    // lane k / kPer holds triangle k's u, v: its own first least hit is k
+    const float u = __shfl_sync(kFull, bu, k >> kShift);
+    const float v = __shfl_sync(kFull, bv, k >> kShift);
     if (lane == src) mine = LeafHit{t, u, v, k};
   }
   return mine;
 }
 
-// One lane's resumable two-level walk. ``Scene`` enters an instance or
-// entry: ``Sub enter(int id, const Ray& r) const``.
+// One lane's resumable two-level walk. ``Scene`` enters a subtree, an
+// instance or an entry: ``Sub enter(int id, const Ray& r) const``.
 template <bool kAnyHit, bool kOrdered, bool kGlobal, class Scene>
 struct Walk {
   const float4* top;  // the top tree, staged or global
@@ -343,8 +463,9 @@ struct Walk {
   }
 
   // Step every lane and test the warp's leaves until no lane holds one
+  template <class Tiles>
   __device__ __forceinline__ void run(const Scene& scene,
-                                      const float* __restrict__ tiles) {
+                                      const Tiles& tiles) {
     for (;;) {
       const bool pending = step(scene);
       const unsigned pend = __ballot_sync(kFull, pending);

@@ -164,7 +164,7 @@ extern "C" int rptr_traverse_flat_cull(
   if (n <= 0) return 0;
   if (q <= 0 || q > 1024 || q % 32 || n % q || shadow_from < 0)
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(lpad, leaf_size, false);
+  const size_t smem = smem_bytes(lpad, leaf_size);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = n / q;

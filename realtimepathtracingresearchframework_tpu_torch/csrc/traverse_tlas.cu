@@ -112,7 +112,7 @@ __global__ void __launch_bounds__(kMaxThreads) traverse_tlas_kernel(
   if (i < n) r.load(rays, n, i);
   rptr_tlas::Walk<kAnyHit, kOrdered, kGlobal, Instances> w(
       top, num_tlas, r, i < n && r.tmax > r.tmin);
-  w.run(Instances{inst_table, blas}, tiles);
+  w.run(Instances{inst_table, blas}, rptr_tlas::FieldTiles{tiles});
   if (i >= n) return;
   if (kAnyHit) {
     out_blocked[i] = w.b.blocked ? 1 : 0;

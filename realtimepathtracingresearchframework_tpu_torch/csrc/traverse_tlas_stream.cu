@@ -110,7 +110,7 @@ __global__ void __launch_bounds__(kMaxThreads) traverse_tlas_stream_kernel(
   rptr_tlas::Walk<kAnyHit, false, kGlobal, Chunks> w(
       top, num_top, r, i < n && r.tmax > r.tmin);
   w.run(Chunks{entry_table, sub_nodes, node_rows * 16, sub_leaves * kLeaf},
-        tiles);
+        rptr_tlas::FieldTiles{tiles});
   if (i >= n) return;
   if (kAnyHit) {
     out_blocked[i] = w.b.blocked ? 1 : 0;

@@ -11,8 +11,11 @@ the tree:
   conservative interval test of ``_kernel3``) against every leaf AABB, then
   runs Möller-Trumbore on the surviving leaves.
 - **K3** (``closest_hit_precull`` / ``occluded_precull``; reference
-  ``_kernel4`` with its feeder ``leaf_masks_xla``): the survivors are the
-  OR over the group of each lane's own exact slab test against every leaf.
+  ``_kernel4`` with its feeder ``leaf_masks_xla``): the reference's
+  survivors are the OR over the group of each lane's own exact slab test
+  against every leaf (``precull_leaf_masks``); the port's K3 tests each
+  lane's own leaves, the group of one lane (``plain_precull``), and the
+  kernel caps each lane's box test at its best hit so far.
 
 K2 also has the merged mode of the wavefront (``closest_and_occluded_flat``;
 reference ``closest_and_occluded_pallas3``): one launch whose first blocks
@@ -24,7 +27,7 @@ either kernel equals K1's bit for bit, whatever the group composition and
 the flush order.
 
 On a CPU tensor the wrappers run the plain PyTorch version
-(``flat_leaf_masks`` or ``precull_leaf_masks``, then ``_flush``). On a CUDA
+(``flat_leaf_masks`` then ``_flush``, or ``plain_precull``). On a CUDA
 tensor they launch the hand-written kernel (``csrc/traverse_flat_cull.cu``,
 ``csrc/traverse_precull.cu``, built by ``kernels/build.py`` at first use)
 or raise; they never fall back to the plain version there.
@@ -47,6 +50,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.intersect import (
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import Hit
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     _check,
+    _check_aligned,
     _compact,
     _uncompact,
     merged,
@@ -61,6 +65,14 @@ QUARTERS = 4  # default groups per block (traverse_pallas3.QUARTERS)
 BIG = 3.0e38  # empty-box and dead-lane fill (traverse_pallas3.py:118)
 ROW_NONE = 2**31 - 1  # "no hit yet" row of the lexicographic merge
 _CHUNK_ELEMS = 1 << 23  # elements per temporary of the plain versions
+
+# K3: a leaf that at least this many lanes of a warp hold is tested by each
+# of them alone (broadcast loads), else the warp tests it for each holder in
+# turn (csrc/traverse_precull.cu); above 32: never. Results do not depend on
+# it; of 1, 8, 16, 24, 32 and never, 24 was within 1% of the fastest on
+# every queue timed on an H100, at leaf size 32, 64 and 128 (PERF.md).
+SCAN_FROM = 24
+K3_LEAF_SIZES = (32, 64, 128)
 
 launches_k2 = 0  # K2 launches in this process (reset with reset_launches)
 launches_k3 = 0  # K3 launches in this process
@@ -274,13 +286,27 @@ def _flush(bvh: FlatBVH, rays: torch.Tensor, mask: torch.Tensor, q: int,
     )
 
 
+def plain_precull(bvh: FlatBVH, rays: torch.Tensor, any_hit: bool):
+    """K3's plain version: each lane's own survivors (``ray_leaf_hits``,
+    ``precull_leaf_masks`` at q = 1), then ``_flush``, in chunks of lanes.
+    Equal to ``_flush`` over the q-lane groups' OR bit for bit, whatever
+    q."""
+    step = max(1, _CHUNK_ELEMS // bvh.aabbs.shape[1])
+    out = [_flush(bvh, rays[:, s:s + step],
+                  ray_leaf_hits(rays[:, s:s + step], bvh.aabbs), 1, any_hit)
+           for s in range(0, rays.shape[1], step)]
+    return torch.cat(out) if any_hit else tuple(map(torch.cat, zip(*out)))
+
+
 def plain(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
           any_hit: bool):
-    """The plain version of K2 (``name == K2``) or K3 on a packed (8, Np)
-    operand: its survivor masks, then ``_flush``. What the wrappers run on
-    CPU tensors, and what ``launch`` must equal on the card."""
-    masks = flat_leaf_masks if name == K2 else precull_leaf_masks
-    return _flush(bvh, rays, masks(rays, bvh.aabbs, q), q, any_hit)
+    """The plain version of K2 (``name == K2``: its survivor masks, then
+    ``_flush``) or K3 (``plain_precull``; ``q`` does not count) on a packed
+    (8, Np) operand. What the wrappers run on CPU tensors, and what
+    ``launch`` must equal on the card."""
+    if name == K3:
+        return plain_precull(bvh, rays, any_hit)
+    return _flush(bvh, rays, flat_leaf_masks(rays, bvh.aabbs, q), q, any_hit)
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +322,8 @@ def _lib(name: str):
     # every pointer and the stream as c_void_p (a bare Python int would be
     # passed as a 32-bit C int and cut the pointer)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, i, p, i, p, i, i, i] + [p] * 5 + [p]
+    fn.argtypes = [p, i, i, p, i, p, i, i, i] + [p] * 5 + [p] + (
+        [i] if name == K3 else [])
     fn.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rptr_cuda_error_string.restype = ctypes.c_char_p
@@ -304,12 +331,13 @@ def _lib(name: str):
 
 
 def _launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
-            n_closest: int, mode: int):
+            n_closest: int, mode: int, scan_from: int = None):
     """One launch of K2 or K3 over a packed (8, Np) operand, one CUDA block
-    per q-lane group: the closest mode on lanes [0, n_closest), the any-hit
-    mode on the rest. ``mode`` is the kernel's own argument: K2's first
-    any-hit group, K3's any-hit flag (K3 runs one mode per launch). Returns
-    ((t, row, u, v), blocked) of the two parts, raw."""
+    per q-lane group (K3: blocks of up to 512 lanes): the closest mode on
+    lanes [0, n_closest), the any-hit mode on the rest. ``mode`` is the
+    kernel's own argument: K2's first any-hit group, K3's any-hit flag (K3
+    runs one mode per launch); ``scan_from`` K3's (default ``SCAN_FROM``).
+    Returns ((t, row, u, v), blocked) of the two parts, raw."""
     global launches_k2, launches_k3
     dev = rays.device
     n = rays.shape[1]
@@ -322,6 +350,13 @@ def _launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
         raise ValueError(f"{name}: {n} lanes in groups of {q}")
     if n_closest % q or not 0 <= n_closest <= n:
         raise ValueError(f"{name}: a closest part of {n_closest} of {n} lanes")
+    extra = ()
+    if name == K3:
+        if ls not in K3_LEAF_SIZES:
+            raise ValueError(f"{name}: leaf size {ls} not in {K3_LEAF_SIZES}")
+        # a lane reads its ls / 32 rows in loads of 4 * ls / 32 bytes
+        _check_aligned("tri_rows", bvh.tri_rows, 4 * ls // 32)
+        extra = (SCAN_FROM if scan_from is None else scan_from,)
     closest = (torch.empty(n_closest, dtype=torch.float32, device=dev),
                torch.empty(n_closest, dtype=torch.int32, device=dev),
                torch.empty(n_closest, dtype=torch.float32, device=dev),
@@ -334,7 +369,8 @@ def _launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(bvh.aabbs.data_ptr(), lpad, bvh.num_leaves,
                 bvh.tri_rows.data_ptr(), ls, rays.data_ptr(), n, q, mode,
-                *(x.data_ptr() or None for x in (*closest, blocked)), stream)
+                *(x.data_ptr() or None for x in (*closest, blocked)), stream,
+                *extra)
     if rc != 0:
         msg = lib.rptr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {rc})")
@@ -346,12 +382,14 @@ def _launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
 
 
 def launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
-           any_hit: bool):
-    """One launch of K2 or K3 over a packed (8, Np) operand in one mode.
-    Returns the raw output tensors: (t, row, u, v) or the blocked flags."""
+           any_hit: bool, scan_from: int = None):
+    """One launch of K2 or K3 over a packed (8, Np) operand in one mode
+    (``scan_from``: K3's, default ``SCAN_FROM``). Returns the raw output
+    tensors: (t, row, u, v) or the blocked flags."""
     n_closest = 0 if any_hit else rays.shape[1]
     closest, blocked = _launch(name, bvh, rays, q, n_closest,
-                               int(any_hit) if name == K3 else n_closest // q)
+                               int(any_hit) if name == K3 else n_closest // q,
+                               scan_from)
     return blocked if any_hit else closest
 
 

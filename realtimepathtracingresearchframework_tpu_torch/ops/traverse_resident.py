@@ -92,6 +92,12 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_aligned(name, x, nbytes: int):
+    """A kernel reads ``x`` in loads of ``nbytes`` bytes."""
+    if x.data_ptr() % nbytes:
+        raise ValueError(f"{name}: its data must be {nbytes}-byte aligned")
+
+
 def _launch(bvh: ResidentBVH, comps, tmin, tmax, shadow_from: int):
     """One K1 launch over n rays in blocks of BLOCK: blocks before
     ``shadow_from`` run the closest mode, the rest the any-hit mode.

@@ -69,6 +69,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     _check,
+    _check_aligned,
     _coherence_key2,
     coherence_key,
     inverse_permutation,
@@ -571,9 +572,10 @@ def _lib():
 
 
 def check_buffers(bb: StreamedBVHBuffers, dev) -> None:
-    """Device, type, shape and contiguity of the pack's kernel operands:
-    f32 tiles, or int16 codes with the dequant constants in each node
-    block."""
+    """Device, type, shape, contiguity and alignment of the pack's kernel
+    operands: f32 tiles, or int16 codes with the dequant constants in each
+    node block. K4 reads nodes and f32 tiles in 16-byte loads, int16 tiles
+    in 8-byte loads."""
     mt, s, L = bb.num_top_nodes, bb.num_subtrees, bb.sub_leaves
     _check("top_nodes", bb.top_nodes, torch.float32, (mt, 8), dev)
     _check("sub_nodes", bb.sub_nodes, torch.float32,
@@ -583,11 +585,14 @@ def check_buffers(bb: StreamedBVHBuffers, dev) -> None:
            dev)
     if bb.sub_node_rows * 16 > SUB_EXIT:
         raise ValueError(f"{L} leaves per subtree: too many node slots")
+    _check_aligned("top_nodes", bb.top_nodes, 16)
+    _check_aligned("sub_nodes", bb.sub_nodes, 16)
+    _check_aligned("tri_tiles", bb.tri_tiles, 8 if bb.quantized else 16)
 
 
 def _launch(bb: StreamedBVHBuffers, rays: torch.Tensor, n_closest: int,
             ordered: bool = False):
-    """One K4 launch over a packed (8, N) operand, one thread per ray, in
+    """One K4 launch over a packed (8, N) operand, one lane per ray, in
     blocks of BLOCK: the closest mode on lanes [0, n_closest), the any-hit
     mode on the rest; ``ordered`` walks the closest lanes front to back (a
     closest-only launch). Returns ((t, row, u, v), blocked) of the two

@@ -69,6 +69,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.tlas import (
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import ResidentBVH
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     _check,
+    _check_aligned,
     pack_rays,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
@@ -114,8 +115,7 @@ def top_staged(nbytes: int) -> bool:
 def check_aligned(**operands) -> None:
     """The two-level kernels read these operands in 16-byte loads."""
     for name, x in operands.items():
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name}: its data must be 16-byte aligned")
+        _check_aligned(name, x, 16)
 
 
 class BlasStatic(NamedTuple):

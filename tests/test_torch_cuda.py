@@ -333,6 +333,20 @@ def tie_scene():
     return meshes, mesh_ids, xfs, f32(ro), f32(rd), f32(tmax), f32(otm)
 
 
+def tie_world():
+    """The tie scene's five instances flattened to world space (v0, e1, e2
+    numpy f32; exact: the coordinates stay dyadic), and its rays (ro, rd,
+    tmax, any-hit tmax)."""
+    meshes, mesh_ids, xfs, ro, rd, tmax, otm = tie_scene()
+    tris = [[], [], []]
+    for m, xf in zip(mesh_ids, xfs):
+        a, t = xf[:, :3], xf[:, 3]
+        v0, e1, e2 = meshes[m]
+        for out, x in zip(tris, (v0 @ a.T + t, e1 @ a.T, e2 @ a.T)):
+            out.append(x.astype(np.float32))
+    return tuple(np.concatenate(x) for x in tris), (ro, rd, tmax, otm)
+
+
 def _packs(meshes, mesh_ids, xfs, dev):
     """K6's pack and K7's (static, frame) of a two-level scene on ``dev``."""
     mats = np.zeros(len(mesh_ids), np.int32)
@@ -441,6 +455,190 @@ def test_k6_k7_empty_segments_on_card(staged):
     hit = modes[0][1]()
     assert (hit[1][empty] == -1).all() and (hit[1][~empty] >= 0).any()
     assert not modes[2][1]()[empty].any()
+
+
+def _edge_rays(bb_lo, bb_hi, n, seed, dev):
+    """A packed (8, n) operand, not padded, over a scene box: incoherent
+    rays from above, 20% dead, the warp of lanes 256-287 all dead, and
+    empty segments (tmin 4.5 past tmax 4) on one lane in 13; and the
+    any-hit operand, its segments ending at a random t in [0.5, 8)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(bb_lo, np.float32), np.asarray(bb_hi, np.float32)
+    ro = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    ro[:, 1] = rng.uniform(hi[1], hi[1] + 2.0, n)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd[:, 1] = -np.abs(rd[:, 1])
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    lane = np.arange(n)
+    dead = (rng.uniform(size=n) < 0.2) | ((lane >= 256) & (lane < 288))
+    empty = lane % 13 == 5
+    tmin = np.where(empty, 4.5, 0.0).astype(np.float32)
+    tmax = np.where(dead, 0.0, np.where(empty, 4.0, 2.0e32)).astype(np.float32)
+    otm = np.where(tmax > tmin, rng.uniform(0.5, 8.0, n), tmax).astype(np.float32)
+    return _packed(ro, rd, tmax, dev, tmin), _packed(ro, rd, otm, dev, tmin)
+
+
+def _assert_equal_bits(k, p, label):
+    """Kernel and plain outputs (a tensor or a tuple) equal bit for bit."""
+    _assert_modes_equal_plain(((label, lambda: k, lambda: p),))
+
+
+def _k4_modes(bb, rays, orays):
+    """(name, launch, plain) of every K4 mode on ``rays``: closest unsorted
+    and sorted, ordered (sorted), any-hit unsorted and sorted, and merged
+    (the closest lanes up to the last whole block of 128, then any-hit)."""
+    srt, osrt = ts._sort_operand(bb, rays)[0], ts._sort_operand(bb, orays)[0]
+    nc = (rays.shape[1] // 2) // ts.BLOCK * ts.BLOCK
+    mixed = torch.cat([rays[:, :nc], orays[:, nc:]], dim=1).contiguous()
+    return (
+        ("closest", lambda: ts.launch(bb, rays, False),
+         lambda: ts.plain(bb, rays, False)),
+        ("closest sorted", lambda: ts.launch(bb, srt, False),
+         lambda: ts.plain(bb, srt, False)),
+        ("ordered", lambda: ts.launch(bb, srt, False, ordered=True),
+         lambda: ts.plain(bb, srt, False, ordered=True)),
+        ("any-hit", lambda: ts.launch(bb, orays, True),
+         lambda: ts.plain(bb, orays, True)),
+        ("any-hit sorted", lambda: ts.launch(bb, osrt, True),
+         lambda: ts.plain(bb, osrt, True)),
+        ("merged", lambda: _flat(ts.merged_launch(bb, mixed, nc)),
+         lambda: _flat(ts.merged_plain(bb, mixed, nc))),
+    )
+
+
+def _flat(merged_out):
+    """((t, row, u, v), blocked) -> (t, row, u, v, blocked)"""
+    return (*merged_out[0], merged_out[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, True])
+def test_k4_edge_queues_on_card(quantize):
+    """Every K4 mode (closest, any-hit, ordered, merged; sorted and not) on
+    f32 and 16-bit tiles equals its plain version bitwise on a ragged queue
+    of 4,099 lanes (not a whole warp) with dead lanes, an all-dead warp and
+    empty segments, which never hit."""
+    dev = _card()
+    flat = Scene.from_vkr_scene(procedural.terrain(grid=64)).flatten_world()
+    bb = ts.pack_streamed(flat.v0, flat.e1, flat.e2, quantize=quantize,
+                          device=dev)
+    rays, orays = _edge_rays(flat.v0.min(0), flat.v0.max(0), 4099, 21, dev)
+    before = ts.launches_k4
+    modes = _k4_modes(bb, rays, orays)
+    _assert_modes_equal_plain(modes)
+    assert ts.launches_k4 > before
+    empty = rays[7] <= rays[6]
+    hit = ts.launch(bb, rays, False)
+    assert (hit[1][empty] == -1).all() and (hit[1][~empty] >= 0).any()
+    blocked = ts.launch(bb, orays, True)
+    assert not blocked[empty].any() and blocked.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, True])
+def test_k4_tie_scene_on_card(quantize):
+    """On the tie scene's triangles in one streamed pack, every K4 mode
+    equals its plain version bitwise: a leaf's first least triangle and the
+    first visited subtree win exact-t ties (f32; the 16-bit grid moves the
+    vertices, and the kernel still equals its plain version)."""
+    dev = _card()
+    (v0, e1, e2), (ro, rd, tmax, otm) = tie_world()
+    bb = ts.pack_streamed(v0, e1, e2, quantize=quantize, device=dev)
+    rays, orays = _packed(ro, rd, tmax, dev), _packed(ro, rd, otm, dev)
+    _assert_modes_equal_plain(_k4_modes(bb, rays, orays))
+    if not quantize:
+        hit = ts.launch(bb, rays, False)
+        assert (hit[1] >= 0).any() and (hit[0][hit[1] >= 0] == 5.0).all()
+
+
+def _flat_pack(v0, e1, e2, leaf_size, dev):
+    tbvh = bvh_mod.build_threaded_bvh(v0, e1, e2, leaf_size=leaf_size,
+                                      builder="sah")
+    return tf.pack_flat(tbvh, dev)
+
+
+def _k3_modes(fb, rays, orays, scan_from):
+    """(name, launch, plain) of K3 closest and any-hit, unsorted and
+    coherence-sorted, with the leaf service ``scan_from``."""
+    srt = tr._compact(rays, fb.scene_lo, fb.scene_hi)[0]
+    osrt = tr._compact(orays, fb.scene_lo, fb.scene_hi)[0]
+    return tuple(
+        (f"{'any-hit' if a else 'closest'} {name} scan_from={scan_from}",
+         (lambda q=q, a=a: tf.launch(tf.K3, fb, q, 128, a, scan_from)),
+         (lambda q=q, a=a: tf.plain(tf.K3, fb, q, 128, a)))
+        for name, q, a in (("unsorted", rays, False), ("sorted", srt, False),
+                           ("unsorted", orays, True), ("sorted", osrt, True)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_size", [32, 64, 128])
+def test_k3_edge_queues_on_card(leaf_size):
+    """K3 closest and any-hit, sorted and not, equals its plain version
+    (each lane's own leaves) bitwise at leaf sizes 32, 64 and 128, with
+    each leaf served by the warp, by its holders alone, and by the default
+    rule, on a queue with dead lanes, an all-dead warp and empty segments;
+    and K1 and the reference's group-of-128 function (plain, q = 128)."""
+    dev = _card()
+    flat = Scene.from_vkr_scene(procedural.terrain(grid=48)).flatten_world()
+    fb = _flat_pack(flat.v0, flat.e1, flat.e2, leaf_size, dev)
+    rays, orays = _edge_rays(flat.v0.min(0), flat.v0.max(0), 4096, 22, dev)
+    before = tf.launches_k3
+    for scan_from in (33, 1, tf.SCAN_FROM):
+        _assert_modes_equal_plain(_k3_modes(fb, rays, orays, scan_from))
+    assert tf.launches_k3 == before + 12
+    hit = tf.launch(tf.K3, fb, rays, 128, False)
+    group = tf._flush(fb, rays, tf.precull_leaf_masks(rays, fb.aabbs, 128),
+                      128, False)
+    k1 = tr.closest_hit_resident(fb, Vec3(*rays[0:3]), Vec3(*rays[3:6]),
+                                 rays[6], rays[7])
+    _assert_equal_bits(hit, tuple(group), "K3 vs group plain")
+    _assert_equal_bits(hit, tuple(k1), "K3 vs K1")
+    empty = rays[7] <= rays[6]
+    assert (hit[1][empty] == -1).all() and (hit[1][~empty] >= 0).any()
+    blocked = tf.launch(tf.K3, fb, orays, 128, True)
+    assert not blocked[empty].any() and blocked.any()
+    assert torch.equal(blocked, tr.occluded_resident(
+        fb, Vec3(*orays[0:3]), Vec3(*orays[3:6]), orays[6], orays[7]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_size", [32, 64, 128])
+def test_k3_tie_scene_on_card(leaf_size):
+    """On the tie scene flattened to world space, K3 closest and any-hit,
+    with each way of serving a leaf, equals its plain version and K1
+    bitwise: the lowest row wins an exact-t tie."""
+    dev = _card()
+    (v0, e1, e2), (ro, rd, tmax, otm) = tie_world()
+    fb = _flat_pack(v0, e1, e2, leaf_size, dev)
+    n = len(ro)
+    rays, orays = _packed(ro, rd, tmax, dev), _packed(ro, rd, otm, dev)
+    for scan_from in (33, 1, tf.SCAN_FROM):
+        _assert_modes_equal_plain(_k3_modes(fb, rays, orays, scan_from))
+    hit = tf.launch(tf.K3, fb, rays, 128, False)
+    k1 = tr.closest_hit_resident(fb, Vec3(*rays[0:3]), Vec3(*rays[3:6]),
+                                 rays[6], rays[7])
+    _assert_equal_bits(hit, tuple(k1), "K3 vs K1")
+    assert n % 128 == 0 and (hit[0][hit[1] >= 0] == 5.0).all()
+
+
+@pytest.mark.cuda
+def test_k3_past_the_old_shared_memory_cap_on_card():
+    """A flat BVH whose leaf count the first K3 refused (its survivor list
+    and flags, 8 bytes a padded leaf, and a staged leaf over 48 KB of
+    shared memory): terrain(320) at leaf 32, 6,400 padded leaves. K3 equals
+    its plain version and K1 bitwise, closest and any-hit."""
+    dev = _card()
+    flat = Scene.from_vkr_scene(procedural.terrain(grid=320)).flatten_world()
+    fb = _flat_pack(flat.v0, flat.e1, flat.e2, 32, dev)
+    lpad = fb.aabbs.shape[1]
+    assert 8 * lpad + 36 * fb.leaf_size > 48 * 1024
+    rays, orays = _edge_rays(flat.v0.min(0), flat.v0.max(0), 4096, 23, dev)
+    _assert_modes_equal_plain(_k3_modes(fb, rays, orays, tf.SCAN_FROM))
+    hit = tf.launch(tf.K3, fb, rays, 128, False)
+    k1 = tr.closest_hit_resident(fb, Vec3(*rays[0:3]), Vec3(*rays[3:6]),
+                                 rays[6], rays[7])
+    _assert_equal_bits(hit, tuple(k1), "K3 vs K1")
+    assert (hit[1] >= 0).any()
 
 
 def _merged_operand(kernel, n_closest, seed):

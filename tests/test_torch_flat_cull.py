@@ -12,6 +12,10 @@ to 1e-5 relative (u, v to 1e-5 absolute), because XLA contracts some of
 Möller-Trumbore's multiply-adds into FMAs and the port does not (as for
 K1, tests/test_torch_traverse.py). Between the port's own plain versions
 there is no such excuse: plain K2, plain K3 and plain K1 agree bitwise.
+The port's K3 tests each lane's own leaves (the reference's group of q
+lanes shrunk to one); its plain version is held bitwise to the group
+version at q = 128 and to plain K1, and to pallas4, on these scenes and
+on the tie scene of tests/test_torch_cuda.py flattened to world space.
 
 The cull itself: the port's leaf boxes and per-ray feeder bits equal the
 reference's (``leaf_aabbs_for``, ``leaf_masks_xla``), and K2's union
@@ -44,6 +48,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops import wavefront_host as
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
+from test_torch_cuda import tie_world  # noqa: E402
 from test_traverse_kernels import _rays, _terrain  # noqa: E402
 
 
@@ -61,6 +66,16 @@ def _scene(leaf_size):
     """(reference v3 buffers, port FlatBVH) of the same threaded BVH."""
     tb = jbvh.build_threaded_bvh(*_terrain(24), leaf_size=leaf_size)
     return tp3.pack_for_pallas3(tb), tf.pack_flat(tb)
+
+
+@functools.lru_cache(maxsize=None)
+def _tie_scene(leaf_size):
+    """(reference v3 buffers, port FlatBVH) of the tie scene's five
+    instances flattened to world space (exact: dyadic coordinates), and its
+    rays (ro, rd, tmax, any-hit tmax)."""
+    tris, queue = tie_world()
+    tb = jbvh.build_threaded_bvh(*tris, leaf_size=leaf_size)
+    return (tp3.pack_for_pallas3(tb), tf.pack_flat(tb)), queue
 
 
 def _soa(a):
@@ -133,6 +148,70 @@ def test_plain_flat_cull_matches_pallas_interpret(rng, leaf_size, groups):
                 assert torch.equal(blocked, ob1)
                 ref = ref_o(bb3, jo, jd, t_max=jnp.asarray(otm), **kw)
                 np.testing.assert_array_equal(blocked.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("leaf_size", [32, 128])
+@pytest.mark.parametrize("scene", ["terrain", "tie"])
+def test_per_lane_k3_matches_group_k3_and_pallas4(rng, scene, leaf_size):
+    """The port's K3 plain version (each lane's own survivors) equals the
+    group version at q = 128 (the OR of the group's exact tests, today's
+    reference function) and plain K1 bitwise, and the reference's
+    closest_hit_pallas4 / occluded_pallas4 in interpret mode (ids and flags
+    exact, t/u/v to the file's tolerance), on ragged queues (pad lanes)
+    with dead lanes and empty segments (tmin > tmax); the tie scene's
+    exact-t ties keep the lowest row."""
+    if scene == "tie":
+        (bb3, fb), (ro, rd, tmax, otm) = _tie_scene(leaf_size)
+        queues = [(ro, rd, tmax, otm)]
+    else:
+        bb3, fb = _scene(leaf_size)
+        queues = []
+        for kind in ("coherent", "incoherent"):
+            ro, rd, tmax = _queue(rng, kind, n=1000, dead=0.2)
+            k1 = tr.closest_hit_resident(fb, _soa(ro), _soa(rd), 0.0,
+                                         torch.from_numpy(tmax))
+            scale = np.where(rng.uniform(size=len(ro)) < 0.5, 0.999, 1.001)
+            otm = np.where(k1.tri.numpy() >= 0, k1.t.numpy() * scale, 8.0)
+            queues.append((ro, rd, tmax, np.where(tmax > 0, otm, 0.0)))
+    for ro, rd, tmax, otm in queues:
+        n = len(ro)
+        # empty segments: tmin 4.5 past tmax 4 on one lane in 13
+        empty = np.arange(n) % 13 == 5
+        tmin = np.where(empty, 4.5, 0.0).astype(np.float32)
+        tmax = np.where(empty, 4.0, tmax).astype(np.float32)
+        otm = np.where(empty, 4.0, otm).astype(np.float32)
+        o, d = _soa(ro), _soa(rd)
+        tmin_t, tmax_t, otm_t = map(torch.from_numpy, (tmin, tmax, otm))
+        rays, _ = tr.pack_rays(o, d, tmin_t, tmax_t, 1024)
+        orays, _ = tr.pack_rays(o, d, tmin_t, otm_t, 1024)
+        assert rays.shape[1] > n  # pad lanes
+        for r, any_hit in ((rays, False), (orays, True)):
+            lane = tf.plain(tf.K3, fb, r, 128, any_hit)
+            group = tf._flush(fb, r, tf.precull_leaf_masks(r, fb.aabbs, 128),
+                              128, any_hit)
+            if any_hit:
+                assert torch.equal(lane, group)
+            else:
+                _assert_bitwise(lane, group)
+        k1 = tr.closest_hit_resident(fb, o, d, tmin_t, tmax_t)
+        hit = tf.closest_hit_precull(fb, o, d, tmin_t, tmax_t, block=1024,
+                                     groups=8)
+        _assert_bitwise(hit, k1)
+        assert (hit.tri >= 0).any()
+        assert (hit.tri[torch.from_numpy(empty)] == -1).all()
+        ref = tp3.closest_hit_pallas4(bb3, jnp.asarray(ro), jnp.asarray(rd),
+                                      t_min=jnp.asarray(tmin),
+                                      t_max=jnp.asarray(tmax), block=1024,
+                                      groups=8)
+        _assert_hit_close(hit, ref, fb)
+        blocked = tf.occluded_precull(fb, o, d, tmin_t, otm_t, block=1024,
+                                      groups=8)
+        assert torch.equal(blocked, tr.occluded_resident(fb, o, d, tmin_t, otm_t))
+        assert blocked.any() and not blocked[torch.from_numpy(empty)].any()
+        ref = tp3.occluded_pallas4(bb3, jnp.asarray(ro), jnp.asarray(rd),
+                                   t_min=jnp.asarray(tmin),
+                                   t_max=jnp.asarray(otm), block=1024, groups=8)
+        np.testing.assert_array_equal(blocked.numpy(), np.asarray(ref))
 
 
 @pytest.mark.parametrize("groups", [4, 8])
