@@ -12,7 +12,8 @@ Phases (each raises on failure):
      (csrc/traverse_flat_cull.cu), K3 (csrc/traverse_precull.cu), K4
      (csrc/traverse_streamed.cu), K5 (csrc/traverse_binned.cu), K6
      (csrc/traverse_tlas.cu), K7 (csrc/traverse_tlas_stream.cu), K8a and
-     K8b (csrc/traverse_v1.cu), with nvcc's registers and spills;
+     K8b (csrc/traverse_v1.cu), with nvcc's registers and spills of every
+     instance;
   3. the cornell main path: 1920x1080, 1 spp, depth 9, one warm-up frame
      and timed frames; K1 must launch, K2-K5 not;
   3b. the village path: procedural.village(), 80,496 textured triangles, at
@@ -158,12 +159,16 @@ Phases (each raises on failure):
      the sum of the two halves' bounds and the two separate launches.
  15. K8a and K8b on each V1 path's primary chunk with the most hits, a
      bounce-1 chunk (unsorted, as V1 dispatches it) and its sun shadow
-     queue: closest, any-hit and merged, each bitwise its plain version and
-     the merged launch bitwise the two single-mode launches, timed with
-     CUDA events beside the bound over the V1 tree's leaf boxes and the
-     plain version; on terrain200 the lanes where K8b's triangles differ
-     from K1's walk of the same leaf-128 tree (a packet and a per-ray walk
-     differ only at grazing corners; at most one in a thousand);
+     queue: closest, any-hit and merged, each bitwise its plain version (K8a
+     the packet walk, K8b the per-lane walk) and the merged launch bitwise
+     the two single-mode launches, timed with CUDA events beside the bound
+     of each queue over the V1 tree's leaf boxes and the plain version; on
+     the K8b paths (terrain200, the village) K8b against K1's walk of the
+     same leaf-128 tree (triangles and t on every lane of the primary and
+     bounce-1 chunks, flags on the shadow queue: no lane may differ), and
+     the lanes where K8b differs from the packet walk (the reference's
+     function) counted, each shown to be grazing (its packet hit's leaf box,
+     or an ancestor's, fails the lane's own slab test);
  16. Renderer.render_ray_queries, closest-hit and integrator modes, and
      render_aovs / readback_aov at 64x36 on the card against the port's
      CPU run: cornell (K1 and V1), terrain200 (K2 and V1), a 48x48-grid
@@ -174,7 +179,7 @@ Phases (each raises on failure):
      by a scalar through its reciprocal, so a ray that grazes an edge can
      hit another triangle).
 Its last two lines are the kernels' JSON record (K8a and K8b each with a
-merged record) and the result JSON.
+merged record, K8b with its grazing lanes) and the result JSON.
 """
 
 import contextlib
@@ -2363,8 +2368,9 @@ def _v1_fields(bvh, out):
 
 def compare_v1(label, bvh, rays, any_hit, shadow_from=-1, iters=5):
     """K8 on one packed (8, n) queue (given to the kernel in its layout)
-    against its plain version, bitwise. Returns ((t, row, u, v), record)
-    with the kernel's and the plain version's ms."""
+    against its plain version bitwise: K8a the packet walk ``plain``, K8b
+    the per-lane walk ``plain_lanes``. Returns ((t, row, u, v), record) with
+    the kernel's and the plain version's ms."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import (
@@ -2372,9 +2378,10 @@ def compare_v1(label, bvh, rays, any_hit, shadow_from=-1, iters=5):
     )
 
     op = rays if bvh.wide else rays.t().contiguous()
+    plain = tv.plain if bvh.wide else tv.plain_lanes
     k = tv.launch(bvh, op, any_hit, shadow_from)
     torch.cuda.synchronize()
-    p, p_ms = _plain_ms(lambda: tv.plain(bvh, op, any_hit, shadow_from))
+    p, p_ms = _plain_ms(lambda: plain(bvh, op, any_hit, shadow_from))
     kf, pf = _v1_fields(bvh, k), _v1_fields(bvh, p)
     bad, err = _equal(kf, pf)
     k_ms = cuda_ms(lambda: tv.launch(bvh, op, any_hit, shadow_from), iters)
@@ -2389,16 +2396,83 @@ def compare_v1(label, bvh, rays, any_hit, shadow_from=-1, iters=5):
     return kf, {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err}
 
 
+def _grazing(bvh, rays, lanes, row, t):
+    """Whether each lane of ``lanes`` is grazing: the box of the leaf that
+    holds its (packet) hit row ``row`` at ``t``, or of one of that leaf's
+    ancestors, fails the lane's own slab test on [tmin, min(tmax, t)], in
+    f32 as the walks compute it, so its own walk never tests that leaf. A
+    lane without a hit row is not grazing."""
+    bounds = bvh.bounds.cpu().numpy()
+    skip, first = bvh.links[:, 0].cpu().numpy(), bvh.links[:, 1].cpu().numpy()
+    node_of = {int(r): i for i, r in enumerate(first) if r >= 0}
+    inner = np.nonzero(first < 0)[0]
+    q = rays[:, lanes].cpu().numpy()
+    out = []
+    for j, (r, tj) in enumerate(zip(row.tolist(), t.tolist())):
+        if r < 0:
+            out.append(False)
+            continue
+        x = node_of[r // 128 * 128]
+        path = list(inner[(inner <= x) & (skip[inner] > x)]) + [x]
+        o, d = q[0:3, j], q[3:6, j]
+        inv = (np.where(d >= 0, 1.0, -1.0).astype(np.float32)
+               / np.maximum(np.abs(d), np.float32(1e-20)))
+        cap = np.minimum(q[7, j], np.float32(tj))
+        passes = True
+        for node in path:
+            t0 = (bounds[node, 0:3] - o) * inv
+            t1 = (bounds[node, 3:6] - o) * inv
+            tn = max(np.minimum(t0, t1).max(), q[6, j])
+            tf = min(np.maximum(t0, t1).min(), cap)
+            passes &= bool(tn <= tf)
+        out.append(not passes)
+    return out
+
+
+def v1_against_packet(label, bvh, rays, kf, any_hit):
+    """The lanes where K8b's per-lane walk and the packet walk (``plain``,
+    the reference's function) differ on one queue, counted, each checked to
+    be grazing (``_grazing``): t or row in closest mode, the blocked flag in
+    any-hit mode. Returns the count."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_v1 as tv,
+    )
+
+    pf = _v1_fields(bvh, tv.plain(bvh, rays.t().contiguous(), any_hit))
+    if any_hit:
+        differ = (kf[1] >= 0) != (pf[1] >= 0)
+    else:
+        differ = (_bits(kf[0]) != _bits(pf[0])) | (kf[1] != pf[1])
+    lanes = torch.nonzero(differ).squeeze(1)
+    graze = _grazing(bvh, rays, lanes, pf[1][lanes], pf[0][lanes])
+    log(f"  {label}: {lanes.numel()} lanes where K8b differs from the packet "
+        f"walk, {sum(graze)} of them grazing")
+    check(all(graze), f"{label}: {graze.count(False)} lanes differ from the "
+          "packet walk and are not grazing")
+    return lanes.numel()
+
+
+def _bits(x):
+    import torch
+
+    return x.contiguous().view(torch.int32)
+
+
 def phase_v1_queues(paths, smi):
     """K8a and K8b on each V1 path's queues: the primary chunk with the most
     hits, a bounce-1 chunk from its hit points (scattered directions,
     unsorted, as V1 dispatches it) and the sun shadow queue of those hit
     points. Closest on the primary and bounce-1 chunks, any-hit on the
     shadow queue, the merged launch of the bounce-1 and shadow queues:
-    each bitwise its plain version, timed with CUDA events beside the
-    bound. On terrain200 the lanes where K8b's triangles differ from K1's
-    walk over the same leaf-128 tree are counted. Returns {"K8a": record,
-    "K8b": record}, each with a "merged" record."""
+    each bitwise its plain version (K8a the packet walk, K8b the per-lane
+    walk), timed with CUDA events beside the bound of each queue. On the
+    K8b paths (terrain200, the village): K8b against K1's walk of the same
+    leaf-128 tree (triangles and t equal on every lane, flags on the shadow
+    queue), and against the packet walk, the lanes that differ counted and
+    each shown to be grazing. Returns {"K8a": record, "K8b": record}, each
+    with a "merged" record."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import bvh as bvh_mod
@@ -2440,35 +2514,52 @@ def phase_v1_queues(paths, smi):
         op_s = shadow if bvh.wide else shadow.t().contiguous()
         sep_ms = cuda_ms(lambda: (tv.launch(bvh, op_b, False),
                                   tv.launch(bvh, op_s, True)), 5)
-        mb_ms = (bound(aabbs, tv.LEAF, bounce, hb[0], False)[0]
-                 + bound(aabbs, tv.LEAF, shadow, shadow[7], True)[0])
+        bb_ms, bb_by, bb_pairs = bound(aabbs, tv.LEAF, bounce, hb[0], False)
+        bs_ms, bs_by, bs_pairs = bound(aabbs, tv.LEAF, shadow, shadow[7], True)
         log(f"  {label}: merged launch against the two single-mode launches: "
             f"{sep_bad} values not bitwise; merged {merged_rec['ms']:.3f} ms, "
             f"separate {sep_ms:.3f} ms; {kernel} {rec['per_frame'][kernel]:.2f} "
-            f"launches per frame; bound on the primary chunk {b_ms:.4f} ms by "
-            f"{b_by} ({pairs} ray-leaf pairs), merged pair {mb_ms:.4f} ms")
+            f"launches per frame; bounds: primary chunk {b_ms:.4f} ms by "
+            f"{b_by} ({pairs} ray-leaf pairs), bounce 1 {bb_ms:.4f} ms by "
+            f"{bb_by} ({bb_pairs}), sun shadow {bs_ms:.4f} ms by {bs_by} "
+            f"({bs_pairs}), merged pair {bb_ms + bs_ms:.4f} ms")
         check(sep_bad == 0, f"{label}: merged launch differs from separate launches")
-        if label == "v1 terrain200 1080p":
-            # K1's per-ray walk over the same leaf-128 tree
+        if kernel == "K8b":
+            # K1's per-ray walk over the same leaf-128 tree: K8b's function
             flat = r.scene.flatten_world()
             tb = bvh_mod.thread_bvh(
                 bvh_mod.build_bvh_sah(flat.v0, flat.e1, flat.e2, leaf_size=tv.LEAF),
                 flat.v0, flat.e1, flat.e2)
             check(torch.equal(tv.pack_v1(tb, DEVICE).tris, bvh.tris),
-                  "terrain200: the rebuilt tree is not the renderer's")
+                  f"{label}: the rebuilt tree is not the renderer's")
             rb = tr.pack_resident(tb, DEVICE)
             for qname, q, h in (("primary", prim, hp), ("bounce 1", bounce, hb)):
                 h1 = _k1(rb, q, False)
-                differ = int((h1.tri != h[1]).sum())
+                differ = int(((h1.tri != h[1]) | (_bits(h1.t) != _bits(h[0]))).sum())
                 log(f"  {label} {qname}: {differ} of {q.shape[1]} lanes where "
-                    f"K8b's triangle differs from K1's walk of the same tree")
-                check(differ <= q.shape[1] // 1000,
-                      f"{label} {qname}: K8b and K1 differ on {differ} lanes")
+                    f"K8b's triangle or t differs from K1's walk of the same tree")
+                check(differ == 0, f"{label} {qname}: K8b and K1 differ on "
+                      f"{differ} lanes")
+            b1 = _k1(rb, shadow, True)
+            differ = int(((hs[1] >= 0) != b1).sum())
+            log(f"  {label} sun shadow: {differ} lanes where K8b's flag differs "
+                f"from K1's")
+            check(differ == 0, f"{label} sun shadow: K8b and K1 differ")
+            graze = sum(v1_against_packet(f"{label} {qname}", bvh, q, h, a)
+                        for qname, q, h, a in (("primary", prim, hp, False),
+                                               ("bounce 1", bounce, hb, False),
+                                               ("sun shadow", shadow, hs, True)))
+            rec_graze = {"grazing_lanes": graze}
+        else:
+            rec_graze = {}
         if kernel in records:
+            if rec_graze:
+                records[kernel]["grazing_lanes"] += rec_graze["grazing_lanes"]
             continue
         records[kernel] = dict(prim_rec, launches=launches[kernel],
-                               bound_ms=b_ms, bound_by=b_by, merged=dict(
-                                   merged_rec, separate_ms=sep_ms, bound_ms=mb_ms))
+                               bound_ms=b_ms, bound_by=b_by, **rec_graze,
+                               merged=dict(merged_rec, separate_ms=sep_ms,
+                                           bound_ms=bb_ms + bs_ms))
     return records
 
 
@@ -2704,6 +2795,8 @@ def main():
             # no single PyTorch call computes a BVH closest hit
             "library_ms": None,
         })
+        if "grazing_lanes" in rec:
+            kernels[-1]["grazing_lanes"] = rec["grazing_lanes"]
         for mode in ("merged", "quantized", "ordered", "multislot", "global"):
             if mode in rec:
                 m = rec[mode]

@@ -1,7 +1,8 @@
-// The walks of K4 (traverse_streamed.cu), K6 (traverse_tlas.cu) and K7
-// (traverse_tlas_stream.cu) for Hopper, and the leaf test K3
-// (traverse_precull.cu) shares with them: resumable per-lane walks whose
-// entered leaves the whole warp tests together.
+// The walks of K4 (traverse_streamed.cu), K5 (traverse_binned.cu), K6
+// (traverse_tlas.cu), K7 (traverse_tlas_stream.cu) and K8b
+// (traverse_v1.cu) for Hopper, and the leaf test K3 (traverse_precull.cu)
+// shares with them: resumable per-lane walks whose entered leaves the whole
+// warp tests together.
 //
 // Each lane walks one ray, as the plain versions do (ops/tlas.py::sweep,
 // ops/traverse.py::walk_ranges, traverse_stream.plain): the top tree in
@@ -15,6 +16,10 @@
 // cursor or the ordered walk's last pick, the subtree's ray, the subtree
 // cursor or "not in one", and its best t, row, u, v and instance), and one
 // step (Walk::step) advances it to its next entered leaf, or to its end.
+// K5 enters its bin's one subtree directly with a seeded best (Walk's
+// second constructor; the subtree's node block staged in shared memory,
+// kSubGlobal = false) and ends when it leaves it; K8b walks the v1 tree's
+// node array with a walk of its own (traverse_v1.cu).
 //
 // The leaves are tested by the warp (test_leaves): after each step,
 // __ballot_sync finds the lanes that hold a leaf, and the warp serves them
@@ -23,48 +28,21 @@
 // __shfl_sync; lane j tests triangles 4j..4j+3 of the field-major tile
 // (rows 0-8: v0, e1, e2 xyz of 128 triangles) with one 16-byte __ldg per
 // row, so a leaf is 9 coalesced 512-byte loads (FieldTiles; QuantTiles
-// decodes K4's 16-bit tiles from 8-byte loads, RowTiles reads K3's
-// row-major leaves of 32, 64 or 128 rows); the Moller-Trumbore
-// expressions are stream_walk.cuh::walk_subtree's (mt_hit). A
+// decodes K4's and K5's 16-bit tiles from 8-byte loads, RowTiles reads
+// K3's row-major leaves of 32, 64 or 128 rows, ColumnTiles K8b's (16, Rp)
+// table); the Moller-Trumbore expressions are those of
+// traverse_pallas2._mt_leaf (mt_hit). A
 // __shfl_xor_sync reduction over (t, k) keeps the least t, then the least
 // k, and the lane holding k hands its u, v to the owner, which takes the
 // hit if it is strictly nearer than its best. Any-hit mode takes
 // __any_sync instead. Lanes past n and lanes whose walk has ended stay in
 // the loop and help until the ballot finds no leaf in the warp (a full-mask
-// shuffle with an exited lane is undefined).
+// shuffle with an exited lane is undefined). K3, K5 and K8b serve a leaf by
+// its number of holders (serve_leaves): one that ``scan_from`` or more
+// lanes hold (a coherent queue) is scanned by each holder itself in k order
+// (scan_leaf: every holder reads the same address, a broadcast), which
+// keeps the same first least hit, and any other through test_leaves.
 //
-// Why this equals the plain walk bit for bit. The plain walk tests a leaf's
-// triangles k = 0..127 in order and accepts a triangle when tt > tmin and
-// tt < min(best, tmax), best falling with each accepted triangle. Whether a
-// triangle is a candidate (det, u, v and tt > tmin) does not depend on best,
-// and the leaf starts with best = the owner's best t before the leaf. So
-// the last triangle the scan accepts is the first in k order of those with
-// the least tt below min(best, tmax): every candidate with a smaller tt is
-// accepted when its turn comes; one with the least tt is accepted unless an
-// earlier one had the same tt (strict <), so the first of them wins and no
-// later triangle beats it. The warp computes exactly that: every lane tests
-// its triangles (4; K3: leaf size / 32) against the same min(best, tmax)
-// (the leaf's entry value), keeps its first least one, and the reduction
-// orders (t, k) by t, then by k, with t and k moved together, so t keeps
-// the winner's bits (+0 and -0 compare equal and fall to the lower k, as
-// in the scan); u and v are the winner's. Each lane's walk visits its
-// nodes and leaves in the plain order, and a leaf's result is applied
-// before the lane steps again, so every slab test sees the best t the plain
-// walk would. Across leaves and instances a hit must improve strictly: the
-// first visited triangle keeps an exact-t tie, as in the plain version. K6's instance is the one
-// whose leaf gave the last accepted hit, which is the plain version's
-// "the walk of this instance lowered best".
-//
-// Node loads are 16-byte loads: a 32-byte node as two float4, from shared
-// memory for a staged top tree (one block copies it in), else through the
-// read-only path from global memory. The wrappers check that every base
-// pointer read as float4 is 16-byte aligned (the packs keep every node and
-// tile offset a multiple of 16 bytes), K4's 16-bit tiles 8-byte aligned and
-// K3's rows aligned to their load width.
-//
-// Built with --fmad=false and without fast math (kernels/build.py): every
-// multiply and add rounds on its own, as in the plain version's tensor ops.
-
 #pragma once
 
 #include <cuda_runtime.h>
@@ -159,8 +137,8 @@ struct Sub {
 };
 
 // Moller-Trumbore of the triangle f (v0, e1, e2 xyz) against the ray (o, d)
-// in the expression order of stream_walk.cuh::walk_subtree (that of
-// traverse_pallas2._mt_leaf): a hit when tt > tmin and tt < cap
+// in the expression order of traverse_pallas2._mt_leaf (that of the plain
+// versions' ops/traverse.py::_mt_rows): a hit when tt > tmin and tt < cap
 __device__ __forceinline__ bool mt_hit(const float (&f)[9], float ox, float oy,
                                        float oz, float dx, float dy, float dz,
                                        float tmin, float cap, float& tt,
@@ -218,14 +196,16 @@ struct FieldTiles {
   }
 };
 
-// Field-major 16-bit tiles of a quantized streamed pack (K4): int16 codes
-// offset by -32768 (rows 0-8: q0, q1, q2 xyz), 9 coalesced 256-byte loads,
-// 8 bytes a lane, decoded as stream_walk.cuh::load_tri decodes them
-// (traverse_stream.dequant_tile's order: int16 -> int -> float, v0 = c +
-// (q0 + 32768) * s, edges (qk - q0) * s) with the grid min c and scale s
-// of the leaf's subtree, the first six floats of the last slot of its node
-// block (stream_walk.cuh::dequant_of). Subtree s owns the tile rows [s *
-// rows_per_sub, (s + 1) * rows_per_sub), so the leaf's row names it.
+// Field-major 16-bit tiles of a quantized streamed pack (K4, K5): int16
+// codes offset by -32768 (rows 0-8: q0, q1, q2 xyz), 9 coalesced 256-byte
+// loads, 8 bytes a lane, decoded in traverse_stream.dequant_tile's
+// expression order (int16 -> int -> float, never through float bit
+// patterns; v0 = c + (q0 + 32768) * s, edges (qk - q0) * s), so a decoded
+// triangle is bitwise traverse_stream.reconstruct_quantized's, with the
+// grid min c and scale s of the leaf's subtree: the first six floats of the
+// last slot of its node block, which no walk lands on. Subtree s owns the
+// tile rows [s * rows_per_sub, (s + 1) * rows_per_sub), so the leaf's row
+// names it.
 struct QuantTiles {
   static constexpr int kPerLane = 4;
   const int16_t* __restrict__ tiles;
@@ -295,6 +275,33 @@ struct RowTiles {
     for (int s = 0; s < kPerLane; ++s) {
 #pragma unroll
       for (int j = 0; j < 9; ++j) f[s][j] = a[9 * s + j];
+    }
+  }
+};
+
+// The field-major (16, Rp) triangle table of the v1 walk (K8b): ``leaf``
+// is the leaf's first row; row f holds field f of every triangle, so the
+// leaf's field f is 128 contiguous floats at f * rp + leaf: 9 coalesced
+// 512-byte loads, 16 bytes a lane. Rp and every leaf's first row are
+// multiples of 128, and the wrapper checks the table's 16-byte alignment.
+struct ColumnTiles {
+  static constexpr int kPerLane = 4;
+  const float* __restrict__ tris;
+  int rp;
+
+  __device__ __forceinline__ void load(int leaf, int lane,
+                                       float (&f)[4][9]) const {
+    const float* p = tris + leaf + 4 * lane;
+    float4 q[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      q[j] = __ldg(reinterpret_cast<const float4*>(
+          p + static_cast<size_t>(j) * rp));
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int j = 0; j < 9; ++j) f[s][j] = lane_of(q[j], s);
     }
   }
 };
@@ -378,9 +385,96 @@ __device__ __forceinline__ LeafHit test_leaves(unsigned pend,
   return mine;
 }
 
+// One lane tests the leaf ``leaf`` (Tiles' handle) itself, in k order
+// against its falling best (the plain scan), Tiles::kPerLane triangles per
+// load (those of lane j of test_leaves, j = 0..31); triangle k is global row
+// row0 + k. Any-hit mode sets b.blocked at the first hit.
+template <bool kAnyHit, class Tiles>
+__device__ __forceinline__ void scan_leaf(const Tiles& tiles, int leaf,
+                                          int row0, const Ray& r, Best& b) {
+  constexpr int kPer = Tiles::kPerLane;
+  for (int j = 0; j < 32; ++j) {
+    float f[kPer][9];
+    tiles.load(leaf, j, f);
+#pragma unroll
+    for (int s = 0; s < kPer; ++s) {
+      float tt, uu, vv;
+      if (mt_hit(f[s], r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tmin,
+                 fminf(b.t, r.tmax), tt, uu, vv)) {
+        if (kAnyHit) {
+          b.blocked = true;
+          return;
+        }
+        b.t = tt;
+        b.row = row0 + kPer * j + s;
+        b.u = uu;
+        b.v = vv;
+      }
+    }
+  }
+}
+
+// The warp serves the leaves of the lanes in ``pend`` (a ballot of
+// ``pending``), each lane's leaf ``leaf`` (Tiles' handle; its triangle k
+// is row row0 + k) tested against its ray ``r`` and best ``b``, and applies
+// each result to its owner's b (a strictly nearer hit; any-hit: blocked).
+// A leaf that ``scan_from`` or more lanes hold (grouped by handle with
+// __match_any_sync) is scanned by each holder alone (scan_leaf), every
+// other one by the whole warp (test_leaves); both keep the leaf's first
+// least hit, so the result does not depend on ``scan_from`` (> 32: the
+// warp serves every leaf). Every lane of the warp must call it.
+template <bool kAnyHit, class Tiles>
+__device__ __forceinline__ void serve_leaves(bool pending, unsigned pend,
+                                             const Tiles& tiles, const Ray& r,
+                                             int leaf, int row0,
+                                             int scan_from, Best& b) {
+  bool scan = false;
+  if (scan_from <= 32) {  // uniform over the warp
+    const unsigned peers = __match_any_sync(kFull, pending ? leaf : -1);
+    scan = pending && __popc(peers) >= scan_from;
+  }
+  const unsigned served = pend & ~__ballot_sync(kFull, scan);
+  const LeafHit h =
+      test_leaves<kAnyHit>(served, tiles, r, fminf(b.t, r.tmax), leaf);
+  if (scan) {
+    scan_leaf<kAnyHit>(tiles, leaf, row0, r, b);
+  } else if (pending && h.k != kNoTri) {
+    if (kAnyHit) {
+      b.blocked = true;
+    } else if (h.t < b.t) {
+      b.t = h.t;
+      b.row = row0 + h.k;
+      b.u = h.u;
+      b.v = h.v;
+    }
+  }
+}
+
+// Enters subtree sid of a streamed pack (K4, K5) with the world ray: its
+// node block (slots nodes of 8 floats), its first tile row and its first
+// global row
+struct Subtrees {
+  const float4* sub_nodes;
+  int slots, sub_leaves;
+
+  __device__ __forceinline__ Sub enter(int sid, const Ray& r) const {
+    Sub s;
+    s.o = r;
+    s.nodes = sub_nodes + static_cast<size_t>(sid) * slots * 2;
+    s.count = slots;
+    s.tile0 = sid * sub_leaves * 16;
+    s.row0 = sid * sub_leaves * kLeaf;
+    s.id = sid;
+    return s;
+  }
+};
+
 // One lane's resumable two-level walk. ``Scene`` enters a subtree, an
 // instance or an entry: ``Sub enter(int id, const Ray& r) const``.
-template <bool kAnyHit, bool kOrdered, bool kGlobal, class Scene>
+// kGlobal: the top tree is read from global memory (else shared);
+// kSubGlobal: the subtrees' nodes likewise.
+template <bool kAnyHit, bool kOrdered, bool kGlobal, class Scene,
+          bool kSubGlobal = true>
 struct Walk {
   const float4* top;  // the top tree, staged or global
   int num_top;
@@ -407,13 +501,19 @@ struct Walk {
     s.id = -1;
   }
 
+  // A walk of the one subtree ``sub`` from a seeded best (K5): no top tree,
+  // so it ends when it leaves the subtree
+  __device__ Walk(const Sub& sub, const Best& seed, bool live)
+      : top(nullptr), num_top(0), r(sub.o), b(seed), done(!live),
+        in_sub(live), s(sub) {}
+
   // Advance to the next entered leaf (true) or to the walk's end (false)
   __device__ __forceinline__ bool step(const Scene& scene) {
     while (!done) {
       if (in_sub) {
         while (c < s.count) {
           float nd[8];
-          load_node<true>(s.nodes + 2 * c, nd);
+          load_node<kSubGlobal>(s.nodes + 2 * c, nd);
           const bool hit_box = rptr_stream::slab(nd, s.o, b.t);
           const int skip = static_cast<int>(nd[6]);
           const int leaf = static_cast<int>(nd[7]);

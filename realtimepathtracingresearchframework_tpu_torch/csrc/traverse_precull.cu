@@ -98,34 +98,6 @@ __device__ __forceinline__ bool enters(const float* __restrict__ aabbs,
   return tn <= tf && lox <= hix;
 }
 
-// One lane tests the kLS rows of leaf ``leaf`` itself, in k order against
-// its falling best (the plain scan), kLS / 32 rows per 9 loads (those of
-// lane j of test_leaves, j = 0..31)
-template <bool kAnyHit, int kLS>
-__device__ __forceinline__ void scan_leaf(const rptr_tlas::RowTiles<kLS>& tiles,
-                                          int leaf, const Ray& r, Best& b) {
-  constexpr int kPer = kLS / 32;
-  for (int j = 0; j < 32; ++j) {
-    float f[kPer][9];
-    tiles.load(leaf, j, f);
-#pragma unroll
-    for (int s = 0; s < kPer; ++s) {
-      float tt, uu, vv;
-      if (rptr_tlas::mt_hit(f[s], r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tmin,
-                            fminf(b.t, r.tmax), tt, uu, vv)) {
-        if (kAnyHit) {
-          b.blocked = true;
-          return;
-        }
-        b.t = tt;
-        b.row = leaf * kLS + kPer * j + s;
-        b.u = uu;
-        b.v = vv;
-      }
-    }
-  }
-}
-
 template <bool kAnyHit, int kLS>
 __global__ void __launch_bounds__(kMaxThreads) precull_kernel(
     const float* __restrict__ aabbs, int lpad, int num_leaves,
@@ -155,7 +127,7 @@ __global__ void __launch_bounds__(kMaxThreads) precull_kernel(
     if (l >= num_leaves) break;
     if (__popc(hold) >= scan_from) {
       // each holder tests the leaf's rows itself, all reading one address
-      if (holds) scan_leaf<kAnyHit>(tiles, l, r, b);
+      if (holds) rptr_tlas::scan_leaf<kAnyHit>(tiles, l, l * kLS, r, b);
     } else {
       const rptr_tlas::LeafHit h = rptr_tlas::test_leaves<kAnyHit>(
           hold, tiles, r, fminf(b.t, r.tmax), l);

@@ -69,27 +69,8 @@
 namespace {
 
 using rptr_stream::Ray;
-using rptr_stream::kLeaf;
 using rptr_stream::kThreads;
-using rptr_tlas::Sub;
-
-// Enters subtree sid with the world ray: its node block (slots nodes of 8
-// floats), its first tile row and its first global row
-struct Subtrees {
-  const float4* sub_nodes;
-  int slots, sub_leaves;
-
-  __device__ __forceinline__ Sub enter(int sid, const Ray& r) const {
-    Sub s;
-    s.o = r;
-    s.nodes = sub_nodes + static_cast<size_t>(sid) * slots * 2;
-    s.count = slots;
-    s.tile0 = sid * sub_leaves * 16;
-    s.row0 = sid * sub_leaves * kLeaf;
-    s.id = sid;
-    return s;
-  }
-};
+using rptr_tlas::Subtrees;
 
 // One lane's walk (kOrdered: nearest subtree first); writes its result at
 // ``o`` when it holds a ray (``i < n``). Every lane of the warp must call it.

@@ -32,8 +32,11 @@ beside the floats.
 
 On a CPU tensor the wrappers run ``plain`` (and K4's plain version); on a
 CUDA tensor they launch ``csrc/traverse_binned.cu`` (and K4) or raise; the
-kernel reads f32 or 16-bit quantized tiles. ``launches_k5`` counts K5's
-launches.
+kernel reads f32 or 16-bit quantized tiles. It walks each lane's subtree
+as K4 walks one (``csrc/tlas_walk.cuh``: resumable per-lane walks whose
+entered leaves the warp tests together, a leaf that ``SCAN_FROM`` or more
+lanes of a warp hold scanned by each of them alone). ``launches_k5``
+counts K5's launches.
 """
 
 from __future__ import annotations
@@ -63,6 +66,9 @@ from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 KERNEL = "traverse_binned"  # csrc/traverse_binned.cu
 DEFAULT_BLOCK = 512
 DEFAULT_ROUNDS = 2
+# a leaf that this many lanes of a warp hold is scanned by each of them
+# alone, else the warp tests it (> 32: never); measured on K5's queues
+SCAN_FROM = 24
 _INF = T_MAX
 
 K_MAX = 8  # multislot slots per ray (traverse_binned.py:552)
@@ -221,7 +227,7 @@ def _lib():
     # passed as a 32-bit C int and cut the pointer)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rptr_traverse_binned.argtypes = (
-        [p, p, i, i, p, p, i, i, i, i] + [p] * 8 + [p])
+        [p, p, i, i, p, p, i, i, i, i] + [p] * 8 + [p, i])
     lib.rptr_traverse_binned.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rptr_cuda_error_string.restype = ctypes.c_char_p
@@ -229,10 +235,12 @@ def _lib():
 
 
 def launch(bb: StreamedBVHBuffers, sid_blk, rays, best, block: int,
-           any_hit: bool):
-    """One K5 launch over a bin-padded (8, n_pad) operand, one thread per
-    lane, the bin block's subtree node block staged in shared memory.
-    Returns the new (t, row, u, v)."""
+           any_hit: bool, scan_from: int = None):
+    """One K5 launch over a bin-padded (8, n_pad) operand, one lane per
+    ray, as ``plain`` computes it, each block's subtree node block staged
+    in shared memory. ``scan_from`` (default ``SCAN_FROM``) forces the leaf
+    service; it does not change the result. Returns the new (t, row, u,
+    v)."""
     global launches_k5
     dev = rays.device
     n = rays.shape[1]
@@ -256,7 +264,7 @@ def launch(bb: StreamedBVHBuffers, sid_blk, rays, best, block: int,
             bb.sub_node_rows, bb.sub_leaves, sid_blk.data_ptr(),
             rays.data_ptr(), n, block, int(any_hit), int(bb.quantized),
             *(x.data_ptr() for x in best), *(x.data_ptr() for x in out),
-            stream,
+            stream, SCAN_FROM if scan_from is None else scan_from,
         )
     if rc != 0:
         msg = lib.rptr_cuda_error_string(rc).decode()

@@ -1,17 +1,27 @@
-"""The v1 packet walk: the K8a and K8b kernels' wrappers and plain version.
+"""The v1 walk: the K8a and K8b kernels' wrappers and plain versions.
 
 Counterpart of the reference's ``ops/traverse_pallas.py``, the traversal
-that ``RPTR_TRAVERSAL_V1`` selects. A packet of ``BLOCK`` (512) rays shares
-one cursor over the preorder node array of a leaf-128 threaded BVH: a node
-is entered when ANY lane's slab test passes with its far distance capped by
-the packet's ``cap`` (the packet max of min(t_best, tmax)), and at a leaf
-every lane runs Möller-Trumbore over all 128 rows. The triangle table is
-row-major (Rp, 16) up to ``WIDE_MAX_ROWS`` padded rows (K8a) and
-field-major (16, Rp) beyond (K8b); the rays ride a packed (8, Np) operand
-for K8a and (Np, 8) for K8b, and the result a (4, Np) or (Np, 4) one (t,
-row bits, u, v), exactly as the reference lays them out.
+that ``RPTR_TRAVERSAL_V1`` selects, over the preorder node array of a
+leaf-128 threaded BVH. The triangle table is row-major (Rp, 16) up to
+``WIDE_MAX_ROWS`` padded rows (K8a) and field-major (16, Rp) beyond (K8b);
+the rays ride a packed (8, Np) operand for K8a and (Np, 8) for K8b, and
+the result a (4, Np) or (Np, 4) one (t, row bits, u, v), exactly as the
+reference lays them out.
 
-On a CPU tensor the wrappers run ``plain``; on a CUDA tensor they launch
+K8a is the reference's packet walk (``plain``): a packet of ``BLOCK`` (512)
+rays shares one cursor, a node is entered when ANY lane's slab test passes
+with its far distance capped by the packet's ``cap`` (the packet max of
+min(t_best, tmax)), and at a leaf every lane runs Möller-Trumbore over all
+128 rows. K8b walks each ray on its own (``plain_lanes``: the port's plain
+threaded walk ``ops/traverse.py::walk_ranges`` over the v1 tables, K1's
+function): a lane tests the leaves its own capped slab test enters, not
+every leaf its packet enters. The two agree except on grazing lanes, where
+a lane hits a triangle in a leaf whose box its own slab test rejects (a box
+face with a zero direction component, a corner, or a 1-ulp gap between the
+slab t and Möller-Trumbore's t); ROADMAP queue 3 records the difference.
+
+On a CPU tensor the wrappers run ``plain`` for a row-major table and
+``plain_lanes`` for a field-major one; on a CUDA tensor they launch
 ``csrc/traverse_v1.cu`` (built by ``kernels/build.py`` at first use) or
 raise, never falling back. ``launches_k8a`` and ``launches_k8b`` count the
 kernel launches, ``merged_launches`` the merged two-queue ones among them.
@@ -36,6 +46,10 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
     Hit,
     _mt_rows,
     map_rows_to_tris,
+    walk_ranges,
+)
+from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
+    _check_aligned,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
@@ -135,7 +149,8 @@ def _leaf_rows(bvh: V1BVH, row0):
 
 
 def plain(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1):
-    """The function K8a/K8b compute (traverse_pallas.py:96-419), batched over
+    """The packet walk, the function K8a computes and the reference's K8a
+    and K8b (traverse_pallas.py:96-419), in either layout, batched over
     packets: every packet's cursor steps once per iteration until all are
     past the last node. ``rays`` is the packed operand in the kernel's
     layout; packets from ``shadow_from`` on (all of them when ``any_hit``)
@@ -222,6 +237,40 @@ def plain(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1):
     return out if bvh.wide else out.t().contiguous()
 
 
+def plain_lanes(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1):
+    """The function K8b computes: each lane's own threaded walk of the tree
+    (``walk_ranges``, K1's plain version, over the v1 tables: the links'
+    leaf ROWS as leaf indices, the table's rows 0-8 as (Rp, 9) rows), in the
+    kernel's layout. Lanes from ``shadow_from`` x 512 on (all of them when
+    ``any_hit``) stop at their first hit and write row 0 and t = tmax where
+    their segment holds a hit, else row -1 and t = 2e32, u = v = 0; the
+    others write t (2e32 on a miss), the row's int32 bits, u, v, with -0.0
+    written as +0.0 as K8a's masked sum writes it."""
+    r8 = rays if bvh.wide else rays.t()
+    n = r8.shape[1]
+    n_c = 0 if any_hit else min(n, shadow_from * BLOCK) if shadow_from >= 0 else n
+    lr = bvh.links[:, 1]
+    links = torch.stack([bvh.links[:, 0], torch.where(lr >= 0, lr // LEAF, -1)], 1)
+    rows = bvh.tris[:, 0:9] if bvh.wide else bvh.tris[0:9].t()
+
+    def walk(q, mode):
+        return walk_ranges(bvh.bounds, links, rows, LEAF, Vec3(*q[0:3]),
+                           Vec3(*q[3:6]), q[6], q[7], mode)
+
+    h = walk(r8[:, :n_c], False)
+    tmax_s = r8[7, n_c:]
+    blocked = walk(r8[:, n_c:], True)
+    zeros = torch.zeros_like(tmax_s)
+    out = torch.stack([
+        torch.cat([h.t, torch.where(blocked, tmax_s, T_MAX)]),
+        torch.cat([h.tri, torch.where(blocked, 0, -1).to(torch.int32)]
+                  ).view(torch.float32),
+        torch.cat([torch.where(h.u == 0.0, 0.0, h.u), zeros]),
+        torch.cat([torch.where(h.v == 0.0, 0.0, h.v), zeros]),
+    ])
+    return out if bvh.wide else out.t().contiguous()
+
+
 # ---------------------------------------------------------------------------
 # The kernel launch
 # ---------------------------------------------------------------------------
@@ -235,6 +284,8 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rptr_traverse_v1.argtypes = [p, p, p, i, i, p, i, i, i, p, p]
     lib.rptr_traverse_v1.restype = ctypes.c_int
+    lib.rptr_traverse_v1_lanes.argtypes = [p, p, p, i, i, p, i, i, p, p, i, i]
+    lib.rptr_traverse_v1_lanes.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rptr_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -248,16 +299,23 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def launch(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1):
+def launch(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1,
+           threads: int = None, scan_from: int = None):
     """One K8a (row-major table) or K8b (field-major) launch over the packed
-    operand ``rays`` in its layout, as ``plain`` computes it. Returns the
-    output in the same layout."""
+    operand ``rays`` in its layout, as ``plain`` (K8a) or ``plain_lanes``
+    (K8b) computes it. Returns the output in the same layout. K8b only:
+    ``threads`` (a multiple of 32 dividing 512) and ``scan_from`` (a leaf
+    that this many lanes of a warp hold is scanned by each of them alone;
+    > 32 never) force the block size and the leaf service, else the
+    kernel's defaults; neither changes the result."""
     global launches_k8a, launches_k8b
     dev = rays.device
     m, rp = bvh.num_nodes, bvh.num_rows
     n_pad = rays.shape[1] if bvh.wide else rays.shape[0]
     if n_pad % BLOCK:
         raise ValueError(f"{KERNEL}: {n_pad} lanes are not whole packets of {BLOCK}")
+    if bvh.wide and (threads is not None or scan_from is not None):
+        raise ValueError(f"{KERNEL}: threads and scan_from are K8b's")
     _check("bounds", bvh.bounds, torch.float32, (m, 6), dev)
     _check("links", bvh.links, torch.int32, (m, 2), dev)
     _check("tris", bvh.tris, torch.float32, (rp, 16) if bvh.wide else (16, rp), dev)
@@ -266,16 +324,25 @@ def launch(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1):
                       device=dev)
     if n_pad == 0:
         return out
+    if not bvh.wide:  # K8b's 8- and 16-byte loads and stores
+        for name, x, nbytes in (("bounds", bvh.bounds, 8), ("links", bvh.links, 8),
+                                ("tris", bvh.tris, 16), ("rays", rays, 16),
+                                ("out", out, 16)):
+            _check_aligned(name, x, nbytes)
     packets = n_pad // BLOCK
-    # packets from early_from on take the any-hit exit
+    # packets from early_from on take the any-hit mode
     early_from = 0 if any_hit else (shadow_from if shadow_from >= 0 else packets)
+    args = (bvh.bounds.data_ptr(), bvh.links.data_ptr(), bvh.tris.data_ptr(), rp,
+            m, rays.data_ptr(), n_pad, early_from)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rptr_traverse_v1(
-            bvh.bounds.data_ptr(), bvh.links.data_ptr(), bvh.tris.data_ptr(), rp,
-            m, rays.data_ptr(), n_pad, early_from, int(bvh.wide),
-            out.data_ptr(), stream)
+        if threads is None and scan_from is None:
+            rc = lib.rptr_traverse_v1(*args, int(bvh.wide), out.data_ptr(), stream)
+        else:
+            rc = lib.rptr_traverse_v1_lanes(
+                *args, out.data_ptr(), stream, threads or 0,
+                -1 if scan_from is None else scan_from)
     if rc != 0:
         msg = lib.rptr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{KERNEL} launch failed: {msg} (cudaError {rc})")
@@ -288,7 +355,7 @@ def launch(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1):
 
 def _run(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1):
     if rays.device.type == "cpu":
-        return plain(bvh, rays, any_hit, shadow_from)
+        return (plain if bvh.wide else plain_lanes)(bvh, rays, any_hit, shadow_from)
     if rays.device.type == "cuda":
         return launch(bvh, rays, any_hit, shadow_from)
     raise ValueError(f"no traversal for device {rays.device}")

@@ -93,8 +93,8 @@ KERNELS = {
     "K5": (lambda: tb.launches_k5, "traverse_binned"),
     "K6": (lambda: tt.launches_k6, "traverse_tlas_kernel"),
     "K7": (lambda: tts.launches_k7, "traverse_tlas_stream"),
-    "K8a": (lambda: tv.launches_k8a, "traverse_v1_kernel<true>"),
-    "K8b": (lambda: tv.launches_k8b, "traverse_v1_kernel<false>"),
+    "K8a": (lambda: tv.launches_k8a, "traverse_v1_kernel("),
+    "K8b": (lambda: tv.launches_k8b, "traverse_v1_lanes_kernel"),
 }
 GRIDS = {"terrain200": 200, "terrain500": 500}
 INSTANCES = {"instanced600": 600, "instanced500": 500, "instanced2500": 2500}

@@ -9,8 +9,9 @@ only the port is installed. On a machine with a CUDA card and nvcc:
 test here skips. ``chip_smoke.py`` runs the same comparisons at the main
 paths' shapes. The merged two-queue launches of K1, K2 and K4 are held
 against their plain versions and against the kernel's separate launches.
-K8a and K8b (the v1 packet walk) are held against their plain version in
-all three modes, and a CUDA tensor whose kernel does not build raises.
+K8a (the v1 packet walk) and K8b (its per-lane walk) are held against
+their plain versions in all three modes, K8b and K5 at each block size or
+leaf service, and a CUDA tensor whose kernel does not build raises.
 """
 
 import numpy as np
@@ -165,13 +166,63 @@ def test_k4_ordered_matches_plain_on_card(quantize):
         ts._launch(bb, queue, 0, ordered=True)
 
 
+K5_SCAN_FROM = (1, 8, 16, 24, 32, 33)  # K5's and K8b's leaf services
+
+
+def k5_edge_operand(bb, rays):
+    """A K5 operand of 1,024 lanes in four bin blocks of 256 (subtrees 0,
+    none, the last, 1 mod S) from the first 1,024 lanes of a packed (8, n)
+    queue, with seeded bests: a third of the lanes arrive with row 7 (u
+    0.25, v 0.5) at t_in in [0.5, 30), a third with a miss at such a t_in
+    (below tmax), the rest with a miss at 2e32; one lane in 9 an empty
+    segment (tmin 5 past tmax 4), one in 11 tmax = tmin = 5. Returns
+    (sid_blk, rays, (t, row, u, v))."""
+    dev = rays.device
+    n = 1024
+    rng = np.random.default_rng(41)
+    s = bb.num_subtrees
+    sid_blk = torch.tensor([0, -1, s - 1, 1 % s], dtype=torch.int32, device=dev)
+    rays = rays[:, :n].clone()
+    lane = torch.arange(n, device=dev)
+    rays[6] = torch.where((lane % 9 == 4) | (lane % 11 == 3), 5.0, rays[6])
+    rays[7] = torch.where(lane % 9 == 4, 4.0, rays[7])
+    rays[7] = torch.where(lane % 11 == 3, 5.0, rays[7])
+    kind = torch.from_numpy(rng.integers(0, 3, n)).to(dev)
+    t_in = torch.from_numpy(rng.uniform(0.5, 30.0, n).astype(np.float32)).to(dev)
+    t = torch.where(kind < 2, t_in, 2.0e32)
+    row = torch.where(kind == 0, 7, -1).to(torch.int32)
+    u = torch.where(kind == 0, 0.25, 0.0)
+    v = torch.where(kind == 0, 0.5, 0.0)
+    return sid_blk, rays.contiguous(), (t, row, u, v)
+
+
+def _k5_round_operand(bb, rays):
+    """The first round's K5 operand of the binned dispatch of ``rays``
+    (coherence-sorted, each lane's nearest subtree), in bin blocks of 512:
+    (sid_blk, rays, best)."""
+    n, dev = rays.shape[1], rays.device
+    sb = tb.subtree_bounds(bb)
+    srt, _ = tb._coherence_perm(bb, rays)
+    sid, _ = tb._next_subtree(
+        tb._entry_table(sb, srt), torch.full((n,), -2.0e32, device=dev),
+        torch.full((n,), -1, dtype=torch.int32, device=dev), srt[7])
+    sid_blk, prays, pbest, _ = tb.round_operand(
+        srt, tb.miss_best(n, dev), sid, sb.shape[0], 512,
+        tb.padded_lanes(n, sb.shape[0], 512))
+    return sid_blk, prays.contiguous(), tuple(x.contiguous() for x in pbest)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("rounds,shadow", [(2, False), (1, True), (0, True)])
 def test_k5_matches_plain_on_card(rounds, shadow, quantize):
     """The binned dispatch through K5 and its K4 cleanup equals the same
     dispatch through their plain versions, bitwise, on f32 and 16-bit
-    tiles."""
+    tiles; and single K5 launches, with each leaf service (``scan_from``),
+    equal the plain K5 bitwise on a first-round operand and on seeded edge
+    cases (``k5_edge_operand``:
+    arriving rows, a block without a subtree, t_in below tmax, empty
+    segments)."""
     bb, rays = _streamed_queue(64, 4096, 4, quantize)
     before = tb.launches_k5
     k = tb._run_rounds(bb, rays, 512, rounds, shadow)
@@ -179,6 +230,14 @@ def test_k5_matches_plain_on_card(rounds, shadow, quantize):
     p = tb._run_rounds(bb, rays, 512, rounds, shadow, plain_versions=True)
     for a, b in zip(k if not shadow else (k,), p if not shadow else (p,)):
         assert torch.equal(a, b)
+    for (sid_blk, q, best), block in ((_k5_round_operand(bb, rays), 512),
+                                      (k5_edge_operand(bb, rays), 256)):
+        want = tb.plain(bb, sid_blk, q, best, block, shadow)
+        assert (want[1] >= 0).any()
+        for scan_from in (None, *K5_SCAN_FROM):
+            got = tb.launch(bb, sid_blk, q, best, block, shadow,
+                            scan_from=scan_from)
+            _assert_equal_bits(got, want, f"K5 scan_from={scan_from}")
 
 
 @pytest.mark.cuda
@@ -789,35 +848,111 @@ def _bits(x):
     return x.contiguous().view(torch.int32)
 
 
+K8B_LAUNCHES = tuple((t, None) for t in (None, 128, 256, 512)) + tuple(
+    (None, f) for f in K5_SCAN_FROM)  # (threads, scan_from)
+
+
+def _k8_modes(vb, rays8, orays8):
+    """(name, launch, plain) of K8's three modes on packed (8, n) queues
+    given in the table's layout (K8a against the packet walk ``plain``, K8b
+    against the per-lane ``plain_lanes``), K8b at each block size and leaf
+    service: closest, any-hit on ``orays8``, and a merged launch whose last
+    quarter of packets takes the any-hit mode."""
+    def op(q):
+        return q if vb.wide else q.t().contiguous()
+
+    nc = rays8.shape[1] * 3 // 4 // tv.BLOCK * tv.BLOCK
+    mixed = torch.cat([rays8[:, :nc], orays8[:, nc:]], dim=1).contiguous()
+    plain = tv.plain if vb.wide else tv.plain_lanes
+    modes = []
+    for threads, scan_from in ((None, None),) if vb.wide else K8B_LAUNCHES:
+        kw = dict(threads=threads, scan_from=scan_from)
+        for name, q, a, sf in (("closest", rays8, False, -1),
+                               ("anyhit", orays8, True, -1),
+                               ("merged", mixed, False, nc // tv.BLOCK)):
+            modes.append((f"{name} threads={threads} scan_from={scan_from}",
+                          (lambda q=q, a=a, sf=sf, kw=kw:
+                           tv.launch(vb, op(q), a, sf, **kw)),
+                          (lambda q=q, a=a, sf=sf: plain(vb, op(q), a, sf))))
+    return modes
+
+
+def _short_of_hits(vb, rays8):
+    """The any-hit queue of ``rays8``: segments ending just short of (0.999
+    t) or past (1.001 t) each closest hit of the per-lane walk."""
+    out = tv.plain_lanes(vb, rays8 if vb.wide else rays8.t().contiguous(), False)
+    t = out[0] if vb.wide else out[:, 0]
+    scale = torch.where(torch.arange(t.shape[0], device=t.device) % 2 == 0,
+                        0.999, 1.001)
+    orays8 = rays8.clone()
+    orays8[7] = torch.where(t < 1e30, t * scale, rays8[7])
+    return orays8
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["closest", "anyhit", "merged"])
 @pytest.mark.parametrize("grid", [30, 69])
 def test_k8_matches_plain_on_card(grid, mode):
-    """K8a (terrain(30), 1,800 tris, the row-major table) and K8b
-    (terrain(69), 9,522 tris, the field-major one) against the plain packet
-    walk bitwise (t, row bits, u, v): closest, any-hit on segments just short
-    of or past each closest hit, and a merged launch whose last 2 of 8
-    packets take the any-hit exit; each launch counted on its kernel."""
+    """K8a (terrain(30), 1,800 tris, the row-major table) against the plain
+    packet walk and K8b (terrain(69), 9,522 tris, the field-major one)
+    against its per-lane plain version, bitwise (t, row bits, u, v):
+    closest, any-hit on segments just short of or past each closest hit,
+    and a merged launch whose last 2 of 8 packets take the any-hit mode;
+    K8b at 128, 256 and 512 threads and each leaf service; each launch
+    counted on its kernel."""
     vb, rays8 = _v1_queue(grid, 4096, 13)
     assert vb.wide == (grid == 30)
-    if mode == "anyhit":
-        t = tv.plain(vb, rays8 if vb.wide else rays8.t().contiguous(), False)
-        t = t[0] if vb.wide else t[:, 0]
-        scale = torch.where(torch.arange(t.shape[0], device=t.device) % 2 == 0,
-                            0.999, 1.001)
-        rays8 = rays8.clone()
-        rays8[7] = torch.where(t < 1e30, t * scale, rays8[7])
-    rays = rays8 if vb.wide else rays8.t().contiguous()
-    any_hit, shadow_from = mode == "anyhit", 6 if mode == "merged" else -1
+    modes = [m for m in _k8_modes(vb, rays8, _short_of_hits(vb, rays8))
+             if m[0].startswith(mode)]
     before = (tv.launches_k8a, tv.launches_k8b)
-    k = tv.launch(vb, rays, any_hit, shadow_from)
+    _assert_modes_equal_plain(modes)
     assert (tv.launches_k8a, tv.launches_k8b) == (
-        before[0] + vb.wide, before[1] + (not vb.wide))
-    p = tv.plain(vb, rays, any_hit, shadow_from)
-    assert k.shape == p.shape == ((4, 4096) if vb.wide else (4096, 4))
-    assert torch.equal(_bits(k), _bits(p))
+        before[0] + vb.wide * len(modes), before[1] + (not vb.wide) * len(modes))
+    k = modes[0][1]()
+    assert k.shape == ((4, 4096) if vb.wide else (4096, 4))
+    if mode == "anyhit":
+        k = tv.launch(vb, rays8 if vb.wide else rays8.t().contiguous(), False)
     rows = _bits(k[1] if vb.wide else k[:, 1])
     assert (rows >= 0).any() and (rows < 0).any()
+
+
+@pytest.mark.cuda
+def test_k8b_tie_scene_on_card(monkeypatch):
+    """On the tie scene flattened to world space, packed field-major (the
+    row-count threshold set to 0), every K8b mode at each block size and
+    leaf service equals its per-lane plain version bitwise; the first
+    visited triangle wins an exact-t tie, and the packet walk picks the same
+    triangles and t (no grazing lane)."""
+    dev = _card()
+    monkeypatch.setattr(tv, "WIDE_MAX_ROWS", 0)
+    (v0, e1, e2), (ro, rd, tmax, otm) = tie_world()
+    vb = tv.pack_v1(bvh_mod.build_threaded_bvh(v0, e1, e2, leaf_size=tv.LEAF,
+                                               builder="sah"), dev)
+    assert not vb.wide
+    rays8, orays8 = _packed(ro, rd, tmax, dev), _packed(ro, rd, otm, dev)
+    _assert_modes_equal_plain(_k8_modes(vb, rays8, orays8))
+    k = tv.launch(vb, rays8.t().contiguous(), False)
+    packet = tv.plain(vb, rays8.t().contiguous(), False)
+    assert torch.equal(_bits(k[:, 0:2]), _bits(packet[:, 0:2]))
+    hit = _bits(k[:, 1]) >= 0
+    assert hit.any() and (k[hit, 0] == 5.0).all()
+
+
+@pytest.mark.cuda
+def test_k8b_alignment_on_card():
+    """K8b reads its table and rays in 16-byte loads: a table or ray
+    operand that is not 16-byte aligned raises before any launch."""
+    vb, rays8 = _v1_queue(69, 1024, 19)
+    rays = rays8.t().contiguous()
+    before = tv.launches_k8b
+    off = torch.empty(vb.tris.numel() + 1, device=vb.tris.device)[1:]
+    shifted = off.view(vb.tris.shape).copy_(vb.tris)
+    with pytest.raises(ValueError, match="tris: its data must be 16-byte"):
+        tv.launch(vb._replace(tris=shifted), rays, False)
+    off = torch.empty(rays.numel() + 2, device=rays.device)[2:]
+    with pytest.raises(ValueError, match="rays: its data must be 16-byte"):
+        tv.launch(vb, off.view(rays.shape).copy_(rays), False)
+    assert tv.launches_k8b == before
 
 
 @pytest.mark.cuda

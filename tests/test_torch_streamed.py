@@ -79,6 +79,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 from realtimepathtracingresearchframework_tpu_torch.profile_frame import frame_setup
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
+from test_torch_cuda import k5_edge_operand  # noqa: E402
 from test_traverse_kernels import _terrain  # noqa: E402
 
 N_RAYS = 512
@@ -424,6 +425,56 @@ def test_k5_kernel_plain_passes_and_seeds(scene):
     out = tb.plain(pb, none, rays, seed, 256, False)
     for x, y in zip(out, seed):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k5_plain_seeded_edge_cases(scene, any_hit):
+    """Plain K5 on seeded edge cases (``test_torch_cuda.k5_edge_operand``,
+    which the card test runs through the kernel): a block without a
+    subtree and an empty segment (tmax <= tmin) pass the best through;
+    in any-hit mode a lane that arrives with a row keeps it; every other
+    lane takes its subtree's closest hit, from an uncapped walk of the
+    subtree, exactly when it lies before min(t_in, tmax) (any-hit: then
+    marks the subtree's first row), else keeps its best; a passed-through
+    t is min(t_in, tmax), or 2e32 where the row is -1."""
+    pb = scene["pb"]
+    o, d = _soa(scene["ro"]), _soa(scene["rd"])
+    rays, _ = tr.pack_rays(o, d, 0.0, torch.from_numpy(scene["tmax"]), N_RAYS)
+    rays = torch.cat([rays, rays.flip(1)], dim=1)
+    sid_blk, q, best = k5_edge_operand(pb, rays)
+    t, row, u, v = tb.plain(pb, sid_blk, q, best, 256, any_hit)
+    t_in, row_in, u_in, v_in = best
+    cap = torch.minimum(t_in, q[7])
+    L = pb.sub_leaves * ts.LEAF
+    sid = sid_blk.to(torch.int64).repeat_interleave(256)
+    h_t = torch.full_like(t_in, 2.0e32)
+    h_row = torch.full_like(row_in, -1)
+    h_u, h_v = torch.zeros_like(u_in), torch.zeros_like(v_in)
+    for s in sid_blk.tolist():
+        if s < 0:
+            continue
+        lanes = sid == s
+        h = traverse.closest_hit_threaded(ts.subtree_resident(pb, s),
+                                          Vec3(*q[0:3, lanes]), Vec3(*q[3:6, lanes]),
+                                          q[6, lanes], q[7, lanes])
+        h_t[lanes], h_u[lanes], h_v[lanes] = h.t, h.u, h.v
+        h_row[lanes] = torch.where(h.tri >= 0, h.tri + s * L, -1).to(torch.int32)
+    live = (sid >= 0) & (cap > q[6]) & ~(any_hit & (row_in >= 0))
+    took = live & (h_row >= 0) & (h_t < cap)
+    kept_t = torch.where(row_in < 0, 2.0e32, cap)
+    if any_hit:
+        want = (torch.where(took, cap, kept_t),
+                torch.where(took, (sid * L).to(torch.int32), row_in), u_in, v_in)
+    else:
+        want = (torch.where(took, h_t, kept_t), torch.where(took, h_row, row_in),
+                torch.where(took, h_u, u_in), torch.where(took, h_v, v_in))
+    for got, exp in zip((t, row, u, v), want):
+        assert torch.equal(got, exp)
+    passed = sid < 0
+    empty = q[7] <= q[6]
+    assert passed.any() and (empty & (sid >= 0)).any()
+    assert (took & (row_in >= 0)).any() == (not any_hit)
+    assert took.any() and (live & ~took & (h_row >= 0)).any()
 
 
 # ---------------------------------------------------------------------------

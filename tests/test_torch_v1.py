@@ -19,6 +19,14 @@ CPU.
 - The plain v1 walk against the plain K1 walk on the same leaf-128 tree:
   a packet walk and a per-ray walk differ only at grazing corners, and on
   these queues nowhere (the count of differing lanes is asserted).
+- K8b's plain version, the per-lane walk ``plain_lanes`` (K1's plain walk
+  over the v1 tables), against the packet ``plain`` (bitwise; the grazing
+  lanes where they differ are counted, 0 here) and the reference's
+  ``_kernel_lane`` in interpret mode, closest, any-hit and merged, on the
+  field-major grid and on a tie scene (``test_torch_cuda.tie_world``, the
+  table forced field-major) whose rays hit equal-t triangles in two leaves;
+  the wrappers take ``plain_lanes`` for a field-major table on the CPU and
+  ``plain`` for a row-major one.
 - The route: ``RPTR_TRAVERSAL_V1`` wins over ``RPTR_TRAVERSAL_V3=1``, the
   streamed route above 90,000 triangles ignores it, ``set_scene`` packs
   the row-major table for cornell and the field-major one for 9,522
@@ -70,6 +78,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops import traverse_v1 as tv
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
+from test_torch_cuda import tie_world  # noqa: E402
 from test_traverse_kernels import _rays, _terrain  # noqa: E402
 from test_torch_wavefront import _env  # noqa: E402
 
@@ -263,6 +272,153 @@ def test_plain_matches_k1_walk(layout):
     tmax_o = torch.from_numpy(_reference(layout)["tmax_o"])
     assert torch.equal(tv.occluded_v1(vb, o, d, 0.0, tmax_o),
                        tr.occluded_resident(rb, o, d, 0.0, tmax_o))
+
+
+def _lane_modes(vb, rays, orays):
+    """(mode, per-lane output, packet output, first any-hit lane) of the
+    plain versions on packed operands in the table's layout: closest on
+    ``rays``, any-hit on ``orays``, and the merged launch of ``rays``' whole
+    packets, then ``orays``' as its shadow packets."""
+    axis = 1 if vb.wide else 0
+    np_c = rays.shape[axis]
+    merged = torch.cat([rays, orays], dim=axis).contiguous()
+    return [(name, tv.plain_lanes(vb, q, a, f), tv.plain(vb, q, a, f), first)
+            for name, q, a, f, first in (
+                ("closest", rays, False, -1, np_c),
+                ("anyhit", orays, True, -1, 0),
+                ("merged", merged, False, np_c // tv.BLOCK, np_c))]
+
+
+def _grazing_lanes(vb, modes):
+    """The lanes where per-lane and packet outputs differ: on closest lanes
+    any value (bitwise), on any-hit lanes the flag."""
+    differ = 0
+    for _, lanes, packet, first in modes:
+        bits = [(x if vb.wide else x.t()).contiguous().view(torch.int32)
+                for x in (lanes, packet)]
+        differ += int((bits[0][:, :first] != bits[1][:, :first]).any(dim=0).sum())
+        differ += int(((bits[0][1, first:] >= 0) != (bits[1][1, first:] >= 0)).sum())
+    return differ
+
+
+def test_lanes_plain_matches_packet_and_reference():
+    """K8b's per-lane plain version on the field-major grid (9,522 tris):
+    against the packet walk bitwise on every closest lane (t, row, u, v)
+    and on the any-hit flags, no grazing lane; against the reference's
+    ``_kernel_lane`` in interpret mode at the file's tolerance, closest,
+    any-hit and merged."""
+    ref = _reference("lane")
+    vb = tv.pack_v1(_tree("lane"))
+    assert not vb.wide
+    (ro, rd, tmax), (ro_s, rd_s, tmin_s, tmax_s) = _queues()
+    rays, n = tv.prep_rays(_soa(ro), _soa(rd), 0.0, torch.from_numpy(tmax), False)
+    orays, _ = tv.prep_rays(_soa(ro), _soa(rd), 0.0,
+                            torch.from_numpy(ref["tmax_o"]), False)
+    modes = _lane_modes(vb, rays, orays)
+    assert _grazing_lanes(vb, modes) == 0
+    closest, anyhit = modes[0][1], modes[1][1]
+    _assert_hit_close(tv._hit(vb, *tv._fields(vb, closest, 0, n), True),
+                      ref["closest"])
+    np.testing.assert_array_equal(
+        (tv._fields(vb, anyhit, 0, n)[1] >= 0).numpy(), ref["anyhit"])
+    # the merged wrapper on the reference's two queues
+    hit, blocked = tv.closest_and_occluded_v1(
+        vb, _comps(ro, torch.from_numpy) + _comps(rd, torch.from_numpy), 0.0,
+        torch.from_numpy(tmax),
+        _comps(ro_s, torch.from_numpy) + _comps(rd_s, torch.from_numpy),
+        torch.from_numpy(tmin_s), torch.from_numpy(tmax_s))
+    ref_hit, ref_blocked = ref["merged"]
+    _assert_hit_close(hit, ref_hit)
+    np.testing.assert_array_equal(blocked.numpy(), ref_blocked)
+
+
+def _tie_case():
+    """The tie scene's triangles in one leaf-128 SAH tree (the JAX
+    package's builder), and its rays (ro, rd, tmax, any-hit tmax)."""
+    (v0, e1, e2), rays = tie_world()
+    return jbvh.build_threaded_bvh(v0, e1, e2, leaf_size=128, builder="sah"), rays
+
+
+def test_tie_scene_has_ties_across_leaves():
+    """The tie scene's rays reach their nearest t on triangles of two
+    leaves (the instances that share a transform), so the walk's order
+    decides which triangle they report."""
+    tb, (ro, rd, tmax, _) = _tie_case()
+    rows = torch.from_numpy(np.asarray(tb.tri_rows[:, 0:9], np.float32))
+    o, d = (torch.from_numpy(a)[:, None, :] for a in (ro, rd))
+    ok, _, _, tt = tr.traverse._mt_rows(rows[None], *(o[..., k] for k in range(3)),
+                                        *(d[..., k] for k in range(3)))
+    hit = ok & (tt > 0) & (tt < torch.from_numpy(tmax)[:, None])
+    tt = torch.where(hit, tt, 2.0e32)
+    least = tt == tt.amin(dim=1, keepdim=True)
+    leaves = [torch.unique(torch.nonzero(least[i] & hit[i])[:, 0] // 128).numel()
+              for i in range(len(ro))]
+    assert sum(k >= 2 for k in leaves) >= 16
+
+
+@pytest.mark.parametrize("mode", ["closest", "anyhit", "merged"])
+def test_tie_scene_lanes_packet_and_reference(mode, monkeypatch):
+    """The tie scene packed field-major (both packages' row-count threshold
+    set to 0 for the call): per-lane plain, packet plain and the
+    reference's ``_kernel_lane`` in interpret mode agree exactly (the
+    arithmetic is exact in any order): triangle ids and t bitwise, u and v
+    bitwise, any-hit flags equal; no grazing lane."""
+    monkeypatch.setattr(tv, "WIDE_MAX_ROWS", 0)
+    monkeypatch.setattr(jtp, "WIDE_MAX_ROWS", 0)
+    tb, (ro, rd, tmax, otm) = _tie_case()
+    vb, bb = tv.pack_v1(tb), jtp.pack_for_pallas(tb)
+    assert not vb.wide and bb.tris_s.shape[0] == 16
+    n = len(ro)
+    rays, _ = tv.prep_rays(_soa(ro), _soa(rd), 0.0, torch.from_numpy(tmax), False)
+    orays, _ = tv.prep_rays(_soa(ro), _soa(rd), 0.0, torch.from_numpy(otm), False)
+    modes = [m for m in _lane_modes(vb, rays, orays) if m[0] == mode]
+    assert _grazing_lanes(vb, modes) == 0
+    out, first = modes[0][1], modes[0][3]
+    with _interpret():
+        if mode == "closest":
+            want = jtp.closest_hit_pallas(bb, jnp.asarray(ro), jnp.asarray(rd),
+                                          t_max=jnp.asarray(tmax), map_tri=False)
+        elif mode == "anyhit":
+            want = jtp.occluded_pallas(bb, jnp.asarray(ro), jnp.asarray(rd),
+                                       t_max=jnp.asarray(otm))
+        else:
+            comps = _comps(ro, jnp.asarray) + _comps(rd, jnp.asarray)
+            want = jtp.closest_and_occluded_pallas(
+                bb, comps, 0.0, jnp.asarray(tmax), comps, 0.0, jnp.asarray(otm),
+                map_tri=False)
+    if mode == "anyhit":
+        flags = tv._fields(vb, out, 0, n)[1] >= 0
+        np.testing.assert_array_equal(flags.numpy(), np.asarray(want))
+        assert flags.any() and not flags.all()
+        return
+    hit_want = want if mode == "closest" else want[0]
+    got = tv._fields(vb, out, 0, n)
+    for a, b in zip(got, hit_want):
+        np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                      np.asarray(b).view(np.int32))
+    assert (got[1] >= 0).any() and (got[0][got[1] >= 0] == 5.0).all()
+    if mode == "merged":
+        flags = tv._fields(vb, out, first, first + n)[1] >= 0
+        np.testing.assert_array_equal(flags.numpy(), np.asarray(want[1]))
+
+
+def test_wrappers_pick_the_plain_version_by_layout(monkeypatch):
+    """On CPU tensors the wrappers run the per-lane walk for a field-major
+    table (K8b) and the packet walk for a row-major one (K8a)."""
+    calls = []
+    for name in ("plain", "plain_lanes"):
+        fn = getattr(tv, name)
+        monkeypatch.setattr(tv, name, lambda *a, fn=fn, name=name: (
+            calls.append(name), fn(*a))[1])
+    (ro, rd, tmax), _ = _queues()
+    for layout, want in (("wide", "plain"), ("lane", "plain_lanes")):
+        vb = tv.pack_v1(_tree(layout))
+        calls.clear()
+        tv.closest_hit_v1(vb, _soa(ro[:600]), _soa(rd[:600]))
+        tv.occluded_v1(vb, _soa(ro[:600]), _soa(rd[:600]), 0.0, 1.0)
+        comps = _comps(ro[:600], torch.from_numpy) + _comps(rd[:600], torch.from_numpy)
+        tv.closest_and_occluded_v1(vb, comps, 0.0, 2.0e32, comps, 0.0, 1.0)
+        assert calls == [want] * 3
 
 
 def test_compact_is_ignored():
