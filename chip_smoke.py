@@ -64,7 +64,7 @@ Phases (each raises on failure):
      render time beside the script's CUDA-event time, and its last frame's
      display image (readback_framebuffer, Reinhard-tonemapped) must be
      finite and in [0, 1];
-  5d. the V1 paths (RPTR_TRAVERSAL_V1=1, the v1 packet walk) at 1920x1080,
+  5d. the V1 paths (RPTR_TRAVERSAL_V1=1, the v1 walk) at 1920x1080,
      1 spp, depth 9: cornell through K8a (its sample 0 bitwise the K1
      route's, both trees one node), cornell PT_WAVEFRONT through merged K8a
      launches only (sample 0 bitwise the V1 megakernel's),
@@ -156,19 +156,20 @@ Phases (each raises on failure):
      merged launch equal to its plain version (the plain closest walk on
      the first queue, the plain occluded walk on the second) and to the
      kernel's two separate launches, bitwise; timed with CUDA events beside
-     the sum of the two halves' bounds and the two separate launches.
+     the sum of the two halves' bounds and the two separate launches (K1
+     also by its own launches, beside the wrapper's time).
  15. K8a and K8b on each V1 path's primary chunk with the most hits, a
      bounce-1 chunk (unsorted, as V1 dispatches it) and its sun shadow
-     queue: closest, any-hit and merged, each bitwise its plain version (K8a
-     the packet walk, K8b the per-lane walk) and the merged launch bitwise
-     the two single-mode launches, timed with CUDA events beside the bound
-     of each queue over the V1 tree's leaf boxes and the plain version; on
-     the K8b paths (terrain200, the village) K8b against K1's walk of the
-     same leaf-128 tree (triangles and t on every lane of the primary and
-     bounce-1 chunks, flags on the shadow queue: no lane may differ), and
-     the lanes where K8b differs from the packet walk (the reference's
-     function) counted, each shown to be grazing (its packet hit's leaf box,
-     or an ancestor's, fails the lane's own slab test);
+     queue: closest, any-hit and merged, each bitwise its plain version (the
+     per-lane walk) and the merged launch bitwise the two single-mode
+     launches, timed by their own launches and through the wrapper with
+     CUDA events beside the bound of each queue over the V1 tree's leaf
+     boxes and the plain version; on every V1 path the kernel against K1's
+     walk of the same leaf-128 tree (triangles and t on every lane of the
+     primary and bounce-1 chunks, flags on the shadow queue: no lane may
+     differ), and the lanes where it differs from the packet walk (the
+     reference's function) counted, each shown to be grazing (its packet
+     hit's leaf box, or an ancestor's, fails the lane's own slab test);
  16. Renderer.render_ray_queries, closest-hit and integrator modes, and
      render_aovs / readback_aov at 64x36 on the card against the port's
      CPU run: cornell (K1 and V1), terrain200 (K2 and V1), a 48x48-grid
@@ -178,8 +179,12 @@ Phases (each raises on failure):
      last bits between the card and the CPU: torch divides a CUDA tensor
      by a scalar through its reciprocal, so a ray that grazes an edge can
      hit another triangle).
-Its last two lines are the kernels' JSON record (K8a and K8b each with a
-merged record, K8b with its grazing lanes) and the result JSON.
+Every bound counts the rows of each pierced leaf up to its real-row count
+(the rows past it repeat the leaf's last triangle), and logs the bound over
+the padded leaves beside it. Its last two lines are the kernels' JSON
+record (K1, K8a and K8b with their kernel-only ms and the wrapper's beside
+them, K8a and K8b each with a merged record and their grazing lanes) and
+the result JSON.
 """
 
 import contextlib
@@ -345,10 +350,34 @@ def _bitwise(a, b):
     return int((a != b).sum()), 0.0
 
 
+def raw_ms(run, iters=50):
+    """Kernel-only ms of one launch: CUDA events around ``iters`` raw
+    launches (``run``, a wrapper module's ``bind``: operands and outputs
+    built beforehand, no wrapper around the launch)."""
+    def launch():
+        rc = run()
+        if rc != 0:
+            raise RuntimeError(f"raw launch failed (cudaError {rc})")
+    return cuda_ms(launch, iters)
+
+
+def k1_kernel_ms(bvh, rays, shadow_from, iters=50):
+    """K1's kernel-only ms on a packed (8, n) operand (``raw_ms``), in the
+    leaf service and row-table placement the wrapper picks."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+
+    rays = rays.contiguous()
+    return raw_ms(tr.bind(bvh, tuple(rays[0:6]), rays[6], rays[7],
+                          shadow_from)[0], iters)
+
+
 def compare_queue(label, bvh, ro, rd, tmax=None, iters=20):
     """K1 vs plain on one queue (numpy (n,3) origins/directions), both
-    modes. Returns (max_abs_err, kernel_ms, plain_ms) of the closest mode
-    and the closest-hit t (numpy) for building occlusion queues."""
+    modes. Returns max_abs_err, the closest mode's record (kernel-only ms,
+    the wrapper's ms, the plain version's ms) and the closest-hit t (numpy)
+    for building occlusion queues."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse
@@ -371,15 +400,17 @@ def compare_queue(label, bvh, ro, rd, tmax=None, iters=20):
         a, b = a.cpu().numpy()[same], b.cpu().numpy()[same]
         bit_mismatch += int((a.view(np.int32) != b.view(np.int32)).sum())
         err = max(err, float(np.abs(a - b).max(initial=0.0)))
-    k_ms = cuda_ms(lambda: tr.closest_hit_resident(bvh, o, d, 0.0, t_max), iters)
+    w_ms = cuda_ms(lambda: tr.closest_hit_resident(bvh, o, d, 0.0, t_max), iters)
+    rays, _ = tr.pack_rays(o, d, 0.0, t_max)
+    k_ms = k1_kernel_ms(bvh, rays, -(-rays.shape[1] // tr.BLOCK))
     p_ms = cuda_ms(lambda: traverse.closest_hit_threaded(bvh, o, d, 0.0, t_max), 3)
     hits = float((rows_k >= 0).mean())
     log(f"  {label:28s} closest: rows {row_mismatch} mismatched, t/u/v "
-        f"{bit_mismatch} not bitwise, hit {hits:.3f}, kernel {k_ms:.3f} ms, "
-        f"plain {p_ms:.3f} ms")
+        f"{bit_mismatch} not bitwise, hit {hits:.3f}, kernel {k_ms:.4f} ms "
+        f"(through the wrapper {w_ms:.4f} ms), plain {p_ms:.3f} ms")
     check(row_mismatch == 0 and bit_mismatch == 0,
           f"{label}: K1 closest disagrees with its plain version")
-    return err, k_ms, p_ms, hk.t.cpu().numpy()
+    return err, {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms}, hk.t.cpu().numpy()
 
 
 def compare_occlusion(label, bvh, ro, rd, tmax, iters=20):
@@ -396,10 +427,12 @@ def compare_occlusion(label, bvh, ro, rd, tmax, iters=20):
     bk = tr.occluded_resident(bvh, o, d, 0.0, tm).cpu().numpy()
     bp = traverse.occluded_threaded(bvh, o, d, 0.0, tm).cpu().numpy()
     mismatch = int((bk != bp).sum())
-    k_ms = cuda_ms(lambda: tr.occluded_resident(bvh, o, d, 0.0, tm), iters)
+    w_ms = cuda_ms(lambda: tr.occluded_resident(bvh, o, d, 0.0, tm), iters)
+    k_ms = k1_kernel_ms(bvh, tr.pack_rays(o, d, 0.0, tm)[0], 0)
     p_ms = cuda_ms(lambda: traverse.occluded_threaded(bvh, o, d, 0.0, tm), 3)
     log(f"  {label:28s} occluded: {mismatch} flags mismatched, blocked "
-        f"{bk.mean():.3f}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+        f"{bk.mean():.3f}, kernel {k_ms:.4f} ms (through the wrapper "
+        f"{w_ms:.4f} ms), plain {p_ms:.3f} ms")
     check(mismatch == 0, f"{label}: K1 any-hit disagrees with its plain version")
 
 
@@ -442,13 +475,16 @@ def _k1(fb, rays, any_hit):
     return fn(fb, Vec3(*rays[0:3]), Vec3(*rays[3:6]), rays[6], rays[7])
 
 
-def bound(aabbs, leaf_size, rays, t_end, any_hit):
+def bound(aabbs, leaf_size, rays, t_end, any_hit, real_rows=None):
     """Least time the card could take for this queue's traversal (ms), and
     what bounds it: the larger of the bytes (32 B in per ray, 16 B out, 1 B
-    for a blocked flag) over the memory rate and of 54 flops times the
-    leaf size times the (ray, leaf) pairs whose box the ray's segment
-    [tmin, min(tmax, t_end)] pierces (the plain feeder's exact test, on
-    this queue's data) over the f32 rate. Returns (ms, bound_by, pairs)."""
+    for a blocked flag) over the memory rate and of 54 flops times the rows
+    of each (ray, leaf) pair whose box the ray's segment [tmin, min(tmax,
+    t_end)] pierces (the plain feeder's exact test, on this queue's data)
+    over the f32 rate: each leaf's real-row count ``real_rows`` (the rows
+    past it repeat the leaf's last triangle, so the function needs none of
+    them), else ``leaf_size``; with ``real_rows`` it also logs the bound
+    over the padded leaves beside it. Returns (ms, bound_by, pairs)."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
@@ -456,11 +492,22 @@ def bound(aabbs, leaf_size, rays, t_end, any_hit):
     seg = rays.clone()
     seg[7] = torch.minimum(rays[7], t_end)
     n, lpad = rays.shape[1], aabbs.shape[1]
+    weight = torch.full((lpad,), leaf_size, dtype=torch.int64, device=rays.device)
+    if real_rows is not None:
+        weight[:real_rows.shape[0]] = real_rows
     step = max(1, (1 << 23) // lpad)
-    pairs = sum(int(tf.ray_leaf_hits(seg[:, s:s + step], aabbs).sum())
-                for s in range(0, n, step))
+    pairs = rows = 0
+    for s in range(0, n, step):
+        hits = tf.ray_leaf_hits(seg[:, s:s + step], aabbs)
+        pairs += int(hits.sum())
+        rows += int((hits.sum(0) * weight).sum())
     bytes_ms = n * (RAY_BYTES + (1 if any_hit else HIT_BYTES)) / PEAK_BYTES_PER_S * 1e3
-    ops_ms = MT_FLOPS * leaf_size * pairs / PEAK_F32_FLOPS * 1e3
+    ops_ms = MT_FLOPS * rows / PEAK_F32_FLOPS * 1e3
+    if real_rows is not None:
+        padded = MT_FLOPS * leaf_size * pairs / PEAK_F32_FLOPS * 1e3
+        log(f"    bound over {pairs} ray-leaf pairs: {rows} real rows of "
+            f"{leaf_size * pairs} padded, {max(bytes_ms, ops_ms):.4f} ms "
+            f"(over padded leaves {max(bytes_ms, padded):.4f} ms)")
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), pairs
 
 
@@ -488,15 +535,16 @@ def compare_flat_queue(label, fb, rays, kernels, rng, iters=3):
     flags, t/u/v bit patterns); K3 also equal to the reference's function,
     the group-of-q plain version (each leaf any lane of the group enters,
     for every lane), with the pairs each tests. Returns {kernel: record}
-    with the closest mode's times, max error and bound, and K1's time on
-    the queue."""
+    with the closest mode's times, max error and bound, and K1's
+    kernel-only time on the queue."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 
     h1 = _k1(fb, rays, False)
-    k1_ms = cuda_ms(lambda: _k1(fb, rays, False), iters)
-    b_ms, b_by, pairs = bound(fb.aabbs, fb.leaf_size, rays, h1.t, False)
+    k1_ms = k1_kernel_ms(fb, rays, -(-rays.shape[1] // 128))
+    b_ms, b_by, pairs = bound(fb.aabbs, fb.leaf_size, rays, h1.t, False,
+                              fb.real_rows)
     # occlusion segments just short of (0.999 t) or past (1.001 t) each hit
     live = rays[7] > rays[6]
     scale = torch.from_numpy(np.where(
@@ -506,7 +554,7 @@ def compare_flat_queue(label, fb, rays, kernels, rng, iters=3):
     orays[7] = torch.where(live, torch.where(h1.tri >= 0, h1.t * scale, 1e30),
                            rays[7])
     b1 = _k1(fb, orays, True)
-    k1_occ_ms = cuda_ms(lambda: _k1(fb, orays, True), iters)
+    k1_occ_ms = k1_kernel_ms(fb, orays, 0)
     out = {}
     for name, q in kernels:
         hk = tf.launch(name, fb, rays, q, False)
@@ -643,12 +691,17 @@ def merged_k1(bvh, ro, rd, t, lights, rng):
     aabbs = torch.from_numpy(tf.leaf_aabbs_for(
         bvh.tri_rows.cpu().numpy(), bvh.leaf_size)).to(dev)
     t_dev = torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(dev)
-    b_ms = (bound(aabbs, bvh.leaf_size, c, t_dev, False)[0]
-            + bound(aabbs, bvh.leaf_size, sh, sh[7], True)[0])
-    return compare_merged(
+    b_ms = (bound(aabbs, bvh.leaf_size, c, t_dev, False, bvh.real_rows)[0]
+            + bound(aabbs, bvh.leaf_size, sh, sh[7], True, bvh.real_rows)[0])
+    rec = compare_merged(
         "K1 cornell primary chunk + NEE shadow queue",
         lambda x, k: tr.merged_launch(bvh, x, k),
         lambda x, k: tr.merged_plain(bvh, x, k), separate, rays, nc, b_ms)
+    k_ms = k1_kernel_ms(bvh, rays, nc // tr.BLOCK)
+    sep_ms = (k1_kernel_ms(bvh, c, nc // tr.BLOCK) + k1_kernel_ms(bvh, sh, 0))
+    log(f"  K1 merged: kernel {k_ms:.4f} ms (through the wrapper "
+        f"{rec['ms']:.4f} ms), the two single-mode kernels {sep_ms:.4f} ms")
+    return dict(rec, ms=k_ms, wrapper_ms=rec["ms"], separate_kernel_ms=sep_ms)
 
 
 def phase_parity(smi):
@@ -697,16 +750,16 @@ def phase_parity(smi):
     bvh = r.device_scene.bvh
     log(f"K1 vs plain, cornell ({bvh.tri_rows.shape[0]} rows, leaf "
         f"{bvh.leaf_size}, {bvh.num_nodes} nodes), {ro.shape[0]} rays:")
-    err, k_ms, p_ms, t = compare_queue("cornell primary", bvh, ro, rd)
+    err, rec, t = compare_queue("cornell primary", bvh, ro, rd)
     # K1's bound at the main path's shape: the flat cull's leaf boxes of
     # cornell measure the pierced leaves
     aabbs = torch.from_numpy(tf.leaf_aabbs_for(
         bvh.tri_rows.cpu().numpy(), bvh.leaf_size)).to(DEVICE)
     rays, _ = tr.pack_rays(_soa(ro, DEVICE), _soa(rd, DEVICE), 0.0, 2.0e32)
     b_ms, b_by, _pairs = bound(aabbs, bvh.leaf_size, rays,
-                               torch.from_numpy(t).to(DEVICE), False)
-    k1 = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err, "bound_ms": b_ms,
-          "bound_by": b_by}
+                               torch.from_numpy(t).to(DEVICE), False,
+                               bvh.real_rows)
+    k1 = dict(rec, max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
     log(f"K1 merged mode, {smi}:")
     k1["merged"] = merged_k1(bvh, ro, rd, t, r.device_scene.lights, rng)
     hit = t < 1e30
@@ -731,7 +784,7 @@ def phase_parity(smi):
         lo, hi = flat.v0.min(0), flat.v0.max(0)
         coherent, incoherent = _terrain_queues(lo, hi, rng)
         for name, (qo, qd) in (("coherent", coherent), ("incoherent", incoherent)):
-            e, _, _, t = compare_queue(f"terrain{grid} {name}", fb, qo, qd)
+            e, _, t = compare_queue(f"terrain{grid} {name}", fb, qo, qd)
             err = max(err, e)
             compare_occlusion(f"terrain{grid} {name}", fb, qo, qd,
                               _occlusion_tmax(t, rng))
@@ -819,8 +872,8 @@ def phase_flat(smi):
     nc = bounce.shape[1]
     rays = torch.cat([bounce, shadow], dim=1).contiguous()
     t_b = tf.launch(tf.K2, fb, bounce, 128, False)[0]
-    b_ms = (bound(fb.aabbs, fb.leaf_size, bounce, t_b, False)[0]
-            + bound(fb.aabbs, fb.leaf_size, shadow, shadow[7], True)[0])
+    b_ms = (bound(fb.aabbs, fb.leaf_size, bounce, t_b, False, fb.real_rows)[0]
+            + bound(fb.aabbs, fb.leaf_size, shadow, shadow[7], True, fb.real_rows)[0])
     log(f"K2 merged mode, {smi}:")
     rec[tf.K2]["merged"] = compare_merged(
         "K2 terrain200 bounce 1 sorted + sun shadow queue",
@@ -2368,9 +2421,9 @@ def _v1_fields(bvh, out):
 
 def compare_v1(label, bvh, rays, any_hit, shadow_from=-1, iters=5):
     """K8 on one packed (8, n) queue (given to the kernel in its layout)
-    against its plain version bitwise: K8a the packet walk ``plain``, K8b
-    the per-lane walk ``plain_lanes``. Returns ((t, row, u, v), record) with
-    the kernel's and the plain version's ms."""
+    against its plain version, the per-lane walk ``plain_lanes``, bitwise.
+    Returns ((t, row, u, v), record) with the kernel-only ms (``raw_ms``),
+    the wrapper's and the plain version's ms."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import (
@@ -2378,22 +2431,23 @@ def compare_v1(label, bvh, rays, any_hit, shadow_from=-1, iters=5):
     )
 
     op = rays if bvh.wide else rays.t().contiguous()
-    plain = tv.plain if bvh.wide else tv.plain_lanes
     k = tv.launch(bvh, op, any_hit, shadow_from)
     torch.cuda.synchronize()
-    p, p_ms = _plain_ms(lambda: plain(bvh, op, any_hit, shadow_from))
+    p, p_ms = _plain_ms(lambda: tv.plain_lanes(bvh, op, any_hit, shadow_from))
     kf, pf = _v1_fields(bvh, k), _v1_fields(bvh, p)
     bad, err = _equal(kf, pf)
-    k_ms = cuda_ms(lambda: tv.launch(bvh, op, any_hit, shadow_from), iters)
+    w_ms = cuda_ms(lambda: tv.launch(bvh, op, any_hit, shadow_from), iters)
+    k_ms = raw_ms(tv.bind(bvh, op, any_hit, shadow_from)[0])
     name = "K8a" if bvh.wide else "K8b"
     mode = ("merged" if shadow_from >= 0 else "any-hit" if any_hit else "closest")
     live = int((rays[7] > rays[6]).sum())
     log(f"  {label}: {name} {mode} on {rays.shape[1]} lanes ({live} live): "
         f"{bad} values not bitwise its plain version; hit "
-        f"{(kf[1] >= 0).float().mean().item():.3f}; {k_ms:.3f} ms, plain "
-        f"{p_ms:.1f} ms")
+        f"{(kf[1] >= 0).float().mean().item():.3f}; kernel {k_ms:.4f} ms "
+        f"(through the wrapper {w_ms:.4f} ms), plain {p_ms:.1f} ms")
     check(bad == 0, f"{label}: {name} {mode} disagrees with its plain version")
-    return kf, {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err}
+    return kf, {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+                "max_abs_err": err}
 
 
 def _grazing(bvh, rays, lanes, row, t):
@@ -2430,25 +2484,26 @@ def _grazing(bvh, rays, lanes, row, t):
 
 
 def v1_against_packet(label, bvh, rays, kf, any_hit):
-    """The lanes where K8b's per-lane walk and the packet walk (``plain``,
-    the reference's function) differ on one queue, counted, each checked to
-    be grazing (``_grazing``): t or row in closest mode, the blocked flag in
-    any-hit mode. Returns the count."""
+    """The lanes where the kernel's per-lane walk (K8a or K8b) and the
+    packet walk (``plain``, the reference's function) differ on one queue,
+    counted, each checked to be grazing (``_grazing``): t or row in closest
+    mode, the blocked flag in any-hit mode. Returns the count."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_v1 as tv,
     )
 
-    pf = _v1_fields(bvh, tv.plain(bvh, rays.t().contiguous(), any_hit))
+    op = rays if bvh.wide else rays.t().contiguous()
+    pf = _v1_fields(bvh, tv.plain(bvh, op, any_hit))
     if any_hit:
         differ = (kf[1] >= 0) != (pf[1] >= 0)
     else:
         differ = (_bits(kf[0]) != _bits(pf[0])) | (kf[1] != pf[1])
     lanes = torch.nonzero(differ).squeeze(1)
     graze = _grazing(bvh, rays, lanes, pf[1][lanes], pf[0][lanes])
-    log(f"  {label}: {lanes.numel()} lanes where K8b differs from the packet "
-        f"walk, {sum(graze)} of them grazing")
+    log(f"  {label}: {lanes.numel()} lanes where {'K8a' if bvh.wide else 'K8b'} "
+        f"differs from the packet walk, {sum(graze)} of them grazing")
     check(all(graze), f"{label}: {graze.count(False)} lanes differ from the "
           "packet walk and are not grazing")
     return lanes.numel()
@@ -2499,7 +2554,8 @@ def phase_v1_queues(paths, smi):
         c, prim = _best_chunk(r, cfg, closest_rows)
         log(f"{label} queues ({smi}), primary chunk {c}:")
         hp, prim_rec = compare_v1(f"{label} primary chunk {c}", bvh, prim, False)
-        b_ms, b_by, pairs = bound(aabbs, tv.LEAF, prim, hp[0], False)
+        b_ms, b_by, pairs = bound(aabbs, tv.LEAF, prim, hp[0], False,
+                                  bvh.real_rows)
         bounce, shadow = _next_queues(prim, hp[0], cfg, rng)
         hb, bounce_rec = compare_v1(f"{label} bounce 1 (unsorted)", bvh, bounce,
                                     False)
@@ -2512,52 +2568,50 @@ def phase_v1_queues(paths, smi):
                    + _equal(tuple(x[nc:] for x in hm), hs)[0])
         op_b = bounce if bvh.wide else bounce.t().contiguous()
         op_s = shadow if bvh.wide else shadow.t().contiguous()
-        sep_ms = cuda_ms(lambda: (tv.launch(bvh, op_b, False),
-                                  tv.launch(bvh, op_s, True)), 5)
-        bb_ms, bb_by, bb_pairs = bound(aabbs, tv.LEAF, bounce, hb[0], False)
-        bs_ms, bs_by, bs_pairs = bound(aabbs, tv.LEAF, shadow, shadow[7], True)
+        sep_ms = (raw_ms(tv.bind(bvh, op_b, False)[0])
+                  + raw_ms(tv.bind(bvh, op_s, True)[0]))
+        bb_ms, bb_by, bb_pairs = bound(aabbs, tv.LEAF, bounce, hb[0], False,
+                                       bvh.real_rows)
+        bs_ms, bs_by, bs_pairs = bound(aabbs, tv.LEAF, shadow, shadow[7], True,
+                                       bvh.real_rows)
         log(f"  {label}: merged launch against the two single-mode launches: "
-            f"{sep_bad} values not bitwise; merged {merged_rec['ms']:.3f} ms, "
-            f"separate {sep_ms:.3f} ms; {kernel} {rec['per_frame'][kernel]:.2f} "
+            f"{sep_bad} values not bitwise; merged {merged_rec['ms']:.4f} ms, "
+            f"separate {sep_ms:.4f} ms (kernel-only); {kernel} {rec['per_frame'][kernel]:.2f} "
             f"launches per frame; bounds: primary chunk {b_ms:.4f} ms by "
             f"{b_by} ({pairs} ray-leaf pairs), bounce 1 {bb_ms:.4f} ms by "
             f"{bb_by} ({bb_pairs}), sun shadow {bs_ms:.4f} ms by {bs_by} "
             f"({bs_pairs}), merged pair {bb_ms + bs_ms:.4f} ms")
         check(sep_bad == 0, f"{label}: merged launch differs from separate launches")
-        if kernel == "K8b":
-            # K1's per-ray walk over the same leaf-128 tree: K8b's function
-            flat = r.scene.flatten_world()
-            tb = bvh_mod.thread_bvh(
-                bvh_mod.build_bvh_sah(flat.v0, flat.e1, flat.e2, leaf_size=tv.LEAF),
-                flat.v0, flat.e1, flat.e2)
-            check(torch.equal(tv.pack_v1(tb, DEVICE).tris, bvh.tris),
-                  f"{label}: the rebuilt tree is not the renderer's")
-            rb = tr.pack_resident(tb, DEVICE)
-            for qname, q, h in (("primary", prim, hp), ("bounce 1", bounce, hb)):
-                h1 = _k1(rb, q, False)
-                differ = int(((h1.tri != h[1]) | (_bits(h1.t) != _bits(h[0]))).sum())
-                log(f"  {label} {qname}: {differ} of {q.shape[1]} lanes where "
-                    f"K8b's triangle or t differs from K1's walk of the same tree")
-                check(differ == 0, f"{label} {qname}: K8b and K1 differ on "
-                      f"{differ} lanes")
-            b1 = _k1(rb, shadow, True)
-            differ = int(((hs[1] >= 0) != b1).sum())
-            log(f"  {label} sun shadow: {differ} lanes where K8b's flag differs "
-                f"from K1's")
-            check(differ == 0, f"{label} sun shadow: K8b and K1 differ")
-            graze = sum(v1_against_packet(f"{label} {qname}", bvh, q, h, a)
-                        for qname, q, h, a in (("primary", prim, hp, False),
-                                               ("bounce 1", bounce, hb, False),
-                                               ("sun shadow", shadow, hs, True)))
-            rec_graze = {"grazing_lanes": graze}
-        else:
-            rec_graze = {}
+        # K1's per-ray walk over the same leaf-128 tree: K8's function
+        flat = r.scene.flatten_world()
+        tb = bvh_mod.thread_bvh(
+            bvh_mod.build_bvh_sah(flat.v0, flat.e1, flat.e2, leaf_size=tv.LEAF),
+            flat.v0, flat.e1, flat.e2)
+        check(torch.equal(tv.pack_v1(tb, DEVICE).tris, bvh.tris),
+              f"{label}: the rebuilt tree is not the renderer's")
+        rb = tr.pack_resident(tb, DEVICE)
+        for qname, q, h in (("primary", prim, hp), ("bounce 1", bounce, hb)):
+            h1 = _k1(rb, q, False)
+            differ = int(((h1.tri != h[1]) | (_bits(h1.t) != _bits(h[0]))).sum())
+            log(f"  {label} {qname}: {differ} of {q.shape[1]} lanes where "
+                f"{kernel}'s triangle or t differs from K1's walk of the same tree")
+            check(differ == 0, f"{label} {qname}: {kernel} and K1 differ on "
+                  f"{differ} lanes")
+        b1 = _k1(rb, shadow, True)
+        differ = int(((hs[1] >= 0) != b1).sum())
+        log(f"  {label} sun shadow: {differ} lanes where {kernel}'s flag differs "
+            f"from K1's")
+        check(differ == 0, f"{label} sun shadow: {kernel} and K1 differ")
+        graze = sum(v1_against_packet(f"{label} {qname}", bvh, q, h, a)
+                    for qname, q, h, a in (("primary", prim, hp, False),
+                                           ("bounce 1", bounce, hb, False),
+                                           ("sun shadow", shadow, hs, True)))
+        rec_graze = {"grazing_lanes": graze}
         if kernel in records:
-            if rec_graze:
-                records[kernel]["grazing_lanes"] += rec_graze["grazing_lanes"]
+            records[kernel]["grazing_lanes"] += graze
             continue
         records[kernel] = dict(prim_rec, launches=launches[kernel],
-                               bound_ms=b_ms, bound_by=b_by, **rec_graze,
+                               bound_ms=b_ms, bound_by=b_by, grazing_lanes=graze,
                                merged=dict(merged_rec, separate_ms=sep_ms,
                                            bound_ms=bb_ms + bs_ms))
     return records
@@ -2795,15 +2849,17 @@ def main():
             # no single PyTorch call computes a BVH closest hit
             "library_ms": None,
         })
-        if "grazing_lanes" in rec:
-            kernels[-1]["grazing_lanes"] = rec["grazing_lanes"]
+        for extra in ("grazing_lanes", "wrapper_ms"):
+            if extra in rec:
+                kernels[-1][extra] = rec[extra]
         for mode in ("merged", "quantized", "ordered", "multislot", "global"):
             if mode in rec:
                 m = rec[mode]
                 kernels[-1][mode] = {
-                    k: m[k] for k in ("launches", "ms", "plain_ms",
-                                      "separate_ms", "k5_ms", "staged_ms",
-                                      "bound_ms", "max_abs_err") if k in m}
+                    k: m[k] for k in ("launches", "ms", "wrapper_ms", "plain_ms",
+                                      "separate_ms", "separate_kernel_ms",
+                                      "k5_ms", "staged_ms", "bound_ms",
+                                      "max_abs_err") if k in m}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@ with the sorted streamed walk K4 for closest hits and one binned round of
 K5 for shadow rays (``RPTR_STREAM_CLOSEST`` picks the closest-hit
 strategy: sorted, ordered, binned or multislot), on f32 tiles or, with
 ``options.quantized_geometry``, 16-bit quantized ones. Up to 90,000
-triangles ``RPTR_TRAVERSAL_V1`` selects the v1 packet walk K8a/K8b
+triangles ``RPTR_TRAVERSAL_V1`` selects the v1 walk K8a/K8b
 (``ops/traverse_v1.py``) at leaf 128: the monolithic pass, unsorted, one
 merged K8 launch per bounce in ``PT_WAVEFRONT`` (renderer.py:815-847,
 1011-1012). With
@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from realtimepathtracingresearchframework_tpu_torch.backend.params import (
+    LIGHT_SAMPLING_VARIANT_RIS,
     REPROJECTION_MODE_ACCUMULATE,
     REPROJECTION_MODE_DISCARD_HISTORY,
     RenderBackendOptions,
@@ -158,7 +159,7 @@ class Route(NamedTuple):
     leaf_size: int
     streamed: bool = False  # the streamed pack, K4 and K5
     tlas: str = ""  # two-level instancing: "k6" or "k7"
-    v1: bool = False  # the v1 packet walk K8a/K8b (RPTR_TRAVERSAL_V1)
+    v1: bool = False  # the v1 walk K8a/K8b (RPTR_TRAVERSAL_V1)
 
 
 def _env_flag(name: str, default: bool) -> bool:
@@ -176,7 +177,7 @@ def route_for(num_tris: int) -> Route:
     flat cull, no per-dispatch sort, no wavefront executor; V1 is ignored
     there, as in the reference). Otherwise ``RPTR_TRAVERSAL_V1`` (any
     non-empty value, as renderer.py:821-838 reads it) selects the v1
-    packet walk K8a/K8b at leaf 128, winning over ``RPTR_TRAVERSAL_V3``,
+    walk K8a/K8b at leaf 128, winning over ``RPTR_TRAVERSAL_V3``,
     with the sort flag from 16,384 triangles (which the v1 dispatches
     ignore); else ``RPTR_TRAVERSAL_V3=1/0`` forces the flat cull on or
     off."""
@@ -513,16 +514,25 @@ class Renderer:
         on K2; ``RPTR_STREAM_CLOSEST`` picks the streamed closest-hit
         strategy. Textures and the alpha test follow the scene; anisotropic
         taps are off on two-level scenes, as there; the ``PT_WAVEFRONT``
-        variant sets ``wavefront`` (renderer.py:1234-1235)."""
+        variant sets ``wavefront`` (renderer.py:1234-1235). Binned RIS
+        light selection is on where the reference's binned-lights extension
+        turns it on: the RIS variant and at least one emitter, with bins of
+        min(bucket count, emitter count) lights (extensions.py:166-200,
+        renderer.py:1116-1124); it is not ported, so such a render raises
+        (``check_supported``)."""
         route = self._route
         compact_lanes = _env_flag("RPTR_COMPACT_LANES",
                                   route.kernel_v3)
+        buckets = int(self.options.light_sampling_bucket_count)
+        use_bins = (self.options.light_sampling_variant
+                    == LIGHT_SAMPLING_VARIANT_RIS and self._num_lights > 0)
         return IntegratorConfig(
             two_level=bool(route.tlas),
             tlas_k6=route.tlas == "k6",
             tlas_stream=route.tlas == "k7",
             max_path_depth=int(params.max_path_depth),
-            light_bin_size=int(self.options.light_sampling_bucket_count),
+            light_bin_size=min(buckets, self._num_lights) if use_bins else buckets,
+            use_light_bins=use_bins,
             num_lights=int(self._num_lights),
             enable_sun_sky=True,
             rng_variant=int(self.options.rng_variant),

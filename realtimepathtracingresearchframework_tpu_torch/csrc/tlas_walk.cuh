@@ -1,6 +1,7 @@
-// The walks of K4 (traverse_streamed.cu), K5 (traverse_binned.cu), K6
-// (traverse_tlas.cu), K7 (traverse_tlas_stream.cu) and K8b
-// (traverse_v1.cu) for Hopper, and the leaf test K3 (traverse_precull.cu)
+// The walks of K1 (traverse_resident.cu), K4 (traverse_streamed.cu), K5
+// (traverse_binned.cu), K6 (traverse_tlas.cu), K7 (traverse_tlas_stream.cu),
+// K8a and K8b (traverse_v1.cu) for Hopper, and the leaf test K3
+// (traverse_precull.cu)
 // shares with them: resumable per-lane walks whose entered leaves the whole
 // warp tests together.
 //
@@ -18,8 +19,9 @@
 // step (Walk::step) advances it to its next entered leaf, or to its end.
 // K5 enters its bin's one subtree directly with a seeded best (Walk's
 // second constructor; the subtree's node block staged in shared memory,
-// kSubGlobal = false) and ends when it leaves it; K8b walks the v1 tree's
-// node array with a walk of its own (traverse_v1.cu).
+// kSubGlobal = false) and ends when it leaves it. K1, K8a and K8b walk one
+// threaded BVH of two tables (Threaded: bounds (M, 6), links (M, 2)) with
+// LaneWalk, and stop each leaf at its real-row count (walk_threaded below).
 //
 // The leaves are tested by the warp (test_leaves): after each step,
 // __ballot_sync finds the lanes that hold a leaf, and the warp serves them
@@ -29,19 +31,38 @@
 // (rows 0-8: v0, e1, e2 xyz of 128 triangles) with one 16-byte __ldg per
 // row, so a leaf is 9 coalesced 512-byte loads (FieldTiles; QuantTiles
 // decodes K4's and K5's 16-bit tiles from 8-byte loads, RowTiles reads
-// K3's row-major leaves of 32, 64 or 128 rows, ColumnTiles K8b's (16, Rp)
-// table); the Moller-Trumbore expressions are those of
+// K1's and K3's row-major leaves of 32, 64 or 128 rows, ColumnTiles K8b's
+// (16, Rp) table, WideRows K8a's (Rp, 16) one); the Moller-Trumbore
+// expressions are those of
 // traverse_pallas2._mt_leaf (mt_hit). A
 // __shfl_xor_sync reduction over (t, k) keeps the least t, then the least
 // k, and the lane holding k hands its u, v to the owner, which takes the
 // hit if it is strictly nearer than its best. Any-hit mode takes
 // __any_sync instead. Lanes past n and lanes whose walk has ended stay in
 // the loop and help until the ballot finds no leaf in the warp (a full-mask
-// shuffle with an exited lane is undefined). K3, K5 and K8b serve a leaf by
-// its number of holders (serve_leaves): one that ``scan_from`` or more
+// shuffle with an exited lane is undefined). K1, K3, K5, K8a and K8b serve a
+// leaf by its number of holders (serve_leaves): one that ``scan_from`` or more
 // lanes hold (a coherent queue) is scanned by each holder itself in k order
 // (scan_leaf: every holder reads the same address, a broadcast), which
 // keeps the same first least hit, and any other through test_leaves.
+//
+// The counted forms (kCounted, used by walk_threaded: K1, K8a, K8b) stop a
+// leaf at its real-row count: a pack pads a leaf by repeating its last
+// triangle, and a row equal bit for bit to an earlier row of its leaf
+// cannot change a result (the scan tested the earlier row first under a cap
+// at least as large, the warp's (t, k) reduction keeps the lower k on a
+// tie, and any-hit has stopped at the earlier row), so the result stays
+// the plain versions' (ops/traverse.py::real_row_counts). The holders'
+// scan stops there: cornell's one leaf of 32 triangles in 128 rows (K8a) is
+// scanned in 8 steps, not 32. The warp's test of a leaf of 128 rows in a
+// row-major table (K8a's WideRows, K1's RowTiles<128>: Tiles::kStrided)
+// takes its rows strided, lane j triangles j, j + 32, ... below the count
+// (one load1 each), so a leaf of c real rows costs ceil(c / 32)
+// Moller-Trumbore steps, not 4: the terrains' leaves of 128 rows hold
+// 56-126 real ones. Elsewhere the warp tests every row, as the uncounted
+// form does: a leaf of 32 rows is one step a lane either way, and K8b's
+// field-major table and leaves of 64 rows were measured faster so (PERF.md);
+// the result is the same.
 //
 #pragma once
 
@@ -179,6 +200,7 @@ __device__ __forceinline__ float lane_of(const float4& q, int s) {
 // coalesced 512-byte loads, 16 bytes a lane.
 struct FieldTiles {
   static constexpr int kPerLane = 4;
+  static constexpr bool kStrided = false;
   const float* __restrict__ tiles;
 
   __device__ __forceinline__ void load(int leaf, int lane,
@@ -208,6 +230,7 @@ struct FieldTiles {
 // names it.
 struct QuantTiles {
   static constexpr int kPerLane = 4;
+  static constexpr bool kStrided = false;
   const int16_t* __restrict__ tiles;
   const float* __restrict__ sub_nodes;
   int rows_per_sub, slots;
@@ -251,7 +274,20 @@ template <int kLS>
 struct RowTiles {
   static_assert(kLS == 32 || kLS == 64 || kLS == 128, "leaf size");
   static constexpr int kPerLane = kLS / 32;
+  // the counted warp test takes a leaf of 128 rows strided (test_leaves)
+  static constexpr bool kStrided = kLS == 128;
   const float* __restrict__ rows;
+
+  // the handle is the leaf index
+  static __device__ __forceinline__ int row0(int leaf) { return leaf * kLS; }
+  static __device__ __forceinline__ int leaf_index(int leaf) { return leaf; }
+
+  // triangle k of the leaf alone (the counted warp test)
+  __device__ __forceinline__ void load1(int leaf, int k, float (&f)[9]) const {
+    const float* p = rows + (static_cast<size_t>(leaf) * kLS + k) * 9;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) f[j] = __ldg(p + j);
+  }
 
   __device__ __forceinline__ void load(int leaf, int lane,
                                        float (&f)[kPerLane][9]) const {
@@ -286,8 +322,16 @@ struct RowTiles {
 // multiples of 128, and the wrapper checks the table's 16-byte alignment.
 struct ColumnTiles {
   static constexpr int kPerLane = 4;
+  // the warp test keeps its coalesced 16-byte loads (test_leaves)
+  static constexpr bool kStrided = false;
   const float* __restrict__ tris;
   int rp;
+
+  // the handle is the leaf's first row
+  static __device__ __forceinline__ int row0(int leaf) { return leaf; }
+  static __device__ __forceinline__ int leaf_index(int leaf) {
+    return leaf / kLeaf;
+  }
 
   __device__ __forceinline__ void load(int leaf, int lane,
                                        float (&f)[4][9]) const {
@@ -306,6 +350,45 @@ struct ColumnTiles {
   }
 };
 
+// The row-major (Rp, 16) triangle table of the v1 walk (K8a): ``leaf`` is
+// the leaf's first row; a row is 64 bytes (v0, e1, e2, then 7 unused
+// floats), so lane j's triangles 4j..4j+3 are four rows, each read with two
+// 16-byte loads and one 4-byte load. Every leaf's first row is a multiple
+// of 128, and the wrapper checks the table's 16-byte alignment.
+struct WideRows {
+  static constexpr int kPerLane = 4;
+  static constexpr bool kStrided = true;
+  const float* __restrict__ tris;
+
+  static __device__ __forceinline__ int row0(int leaf) { return leaf; }
+  static __device__ __forceinline__ int leaf_index(int leaf) {
+    return leaf / kLeaf;
+  }
+
+  // triangle k of the leaf alone (the counted warp test)
+  __device__ __forceinline__ void load1(int leaf, int k, float (&f)[9]) const {
+    const float4* p = reinterpret_cast<const float4*>(
+        tris + static_cast<size_t>(leaf + k) * 16);
+    const float4 a = __ldg(p), b = __ldg(p + 1);
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+    f[8] = __ldg(reinterpret_cast<const float*>(p + 2));
+  }
+
+  __device__ __forceinline__ void load(int leaf, int lane,
+                                       float (&f)[4][9]) const {
+    const float4* p = reinterpret_cast<const float4*>(
+        tris + static_cast<size_t>(leaf + 4 * lane) * 16);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float4 a = __ldg(p + 4 * s), b = __ldg(p + 4 * s + 1);
+      f[s][0] = a.x; f[s][1] = a.y; f[s][2] = a.z; f[s][3] = a.w;
+      f[s][4] = b.x; f[s][5] = b.y; f[s][6] = b.z; f[s][7] = b.w;
+      f[s][8] = __ldg(reinterpret_cast<const float*>(p + 4 * s + 2));
+    }
+  }
+};
+
 // What a leaf gave its owner: the first least hit (k = kNoTri: none; in
 // any-hit mode k = 0 marks a hit)
 struct LeafHit {
@@ -315,17 +398,20 @@ struct LeafHit {
 
 // The warp tests the leaf of every lane in ``pend`` (a ballot), lowest
 // lane first; each lane passes its (object) ray, its cap min(best t, tmax)
-// and its leaf (``Tiles``' handle: a tile row, or a leaf index), which only
-// count where the lane is in ``pend``. Lane j tests the leaf's triangles
-// Tiles::kPerLane * j onwards. Every lane of the warp must call it.
-// Returns this lane's own result.
-template <bool kAnyHit, class Tiles>
+// and its leaf (``Tiles``' handle: a tile row, or a leaf index), and
+// (kCounted) the leaf's real-row count ``rows``, which only count where the
+// lane is in ``pend``. Lane j tests the leaf's triangles Tiles::kPerLane * j
+// onwards (kCounted with a Tiles::kStrided loader: triangles j, j + 32, ...
+// below ``rows``, each from Tiles::load1). Every lane of the warp must call
+// it. Returns this lane's own result.
+template <bool kAnyHit, class Tiles, bool kCounted = false>
 __device__ __forceinline__ LeafHit test_leaves(unsigned pend,
                                                const Tiles& tiles,
                                                const Ray& o, float cap,
-                                               int leaf) {
+                                               int leaf, int rows = 0) {
   constexpr int kPer = Tiles::kPerLane;
   constexpr int kShift = kPer == 4 ? 2 : kPer == 2 ? 1 : 0;
+  constexpr bool kStrided = kCounted && Tiles::kStrided;
   const int lane = threadIdx.x & 31;
   LeafHit mine{0.0f, 0.0f, 0.0f, kNoTri};
   while (pend) {
@@ -340,24 +426,44 @@ __device__ __forceinline__ LeafHit test_leaves(unsigned pend,
     const float tmin = __shfl_sync(kFull, o.tmin, src);
     const float tcap = __shfl_sync(kFull, cap, src);
     const int row = __shfl_sync(kFull, leaf, src);
-    float f[kPer][9];
-    tiles.load(row, lane, f);
+    int nrows = 0;
+    if constexpr (kStrided) nrows = __shfl_sync(kFull, rows, src);
     // this lane's triangles in k order: the first least hit
     float bt = INFINITY, bu = 0.0f, bv = 0.0f;
     int bk = kNoTri;
     bool any = false;
+    if constexpr (kStrided) {
+      for (int k = lane; k < nrows; k += 32) {
+        float f[9];
+        tiles.load1(row, k, f);
+        float tt, uu, vv;
+        const bool hit =
+            mt_hit(f, ox, oy, oz, dx, dy, dz, tmin, tcap, tt, uu, vv);
+        if (kAnyHit) {
+          any = any || hit;
+        } else if (hit && tt < bt) {
+          bt = tt;
+          bu = uu;
+          bv = vv;
+          bk = k;
+        }
+      }
+    } else {
+      float f[kPer][9];
+      tiles.load(row, lane, f);
 #pragma unroll
-    for (int s = 0; s < kPer; ++s) {
-      float tt, uu, vv;
-      const bool hit =
-          mt_hit(f[s], ox, oy, oz, dx, dy, dz, tmin, tcap, tt, uu, vv);
-      if (kAnyHit) {
-        any = any || hit;
-      } else if (hit && tt < bt) {
-        bt = tt;
-        bu = uu;
-        bv = vv;
-        bk = kPer * lane + s;
+      for (int s = 0; s < kPer; ++s) {
+        float tt, uu, vv;
+        const bool hit =
+            mt_hit(f[s], ox, oy, oz, dx, dy, dz, tmin, tcap, tt, uu, vv);
+        if (kAnyHit) {
+          any = any || hit;
+        } else if (hit && tt < bt) {
+          bt = tt;
+          bu = uu;
+          bv = vv;
+          bk = kPer * lane + s;
+        }
       }
     }
     if (kAnyHit) {
@@ -377,9 +483,11 @@ __device__ __forceinline__ LeafHit test_leaves(unsigned pend,
       }
     }
     if (k == kNoTri) continue;  // the same on every lane
-    // lane k / kPer holds triangle k's u, v: its own first least hit is k
-    const float u = __shfl_sync(kFull, bu, k >> kShift);
-    const float v = __shfl_sync(kFull, bv, k >> kShift);
+    // lane k / kPer (strided: k % 32) holds triangle k's u, v: its own
+    // first least hit is k
+    const int holder = kStrided ? k & 31 : k >> kShift;
+    const float u = __shfl_sync(kFull, bu, holder);
+    const float v = __shfl_sync(kFull, bv, holder);
     if (lane == src) mine = LeafHit{t, u, v, k};
   }
   return mine;
@@ -387,17 +495,21 @@ __device__ __forceinline__ LeafHit test_leaves(unsigned pend,
 
 // One lane tests the leaf ``leaf`` (Tiles' handle) itself, in k order
 // against its falling best (the plain scan), Tiles::kPerLane triangles per
-// load (those of lane j of test_leaves, j = 0..31); triangle k is global row
-// row0 + k. Any-hit mode sets b.blocked at the first hit.
-template <bool kAnyHit, class Tiles>
+// load (those of lane j of test_leaves, j = 0..31; kCounted: up to the
+// real-row count ``rows``); triangle k is global row row0 + k. Any-hit mode
+// sets b.blocked at the first hit.
+template <bool kAnyHit, class Tiles, bool kCounted = false>
 __device__ __forceinline__ void scan_leaf(const Tiles& tiles, int leaf,
-                                          int row0, const Ray& r, Best& b) {
+                                          int row0, const Ray& r, Best& b,
+                                          int rows = 0) {
   constexpr int kPer = Tiles::kPerLane;
-  for (int j = 0; j < 32; ++j) {
+  const int groups = kCounted ? (rows + kPer - 1) / kPer : 32;
+  for (int j = 0; j < groups; ++j) {
     float f[kPer][9];
     tiles.load(leaf, j, f);
 #pragma unroll
     for (int s = 0; s < kPer; ++s) {
+      if (kCounted && kPer * j + s >= rows) break;
       float tt, uu, vv;
       if (mt_hit(f[s], r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tmin,
                  fminf(b.t, r.tmax), tt, uu, vv)) {
@@ -422,22 +534,33 @@ __device__ __forceinline__ void scan_leaf(const Tiles& tiles, int leaf,
 // __match_any_sync) is scanned by each holder alone (scan_leaf), every
 // other one by the whole warp (test_leaves); both keep the leaf's first
 // least hit, so the result does not depend on ``scan_from`` (> 32: the
-// warp serves every leaf). Every lane of the warp must call it.
-template <bool kAnyHit, class Tiles>
+// warp serves every leaf). kCounted: each leaf's real-row count is at
+// counts[Tiles::leaf_index(leaf)], where the scan stops, and the warp's
+// test with a Tiles::kStrided loader; a lane loads it only where one of the
+// two reads it. Every lane of the warp must call it.
+template <bool kAnyHit, class Tiles, bool kCounted = false>
 __device__ __forceinline__ void serve_leaves(bool pending, unsigned pend,
                                              const Tiles& tiles, const Ray& r,
                                              int leaf, int row0,
-                                             int scan_from, Best& b) {
+                                             int scan_from, Best& b,
+                                             const int* __restrict__ counts =
+                                                 nullptr) {
   bool scan = false;
   if (scan_from <= 32) {  // uniform over the warp
     const unsigned peers = __match_any_sync(kFull, pending ? leaf : -1);
     scan = pending && __popc(peers) >= scan_from;
   }
+  int rows = 0;
+  if constexpr (kCounted) {
+    if (pending && (scan || Tiles::kStrided)) {
+      rows = __ldg(counts + Tiles::leaf_index(leaf));
+    }
+  }
   const unsigned served = pend & ~__ballot_sync(kFull, scan);
-  const LeafHit h =
-      test_leaves<kAnyHit>(served, tiles, r, fminf(b.t, r.tmax), leaf);
+  const LeafHit h = test_leaves<kAnyHit, Tiles, kCounted>(
+      served, tiles, r, fminf(b.t, r.tmax), leaf, rows);
   if (scan) {
-    scan_leaf<kAnyHit>(tiles, leaf, row0, r, b);
+    scan_leaf<kAnyHit, Tiles, kCounted>(tiles, leaf, row0, r, b, rows);
   } else if (pending && h.k != kNoTri) {
     if (kAnyHit) {
       b.blocked = true;
@@ -586,5 +709,76 @@ struct Walk {
     }
   }
 };
+
+// A threaded BVH of two tables, as K1 and the v1 walk (K8a, K8b) read it:
+// node i's box min3, max3 at bounds[6i] (three 8-byte loads) and its links
+// at links[2i] (one 8-byte load: the skip link, and the leaf's handle in the
+// leaf loader's terms, K1's leaf index or the v1 walk's first leaf row, or
+// -1 for an inner node); each leaf's real-row count at
+// counts[Tiles::leaf_index(handle)] (serve_leaves). The wrappers check the
+// alignment.
+struct Threaded {
+  const float* __restrict__ bounds;
+  const int* __restrict__ links;
+  const int* __restrict__ counts;
+  int num_nodes;
+};
+
+// One lane's resumable walk of a Threaded tree (the plain version:
+// ops/traverse.py::walk_ranges), stepped to its next entered leaf (whose
+// handle it then holds) or to its end: it enters a node when the slab test
+// passes with t_far capped by its best t so far, moves to cur + 1 at an
+// entered inner node, else to the skip link.
+struct LaneWalk {
+  Ray r;
+  Best b;
+  bool done;
+  int cur = 0;
+  int leaf = 0;
+
+  __device__ __forceinline__ bool step(const Threaded& t) {
+    while (!done) {
+      if (cur >= t.num_nodes) {
+        done = true;
+        break;
+      }
+      const float2* bp = reinterpret_cast<const float2*>(t.bounds) + 3 * cur;
+      const float2 lo = __ldg(bp), mid = __ldg(bp + 1), hi = __ldg(bp + 2);
+      const float box[6] = {lo.x, lo.y, mid.x, mid.y, hi.x, hi.y};
+      const int2 l = __ldg(reinterpret_cast<const int2*>(t.links) + cur);
+      const bool hit_box = rptr_stream::slab(box, r, b.t);
+      cur = (hit_box && l.y < 0) ? cur + 1 : l.x;
+      if (hit_box && l.y >= 0) {
+        leaf = l.y;
+        return true;
+      }
+    }
+    return false;
+  }
+};
+
+// One lane's closest hit (b.row = -1: none) or any-hit flag (b.blocked)
+// over a Threaded tree: the lanes step their walks and the warp serves
+// their pending leaves (serve_leaves, counted) until no lane of the warp
+// holds one. ``live``: the lane has a ray (an empty segment, tmax <= tmin,
+// walks nothing, as in walk_ranges). Every lane of the warp must call it.
+template <bool kAnyHit, class Tiles>
+__device__ __forceinline__ Best walk_threaded(const Threaded& t,
+                                              const Tiles& tiles,
+                                              int scan_from, const Ray& r,
+                                              bool live) {
+  LaneWalk w{r, Best{r.tmax, -1, 0.0f, 0.0f, false},
+             !(live && r.tmax > r.tmin)};
+  for (;;) {
+    const bool pending = w.step(t);
+    const unsigned pend = __ballot_sync(kFull, pending);
+    if (pend == 0) break;
+    serve_leaves<kAnyHit, Tiles, true>(pending, pend, tiles, r, w.leaf,
+                                       Tiles::row0(w.leaf), scan_from, w.b,
+                                       t.counts);
+    if (kAnyHit && w.b.blocked) w.done = true;
+  }
+  return w.b;
+}
 
 }  // namespace rptr_tlas

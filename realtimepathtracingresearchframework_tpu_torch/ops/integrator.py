@@ -304,7 +304,7 @@ class IntegratorConfig(NamedTuple):
     wavefront: bool = False
     debug_mode: int = 0
     kernel_v3: bool = False  # K2/K3 flat cull instead of the K1 walk
-    traversal_v1: bool = False  # the v1 packet walk K8a/K8b (RPTR_TRAVERSAL_V1)
+    traversal_v1: bool = False  # the v1 walk K8a/K8b (RPTR_TRAVERSAL_V1)
     kernel_v4: bool = False  # sorted queues on K3 instead of K2
     # streamed closest hits: "sorted" (K4), "ordered" (K4 front to back;
     # K6's ordered instance walk on the K6 route), "binned" (K5 rounds) or

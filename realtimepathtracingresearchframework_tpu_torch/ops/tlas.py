@@ -50,6 +50,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.intersect import (
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
     ResidentBVH,
+    real_row_counts,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     pack_rays,
@@ -258,6 +259,7 @@ def _blas_resident(tb: TwoLevelBuffers, start: int, count: int,
         tri_rows=tb.blas_tri_rows[row0:row0 + rows, 0:9],
         row_tri=tb.blas_row_tri[row0:row0 + rows],
         leaf_size=LEAF_SIZE,
+        real_rows=real_row_counts(tb.blas_tri_rows[row0:row0 + rows], LEAF_SIZE),
     )
 
 

@@ -39,10 +39,29 @@ class ResidentBVH(NamedTuple):
     tri_rows: torch.Tensor  # (R, 9) f32: v0, e1, e2 per row, leaf-major
     row_tri: torch.Tensor  # (R,) i32: source triangle of each row
     leaf_size: int  # rows per leaf; leaf k owns rows [k*ls, (k+1)*ls)
+    real_rows: torch.Tensor  # (R // ls,) i32: each leaf's real_row_counts
 
     @property
     def num_nodes(self) -> int:
         return self.bounds.shape[0]
+
+
+def real_row_counts(tri_rows: torch.Tensor, ls: int) -> torch.Tensor:
+    """(R // ls,) int32: each leaf's real-row count, the least c such that
+    rows [c, ls) of the leaf all equal row c - 1 bit for bit (the packs pad
+    a leaf by repeating its last triangle). Such a row can never change a
+    walk's result: the earlier equal row was tested first under a cap at
+    least as large (a scan), wins the (t, k) tie (a warp's reduction) or
+    has already ended the walk (any-hit). So a kernel may stop a leaf at
+    its count, and its result stays its plain version's bit for bit. From
+    the rows' bits (fields 0-8), not from ``row_tri``, so the skip is exact
+    by construction."""
+    bits = tri_rows[:, 0:9].contiguous().view(torch.int32).reshape(-1, ls, 9)
+    if ls == 1:
+        return torch.ones(bits.shape[0], dtype=torch.int32, device=bits.device)
+    new = (bits[:, 1:] != bits[:, :-1]).any(dim=-1)  # row k differs from k - 1
+    k = torch.arange(1, ls, device=bits.device)
+    return (torch.where(new, k, 0).amax(dim=1) + 1).to(torch.int32)
 
 
 class Hit(NamedTuple):

@@ -93,6 +93,7 @@ class FlatBVH(NamedTuple):
     tri_rows: torch.Tensor  # (R, 9) f32 v0, e1, e2, leaf-major
     row_tri: torch.Tensor  # (R,) i32 source triangle of each row
     leaf_size: int
+    real_rows: torch.Tensor  # (R // leaf_size,) i32 (K1 reads it; K2, K3 not)
     aabbs: torch.Tensor  # (16, Lpad) f32: rows 0-2 min, 3-5 max
     num_leaves: int
     scene_lo: torch.Tensor  # (3,) root node min

@@ -11,8 +11,10 @@ On a CPU tensor the wrapper runs the plain PyTorch version
 (``ops/traverse.py``). On a CUDA tensor it launches the hand-written
 kernel ``csrc/traverse_resident.cu`` (built by ``kernels/build.py`` at
 first use) or raises; it never falls back to the plain version there.
-``launches`` counts kernel launches, so a run can show that it went
-through the kernel.
+The kernel runs tlas_walk.cuh's per-lane walk with warp-served leaves, each
+stopped at its real-row count (``ResidentBVH.real_rows``), at leaf sizes
+32, 64 and 128. ``launches`` counts kernel launches, so a run can show that
+it went through the kernel.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
 KERNEL = "traverse_resident"
 BLOCK = 128  # rays per CUDA block (kBlock of csrc/traverse_resident.cu)
+LEAF_SIZES = (32, 64, 128)
 launches = 0  # K1 launches in this process (reset with reset_launches)
 merged_launches = 0  # of which merged two-queue launches
 
@@ -46,7 +49,8 @@ def pack_resident(tb: ThreadedBVH, device="cpu") -> ResidentBVH:
     """ThreadedBVH (numpy) -> ResidentBVH on ``device``. The numpy half of
     the reference's ``pack_for_pallas2`` (traverse_pallas2.py:88-119):
     node links become the skip index and the LEAF index (row // leaf_size),
-    kept as int32 — never as float values or bit patterns."""
+    kept as int32 — never as float values or bit patterns — and each
+    leaf's real-row count (``traverse.real_row_counts``)."""
     ls = int(tb.leaf_size)
     nodes = np.asarray(tb.nodes, np.float32)
     skip = nodes[:, 6].view(np.int32)
@@ -63,6 +67,7 @@ def pack_resident(tb: ThreadedBVH, device="cpu") -> ResidentBVH:
         tri_rows=torch.from_numpy(rows).to(device),
         row_tri=torch.from_numpy(np.asarray(tb.row_tri, np.int32)).to(device),
         leaf_size=ls,
+        real_rows=traverse.real_row_counts(torch.from_numpy(rows), ls).to(device),
     )
 
 
@@ -74,7 +79,7 @@ def _lib():
     # passed as a 32-bit C int and cut the pointer
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rptr_traverse_resident.argtypes = (
-        [p, p, p, i, i] + [p] * 8 + [i, i] + [p] * 5 + [p]
+        [p, p, p, p, i, i] + [p] * 8 + [i, i] + [p] * 5 + [p, i]
     )
     lib.rptr_traverse_resident.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
@@ -98,19 +103,32 @@ def _check_aligned(name, x, nbytes: int):
         raise ValueError(f"{name}: its data must be {nbytes}-byte aligned")
 
 
-def _launch(bvh: ResidentBVH, comps, tmin, tmax, shadow_from: int):
-    """One K1 launch over n rays in blocks of BLOCK: blocks before
-    ``shadow_from`` run the closest mode, the rest the any-hit mode.
-    Returns ((t, row, u, v) of the closest lanes, blocked flags of the
-    any-hit lanes); either may have no lanes."""
-    global launches
+def bind(bvh: ResidentBVH, comps, tmin, tmax, shadow_from: int,
+         scan_from: int = None):
+    """Check the operands of one K1 launch over n rays in blocks of BLOCK
+    (blocks before ``shadow_from`` run the closest mode, the rest the
+    any-hit mode), allocate its outputs and bind it. ``scan_from`` (a leaf
+    that this many lanes of a warp hold is scanned by each of them alone;
+    > 32 never; default 16, csrc/traverse_resident.cu) forces the leaf
+    service; it does not change the result. Returns (run, (t, row, u, v) of
+    the closest lanes, blocked flags of the any-hit lanes): ``run()``
+    launches the kernel on the current device, uncounted, and returns its
+    CUDA error code (0 = launched); None when there is no lane."""
     dev = comps[0].device
     n = comps[0].shape[0]
     m = bvh.num_nodes
-    r = bvh.tri_rows.shape[0]
+    r, ls = bvh.tri_rows.shape[0], bvh.leaf_size
+    if ls not in LEAF_SIZES:
+        raise ValueError(f"{KERNEL}: leaf size {ls} not in {LEAF_SIZES}")
     _check("bounds", bvh.bounds, torch.float32, (m, 6), dev)
     _check("links", bvh.links, torch.int32, (m, 2), dev)
     _check("tri_rows", bvh.tri_rows, torch.float32, (r, 9), dev)
+    _check("real_rows", bvh.real_rows, torch.int32, (r // ls,), dev)
+    # 8-byte node and link loads; a lane reads its ls / 32 rows in loads of
+    # 4 * ls / 32 bytes
+    for name, x, nbytes in (("bounds", bvh.bounds, 8), ("links", bvh.links, 8),
+                            ("tri_rows", bvh.tri_rows, 4 * ls // 32)):
+        _check_aligned(name, x, nbytes)
     for k, x in zip(("ox", "oy", "oz", "dx", "dy", "dz", "tmin", "tmax"),
                     (*comps, tmin, tmax)):
         _check(k, x, torch.float32, (n,), dev)
@@ -123,20 +141,36 @@ def _launch(bvh: ResidentBVH, comps, tmin, tmax, shadow_from: int):
                torch.empty(n_c, dtype=torch.float32, device=dev),
                torch.empty(n_c, dtype=torch.float32, device=dev))
     blocked = torch.empty(n - n_c, dtype=torch.bool, device=dev)
-    ptrs = [x.data_ptr() or None for x in (*closest, blocked)]
     if n == 0:
-        return closest, blocked
+        return None, closest, blocked
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rptr_traverse_resident(
-            bvh.bounds.data_ptr(), bvh.links.data_ptr(),
-            bvh.tri_rows.data_ptr(), m, bvh.leaf_size,
+    args = (bvh.bounds.data_ptr(), bvh.links.data_ptr(), bvh.real_rows.data_ptr(),
+            bvh.tri_rows.data_ptr(), m, ls,
             *(x.data_ptr() for x in comps), tmin.data_ptr(), tmax.data_ptr(),
-            n, shadow_from, *ptrs, stream,
-        )
+            n, shadow_from, *(x.data_ptr() or None for x in (*closest, blocked)),
+            stream, -1 if scan_from is None else scan_from)
+
+    def run():
+        return lib.rptr_traverse_resident(*args)
+
+    return run, closest, blocked
+
+
+def _launch(bvh: ResidentBVH, comps, tmin, tmax, shadow_from: int,
+            scan_from: int = None):
+    """One K1 launch (``bind``'s arguments), counted. Returns ((t, row, u, v)
+    of the closest lanes, blocked flags of the any-hit lanes); either may
+    have no lanes."""
+    global launches
+    run, closest, blocked = bind(bvh, comps, tmin, tmax, shadow_from, scan_from)
+    if run is None:
+        return closest, blocked
+    with torch.cuda.device(comps[0].device):
+        rc = run()
     if rc != 0:
-        msg = lib.rptr_cuda_error_string(rc).decode()
+        msg = _lib().rptr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{KERNEL} launch failed: {msg} (cudaError {rc})")
     launches += 1
     return closest, blocked

@@ -66,6 +66,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.tlas import ordered_swee
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
     Hit,
     ResidentBVH,
+    real_row_counts,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     _check,
@@ -430,12 +431,14 @@ def subtree_resident(bb: StreamedBVHBuffers, s: int) -> ResidentBVH:
     slots = bb.sub_node_rows * 16
     nodes = bb.sub_nodes.view(-1, slots, 8)[s]
     L = bb.sub_leaves
+    rows = leaf_rows(bb, s)
     return ResidentBVH(
         bounds=nodes[:, 0:6],
         links=nodes[:, 6:8].to(torch.int32),
-        tri_rows=leaf_rows(bb, s),
+        tri_rows=rows,
         row_tri=bb.row_tri[s * L * LEAF:(s + 1) * L * LEAF],
         leaf_size=LEAF,
+        real_rows=real_row_counts(rows, LEAF),
     )
 
 

@@ -66,7 +66,10 @@ from realtimepathtracingresearchframework_tpu_torch.ops.tlas import (
     ordered_sweep,
     sweep,
 )
-from realtimepathtracingresearchframework_tpu_torch.ops.traverse import ResidentBVH
+from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
+    ResidentBVH,
+    real_row_counts,
+)
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     _check,
     _check_aligned,
@@ -234,12 +237,14 @@ def blas_resident(bb: TlasBuffers, start: int, count: int,
     nodes = bb.blas_nodes[start:start + count]
     leaves = int(nodes[:, 7].max().item()) + 1
     tiles = bb.tri_tiles.view(-1, 16, LEAF)[tile_base:tile_base + leaves, 0:9]
+    rows = tiles.transpose(1, 2).reshape(leaves * LEAF, 9)
     return ResidentBVH(
         bounds=nodes[:, 0:6],
         links=nodes[:, 6:8].to(torch.int32),
-        tri_rows=tiles.transpose(1, 2).reshape(leaves * LEAF, 9),
+        tri_rows=rows,
         row_tri=bb.row_tri[tile_base * LEAF:(tile_base + leaves) * LEAF],
         leaf_size=LEAF,
+        real_rows=real_row_counts(rows, LEAF),
     )
 
 

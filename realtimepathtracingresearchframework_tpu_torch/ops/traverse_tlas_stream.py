@@ -62,7 +62,10 @@ from realtimepathtracingresearchframework_tpu_torch.ops.tlas import (
     _up,
     sweep,
 )
-from realtimepathtracingresearchframework_tpu_torch.ops.traverse import ResidentBVH
+from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
+    ResidentBVH,
+    real_row_counts,
+)
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
     _check,
     _coherence_key2,
@@ -319,12 +322,14 @@ def chunk_resident(static: TlasStreamStatic, node_base: int,
     nodes = static.sub_nodes[node_base:node_base + static.node_rows].view(slots, 8)
     L = static.sub_leaves
     tiles = static.tri_tiles[tile_base:tile_base + L * 16].view(L, 16, LEAF)
+    rows = tiles[:, 0:9, :].transpose(1, 2).reshape(L * LEAF, 9)
     return ResidentBVH(
         bounds=nodes[:, 0:6],
         links=nodes[:, 6:8].to(torch.int32),
-        tri_rows=tiles[:, 0:9, :].transpose(1, 2).reshape(L * LEAF, 9),
+        tri_rows=rows,
         row_tri=static.chunk_rowtri[:0],
         leaf_size=LEAF,
+        real_rows=real_row_counts(rows, LEAF),
     )
 
 

@@ -8,23 +8,24 @@ the rays ride a packed (8, Np) operand for K8a and (Np, 8) for K8b, and
 the result a (4, Np) or (Np, 4) one (t, row bits, u, v), exactly as the
 reference lays them out.
 
-K8a is the reference's packet walk (``plain``): a packet of ``BLOCK`` (512)
-rays shares one cursor, a node is entered when ANY lane's slab test passes
-with its far distance capped by the packet's ``cap`` (the packet max of
-min(t_best, tmax)), and at a leaf every lane runs Möller-Trumbore over all
-128 rows. K8b walks each ray on its own (``plain_lanes``: the port's plain
-threaded walk ``ops/traverse.py::walk_ranges`` over the v1 tables, K1's
-function): a lane tests the leaves its own capped slab test enters, not
-every leaf its packet enters. The two agree except on grazing lanes, where
-a lane hits a triangle in a leaf whose box its own slab test rejects (a box
-face with a zero direction component, a corner, or a 1-ulp gap between the
-slab t and Möller-Trumbore's t); ROADMAP queue 3 records the difference.
+The reference's function is the packet walk (``plain``): a packet of
+``BLOCK`` (512) rays shares one cursor, a node is entered when ANY lane's
+slab test passes with its far distance capped by the packet's ``cap`` (the
+packet max of min(t_best, tmax)), and at a leaf every lane runs
+Möller-Trumbore over all 128 rows. K8a and K8b walk each ray on its own
+(``plain_lanes``: the port's plain threaded walk
+``ops/traverse.py::walk_ranges`` over the v1 tables, K1's function): a lane
+tests the leaves its own capped slab test enters, not every leaf its packet
+enters. The two agree except on grazing lanes, where a lane hits a triangle
+in a leaf whose box its own slab test rejects (a box face with a zero
+direction component, a corner, or a 1-ulp gap between the slab t and
+Möller-Trumbore's t); ROADMAP queue 3 records the difference.
 
-On a CPU tensor the wrappers run ``plain`` for a row-major table and
-``plain_lanes`` for a field-major one; on a CUDA tensor they launch
-``csrc/traverse_v1.cu`` (built by ``kernels/build.py`` at first use) or
-raise, never falling back. ``launches_k8a`` and ``launches_k8b`` count the
-kernel launches, ``merged_launches`` the merged two-queue ones among them.
+On a CPU tensor the wrappers run ``plain_lanes`` in either layout; on a
+CUDA tensor they launch ``csrc/traverse_v1.cu`` (built by
+``kernels/build.py`` at first use) or raise, never falling back.
+``launches_k8a`` and ``launches_k8b`` count the kernel launches,
+``merged_launches`` the merged two-queue ones among them.
 The reference never coherence-sorts a v1 dispatch, so ``compact`` is
 accepted and ignored, as there (traverse_pallas.py:502-538, :600-623).
 """
@@ -46,6 +47,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
     Hit,
     _mt_rows,
     map_rows_to_tris,
+    real_row_counts,
     walk_ranges,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
@@ -76,6 +78,7 @@ class V1BVH(NamedTuple):
     tris: torch.Tensor  # (Rp, 16) f32 if ``wide`` else (16, Rp): v0, e1, e2
     row_tri: torch.Tensor  # (Rp,) i32: source triangle of each row
     wide: bool  # row-major table (K8a) or field-major (K8b)
+    real_rows: torch.Tensor  # (Rp // 128,) i32: traverse.real_row_counts
 
     @property
     def num_nodes(self) -> int:
@@ -89,7 +92,8 @@ class V1BVH(NamedTuple):
 def pack_v1(tb: ThreadedBVH, device="cpu") -> V1BVH:
     """ThreadedBVH (numpy) -> V1BVH on ``device``: the numpy half of the
     reference's ``pack_for_pallas`` (traverse_pallas.py:67-93). Rows are
-    zero-padded to a multiple of 128; links stay int32."""
+    zero-padded to a multiple of 128; links stay int32; each leaf's
+    real-row count rides beside them."""
     if tb.leaf_size != LEAF:
         raise ValueError(f"the v1 walk needs leaf_size={LEAF}, got {tb.leaf_size}")
     nodes = np.asarray(tb.nodes, np.float32)
@@ -110,8 +114,10 @@ def pack_v1(tb: ThreadedBVH, device="cpu") -> V1BVH:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    table = torch.from_numpy(tris[:, 0:9] if wide else tris[0:9].T)
     return V1BVH(bounds=dev(nodes[:, 0:6]), links=dev(links), tris=dev(tris),
-                 row_tri=dev(row_tri), wide=wide)
+                 row_tri=dev(row_tri), wide=wide,
+                 real_rows=real_row_counts(table, LEAF).to(device))
 
 
 def prep_rays(ro: Vec3, rd: Vec3, t_min, t_max, wide: bool, block: int = BLOCK):
@@ -149,8 +155,8 @@ def _leaf_rows(bvh: V1BVH, row0):
 
 
 def plain(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1):
-    """The packet walk, the function K8a computes and the reference's K8a
-    and K8b (traverse_pallas.py:96-419), in either layout, batched over
+    """The packet walk, the reference's K8a and K8b (traverse_pallas.py:
+    96-419), in either layout, batched over
     packets: every packet's cursor steps once per iteration until all are
     past the last node. ``rays`` is the packed operand in the kernel's
     layout; packets from ``shadow_from`` on (all of them when ``any_hit``)
@@ -238,7 +244,7 @@ def plain(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1):
 
 
 def plain_lanes(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1):
-    """The function K8b computes: each lane's own threaded walk of the tree
+    """The function K8a and K8b compute: each lane's own threaded walk of the tree
     (``walk_ranges``, K1's plain version, over the v1 tables: the links'
     leaf ROWS as leaf indices, the table's rows 0-8 as (Rp, 9) rows), in the
     kernel's layout. Lanes from ``shadow_from`` x 512 on (all of them when
@@ -282,10 +288,8 @@ def _lib():
     lib = build.load(KERNEL)
     # pointers and the stream as c_void_p: a bare int would be cut to 32 bits
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rptr_traverse_v1.argtypes = [p, p, p, i, i, p, i, i, i, p, p]
+    lib.rptr_traverse_v1.argtypes = [p, p, p, p, i, i, p, i, i, i, p, p, i, i]
     lib.rptr_traverse_v1.restype = ctypes.c_int
-    lib.rptr_traverse_v1_lanes.argtypes = [p, p, p, i, i, p, i, i, p, p, i, i]
-    lib.rptr_traverse_v1_lanes.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rptr_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -299,52 +303,69 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def launch(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1,
-           threads: int = None, scan_from: int = None):
-    """One K8a (row-major table) or K8b (field-major) launch over the packed
-    operand ``rays`` in its layout, as ``plain`` (K8a) or ``plain_lanes``
-    (K8b) computes it. Returns the output in the same layout. K8b only:
-    ``threads`` (a multiple of 32 dividing 512) and ``scan_from`` (a leaf
-    that this many lanes of a warp hold is scanned by each of them alone;
-    > 32 never) force the block size and the leaf service, else the
-    kernel's defaults; neither changes the result."""
-    global launches_k8a, launches_k8b
+def bind(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1,
+         threads: int = None, scan_from: int = None):
+    """Check the operands of one K8a (row-major table) or K8b (field-major)
+    launch over the packed operand ``rays`` in its layout, allocate its
+    output and bind it. ``threads`` (a multiple of 32 dividing 512) and
+    ``scan_from`` (a leaf that this many lanes of a warp hold is scanned by
+    each of them alone; > 32 never) force the block size and the leaf
+    service, else the kernel's defaults; neither changes the result.
+    Returns (run, out): ``run()`` launches the kernel on the current device,
+    uncounted, and returns its CUDA error code (0 = launched); None when
+    there is no lane."""
     dev = rays.device
     m, rp = bvh.num_nodes, bvh.num_rows
     n_pad = rays.shape[1] if bvh.wide else rays.shape[0]
     if n_pad % BLOCK:
         raise ValueError(f"{KERNEL}: {n_pad} lanes are not whole packets of {BLOCK}")
-    if bvh.wide and (threads is not None or scan_from is not None):
-        raise ValueError(f"{KERNEL}: threads and scan_from are K8b's")
     _check("bounds", bvh.bounds, torch.float32, (m, 6), dev)
     _check("links", bvh.links, torch.int32, (m, 2), dev)
     _check("tris", bvh.tris, torch.float32, (rp, 16) if bvh.wide else (16, rp), dev)
+    _check("real_rows", bvh.real_rows, torch.int32, (rp // LEAF,), dev)
     _check("rays", rays, torch.float32, (8, n_pad) if bvh.wide else (n_pad, 8), dev)
     out = torch.empty((4, n_pad) if bvh.wide else (n_pad, 4), dtype=torch.float32,
                       device=dev)
     if n_pad == 0:
-        return out
-    if not bvh.wide:  # K8b's 8- and 16-byte loads and stores
-        for name, x, nbytes in (("bounds", bvh.bounds, 8), ("links", bvh.links, 8),
-                                ("tris", bvh.tris, 16), ("rays", rays, 16),
-                                ("out", out, 16)):
-            _check_aligned(name, x, nbytes)
+        return None, out
+    # 8-byte node and link loads, 16-byte table loads; K8b's 16-byte ray
+    # loads and output stores
+    aligned = [("bounds", bvh.bounds, 8), ("links", bvh.links, 8),
+               ("tris", bvh.tris, 16)]
+    if not bvh.wide:
+        aligned += [("rays", rays, 16), ("out", out, 16)]
+    for name, x, nbytes in aligned:
+        _check_aligned(name, x, nbytes)
     packets = n_pad // BLOCK
     # packets from early_from on take the any-hit mode
     early_from = 0 if any_hit else (shadow_from if shadow_from >= 0 else packets)
-    args = (bvh.bounds.data_ptr(), bvh.links.data_ptr(), bvh.tris.data_ptr(), rp,
-            m, rays.data_ptr(), n_pad, early_from)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if threads is None and scan_from is None:
-            rc = lib.rptr_traverse_v1(*args, int(bvh.wide), out.data_ptr(), stream)
-        else:
-            rc = lib.rptr_traverse_v1_lanes(
-                *args, out.data_ptr(), stream, threads or 0,
-                -1 if scan_from is None else scan_from)
+    args = (bvh.bounds.data_ptr(), bvh.links.data_ptr(), bvh.real_rows.data_ptr(),
+            bvh.tris.data_ptr(), rp, m, rays.data_ptr(), n_pad, early_from,
+            int(bvh.wide), out.data_ptr(), stream, threads or 0,
+            -1 if scan_from is None else scan_from)
+
+    def run():
+        return lib.rptr_traverse_v1(*args)
+
+    return run, out
+
+
+def launch(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1,
+           threads: int = None, scan_from: int = None):
+    """One K8a (row-major table) or K8b (field-major) launch over the packed
+    operand ``rays`` in its layout (``bind``'s arguments), counted, as
+    ``plain_lanes`` computes it. Returns the output in the same layout."""
+    global launches_k8a, launches_k8b
+    run, out = bind(bvh, rays, any_hit, shadow_from, threads, scan_from)
+    if run is None:
+        return out
+    with torch.cuda.device(rays.device):
+        rc = run()
     if rc != 0:
-        msg = lib.rptr_cuda_error_string(rc).decode()
+        msg = _lib().rptr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{KERNEL} launch failed: {msg} (cudaError {rc})")
     if bvh.wide:
         launches_k8a += 1
@@ -355,7 +376,7 @@ def launch(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1,
 
 def _run(bvh: V1BVH, rays, any_hit: bool, shadow_from: int = -1):
     if rays.device.type == "cpu":
-        return (plain if bvh.wide else plain_lanes)(bvh, rays, any_hit, shadow_from)
+        return plain_lanes(bvh, rays, any_hit, shadow_from)
     if rays.device.type == "cuda":
         return launch(bvh, rays, any_hit, shadow_from)
     raise ValueError(f"no traversal for device {rays.device}")

@@ -19,8 +19,8 @@ and sky of bench.py's instanced row, on the two-level route
 with the camera, sun and sky of bench.py's village row, through K2, K3 and
 the wavefront executor. ``--variant PT_WAVEFRONT`` renders through the
 wavefront variant (on cornell: one merged K1 launch per bounce).
-``RPTR_TRAVERSAL_V1=1`` puts cornell, terrain200 and the village on the v1
-route (the monolithic pass through K8a, or K8b past 8,192 padded rows;
+``RPTR_TRAVERSAL_V1=1`` puts cornell, terrain40, terrain200 and the
+village on the v1 route (the monolithic pass through K8a, or K8b past 8,192 padded rows;
 merged K8 launches with ``--variant PT_WAVEFRONT``). At
 ``--size`` (default 1920x1080; bench.py's terrain and instanced rows are
 ``--size 512x384 --depth 3``), 1 spp, ``--depth`` (default 9): one warm-up
@@ -93,10 +93,10 @@ KERNELS = {
     "K5": (lambda: tb.launches_k5, "traverse_binned"),
     "K6": (lambda: tt.launches_k6, "traverse_tlas_kernel"),
     "K7": (lambda: tts.launches_k7, "traverse_tlas_stream"),
-    "K8a": (lambda: tv.launches_k8a, "traverse_v1_kernel("),
-    "K8b": (lambda: tv.launches_k8b, "traverse_v1_lanes_kernel"),
+    "K8a": (lambda: tv.launches_k8a, "traverse_v1_kernel<true>"),
+    "K8b": (lambda: tv.launches_k8b, "traverse_v1_kernel<false>"),
 }
-GRIDS = {"terrain200": 200, "terrain500": 500}
+GRIDS = {"terrain40": 40, "terrain200": 200, "terrain500": 500}
 INSTANCES = {"instanced600": 600, "instanced500": 500, "instanced2500": 2500}
 ANIM_FRAMES = 16  # instanced_field's animation length
 HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaStreamSynchronize",

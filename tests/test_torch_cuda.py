@@ -9,9 +9,12 @@ only the port is installed. On a machine with a CUDA card and nvcc:
 test here skips. ``chip_smoke.py`` runs the same comparisons at the main
 paths' shapes. The merged two-queue launches of K1, K2 and K4 are held
 against their plain versions and against the kernel's separate launches.
-K8a (the v1 packet walk) and K8b (its per-lane walk) are held against
-their plain versions in all three modes, K8b and K5 at each block size or
-leaf service, and a CUDA tensor whose kernel does not build raises.
+K1 is held against its plain walk in every mode at leaf 32, 64 and 128,
+with each way of serving a leaf; K8a
+and K8b (the v1 walk) against their per-lane plain version in all three
+modes at each block size and leaf service, K5 at each leaf service; K1,
+K8a and K8b also on tables whose leaves hold 1, 5 and all their real rows;
+and a CUDA tensor whose kernel does not build raises.
 """
 
 import numpy as np
@@ -848,24 +851,24 @@ def _bits(x):
     return x.contiguous().view(torch.int32)
 
 
-K8B_LAUNCHES = tuple((t, None) for t in (None, 128, 256, 512)) + tuple(
-    (None, f) for f in K5_SCAN_FROM)  # (threads, scan_from)
+K8_LAUNCHES = tuple((t, None) for t in (None, 128, 256, 512)) + tuple(
+    (None, f) for f in K5_SCAN_FROM)  # (threads, scan_from) of K8a and K8b
 
 
 def _k8_modes(vb, rays8, orays8):
     """(name, launch, plain) of K8's three modes on packed (8, n) queues
-    given in the table's layout (K8a against the packet walk ``plain``, K8b
-    against the per-lane ``plain_lanes``), K8b at each block size and leaf
-    service: closest, any-hit on ``orays8``, and a merged launch whose last
-    quarter of packets takes the any-hit mode."""
+    given in the table's layout (K8a and K8b against the per-lane
+    ``plain_lanes``) at each block size and leaf service: closest, any-hit
+    on ``orays8``, and a merged launch whose last quarter of packets takes
+    the any-hit mode."""
     def op(q):
         return q if vb.wide else q.t().contiguous()
 
     nc = rays8.shape[1] * 3 // 4 // tv.BLOCK * tv.BLOCK
     mixed = torch.cat([rays8[:, :nc], orays8[:, nc:]], dim=1).contiguous()
-    plain = tv.plain if vb.wide else tv.plain_lanes
+    plain = tv.plain_lanes
     modes = []
-    for threads, scan_from in ((None, None),) if vb.wide else K8B_LAUNCHES:
+    for threads, scan_from in K8_LAUNCHES:
         kw = dict(threads=threads, scan_from=scan_from)
         for name, q, a, sf in (("closest", rays8, False, -1),
                                ("anyhit", orays8, True, -1),
@@ -893,13 +896,12 @@ def _short_of_hits(vb, rays8):
 @pytest.mark.parametrize("mode", ["closest", "anyhit", "merged"])
 @pytest.mark.parametrize("grid", [30, 69])
 def test_k8_matches_plain_on_card(grid, mode):
-    """K8a (terrain(30), 1,800 tris, the row-major table) against the plain
-    packet walk and K8b (terrain(69), 9,522 tris, the field-major one)
-    against its per-lane plain version, bitwise (t, row bits, u, v):
-    closest, any-hit on segments just short of or past each closest hit,
-    and a merged launch whose last 2 of 8 packets take the any-hit mode;
-    K8b at 128, 256 and 512 threads and each leaf service; each launch
-    counted on its kernel."""
+    """K8a (terrain(30), 1,800 tris, the row-major table) and K8b
+    (terrain(69), 9,522 tris, the field-major one) against their per-lane
+    plain version, bitwise (t, row bits, u, v): closest, any-hit on
+    segments just short of or past each closest hit, and a merged launch
+    whose last 2 of 8 packets take the any-hit mode; at 128, 256 and 512
+    threads and each leaf service; each launch counted on its kernel."""
     vb, rays8 = _v1_queue(grid, 4096, 13)
     assert vb.wide == (grid == 30)
     modes = [m for m in _k8_modes(vb, rays8, _short_of_hits(vb, rays8))
@@ -922,14 +924,20 @@ def test_k8b_tie_scene_on_card(monkeypatch):
     row-count threshold set to 0), every K8b mode at each block size and
     leaf service equals its per-lane plain version bitwise; the first
     visited triangle wins an exact-t tie, and the packet walk picks the same
-    triangles and t (no grazing lane)."""
+    triangles and t (no grazing lane). The same for K8a on its row-major
+    table (the threshold as it is)."""
     dev = _card()
-    monkeypatch.setattr(tv, "WIDE_MAX_ROWS", 0)
     (v0, e1, e2), (ro, rd, tmax, otm) = tie_world()
-    vb = tv.pack_v1(bvh_mod.build_threaded_bvh(v0, e1, e2, leaf_size=tv.LEAF,
-                                               builder="sah"), dev)
-    assert not vb.wide
+    tb = bvh_mod.build_threaded_bvh(v0, e1, e2, leaf_size=tv.LEAF, builder="sah")
     rays8, orays8 = _packed(ro, rd, tmax, dev), _packed(ro, rd, otm, dev)
+    vb = tv.pack_v1(tb, dev)
+    assert vb.wide
+    _assert_modes_equal_plain(_k8_modes(vb, rays8, orays8))
+    k, packet = tv.launch(vb, rays8, False), tv.plain(vb, rays8, False)
+    assert torch.equal(_bits(k[0:2]), _bits(packet[0:2]))
+    monkeypatch.setattr(tv, "WIDE_MAX_ROWS", 0)
+    vb = tv.pack_v1(tb, dev)
+    assert not vb.wide
     _assert_modes_equal_plain(_k8_modes(vb, rays8, orays8))
     k = tv.launch(vb, rays8.t().contiguous(), False)
     packet = tv.plain(vb, rays8.t().contiguous(), False)
@@ -938,10 +946,142 @@ def test_k8b_tie_scene_on_card(monkeypatch):
     assert hit.any() and (k[hit, 0] == 5.0).all()
 
 
+def _cornell_v1_queue(n, seed):
+    """Cornell's v1 pack (one 128-row leaf, 32 real rows: the row-major
+    table) on the card, and a packed (8, n) queue: the primary rays of a
+    camera at the golden's eye, then incoherent rays inside the box, 20%
+    of them dead."""
+    dev = _card()
+    flat = Scene.from_vkr_scene(procedural.cornell_box()).flatten_world()
+    vb = tv.pack_v1(bvh_mod.build_threaded_bvh(flat.v0, flat.e1, flat.e2,
+                                               leaf_size=tv.LEAF, builder="sah"),
+                    dev)
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    d = np.stack([rng.uniform(-0.5, 0.5, half), rng.uniform(-0.5, 0.5, half),
+                  -np.ones(half)], -1)
+    ro = np.concatenate([np.broadcast_to([0.0, 1.0, 3.2], (half, 3)),
+                         rng.uniform([-0.9, 0.1, -0.9], [0.9, 1.9, 0.9],
+                                     (n - half, 3))]).astype(np.float32)
+    rd = np.concatenate([d, rng.normal(size=(n - half, 3))]).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    tmax = np.where(rng.uniform(size=n) < 0.2, 0.0, 2.0e32).astype(np.float32)
+    return vb, _packed(ro, rd, tmax, dev)
+
+
+@pytest.mark.cuda
+def test_k8a_cornell_on_card():
+    """K8a on cornell's one leaf (32 of its 128 rows real): every mode at
+    each block size and leaf service bitwise its per-lane plain version, on
+    coherent primaries (each warp's holders scan the leaf) and incoherent
+    rays with dead lanes."""
+    vb, rays8 = _cornell_v1_queue(4096, 25)
+    assert vb.wide and vb.real_rows.tolist() == [32]
+    _assert_modes_equal_plain(_k8_modes(vb, rays8, _short_of_hits(vb, rays8)))
+    rows = _bits(tv.launch(vb, rays8, False)[1])
+    assert (rows >= 0).float().mean() > 0.5 and (rows < 32).all()
+
+
+def _leaf_counts(rows, ls, leaves, counts):
+    """``rows`` ((R, 9), a copy) with the rows of leaf ``leaves[0]`` all
+    equal to its first row (a count of 1), leaf ``leaves[1]``'s from row 5
+    on equal to its row 4 (a count of 5), and, where ``leaves`` has a third,
+    that leaf's padding replaced by copies of its last real row moved by
+    1e-3 a step along x (a full leaf of distinct rows); ``counts`` are the
+    leaves' real-row counts before."""
+    rows = rows.clone()
+    a, b = (int(x) * ls for x in leaves[:2])
+    rows[a + 1:a + ls] = rows[a]
+    rows[b + 5:b + ls] = rows[b + 4]
+    if len(leaves) > 2:
+        c, n = int(leaves[2]) * ls, int(counts[leaves[2]])
+        steps = torch.arange(1, ls - n + 1, device=rows.device, dtype=rows.dtype)
+        rows[c + n:c + ls] = rows[c + n - 1]
+        rows[c + n:c + ls, 0] += 1e-3 * steps
+    return rows
+
+
+def _k1_modes(fb, rays, orays, scan_from):
+    """(name, launch, plain) of K1 closest, any-hit and merged (the first
+    2,048 lanes closest, the rest any-hit) on packed (8, n) operands, with
+    the leaf service ``scan_from``."""
+    merged = torch.cat([rays[:, :2048], orays[:, 2048:]], dim=1).contiguous()
+
+    def k1(q, shadow_from):
+        return tr._launch(fb, tuple(q[0:6]), q[6], q[7], shadow_from, scan_from)
+
+    big = -(-rays.shape[1] // tr.BLOCK)
+    return (
+        (f"closest scan_from={scan_from}", lambda: k1(rays, big)[0],
+         lambda: tuple(traverse.closest_hit_threaded(
+             fb, Vec3(*rays[0:3]), Vec3(*rays[3:6]), rays[6], rays[7]))),
+        (f"any-hit scan_from={scan_from}", lambda: k1(orays, 0)[1],
+         lambda: traverse.occluded_threaded(
+             fb, Vec3(*orays[0:3]), Vec3(*orays[3:6]), orays[6], orays[7])),
+        (f"merged scan_from={scan_from}",
+         lambda: _flat(k1(merged, 2048 // tr.BLOCK)),
+         lambda: _flat(tr.merged_plain(fb, merged, 2048))),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_size", [32, 64, 128])
+def test_k1_leaf_services_on_card(leaf_size):
+    """K1 closest, any-hit and merged equal the plain walk bitwise at leaf
+    32, 64 and 128, with each leaf served by the warp (scan_from 33), by its
+    holders alone (1) and by the default rule, on a ragged queue (4,000
+    lanes) with dead lanes, an all-dead warp and empty segments; then on the
+    same table with leaves of 1, 5 and all their real rows beside partial
+    ones. Each launch is counted."""
+    dev = _card()
+    flat = Scene.from_vkr_scene(procedural.terrain(grid=24)).flatten_world()
+    fb = _flat_pack(flat.v0, flat.e1, flat.e2, leaf_size, dev)
+    rays, orays = _edge_rays(flat.v0.min(0), flat.v0.max(0), 4000, 24, dev)
+    before = tr.launches
+    for scan_from in (33, 1, None):
+        _assert_modes_equal_plain(_k1_modes(fb, rays, orays, scan_from))
+    assert tr.launches - before == 9
+    hit = tr._launch(fb, tuple(rays[0:6]), rays[6], rays[7], 32)[0]
+    empty = rays[7] <= rays[6]
+    assert (hit[1][empty] == -1).all() and (hit[1][~empty] >= 0).any()
+    partial = torch.nonzero((fb.real_rows > 5) & (fb.real_rows < leaf_size))[:, 0]
+    rows = _leaf_counts(fb.tri_rows, leaf_size, partial[:3], fb.real_rows)
+    cut = fb._replace(tri_rows=rows,
+                      real_rows=traverse.real_row_counts(rows, leaf_size))
+    assert cut.real_rows[partial[0]] == 1 and cut.real_rows[partial[1]] == 5
+    assert cut.real_rows[partial[2]] == leaf_size
+    for scan_from in (33, 1):
+        _assert_modes_equal_plain(_k1_modes(cut, rays, orays, scan_from))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [30, 69])
+def test_k8_real_row_counts_on_card(grid):
+    """K8a (terrain(30), the row-major table) and K8b (terrain(69), the
+    field-major one) on a table whose leaves hold 1, 5 and all 128 real rows
+    beside the terrain's partial ones: every mode at each block size and
+    leaf service bitwise the per-lane plain version."""
+    vb, rays8 = _v1_queue(grid, 4096, 26)
+    rows = vb.tris[:, 0:9] if vb.wide else vb.tris[0:9].t()
+    partial = torch.nonzero(vb.real_rows > 5)[:, 0]
+    cut = _leaf_counts(rows, tv.LEAF, partial[:3], vb.real_rows)
+    tris = vb.tris.clone()
+    if vb.wide:
+        tris[:, 0:9] = cut
+    else:
+        tris[0:9] = cut.t()
+    vc = vb._replace(tris=tris, real_rows=traverse.real_row_counts(cut, tv.LEAF))
+    counts = vc.real_rows.tolist()
+    assert 1 in counts and 5 in counts and tv.LEAF in counts
+    assert any(0 < c < tv.LEAF and c not in (1, 5) for c in counts)
+    _assert_modes_equal_plain(_k8_modes(vc, rays8, _short_of_hits(vc, rays8)))
+
+
 @pytest.mark.cuda
 def test_k8b_alignment_on_card():
-    """K8b reads its table and rays in 16-byte loads: a table or ray
-    operand that is not 16-byte aligned raises before any launch."""
+    """K8b reads its table and rays in 16-byte loads, K8a its table: a
+    table or ray operand that is not 16-byte aligned raises before any
+    launch."""
     vb, rays8 = _v1_queue(69, 1024, 19)
     rays = rays8.t().contiguous()
     before = tv.launches_k8b
@@ -953,6 +1093,14 @@ def test_k8b_alignment_on_card():
     with pytest.raises(ValueError, match="rays: its data must be 16-byte"):
         tv.launch(vb, off.view(rays.shape).copy_(rays), False)
     assert tv.launches_k8b == before
+    va, rays8 = _v1_queue(30, 1024, 19)
+    assert va.wide
+    before = tv.launches_k8a
+    off = torch.empty(va.tris.numel() + 1, device=va.tris.device)[1:]
+    shifted = off.view(va.tris.shape).copy_(va.tris)
+    with pytest.raises(ValueError, match="tris: its data must be 16-byte"):
+        tv.launch(va._replace(tris=shifted), rays8, False)
+    assert tv.launches_k8a == before
 
 
 @pytest.mark.cuda
@@ -993,7 +1141,8 @@ def test_cuda_tensor_with_broken_build_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(build, "_loaded", {})
     plain_calls = []
-    monkeypatch.setattr(tv, "plain", lambda *a: plain_calls.append(a))
+    for name in ("plain", "plain_lanes"):
+        monkeypatch.setattr(tv, name, lambda *a: plain_calls.append(a))
     with pytest.raises(RuntimeError, match="nvcc failed"):
         tv.closest_hit_v1(vb, Vec3(*q[0:3]), Vec3(*q[3:6]), q[6], q[7])
     assert not plain_calls

@@ -196,13 +196,13 @@ def test_integrator_queries_wavefront_on_v1(monkeypatch):
     mega = r.render_ray_queries(o, d, t_max=t_max, variant=VARIANT_MEGAKERNEL,
                                 spp_per_query=SPP, params=params)
     shadow_from = []
-    plain = tv.plain
+    plain = tv.plain_lanes  # what the wrappers run on CPU tensors
 
     def counted(bvh, rays, any_hit, first_shadow=-1):
         shadow_from.append(first_shadow)
         return plain(bvh, rays, any_hit, first_shadow)
 
-    monkeypatch.setattr(tv, "plain", counted)
+    monkeypatch.setattr(tv, "plain_lanes", counted)
     wave = r.render_ray_queries(o, d, t_max=t_max, variant=VARIANT_WAVEFRONT,
                                 spp_per_query=SPP, params=params)
     assert max(shadow_from) >= 0  # merged K8 calls

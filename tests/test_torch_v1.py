@@ -1,8 +1,8 @@
 """The v1 packet walk (K8a, K8b) and the ``RPTR_TRAVERSAL_V1`` route on the
 CPU.
 
-- The plain version (``traverse_v1.plain``, what the wrappers run on CPU
-  tensors) against the reference's ``closest_hit_pallas`` /
+- The packet walk (``traverse_v1.plain``, the reference's function) and the
+  wrappers on CPU tensors against the reference's ``closest_hit_pallas`` /
   ``occluded_pallas`` / ``closest_and_occluded_pallas`` run in Pallas
   interpret mode. The reference's own tests never run K8, and its module
   has no interpret switch, so ``_interpret`` swaps the module attribute
@@ -19,14 +19,14 @@ CPU.
 - The plain v1 walk against the plain K1 walk on the same leaf-128 tree:
   a packet walk and a per-ray walk differ only at grazing corners, and on
   these queues nowhere (the count of differing lanes is asserted).
-- K8b's plain version, the per-lane walk ``plain_lanes`` (K1's plain walk
-  over the v1 tables), against the packet ``plain`` (bitwise; the grazing
-  lanes where they differ are counted, 0 here) and the reference's
-  ``_kernel_lane`` in interpret mode, closest, any-hit and merged, on the
-  field-major grid and on a tie scene (``test_torch_cuda.tie_world``, the
-  table forced field-major) whose rays hit equal-t triangles in two leaves;
-  the wrappers take ``plain_lanes`` for a field-major table on the CPU and
-  ``plain`` for a row-major one.
+- K8a's and K8b's plain version, the per-lane walk ``plain_lanes`` (K1's
+  plain walk over the v1 tables), against the packet ``plain`` (bitwise;
+  the grazing lanes where they differ are counted, 0 here) and the
+  reference's ``_kernel`` / ``_kernel_lane`` in interpret mode, closest,
+  any-hit and merged, on the row-major and field-major grids and on a tie
+  scene (``test_torch_cuda.tie_world``, the table forced field-major) whose
+  rays hit equal-t triangles in two leaves; the wrappers take
+  ``plain_lanes`` in either layout on the CPU.
 - The route: ``RPTR_TRAVERSAL_V1`` wins over ``RPTR_TRAVERSAL_V3=1``, the
   streamed route above 90,000 triangles ignores it, ``set_scene`` packs
   the row-major table for cornell and the field-major one for 9,522
@@ -301,19 +301,23 @@ def _grazing_lanes(vb, modes):
     return differ
 
 
-def test_lanes_plain_matches_packet_and_reference():
-    """K8b's per-lane plain version on the field-major grid (9,522 tris):
-    against the packet walk bitwise on every closest lane (t, row, u, v)
-    and on the any-hit flags, no grazing lane; against the reference's
+@pytest.mark.parametrize("layout", sorted(GRIDS))
+def test_lanes_plain_matches_packet_and_reference(layout):
+    """The per-lane plain version (K8a's and K8b's function) on the
+    row-major terrain(12) table (242 tris) and the field-major grid (9,522
+    tris): against the packet walk bitwise on every closest lane (t, row,
+    u, v) and on the any-hit flags, the grazing lanes where they differ
+    counted (none on these queues); against the reference's ``_kernel`` /
     ``_kernel_lane`` in interpret mode at the file's tolerance, closest,
     any-hit and merged."""
-    ref = _reference("lane")
-    vb = tv.pack_v1(_tree("lane"))
-    assert not vb.wide
+    ref = _reference(layout)
+    vb = tv.pack_v1(_tree(layout))
+    wide = layout == "wide"
+    assert vb.wide == wide
     (ro, rd, tmax), (ro_s, rd_s, tmin_s, tmax_s) = _queues()
-    rays, n = tv.prep_rays(_soa(ro), _soa(rd), 0.0, torch.from_numpy(tmax), False)
+    rays, n = tv.prep_rays(_soa(ro), _soa(rd), 0.0, torch.from_numpy(tmax), wide)
     orays, _ = tv.prep_rays(_soa(ro), _soa(rd), 0.0,
-                            torch.from_numpy(ref["tmax_o"]), False)
+                            torch.from_numpy(ref["tmax_o"]), wide)
     modes = _lane_modes(vb, rays, orays)
     assert _grazing_lanes(vb, modes) == 0
     closest, anyhit = modes[0][1], modes[1][1]
@@ -403,15 +407,16 @@ def test_tie_scene_lanes_packet_and_reference(mode, monkeypatch):
 
 
 def test_wrappers_pick_the_plain_version_by_layout(monkeypatch):
-    """On CPU tensors the wrappers run the per-lane walk for a field-major
-    table (K8b) and the packet walk for a row-major one (K8a)."""
+    """On CPU tensors the wrappers run the per-lane walk, K8a's and K8b's
+    function, for a row-major table (K8a) and a field-major one (K8b); the
+    packet walk is the reference's function, checked apart."""
     calls = []
     for name in ("plain", "plain_lanes"):
         fn = getattr(tv, name)
         monkeypatch.setattr(tv, name, lambda *a, fn=fn, name=name: (
             calls.append(name), fn(*a))[1])
     (ro, rd, tmax), _ = _queues()
-    for layout, want in (("wide", "plain"), ("lane", "plain_lanes")):
+    for layout, want in (("wide", "plain_lanes"), ("lane", "plain_lanes")):
         vb = tv.pack_v1(_tree(layout))
         calls.clear()
         tv.closest_hit_v1(vb, _soa(ro[:600]), _soa(rd[:600]))
@@ -579,14 +584,14 @@ def test_v1_frame_equals_k1_frame(monkeypatch):
     K1 frame bit for bit, and V1's PT_WAVEFRONT sample 0 (its later bounces
     through merged K8 calls, no separate occlusion call) the megakernel's."""
     calls = {"closest": 0, "merged": 0, "occluded": 0}
-    plain = tv.plain
+    plain = tv.plain_lanes  # what the wrappers run on CPU tensors
 
     def counted(bvh, rays, any_hit, shadow_from=-1):
         kind = "merged" if shadow_from >= 0 else "occluded" if any_hit else "closest"
         calls[kind] += 1
         return plain(bvh, rays, any_hit, shadow_from)
 
-    monkeypatch.setattr(tv, "plain", counted)
+    monkeypatch.setattr(tv, "plain_lanes", counted)
     r1, k1 = _cornell(VARIANT_MEGAKERNEL, v1=False)
     rv, v1 = _cornell(VARIANT_MEGAKERNEL, v1=True)
     assert r1.device_scene.bvh.num_nodes == rv.device_scene.bvh.num_nodes == 1
