@@ -78,12 +78,22 @@ Phases (each raises on failure):
      incoherent and occlusion queues; rows and blocked flags must be equal,
      and t, u, v bitwise equal. On the terrain queues K2 and K3 too (the
      incoherent ones coherence-sorted, as the renderer sorts its bounce
-     queues): each equal to its plain version and to K1, bitwise;
+     queues): each equal to its plain version and to K1, bitwise, and timed
+     by its own raw launches (kernel-only) beside the wrapper's time; K2
+     also in its merged mode, and against the reference's function (every
+     survivor of a 128-lane group tested for every lane of it, the plain
+     ``traverse_flat.plain_group``) with the lanes that differ counted and
+     each shown to be grazing (the hit's leaf box fails the lane's own slab
+     test), at leaf 32, 64 and 128;
   7. K2 and K3 at the terrain200 path's shapes: the 1080p frame's 2,097,152
      primary lanes (K2, unsorted) and a bounce-1 queue, the primaries' hit
      points with scattered directions, coherence-sorted (K3); closest and
      occluded, each equal to its plain version and to K1 bitwise, all three
-     timed with CUDA events beside the bound of the function; K3 (each
+     timed kernel-only with CUDA events beside the bound of the function; K2
+     against the reference's function as in 6, and its merged mode (the
+     bounce-1 queue, then the sun shadow queue) bitwise its plain version
+     and its two single-mode launches, timed kernel-only and through the
+     wrapper, its lanes against the reference's function counted; K3 (each
      lane's own leaves) also bitwise the reference's function, the plain
      version over groups of 128 lanes (here and in 6), with the pairs each
      tests: the group OR x 128 (the first K3's work), each lane's whole
@@ -157,7 +167,7 @@ Phases (each raises on failure):
      the first queue, the plain occluded walk on the second) and to the
      kernel's two separate launches, bitwise; timed with CUDA events beside
      the sum of the two halves' bounds and the two separate launches (K1
-     also by its own launches, beside the wrapper's time).
+     and K2 also by their own launches, beside the wrapper's time).
  15. K8a and K8b on each V1 path's primary chunk with the most hits, a
      bounce-1 chunk (unsorted, as V1 dispatches it) and its sun shadow
      queue: closest, any-hit and merged, each bitwise its plain version (the
@@ -180,11 +190,12 @@ Phases (each raises on failure):
      by a scalar through its reciprocal, so a ray that grazes an edge can
      hit another triangle).
 Every bound counts the rows of each pierced leaf up to its real-row count
-(the rows past it repeat the leaf's last triangle), and logs the bound over
-the padded leaves beside it. Its last two lines are the kernels' JSON
-record (K1, K8a and K8b with their kernel-only ms and the wrapper's beside
-them, K8a and K8b each with a merged record and their grazing lanes) and
-the result JSON.
+(the rows past it repeat the leaf's last triangle; K4-K7 from their tiles'
+bits), and logs the bound over the padded leaves beside it. Its last two
+lines are the kernels' JSON record (K1, K2, K3, K8a and K8b with their
+kernel-only ms and the wrapper's beside them, K1, K2, K4, K8a and K8b each
+with a merged record, K2, K8a and K8b with their grazing lanes) and the
+result JSON.
 """
 
 import contextlib
@@ -529,27 +540,65 @@ def k3_pairs(aabbs, rays, q):
     return group, lane
 
 
-def compare_flat_queue(label, fb, rays, kernels, rng, iters=3):
-    """K1, K2 and K3 on one packed (8, n) queue, closest and occluded: each
-    flat-cull kernel equal to its plain version and to K1, bitwise (rows,
-    flags, t/u/v bit patterns); K3 also equal to the reference's function,
-    the group-of-q plain version (each leaf any lane of the group enters,
-    for every lane), with the pairs each tests. Returns {kernel: record}
-    with the closest mode's times, max error and bound, and K1's
-    kernel-only time on the queue."""
+def flat_kernel_ms(name, fb, rays, q, n_closest, iters=20):
+    """K2's or K3's kernel-only ms on a packed (8, n) operand (``raw_ms``),
+    its lanes from ``n_closest`` on any-hit (K3: all or none)."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+
+    mode = n_closest // q if name == tf.K2 else int(n_closest == 0)
+    return raw_ms(tf.bind(name, fb, rays.contiguous(), q, n_closest, mode)[0],
+                  iters)
+
+
+def k2_against_reference(label, fb, rays, q, out, any_hit):
+    """The lanes where K2's result ``out`` and the reference's function
+    (``traverse_flat.plain_group``: every survivor of the q-lane group
+    tested for every lane) differ on one queue, counted, each checked to be
+    grazing (``traverse_flat.grazing``). Returns the count."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 
+    ref = tf.plain_group(fb, rays, q, any_hit)
+    if any_hit:
+        differ = out != ref
+    else:
+        differ = (_bits(out[0]) != _bits(ref[0])) | (out[1] != ref[1])
+    lanes = torch.nonzero(differ).squeeze(1)
+    graze = tf.grazing(fb, rays, lanes, q, ref, any_hit)
+    log(f"    {label}: {lanes.numel()} lanes where K2 "
+        f"{'any-hit' if any_hit else 'closest'} differs from the reference "
+        f"function, {sum(graze)} of them grazing")
+    check(all(graze), f"{label}: {graze.count(False)} lanes differ from the "
+          "reference function and are not grazing")
+    return lanes.numel()
+
+
+def compare_flat_queue(label, fb, rays, kernels, rng, iters=3):
+    """K1, K2 and K3 on one packed (8, n) queue, closest and occluded: each
+    flat-cull kernel equal to its plain version and to K1, bitwise (rows,
+    flags, t/u/v bit patterns), timed by its own raw launches (kernel-only)
+    beside the wrapper's time; K2 also in its merged mode (the closest
+    queue's first half, then the occlusion queue's second half) against
+    its plain version, and against the reference's function with its
+    differing lanes counted and checked to be grazing; K3 also equal to
+    the reference's function, the group-of-q plain version (each leaf any
+    lane of the group enters, for every lane), with the pairs each tests.
+    Returns {kernel: record} with the closest mode's times, max error and
+    bound, and K1's kernel-only time on the queue."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+
+    n = rays.shape[1]
     h1 = _k1(fb, rays, False)
-    k1_ms = k1_kernel_ms(fb, rays, -(-rays.shape[1] // 128))
+    k1_ms = k1_kernel_ms(fb, rays, -(-n // 128))
     b_ms, b_by, pairs = bound(fb.aabbs, fb.leaf_size, rays, h1.t, False,
                               fb.real_rows)
     # occlusion segments just short of (0.999 t) or past (1.001 t) each hit
     live = rays[7] > rays[6]
     scale = torch.from_numpy(np.where(
-        rng.uniform(size=rays.shape[1]) < 0.5, 0.999, 1.001
-    ).astype(np.float32)).to(rays.device)
+        rng.uniform(size=n) < 0.5, 0.999, 1.001).astype(np.float32)).to(rays.device)
     orays = rays.clone()
     orays[7] = torch.where(live, torch.where(h1.tri >= 0, h1.t * scale, 1e30),
                            rays[7])
@@ -567,14 +616,29 @@ def compare_flat_queue(label, fb, rays, kernels, rng, iters=3):
             bad_p += m
             err = max(err, e)
             bad_1 += _bitwise(a, k1)[0]
-        k_ms = cuda_ms(lambda: tf.launch(name, fb, rays, q, False), iters)
+        w_ms = cuda_ms(lambda: tf.launch(name, fb, rays, q, False), iters)
+        k_ms = flat_kernel_ms(name, fb, rays, q, n)
         bk = tf.launch(name, fb, orays, q, True)
         bp = tf.plain(name, fb, orays, q, True)
         occ_p, occ_1 = _bitwise(bk, bp)[0], _bitwise(bk, b1)[0]
-        occ_ms = cuda_ms(lambda: tf.launch(name, fb, orays, q, True), iters)
+        occ_ms = flat_kernel_ms(name, fb, orays, q, 0)
         short = "K2" if name == tf.K2 else "K3"
-        group = ""
+        extra = ""
         bad_g = 0
+        rec = {}
+        if name == tf.K2:
+            graze = (k2_against_reference(f"{label} closest", fb, rays, q, hk, False)
+                     + k2_against_reference(f"{label} occluded", fb, orays, q, bk,
+                                            True))
+            nc = n // 2 // q * q
+            mixed = torch.cat([rays[:, :nc], orays[:, nc:]], dim=1).contiguous()
+            mk = tf.merged_launch(fb, mixed, q, nc)
+            mp = tf.merged_plain(fb, mixed, q, nc)
+            bad_m = _equal((*mk[0], mk[1]), (*mp[0], mp[1]))[0]
+            check(bad_m == 0, f"{label}: K2 merged disagrees with its plain version")
+            extra = (f"; merged ({nc} closest lanes) bitwise its plain version; "
+                     f"{graze} lanes differ from the reference function")
+            rec["grazing_lanes"] = graze
         if name == tf.K3:
             # the reference's function: the q-lane groups' OR of the lanes'
             # exact tests, then the same flush
@@ -591,26 +655,27 @@ def compare_flat_queue(label, fb, rays, kernels, rng, iters=3):
                 bad_g += _equal(hk, tf.launch(name, fb, rays, q, False, sf))[0]
                 ways[sf] = cuda_ms(
                     lambda: tf.launch(name, fb, rays, q, False, sf), iters)
-            group = (f"; {bad_g} vs the group-of-{q} plain version (plain "
+            extra = (f"; {bad_g} vs the group-of-{q} plain version (plain "
                      f"{g_ms:.1f} ms) and the two ways of serving a leaf not "
                      f"bitwise; warp-served {ways[33]:.3f} ms, holder scans "
                      f"{ways[1]:.3f} ms (default scan_from={tf.SCAN_FROM}); "
                      f"pairs: group OR x q {g_pairs}, per lane {l_pairs}, up "
                      f"to K1's hit {pairs}")
         log(f"  {label:26s} {short} (q={q}): closest {bad_p} vs plain, {bad_1} "
-            f"vs K1 not bitwise, {k_ms:.3f} ms (plain {p_ms:.1f}, K1 "
-            f"{k1_ms:.3f}); occluded {occ_p} vs plain, {occ_1} vs K1 "
-            f"mismatched, blocked {bk.float().mean().item():.3f}, {occ_ms:.3f} "
-            f"ms (K1 {k1_occ_ms:.3f}); hit {(h1.tri >= 0).float().mean().item():.3f}, "
-            f"bound {b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs){group}")
+            f"vs K1 not bitwise, kernel {k_ms:.4f} ms (through the wrapper "
+            f"{w_ms:.4f}; plain {p_ms:.1f}, K1 {k1_ms:.4f}); occluded {occ_p} vs "
+            f"plain, {occ_1} vs K1 mismatched, blocked "
+            f"{bk.float().mean().item():.3f}, kernel {occ_ms:.4f} ms (K1 "
+            f"{k1_occ_ms:.4f}); hit {(h1.tri >= 0).float().mean().item():.3f}, "
+            f"bound {b_ms:.4f} ms by {b_by} ({pairs} ray-leaf pairs){extra}")
         check(bad_p == 0 and occ_p == 0,
               f"{label}: {short} disagrees with its plain version")
         check(bad_1 == 0 and occ_1 == 0, f"{label}: {short} disagrees with K1")
         check(bad_g == 0, f"{label}: K3 disagrees with the group-of-{q} plain "
               "version or across its ways of serving a leaf")
-        out[name] = {"ms": k_ms, "plain_ms": p_ms, "k1_ms": k1_ms,
-                     "occ_ms": occ_ms, "k1_occ_ms": k1_occ_ms,
-                     "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by}
+        out[name] = dict(rec, ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms,
+                         k1_ms=k1_ms, occ_ms=occ_ms, k1_occ_ms=k1_occ_ms,
+                         max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
     return out
 
 
@@ -875,13 +940,27 @@ def phase_flat(smi):
     b_ms = (bound(fb.aabbs, fb.leaf_size, bounce, t_b, False, fb.real_rows)[0]
             + bound(fb.aabbs, fb.leaf_size, shadow, shadow[7], True, fb.real_rows)[0])
     log(f"K2 merged mode, {smi}:")
-    rec[tf.K2]["merged"] = compare_merged(
+    merged = compare_merged(
         "K2 terrain200 bounce 1 sorted + sun shadow queue",
         lambda x, k: tf.merged_launch(fb, x, 128, k),
         lambda x, k: tf.merged_plain(fb, x, 128, k),
         lambda: (tf.launch(tf.K2, fb, bounce, 128, False),
                  tf.launch(tf.K2, fb, shadow, 128, True)),
         rays, nc, b_ms)
+    mk = tf.merged_launch(fb, rays, 128, nc)
+    graze = (k2_against_reference("merged closest half", fb, bounce, 128, mk[0],
+                                  False)
+             + k2_against_reference("merged shadow half", fb, shadow, 128, mk[1],
+                                    True))
+    k_ms = flat_kernel_ms(tf.K2, fb, rays, 128, nc)
+    sep_ms = (flat_kernel_ms(tf.K2, fb, bounce, 128, nc)
+              + flat_kernel_ms(tf.K2, fb, shadow, 128, 0))
+    log(f"  K2 merged: kernel {k_ms:.4f} ms (through the wrapper "
+        f"{merged['ms']:.4f} ms), the two single-mode kernels {sep_ms:.4f} ms; "
+        f"{graze} lanes differ from the reference function")
+    rec[tf.K2]["merged"] = dict(merged, ms=k_ms, wrapper_ms=merged["ms"],
+                                separate_kernel_ms=sep_ms)
+    rec[tf.K2]["grazing_lanes"] += graze
     return rec
 
 
@@ -1415,10 +1494,31 @@ def _across(label, t_a, tri_a, t_b, tri_b):
     return int((tri_a != tri_b).sum())
 
 
+def tile_real_rows(tiles, tile_rows):
+    """Each leaf's real-row count in a field-major tile array (rows f of a
+    leaf at ``tile_row + f`` hold field f of its 128 triangles; f32, or the
+    int16 codes of a quantized pack): ``traverse.real_row_counts`` of the
+    leaves at ``tile_rows`` (a 1-d int tensor), from the tiles' bits."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse
+
+    idx = tile_rows.long()[:, None] + torch.arange(9, device=tiles.device)
+    tris = tiles[idx].to(torch.float32).transpose(1, 2)  # (L, 128, 9)
+    return traverse.real_row_counts(tris.reshape(-1, 9), 128)
+
+
+def _pairs_rows(hits, counts):
+    """(pairs, real rows) of a (rays, leaves) hit mask, each leaf weighing
+    its real-row count."""
+    return int(hits.sum()), int((hits.sum(0) * counts).sum())
+
+
 def stream_bound(bb, rays, t_end, any_hit, sid_lane=None):
     """The bound of K4 and K5 on this queue (ms, bound_by, pairs): as
-    ``bound`` over the streamed pack's leaf boxes; with ``sid_lane`` (a K5
-    launch) only the leaves of each lane's subtree count."""
+    ``bound`` over the streamed pack's leaf boxes, each pierced leaf
+    weighing its real-row count (from the tiles' bits); with ``sid_lane``
+    (a K5 launch) only the leaves of each lane's subtree count."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
@@ -1427,18 +1527,30 @@ def stream_bound(bb, rays, t_end, any_hit, sid_lane=None):
     )
 
     aabbs, leaf_sid = ts.leaf_boxes(bb)
+    nodes = bb.sub_nodes.view(-1, 8)
+    leaf = torch.nonzero((nodes[:, 7] >= 0) & (nodes[:, 6] > 0)).squeeze(1)
+    tile_row = (leaf // (bb.sub_node_rows * 16) * bb.sub_leaves
+                + nodes[leaf, 7].long()) * 16
+    counts = tile_real_rows(bb.tri_tiles, tile_row)
     if sid_lane is None:
-        return bound(aabbs, ts.LEAF, rays, t_end, any_hit)
+        return bound(aabbs, ts.LEAF, rays, t_end, any_hit, counts)
+    weight = torch.zeros(aabbs.shape[1], dtype=torch.int64, device=rays.device)
+    weight[:counts.shape[0]] = counts
     seg = rays.clone()
     seg[7] = torch.minimum(rays[7], t_end)
     n, lpad = rays.shape[1], aabbs.shape[1]
     step = max(1, (1 << 23) // lpad)
-    pairs = sum(
-        int((tf.ray_leaf_hits(seg[:, k:k + step], aabbs)
-             & (leaf_sid[None] == sid_lane[k:k + step, None])).sum())
-        for k in range(0, n, step))
+    pairs = rows = 0
+    for k in range(0, n, step):
+        p, r = _pairs_rows(tf.ray_leaf_hits(seg[:, k:k + step], aabbs)
+                           & (leaf_sid[None] == sid_lane[k:k + step, None]),
+                           weight)
+        pairs, rows = pairs + p, rows + r
     bytes_ms = n * (RAY_BYTES + 2 * HIT_BYTES) / PEAK_BYTES_PER_S * 1e3
-    ops_ms = MT_FLOPS * ts.LEAF * pairs / PEAK_F32_FLOPS * 1e3
+    ops_ms = MT_FLOPS * rows / PEAK_F32_FLOPS * 1e3
+    log(f"    bound over {pairs} ray-leaf pairs: {rows} real rows of "
+        f"{ts.LEAF * pairs} padded, {max(bytes_ms, ops_ms):.4f} ms (over padded "
+        f"leaves {max(bytes_ms, MT_FLOPS * ts.LEAF * pairs / PEAK_F32_FLOPS * 1e3):.4f} ms)")
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", pairs)
 
@@ -2083,7 +2195,8 @@ def tlas_bound(ds, kernel, rays, t_end, any_hit):
     ``bound``, with the (ray, leaf) pairs counted in each instance's (K6)
     or entry's (K7) object space: the object ray's segment [tmin, min(tmax,
     t_end)] (world t) against the object-space boxes of that BLAS's or
-    chunk's leaves. K6 writes 4 more bytes per ray (the instance)."""
+    chunk's leaves, each pierced leaf weighing its real-row count (from
+    the tiles' bits). K6 writes 4 more bytes per ray (the instance)."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import (
@@ -2100,25 +2213,43 @@ def tlas_bound(ds, kernel, rays, t_end, any_hit):
     from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
     if kernel == "K6":
-        boxes, table = tt.leaf_boxes(ds.tlas_k6), ds.tlas_k6.inst_table
+        bb = ds.tlas_k6
+        boxes, table, tiles = tt.leaf_boxes(bb), bb.inst_table, bb.tri_tiles
     else:
         st, fr = ds.tlas_stream
-        boxes, table = tts.leaf_boxes(st, fr), fr.entry_table
+        boxes, table, tiles = tts.leaf_boxes(st, fr), fr.entry_table, st.tri_tiles
     seg_end = torch.minimum(rays[7], t_end)
     ro, rd = Vec3(*rays[0:3]), Vec3(*rays[3:6])
-    pairs = torch.zeros((), dtype=torch.int64, device=rays.device)
+    pairs = rows = 0
+    counts = {}
     for row in table.tolist():
-        b = boxes[int(row[13])]
+        key = int(row[13])
+        b = boxes[key]
+        if key not in counts:
+            if kernel == "K6":
+                nodes = bb.blas_nodes[key:key + int(row[14])]
+                leaf = nodes[nodes[:, 7] >= 0, 7].long()
+                tile_row = (int(row[15]) + leaf) * 16
+            else:
+                slots = st.node_rows * 16
+                nodes = st.sub_nodes[key:key + st.node_rows].view(slots, 8)
+                leaf = nodes[(nodes[:, 7] >= 0) & (nodes[:, 6] > 0), 7].long()
+                tile_row = int(row[14]) + leaf * 16
+            counts[key] = tile_real_rows(tiles, tile_row)
         o, d = object_ray(row, ro, rd)
         hit, _ = ray_aabb(torch.stack(list(o), -1)[None],
                           safe_inv_dir(torch.stack(list(d), -1))[None],
                           b[:, None, 0:3], b[:, None, 3:6], rays[6], seg_end)
-        pairs += hit.sum()
-    pairs = int(pairs)
+        p, r = _pairs_rows(hit.T, counts[key])
+        pairs, rows = pairs + p, rows + r
     n = rays.shape[1]
     out_bytes = 1 if any_hit else HIT_BYTES + (4 if kernel == "K6" else 0)
     bytes_ms = n * (RAY_BYTES + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    ops_ms = MT_FLOPS * 128 * pairs / PEAK_F32_FLOPS * 1e3
+    ops_ms = MT_FLOPS * rows / PEAK_F32_FLOPS * 1e3
+    padded = MT_FLOPS * 128 * pairs / PEAK_F32_FLOPS * 1e3
+    log(f"    bound over {pairs} ray-leaf pairs: {rows} real rows of "
+        f"{128 * pairs} padded, {max(bytes_ms, ops_ms):.4f} ms (over padded "
+        f"leaves {max(bytes_ms, padded):.4f} ms)")
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), pairs
 
 

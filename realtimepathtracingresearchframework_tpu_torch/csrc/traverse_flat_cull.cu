@@ -3,182 +3,260 @@
 // Replaces the Pallas TPU kernel
 // realtimepathtracingresearchframework_tpu/ops/traverse_pallas3.py::_kernel3
 // (pallas_call at :526; entries closest_hit_pallas3 :612, occluded_pallas3
-// :638). Its plain PyTorch version, which this kernel must equal bit for
-// bit, is ops/traverse_flat.py::flat_leaf_masks + _flush.
+// :638, merged closest_and_occluded_pallas3 :1119). Its plain PyTorch
+// version, which this kernel must equal bit for bit, is
+// ops/traverse_flat.py::plain(K2, ...): the group masks (flat_leaf_masks)
+// AND each lane's own slab test (ray_leaf_hits), then _flush per lane.
 //
-// What it computes: the rays arrive as one packed (8, n) operand [ro3, rd3,
-// tmin, tmax]; every group of q consecutive lanes (one CUDA block, q =
-// blockDim.x) reduces its packet bounds over its live lanes (origin box,
-// inverse-direction box, min tmin, max tmax, as block_bounds does), tests
-// that union packet against every leaf AABB with the conservative interval
-// test of _kernel3 (traverse_pallas3.py:187-226), and flushes the surviving
-// leaves with Moller-Trumbore (flat_flush.cuh). A leaf any lane's segment
-// pierces always survives, so the closest hit (t, row, u, v) or blocked
-// flag equals the resident walk's (K1) exactly. The mode is per block:
-// blocks from ``shadow_from`` on take the any-hit exit, so one launch can
-// carry a closest queue in its first blocks and a shadow queue after it
-// (the merged mode, traverse_pallas3.closest_and_occluded_pallas3 :1119);
-// any-hit lane i writes blocked[i - shadow_from * q].
+// What it computes: the rays arrive as one packed (8, n) operand [ro3,
+// rd3, tmin, tmax]. Every group of 128 consecutive lanes (one block)
+// reduces its packet bounds over its live lanes (origin box,
+// inverse-direction box, min tmin, max tmax, as group_bounds does) and
+// tests that union packet against every leaf AABB with the conservative
+// interval test of _kernel3 (flat_cull.cuh::survives). Each lane then
+// takes the closest hit (t, row, u, v; a miss: t = 2e32, row = -1, u = v =
+// 0) or the any-hit flag over the group's surviving leaves that its own
+// exact slab test enters: K3's function, reached through a group broad
+// phase. The group test keeps every leaf a lane's slab test enters (its
+// entry bound is a lower bound of the lane's, flat_cull.cuh), so the
+// result equals K3's and K1's bit for bit; it differs from the reference's
+// function (every survivor tested for every lane of the group) only on
+// grazing lanes, where the hit lies on the leaf box's boundary and the
+// lane's own slab test misses the box (ROADMAP queue 3). Warps whose
+// lanes lie at or past ``shadow_lane`` take the any-hit exit, so one
+// launch can carry a closest queue in its first lanes and a shadow queue
+// after it (the merged mode); any-hit lane i writes blocked[i -
+// shadow_lane].
 //
-// Design: the TPU kernel's group-major retile, 4-bit-per-leaf mask row,
-// SMEM DMA and scalar scan exist for the TPU's vector and scalar units and
-// are not carried over. Here one block is one group: a warp-shuffle
-// reduction for the packet bounds, one thread per leaf for the broad phase
-// (leaf boxes read coalesced, columns of the (16, Lpad) array), a shared
-// survivor list, then one leaf at a time staged in shared memory (4.6 KB at
-// leaf 128) while every thread runs Moller-Trumbore on its own ray.
+// What bounds it on this card: the Moller-Trumbore work of the (lane,
+// leaf) pairs it tests, ~54 flops per triangle, then the broad phase
+// (~60 flops per leaf box per group) and the per-lane box test of each
+// survivor (~25 flops). This kernel's first design tested every row of
+// every survivor for every lane of a 128-lane group, in no useful order,
+// behind two block barriers per leaf. On an NVIDIA H100 80GB HBM3 at 700
+// W, kernel-only (PERF.md, chip_smoke.py): terrain200's 2,097,152 frame
+// primaries 1.85 ms in that design, 0.76 ms in this one (bound 0.146 ms
+// over real rows, K1 1.10 ms); the village's 2.23 -> 0.51 ms; a sorted
+// bounce-1 queue merged with a sun shadow queue 78.7 -> 2.33 ms. nvcc: 64,
+// 72 and 72 registers at leaf 32, 64 and 128 (8 bytes of spill at 128).
 //
-// What bounds it on this card: the flush's arithmetic, about 54 flops per
-// ray and triangle (traverse_pallas2._mt_leaf), multiplied by how loose the
-// union box is: every lane of a group tests every row of every leaf that
-// any lane of the group might need, and one lane's stray direction widens
-// the inverse-direction interval for all. Coherent queues (camera
-// primaries) keep the union tight; that is where the renderer uses K2.
-// The stage-then-compute loop also leaves the SM idle during each row load;
-// later work can double-buffer the stage (cp.async or TMA), cap t per group
-// to skip leaves behind the nearest hit, and shrink groups.
+// Design: a block of 4 warps is one broad-phase group (of groups of 32,
+// 64 and 128 lanes, 128 was the fastest on the primaries, the queue the
+// renderer gives K2: PERF.md). The broad phase runs one thread per leaf;
+// the survivors' keys (entry bound lb, leaf) go to the block's list in
+// shared memory, 8 bytes a leaf, and the block sorts them
+// (flat_cull.cuh::sort_keys); that is the last barrier. Then each warp
+// walks the sorted list on its own, as K3 walks every leaf: the lanes'
+// cursors step together, one survivor a step, each lane's slab test of its
+// segment [tmin, min(tmax, best t)] decides whether it holds the leaf,
+// __ballot_sync collects the holders, and serve_leaves (tlas_walk.cuh)
+// tests the held leaf with RowTiles and the counted scan, up to the leaf's
+// real-row count. The warp stops at the first survivor whose lb exceeds
+// the best t of every lane still walking (strictly: a leaf whose lb equals
+// a lane's best t may hold an exact-t tie with a lower row). Leaves are
+// visited by lb, not by index, so a lane takes a hit that ties its best t
+// when its row is lower: before a held leaf whose rows lie below the
+// lane's best row, the lane's best t is raised by one ulp for the test
+// (then restored if the leaf gave no hit), so the warp's tests and the
+// strict merge of serve_leaves keep the first least (t, row), the
+// lexicographic merge of the plain version. Any-hit mode stops a lane at
+// its first hit and the warp once all its lanes are done.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+// --fmad=false (kernels/build.py), no fast math, so results compare
+// bitwise with the plain version.
 
-#include "flat_flush.cuh"
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "flat_cull.cuh"
+#include "tlas_walk.cuh"
 
 namespace {
 
+using rptr_stream::Best;
+using rptr_stream::Ray;
+using rptr_tlas::kFull;
 using namespace rptr_flat;
 
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+constexpr int kThreads = 128;  // threads per block: one broad-phase group
+constexpr int kWarps = kThreads / 32;
+// a block's survivor list: 48 KB less 1 KB for the static part
+constexpr int kSmemCap = 47 * 1024;
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// kMode: 0 every block closest, 1 every block any-hit, 2 blocks from
-// shadow_from on any-hit (the merged launch)
-template <int kMode>
-__global__ void flat_cull_kernel(const float* __restrict__ aabbs, int lpad,
-                                 int num_leaves, const float* __restrict__ rows,
-                                 int ls, const float* __restrict__ rays, int n,
-                                 int shadow_from, float* __restrict__ out_t,
-                                 int* __restrict__ out_row,
-                                 float* __restrict__ out_u,
-                                 float* __restrict__ out_v,
-                                 unsigned char* __restrict__ out_blocked) {
-  extern __shared__ int smem[];
-  int* list = smem;                                    // lpad survivor ids
-  float* stage = reinterpret_cast<float*>(smem + lpad);  // 9 * ls row floats
-  __shared__ float part[14][32];  // per-warp partial packet bounds
-  __shared__ float pb[14];        // the group's packet bounds
-  __shared__ int count;
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  Lane r;
-  r.load(rays, n, i);
-
-  // ---- packet bounds over the group's live lanes (block_bounds order:
-  // 0-2 origin min, 3-5 origin max, 6-8 inv-dir min, 9-11 inv-dir max,
-  // 12 tmin min, 13 tmax max); min and max are exact in any order
-  const float o[3] = {r.ox, r.oy, r.oz};
-  const float iv[3] = {safe_inv(r.dx), safe_inv(r.dy), safe_inv(r.dz)};
-  float v[14];
-  for (int k = 0; k < 3; ++k) {
-    v[k] = warp_min(r.live ? o[k] : kBig);
-    v[3 + k] = warp_max(r.live ? o[k] : -kBig);
-    v[6 + k] = warp_min(r.live ? iv[k] : kBig);
-    v[9 + k] = warp_max(r.live ? iv[k] : -kBig);
+// One warp's walk of its group's ``count`` sorted survivors ``keys``
+// (shared memory): each lane's best hit or blocked flag
+template <bool kAnyHit, int kLS>
+__device__ __forceinline__ Best narrow(const unsigned long long* keys,
+                                       int count, const float* __restrict__ aabbs,
+                                       int lpad, const rptr_tlas::RowTiles<kLS>& tiles,
+                                       const int* __restrict__ real_rows,
+                                       int scan_from, const Ray& r, bool live) {
+  Best b{r.tmax, -1, 0.0f, 0.0f, false};
+  bool done = !live;
+  int s = 0;
+  for (;;) {
+    bool holds = false;
+    unsigned hold = 0;
+    int leaf = 0;
+    for (; s < count; ++s) {
+      const unsigned long long key = keys[s];  // one address: a broadcast
+      // the keys ascend, so a lane past this leaf's lb is past every later one
+      const bool past = done || key_lb(key) > b.t;
+      if (__all_sync(kFull, past)) {
+        s = count;
+        break;
+      }
+      leaf = key_leaf(key);
+      holds = !past && enters(aabbs, lpad, leaf, r, b.t);
+      hold = __ballot_sync(kFull, holds);
+      if (hold) break;
+    }
+    if (s >= count) break;
+    const int row0 = leaf * kLS;
+    const float t_keep = b.t;
+    const int row_keep = b.row;
+    // an exact-t tie in a leaf of lower rows than the best's wins
+    if (!kAnyHit && holds && b.row > row0) b.t = nextafterf(b.t, INFINITY);
+    rptr_tlas::serve_leaves<kAnyHit, rptr_tlas::RowTiles<kLS>, true>(
+        holds, hold, tiles, r, leaf, row0, scan_from, b, real_rows);
+    if (!kAnyHit && b.row == row_keep) b.t = t_keep;
+    if (kAnyHit && b.blocked) done = true;
+    ++s;
   }
-  v[12] = warp_min(r.live ? r.tmin : kBig);
-  v[13] = warp_max(r.live ? r.tmax : -kBig);
-  if (lane == 0)
-    for (int k = 0; k < 14; ++k) part[k][warp] = v[k];
+  return b;
+}
+
+// One block is one broad-phase group of kThreads lanes, its survivor list
+// ``num_leaves`` keys of dynamic shared memory; lanes at or past n are dead
+template <int kLS>
+__global__ void __launch_bounds__(kThreads) flat_cull_kernel(
+    const float* __restrict__ aabbs, int lpad, int num_leaves,
+    const float* __restrict__ rows, const int* __restrict__ real_rows,
+    const float* __restrict__ rays, int n, int shadow_lane, int scan_from,
+    float* __restrict__ out_t, int* __restrict__ out_row,
+    float* __restrict__ out_u, float* __restrict__ out_v,
+    unsigned char* __restrict__ out_blocked) {
+  extern __shared__ unsigned long long keys[];
+  __shared__ float part[kBoundsN][kWarps];
+  __shared__ int count;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  Ray r{};  // a lane past n: a zero, dead ray
+  if (i < n) r.load(rays, n, i);
+  const bool live = r.tmax > r.tmin;
+
+  // ---- the group's packet bounds over its live lanes
+  float pb[kBoundsN];
+  warp_bounds(r, live, pb);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < kBoundsN; ++k) part[k][w] = pb[k];
+  }
   if (threadIdx.x == 0) count = 0;
   __syncthreads();
-  if (threadIdx.x < 14) {
-    const int k = threadIdx.x;
-    const bool is_min = k < 3 || (k >= 6 && k < 9) || k == 12;
+#pragma unroll
+  for (int k = 0; k < kBoundsN; ++k) {
     float acc = part[k][0];
-    for (int w = 1; w < nwarps; ++w)
-      acc = is_min ? fminf(acc, part[k][w]) : fmaxf(acc, part[k][w]);
+#pragma unroll
+    for (int v = 1; v < kWarps; ++v)
+      acc = is_min(k) ? fminf(acc, part[k][v]) : fmaxf(acc, part[k][v]);
     pb[k] = acc;
   }
-  __syncthreads();
 
   // ---- broad phase: the union packet against every leaf box, one thread
-  // per leaf (traverse_pallas3.py:187-226). An all-dead group (tmax max <=
-  // tmin min) keeps no leaf.
-  const float tlo = pb[12], thi = pb[13];
-  if (thi > tlo) {
-    for (int l = threadIdx.x; l < num_leaves; l += blockDim.x) {
-      float lb = tlo, ub = thi;
-      bool expand_ok = true;
-      for (int k = 0; k < 3; ++k) {
-        const float olo = pb[k], ohi = pb[3 + k];
-        const float ilo = pb[6 + k], ihi = pb[9 + k];
-        const float bmn = aabbs[k * lpad + l], bmx = aabbs[(3 + k) * lpad + l];
-        const float alo = bmn - ohi, ahi = bmn - olo;
-        const float blo = bmx - ohi, bhi = bmx - olo;
-        const float t0lo = fminf(fminf(alo * ilo, alo * ihi), fminf(ahi * ilo, ahi * ihi));
-        const float t0hi = fmaxf(fmaxf(alo * ilo, alo * ihi), fmaxf(ahi * ilo, ahi * ihi));
-        const float t1lo = fminf(fminf(blo * ilo, blo * ihi), fminf(bhi * ilo, bhi * ihi));
-        const float t1hi = fmaxf(fmaxf(blo * ilo, blo * ihi), fmaxf(bhi * ilo, bhi * ihi));
-        lb = fmaxf(lb, fminf(t0lo, t1lo));
-        ub = fminf(ub, fmaxf(t0hi, t1hi));
-        expand_ok = expand_ok && (fmaxf(alo, -bhi) <= thi);
-      }
-      if (lb <= ub && expand_ok) list[atomicAdd(&count, 1)] = l;
+  // per leaf; an all-dead group (tmax max <= tmin min) keeps no leaf
+  if (pb[13] > pb[12]) {
+    for (int l0 = 0; l0 < num_leaves; l0 += kThreads) {
+      const int l = l0 + threadIdx.x;
+      float lb = 0.0f;
+      const bool keep = l < num_leaves && survives(pb, aabbs, lpad, l, lb);
+      const unsigned ballot = __ballot_sync(kFull, keep);
+      int base = 0;
+      if (lane == 0 && ballot) base = atomicAdd(&count, __popc(ballot));
+      base = __shfl_sync(kFull, base, 0) + __popc(ballot & ((1u << lane) - 1u));
+      if (keep) keys[base] = leaf_key(lb, l);
     }
   }
   __syncthreads();
+  const int survivors = count;
+  sort_keys(keys, survivors);
 
-  // block-uniform, so the flush's barriers are reached by every thread
-  const bool shadow =
-      kMode == 1 || (kMode == 2 && static_cast<int>(blockIdx.x) >= shadow_from);
-  Best b;
+  // ---- narrow phase: each warp on its own, no barrier from here on
+  if (i - lane >= n) return;  // a warp wholly past n
+  const rptr_tlas::RowTiles<kLS> tiles{rows};
+  const bool shadow = i - lane >= shadow_lane;  // uniform over the warp
   if (shadow) {
-    flush<true>(rows, ls, list, count, stage, r, b);
-    write_out<true>(i - shadow_from * static_cast<int>(blockDim.x), b, out_t,
-                    out_row, out_u, out_v, out_blocked);
+    const Best b = narrow<true, kLS>(keys, survivors, aabbs, lpad, tiles,
+                                     real_rows, scan_from, r, live);
+    if (i < n) out_blocked[i - shadow_lane] = b.blocked ? 1 : 0;
   } else {
-    flush<false>(rows, ls, list, count, stage, r, b);
-    write_out<false>(i, b, out_t, out_row, out_u, out_v, out_blocked);
+    const Best b = narrow<false, kLS>(keys, survivors, aabbs, lpad, tiles,
+                                      real_rows, scan_from, r, live);
+    if (i < n) {
+      out_t[i] = b.row < 0 ? rptr_stream::kTMax : b.t;
+      out_row[i] = b.row;
+      out_u[i] = b.u;
+      out_v[i] = b.v;
+    }
   }
+}
+
+template <int kLS>
+int launch(size_t smem, const float* aabbs, int lpad, int num_leaves,
+           const float* rows, const int* real_rows, const float* rays, int n,
+           int shadow_lane, int scan_from, float* out_t, int* out_row,
+           float* out_u, float* out_v, unsigned char* out_blocked,
+           cudaStream_t s) {
+  flat_cull_kernel<kLS><<<(n + kThreads - 1) / kThreads, kThreads, smem, s>>>(
+      aabbs, lpad, num_leaves, rows, real_rows, rays, n, shadow_lane,
+      scan_from, out_t, out_row, out_u, out_v, out_blocked);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. ``rays`` is (8, n) f32, n a multiple of q; one
-// block of q threads per group. Blocks from ``shadow_from`` on run the
-// any-hit mode and write ``blocked`` (n - shadow_from * q flags), the
-// blocks before it t, row, u, v (their lanes' worth): a closest launch is
-// shadow_from >= n / q, an any-hit launch 0. Launches on ``stream`` and
-// returns cudaGetLastError() (0 = launched). The caller allocates every
-// output.
+// Plain C entry for ctypes. ``rays`` is (8, n) f32, n a multiple of q (the
+// reference's group, a multiple of 32 up to 1024). Blocks of 128 lanes are
+// the broad phase's groups; a block's survivor list takes 8 bytes a leaf
+// of shared memory, at most kSmemCap. Lanes from ``shadow_from * q`` on
+// run the any-hit mode and write ``blocked`` (their lanes' worth), the
+// lanes before it t, row, u, v: a closest launch is shadow_from >= n / q,
+// an any-hit launch 0; a split inside the operand falls on a multiple of
+// 128, between groups. ``leaf_size``: 32, 64 or 128 rows; ``rows`` aligned
+// to 16 bytes at 128, 8 at 64; ``real_rows``: each leaf's real-row count.
+// ``scan_from``: a leaf that this many lanes of a warp hold is tested by
+// each of them alone (> 32: never). Launches on ``stream`` and returns
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for operands
+// it does not take, the leaf count past the cap among them. The caller
+// allocates every output.
 extern "C" int rptr_traverse_flat_cull(
     const float* aabbs, int lpad, int num_leaves, const float* rows,
     int leaf_size, const float* rays, int n, int q, int shadow_from,
     float* out_t, int* out_row, float* out_u, float* out_v,
-    unsigned char* out_blocked, void* stream) {
+    unsigned char* out_blocked, void* stream, const int* real_rows,
+    int scan_from) {
   if (n <= 0) return 0;
   if (q <= 0 || q > 1024 || q % 32 || n % q || shadow_from < 0)
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(lpad, leaf_size);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(unsigned long long) * static_cast<size_t>(num_leaves);
+  if (smem > static_cast<size_t>(kSmemCap)) return cudaErrorInvalidValue;
+  const int shadow_lane = static_cast<long long>(shadow_from) * q < n
+                              ? shadow_from * q : n;
+  if (shadow_lane < n && shadow_lane % kThreads) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = n / q;
-  if (shadow_from >= grid)
-    flat_cull_kernel<0><<<grid, q, smem, s>>>(
-        aabbs, lpad, num_leaves, rows, leaf_size, rays, n, grid, out_t,
-        out_row, out_u, out_v, out_blocked);
-  else if (shadow_from == 0)
-    flat_cull_kernel<1><<<grid, q, smem, s>>>(
-        aabbs, lpad, num_leaves, rows, leaf_size, rays, n, 0, out_t, out_row,
-        out_u, out_v, out_blocked);
-  else
-    flat_cull_kernel<2><<<grid, q, smem, s>>>(
-        aabbs, lpad, num_leaves, rows, leaf_size, rays, n, shadow_from, out_t,
-        out_row, out_u, out_v, out_blocked);
-  return static_cast<int>(cudaGetLastError());
+#define RPTR_K2_LAUNCH(LS)                                                   \
+  return launch<LS>(smem, aabbs, lpad, num_leaves, rows, real_rows, rays, n, \
+                    shadow_lane, scan_from, out_t, out_row, out_u, out_v,    \
+                    out_blocked, s)
+  if (leaf_size == 128) RPTR_K2_LAUNCH(128);
+  if (leaf_size == 64) RPTR_K2_LAUNCH(64);
+  if (leaf_size == 32) RPTR_K2_LAUNCH(32);
+#undef RPTR_K2_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+extern "C" const char* rptr_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -65,38 +65,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flat_cull.cuh"
 #include "tlas_walk.cuh"
 
 namespace {
 
+using rptr_flat::enters;
 using rptr_stream::Best;
 using rptr_stream::Ray;
 using rptr_tlas::kFull;
 using rptr_tlas::kMaxThreads;
 using rptr_tlas::kNoTri;
-
-// ray_leaf_hits' slab test of leaf l's box (aabbs (16, lpad): rows 0-2
-// min, 3-5 max) on the segment [tmin, tcap]
-__device__ __forceinline__ bool enters(const float* __restrict__ aabbs,
-                                       int lpad, int l, const Ray& r,
-                                       float tcap) {
-  const float lox = __ldg(aabbs + l), hix = __ldg(aabbs + 3 * lpad + l);
-  const float loy = __ldg(aabbs + lpad + l), hiy = __ldg(aabbs + 4 * lpad + l);
-  const float loz = __ldg(aabbs + 2 * lpad + l), hiz = __ldg(aabbs + 5 * lpad + l);
-  float tn = r.tmin, tf = tcap;
-  float t0 = (lox - r.ox) * r.ix, t1 = (hix - r.ox) * r.ix;
-  tn = fmaxf(tn, fminf(t0, t1));
-  tf = fminf(tf, fmaxf(t0, t1));
-  t0 = (loy - r.oy) * r.iy;
-  t1 = (hiy - r.oy) * r.iy;
-  tn = fmaxf(tn, fminf(t0, t1));
-  tf = fminf(tf, fmaxf(t0, t1));
-  t0 = (loz - r.oz) * r.iz;
-  t1 = (hiz - r.oz) * r.iz;
-  tn = fmaxf(tn, fminf(t0, t1));
-  tf = fminf(tf, fmaxf(t0, t1));
-  return tn <= tf && lox <= hix;
-}
 
 template <bool kAnyHit, int kLS>
 __global__ void __launch_bounds__(kMaxThreads) precull_kernel(

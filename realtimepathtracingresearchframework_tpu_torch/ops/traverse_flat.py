@@ -6,10 +6,13 @@ the closest hit (t, row, u, v) or an any-hit blocked flag, without walking
 the tree:
 
 - **K2** (``closest_hit_flat`` / ``occluded_flat``; reference
-  ``_kernel3``): every group of ``block // groups`` consecutive lanes tests
+  ``_kernel3``): every group of ``CULL`` (128) consecutive lanes tests
   its union packet box (origin box x inverse-direction box, the
-  conservative interval test of ``_kernel3``) against every leaf AABB, then
-  runs Möller-Trumbore on the surviving leaves.
+  conservative interval test of ``_kernel3``) against every leaf AABB;
+  each lane then tests the group's survivors that its own exact slab test
+  enters (``plain_flat``). The reference tests every survivor for every
+  lane of the group (``plain_group``, kept as the reference function for
+  the tests); the two differ only on grazing lanes (``grazing``).
 - **K3** (``closest_hit_precull`` / ``occluded_precull``; reference
   ``_kernel4`` with its feeder ``leaf_masks_xla``): the reference's
   survivors are the OR over the group of each lane's own exact slab test
@@ -18,20 +21,19 @@ the tree:
   kernel caps each lane's box test at its best hit so far.
 
 K2 also has the merged mode of the wavefront (``closest_and_occluded_flat``;
-reference ``closest_and_occluded_pallas3``): one launch whose first blocks
-run a closest queue and whose later blocks run a shadow queue.
+reference ``closest_and_occluded_pallas3``): one launch whose first lanes
+run a closest queue and whose later lanes run a shadow queue.
 
-A leaf survives for a group whenever any lane's segment pierces its box,
-and the flush merges hits on (t, row) lexicographically, so the result of
-either kernel equals K1's bit for bit, whatever the group composition and
-the flush order.
+The group test keeps every leaf a lane's slab test enters, and the flush
+merges hits on (t, row) lexicographically, so either kernel's result
+equals K1's bit for bit, whatever the group and the flush order.
 
-On a CPU tensor the wrappers run the plain PyTorch version
-(``flat_leaf_masks`` then ``_flush``, or ``plain_precull``). On a CUDA
-tensor they launch the hand-written kernel (``csrc/traverse_flat_cull.cu``,
-``csrc/traverse_precull.cu``, built by ``kernels/build.py`` at first use)
-or raise; they never fall back to the plain version there.
-``launches_k2``/``launches_k3`` count the kernels' launches.
+On a CPU tensor the wrappers run the plain PyTorch version (``plain``).
+On a CUDA tensor they launch the hand-written kernel
+(``csrc/traverse_flat_cull.cu``, ``csrc/traverse_precull.cu``, built by
+``kernels/build.py`` at first use) or raise; they never fall back to the
+plain version there. ``launches_k2``/``launches_k3`` count the kernels'
+launches.
 """
 
 from __future__ import annotations
@@ -72,7 +74,15 @@ _CHUNK_ELEMS = 1 << 23  # elements per temporary of the plain versions
 # it; of 1, 8, 16, 24, 32 and never, 24 was within 1% of the fastest on
 # every queue timed on an H100, at leaf size 32, 64 and 128 (PERF.md).
 SCAN_FROM = 24
-K3_LEAF_SIZES = (32, 64, 128)
+# K2's (csrc/traverse_flat_cull.cu): of 1, 8, 16, 24 and never, 16 was the
+# fastest on the terrain200 and village primaries and the merged queue
+# (PERF.md)
+K2_SCAN_FROM = 16
+LEAF_SIZES = (32, 64, 128)
+# K2: lanes per broad-phase group, one block of csrc/traverse_flat_cull.cu.
+# The result does not depend on it; of 32, 64 and 128, 128 was the fastest
+# on the primaries, the queue the renderer gives K2 (PERF.md).
+CULL = 128
 
 launches_k2 = 0  # K2 launches in this process (reset with reset_launches)
 launches_k3 = 0  # K3 launches in this process
@@ -93,7 +103,7 @@ class FlatBVH(NamedTuple):
     tri_rows: torch.Tensor  # (R, 9) f32 v0, e1, e2, leaf-major
     row_tri: torch.Tensor  # (R,) i32 source triangle of each row
     leaf_size: int
-    real_rows: torch.Tensor  # (R // leaf_size,) i32 (K1 reads it; K2, K3 not)
+    real_rows: torch.Tensor  # (R // leaf_size,) i32 (K1 and K2 read it; K3 not)
     aabbs: torch.Tensor  # (16, Lpad) f32: rows 0-2 min, 3-5 max
     num_leaves: int
     scene_lo: torch.Tensor  # (3,) root node min
@@ -166,9 +176,12 @@ def group_bounds(rays: torch.Tensor, q: int) -> torch.Tensor:
     return torch.stack(out + [mn(r[6]), mx(r[7])])
 
 
-def flat_leaf_masks(rays: torch.Tensor, aabbs: torch.Tensor, q: int):
-    """K2's broad phase: (G, Lpad) bool, True where group g's union packet
-    box may meet leaf l (the interval test of traverse_pallas3.py:187-226)."""
+def flat_leaf_bounds(rays: torch.Tensor, aabbs: torch.Tensor, q: int):
+    """K2's broad phase: ((G, Lpad) bool, (G, Lpad) f32), True where group
+    g's union packet box may meet leaf l (the interval test of
+    traverse_pallas3.py:187-226), and the test's lower end ``lb``, the
+    entry bound the kernel sorts its survivors by: below the slab entry t
+    (``slab_entry``) of every live lane of the group."""
     b = group_bounds(rays, q)[:, :, None]  # (14, G, 1)
     tlo, thi = b[12], b[13]
     lb = tlo.expand(-1, aabbs.shape[1])
@@ -190,12 +203,19 @@ def flat_leaf_masks(rays: torch.Tensor, aabbs: torch.Tensor, q: int):
         lb = torch.maximum(lb, torch.minimum(t0lo, t1lo))
         u = torch.minimum(u, torch.maximum(t0hi, t1hi))
         expand_ok = expand_ok & (torch.maximum(alo, -bhi) <= thi)
-    return (lb <= u) & expand_ok & (thi > tlo)
+    return (lb <= u) & expand_ok & (thi > tlo), lb
 
 
-def ray_leaf_hits(rays: torch.Tensor, aabbs: torch.Tensor) -> torch.Tensor:
-    """(N, Lpad) bool: each lane's exact slab test of its own segment
-    [tmin, tmax] against every leaf box (traverse_pallas3.py:700-714)."""
+def flat_leaf_masks(rays: torch.Tensor, aabbs: torch.Tensor, q: int):
+    """(G, Lpad) bool: the survivors of K2's broad phase
+    (``flat_leaf_bounds``)."""
+    return flat_leaf_bounds(rays, aabbs, q)[0]
+
+
+def slab_entry(rays: torch.Tensor, aabbs: torch.Tensor):
+    """(N, Lpad) f32 twice: each lane's slab entry and exit t of its
+    segment [tmin, tmax] against every leaf box (traverse_pallas3.py:
+    700-714)."""
     tmin, tmax = rays[6], rays[7]
     tn = tmin[:, None].expand(-1, aabbs.shape[1])
     tf = tmax[:, None].expand(-1, aabbs.shape[1])
@@ -206,8 +226,15 @@ def ray_leaf_hits(rays: torch.Tensor, aabbs: torch.Tensor) -> torch.Tensor:
         t1 = (aabbs[3 + k][None] - o) * inv[k][:, None]
         tn = torch.maximum(tn, torch.minimum(t0, t1))
         tf = torch.minimum(tf, torch.maximum(t0, t1))
+    return tn, tf
+
+
+def ray_leaf_hits(rays: torch.Tensor, aabbs: torch.Tensor) -> torch.Tensor:
+    """(N, Lpad) bool: each lane's exact slab test of its own segment
+    [tmin, tmax] against every leaf box (traverse_pallas3.py:700-714)."""
+    tn, tf = slab_entry(rays, aabbs)
     valid = (aabbs[0] <= aabbs[3])[None]
-    return (tn <= tf) & (tmax > tmin)[:, None] & valid
+    return (tn <= tf) & (rays[7] > rays[6])[:, None] & valid
 
 
 def precull_leaf_masks(rays: torch.Tensor, aabbs: torch.Tensor, q: int):
@@ -287,27 +314,86 @@ def _flush(bvh: FlatBVH, rays: torch.Tensor, mask: torch.Tensor, q: int,
     )
 
 
+def _cat(out, any_hit):
+    return torch.cat(out) if any_hit else tuple(map(torch.cat, zip(*out)))
+
+
 def plain_precull(bvh: FlatBVH, rays: torch.Tensor, any_hit: bool):
     """K3's plain version: each lane's own survivors (``ray_leaf_hits``,
     ``precull_leaf_masks`` at q = 1), then ``_flush``, in chunks of lanes.
     Equal to ``_flush`` over the q-lane groups' OR bit for bit, whatever
     q."""
     step = max(1, _CHUNK_ELEMS // bvh.aabbs.shape[1])
-    out = [_flush(bvh, rays[:, s:s + step],
-                  ray_leaf_hits(rays[:, s:s + step], bvh.aabbs), 1, any_hit)
-           for s in range(0, rays.shape[1], step)]
-    return torch.cat(out) if any_hit else tuple(map(torch.cat, zip(*out)))
+    return _cat([_flush(bvh, rays[:, s:s + step],
+                        ray_leaf_hits(rays[:, s:s + step], bvh.aabbs), 1,
+                        any_hit)
+                 for s in range(0, rays.shape[1], step)], any_hit)
+
+
+def plain_flat(bvh: FlatBVH, rays: torch.Tensor, any_hit: bool):
+    """K2's plain version, in chunks of lanes: the broad phase over groups
+    of ``CULL`` lanes (``flat_leaf_masks``; a last, partial group padded
+    with dead lanes), expanded to the lanes, AND each lane's own slab test
+    (``ray_leaf_hits``), then ``_flush`` per lane (q = 1). Every leaf a
+    lane's slab test enters survives its group's test (the entry bound
+    argument of csrc/flat_cull.cuh), so this equals ``plain_precull`` and
+    K1 wherever the group test's extra cull keeps those leaves; it differs
+    from the reference function, ``plain_group``, only on grazing lanes
+    (``grazing``)."""
+    n, lpad = rays.shape[1], bvh.aabbs.shape[1]
+    rays = torch.nn.functional.pad(rays, (0, -n % CULL))
+    step = max(CULL, (_CHUNK_ELEMS // lpad) // CULL * CULL)
+    out = []
+    for s in range(0, rays.shape[1], step):
+        r = rays[:, s:s + step]
+        mask = flat_leaf_masks(r, bvh.aabbs, CULL).repeat_interleave(CULL, 0)
+        out.append(_flush(bvh, r, mask & ray_leaf_hits(r, bvh.aabbs), 1,
+                          any_hit))
+    out = _cat(out, any_hit)
+    return out[:n] if any_hit else tuple(x[:n] for x in out)
+
+
+def plain_group(bvh: FlatBVH, rays: torch.Tensor, q: int, any_hit: bool):
+    """The reference's function of K2 (``_kernel3``): every leaf that
+    survives a q-lane group's broad phase tested for every lane of the
+    group (``flat_leaf_masks`` then ``_flush``). The tests and
+    ``chip_smoke.py`` hold K2 against it (``grazing``); no route runs it."""
+    return _flush(bvh, rays, flat_leaf_masks(rays, bvh.aabbs, q), q, any_hit)
+
+
+def grazing(bvh: FlatBVH, rays: torch.Tensor, lanes: torch.Tensor, q: int,
+            ref, any_hit: bool) -> list:
+    """Whether each lane of ``lanes``, where K2 (``plain_flat``) and the
+    reference function (``plain_group`` at q, its result ``ref``: (t, row,
+    u, v) or blocked flags) differ, is grazing: the reference's hit lies in
+    a leaf of the group's survivors whose box the lane's own exact slab
+    test misses (a zero direction component on a box face, a box corner,
+    a 1-ulp gap between the slab t and Möller-Trumbore's t). Closest mode:
+    the leaf of the reference's hit row; any-hit: some surviving leaf that
+    the slab test misses blocks the lane's segment."""
+    out = []
+    for j in lanes.tolist():
+        r = rays[:, j:j + 1]
+        own = ray_leaf_hits(r, bvh.aabbs)[0]
+        if any_hit:
+            survive = flat_leaf_masks(rays[:, j // q * q:(j // q + 1) * q],
+                                      bvh.aabbs, q)[0]
+            out.append(bool(ref[j]) and bool(_flush(
+                bvh, r, (survive & ~own)[None], 1, True)[0]))
+        else:
+            row = int(ref[1][j])
+            out.append(row >= 0 and not bool(own[row // bvh.leaf_size]))
+    return out
 
 
 def plain(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
           any_hit: bool):
-    """The plain version of K2 (``name == K2``: its survivor masks, then
-    ``_flush``) or K3 (``plain_precull``; ``q`` does not count) on a packed
-    (8, Np) operand. What the wrappers run on CPU tensors, and what
-    ``launch`` must equal on the card."""
+    """The plain version of K2 (``plain_flat``) or K3 (``plain_precull``)
+    on a packed (8, Np) operand; ``q`` does not count. What the wrappers
+    run on CPU tensors, and what ``launch`` must equal on the card."""
     if name == K3:
         return plain_precull(bvh, rays, any_hit)
-    return _flush(bvh, rays, flat_leaf_masks(rays, bvh.aabbs, q), q, any_hit)
+    return plain_flat(bvh, rays, any_hit)
 
 
 # ---------------------------------------------------------------------------
@@ -324,22 +410,27 @@ def _lib(name: str):
     # passed as a 32-bit C int and cut the pointer)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, i, i, p, i, p, i, i, i] + [p] * 5 + [p] + (
-        [i] if name == K3 else [])
+        [i] if name == K3 else [p, i])
     fn.restype = ctypes.c_int
     lib.rptr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rptr_cuda_error_string.restype = ctypes.c_char_p
     return lib, fn
 
 
-def _launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
-            n_closest: int, mode: int, scan_from: int = None):
-    """One launch of K2 or K3 over a packed (8, Np) operand, one CUDA block
-    per q-lane group (K3: blocks of up to 512 lanes): the closest mode on
-    lanes [0, n_closest), the any-hit mode on the rest. ``mode`` is the
-    kernel's own argument: K2's first any-hit group, K3's any-hit flag (K3
-    runs one mode per launch); ``scan_from`` K3's (default ``SCAN_FROM``).
-    Returns ((t, row, u, v), blocked) of the two parts, raw."""
-    global launches_k2, launches_k3
+def bind(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int, n_closest: int,
+         mode: int, scan_from: int = None):
+    """Check the operands of one launch of K2 or K3 over a packed (8, Np)
+    operand, allocate its outputs and bind it: K2 in broad-phase groups of
+    ``CULL`` lanes, K3 in blocks of up to 512 lanes; the closest mode on
+    lanes [0, n_closest), the any-hit mode on the rest (K2's split between
+    two groups). ``mode`` is the kernel's own argument: K2's first any-hit
+    q-lane group, K3's any-hit flag (K3 runs one mode per launch);
+    ``scan_from`` forces how a leaf is served (default ``K2_SCAN_FROM`` or
+    ``SCAN_FROM``) and does not change the result. Returns (run,
+    (t, row, u, v) of the closest lanes, blocked flags of the rest):
+    ``run()`` launches the kernel on the current device, uncounted, and
+    returns its CUDA error code (0 = launched); None when there is no
+    lane."""
     dev = rays.device
     n = rays.shape[1]
     ls, lpad = bvh.leaf_size, bvh.aabbs.shape[1]
@@ -351,29 +442,57 @@ def _launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
         raise ValueError(f"{name}: {n} lanes in groups of {q}")
     if n_closest % q or not 0 <= n_closest <= n:
         raise ValueError(f"{name}: a closest part of {n_closest} of {n} lanes")
-    extra = ()
+    if ls not in LEAF_SIZES:
+        raise ValueError(f"{name}: leaf size {ls} not in {LEAF_SIZES}")
+    # a lane reads its ls / 32 rows in loads of 4 * ls / 32 bytes
+    _check_aligned("tri_rows", bvh.tri_rows, 4 * ls // 32)
+    if scan_from is not None:
+        sf = scan_from
+    else:
+        sf = K2_SCAN_FROM if name == K2 else SCAN_FROM
     if name == K3:
-        if ls not in K3_LEAF_SIZES:
-            raise ValueError(f"{name}: leaf size {ls} not in {K3_LEAF_SIZES}")
-        # a lane reads its ls / 32 rows in loads of 4 * ls / 32 bytes
-        _check_aligned("tri_rows", bvh.tri_rows, 4 * ls // 32)
-        extra = (SCAN_FROM if scan_from is None else scan_from,)
+        extra = (sf,)
+    else:
+        _check("real_rows", bvh.real_rows, torch.int32, (r // ls,), dev)
+        if 0 < n_closest < n and n_closest % CULL:
+            raise ValueError(f"{name}: a merged split at lane {n_closest} "
+                             f"inside a broad-phase group of {CULL}")
+        extra = (bvh.real_rows.data_ptr(), sf)
     closest = (torch.empty(n_closest, dtype=torch.float32, device=dev),
                torch.empty(n_closest, dtype=torch.int32, device=dev),
                torch.empty(n_closest, dtype=torch.float32, device=dev),
                torch.empty(n_closest, dtype=torch.float32, device=dev))
     blocked = torch.empty(n - n_closest, dtype=torch.bool, device=dev)
     if n == 0:
-        return closest, blocked
-    lib, fn = _lib(name)
+        return None, closest, blocked
+    _, fn = _lib(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(bvh.aabbs.data_ptr(), lpad, bvh.num_leaves,
-                bvh.tri_rows.data_ptr(), ls, rays.data_ptr(), n, q, mode,
-                *(x.data_ptr() or None for x in (*closest, blocked)), stream,
-                *extra)
+    args = (bvh.aabbs.data_ptr(), lpad, bvh.num_leaves, bvh.tri_rows.data_ptr(),
+            ls, rays.data_ptr(), n, q, mode,
+            *(x.data_ptr() or None for x in (*closest, blocked)), stream,
+            *extra)
+
+    def run():
+        return fn(*args)
+
+    return run, closest, blocked
+
+
+def _launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
+            n_closest: int, mode: int, scan_from: int = None):
+    """One launch of K2 or K3 (``bind``'s arguments), counted. Returns
+    ((t, row, u, v), blocked) of the two parts, raw."""
+    global launches_k2, launches_k3
+    run, closest, blocked = bind(name, bvh, rays, q, n_closest, mode, scan_from)
+    if run is None:
+        return closest, blocked
+    with torch.cuda.device(rays.device):
+        rc = run()
     if rc != 0:
-        msg = lib.rptr_cuda_error_string(rc).decode()
+        msg = _lib(name)[0].rptr_cuda_error_string(rc).decode()
+        if name == K2:  # the survivor list: 8 bytes a leaf, at most 47 KB
+            msg += f"; {bvh.num_leaves} leaves"
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {rc})")
     if name == K2:
         launches_k2 += 1
@@ -385,8 +504,8 @@ def _launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
 def launch(name: str, bvh: FlatBVH, rays: torch.Tensor, q: int,
            any_hit: bool, scan_from: int = None):
     """One launch of K2 or K3 over a packed (8, Np) operand in one mode
-    (``scan_from``: K3's, default ``SCAN_FROM``). Returns the raw output
-    tensors: (t, row, u, v) or the blocked flags."""
+    (``scan_from``: ``bind``'s). Returns the raw output tensors:
+    (t, row, u, v) or the blocked flags."""
     n_closest = 0 if any_hit else rays.shape[1]
     closest, blocked = _launch(name, bvh, rays, q, n_closest,
                                int(any_hit) if name == K3 else n_closest // q,

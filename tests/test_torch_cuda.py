@@ -9,7 +9,9 @@ only the port is installed. On a machine with a CUDA card and nvcc:
 test here skips. ``chip_smoke.py`` runs the same comparisons at the main
 paths' shapes. The merged two-queue launches of K1, K2 and K4 are held
 against their plain versions and against the kernel's separate launches.
-K1 is held against its plain walk in every mode at leaf 32, 64 and 128,
+K2 is held against its plain version in every mode at leaf 32, 64 and 128,
+at each broad-phase group and leaf service, on ragged queues and on two
+tie scenes (one whose equal-t hits it meets out of index order). K1 is held against its plain walk in every mode at leaf 32, 64 and 128,
 with each way of serving a leaf; K8a
 and K8b (the v1 walk) against their per-lane plain version in all three
 modes at each block size and leaf service, K5 at each leaf service; K1,
@@ -701,6 +703,170 @@ def test_k3_past_the_old_shared_memory_cap_on_card():
                                  rays[6], rays[7])
     _assert_equal_bits(hit, tuple(k1), "K3 vs K1")
     assert (hit[1] >= 0).any()
+
+
+def lb_tie_scene(leaf_size):
+    """A flat BVH of two leaves whose equal-t hits K2 visits out of index
+    order, as numpy arrays (``ThreadedBVH``'s fields, for either package's
+    class), and its rays (ro, rd, tmax, any-hit tmax). Leaf 0 holds the
+    triangle v0 (0, 0, 0), e1 (16, 0, 0), e2 (0, 16, 0) in the plane z = 0;
+    leaf 1 holds the same triangle again and a small one at z = 2 off to
+    the side, so its box reaches up to z = 2. The rays come down from z = 5
+    (direction (+-2^-10 or +-2^-11, the same, -1)) over the big triangle:
+    every value of Möller-Trumbore is exact, both copies give t = 5, and
+    leaf 1's entry bound (3) sorts it before leaf 0's (5), so the kernel
+    meets the higher row first and must still keep row 0. Segments: 1 lane
+    in 7 dead, 1 in 5 ending at 4.5, 5 (no hit: the test is strict) or
+    5.5; any-hit segments end at 4.5, 5 or 5.5; 1 lane in 9 aims at the
+    small triangle (a hit at t = 3)."""
+    ls = leaf_size
+    big = [[0, 0, 0], [16, 0, 0], [0, 16, 0]]
+    small = [[20, 20, 2], [1, 0, 0], [0, 1, 0]]
+    leaf0, leaf1 = [big] * ls, [big, small] + [small] * (ls - 2)
+    tris = np.asarray(leaf0 + leaf1, np.float32)  # (2 ls, 3, 3)
+    rows = np.zeros((2 * ls, 12), np.float32)
+    rows[:, 0:9] = tris.reshape(-1, 9)
+    row_tri = np.asarray([0] * ls + [1] + [2] * (ls - 1), np.int32)
+    v = [tris[:, 0], tris[:, 0] + tris[:, 1], tris[:, 0] + tris[:, 2]]
+    lo, hi = np.minimum.reduce(v), np.maximum.reduce(v)
+
+    def box(r):
+        return np.concatenate([lo[r].min(0), hi[r].max(0)])
+
+    def link(x):
+        return np.asarray(x, np.int32).view(np.float32)
+
+    nodes = np.zeros((3, 8), np.float32)
+    for k, (r, skip, first) in enumerate(((slice(None), 3, -1),
+                                          (slice(0, ls), 2, 0),
+                                          (slice(ls, None), 3, ls))):
+        nodes[k, 0:6] = box(r)
+        nodes[k, 6], nodes[k, 7] = link(skip), link(first)
+    arrays = dict(nodes=nodes, tri_rows=rows, row_tri=row_tri, depth=2,
+                  world_min=nodes[0, 0:3].copy(), world_max=nodes[0, 3:6].copy(),
+                  leaf_size=ls)
+    rng = np.random.default_rng(37)
+    n = 512
+    xy = rng.integers(1, 32, (n, 2)) / 4.0  # x + y < 16: inside the big one
+    xy[::9] = [20.5, 20.5]
+    rd = np.stack([rng.choice([-1, 1], n) * rng.choice([2.0**-10, 2.0**-11], n),
+                   rng.choice([-1, 1], n) * rng.choice([2.0**-10, 2.0**-11], n),
+                   -np.ones(n)], 1)
+    ro = np.concatenate([xy, np.zeros((n, 1))], 1) - 5.0 * rd
+    ro[::9, 2] = 5.0
+    tmax = np.full(n, 2.0e32)
+    tmax[::5] = rng.choice([4.5, 5.0, 5.5], len(tmax[::5]))
+    tmax[::7] = 0.0
+    otm = np.where(tmax > 0, rng.choice([4.5, 5.0, 5.5], n), 0.0)
+    f32 = (lambda a: np.asarray(a, np.float32))
+    return arrays, (f32(ro), f32(rd), f32(tmax), f32(otm))
+
+
+def _k2_modes(fb, rays, orays, q, scan_from=None):
+    """(name, launch, plain) of K2 closest and any-hit, unsorted and
+    coherence-sorted, and merged (half the lanes, rounded to a broad-phase
+    group of 128, closest), in q-lane groups and with the leaf service
+    ``scan_from``: each launch bound (``tf.bind``) and run."""
+    srt = tr._compact(rays, fb.scene_lo, fb.scene_hi)[0]
+    osrt = tr._compact(orays, fb.scene_lo, fb.scene_hi)[0]
+    nc = (rays.shape[1] // 2) // 128 * 128
+    mixed = torch.cat([rays[:, :nc], orays[:, nc:]], dim=1).contiguous()
+
+    def run(op, n_closest):
+        go, c, b = tf.bind(tf.K2, fb, op, q, n_closest, n_closest // q,
+                           scan_from)
+        assert go() == 0
+        return (*(c if n_closest else ()),
+                *((b,) if n_closest < op.shape[1] else ()))
+
+    def plain(op, n_closest):
+        out = ()
+        if n_closest:
+            out += tuple(tf.plain_flat(fb, op[:, :n_closest], False))
+        if n_closest < op.shape[1]:
+            out += (tf.plain_flat(fb, op[:, n_closest:], True),)
+        return out
+
+    return tuple(
+        (f"{name} q={q} scan_from={scan_from}",
+         (lambda op=op, k=k: run(op, k)), (lambda op=op, k=k: plain(op, k)))
+        for name, op, k in (("closest", rays, rays.shape[1]),
+                           ("closest sorted", srt, rays.shape[1]),
+                           ("any-hit", orays, 0), ("any-hit sorted", osrt, 0),
+                           ("merged", mixed, nc)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [32, 64, 128])
+@pytest.mark.parametrize("leaf_size", [32, 64, 128])
+def test_k2_edge_queues_on_card(leaf_size, q):
+    """K2 closest, any-hit and merged, sorted and not, equals its plain
+    version bitwise at leaf sizes 32, 64 and 128 and q of 32, 64 and 128
+    lanes, with each leaf served by the warp, by its holders alone and by
+    the default rule, on a queue with dead lanes, an all-dead warp and
+    empty segments, and on one whose last broad-phase group is partial (q
+    32 and 64);
+    and K3's plain version and K1."""
+    dev = _card()
+    flat = Scene.from_vkr_scene(procedural.terrain(grid=48)).flatten_world()
+    fb = _flat_pack(flat.v0, flat.e1, flat.e2, leaf_size, dev)
+    rays, orays = _edge_rays(flat.v0.min(0), flat.v0.max(0), 4096, 24, dev)
+    for scan_from in (33, 1, None):
+        _assert_modes_equal_plain(_k2_modes(fb, rays, orays, q, scan_from))
+    part = rays[:, :-q].contiguous()  # at q 32 and 64 a partial last group
+    _assert_equal_bits(tf.launch(tf.K2, fb, part, q, False),
+                       tuple(tf.plain_flat(fb, part, False)), "partial group")
+    hit = tf.launch(tf.K2, fb, rays, 128, False)
+    k1 = tr.closest_hit_resident(fb, Vec3(*rays[0:3]), Vec3(*rays[3:6]),
+                                 rays[6], rays[7])
+    _assert_equal_bits(hit, tuple(tf.plain_precull(fb, rays, False)), "K2 vs K3")
+    _assert_equal_bits(hit, tuple(k1), "K2 vs K1")
+    empty = rays[7] <= rays[6]
+    assert (hit[1][empty] == -1).all() and (hit[1][~empty] >= 0).any()
+    blocked = tf.launch(tf.K2, fb, orays, 128, True)
+    assert not blocked[empty].any() and blocked.any()
+    assert torch.equal(blocked, tr.occluded_resident(
+        fb, Vec3(*orays[0:3]), Vec3(*orays[3:6]), orays[6], orays[7]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_size", [32, 64, 128])
+def test_k2_tie_scenes_on_card(leaf_size):
+    """On the tie scene flattened to world space and on ``lb_tie_scene``
+    (equal-t hits met out of index order), K2 in every mode, q and leaf
+    service equals its plain version, and K1 bitwise: the lowest row wins
+    an exact-t tie."""
+    dev = _card()
+    (v0, e1, e2), (ro, rd, tmax, otm) = tie_world()
+    arrays, lb_rays = lb_tie_scene(leaf_size)
+    scenes = ((_flat_pack(v0, e1, e2, leaf_size, dev), (ro, rd, tmax, otm)),
+              (tf.pack_flat(bvh_mod.ThreadedBVH(**arrays), dev), lb_rays))
+    for fb, (ro, rd, tmax, otm) in scenes:
+        rays, orays = _packed(ro, rd, tmax, dev), _packed(ro, rd, otm, dev)
+        for q in (32, 64, 128):
+            for scan_from in (33, 1, None):
+                _assert_modes_equal_plain(_k2_modes(fb, rays, orays, q,
+                                                    scan_from))
+        hit = tf.launch(tf.K2, fb, rays, 128, False)
+        k1 = tr.closest_hit_resident(fb, Vec3(*rays[0:3]), Vec3(*rays[3:6]),
+                                     rays[6], rays[7])
+        _assert_equal_bits(hit, tuple(k1), "K2 vs K1")
+        assert (hit[1] >= 0).any()
+    at5 = hit[0] == 5.0
+    assert at5.any() and (hit[1][at5] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k2_past_the_shared_memory_cap_on_card():
+    """A scene whose survivor list (8 bytes a leaf) would pass 47 KB of
+    shared memory: K2's C entry refuses it, the error names the leaf
+    count, and nothing falls back to the plain version."""
+    fb, rays = _terrain_queue(24, 32, 256, 3)
+    big = fb._replace(num_leaves=47 * 1024 // 8 + 1)
+    before = tf.launches_k2
+    with pytest.raises(RuntimeError, match=f"{big.num_leaves} leaves"):
+        tf.launch(tf.K2, big, rays, 128, False)
+    assert tf.launches_k2 == before
 
 
 def _merged_operand(kernel, n_closest, seed):

@@ -17,6 +17,21 @@ lanes shrunk to one); its plain version is held bitwise to the group
 version at q = 128 and to plain K1, and to pallas4, on these scenes and
 on the tie scene of tests/test_torch_cuda.py flattened to world space.
 
+The port's K2 tests, for each lane, the survivors of its group's broad
+phase that its own exact slab test enters (``plain_flat``, K3's function
+reached through a group test). Its plain version is held bitwise to
+``plain_precull`` and plain K1 in closest, any-hit and merged mode at
+q of 32, 64 and 128 lanes and leaf sizes 32, 64 and 128, on ragged
+queues with dead and pad lanes, the tie scene and a tie scene whose
+equal-t hits the kernel meets out of index order (``lb_tie_scene``); and
+to the reference function (``plain_group``: every survivor for every lane)
+and ``closest_hit_pallas3`` / ``occluded_pallas3`` at the tolerances
+above, the lanes that differ counted and each shown to be grazing (0 on
+these scenes; an axis-aligned queue with origins on leaf-box faces
+counts its own). The entry bound the kernel sorts by is a lower bound of
+every lane's slab entry, and a model of the kernel's sorted walk (early
+exit past the best t, ties taken by row) equals the plain version.
+
 The cull itself: the port's leaf boxes and per-ray feeder bits equal the
 reference's (``leaf_aabbs_for``, ``leaf_masks_xla``), and K2's union
 survivors contain every leaf the per-ray exact test keeps. The coherence
@@ -41,6 +56,7 @@ from realtimepathtracingresearchframework_tpu.ops import traverse_pallas2 as tp2
 from realtimepathtracingresearchframework_tpu.ops import traverse_pallas3 as tp3
 from realtimepathtracingresearchframework_tpu.ops import wavefront_host as jwf
 from realtimepathtracingresearchframework_tpu_torch.ops import integrator as ti
+from realtimepathtracingresearchframework_tpu_torch.ops import bvh as tbvh
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_resident as tr
@@ -48,7 +64,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops import wavefront_host as
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
-from test_torch_cuda import tie_world  # noqa: E402
+from test_torch_cuda import lb_tie_scene, tie_world  # noqa: E402
 from test_traverse_kernels import _rays, _terrain  # noqa: E402
 
 
@@ -76,6 +92,15 @@ def _tie_scene(leaf_size):
     tris, queue = tie_world()
     tb = jbvh.build_threaded_bvh(*tris, leaf_size=leaf_size)
     return (tp3.pack_for_pallas3(tb), tf.pack_flat(tb)), queue
+
+
+@functools.lru_cache(maxsize=None)
+def _lb_tie(leaf_size):
+    """(reference v3 buffers, port FlatBVH) of ``lb_tie_scene``, and its
+    rays (ro, rd, tmax, any-hit tmax)."""
+    arrays, queue = lb_tie_scene(leaf_size)
+    return (tp3.pack_for_pallas3(jbvh.ThreadedBVH(**arrays)),
+            tf.pack_flat(tbvh.ThreadedBVH(**arrays))), queue
 
 
 def _soa(a):
@@ -307,3 +332,283 @@ def test_ladder_cover_and_ladder():
     assert twf.make_ladder(2_097_152) == (32768, 65536, 131072) + tuple(
         range(262144, 2_097_152 + 1, 262144))
     assert twf.make_ladder(200_000) == (32768, 65536, 131072, 200_000)
+
+
+def _k2_queues(rng, scene, leaf_size, n=1000):
+    """(reference buffers, FlatBVH, [(packed rays, packed any-hit rays,
+    numpy (ro, rd, tmin, tmax, any-hit tmax))]) of a scene: on the terrain
+    a coherent and an incoherent queue of ``n`` rays (20% dead, empty
+    segments on one lane in 13, padded to 1024 lanes), any-hit segments
+    just short of or past each hit; the tie scenes' own rays."""
+    if scene == "terrain":
+        bb3, fb = _scene(leaf_size)
+        raw = []
+        for kind in ("coherent", "incoherent"):
+            ro, rd, tmax = _queue(rng, kind, n=n, dead=0.2)
+            k1 = tr.closest_hit_resident(fb, _soa(ro), _soa(rd), 0.0,
+                                         torch.from_numpy(tmax))
+            scale = np.where(rng.uniform(size=len(ro)) < 0.5, 0.999, 1.001)
+            otm = np.where(k1.tri.numpy() >= 0, k1.t.numpy() * scale, 8.0)
+            raw.append((ro, rd, tmax, np.where(tmax > 0, otm, 0.0)))
+    else:
+        (bb3, fb), q = (_tie_scene if scene == "tie" else _lb_tie)(leaf_size)
+        raw = [q]
+    out = []
+    for ro, rd, tmax, otm in raw:
+        empty = np.arange(len(ro)) % 13 == 5
+        tmin = np.where(empty, 4.5, 0.0).astype(np.float32)
+        tmax = np.where(empty, 4.0, tmax).astype(np.float32)
+        otm = np.where(empty, 4.0, otm).astype(np.float32)
+        o, d = _soa(ro), _soa(rd)
+        tmin_t, tmax_t, otm_t = map(torch.from_numpy, (tmin, tmax, otm))
+        rays, _ = tr.pack_rays(o, d, tmin_t, tmax_t, 1024)
+        orays, _ = tr.pack_rays(o, d, tmin_t, otm_t, 1024)
+        out.append((rays, orays, (ro, rd, tmin, tmax, otm)))
+    return bb3, fb, out
+
+
+@pytest.mark.parametrize("scene", ["terrain", "tie", "lbtie"])
+@pytest.mark.parametrize("leaf_size", [32, 64, 128])
+def test_plain_k2_equals_k3_and_k1(rng, leaf_size, scene):
+    """The new plain K2 (each lane's own survivors of its group of
+    ``CULL`` lanes) equals plain K3 and plain K1 bitwise in closest,
+    any-hit and merged mode, at q = 32, 64 and 128, on ragged queues with
+    dead and pad lanes and empty segments, and on a queue whose last group
+    is partial."""
+    _, fb, queues = _k2_queues(rng, scene, leaf_size)
+    for rays, orays, _ in queues:
+        assert rays.shape[1] > 512
+        k1 = tuple(tr.closest_hit_resident(fb, Vec3(*rays[0:3]),
+                                           Vec3(*rays[3:6]), rays[6], rays[7]))
+        b1 = tr.occluded_resident(fb, Vec3(*orays[0:3]), Vec3(*orays[3:6]),
+                                  orays[6], orays[7])
+        k3 = tf.plain_precull(fb, rays, False)
+        _assert_bitwise(k3, k1)
+        assert torch.equal(tf.plain_precull(fb, orays, True), b1)
+        nc = 512
+        mixed = torch.cat([rays[:, :nc], orays[:, nc:]], dim=1)
+        _assert_bitwise(tf.plain_flat(fb, rays, False), k1)
+        assert torch.equal(tf.plain_flat(fb, orays, True), b1)
+        _assert_bitwise(tf.plain_flat(fb, rays[:, :-32], False),
+                        tuple(x[:-32] for x in k1))
+        assert torch.equal(tf.plain_flat(fb, orays[:, :-32], True), b1[:-32])
+        for q in (32, 64, 128):
+            _assert_bitwise(tf.plain(tf.K2, fb, rays, q, False), k1)
+            assert torch.equal(tf.plain(tf.K2, fb, orays, q, True), b1)
+            (hm, bm) = tf.merged_plain(fb, mixed, q, nc)
+            _assert_bitwise(hm, tuple(x[:nc] for x in k1))
+            assert torch.equal(bm, b1[nc:])
+        assert (k1[1] >= 0).any() and b1.any()
+
+
+def _differing(fb, rays, q, any_hit):
+    """(lanes where plain K2 and the reference function differ, its
+    result, plain K2's)."""
+    mine = tf.plain_flat(fb, rays, any_hit)
+    ref = tf.plain_group(fb, rays, q, any_hit)
+    if any_hit:
+        differ = mine != ref
+    else:
+        differ = ((mine[0].view(torch.int32) != ref[0].view(torch.int32))
+                  | (mine[1] != ref[1]))
+    return torch.nonzero(differ).squeeze(1), ref, mine
+
+
+@pytest.mark.parametrize("scene", ["terrain", "tie", "lbtie"])
+@pytest.mark.parametrize("leaf_size", [32, 64, 128])
+def test_plain_k2_matches_reference_function_and_pallas3(rng, leaf_size,
+                                                         scene):
+    """The new plain K2 against the reference function (``plain_group``,
+    every survivor tested for every lane of the q-lane group) and against
+    closest_hit_pallas3 / occluded_pallas3 in interpret mode: ids and flags
+    exact, t/u/v at the file's tolerance. The lanes where it differs from
+    the reference function are counted and each is grazing; there are
+    none on these scenes."""
+    bb3, fb, queues = _k2_queues(rng, scene, leaf_size)
+    for rays, orays, (ro, rd, tmin, tmax, otm) in queues:
+        n = len(ro)
+        for r, any_hit in ((rays, False), (orays, True)):
+            lanes, ref, mine = _differing(fb, r, 128, any_hit)
+            assert all(tf.grazing(fb, r, lanes, 128, ref, any_hit))
+            assert lanes.numel() == 0
+        kw = dict(block=512, groups=4, t_min=jnp.asarray(tmin))
+        o, d = _soa(ro), _soa(rd)
+        hit = tf.closest_hit_flat(fb, o, d, torch.from_numpy(tmin),
+                                  torch.from_numpy(tmax))
+        assert hit.t.shape == (n,)
+        _assert_hit_close(hit, tp3.closest_hit_pallas3(
+            bb3, jnp.asarray(ro), jnp.asarray(rd), t_max=jnp.asarray(tmax),
+            **kw), fb)
+        blocked = tf.occluded_flat(fb, o, d, torch.from_numpy(tmin),
+                                   torch.from_numpy(otm))
+        np.testing.assert_array_equal(blocked.numpy(), np.asarray(
+            tp3.occluded_pallas3(bb3, jnp.asarray(ro), jnp.asarray(rd),
+                                 t_max=jnp.asarray(otm), **kw)))
+
+
+def _axis_rays(fb, rng, n=1024):
+    """Axis-aligned rays on leaf-box faces: each lane picks a leaf; its
+    origin sits on that leaf's min-x or max-x face (x exactly the face's),
+    above the scene, with z inside the leaf's z range or on one of its
+    z faces (a box edge); its direction has x = 0 exactly, straight down
+    (0, -1, 0) on half the lanes and (0, -0.6, +-0.8) on the rest."""
+    box = fb.aabbs[:, :fb.num_leaves].numpy()
+    leaf = rng.integers(0, fb.num_leaves, n)
+    lo, hi = box[0:3, leaf], box[3:6, leaf]
+    x = np.where(rng.uniform(size=n) < 0.5, lo[0], hi[0])
+    z = rng.uniform(lo[2], hi[2])
+    edge = rng.uniform(size=n) < 0.3
+    z = np.where(edge, np.where(rng.uniform(size=n) < 0.5, lo[2], hi[2]), z)
+    y = np.full(n, box[4, :fb.num_leaves].max() + 1.0)
+    ro = np.stack([x, y, z], 1).astype(np.float32)
+    down = rng.uniform(size=n) < 0.5
+    sz = np.where(rng.uniform(size=n) < 0.5, 0.8, -0.8)
+    rd = np.stack([np.zeros(n), np.where(down, -1.0, -0.6),
+                   np.where(down, 0.0, sz)], 1).astype(np.float32)
+    return ro, rd
+
+
+@pytest.mark.parametrize("leaf_size", [32, 64, 128])
+def test_axis_aligned_rays_on_box_faces(rng, leaf_size):
+    """Rays whose direction has x = 0 exactly, from origins on leaf-box
+    faces (and edges): the new plain K2 still equals plain K1 bitwise, and
+    the lanes where it differs from the reference function, closest or
+    any-hit, are counted (ROADMAP queue 3 records the count) and each is
+    grazing. (These rays run along triangle edges, where XLA's contracted
+    FMAs decide Möller-Trumbore's edge test otherwise, so the reference
+    kernel is not compared here.)"""
+    _, fb = _scene(leaf_size)
+    ro, rd = _axis_rays(fb, rng)
+    o, d = _soa(ro), _soa(rd)
+    rays, n = tr.pack_rays(o, d, 0.0, 2.0e32, 512)
+    k1 = tuple(tr.closest_hit_resident(fb, o, d, 0.0, 2.0e32))
+    hit = tf.closest_hit_flat(fb, o, d)
+    _assert_bitwise(hit, k1)
+    assert (hit.tri >= 0).float().mean() > 0.5
+    lanes, ref, _ = _differing(fb, rays, 128, False)
+    assert all(tf.grazing(fb, rays, lanes, 128, ref, False))
+    otm = torch.where(hit.tri >= 0, hit.t * 1.001, 8.0)
+    orays, _ = tr.pack_rays(o, d, 0.0, otm, 512)
+    olanes, oref, _ = _differing(fb, orays, 128, True)
+    assert all(tf.grazing(fb, orays, olanes, 128, oref, True))
+    print(f"leaf {leaf_size}: {lanes.numel()} closest and {olanes.numel()} "
+          f"any-hit lanes of {n} differ from the reference function")
+
+
+@pytest.mark.parametrize("q", [32, 64, 128])
+@pytest.mark.parametrize("leaf_size", [32, 128])
+def test_entry_bound_is_a_lower_bound(rng, leaf_size, q):
+    """For every group, surviving leaf and live lane of the group, the
+    broad phase's entry bound lb is at most the lane's slab entry t: a
+    lane whose best t is below a survivor's lb cannot enter it."""
+    for scene in ("terrain", "lbtie"):
+        _, fb, queues = _k2_queues(rng, scene, leaf_size)
+        for rays, orays, _ in queues:
+            for r in (rays, orays):
+                keep, lb = tf.flat_leaf_bounds(r, fb.aabbs, q)
+                tn, _ = tf.slab_entry(r, fb.aabbs)
+                live = (r[7] > r[6])[:, None]
+                lane_keep = keep.repeat_interleave(q, 0) & live
+                lane_lb = lb.repeat_interleave(q, 0)
+                assert lane_keep.any()
+                assert (lane_lb[lane_keep] <= tn[lane_keep]).all()
+                # and every leaf a lane's slab test enters survives
+                assert not (tf.ray_leaf_hits(r, fb.aabbs) & ~lane_keep).any()
+
+
+def _sorted_walk(fb, rays, q, any_hit):
+    """A model of the kernel's narrow phase: each group's survivors sorted
+    by (lb, leaf); the lanes step through them, each testing a survivor
+    whose box its slab test on [tmin, min(tmax, best t)] enters, the
+    leaf's first least (t, k) taken when t < best t or (t == best t and its
+    row is lower); a lane stops once a survivor's lb exceeds its best t."""
+    ls = fb.leaf_size
+    keep, lb = tf.flat_leaf_bounds(rays, fb.aabbs, q)
+    n = rays.shape[1]
+    t_best = rays[7].clone()
+    row = torch.full((n,), -1, dtype=torch.int64)
+    u = torch.zeros(n)
+    v = torch.zeros(n)
+    blocked = torch.zeros(n, dtype=torch.bool)
+    live = rays[7] > rays[6]
+    for g in range(n // q):
+        sl = slice(g * q, (g + 1) * q)
+        leaves = torch.nonzero(keep[g, :fb.num_leaves]).squeeze(1).tolist()
+        for leaf in sorted(leaves, key=lambda x: (float(lb[g, x]), x)):
+            walking = live[sl] & ~blocked[sl] & ~(lb[g, leaf] > t_best[sl])
+            if not walking.any():
+                break
+            r = rays[:, sl]
+            seg = r.clone()
+            seg[7] = t_best[sl]
+            tn, tf_ = tf.slab_entry(seg, fb.aabbs[:, leaf:leaf + 1])
+            holds = walking & (tn[:, 0] <= tf_[:, 0])
+            rows = fb.tri_rows[leaf * ls:leaf * ls + int(fb.real_rows[leaf])]
+            ok, uu, vv, tt = traverse._mt_rows(
+                rows[None], *(r[k][:, None] for k in range(6)))
+            hit = ok & (tt > r[6][:, None]) & (tt < r[7][:, None])
+            if any_hit:
+                blocked[sl] |= holds & hit.any(1)
+                continue
+            tt = torch.where(hit, tt, float("inf"))
+            t_leaf = tt.amin(1)
+            k = torch.where(tt <= t_leaf[:, None], torch.arange(rows.shape[0]),
+                            rows.shape[0]).amin(1).clamp(max=rows.shape[0] - 1)
+            cand = leaf * ls + k
+            cur_t, cur_row = t_best[sl], row[sl]
+            take = holds & torch.isfinite(t_leaf) & (
+                (t_leaf < cur_t) | ((t_leaf == cur_t) & (cur_row >= 0)
+                                    & (cand < cur_row)))
+            t_best[sl] = torch.where(take, t_leaf, cur_t)
+            row[sl] = torch.where(take, cand, cur_row)
+            u[sl] = torch.where(take, uu.gather(1, k[:, None])[:, 0], u[sl])
+            v[sl] = torch.where(take, vv.gather(1, k[:, None])[:, 0], v[sl])
+    if any_hit:
+        return blocked
+    miss = row < 0
+    return (torch.where(miss, 2.0e32, t_best), row.to(torch.int32),
+            torch.where(miss, 0.0, u), torch.where(miss, 0.0, v))
+
+
+@pytest.mark.parametrize("leaf_size", [32, 64, 128])
+def test_lb_order_ties_and_sorted_walk(rng, leaf_size):
+    """On ``lb_tie_scene`` the sort by entry bound meets leaf 1 before leaf
+    0 on every group, so the lanes that tie at t = 5 see the higher row
+    first; the plain version, plain K1 and the model of the kernel's sorted
+    walk all keep row 0. The model also equals the plain version on a
+    coherent terrain queue, closest and any-hit."""
+    _, fb, [(rays, orays, _)] = _k2_queues(rng, "lbtie", leaf_size)
+    q = tf.CULL
+    keep, lb = tf.flat_leaf_bounds(rays, fb.aabbs, q)
+    live_groups = (rays[7] > rays[6]).reshape(-1, q).any(1)
+    assert (keep[live_groups, 0] & keep[live_groups, 1]).all()
+    assert (lb[live_groups, 1] < lb[live_groups, 0]).all()
+    plain = tf.plain_flat(fb, rays, False)
+    at5 = plain[0] == 5.0
+    assert at5.sum() > 100 and (plain[1][at5] == 0).all()
+    _assert_bitwise(_sorted_walk(fb, rays, q, False), plain)
+    assert torch.equal(_sorted_walk(fb, orays, q, True),
+                       tf.plain_flat(fb, orays, True))
+    _, fb, queues = _k2_queues(rng, "terrain", leaf_size, n=512)
+    rays, orays, _ = queues[0]
+    _assert_bitwise(_sorted_walk(fb, rays, q, False),
+                    tf.plain_flat(fb, rays, False))
+    assert torch.equal(_sorted_walk(fb, orays, q, True),
+                       tf.plain_flat(fb, orays, True))
+
+
+def test_k2_operand_checks():
+    """K2's launcher refuses, before any build, a leaf size the kernel does
+    not take, lanes that are not whole q-lane groups, and a merged split
+    inside a broad-phase group of ``CULL`` lanes; it never falls back to
+    the plain version. (The shared-memory cap is the C entry's own check:
+    ``tests/test_torch_cuda.py::test_k2_past_the_shared_memory_cap_on_card``.)"""
+    _, fb = _scene(32)
+    rays, _ = tr.pack_rays(_soa(np.zeros((256, 3))), _soa(np.ones((256, 3))),
+                           0.0, 1.0, 128)
+    with pytest.raises(ValueError, match="leaf size"):
+        tf.bind(tf.K2, fb._replace(leaf_size=16), rays, 128, 128, 1)
+    with pytest.raises(ValueError, match="in groups of"):
+        tf.bind(tf.K2, fb, rays[:, :96].contiguous(), 64, 0, 0)
+    with pytest.raises(ValueError, match="merged split"):
+        tf.bind(tf.K2, fb, rays, 32, 64, 2)

@@ -1,4 +1,4 @@
-"""Each leaf's real-row count, which K1, K8a and K8b stop a leaf at.
+"""Each leaf's real-row count, which K1, K2, K8a and K8b stop a leaf at.
 
 The packs pad every leaf to its full size by repeating the leaf's last
 triangle. ``traverse.real_row_counts`` finds, from the rows' bits, the least
@@ -14,7 +14,10 @@ in two leaves) and the 9,522-triangle grid, for ``pack_resident`` and
 - the plain walk ``walk_ranges`` over only the first count rows of each
   leaf (the rows past it replaced by zero rows, which no ray hits) equals
   the walk over every row bit for bit, closest and any-hit, on a primary
-  and a bounce queue of each scene.
+  and a bounce queue of each scene;
+- K2's plain version (``traverse_flat.plain_flat``, whose kernel scans each
+  held leaf up to its count) over only those rows equals it over every
+  row, on the same queues, for ``pack_flat`` at leaf 32, 64 and 128.
 """
 
 import functools
@@ -183,3 +186,30 @@ def test_walk_over_real_rows_equals_the_full_walk(scene, pack):
         assert torch.equal(blocked, traverse.walk_ranges(
             bounds, links, cut, ls, o, d, tmin, otm, True))
         assert blocked.any() == hits and not blocked.all()
+
+
+FLAT_PACKS = ("flat32", "flat64", "flat128")
+
+
+@pytest.mark.parametrize("pack", FLAT_PACKS)
+@pytest.mark.parametrize("scene", SCENES)
+def test_flat_cull_over_real_rows_equals_the_full_flush(scene, pack):
+    """K2's function (each lane's own survivors of its 128-lane group's
+    broad phase, ``plain_flat``) over only the first count rows of each
+    leaf equals it over every row bit for bit, closest and any-hit, on a
+    primary and a bounce queue of each scene, so the kernel's counted scan
+    keeps its plain version's result."""
+    b = _pack(scene, pack)
+    cut = b._replace(tri_rows=_cut(b.tri_rows, b.real_rows, b.leaf_size))
+    for ro, rd, tmin, tmax in _queues(scene):
+        rays, _ = tr.pack_rays(_soa(ro), _soa(rd), torch.from_numpy(tmin),
+                               torch.from_numpy(tmax), 128)
+        full = tf.plain_flat(b, rays, False)
+        for a, c in zip(full, tf.plain_flat(cut, rays, False)):
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+        scale = torch.where(torch.arange(rays.shape[1]) % 2 == 0, 0.999, 1.001)
+        orays = rays.clone()
+        orays[7] = torch.where(full[1] >= 0, full[0] * scale, rays[7])
+        blocked = tf.plain_flat(b, orays, True)
+        assert torch.equal(blocked, tf.plain_flat(cut, orays, True))
+        assert blocked.any() == bool((full[1] >= 0).any())
