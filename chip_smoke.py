@@ -29,6 +29,16 @@ Phases (each raises on failure):
      no separate any-hit; one frame of sample 0 held against the
      PT_MEGAKERNEL frame of the same sample: equal ray counts and
      goldens.compare_card;
+  3d. the cornell main path under the BN, Sobol and Z-Sobol RNG variants
+     (options.rng_variant, the reference's pointset tables): timed frames
+     as in 3, the device kernels of one profiled 960x544 frame (one chunk)
+     beside the uniform variant's; K1 must launch and no other;
+  3e. the village through PT_WAVEFRONT, the monolith with its default
+     carry compaction: timed frames with each compacted bounce's live
+     lanes and prefix; sample 0 with compaction against
+     RPTR_COMPACT_LANES=0 (equal rays, bitwise or within rtol 3e-5 / atol
+     1e-7, printed); K2 and K3 against their plain versions and K1 on the
+     first compacted queue; K2 and K3 must launch and no other;
   4. the terrain200 path: procedural.terrain(grid=200), 80,000 tris, at
      1920x1080, 1 spp, depth 9, through the wavefront executor: one
      warm-up frame and timed frames; K2 and K3 must launch, K1, K4, K5 not;
@@ -64,6 +74,17 @@ Phases (each raises on failure):
      render time beside the script's CUDA-event time, and its last frame's
      display image (readback_framebuffer, Reinhard-tonemapped) must be
      finite and in [0, 1];
+  5e. animated flattened scenes (options.use_tlas off), a BVH update
+     before every frame: procedural.instanced_field(num_inst=600), 567,104
+     tris on the streamed route, refit past the rebuild budget, at the
+     bench's 512x384 depth 3, 4 frames; instanced_field(num_inst=100),
+     78,086 tris on the flat-cull route, rebuilt each frame, at 1920x1080
+     depth 9, 2 frames: set-up seconds, tlas_update_seconds per frame,
+     frame ms; the path's kernels must launch and no other; then at
+     animation frame 3 K4 and K5 against their plain versions and K1 on
+     8,192 lanes of the refit pack's primary chunk and the sun shadow
+     queue from them, K2 and K3 against theirs and K1 on
+     262,144 lanes of the rebuilt pack's primaries and sorted bounce 1;
   5d. the V1 paths (RPTR_TRAVERSAL_V1=1, the v1 walk) at 1920x1080,
      1 spp, depth 9: cornell through K8a (its sample 0 bitwise the K1
      route's, both trees one node), cornell PT_WAVEFRONT through merged K8a
@@ -116,8 +137,9 @@ Phases (each raises on failure):
      launches, the multislot dispatch (timed against its one K5 launch),
      each bitwise its plain version; K4 = K5 = multislot except on exact-t
      ties;
-  9. the goldens cornell_diffuse, sun_sky, cornell_textured and
-     cornell_wavefront rendered on the card, through K1: against the port's
+  9. the goldens cornell_diffuse, sun_sky, cornell_textured,
+     cornell_wavefront, cornell_sobol, cornell_zsbl and cornell_bn rendered
+     on the card, through K1: against the port's
      own CPU render of them (the CPU tests hold that render to the JAX
      package run op by op) with equal ray counts, at most 1% of pixels over
      1e-3 (2% on cornell_textured, goldens.py says why) and a relative L1
@@ -158,6 +180,10 @@ Phases (each raises on failure):
      goldens.compare_card; K6, then K7, must launch; then the same field with
      alpha-cut textures on its rock and tree materials (the alpha hops run on
      the two-level kernels, per-instance material offsets included);
+ 13b. procedural.instanced_field(num_inst=6) flattened at 48x48, depth 9,
+     at animation frame 2: rebuilt on the K1 route, refit on the streamed
+     and the flat-cull routes, on the card against the port's CPU render:
+     equal rays and goldens.compare_card; the route's kernels launch;
  14. the merged two-queue modes on the card, one queue pair each: K1 on the
      cornell primary chunk and its NEE shadow queue (to points on the area
      light), K2 on the terrain200 bounce-1 queue (coherence-sorted) and the
@@ -194,7 +220,8 @@ Every bound counts the rows of each pierced leaf up to its real-row count
 bits), and logs the bound over the padded leaves beside it. Its last two
 lines are the kernels' JSON record (K1, K2, K3, K8a and K8b with their
 kernel-only ms and the wrapper's beside them, K1, K2, K4, K8a and K8b each
-with a merged record, K2, K8a and K8b with their grazing lanes) and the
+with a merged record, K2, K8a and K8b with their grazing lanes, K1-K5
+with ``paths``: their launches on the paths of 3d, 3e and 5e) and the
 result JSON.
 """
 
@@ -1139,12 +1166,13 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
     r.render(cfg)  # warm-up
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    frame_ms, update_ms, total_ms, rays = [], [], [], []
+    frame_ms, update_ms, total_ms, rays, marker_ms = [], [], [], [], []
     for f in range(frames):
         t0 = time.perf_counter()
         if animate:
             r.set_animation_frame((f + 1) % ANIM_FRAMES)
             torch.cuda.synchronize()
+            marker_ms.append(r.tlas_update_seconds * 1e3)
         t1 = time.perf_counter()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1175,7 +1203,10 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
     anim = ""
     if animate:
         anim = (f"TLAS update ms {[round(x, 3) for x in update_ms]} (median "
-                f"{float(np.median(update_ms)):.3f}), frame with update ms "
+                f"{float(np.median(update_ms)):.3f}; tlas_update_seconds ms "
+                f"{[round(x, 3) for x in marker_ms]}"
+                f"{', ' + r.animation_update if r.animation_update else ''}), "
+                f"frame with update ms "
                 f"median {float(np.median(total_ms)):.3f} "
                 f"({sum(rays) / (sum(total_ms) * 1e-3) / 1e6:.3f} Mray/s), ")
     log(f"{label} {width}x{height} spp 1 depth "
@@ -1203,7 +1234,7 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
           f"frame dropped as non-finite, of {rays[0]} rays")
     check(img.shape == (height, width, 4), f"{label} image shape {img.shape}")
     rec = {"frame_ms": float(np.median(frame_ms)), "mrays": mrays,
-           "update_ms": float(np.median(update_ms)),
+           "update_ms": float(np.median(update_ms)), "marker_ms": marker_ms,
            "total_ms": float(np.median(total_ms)),
            "per_frame": {k: n / (frames + 1) for k, n in launches.items()},
            "merged": merged, "modes": modes, "alpha": alpha,
@@ -1304,7 +1335,7 @@ def village_mip_flips(r, cfg, chunk=2):
                 tid, mip = seen[0]  # the base-colour lookup
                 rows.append((act & carry.active.cpu() & (tid >= 0),
                              torch.round(mip), ctx[0].x.cpu()))
-                carry = scatter(carry, ctx)
+                carry = scatter(carry, ctx, b)
         finally:
             integrator.sample_atlas = orig
         out[label] = rows
@@ -2862,6 +2893,291 @@ def phase_queries():
         check(launched[kernel] > 0, f"queries {label} did not launch {kernel}")
 
 
+# ---------------------------------------------------------------------------
+# Slice B2: the RNG variants, the monolith's carry compaction and animated
+# flattened scenes
+# ---------------------------------------------------------------------------
+
+RNG_VARIANTS = (("bn", 1), ("sobol", 2), ("zsbl", 3))  # options.rng_variant
+RNG_FRAMES = 2  # timed frames of each RNG variant's cornell path
+FLAT_ANIM_LANES = 8_192  # lanes of the refit pack's queues held to plain
+FLAT_ANIM_FLAT_LANES = 262_144  # lanes of the rebuilt pack's queues
+FLAT_ANIM_PATHS = (  # label, instances, size, depth, timed frames, kernels,
+    # the BVH update each frame takes (567,104 tris refit past the rebuild
+    # budget of 500,000, 78,086 rebuilt within it)
+    ("instanced600 flattened bench row", 600, BENCH_SIZE, 3, 4, ("K4", "K5"),
+     "refit"),
+    ("instanced100 flattened 1080p", 100, MAIN_SIZE, 9, 2, ("K2", "K3"),
+     "rebuild"),
+)
+
+
+ONE_CHUNK = (960, 544)  # 2,040 16x16 tiles: one chunk of 522,240 lanes
+
+
+def _device_kernels(r, cfg):
+    """(device kernels, their summed device ms) of one frame of ``r`` at
+    ONE_CHUNK (the eager kernels of one of the 1080p frame's four chunks)
+    under torch.profiler (device activity only); ``r`` is set back to its
+    size after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    size = (r.fb_width, r.fb_height)
+    r.initialize(*ONE_CHUNK)
+    check(len(r._swizzle[0]) == 1, f"{ONE_CHUNK} is not one chunk")
+    r.render(cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r.render(cfg)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    r.initialize(*size)
+    return len(kern), sum(e.device_time for e in kern) / 1e3
+
+
+def phase_rng_paths():
+    """Cornell at MAIN_SIZE, 1 spp, depth 9 under the BN, Sobol and Z-Sobol
+    RNG variants with the reference's pointset tables: timed frames, the
+    device kernels of one profiled chunk beside the uniform variant's, K1's
+    launches; K1 must launch and no other. Returns {variant: launches}."""
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    r, cfg = frame_setup("cornell", DEVICE, MAIN_SIZE)
+    uniform = _device_kernels(r, cfg)
+    del r
+    out = {}
+    for name, variant in RNG_VARIANTS:
+        r, cfg = frame_setup("cornell", DEVICE, MAIN_SIZE, rng_variant=variant)
+        check(r.device_scene.rng.reference_tables,
+              f"rng {name}: the reference's pointset tables were not taken")
+        launches, rec = _timed_frames(f"rng {name} cornell", r, cfg,
+                                      frames=RNG_FRAMES)
+        _only(f"rng {name} cornell path", launches, ("K1",))
+        kernels, device_ms = _device_kernels(r, cfg)
+        log(f"rng {name} summary: frame {rec['frame_ms']:.3f} ms, "
+            f"{rec['mrays']:.3f} Mray/s, device kernels per {ONE_CHUNK} chunk "
+            f"{kernels} (uniform {uniform[0]}), their device ms {device_ms:.3f} "
+            f"(uniform {uniform[1]:.3f}), K1 launches per frame "
+            f"{rec['per_frame']['K1']:.2f}")
+        out[name] = launches
+        del r
+    return out
+
+
+def phase_village_compacted(smi):
+    """The village at MAIN_SIZE, 1 spp, depth 9 through PT_WAVEFRONT: the
+    monolith with its default carry compaction. Timed frames with the
+    prefix each bounce took; sample 0 with compaction and with
+    RPTR_COMPACT_LANES=0 on the same renderer (equal rays, the frames
+    bitwise or within the reference's rtol 3e-5 / atol 1e-7, which is
+    printed); then K2 and K3 against their plain versions and K1 on the
+    first compacted queue (bounce 1's closest queue, presorted). Returns the
+    path's launch counts."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
+        VARIANT_WAVEFRONT,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    r, cfg = frame_setup("village", DEVICE, MAIN_SIZE, variant=VARIANT_WAVEFRONT)
+    icfg = r._integrator_config(cfg.params)
+    check(icfg.compact_lanes and icfg.wavefront and not r._use_wavefront_host(icfg),
+          f"village PT_WAVEFRONT: not the compacted monolith ({icfg})")
+    integrator.reset_compaction_log()
+    launches, rec = _timed_frames("village PT_WAVEFRONT compacted", r, cfg,
+                                  frames=1)
+    _only("village PT_WAVEFRONT compacted path", launches, ("K2", "K3"))
+    steps = list(integrator.compaction_log)
+    log(f"village compacted: {len(steps)} compacted bounces in 2 frames of "
+        f"{len(r._swizzle[0])} chunks, each (bounce, live lanes, prefix "
+        f"lanes): {steps}; K2 {rec['per_frame']['K2']:.2f} and K3 "
+        f"{rec['per_frame']['K3']:.2f} launches per frame, of them merged "
+        f"{rec['merged']}")
+    check(steps and all(live <= m for _, live, m in steps),
+          "village compacted: a prefix did not hold its live lanes")
+    imgs, rays = {}, {}
+    for flag in ("1", "0"):
+        with env(RPTR_COMPACT_LANES=flag):
+            r.reset_accumulation()
+            r.render(cfg)
+            imgs[flag] = r.readback_accumulation()
+            rays[flag] = r.last_frame_rays()
+    diff = np.abs(imgs["1"].astype(np.float64) - imgs["0"])
+    bitwise = bool(np.array_equal(imgs["1"], imgs["0"]))
+    close = bool(np.allclose(imgs["1"], imgs["0"], rtol=3e-5, atol=1e-7))
+    log(f"village PT_WAVEFRONT sample 0, compacted against RPTR_COMPACT_LANES=0: "
+        f"rays {rays['1']} and {rays['0']}, bitwise {bitwise}, within rtol 3e-5 "
+        f"atol 1e-7 {close}, max abs difference {diff.max():.3e}, "
+        f"{int((diff > 0).any(-1).sum())} pixels differ")
+    check(rays["1"] == rays["0"], "village: compaction changed the ray count")
+    check(close, "village: the compacted frame is off the uncompacted one")
+    captured = []
+    orig = tf.closest_hit_precull
+
+    def spy(bvh, ro, rd, t_min, t_max, **kw):
+        if not captured:
+            captured.append((ro, rd, t_min, t_max))
+        return orig(bvh, ro, rd, t_min, t_max, **kw)
+
+    tf.closest_hit_precull = spy
+    try:
+        r.reset_accumulation()
+        r.render(cfg)
+    finally:
+        tf.closest_hit_precull = orig
+    ro, rd, t_min, t_max = captured[0]
+    queue, n = tr.pack_rays(ro, rd, t_min, t_max, 1024)
+    live = int((queue[7] > queue[6]).sum())
+    log(f"K2 and K3 on the village's first compacted queue (bounce 1, {live} "
+        f"live of a {n}-lane prefix, presorted), {smi}:")
+    compare_flat_queue("village compacted bounce 1", r.device_scene.bvh, queue,
+                       ((tf.K2, 128), (tf.K3, 128)), np.random.default_rng(16))
+    del r
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flat_animation(smi):
+    """Animated flattened scenes (options.use_tlas off): each FLAT_ANIM_PATHS
+    path with a BVH refit or rebuild (set_animation_frame) before every
+    frame: set-up seconds, tlas_update_seconds per frame, frame ms, the
+    path's kernels (and no other); then at animation frame 3, on the refit
+    streamed pack K4 and K5 against their plain versions and K1 (primaries
+    and their sun shadow queue), and on the rebuilt flat pack K2 and K3
+    against theirs (primaries and the sorted bounce 1). Returns {label:
+    launches}."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import bvh as bvh_mod
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_stream as ts,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    out = {}
+    for label, inst, size, depth, frames, kernels, update in FLAT_ANIM_PATHS:
+        t0 = time.perf_counter()
+        r, cfg = frame_setup("instanced", DEVICE, size, depth=depth,
+                             num_inst=inst, use_tlas=False)
+        total = time.perf_counter() - t0
+        log(f"{label}: {r._flat.num_tris} flattened tris, route {r._route}, "
+            f"set-up (build, pack and upload) {r.setup_seconds:.2f} s, "
+            f"set_scene with flatten {total:.2f} s")
+        launches, rec = _timed_frames(label, r, cfg, frames=frames, animate=True)
+        _only(f"{label} path", launches, kernels)
+        check(r.animation_update == update,
+              f"{label}: {r.animation_update}, not a {update}")
+        log(f"{label} summary: set-up {r.setup_seconds:.3f} s, "
+            f"tlas_update_seconds per frame {rec['marker_ms']} ms ({update}), "
+            f"frame {rec['frame_ms']:.3f} ms, {rec['mrays']:.3f} Mray/s, "
+            f"launches per frame {rec['per_frame']}")
+        r.set_animation_frame(3)
+        bb = r.device_scene.bvh
+        rng = np.random.default_rng(3000 + inst)
+        if r._route.streamed:
+            flat = r._flat
+            t0 = time.perf_counter()
+            fb = tr.pack_resident(bvh_mod.build_threaded_bvh(
+                flat.v0, flat.e1, flat.e2, leaf_size=128), DEVICE)
+            log(f"K4, K5 on the {label}'s refit pack at frame 3 "
+                f"({bb.num_subtrees} subtrees), against K1 over a resident "
+                f"leaf-128 BVH (built in {time.perf_counter() - t0:.1f} s), "
+                f"{smi}:")
+            c, prim = _best_chunk(r, cfg, lambda q: ts.launch(bb, q, False)[1])
+            # the middle FLAT_ANIM_LANES lanes of the chunk: the plain
+            # versions take seconds per 10,000 lanes
+            mid = prim.shape[1] // 2 - FLAT_ANIM_LANES // 2
+            prim = prim[:, mid:mid + FLAT_ANIM_LANES].contiguous()
+            _, t = compare_stream_queue(f"primary chunk {c}, {FLAT_ANIM_LANES} "
+                                        "lanes", bb, fb, prim, rng)
+            # the sun shadow queue from those hit points (the plain walks
+            # of an incoherent bounce-1 queue on this pack take 30-40 s)
+            _, shadow = _next_queues(prim, t, cfg, rng)
+            _, t_shadow = compare_stream_queue("sun shadow", bb, fb, shadow, rng,
+                                               orays=shadow)
+            compare_k5_launch("sun shadow", bb, shadow, t_shadow, True)
+            del fb
+        else:
+            check(isinstance(bb, tf.FlatBVH), f"{label}: not the flat-cull route")
+            prim, bounce, _ = flat_queues(r, cfg, rng)
+            # the middle of the frame's primaries and the head of the sorted
+            # bounce-1 queue (its live lanes first)
+            mid = prim.shape[1] // 2 - FLAT_ANIM_FLAT_LANES // 2
+            prim = prim[:, mid:mid + FLAT_ANIM_FLAT_LANES].contiguous()
+            bounce = bounce[:, :FLAT_ANIM_FLAT_LANES].contiguous()
+            log(f"K2, K3 on the {label}'s rebuilt flat pack at frame 3 "
+                f"({bb.num_leaves} leaves of {bb.leaf_size}), "
+                f"{FLAT_ANIM_FLAT_LANES} lanes of its queues, {smi}:")
+            compare_flat_queue("frame primaries", bb, prim, ((tf.K2, 128),), rng)
+            compare_flat_queue("bounce 1 sorted", bb, bounce, ((tf.K3, 128),), rng)
+        out[label] = launches
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_flat_animation():
+    """procedural.instanced_field(num_inst=6) flattened at 48x48, depth 9,
+    at animation frame 2: rebuilt on the K1 route, refit on the streamed
+    route (RPTR_FORCE_STREAMED_TRAVERSAL=1, rebuild budget 0) and on the
+    flat-cull route (RPTR_TRAVERSAL_V3=1): on the card against the port's
+    CPU render, equal rays and goldens.compare_card; the route's kernels
+    launch and no other."""
+    from realtimepathtracingresearchframework_tpu_torch import goldens
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    cases = (("K1 rebuild", {}, None, ("K1",)),
+             ("streamed refit", {"RPTR_FORCE_STREAMED_TRAVERSAL": "1"}, 0,
+              ("K4", "K5")),
+             ("flat-cull refit", {"RPTR_TRAVERSAL_V3": "1"}, 0, ("K2", "K3")))
+    for label, kv, budget, kernels in cases:
+        out = {}
+        with env(**kv):
+            for device in (DEVICE, "cpu"):
+                counters = _counters()
+                for reset, _ in counters.values():
+                    reset()
+                r, cfg = frame_setup("instanced", device, (48, 48), depth=9,
+                                     num_inst=6, use_tlas=False)
+                if budget is not None:
+                    r.options = r.options.replace(rebuild_triangle_budget=budget)
+                r.set_animation_frame(2)
+                r.render(cfg)
+                out[device] = (r.readback_accumulation()[..., :3],
+                               r.last_frame_rays(),
+                               {k: read() for k, (_, read) in counters.items()},
+                               r.animation_update)
+        (img, rays, launches, update), (cpu_img, cpu_rays, _, _) = (
+            out[DEVICE], out["cpu"])
+        vs_cpu = goldens.compare_card(img, cpu_img)
+        log(f"instanced_field(6) flattened 48x48 depth 9 at frame 2, {label} "
+            f"({update}): vs port CPU render {vs_cpu}; rays {rays} (CPU "
+            f"{cpu_rays}), launches {launches}")
+        check(rays == cpu_rays, f"flattened {label}: rays {rays}, CPU {cpu_rays}")
+        check(vs_cpu["ok"], f"flattened {label}: card render off the CPU's")
+        _only(f"flattened {label}", launches, kernels)
+
+
 def main():
     import torch
 
@@ -2877,13 +3193,16 @@ def main():
     smi = phase_device()
     phase_build()
     k1_launches, mega = phase_main_path()
+    rng_launches = phase_rng_paths()
     village = phase_village_path()
+    village_compacted = phase_village_compacted(smi)
     _, k1_merged = phase_wavefront_path(mega)
     del mega
     terrain, terrain_merged = phase_terrain_path()
     stream, (r500, cfg500) = phase_stream_paths()
     strategies, (rq, cfgq) = phase_stream_strategies(r500, cfg500)
     tlas_paths = phase_tlas_paths()
+    flat_anim = phase_flat_animation(smi)
     tlas_slice = phase_tlas_slice()
     v1_paths = phase_v1_paths()
     k6_ordered_launches = (
@@ -2910,6 +3229,7 @@ def main():
     k7_global = compare_k7_modes(past_cap, r2500, cfg2500, smi)
     del r2500, tlas_slice
     phase_small_instanced()
+    phase_small_flat_animation()
     v1 = phase_v1_queues(v1_paths, smi)
     v1["K8a"]["merged"]["launches"] = (
         v1_paths["v1 cornell PT_WAVEFRONT"][3]["merged"]["K8"])
@@ -2950,6 +3270,18 @@ def main():
             bound_ms=tlas["K6"]["bound_ms"], launches=k6_global_launches)})
     k7 = dict(tlas["K7"], launches=tlas_k7_launches, **{"global": dict(
         k7_global, launches=rec2500["modes"]["K7 global"])})
+    log(f"RNG paths' launches {rng_launches}; village PT_WAVEFRONT compacted "
+        f"launches {village_compacted}; flattened animation launches "
+        f"{flat_anim}")
+    # this slice's paths: each kernel's launches on the paths that put it
+    # under a new pack or queue
+    k1["paths"] = {f"rng {name}": n["K1"] for name, n in rng_launches.items()}
+    refit_row, rebuilt_row = (p[0] for p in FLAT_ANIM_PATHS)
+    paths = {kern: {"village PT_WAVEFRONT compacted": village_compacted[kern],
+                    rebuilt_row: flat_anim[rebuilt_row][kern]}
+             for kern in ("K2", "K3")}
+    paths.update({kern: {refit_row: flat_anim[refit_row][kern]}
+                  for kern in ("K4", "K5")})
     log(f"village path launches {village}; {past_cap} launches "
         f"{launches2500}; V1 path launches {v1_launches}")
     records = {
@@ -2964,6 +3296,9 @@ def main():
         "K8a": v1["K8a"],
         "K8b": v1["K8b"],
     }
+    for name, kern in ((tf.K2, "K2"), (tf.K3, "K3"),
+                       ("traverse_streamed", "K4"), ("traverse_binned", "K5")):
+        records[name]["paths"] = paths[kern]
     # traverse_v1.cu holds two kernels, with a record each
     sources = {name: sr for name, sr in KERNELS.items() if name != "traverse_v1"}
     sources.update({name: (KERNELS["traverse_v1"][0], replaces)
@@ -2980,7 +3315,7 @@ def main():
             # no single PyTorch call computes a BVH closest hit
             "library_ms": None,
         })
-        for extra in ("grazing_lanes", "wrapper_ms"):
+        for extra in ("grazing_lanes", "wrapper_ms", "paths"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]
         for mode in ("merged", "quantized", "ordered", "multislot", "global"):

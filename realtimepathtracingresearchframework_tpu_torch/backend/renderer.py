@@ -41,8 +41,11 @@ instances, through K6 within its caps (``MAX_INSTANCES`` instances,
 ``MAX_TOTAL_NODES`` BLAS + TLAS nodes) and K7 past them at any number of
 (instance, chunk) entries (the reference's cap of 2,048 is its SMEM entry
 table, and its XLA walk past it is the port's CPU oracle only).
-``set_animation_frame`` rebuilds only the TLAS side (renderer.py:
-1888-1962). Textured scenes upload a texture atlas and, where a textured
+``set_animation_frame`` rebuilds only the TLAS side of a two-level scene
+(renderer.py:1888-1962), and refits or rebuilds a flattened scene's BVH
+(renderer.py:1963-2060). ``options.rng_variant`` picks the RNG variant
+(LCG, Sobol, Z-Sobol or blue noise); ``set_scene`` and ``configure_for``
+build its tables (``pointsets.build_rng_buffers``). Textured scenes upload a texture atlas and, where a textured
 material can cut, run the alpha test on every route (renderer.py:918-938).
 ``set_variant`` selects ``PT_MEGAKERNEL`` (default) or ``PT_WAVEFRONT``, the
 variant that defers each bounce's NEE shadow ray to the next bounce's
@@ -248,7 +251,13 @@ class Renderer:
         self._wavefront: Optional[WavefrontExecutor] = None
         self.setup_seconds = 0.0  # host build + pack + upload of the BVH
         self.tlas_update_seconds = 0.0  # the last set_animation_frame
-        self._streamed_topo = None  # for the streamed refit (ROADMAP item 17)
+        self._streamed_topo = None  # for the streamed refit
+        self._topology = None  # the resident routes' BVH, for their refit
+        self._flat = None  # the flattened scene of the current frame
+        self._mat_table = None  # the scene's materials (set_scene)
+        self._sky_key = self._sky = None  # the cooked sky and its inputs
+        self.animation_update = ""  # "refit" or "rebuild": the last
+        # set_animation_frame of a flattened scene
         self._last_rays: List[torch.Tensor] = []
         self.live_profile: List[int] = []  # wavefront live lanes per bounce
         self._scene_config = SceneConfig()
@@ -363,15 +372,9 @@ class Renderer:
             animated = any(a.num_animated
                            for a in getattr(scene, "animation_data", []))
             builder = bvh_mod.build_bvh if animated else bvh_mod.build_bvh_sah
-            topology = builder(flat.v0, flat.e1, flat.e2,
-                               leaf_size=route.leaf_size)
-            tb = bvh_mod.thread_bvh(topology, flat.v0, flat.e1, flat.e2)
-            pack = (traverse_v1.pack_v1 if route.v1 else
-                    pack_flat if route.kernel_v3 else pack_resident)
-            bvh = pack(tb, dev)
-            # attributes in BVH-row order: the kernel's row IS the attribute
-            # index (padded rows clamp to a real tri and never win a hit)
-            ix = np.clip(np.asarray(tb.row_tri), 0, flat.num_tris - 1)
+            self._topology = builder(flat.v0, flat.e1, flat.e2,
+                                     leaf_size=route.leaf_size)
+            bvh, ix = self._pack_resident_route(flat)
         self.setup_seconds = time.perf_counter() - t0
         if route.streamed:
             print(f"set_scene: streamed pack of {flat.num_tris} tris into "
@@ -384,12 +387,7 @@ class Renderer:
                   f"{len(self._mesh_tris)} meshes ({flat.num_tris} instanced "
                   f"tris), built and uploaded in {self.setup_seconds:.2f} s",
                   flush=True)
-        rows = SimpleNamespace(**{
-            name: np.asarray(getattr(shade, name))[ix]
-            for name in ("e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
-                         "tangent", "texel_density", "material_id")
-        })
-        mat_table = scene.material_table()
+        mat_table = self._mat_table = scene.material_table()
         # the atlas (renderer.py:918-938): a 1-texel dummy without textures;
         # alpha-tested any-hit only where a textured material can cut
         atlas = texture_atlas.build_atlas(scene.textures, dev)
@@ -402,24 +400,66 @@ class Renderer:
         )
         self._has_thin = any(m.flags & BASE_MATERIAL_THIN for m in scene.materials)
 
-        attr = pack_attr_table(rows, rows).to(dev)
         mats = pack_material_table(mat_table).to(dev)
+        self._flat = flat
+        self._sky_key = None  # cook the sky anew for a new scene
+        lights, sky = self._lights_and_sky(flat, scene_config)
+        # the RNG variant's tables: the port builds them here (and in
+        # configure_for) where the reference's pointset extensions
+        # contribute them (extensions.py:120-155, renderer.py:1042-1045)
+        rng = pointsets.build_rng_buffers(int(self.options.rng_variant),
+                                          device=dev)
+        self.device_scene = DeviceScene(
+            bvh=bvh, attr_packed=self._attr_table(shade, ix), mat_packed=mats,
+            lights=lights, sky=sky, tlas=tlas, tlas_k6=k6, tlas_stream=k7,
+            atlas=atlas, rng=rng,
+        )
+        self._wavefront = None
 
-        # lights + sky (renderer.py:961-1058)
-        tl = lights_mod.collect_emitters(flat, mat_table)
+    def _pack_resident_route(self, flat):
+        """Thread ``self._topology`` over ``flat``'s triangles and pack it
+        for the resident route's kernel (K1, K2/K3 or K8). Returns (the
+        pack, the attribute index of each BVH row)."""
+        route = self._route
+        tb = bvh_mod.thread_bvh(self._topology, flat.v0, flat.e1, flat.e2)
+        pack = (traverse_v1.pack_v1 if route.v1 else
+                pack_flat if route.kernel_v3 else pack_resident)
+        # attributes in BVH-row order: the kernel's row IS the attribute
+        # index (padded rows clamp to a real tri and never win a hit)
+        return (pack(tb, self.device),
+                np.clip(np.asarray(tb.row_tri), 0, flat.num_tris - 1))
+
+    def _attr_table(self, shade, ix) -> torch.Tensor:
+        """The (ATTR_W, rows) attribute table of ``shade``'s triangles in
+        the order ``ix`` (BVH rows, or source order), on the device."""
+        rows = SimpleNamespace(**{
+            name: np.asarray(getattr(shade, name))[ix]
+            for name in ("e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
+                         "tangent", "texel_density", "material_id")
+        })
+        return pack_attr_table(rows, rows).to(self.device)
+
+    def _lights_and_sky(self, flat, scene_config: SceneConfig):
+        """The emitter tables of the posed flat scene and the sky
+        (renderer.py:961-1058); the sky is cooked again only when its
+        inputs change, as the reference caches it (renderer.py:985-1004)."""
+        tl = lights_mod.collect_emitters(flat, self._mat_table)
         self._num_lights = tl.count
         if tl.count == 0:
             tl = lights_mod.empty_lights()
-        lights = nee_mod.light_buffers(tl.v0, tl.v1, tl.v2, tl.radiance, dev)
-        sky = sky_mod.build_sky(
-            scene_config.sun_dir, scene_config.turbidity, scene_config.albedo,
-            has_area_lights=self._num_lights > 0, device=dev,
-        )
-        self.device_scene = DeviceScene(
-            bvh=bvh, attr_packed=attr, mat_packed=mats, lights=lights, sky=sky,
-            tlas=tlas, tlas_k6=k6, tlas_stream=k7, atlas=atlas,
-        )
-        self._wavefront = None
+        lights = nee_mod.light_buffers(tl.v0, tl.v1, tl.v2, tl.radiance,
+                                       self.device)
+        key = (tuple(np.asarray(scene_config.sun_dir, np.float32).tolist()),
+               float(scene_config.turbidity),
+               tuple(np.asarray(scene_config.albedo, np.float32).ravel().tolist()),
+               self._num_lights > 0)
+        if key != self._sky_key:
+            self._sky = sky_mod.build_sky(
+                scene_config.sun_dir, scene_config.turbidity,
+                scene_config.albedo, has_area_lights=self._num_lights > 0,
+                device=self.device)
+            self._sky_key = key
+        return lights, self._sky
 
     def _set_two_level(self, mesh_tris, binding, frame: int):
         """The two-level build of ``set_scene`` (renderer.py:692-769): the
@@ -476,22 +516,88 @@ class Renderer:
     def set_animation_frame(self, frame: int,
                             scene_config: Optional[SceneConfig] = None) -> None:
         """Re-pose the instances at an animation frame (renderer.py:
-        1888-1962, its two-level branch): the TLAS, the instance tables and
+        1888-2060). On a two-level scene the TLAS, the instance tables and
         K6's or K7's frame pack are rebuilt on the host and uploaded; the
-        BLAS and chunk tensors stay the same objects. The accumulation
-        restarts, and a cached wavefront executor is dropped (it holds the
-        old device scene). ``scene_config`` is accepted for the reference's
-        signature; the lights and sky stay those of ``set_scene``, as there.
-        Flattened scenes would refit their BVH, which is not ported."""
-        if self._route is None or not self._route.tlas:
-            raise NotImplementedError(
-                "animating a flattened scene (BVH refit) is not ported yet "
-                "(ROADMAP item 17)")
+        BLAS and chunk tensors stay the same objects, and the lights and
+        sky stay those of ``set_scene``, as there. A flattened scene is
+        flattened at the frame and its BVH rebuilt or refit
+        (``_animate_flattened``). Either way the accumulation restarts,
+        a cached wavefront executor is dropped (it holds the old device
+        scene), and ``tlas_update_seconds`` holds the update's host time.
+        ``scene_config`` defaults to the one of ``set_scene``."""
+        if self._route is None:
+            raise RuntimeError("set_animation_frame before set_scene")
+        if not self._route.tlas:
+            self._animate_flattened(frame, scene_config or self._scene_config)
+            return
         t0 = time.perf_counter()
         tb, k6, k7 = self._build_tlas_buffers(self.scene.instance_transforms(frame))
         self.device_scene = self.device_scene._replace(
             tlas=tb, tlas_k6=k6, tlas_stream=k7)
         self.tlas_update_seconds = time.perf_counter() - t0
+        self._scene_frame = frame
+        self._wavefront = None
+        self.frame_id = 0  # the next frame blends as the first sample
+
+    def _animate_flattened(self, frame: int, scene_config: SceneConfig) -> None:
+        """The flattened branch of set_animation_frame (renderer.py:
+        1963-2060, without its LoD part, ROADMAP item 21). The scene is
+        flattened at ``frame``; with ``options.force_bvh_rebuild`` or at
+        most ``options.rebuild_triangle_budget`` triangles the BVH is
+        rebuilt (the Morton builder on the resident routes, a full
+        ``pack_streamed`` on the streamed one), else refit over its
+        topology (``bvh.refit_bvh``, ``traverse_stream.refit_streamed``);
+        a quantized streamed pack always repacks. The route's table is
+        packed again (each leaf's real-row count with it), every
+        row-ordered attribute re-indexed and the lights rebuilt from the
+        posed scene, since emitters move too. ``tlas_update_seconds`` times
+        the build or refit with its pack and upload (the reference's
+        BUILD_TLAS / UPDATE_TLAS marker); ``animation_update`` says which
+        ran. The reference re-uploads its device scene here through
+        ``_upload_lights_and_sky``, which bumps its wavefront programs'
+        cache key, so its executor is not stale on this branch; the port
+        drops its executor."""
+        scene = self.scene
+        if scene.has_lod_groups():
+            raise NotImplementedError(
+                "LoD re-selection is not ported yet (ROADMAP item 21)")
+        flat = scene.flatten_world(frame=frame,
+                                   lod_threshold=scene_config.lod_threshold)
+        rebuild = (self.options.force_bvh_rebuild
+                   or flat.num_tris <= self.options.rebuild_triangle_budget)
+        route, dev = self._route, self.device
+        t0 = time.perf_counter()
+        if route.streamed:
+            if self.options.quantized_geometry:
+                # fresh grids: a quantized pack keeps no refit topology
+                bvh = traverse_stream.pack_streamed(
+                    flat.v0, flat.e1, flat.e2, quantize=True, device=dev)
+                rebuild = True
+            elif rebuild or self._streamed_topo is None:
+                bvh, self._streamed_topo = traverse_stream.pack_streamed(
+                    flat.v0, flat.e1, flat.e2, with_topology=True, device=dev)
+                rebuild = True
+            else:
+                bvh = traverse_stream.refit_streamed(
+                    self._streamed_topo, flat.v0, flat.e1, flat.e2, device=dev)
+            ix = slice(None)  # source order
+        else:
+            if rebuild:
+                self._topology = bvh_mod.build_bvh(
+                    flat.v0, flat.e1, flat.e2, leaf_size=route.leaf_size)
+            else:
+                self._topology = bvh_mod.refit_bvh(
+                    self._topology, flat.v0, flat.e1, flat.e2)
+            bvh, ix = self._pack_resident_route(flat)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.tlas_update_seconds = time.perf_counter() - t0
+        self.animation_update = "rebuild" if rebuild else "refit"
+        self._flat = flat
+        lights, sky = self._lights_and_sky(flat, scene_config)
+        self.device_scene = self.device_scene._replace(
+            bvh=bvh, attr_packed=self._attr_table(flat, ix), lights=lights,
+            sky=sky)
         self._scene_frame = frame
         self._wavefront = None
         self.frame_id = 0  # the next frame blends as the first sample
@@ -521,6 +627,8 @@ class Renderer:
         renderer.py:1116-1124); it is not ported, so such a render raises
         (``check_supported``)."""
         route = self._route
+        # carry compaction of the monolith, on by default with the flat
+        # cull (renderer.py:1105-1115)
         compact_lanes = _env_flag("RPTR_COMPACT_LANES",
                                   route.kernel_v3)
         buckets = int(self.options.light_sampling_bucket_count)
@@ -671,8 +779,9 @@ class Renderer:
         supported lattice (then False is returned); a change of
         ``use_tlas`` or ``quantized_geometry`` rebuilds the scene with
         ``set_scene`` at its scene config and animation frame, since those
-        options change what it builds. If the rebuild fails, the exception
-        is logged, the renderer's last good state (options, scene, buffers)
+        options change what it builds, and a change of ``rng_variant``
+        alone rebuilds the scene's RNG tables. If the rebuild fails, the
+        exception is logged, the renderer's last good state (options, scene, buffers)
         is restored and False is returned. Returns True iff the options
         applied unmodified."""
         ok, adjusted = self._validate_options(options)
@@ -684,11 +793,16 @@ class Renderer:
                 for f in ("use_tlas", "quantized_geometry"))
             last_good = dict(self.__dict__)  # options, scene and buffers
             try:
+                rng_changed = adjusted.rng_variant != self.options.rng_variant
                 self.options = adjusted
                 self._wavefront = None  # its programs hold the old options
                 if rebuild:
                     self.set_scene(self.scene, self._scene_config,
                                    frame=self._scene_frame)
+                elif rng_changed and self.device_scene is not None:
+                    self.device_scene = self.device_scene._replace(
+                        rng=pointsets.build_rng_buffers(
+                            int(adjusted.rng_variant), device=self.device))
             except Exception as e:  # revert to the last good state
                 warning("option apply failed (%r); reverting", e)
                 self.__dict__.clear()
@@ -815,11 +929,10 @@ class Renderer:
         if variant not in self.variants():
             raise ValueError(f"unknown variant {variant!r}")
         params = params or RenderParams()
-        # the monolithic pass without carry compaction (ROADMAP item 16),
-        # which only reorders lanes; the reference turns it off for a
+        # the monolithic pass; trace_paths turns carry compaction off for a
         # bounded primary segment (integrator.py:1607-1610)
         cfg = self._integrator_config(params)._replace(
-            wavefront=variant == VARIANT_WAVEFRONT, compact_lanes=False)
+            wavefront=variant == VARIANT_WAVEFRONT)
         n = len(origins)
         side = max(int(math.ceil(math.sqrt(n))), 1)
         pad = (-n) % 256 if n > 256 else (-n) % 8
@@ -842,7 +955,8 @@ class Renderer:
                              glossy_only_mode=int(params.glossy_only_mode),
                              sample_offset=s, shot_offset=self.shot_offset)
             state = pointsets.make_state(cfg.rng_variant, s, fp.shot_offset,
-                                         px, py, side)
+                                         px, py, side,
+                                         bufs=self.device_scene.rng)
             # the query rays take the camera's place; a lane past its
             # segment's end starts dead
             illum, alpha, _ = trace_paths(

@@ -43,6 +43,24 @@ libm moves a few bounce directions, and the checker again turns that into
 colour near zero. So ``compare_card`` holds it to 2% there, with the
 relative L1 gate of 1e-4. ``cornell_wavefront`` is ``cornell_diffuse``
 through the ``PT_WAVEFRONT`` variant, under ``cornell_diffuse``'s gates.
+
+``cornell_sobol``, ``cornell_zsbl`` and ``cornell_bn`` are
+``cornell_diffuse`` under the Sobol, Z-Sobol and blue-noise RNG variants
+with the reference's pointset tables (tests/test_goldens.py:89-108). They
+keep ``cornell_diffuse``'s shares of pixels over 1e-3, but their
+``compare`` and ``compare_ref`` gates read the relative L1 error where the
+others read the mean relative error (``L1_GATED``), at the same limits
+(5e-3 against the golden, 1e-4 against the reference run op by op). The
+mean is dominated by near-black pixels that one flipped sample lights:
+the golden files hold 26-31 pixels of exactly 0.0, and the JAX package run
+op by op lights one of them with one sample, so it misses its own
+``cornell_sobol`` golden by a mean relative error of 283 and
+``cornell_bn``'s by 2.1e6 (relative L1 2.8e-5 and 6.3e-5); and the port
+against the reference run op by op reads means of 1.7e-4, 2.0e-4 and
+3.5e-4 with 0.52%, 0.56% and 0.78% of pixels over 1e-3 and ray counts
+equal per sample (relative L1 3.9e-5, 5.2e-5 and 6.2e-5): a handful of
+pixels where one of 4 samples flips, as on ``cornell_diffuse`` (measured
+at 48x48, 4 spp, ``tests/test_torch_pointsets.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +70,9 @@ import os
 import numpy as np
 
 from realtimepathtracingresearchframework_tpu_torch.backend.params import (
+    RNG_VARIANT_BN,
+    RNG_VARIANT_SOBOL,
+    RNG_VARIANT_Z_SBL,
     RenderParams,
     SceneConfig,
 )
@@ -67,7 +88,12 @@ GOLDEN_DIR = os.path.join(
 NAMES = ("cornell_diffuse", "sun_sky")
 # the goldens of the textured scene and of the wavefront variant
 FEATURE_NAMES = ("cornell_textured", "cornell_wavefront")
-ALL_NAMES = NAMES + FEATURE_NAMES
+# the goldens of the RNG variants, and each one's options.rng_variant
+RNG_GOLDENS = {"cornell_sobol": RNG_VARIANT_SOBOL,
+               "cornell_zsbl": RNG_VARIANT_Z_SBL,
+               "cornell_bn": RNG_VARIANT_BN}
+RNG_NAMES = tuple(RNG_GOLDENS)
+ALL_NAMES = NAMES + FEATURE_NAMES + RNG_NAMES
 SIZE = 48
 SPP = 4
 # compare: the XLA-fused goldens. Share of pixels with a channel over
@@ -84,6 +110,9 @@ REF_MEAN_REL = 1e-4
 # comparison: the textured golden turns the walks' last-bit u/v
 # differences into texel colour
 FRAC_GATES = {"cornell_textured": {"golden": 0.03, "ref": 0.02}}
+# the goldens whose golden and op-by-op gates read the relative L1 error in
+# the mean relative error's place, at the same limit (see the docstring)
+L1_GATED = frozenset(RNG_NAMES)
 
 
 def checker(n: int = 16) -> np.ndarray:
@@ -112,7 +141,7 @@ def config(name: str):
             16, 16, 37, mips=build_mip_chain(checker()), srgb=False)
         cam = OrientedCamera.look_at([0, 1.4, 3.0], [0, 0.2, 0.0], fovy=60)
         return Scene.from_vkr_scene(sv), cam, RenderParams(max_path_depth=2), SceneConfig()
-    if name in ("cornell_diffuse", "cornell_wavefront"):
+    if name in ("cornell_diffuse", "cornell_wavefront", *RNG_NAMES):
         scene = Scene.from_vkr_scene(procedural.cornell_box())
         cam = OrientedCamera.look_at([0, 1.0, 3.2], [0, 1.0, 0.0], fovy=50)
         sc = SceneConfig()
@@ -128,7 +157,9 @@ def config(name: str):
 def render(name: str, device):
     """Render a golden through the port; returns (rgb image, renderer).
     ``cornell_wavefront`` renders through ``PT_WAVEFRONT``, the others
-    through the default ``PT_MEGAKERNEL``."""
+    through the default ``PT_MEGAKERNEL``; the RNG goldens select their
+    variant with ``configure_for`` before ``set_scene``, as the reference's
+    test does."""
     from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
         VARIANT_WAVEFRONT,
         FrameConfig,
@@ -138,6 +169,8 @@ def render(name: str, device):
     scene, cam, params, sc = config(name)
     r = Renderer(device=device)
     r.initialize(SIZE, SIZE)
+    if name in RNG_GOLDENS:
+        r.configure_for(r.options.replace(rng_variant=RNG_GOLDENS[name]))
     r.set_scene(scene, scene_config=sc)
     if name == "cornell_wavefront":
         r.set_variant(VARIANT_WAVEFRONT)
@@ -180,7 +213,7 @@ def compare_golden_gate(name: str, img: np.ndarray, ref: np.ndarray) -> dict:
         res["finite"]
         and res["frac_over_1e-3"] <= FRAC_GATES.get(name, {}).get(
             "golden", GOLDEN_FRAC_OVER_1E3)
-        and res["mean_rel"] <= GOLDEN_MEAN_REL
+        and res["rel_l1" if name in L1_GATED else "mean_rel"] <= GOLDEN_MEAN_REL
         and res["max_rel"] <= GOLDEN_MAX_REL.get(name, np.inf)
     )
     return res
@@ -188,13 +221,14 @@ def compare_golden_gate(name: str, img: np.ndarray, ref: np.ndarray) -> dict:
 
 def compare_ref(img: np.ndarray, ref: np.ndarray, name: str = "") -> dict:
     """Compare a render with a reference run op by op; ``ok`` applies the
-    1% / 1e-4 gate (2% / 1e-4 for ``cornell_textured``)."""
+    1% / 1e-4 gate (2% / 1e-4 for ``cornell_textured``; the 1e-4 on the
+    relative L1 error for the ``L1_GATED`` goldens)."""
     res = _stats(img, ref)
     res["ok"] = (
         res["finite"]
         and res["frac_over_1e-3"] <= FRAC_GATES.get(name, {}).get(
             "ref", REF_FRAC_OVER_1E3)
-        and res["mean_rel"] <= REF_MEAN_REL
+        and res["rel_l1" if name in L1_GATED else "mean_rel"] <= REF_MEAN_REL
     )
     return res
 

@@ -534,18 +534,30 @@ class Scene:
         n0s, n1s, n2s = [], [], []
         uv0s, uv1s, uv2s = [], [], []
         mats, insts = [], []
+        # each transform row and each geometry decoded once, not once per
+        # instance (the decodes are row-wise, so the arrays are the same)
+        xforms = {}
+        for a, anim in enumerate(self.animation_data):
+            ii = [i for i, inst in enumerate(self.instances)
+                  if inst.animation_data_index == a]
+            if ii:
+                rows = anim.transforms_for_frame(
+                    [self.instances[i].transform_index for i in ii], frame)
+                xforms.update(zip(ii, rows))
+        decoded = {}
         for ii, inst in enumerate(self.instances):
             pm = self.parameterized_meshes[inst.parameterized_mesh_id]
-            anim = self.animation_data[inst.animation_data_index]
-            xform = anim.transform(inst.transform_index, frame)
+            xform = xforms[ii]
             lod_mesh_id = self.select_lod(pm.mesh_id, xform, camera_pos, lod_threshold)
             mesh = self.meshes[lod_mesh_id]
             lin, tr = xform[:, :3].astype(np.float32), xform[:, 3].astype(np.float32)
             # normal transform: inverse-transpose of linear part
             lin_it = np.linalg.inv(lin).T.astype(np.float32)
             for geom in mesh.geometries:
-                p = geom.decode_positions()  # (T,3,3)
-                n, uv = geom.decode_normals_uvs()
+                if id(geom) not in decoded:
+                    decoded[id(geom)] = (geom.decode_positions(),  # (T,3,3)
+                                         *geom.decode_normals_uvs())
+                p, n, uv = decoded[id(geom)]
                 pw = p @ lin.T + tr
                 nw = n @ lin_it.T
                 nw /= np.maximum(np.linalg.norm(nw, axis=-1, keepdims=True), 1e-20)

@@ -59,8 +59,8 @@ def render_aovs(ds: intg.DeviceScene, cfg: intg.IntegratorConfig,
     px, py = px.reshape(-1).to(torch.int32), py.reshape(-1).to(torch.int32)
     dims = (float(width), float(height))
     state = pointsets.make_state(cfg.rng_variant, fp.sample_offset,
-                                 fp.shot_offset, px, py, width)
-    _, (j0, j1) = pointsets.draw2t(cfg.rng_variant, state, 0)
+                                 fp.shot_offset, px, py, width, bufs=ds.rng)
+    _, (j0, j1) = pointsets.draw2t(cfg.rng_variant, ds.rng, state, 0)
     ro, rd = intg.camera_rays_v(view, px, py, dims, j0, j1)
     hit = intg._closest_hit_dispatch(ds, cfg, ro, rd, 0.0, T_MAX)
     was_hit = hit.tri >= 0

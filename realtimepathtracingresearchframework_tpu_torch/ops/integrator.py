@@ -43,7 +43,11 @@ transports across bounces (integrator.py:1205-1318, 1432-1443); with
 texels (``closest_hit_alpha``, ``occluded_alpha``; integrator.py:446-780).
 The ``PT_WAVEFRONT`` variant (``cfg.wavefront``) defers each bounce's NEE
 shadow ray to the next bounce, where on the K1 route both queues go to the
-card as one merged launch (integrator.py:1021-1115, 1380-1400).
+card as one merged launch (integrator.py:1021-1115, 1380-1400). The RNG
+draws go through ``ops/pointsets.py`` at the reference's path-space dims
+with the scene's tables (``DeviceScene.rng``), and ``cfg.compact_lanes``
+runs the bounces past 0 on a coherence-sorted, live-first carry's
+smallest covering prefix (``_compacted_bounces``; integrator.py:1606-1717).
 
 Configurations outside the slice raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
@@ -98,6 +102,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import
     closest_and_occluded_resident,
     closest_hit_resident,
     coherence_key,
+    inverse_permutation,
     occluded_resident,
     pack_resident,
 )
@@ -148,6 +153,8 @@ class DeviceScene(NamedTuple):
     # cfg.tlas_stream
     atlas: Optional[TextureAtlas] = None  # the scene's textures (a 1-texel
     # dummy without): read only when cfg.has_textures
+    rng: Optional[pointsets.RngBuffers] = None  # the RNG variant's tables
+    # (pointsets.build_rng_buffers); the LCG reads none
 
 
 def pack_attr_table(tris, shading) -> torch.Tensor:
@@ -300,7 +307,7 @@ class IntegratorConfig(NamedTuple):
     tlas_stream: bool = False  # two-level walk through K7
     streamed: bool = False
     compact: bool = False  # coherence sort before each dispatch past bounce 0
-    compact_lanes: bool = False
+    compact_lanes: bool = False  # carry compaction of the bounce loop
     wavefront: bool = False
     debug_mode: int = 0
     kernel_v3: bool = False  # K2/K3 flat cull instead of the K1 walk
@@ -317,7 +324,6 @@ _UNPORTED = (
     ("use_light_bins", "binned RIS light sampling", 14),
     ("enable_dof", "thin-lens depth of field", 14),
     ("debug_mode", "debug variants", 14),
-    ("compact_lanes", "carry compaction of the monolithic bounce loop", 16),
 )
 STREAM_CLOSEST = ("sorted", "ordered", "binned", "multislot")
 
@@ -332,7 +338,6 @@ def check_stream_closest(strategy: str) -> None:
 
 def check_supported(cfg: IntegratorConfig) -> None:
     """Raise for configurations the port does not run yet."""
-    pointsets._require_uniform(cfg.rng_variant)
     for field, what, item in _UNPORTED:
         if getattr(cfg, field):
             raise NotImplementedError(
@@ -811,13 +816,30 @@ def _scene_bounds_of(ds: DeviceScene):
     lo = getattr(ds.bvh, "scene_lo", None)
     if lo is not None:
         return lo, ds.bvh.scene_hi
-    return ds.bvh.bounds[0, 0:3], ds.bvh.bounds[0, 3:6]
+    bounds = getattr(ds.bvh, "bounds", None)
+    if bounds is None:  # the streamed pack: liveness alone, as there
+        return None, None
+    return bounds[0, 0:3], bounds[0, 3:6]
 
 
 def _carry_coherence_key(ro: Vec3, rd: Vec3, live, lo, hi):
     """Lane sort key of carry-level compaction (integrator.py:975-1002):
     the contract of traverse_pallas2._coherence_key2 from the SoA carry."""
     return coherence_key(*ro, *rd, live, lo, hi)
+
+
+# carry-compaction prefix sizes (integrator.py:1004-1008): lane counts are
+# quantized to the traversal block so every prefix dispatches whole blocks
+_COMPACT_LANE_QUANTUM = 1024
+_COMPACT_MAX_HALVINGS = 5  # smallest prefix = n/32
+# carry compaction in this process: (bounce, live lanes, prefix lanes) of
+# each compacted bounce of every trace_paths call, in call order; reset
+# with reset_compaction_log
+compaction_log = []
+
+
+def reset_compaction_log() -> None:
+    compaction_log.clear()
 
 
 def _mat3_apply(m, x: Vec3) -> Vec3:
@@ -1077,23 +1099,31 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         ok_nm = (nm_tid >= 0) & (v3.length(tn) > 1e-4)
         return mat, v3.where(ok_nm, n_mapped, n_sh)
 
-    def scatter_tail(carry: Carry, ctx, compact: bool = False,
+    def scatter_tail(carry: Carry, ctx, bounce: int, compact: bool = False,
                      sort_shadow: bool = False) -> Carry:
-        """NEE + BSDF sample + RR — skipped on the final bounce.
-        ``sort_shadow``: the NEE occlusion queue (origins = fresh hit
-        points) gets its own coherence sort. In the wavefront variant the
-        shadow ray is queued for the next visit instead (integrator.py:
-        1380-1400)."""
+        """NEE + BSDF sample + RR of bounce ``bounce`` — skipped on the
+        final bounce. ``sort_shadow``: the NEE occlusion queue (origins =
+        fresh hit points) gets its own coherence sort. In the wavefront
+        variant the shadow ray is queued for the next visit instead
+        (integrator.py:1380-1400)."""
         p, n_sh, gn, mat, w_o = ctx
         active, throughput = carry.active, carry.throughput
         total_t = carry.total_t
 
         # ---- RNG draws in reference order (shade_base_material.glsl:60-84)
-        rv = cfg.rng_variant
-        rng_state, pos_sample = pointsets.draw2t(rv, carry.rng_state)
-        rng_state, sel_sample = pointsets.draw2t(rv, rng_state)
-        rng_state, lobe_sample = pointsets.draw2t(rv, rng_state)
-        rng_state, dir_sample = pointsets.draw2t(rv, rng_state)
+        # at path-space dims (pathspace.h; integrator.py:1366-1376): the
+        # bounce block starts at DIM_CAMERA_END + 8b, light dims first
+        # {sel: +0, pos: +2}, then vertex dims {dir: +4, lobe: +6}, and
+        # roulette reuses the free-path slot {+7}
+        dim_base = DIM_CAMERA_END(cfg) + 8 * int(bounce)
+        rv, bufs = cfg.rng_variant, ds.rng
+        rng_state, pos_sample = pointsets.draw2t(rv, bufs, carry.rng_state,
+                                                 dim_base + 2)
+        rng_state, sel_sample = pointsets.draw2t(rv, bufs, rng_state, dim_base)
+        rng_state, lobe_sample = pointsets.draw2t(rv, bufs, rng_state,
+                                                  dim_base + 6)
+        rng_state, dir_sample = pointsets.draw2t(rv, bufs, rng_state,
+                                                 dim_base + 4)
 
         # ---- NEE (one shadow ray per active lane)
         rays = carry.rays + active.to(carry.rays.dtype)
@@ -1157,7 +1187,7 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         t_min = (v3.length(ro) + total_t) * RAY_EPSILON
 
         # ---- Russian roulette (pt_megakernel.glsl:713-730)
-        rng_state, rr_sample = pointsets.draw1(rv, rng_state)
+        rng_state, rr_sample = pointsets.draw1(rv, bufs, rng_state, dim_base + 7)
         prefix = v3.max_component(throughput)
         rr_prob = torch.where(
             carry.bounce_count > 6,
@@ -1223,7 +1253,8 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
     whole-wave early out, pt_megakernel.glsl:445-449).
     ``cfg.compact`` coherence-sorts every traversal queue past bounce 0,
     and every NEE queue past bounce 0 sorts by its own origins
-    (integrator.py:1536-1551). ``footprint0`` is the camera's texture
+    (integrator.py:1536-1551). ``cfg.compact_lanes`` compacts the carry
+    instead (``_compacted_bounces``). ``footprint0`` is the camera's texture
     footprint (``camera_footprint0``); textured scenes without one start
     from a zero footprint, as the reference does. ``t_max0`` (per lane, or
     None) bounds the primary segment, as a ray query's t_max does
@@ -1239,7 +1270,18 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
     carry = initial_carry(ro, rd, rng_state, lane_mask, foot=foot,
                           wavefront=cfg.wavefront)
     visit_hit, scatter_tail = _make_bounce_fns(ds, cfg, fp, t_max0)
-    for i in range(cfg.max_path_depth):
+    n = ro.x.shape[0]
+    # carry compaction (integrator.py:1606-1610): not for a bounded primary
+    # segment, debug counters or depth 1, and only with more than one
+    # prefix size
+    sizes = [n >> j for j in range(_COMPACT_MAX_HALVINGS + 1)
+             if (n >> j) >= _COMPACT_LANE_QUANTUM
+             and (n >> j) % _COMPACT_LANE_QUANTUM == 0]
+    use_lane_compact = (cfg.compact_lanes and t_max0 is None
+                        and not cfg.debug_mode and cfg.max_path_depth > 1
+                        and len(sizes) > 1)
+    lane_id = None
+    for i in range(1 if use_lane_compact else cfg.max_path_depth):
         live = carry.active.any()
         if cfg.wavefront:
             live = live | carry.pend.traced.any()
@@ -1248,8 +1290,11 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         compact = cfg.compact and i > 0
         carry, ctx = visit_hit(carry, compact=compact)
         if i < cfg.max_path_depth - 1:
-            carry = scatter_tail(carry, ctx, compact=compact,
+            carry = scatter_tail(carry, ctx, i, compact=compact,
                                  sort_shadow=i > 0)
+    if use_lane_compact:
+        carry, lane_id = _compacted_bounces(ds, cfg, carry, sizes, visit_hit,
+                                            scatter_tail)
     illum = carry.illum
     if cfg.wavefront and bool(carry.pend.traced.any()):
         # a shadow queue that no later visit resolved (integrator.py:
@@ -1259,8 +1304,52 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         blocked = occluded_alpha(ds, cfg, carry.ro, pend.dir, pend.tmin,
                                  torch.where(pend.traced, pend.tmax, 0.0))
         illum = v3.where(pend.traced & ~blocked, illum + pend.contrib, illum)
-    alpha = torch.where(carry.bounce_count == 0, 0.0, 1.0)
-    return illum, alpha, carry.rays
+    bounce_count, rays = carry.bounce_count, carry.rays
+    if lane_id is not None:
+        # the carry is in its cumulative sorted order; lane_id maps a sorted
+        # slot to its lane, so its inverse gathers lane order back
+        # (integrator.py:1715-1717)
+        inv = inverse_permutation(lane_id)
+        illum = _permute_lanes(illum, inv)
+        bounce_count, rays = bounce_count[inv], rays[inv]
+    alpha = torch.where(bounce_count == 0, 0.0, 1.0)
+    return illum, alpha, rays
+
+
+def _compacted_bounces(ds: DeviceScene, cfg: IntegratorConfig, carry: Carry,
+                       sizes, visit_hit, scatter_tail):
+    """Bounces 1.. of carry compaction (integrator.py:1606-1690): before
+    each, a stable argsort of the carry by its coherence key (live lanes,
+    those with a queued shadow ray included, first), then the bounce on the
+    smallest prefix in ``sizes`` that holds every live lane, presorted, its
+    NEE queue sorted by its own origins; the dead tail rides along. One
+    host read per bounce, the live count, picks the prefix (and ends the
+    loop when no lane is live). Every kernel is a per-lane function, so no
+    lane's result depends on the order. Returns (carry in sorted order,
+    lane_id: the lane of each sorted slot)."""
+    n = carry.active.shape[0]
+    lo, hi = _scene_bounds_of(ds)
+    lane_id = torch.arange(n, device=carry.active.device)
+    for b in range(1, cfg.max_path_depth):
+        live = carry.active
+        if cfg.wavefront:
+            live = live | carry.pend.traced
+        live_cnt = int(live.sum())
+        if live_cnt == 0:
+            break
+        perm = torch.argsort(_carry_coherence_key(carry.ro, carry.rd, live,
+                                                  lo, hi), stable=True)
+        carry = _permute_lanes(carry, perm)
+        lane_id = lane_id[perm]
+        m = min(w for w in sizes if live_cnt <= w)
+        compaction_log.append((b, live_cnt, m))
+        head = _map_lanes(lambda a: a[:m], carry)
+        head, ctx = visit_hit(head, compact=False, presorted=True)
+        if b < cfg.max_path_depth - 1:
+            head = scatter_tail(head, ctx, b, compact=False, sort_shadow=True)
+        carry = head if m == n else _map_lanes(
+            lambda h, a: torch.cat([h, a[m:]]), head, carry)
+    return carry, lane_id
 
 
 def camera_rays_v(view: ViewBuffers, px, py, dims, j0, j1):
@@ -1368,13 +1457,22 @@ def camera_footprint0(cfg: IntegratorConfig, fp: FrameParams,
     return _dpdxy_to_footprint_v(rd, dpdx, dpdy)
 
 
+def DIM_CAMERA_END(cfg: IntegratorConfig) -> int:
+    """Path-space camera dimension count (pathspace.h; integrator.py:1833):
+    the simplified camera uses dims 0-1; thin-lens DoF the full camera with
+    its aperture at dims 4-5, so its bounces start at dim 6."""
+    return 6 if cfg.enable_dof else 2
+
+
 def camera_setup(cfg: IntegratorConfig, view: ViewBuffers, px, py, dims,
-                 state):
-    """Pixel jitter draw + primary ray (perspective.rgen:95-109). Thin-lens
-    DoF is ROADMAP item 14. Returns (state, ro, rd)."""
+                 state, bufs: Optional[pointsets.RngBuffers] = None):
+    """Pixel jitter draw at dims 0-1 + primary ray (perspective.rgen:
+    95-109; integrator.py:1844-1846). ``bufs`` are the RNG variant's tables
+    (``DeviceScene.rng``). Thin-lens DoF is ROADMAP item 14. Returns
+    (state, ro, rd)."""
     if cfg.enable_dof:
         raise NotImplementedError("thin-lens DoF is not ported yet (ROADMAP item 14)")
-    state, (j0, j1) = pointsets.draw2t(cfg.rng_variant, state)
+    state, (j0, j1) = pointsets.draw2t(cfg.rng_variant, bufs, state, 0)
     ro, rd = camera_rays_v(view, px, py, dims, j0, j1)
     return state, ro, rd
 
@@ -1445,9 +1543,10 @@ def make_pass_fn(ds: DeviceScene, cfg: IntegratorConfig, width: int,
         sample_index = (fp.sample_offset + s) & M32
         blend_k = blend_base + s
         state = pointsets.make_state(
-            cfg.rng_variant, sample_index, fp.shot_offset, px, py, width
-        )
-        state, ro, rd = camera_setup(cfg, view, px, py, dims, state)
+            cfg.rng_variant, sample_index, fp.shot_offset, px, py, width,
+            bufs=ds.rng)
+        state, ro, rd = camera_setup(cfg, view, px, py, dims, state,
+                                     bufs=ds.rng)
         rgb, alpha, nrays = trace_paths(
             ds, cfg, fp, ro, rd, state, lane_mask=valid,
             footprint0=camera_footprint0(cfg, fp, view, dims, rd))

@@ -134,7 +134,7 @@ class StreamedBVHBuffers(NamedTuple):
 
 class StreamedTopology(NamedTuple):
     """Static structure of a streamed pack, kept for a later refit
-    (``refit_streamed``, ROADMAP item 17): chunk assignment, each subtree's
+    (``refit_streamed``): chunk assignment, each subtree's
     threaded-tree shape and slot gathers. Host numpy."""
 
     gather: np.ndarray  # (S*L*LEAF,) i64 source tri per slot, -1 pad
@@ -360,6 +360,86 @@ def pack_streamed(v0, e1, e2, quantize: bool = False,
             sub_leaves=sub_leaves,
         )
     return bb
+
+
+def refit_streamed(topo: StreamedTopology, v0, e1, e2,
+                   device="cpu") -> StreamedBVHBuffers:
+    """Refit a streamed pack to moved vertices with its topology unchanged
+    (traverse_stream.py:361-438; the BLAS update path, vulkanrt_utils.h:
+    92-101): the leaf tiles re-gathered by the stored slot order, the leaf
+    boxes recomputed and folded into the node boxes through the stored
+    preorder ranges, and the top tree rebuilt over the new subtree roots.
+    Host numpy, uploaded to ``device``.
+
+    Every slot of a leaf, its padding rows included, re-gathers the source
+    triangle the pack put there, so a padded leaf still repeats its last
+    triangle bit for bit and each leaf's real-row count read from the
+    tiles' bits (``traverse.real_row_counts`` of ``leaf_rows``) is the one
+    a fresh pack of the same topology and vertices gives; unused slots stay
+    zero, as in the pack."""
+    v0 = np.asarray(v0, np.float32)
+    e1 = np.asarray(e1, np.float32)
+    e2 = np.asarray(e2, np.float32)
+    g = topo.gather
+    S = topo.node_count.shape[0]
+    sub_leaves = topo.sub_leaves
+    node_rows = node_rows_for(sub_leaves)
+    slots = node_rows * 16
+    valid = g >= 0
+    gi = np.where(valid, g, 0)
+
+    sv0, se1, se2 = v0[gi], e1[gi], e2[gi]
+    fields = np.concatenate([sv0, se1, se2], axis=1)  # (S*L*LEAF, 9)
+    fields[~valid] = 0.0
+    tiles = np.zeros((S * sub_leaves, 16, 128), np.float32)
+    tiles[:, 0:9, :] = fields.reshape(S * sub_leaves, LEAF, 9).transpose(0, 2, 1)
+
+    # leaf boxes (unused slots contribute nothing)
+    w1, w2 = sv0 + se1, sv0 + se2
+    tmin = np.minimum(np.minimum(sv0, w1), w2)
+    tmax = np.maximum(np.maximum(sv0, w1), w2)
+    big = np.float32(np.inf)
+    tmin = np.where(valid[:, None], tmin, big)
+    tmax = np.where(valid[:, None], tmax, -big)
+    lmin = tmin.reshape(S, sub_leaves, LEAF, 3).min(axis=2)  # (S, L, 3)
+    lmax = tmax.reshape(S, sub_leaves, LEAF, 3).max(axis=2)
+
+    # node boxes by prefix sums over preorder leaf presence: node i of
+    # subtree s covers the leaves met at preorder positions [i, end_i)
+    P = np.zeros((S, slots + 1, sub_leaves), np.float32)
+    sj, nj = np.nonzero(topo.node_leaf >= 0)
+    P[sj, nj + 1, topo.node_leaf[sj, nj]] = 1.0
+    C = np.cumsum(P, axis=1)  # (S, slots + 1, L)
+    ii = np.arange(slots)
+    C_end = np.take_along_axis(
+        C, topo.node_end[:, :, None].astype(np.int64), axis=1)
+    covered = (C_end - C[:, 0:slots, :]) > 0  # (S, slots, L)
+    node_valid = ii[None, :] < topo.node_count[:, None]
+    nmin = np.where(covered[..., None], lmin[:, None, :, :], big).min(axis=2)
+    nmax = np.where(covered[..., None], lmax[:, None, :, :], -big).max(axis=2)
+
+    sub = topo.sub_nodes_base.copy()  # (S, R, 128), links preserved
+    r = ii // 16
+    base = (ii % 16) * 8
+    for k in range(3):
+        sub[:, r, base + k] = np.where(node_valid, nmin[..., k],
+                                       sub[:, r, base + k])
+        sub[:, r, base + 3 + k] = np.where(node_valid, nmax[..., k],
+                                           sub[:, r, base + 3 + k])
+
+    top = _build_top_tree(nmin[:, 0, :].astype(np.float32),
+                          nmax[:, 0, :].astype(np.float32))
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return StreamedBVHBuffers(
+        top_nodes=up(top),
+        sub_nodes=up(sub.reshape(S * node_rows, 128)),
+        tri_tiles=up(tiles.reshape(S * sub_leaves * 16, 128)),
+        row_tri=up(np.where(valid, g, 0).astype(np.int32)),
+        sub_leaves=sub_leaves,
+    )
 
 
 def reconstruct_quantized(v0, e1, e2, chunk_tris: int = None):

@@ -105,11 +105,11 @@ class WavefrontExecutor:
         visit_hit, scatter_tail = intg._make_bounce_fns(self.ds, cfg, fp)
         state = pointsets.make_state(
             cfg.rng_variant, (fp.sample_offset + s) & M32, fp.shot_offset,
-            self.px, self.py, self.width,
+            self.px, self.py, self.width, bufs=self.ds.rng,
         )
         dims = (float(self.width), float(self.height))
         state, ro, rd = intg.camera_setup(cfg, view, self.px, self.py, dims,
-                                          state)
+                                          state, bufs=self.ds.rng)
         # textured scenes: the camera footprint seeds the carry
         # (wavefront_host.py:179-181)
         carry = intg.initial_carry(
@@ -119,7 +119,7 @@ class WavefrontExecutor:
 
         carry, ctx = visit_hit(carry)
         if self.depth > 1:
-            carry = scatter_tail(carry, ctx, sort_shadow=True)
+            carry = scatter_tail(carry, ctx, 0, sort_shadow=True)
         carry, lane_id, live = self._sort_live_first(carry, lane_id)
         profile = [live]
         for b in range(1, self.depth):
@@ -129,7 +129,7 @@ class WavefrontExecutor:
             head = intg._map_lanes(lambda a: a[:w], carry)
             head, ctx = visit_hit(head, presorted=True)
             if b < self.depth - 1:
-                head = scatter_tail(head, ctx, sort_shadow=True)
+                head = scatter_tail(head, ctx, b, sort_shadow=True)
             head, head_id, live = self._sort_live_first(head, lane_id[:w])
             if w == self.n_total:
                 carry, lane_id = head, head_id

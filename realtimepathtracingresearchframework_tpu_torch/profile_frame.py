@@ -14,7 +14,10 @@ strategy). ``--scene instanced600``, ``instanced500`` and
 and sky of bench.py's instanced row, on the two-level route
 (``options.use_tlas``): K7 past K6's 512-instance cap, K6 within it
 (``RPTR_STREAM_CLOSEST=ordered``: K6's ordered instance walk); ``--animate`` updates the TLAS
-(``set_animation_frame``) before every frame, as bench.py's row does.
+(``set_animation_frame``) before every frame, as bench.py's row does;
+``--flattened`` puts an instanced scene on the flattened route instead
+(``options.use_tlas`` off: its BVH is refit or rebuilt by ``--animate``).
+``--rng bn|sobol|zsbl`` picks the RNG variant (``options.rng_variant``).
 ``--scene village``: ``procedural.village()`` (80,496 textured triangles)
 with the camera, sun and sky of bench.py's village row, through K2, K3 and
 the wavefront executor. ``--variant PT_WAVEFRONT`` renders through the
@@ -35,6 +38,7 @@ and sync calls. The last line is a JSON summary.
     python -m realtimepathtracingresearchframework_tpu_torch.profile_frame \
         [--scene cornell|village|terrain200|terrain500|instanced600|instanced500|instanced2500] \
         [--variant PT_MEGAKERNEL|PT_WAVEFRONT] [--animate] [--quantized] \
+        [--flattened] [--rng uniform|bn|sobol|zsbl] \
         [--size 1920x1080] \
         [--depth 9] [--frames 5] [--profiled 3] [--out tables.txt]
 
@@ -98,6 +102,7 @@ KERNELS = {
 }
 GRIDS = {"terrain40": 40, "terrain200": 200, "terrain500": 500}
 INSTANCES = {"instanced600": 600, "instanced500": 500, "instanced2500": 2500}
+RNG_NAMES = ("uniform", "bn", "sobol", "zsbl")  # options.rng_variant 0-3
 ANIM_FRAMES = 16  # instanced_field's animation length
 HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaStreamSynchronize",
               "cudaMemcpyAsync", "aten::item")
@@ -118,7 +123,8 @@ def union_length(intervals) -> float:
 
 def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
                 grid: int = 200, num_inst: int = 600,
-                variant: str = VARIANT_MEGAKERNEL, quantized: bool = False):
+                variant: str = VARIANT_MEGAKERNEL, quantized: bool = False,
+                use_tlas: bool = None, rng_variant: int = 0):
     """(Renderer, FrameConfig) of a profiled path: ``"cornell"`` (camera of
     bench.py:91-99), ``"village"`` (``procedural.village(grid)``, sun, sky
     and camera of bench.py:101-113), ``"terrain"``
@@ -126,8 +132,11 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
     or ``"instanced"`` (``procedural.instanced_field(num_inst)`` on the
     two-level route, sun, sky and camera of bench.py:115-136), at ``size``,
     1 spp, ``depth``, through ``variant``; ``quantized`` packs a streamed
-    scene's tiles as 16-bit codes (``options.quantized_geometry``)."""
-    use_tlas = False
+    scene's tiles as 16-bit codes (``options.quantized_geometry``).
+    ``use_tlas=False`` flattens the instanced scene (the reference's
+    default for an animated scene: its BVH is refit or rebuilt per frame);
+    ``rng_variant`` is ``options.rng_variant``."""
+    two_level = False
     if scene == "cornell":
         vkr_scene = procedural.cornell_box()
         cam = OrientedCamera.look_at([0, 1.0, 3.2], [0, 1.0, 0.0], fovy=50)
@@ -144,12 +153,13 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
         vkr_scene = procedural.instanced_field(num_inst=num_inst)
         cam = OrientedCamera.look_at([0, 14.0, 30.0], [0, 0, 0], fovy=55)
         sc = SceneConfig(sun_dir=(0.4, 0.8, 0.25), turbidity=3.0)
-        use_tlas = True
+        two_level = True if use_tlas is None else use_tlas
     else:
         raise KeyError(scene)
     r = Renderer(device=device)
-    r.options = r.options.replace(use_tlas=use_tlas,
-                                  quantized_geometry=quantized)
+    r.options = r.options.replace(use_tlas=two_level,
+                                  quantized_geometry=quantized,
+                                  rng_variant=int(rng_variant))
     r.initialize(*size)
     r.set_scene(Scene.from_vkr_scene(vkr_scene), scene_config=sc)
     r.set_variant(variant)
@@ -171,6 +181,9 @@ def main(argv=None) -> int:
                     help="update the TLAS before every frame (instanced scenes)")
     ap.add_argument("--quantized", action="store_true",
                     help="16-bit quantized tiles on the streamed route")
+    ap.add_argument("--flattened", action="store_true",
+                    help="an instanced scene without the two-level route")
+    ap.add_argument("--rng", choices=RNG_NAMES, default="uniform")
     ap.add_argument("--size", default="1920x1080", help="WxH")
     ap.add_argument("--depth", type=int, default=9)
     ap.add_argument("--frames", type=int, default=5)
@@ -187,17 +200,17 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip(), flush=True)
     size = tuple(int(x) for x in args.size.split("x"))
+    common = dict(size=size, depth=args.depth, variant=args.variant,
+                  rng_variant=RNG_NAMES.index(args.rng))
     if args.scene in ("cornell", "village"):
-        r, cfg = frame_setup(args.scene, size=size, depth=args.depth,
-                             variant=args.variant)
+        r, cfg = frame_setup(args.scene, **common)
     elif args.scene in INSTANCES:
-        r, cfg = frame_setup("instanced", size=size, depth=args.depth,
-                             num_inst=INSTANCES[args.scene], variant=args.variant)
+        r, cfg = frame_setup("instanced", num_inst=INSTANCES[args.scene],
+                             use_tlas=not args.flattened, **common)
     else:
-        r, cfg = frame_setup("terrain", size=size, depth=args.depth,
-                             grid=GRIDS[args.scene], variant=args.variant,
-                             quantized=args.quantized)
-    if args.animate and not r._route.tlas:
+        r, cfg = frame_setup("terrain", grid=GRIDS[args.scene],
+                             quantized=args.quantized, **common)
+    if args.animate and args.scene not in INSTANCES:
         ap.error("--animate needs an instanced scene")
     print(f"{args.scene} {args.size} depth {args.depth} {r.active_variant}: "
           f"set-up {r.setup_seconds:.3f} s, route {r._route}, textures "

@@ -1312,3 +1312,67 @@ def test_cuda_tensor_with_broken_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         tv.closest_hit_v1(vb, Vec3(*q[0:3]), Vec3(*q[3:6]), q[6], q[7])
     assert not plain_calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables", ["always", "never"])
+@pytest.mark.parametrize("variant", [1, 2, 3])  # BN, SOBOL, Z_SBL
+def test_rng_draws_on_card_equal_cpu(variant, tables):
+    """The Sobol, Z-Sobol and blue-noise states and draws on the card
+    bitwise the CPU's (torch's int64 and f32 ops on CUDA tensors), the
+    byte-table fold included, at dims 0-40 and 1016-1031 (past the
+    reference matrix's 1,024 dims, which wrap)."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
+    from realtimepathtracingresearchframework_tpu_torch.ops import sobol
+
+    dev = _card()
+    rng = np.random.default_rng(variant)
+    px = torch.from_numpy(rng.integers(0, 1920, 65536).astype(np.int32))
+    py = torch.from_numpy(rng.integers(0, 1080, 65536).astype(np.int32))
+    bufs = {d: pointsets.build_rng_buffers(variant, tables, device=d)
+            for d in ("cpu", dev)}
+    states = {d: pointsets.make_state(variant, 7, 3, px.to(d), py.to(d), 1920,
+                                      bufs=bufs[d]) for d in bufs}
+    for a, b in zip(*states.values()):
+        assert torch.equal(a, b.cpu())
+    for dim in list(range(41)) + list(range(1016, 1032)):
+        out = {}
+        for d in bufs:
+            states[d], out[d] = pointsets.draw1(variant, bufs[d], states[d], dim)
+        assert torch.equal(out["cpu"], out[dev].cpu()), dim
+    idx = torch.from_numpy(rng.integers(0, 2**32, 65536, dtype=np.uint64)
+                           .astype(np.int64))
+    tables_cpu = bufs["cpu"].fold
+    n = tables_cpu.shape[0]  # 1 (a dummy) for BN with the reference's tables
+    for dim in sorted({0, 1, n - 2, n - 1} & set(range(n))):
+        want = sobol.fold(tables_cpu[dim], idx)
+        assert torch.equal(sobol.fold(bufs[dev].fold[dim], idx.to(dev)).cpu(), want)
+        assert torch.equal(want, sobol.sobol_value(bufs["cpu"].matrices, idx, dim))
+
+
+@pytest.mark.cuda
+def test_refit_streamed_on_card():
+    """refit_streamed uploaded to the card: at rest (the pack's own
+    vertices) its tiles, nodes, top tree and rows equal the fresh pack's
+    and each leaf's real-row count read from the tiles equals the fresh
+    pack's; on moved vertices it equals the CPU upload of the same refit,
+    and K4 on it equals its plain version over the CPU refit."""
+    dev = _card()
+    scene = Scene.from_vkr_scene(procedural.instanced_field(num_inst=60, frames=4))
+    f0, f3 = scene.flatten_world(frame=0), scene.flatten_world(frame=3)
+    bb, topo = ts.pack_streamed(f0.v0, f0.e1, f0.e2, with_topology=True,
+                                device=dev)
+    rest = ts.refit_streamed(topo, f0.v0, f0.e1, f0.e2, device=dev)
+    for name in ("top_nodes", "sub_nodes", "tri_tiles", "row_tri"):
+        assert torch.equal(getattr(rest, name), getattr(bb, name)), name
+    assert torch.equal(traverse.real_row_counts(ts.leaf_rows(rest), ts.LEAF),
+                       traverse.real_row_counts(ts.leaf_rows(bb), ts.LEAF))
+    moved = ts.refit_streamed(topo, f3.v0, f3.e1, f3.e2, device=dev)
+    cpu = ts.refit_streamed(topo, f3.v0, f3.e1, f3.e2)
+    for name in ("top_nodes", "sub_nodes", "tri_tiles", "row_tri"):
+        assert torch.equal(getattr(moved, name).cpu(), getattr(cpu, name)), name
+    rays = _queue_over(f3, 16384, 11, dev)
+    k = ts.launch(moved, rays, False)
+    for a, b in zip(k, ts.plain(cpu, rays.cpu(), False)):
+        assert torch.equal(a.cpu(), b)
+    assert (k[1] >= 0).any()

@@ -51,6 +51,8 @@ from realtimepathtracingresearchframework_tpu_torch.backend.params import (
 from realtimepathtracingresearchframework_tpu_torch.ops import resolve
 from realtimepathtracingresearchframework_tpu_torch.profile_frame import frame_setup
 
+torch.set_num_threads(1)  # see tests/test_torch_render.py
+
 SIZE, DEPTH, GRID = 48, 3, 48
 
 

@@ -67,6 +67,8 @@ sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from test_torch_cuda import lb_tie_scene, tie_world  # noqa: E402
 from test_traverse_kernels import _rays, _terrain  # noqa: E402
 
+torch.set_num_threads(1)  # see tests/test_torch_render.py
+
 
 @pytest.fixture(autouse=True)
 def _interpret_kernels():
@@ -493,6 +495,71 @@ def test_axis_aligned_rays_on_box_faces(rng, leaf_size):
     assert all(tf.grazing(fb, orays, olanes, 128, oref, True))
     print(f"leaf {leaf_size}: {lanes.numel()} closest and {olanes.numel()} "
           f"any-hit lanes of {n} differ from the reference function")
+
+
+def _edge_lanes(ro, rd, lanes, tris_a, tris_b):
+    """For each lane, whether a hit of either side lies exactly on an edge
+    of its triangle: the least |barycentric| (u, v, 1 - u - v) of the ray
+    against that triangle, in float64 over the f32 inputs, is 0."""
+    v0, e1, e2 = (np.asarray(a, np.float64) for a in _terrain(24))
+    out = []
+    for i in lanes.tolist():
+        o, d = ro[i].astype(np.float64), rd[i].astype(np.float64)
+        least = np.inf
+        for tri in (int(tris_a[i]), int(tris_b[i])):
+            if tri < 0:
+                continue
+            p = np.cross(d, e2[tri])
+            det = e1[tri] @ p
+            tv = o - v0[tri]
+            u = (tv @ p) / det
+            v = (d @ np.cross(tv, e1[tri])) / det
+            least = min(least, abs(u), abs(v), abs(1.0 - u - v))
+        out.append(least == 0.0)
+    return out
+
+
+@pytest.mark.parametrize("leaf_size", [32, 64, 128])
+def test_axis_aligned_rays_against_reference_k1(rng, leaf_size):
+    """The axis-aligned queue of ``test_axis_aligned_rays_on_box_faces``
+    through the reference's own kernels in interpret mode: its K1
+    (closest_hit_pallas2 / occluded_pallas2) and its K2 (pallas3). The two
+    agree on every lane, ids and flags. The port's K2 (= its K1, bitwise)
+    differs from them on a counted set of lanes, each an edge lane: the
+    port's or the reference's hit lies exactly on an edge of its triangle
+    (an exact barycentric of 0), where the port's per-ray slab test misses
+    a box whose face the ray runs along with a zero direction component
+    and f32 rounding decides Möller-Trumbore's edge test. ROADMAP queue 3
+    records the counts (measured: 424 / 446 / 502 closest and 154 / 196 /
+    301 any-hit lanes of 1,024 at leaf 32 / 64 / 128)."""
+    bb3, fb = _scene(leaf_size)
+    ro, rd = _axis_rays(fb, rng)
+    o, d = _soa(ro), _soa(rd)
+    hit = traverse.map_rows_to_tris(fb, tf.closest_hit_flat(fb, o, d))
+    _assert_bitwise(hit, traverse.map_rows_to_tris(
+        fb, tr.closest_hit_resident(fb, o, d, 0.0, 2.0e32)))
+    jro, jrd = jnp.asarray(ro), jnp.asarray(rd)
+    ref_k1 = np.asarray(tp2.closest_hit_pallas2(bb3.bb, jro, jrd, t_max=2.0e32).tri)
+    ref_k2 = np.asarray(tp3.closest_hit_pallas3(bb3, jro, jrd, t_max=2.0e32,
+                                                block=512, groups=4).tri)
+    np.testing.assert_array_equal(ref_k1, ref_k2)
+    port = hit.tri.numpy()
+    lanes = np.nonzero(port != ref_k1)[0]
+    assert all(_edge_lanes(ro, rd, lanes, port, ref_k1))
+    otm = torch.where(hit.tri >= 0, hit.t * 1.001, 8.0)
+    jotm = jnp.asarray(otm.numpy())
+    flag_k1 = np.asarray(tp2.occluded_pallas2(bb3.bb, jro, jrd, t_max=jotm))
+    flag_k2 = np.asarray(tp3.occluded_pallas3(bb3, jro, jrd, t_max=jotm,
+                                              block=512, groups=4))
+    np.testing.assert_array_equal(flag_k1, flag_k2)
+    flags = tf.occluded_flat(fb, o, d, 0.0, otm).numpy()
+    olanes = np.nonzero(flags != flag_k1)[0]
+    # a flag differs only on a lane whose closest hit differs: an edge lane
+    assert set(olanes.tolist()) <= set(lanes.tolist())
+    assert 0 < lanes.size < len(ro) and (port >= 0).mean() > 0.5
+    print(f"leaf {leaf_size}: the port's K2 differs from the reference's K1 "
+          f"and K2 on {lanes.size} closest and {olanes.size} any-hit lanes "
+          f"of {len(ro)}, every one an edge lane")
 
 
 @pytest.mark.parametrize("q", [32, 64, 128])

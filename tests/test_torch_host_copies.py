@@ -22,6 +22,7 @@ SCENES = {
     "cornell": lambda m: m.cornell_box(),
     "terrain24": lambda m: m.terrain(grid=24),
     "village20": lambda m: m.village(grid=20),
+    "instanced40": lambda m: m.instanced_field(num_inst=40, frames=4),
 }
 
 
@@ -53,6 +54,15 @@ def test_flatten_world_matches(name):
     _assert_same(port, ref)
 
 
+def test_flatten_world_matches_at_an_animation_frame():
+    """The flattened instanced field at animation frame 3 (the animated
+    flattened route re-flattens every frame)."""
+    ref = JScene.from_vkr_scene(SCENES["instanced40"](jproc)).flatten_world(frame=3)
+    port = TScene.from_vkr_scene(SCENES["instanced40"](tproc)).flatten_world(frame=3)
+    _assert_same(port, ref)
+    assert not np.array_equal(port.v0, _flat(tproc, TScene, "instanced40").v0)
+
+
 @pytest.mark.parametrize("leaf_size", [32, 128])
 def test_bvh_build_matches(leaf_size):
     """build_bvh_sah + thread_bvh on terrain(24): nodes, rows and row ids."""
@@ -81,3 +91,40 @@ def test_hosek_cook_matches(turbidity, sun):
     ref_sun = jhosek.sun_disc_radiance_rgb(float(d[1]), turbidity, 0.1)
     assert ref_sun is not None
     np.testing.assert_array_equal(port_sun, ref_sun)
+
+
+def test_pointset_tables_are_a_byte_copy():
+    """The port's data/pointset_tables.npz is the JAX package's, byte for
+    byte, and the port reads the same arrays from it."""
+    import os
+
+    from realtimepathtracingresearchframework_tpu.ops import (
+        pointsets_tables as jptab,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        pointsets_tables as tptab,
+    )
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(root, pkg, "data", "pointset_tables.npz") for pkg in (
+        "realtimepathtracingresearchframework_tpu",
+        "realtimepathtracingresearchframework_tpu_torch")]
+    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+        assert a.read() == b.read()
+    assert tptab.tables_available()
+    port, ref = tptab._tables_np(), jptab._tables_np()
+    assert sorted(port.files) == sorted(ref.files)
+    for name in ref.files:
+        np.testing.assert_array_equal(port[name], ref[name], err_msg=name)
+
+
+def test_sobol_matrices_match():
+    """The port's copy of the self-generated Sobol matrices (the primitive
+    polynomial search and the seeded initial direction numbers)."""
+    from realtimepathtracingresearchframework_tpu.ops import sobol as jsobol
+    from realtimepathtracingresearchframework_tpu_torch.ops import sobol as tsobol
+
+    assert tsobol._primitive_polys(127) == jsobol._primitive_polys(127)
+    port, ref = tsobol.sobol_matrices(), jsobol.sobol_matrices()
+    assert port.dtype == ref.dtype == np.uint32 and port.shape == (128, 32)
+    np.testing.assert_array_equal(port, ref)

@@ -40,6 +40,8 @@ sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from test_torch_cuda import tie_world  # noqa: E402
 from test_traverse_kernels import _terrain  # noqa: E402
 
+torch.set_num_threads(1)  # see tests/test_torch_render.py
+
 N = 768  # rays per queue
 
 

@@ -56,6 +56,13 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
     map_rows_to_tris,
 )
 
+# One torch thread per test process: the tier-1 run has six xdist workers
+# on the machine's cores, and torch's OpenMP threads then oversubscribe them
+# (the per-lane plain walk of test_torch_v1.py measured 4.8 s on one thread
+# and 208 s on eight beside five busy processes). Every worker imports
+# every test module, so this holds for the whole run.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W = H = goldens.SIZE
 

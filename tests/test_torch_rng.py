@@ -17,6 +17,8 @@ from realtimepathtracingresearchframework_tpu.ops import rng as jrng
 from realtimepathtracingresearchframework_tpu_torch.ops import pointsets as tps
 from realtimepathtracingresearchframework_tpu_torch.ops import rng as trng
 
+torch.set_num_threads(1)  # see tests/test_torch_render.py
+
 EDGE = np.array(
     [0, 1, 2, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF, 0xDEADBEEF],
     np.uint32,
@@ -92,26 +94,34 @@ def test_uniform_pointset_bit_exact(rng, sample, shot, width):
                         torch.from_numpy(py), width)
     _eq_u32(st.s0, sj.s0)
     _eq_u32(st.s1, sj.s1)
+    tbufs = tps.build_rng_buffers(0)
     for dim in (2, 0, 6, 4):
         sj, (xj, yj) = jps.draw2t(0, bufs, sj, dim)
-        st, (xt, yt) = tps.draw2t(0, st, dim)
+        st, (xt, yt) = tps.draw2t(0, tbufs, st, dim)
         np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
         np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
     sj, xj = jps.draw1(0, bufs, sj, 7)
-    st, xt = tps.draw1(0, st, 7)
+    st, xt = tps.draw1(0, tbufs, st, 7)
     np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
     sj, pj = jps.draw2(0, bufs, sj, 10)
-    st, pt = tps.draw2(0, st, 10)
+    st, pt = tps.draw2(0, None, st, 10)  # the LCG reads no tables
     np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
     _eq_u32(st.s0, sj.s0)
 
 
 @pytest.mark.parametrize("variant", [1, 2, 3])
 def test_other_pointsets_raise(variant):
-    """Sobol, Z-Sobol and blue noise are not ported: no silent LCG."""
-    px = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        tps.make_state(variant, 0, 0, px, px, 4)
-    state = tps.RngState(px.long(), px.long())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        tps.draw2t(variant, state, 0)
+    """Blue noise, Sobol and Z-Sobol never draw silent LCG numbers: without
+    their tables a draw raises, and with them (tests/test_torch_pointsets.py
+    holds them to the JAX package) the second sample's draws are not the
+    LCG's."""
+    px = torch.arange(256, dtype=torch.int32)
+    state = tps.make_state(variant, 1, 0, px, px, 256)
+    with pytest.raises(ValueError, match="RngBuffers"):
+        tps.draw2t(variant, None, state, 0)
+    bufs = tps.build_rng_buffers(variant)
+    state = tps.make_state(variant, 1, 0, px, px, 256, bufs=bufs)
+    _, (x, _) = tps.draw2t(variant, bufs, state, 0)
+    lcg = tps.make_state(0, 1, 0, px, px, 256)
+    _, (y, _) = tps.draw2t(0, None, lcg, 0)
+    assert not torch.equal(x, y)

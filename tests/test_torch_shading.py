@@ -40,6 +40,8 @@ from realtimepathtracingresearchframework_tpu_torch.ops import nee as tn
 from realtimepathtracingresearchframework_tpu_torch.ops import resolve as tres
 from realtimepathtracingresearchframework_tpu_torch.ops import vec3 as tv
 
+torch.set_num_threads(1)  # see tests/test_torch_render.py
+
 RTOL, ATOL = 1e-5, 1e-6
 N = 4096
 

@@ -82,6 +82,8 @@ sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from test_torch_cuda import k5_edge_operand  # noqa: E402
 from test_traverse_kernels import _terrain  # noqa: E402
 
+torch.set_num_threads(1)  # see tests/test_torch_render.py
+
 N_RAYS = 512
 SIZE, DEPTH, GRID, FRAMES = 32, 5, 48, 2
 ROUTE_ENV = ("RPTR_FORCE_STREAMED_TRAVERSAL", "RPTR_STREAM_CLOSEST",

@@ -71,6 +71,8 @@ from realtimepathtracingresearchframework_tpu_torch.ops import pointsets as tps
 from realtimepathtracingresearchframework_tpu_torch.ops import texture_atlas as tta
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
+torch.set_num_threads(1)  # see tests/test_torch_render.py
+
 
 def _u8_checker(n=16, c0=(255, 0, 0, 255), c1=(0, 0, 255, 255)):
     """tests/test_textures.py:19-25."""

@@ -82,6 +82,8 @@ from test_tlas_stream import _rand_mesh, _rot  # noqa: E402
 from test_torch_cuda import tie_scene  # noqa: E402
 from test_traverse_kernels import _terrain  # noqa: E402
 
+torch.set_num_threads(1)  # see tests/test_torch_render.py
+
 N_RAYS = 512
 SIZE, DEPTH, FRAMES = 32, 3, 2
 SCENES = ("iso", "aniso", "stream")
@@ -692,8 +694,9 @@ def test_use_tlas_reaches_two_level_route():
 def test_two_level_limits(monkeypatch):
     """Past the reference's K7 cap of 2,048 entries (lowered here to 6) the
     port still takes K7 (the cap is the TPU's SMEM entry table); K7's rows
-    must fit int32, else ``ValueError``; a flattened scene cannot be
-    animated yet (refit, ROADMAP item 17); K6's ordered walk is a route of
+    must fit int32, else ``ValueError``; the same field flattened is
+    animated by a BVH rebuild (within the rebuild budget); K6's ordered
+    walk is a route of
     the integrator (``stream_closest="ordered"``); a two-level scene runs
     on K6 or K7, never on the nested walk."""
     monkeypatch.setattr(jtts, "MAX_ENTRIES", 6)
@@ -710,8 +713,9 @@ def test_two_level_limits(monkeypatch):
     flat_r = trend.Renderer(device="cpu")
     flat_r.initialize(16, 16)
     flat_r.set_scene(_field("port"), scene_config=SC)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        flat_r.set_animation_frame(1)
+    flat_r.set_animation_frame(1)
+    assert flat_r.animation_update == "rebuild" and flat_r._scene_frame == 1
+    assert flat_r.device_scene.tlas is None
     sc = _build("iso")
     o = _soa(np.tile(np.array([[0.0, 20.0, 0.5]], np.float32), (64, 1)))
     d = _soa(np.tile(np.array([[0.05, -1.0, 0.02]], np.float32), (64, 1)))

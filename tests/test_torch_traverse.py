@@ -35,6 +35,8 @@ from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from test_traverse_kernels import _rays, _terrain  # noqa: E402
 
+torch.set_num_threads(1)  # see tests/test_torch_render.py
+
 
 @pytest.fixture(autouse=True)
 def _interpret_kernels():

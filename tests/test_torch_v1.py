@@ -82,6 +82,8 @@ from test_torch_cuda import tie_world  # noqa: E402
 from test_traverse_kernels import _rays, _terrain  # noqa: E402
 from test_torch_wavefront import _env  # noqa: E402
 
+torch.set_num_threads(1)  # see tests/test_torch_render.py
+
 GRIDS = {"wide": 12, "lane": 70}  # 242 and 9,522 triangles
 N_COH, N_INC = 1024, 700  # 1,724 lanes: the last packet holds 188
 N_S = 900  # shadow queue lanes (last packet 388)

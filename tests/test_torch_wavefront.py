@@ -57,6 +57,8 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
 )
 from realtimepathtracingresearchframework_tpu_torch.profile_frame import frame_setup
 
+torch.set_num_threads(1)  # see tests/test_torch_render.py
+
 SIZE, DEPTH, GRID, FRAMES = 32, 5, 24, 2
 ROUTE_ENV = ("RPTR_TRAVERSAL_V3", "RPTR_HOST_WAVEFRONT", "RPTR_COMPACT_LANES",
              "RPTR_COMPACT", "RPTR_KERNEL_V4", "RPTR_TRAVERSAL_V1",
@@ -236,8 +238,9 @@ def test_route_limits(monkeypatch):
     """Above the resident cap set_scene takes the streamed route; with
     ``quantized_geometry`` it packs 16-bit tiles and keeps no refit
     topology (renderer.py:788-792); ``RPTR_TRAVERSAL_V1`` selects the v1
-    walk (K8a/K8b) at leaf 128 below the cap; the monolith's carry
-    compaction is not ported."""
+    walk (K8a/K8b) at leaf 128 below the cap; ``RPTR_COMPACT_LANES=1``
+    with the monolith renders (a 16x16 frame has too few lanes for a
+    second prefix size, so the frame is the uncompacted one)."""
     assert trend.route_for(213 * 213 * 2).streamed
     monkeypatch.setenv("RPTR_FORCE_STREAMED_TRAVERSAL", "1")
     r = trend.Renderer(device="cpu")
@@ -252,8 +255,12 @@ def test_route_limits(monkeypatch):
     assert route.v1 and route.leaf_size == 128 and not route.kernel_v3
     assert trend.route_for(213 * 213 * 2).streamed
     monkeypatch.delenv("RPTR_TRAVERSAL_V1")
-    monkeypatch.setenv("RPTR_COMPACT_LANES", "1")
     monkeypatch.setenv("RPTR_HOST_WAVEFRONT", "0")
-    r, cfg = frame_setup("cornell", "cpu", (16, 16), 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+    images = []
+    for flag in ("1", "0"):
+        monkeypatch.setenv("RPTR_COMPACT_LANES", flag)
+        r, cfg = frame_setup("cornell", "cpu", (16, 16), 3)
+        assert r._integrator_config(cfg.params).compact_lanes == (flag == "1")
         r.render(cfg)
+        images.append(r.readback_accumulation())
+    np.testing.assert_array_equal(images[0], images[1])
