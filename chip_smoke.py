@@ -215,14 +215,38 @@ Phases (each raises on failure):
      last bits between the card and the CPU: torch divides a CUDA tensor
      by a scalar through its reciprocal, so a ray that grazes an edge can
      hit another triangle).
+ 17. binned RIS light selection (options.light_sampling_variant RIS, by
+     configure_for) on the village path of 3b at 1920x1080, depth 9: timed
+     frames, K2 and K3 and no other, NEE samples dropped per frame at most
+     one per million rays (as on every timed path); its frame walls in
+     turns with uniform selection's on the same renderer ((uniform, RIS,
+     RIS, uniform) x 2, each after a warm-up frame), and 8,192 lanes of
+     chunk 2's sample 0 traced on the card and on the port's CPU (the
+     village on the K1 route) at goldens.compare_card with equal rays;
+     then, uniform again, the debug images of options.debug_mode 1-3
+     (render_debug_image) over the whole frame, with 4,096 lanes of the
+     chunk equal to the CPU's counts and to the image, exactly;
+ 18. cornell at 1920x1080, depth 9, with thin-lens DoF (aperture 0.05,
+     focus 3.2): timed frames, K1 and no other; its walls in turns with the
+     pinhole main path's ((pinhole, DoF, DoF, pinhole) x 2); 16,384 lanes of
+     chunk 2 against the CPU as in 17; the pinhole frame's ray-stats image
+     (render_ray_stats) with those lanes equal to the CPU's counts; the
+     RT_DEBUG and GBUFFER views at 1920x1080 and at 64x36 against the CPU's
+     (within 1e-4 on 99% of the pixels);
+ 19. the axis-aligned queue of tests/test_torch_slab.py (x = 0 directions
+     from leaf-box faces of a 1,058-triangle terrain's flat pack at leaf 32,
+     64 and 128) through all nine kernels, closest and any-hit, each
+     bitwise its plain version on the CPU, the lanes where it differs from
+     a brute-force Moller-Trumbore over every triangle counted and printed.
 Every bound counts the rows of each pierced leaf up to its real-row count
 (the rows past it repeat the leaf's last triangle; K4-K7 from their tiles'
 bits), and logs the bound over the padded leaves beside it. Its last two
 lines are the kernels' JSON record (K1, K2, K3, K8a and K8b with their
 kernel-only ms and the wrapper's beside them, K1, K2, K4, K8a and K8b each
 with a merged record, K2, K8a and K8b with their grazing lanes, K1-K5
-with ``paths``: their launches on the paths of 3d, 3e and 5e) and the
-result JSON.
+with ``paths``: their launches on the paths of 3d, 3e, 5e, 17 and 18,
+every kernel with ``axis_lanes_off_brute_force`` from 19) and the result
+JSON.
 """
 
 import contextlib
@@ -1244,7 +1268,8 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
 
 def phase_main_path():
     """Cornell at MAIN_SIZE (1920x1080), 1 spp, depth 9, through the port's
-    Renderer. Returns the K1 launch count of this run and the renderer."""
+    Renderer. Returns the K1 launch count of this run, the renderer and its
+    FrameConfig."""
     from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
         frame_setup,
     )
@@ -1252,13 +1277,15 @@ def phase_main_path():
     r, cfg = frame_setup("cornell", DEVICE, MAIN_SIZE)
     launches, _ = _timed_frames("main path cornell", r, cfg)
     _only("main path", launches, ("K1",))
-    return launches["K1"], r
+    return launches["K1"], r, cfg
 
 
 def phase_village_path():
     """procedural.village() at MAIN_SIZE, 1 spp, depth 9, with bench.py's
-    village camera, sun and sky, through the wavefront executor. Returns the
-    launch counts of this run."""
+    village camera, sun and sky, through the wavefront executor; then the
+    mip levels against the CPU and this slice's village phases
+    (``phase_village_b3``). Returns the launch counts of this run and of
+    the RIS path."""
     from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
         frame_setup,
     )
@@ -1281,16 +1308,18 @@ def phase_village_path():
         f"{rec['per_frame']['K2']:.2f} and K3 {rec['per_frame']['K3']:.2f} "
         f"launches per frame, alpha hops per frame {rec['alpha']['hops']:.2f}, "
         f"NEE samples dropped per frame {rec['nee_dropped']:.2f}")
-    village_mip_flips(r, cfg)
-    return launches
+    with env(RPTR_TRAVERSAL_V3="0"):
+        r_cpu, _ = frame_setup("village", "cpu", MAIN_SIZE)
+    village_mip_flips(r, cfg, r_cpu)
+    return launches, phase_village_b3(r, cfg, r_cpu)
 
 
-def village_mip_flips(r, cfg, chunk=2):
+def village_mip_flips(r, cfg, r_cpu, chunk=2):
     """The share of texture lookups whose mip level differs between the
     card and the CPU, on one 1080p chunk of the village's sample 0: the
     base-colour lookups of bounce 0, and of bounce 1 on the lanes whose
-    paths hit the same triangle on both. The CPU scene takes the K1 route
-    (its plain walk is fast; hits equal K2's and K3's bitwise)."""
+    paths hit the same triangle on both. The CPU scene ``r_cpu`` takes the
+    K1 route (its plain walk is fast; hits equal K2's and K3's bitwise)."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import integrator
@@ -1299,8 +1328,6 @@ def village_mip_flips(r, cfg, chunk=2):
         frame_setup,
     )
 
-    with env(RPTR_TRAVERSAL_V3="0"):
-        r_cpu, _ = frame_setup("village", "cpu", MAIN_SIZE)
     width, height = MAIN_SIZE
     dims = (float(width), float(height))
     out = {}
@@ -1589,8 +1616,17 @@ def stream_bound(bb, rays, t_end, any_hit, sid_lane=None):
 def _best_chunk(r, cfg, rows):
     """(c, packed primaries) of the frame's chunk with the most primary hits
     (the top chunks of the 16x16-tile order are mostly sky): sample 0's
-    camera rays of each chunk of ``r``, counted by ``rows(packed rays)``,
-    a kernel's hit rows (-1 on a miss)."""
+    camera rays of each chunk of ``r`` (``_primaries``), counted by
+    ``rows(packed rays)``, a kernel's hit rows (-1 on a miss)."""
+    hits = [int((rows(_primaries(r, cfg, c)) >= 0).sum())
+            for c in range(len(r._swizzle[0]))]
+    c = int(np.argmax(hits))
+    return c, _primaries(r, cfg, c)
+
+
+def _primaries(r, cfg, c):
+    """Sample 0's packed camera rays of chunk ``c`` of ``r``'s frame, dead
+    on the padding lanes."""
     import torch
 
     from realtimepathtracingresearchframework_tpu_torch.ops import integrator
@@ -1603,19 +1639,12 @@ def _best_chunk(r, cfg, rows):
     width, height = r.fb_width, r.fb_height
     view = integrator.ViewBuffers(*(
         torch.from_numpy(a).to(DEVICE) for a in cfg.camera.view_basis(width, height)))
-
-    def primaries(c):
-        px, py, valid = (x[c] for x in r._swizzle)
-        state = pointsets.make_state(0, 0, 0, px, py, width)
-        _, ro, rd = integrator.camera_setup(
-            integrator.IntegratorConfig(), view, px, py,
-            (float(width), float(height)), state)
-        return tr.pack_rays(ro, rd, 0.0, torch.where(valid, T_MAX, 0.0), 512)[0]
-
-    hits = [int((rows(primaries(c)) >= 0).sum())
-            for c in range(len(r._swizzle[0]))]
-    c = int(np.argmax(hits))
-    return c, primaries(c)
+    px, py, valid = (x[c] for x in r._swizzle)
+    state = pointsets.make_state(0, 0, 0, px, py, width)
+    _, ro, rd = integrator.camera_setup(
+        integrator.IntegratorConfig(), view, px, py,
+        (float(width), float(height)), state)
+    return tr.pack_rays(ro, rd, 0.0, torch.where(valid, T_MAX, 0.0), 512)[0]
 
 
 def _next_queues(prim, t, cfg, rng):
@@ -2268,9 +2297,10 @@ def tlas_bound(ds, kernel, rays, t_end, any_hit):
                 tile_row = int(row[14]) + leaf * 16
             counts[key] = tile_real_rows(tiles, tile_row)
         o, d = object_ray(row, ro, rd)
-        hit, _ = ray_aabb(torch.stack(list(o), -1)[None],
-                          safe_inv_dir(torch.stack(list(d), -1))[None],
-                          b[:, None, 0:3], b[:, None, 3:6], rays[6], seg_end)
+        d3 = torch.stack(list(d), -1)[None]
+        hit, _ = ray_aabb(torch.stack(list(o), -1)[None], safe_inv_dir(d3),
+                          b[:, None, 0:3], b[:, None, 3:6], rays[6], seg_end,
+                          d3 == 0.0)
         p, r = _pairs_rows(hit.T, counts[key])
         pairs, rows = pairs + p, rows + r
     n = rays.shape[1]
@@ -2402,7 +2432,44 @@ def phase_tlas(paths, smi):
             check(ties <= n // 1000 and ties_inst <= n // 1000,
                   f"{label} {qname}: {ties} K6/K7 ties")
         del st, fr
+        k6_k7_corner(label, r, cfg)
     return records
+
+
+def k6_k7_corner(label, r, cfg, frame=2):
+    """ROADMAP queue 3's grazing-corner entry (PR 6): K6 against a K7 pack
+    of the same scene on every primary chunk of ``r``'s frame at animation
+    ``frame``. The lanes whose t differs and those that tie in t with
+    another triangle are counted, and the first few logged with both hits;
+    no check (each kernel equals its plain version, and the two trees'
+    leaves differ). Returns (t differs, ties)."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
+
+    r.set_animation_frame(frame)
+    st = tts.pack_tlas_stream_static(r._mesh_tris, device=DEVICE)
+    fr = tts.pack_tlas_stream_frame(st, r._inst_binding[0],
+                                    r.scene.instance_transforms(frame),
+                                    r._blas.tri_base)
+    launch6, _, decode6 = _tlas_fns(r.device_scene, "K6")
+    differ = ties = lanes = 0
+    shown = []
+    for c in range(len(r._swizzle[0])):
+        q = _primaries(r, cfg, c)
+        n = q.shape[1]
+        h6 = decode6(launch6(q, False), n)
+        h7 = tts.out_to_hit(st, fr, tts.launch(st, fr, q, False), n)
+        t_off = (_bits(h6.t) != _bits(h7.t)).cpu().numpy()
+        tie = ((h6.tri != h7.tri) | (h6.inst != h7.inst)).cpu().numpy() & ~t_off
+        differ, ties, lanes = differ + int(t_off.sum()), ties + int(tie.sum()), lanes + n
+        for i in np.nonzero(t_off)[0][:max(0, 4 - len(shown))]:
+            shown.append((c, int(i), float(h6.t[i]), int(h6.tri[i]), int(h6.inst[i]),
+                          float(h7.t[i]), int(h7.tri[i]), int(h7.inst[i])))
+    log(f"{label} at animation frame {frame}, K6 against K7 on {lanes} "
+        f"primary lanes: t differs on {differ}, exact-t ties on {ties}; "
+        f"(chunk, lane, K6 t, tri, inst, K7 t, tri, inst): {shown}")
+    return differ, ties
 
 
 def _alpha_field(r, cfg):
@@ -3178,6 +3245,457 @@ def phase_small_flat_animation():
         _only(f"flattened {label}", launches, kernels)
 
 
+# ---------------------------------------------------------------------------
+# Slice B3: the zero-direction slab test on the axis-aligned queue, binned
+# RIS light selection, thin-lens DoF, the debug and ray-stats images and the
+# debug views
+# ---------------------------------------------------------------------------
+
+B3_LANES = {"cornell": 16_384, "village": 8_192}  # chunk lanes held to the CPU
+DEBUG_LANES = 4_096  # chunk lanes of the village's debug images held to it
+B3_CHUNK = 2  # the 1080p chunk those lanes come from
+DOF = dict(aperture=0.05, focus=3.2)  # cornell's lens, focused on its centre
+B3_ROUNDS = 2  # rounds of (A, B, B, A) frames of the walls' comparisons
+AXIS_LEAVES = (32, 64, 128)
+AXIS_WALKS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8a", "K8b")
+
+
+def _frame_params(r, cfg):
+    """The FrameParams ``Renderer.render`` gives sample 0 of ``cfg``."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+
+    p = cfg.params
+    return integrator.FrameParams(
+        rr_path_depth=int(p.rr_path_depth),
+        glossy_only_mode=int(p.glossy_only_mode), sample_offset=0,
+        shot_offset=r.shot_offset, pixel_radius=float(p.pixel_radius),
+        bump_scale=float(cfg.scene_config.bump_scale),
+        aperture_radius=float(p.aperture_radius),
+        focus_distance=float(p.focus_distance))
+
+
+def _trace_lanes(r, cfg, lanes, debug_mode=0):
+    """Sample 0 of the first ``lanes`` lanes of chunk B3_CHUNK of ``r``'s
+    frame through the monolithic ``trace_paths`` (the pass's camera set-up
+    and footprint): its outputs on the host (rgb (lanes, 3), alpha, rays,
+    and with ``debug_mode`` the DEBUG_MODE_* count)."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+    from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
+
+    icfg = r._integrator_config(cfg.params)._replace(
+        debug_mode=debug_mode, wavefront=False)
+    fp = _frame_params(r, cfg)
+    dims = (float(r.fb_width), float(r.fb_height))
+    px, py, valid = (x[B3_CHUNK][:lanes] for x in r._swizzle)
+    view = r._view(cfg.camera)
+    ds = r.device_scene
+    state = pointsets.make_state(icfg.rng_variant, 0, fp.shot_offset, px, py,
+                                 r.fb_width, bufs=ds.rng)
+    state, ro, rd = integrator.camera_setup(icfg, view, px, py, dims, state,
+                                            bufs=ds.rng, fp=fp)
+    out = integrator.trace_paths(
+        ds, icfg, fp, ro, rd, state, lane_mask=valid,
+        footprint0=integrator.camera_footprint0(icfg, fp, view, dims, rd))
+    if r.device.type == "cuda":
+        torch.cuda.synchronize()
+    rgb = torch.stack(list(out[0]), -1)
+    return (rgb.cpu().numpy(), *(x.cpu().numpy() for x in out[1:]))
+
+
+def _lanes_vs_cpu(label, r, r_cpu, cfg, lanes):
+    """``_trace_lanes`` on the card against the CPU, as goldens.compare_card
+    holds a frame: equal ray counts, at most 1% of lanes over 1e-3 and a
+    relative L1 error of at most 1e-4. Returns the card lanes' rays."""
+    from realtimepathtracingresearchframework_tpu_torch import goldens
+
+    t0 = time.perf_counter()
+    card = _trace_lanes(r, cfg, lanes)
+    t1 = time.perf_counter()
+    cpu = _trace_lanes(r_cpu, cfg, lanes)
+    vs = goldens.compare_card(card[0][:, None], cpu[0][:, None])
+    rays, cpu_rays = int(card[2].sum()), int(cpu[2].sum())
+    log(f"  {label}: {lanes} lanes of chunk {B3_CHUNK}, sample 0, card "
+        f"against the port's CPU run: {vs}; rays {rays} (CPU {cpu_rays}); "
+        f"card {t1 - t0:.2f} s, CPU {time.perf_counter() - t1:.2f} s")
+    check(rays == cpu_rays, f"{label}: rays {rays} on the card, {cpu_rays} "
+          "on the CPU")
+    check(vs["ok"], f"{label}: card lanes off the CPU's: {vs}")
+    return rays
+
+
+def _walls(label, runs, rounds=B3_ROUNDS):
+    """Frame walls (CUDA events around ``render`` and a sync) of two
+    renderers in turns, (A, B, B, A) ``rounds`` times after a warm-up
+    frame each: ``runs`` is ((name, renderer, FrameConfig), (name, ...)).
+    Logs and returns {name: [ms, ...]}."""
+    import torch
+
+    out = {name: [] for name, _, _ in runs}
+    for _, r, cfg in runs:
+        r.render(cfg)
+    torch.cuda.synchronize()
+    order = [runs[0], runs[1], runs[1], runs[0]] * rounds
+    for name, r, cfg in order:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r.render(cfg)
+        end.record()
+        torch.cuda.synchronize()
+        out[name].append(start.elapsed_time(end))
+    log(f"{label} frame walls in turns (A, B, B, A) x {rounds}: " + "; ".join(
+        f"{name} {[round(x, 3) for x in ms]} ms, median "
+        f"{float(np.median(ms)):.3f}, spread {min(ms):.3f}-{max(ms):.3f}"
+        for name, ms in out.items()))
+    return out
+
+
+def phase_cornell_b3(mega, cfg_mega):
+    """Cornell at MAIN_SIZE, depth 9, with thin-lens DoF: timed frames (K1
+    and no other), its walls in turns with the pinhole main path
+    ``mega``'s, and B3_LANES lanes of a chunk against the CPU; the pinhole
+    frame's ray-stats image with the same lanes of the CPU's exactly; the
+    RT_DEBUG and GBUFFER views at MAIN_SIZE (one ray a pixel) and at 64x36
+    against the CPU's (within 1e-4 on 99% of the pixels, as the AOVs of
+    phase 16). Returns the DoF path's launches."""
+    from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
+        VARIANT_GBUFFER,
+        VARIANT_MEGAKERNEL,
+        VARIANT_RT_DEBUG,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    r, cfg = frame_setup("cornell", DEVICE, MAIN_SIZE, **DOF)
+    check(r._integrator_config(cfg.params).enable_dof, "cornell DoF is off")
+    launches, rec = _timed_frames("cornell DoF", r, cfg, frames=2)
+    _only("cornell DoF path", launches, ("K1",))
+    walls = _walls("cornell pinhole (A) against DoF (B)",
+                   (("pinhole", mega, cfg_mega), ("DoF", r, cfg)))
+    r_cpu, _ = frame_setup("cornell", "cpu", MAIN_SIZE, **DOF)
+    _lanes_vs_cpu("cornell DoF", r, r_cpu, cfg, B3_LANES["cornell"])
+    log(f"cornell DoF summary: frame {rec['frame_ms']:.3f} ms (pinhole median "
+        f"{float(np.median(walls['pinhole'])):.3f}, DoF "
+        f"{float(np.median(walls['DoF'])):.3f} in turns), {rec['rays']} rays, "
+        f"K1 {rec['per_frame']['K1']:.2f} launches per frame")
+    # the ray-stats image: the whole frame on the card, and the chunk's
+    # lanes of it against the CPU's per-lane counts
+    mega_cpu, _ = frame_setup("cornell", "cpu", MAIN_SIZE)
+    mega.reset_accumulation()  # sample 0, as the CPU lanes trace it
+    t0 = time.perf_counter()
+    stats = mega.render_ray_stats(cfg_mega)
+    ms = (time.perf_counter() - t0) * 1e3
+    lanes = B3_LANES["cornell"]
+    cpu = _trace_lanes(mega_cpu, cfg_mega, lanes)[2]
+    px, py, valid = (x[B3_CHUNK][:lanes].cpu().numpy() for x in mega._swizzle)
+    card = np.where(valid, stats[py, px], 0)
+    differ = int((card != np.where(valid, cpu, 0)).sum())
+    log(f"cornell ray-stats image {stats.shape} {stats.dtype} in {ms:.1f} ms: "
+        f"{int(stats.sum())} rays, mean {float(stats.mean()):.3f} a pixel, max "
+        f"{int(stats.max())}; {differ} of {lanes} chunk lanes differ from the "
+        "CPU's")
+    check(stats.dtype == np.int32 and stats.shape == MAIN_SIZE[::-1],
+          f"ray stats: {stats.dtype} {stats.shape}")
+    check(differ == 0, f"cornell ray stats: {differ} lanes off the CPU's")
+    # the debug views: one first-hit ray a pixel through the AOV pass
+    views = {}
+    for variant in (VARIANT_RT_DEBUG, VARIANT_GBUFFER):
+        mega.set_variant(variant)
+        t0 = time.perf_counter()
+        mega.render(cfg_mega)
+        img = mega.readback_accumulation()
+        views[variant] = (time.perf_counter() - t0) * 1e3
+        check(img.shape == (*MAIN_SIZE[::-1], 4) and np.isfinite(img).all(),
+              f"{variant}: image {img.shape} not finite")
+        small = {}
+        for device in (DEVICE, "cpu"):
+            rr, cc = frame_setup("cornell", device, QUERY_SIZE,
+                                 variant=variant)
+            rr.render(cc)
+            small[device] = rr.readback_framebuffer()
+        close = np.isclose(small[DEVICE], small["cpu"], rtol=0, atol=1e-4)
+        share = float(close.all(-1).mean())
+        log(f"{variant} {MAIN_SIZE[0]}x{MAIN_SIZE[1]} in {views[variant]:.1f} "
+            f"ms (readback included), mean {float(img.mean()):.5f}; at "
+            f"{QUERY_SIZE}: {share:.4f} of pixels within 1e-4 of the CPU's")
+        check(share >= 0.99, f"{variant}: {share} of pixels within 1e-4")
+    mega.set_variant(VARIANT_MEGAKERNEL)
+    return launches
+
+
+def phase_village_b3(r, cfg, r_cpu):
+    """The village at MAIN_SIZE, depth 9, under binned RIS light selection
+    (options.light_sampling_variant RIS, applied by configure_for): timed
+    frames (K2 and K3 and no other; NEE samples dropped per frame under the
+    limit), its walls in turns with the uniform selection's on the same
+    renderer, and B3_LANES lanes of a chunk against the CPU; then, uniform
+    again, the debug images of modes 1-3 over the whole frame, with
+    DEBUG_LANES lanes of the chunk against the CPU's exactly. Returns the
+    RIS path's launches."""
+    from realtimepathtracingresearchframework_tpu_torch.backend.params import (
+        LIGHT_SAMPLING_VARIANT_NONE,
+        LIGHT_SAMPLING_VARIANT_RIS,
+    )
+
+    def select(variant):
+        for rr in (r, r_cpu):
+            check(rr.configure_for(rr.options.replace(
+                light_sampling_variant=variant)), "configure_for refused")
+
+    select(LIGHT_SAMPLING_VARIANT_RIS)
+    icfg = r._integrator_config(cfg.params)
+    check(icfg.use_light_bins, "village RIS: binned selection is off")
+    log(f"village RIS: {r._num_lights} lights in bins of {icfg.light_bin_size}")
+    launches, rec = _timed_frames("village RIS", r, cfg, frames=2)
+    _only("village RIS path", launches, ("K2", "K3"))
+    _lanes_vs_cpu("village RIS", r, r_cpu, cfg, B3_LANES["village"])
+    # the walls in turns on this renderer: each switch of the selection
+    # (configure_for) re-lays the lights and drops the wavefront executor,
+    # so a warm-up frame follows it
+    walls = {"uniform": [], "RIS": []}
+    for name in ("uniform", "RIS", "RIS", "uniform") * B3_ROUNDS:
+        select(LIGHT_SAMPLING_VARIANT_RIS if name == "RIS"
+               else LIGHT_SAMPLING_VARIANT_NONE)
+        walls[name].append(_warm_wall(r, cfg))
+    log(f"village uniform (A) against RIS (B) frame walls, each after a "
+        f"warm-up frame, in turns (A, B, B, A) x {B3_ROUNDS}: " + "; ".join(
+            f"{name} {[round(x, 3) for x in ms]} ms, median "
+            f"{float(np.median(ms)):.3f}, spread {min(ms):.3f}-{max(ms):.3f}"
+            for name, ms in walls.items()))
+    log(f"village RIS summary: frame {rec['frame_ms']:.3f} ms, "
+        f"{rec['mrays']:.3f} Mray/s, NEE samples dropped per frame "
+        f"{rec['nee_dropped']:.2f}, K2 {rec['per_frame']['K2']:.2f} and K3 "
+        f"{rec['per_frame']['K3']:.2f} launches per frame")
+    select(LIGHT_SAMPLING_VARIANT_NONE)
+    r.reset_accumulation()  # sample 0, as the chunk's lanes trace it
+    for mode in (1, 2, 3):
+        for rr in (r, r_cpu):
+            rr.options = rr.options.replace(debug_mode=mode)
+        t0 = time.perf_counter()
+        img = r.render_debug_image(cfg)
+        ms = (time.perf_counter() - t0) * 1e3
+        card = _trace_lanes(r, cfg, DEBUG_LANES, mode)[3]
+        cpu = _trace_lanes(r_cpu, cfg, DEBUG_LANES, mode)[3]
+        px, py, valid = (x[B3_CHUNK][:DEBUG_LANES].cpu().numpy()
+                         for x in r._swizzle)
+        differ = int((card != cpu).sum())
+        in_image = int((np.where(valid, img[py, px], 0) != card).sum())
+        log(f"village debug mode {mode}: image {img.shape} {img.dtype} in "
+            f"{ms:.1f} ms, sum {int(img.sum())}, max {int(img.max())}; "
+            f"{DEBUG_LANES} chunk lanes: {differ} differ from the CPU's, "
+            f"{in_image} from the image")
+        check(img.dtype == np.int32 and img.shape == MAIN_SIZE[::-1],
+              f"debug image: {img.dtype} {img.shape}")
+        check(differ == 0 and in_image == 0,
+              f"village debug mode {mode}: lanes off the CPU's or the image")
+    for rr in (r, r_cpu):
+        rr.options = rr.options.replace(debug_mode=0)
+    return launches
+
+
+def _warm_wall(r, cfg):
+    """One warm-up frame, then one frame's wall in ms (CUDA events around
+    ``render`` and a sync)."""
+    import torch
+
+    r.render(cfg)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    r.render(cfg)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _axis_terrain():
+    """The 24x24 height-field soup of tests/test_traverse_kernels.py::
+    _terrain: (v0, e1, e2) f32, 1,058 triangles."""
+    x = np.linspace(-4.0, 4.0, 24, dtype=np.float32)
+    xx, zz = np.meshgrid(x, x)
+    yy = 0.6 * np.sin(1.3 * xx) * np.cos(0.9 * zz)
+    p = np.stack([xx, yy, zz], axis=-1)
+    a, b = p[:-1, :-1].reshape(-1, 3), p[:-1, 1:].reshape(-1, 3)
+    c, d = p[1:, :-1].reshape(-1, 3), p[1:, 1:].reshape(-1, 3)
+    v0, v1, v2 = np.concatenate([a, b]), np.concatenate([b, d]), np.concatenate([c, c])
+    return v0, v1 - v0, v2 - v0
+
+
+def _axis_rays(fb, rng, n=1024):
+    """tests/test_torch_flat_cull.py::_axis_rays: x = 0 directions from
+    origins on the leaf boxes' min-x or max-x faces (and on z faces, box
+    edges, on 30% of the lanes), above the scene, straight down or at
+    (0, -0.6, +-0.8)."""
+    box = fb.aabbs[:, :fb.num_leaves].cpu().numpy()
+    leaf = rng.integers(0, fb.num_leaves, n)
+    lo, hi = box[0:3, leaf], box[3:6, leaf]
+    x = np.where(rng.uniform(size=n) < 0.5, lo[0], hi[0])
+    z = rng.uniform(lo[2], hi[2])
+    edge = rng.uniform(size=n) < 0.3
+    z = np.where(edge, np.where(rng.uniform(size=n) < 0.5, lo[2], hi[2]), z)
+    y = np.full(n, box[4, :fb.num_leaves].max() + 1.0)
+    ro = np.stack([x, y, z], 1).astype(np.float32)
+    down = rng.uniform(size=n) < 0.5
+    sz = np.where(rng.uniform(size=n) < 0.5, 0.8, -0.8)
+    rd = np.stack([np.zeros(n), np.where(down, -1.0, -0.6),
+                   np.where(down, 0.0, sz)], 1).astype(np.float32)
+    return ro, rd
+
+
+def _axis_structures(leaf_size, device):
+    """Every walk's structure over ``_axis_terrain`` on ``device``: the
+    flat pack at ``leaf_size`` (K1, K2, K3), the streamed pack (K4, K5),
+    one instance under the identity transform (K6, K7), the v1 tables in
+    both layouts (K8a row-major, K8b field-major)."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import bvh as bvh_mod
+    from realtimepathtracingresearchframework_tpu_torch.ops import tlas
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_stream as ts,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_v1 as tv,
+    )
+
+    v0, e1, e2 = _axis_terrain()
+    fb = tf.pack_flat(bvh_mod.build_threaded_bvh(v0, e1, e2, leaf_size=leaf_size),
+                      device)
+    out = {"K1": fb, "K2": fb, "K3": fb}
+    out["K4"] = out["K5"] = ts.pack_streamed(v0, e1, e2, device=device)
+    meshes, ids = [(v0, e1, e2)], np.zeros(1, np.int32)
+    xfs = np.concatenate([np.eye(3), np.zeros((3, 1))], 1)[None].astype(np.float32)
+    blas = tlas.build_blas_set(meshes)
+    nodes, row = tlas.build_tlas_nodes(tlas.instance_world_aabbs(blas, ids, xfs))
+    tables = tlas.build_instance_tables(blas, ids, np.zeros(1, np.int32), xfs)
+    out["K6"] = tt.pack_two_level(tt.pack_blas(meshes, device), ids, blas.tri_base,
+                                  nodes, row, tables["inst_inv"].numpy(),
+                                  tables["inst_cull_scale"].numpy())
+    st7 = tts.pack_tlas_stream_static(meshes, device=device)
+    out["K7"] = (st7, tts.pack_tlas_stream_frame(st7, ids, xfs, blas.tri_base))
+    tb128 = bvh_mod.build_threaded_bvh(v0, e1, e2, leaf_size=tv.LEAF)
+    out["K8a"] = tv.pack_v1(tb128, device)
+    wide_max = tv.WIDE_MAX_ROWS
+    tv.WIDE_MAX_ROWS = 0  # the field-major table, K8b's
+    try:
+        out["K8b"] = tv.pack_v1(tb128, device)
+    finally:
+        tv.WIDE_MAX_ROWS = wide_max
+    check(out["K8a"].wide and not out["K8b"].wide, "v1 tables: wrong layouts")
+    return out
+
+
+def _axis_walk(name, st, o, d, tmax, any_hit):
+    """One walk through its public wrapper (the kernel on CUDA tensors, the
+    plain version on CPU ones): (t, source triangle) or blocked flags, on
+    the host."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_binned as tb,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_stream as ts,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas as tt,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_v1 as tv,
+    )
+
+    fns = {
+        "K1": (tr.closest_hit_resident, tr.occluded_resident),
+        "K2": (tf.closest_hit_flat, tf.occluded_flat),
+        "K3": (tf.closest_hit_precull, tf.occluded_precull),
+        "K4": (lambda *a: ts.closest_hit_streamed(*a, sort=True),
+               ts.occluded_streamed),
+        "K5": (tb.closest_hit_binned,
+               lambda *a: tb.occluded_binned(*a, rounds=1)),
+        "K6": (tt.closest_hit_tlas, tt.occluded_tlas),
+        "K7": (lambda s, *a: tts.closest_hit_tlas_stream(*s, *a),
+               lambda s, *a: tts.occluded_tlas_stream(*s, *a)),
+        "K8a": (lambda *a: tv.closest_hit_v1(*a, map_tri=True), tv.occluded_v1),
+    }
+    fns["K8b"] = fns["K8a"]
+    if any_hit:
+        return fns[name][1](st, o, d, 0.0, tmax).cpu().numpy()
+    h = fns[name][0](st, o, d, 0.0, tmax)
+    if name in ("K1", "K2", "K3"):
+        h = traverse.map_rows_to_tris(st, h)
+    return h.t.cpu().numpy(), h.tri.cpu().numpy()
+
+
+def phase_axis_queue(smi):
+    """The axis-aligned queue of tests/test_torch_slab.py (1,024 rays with
+    x = 0 directions from leaf-box faces of _axis_terrain's flat pack at
+    leaf 32, 64 and 128) through every kernel on the card, closest and
+    any-hit (segments just past the brute-force hit): each bitwise its
+    plain version on the CPU (t bits, source triangles, flags), with the
+    lanes where it differs from a brute-force Moller-Trumbore over every
+    triangle counted and printed (its t not the least t, its triangle not
+    one of those reaching it, or its flag not the brute force's). Returns
+    {kernel: lanes off the brute force, summed over the leaf sizes}."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse
+
+    rows = torch.from_numpy(np.concatenate(_axis_terrain(), axis=1))[None]
+    off = {k: 0 for k in AXIS_WALKS}
+    log(f"the axis-aligned queue through every kernel, {smi}:")
+    for leaf in AXIS_LEAVES:
+        cpu = _axis_structures(leaf, "cpu")
+        card = _axis_structures(leaf, DEVICE)
+        ro, rd = _axis_rays(cpu["K2"], np.random.default_rng(0x5EED))
+        o, d = torch.from_numpy(ro), torch.from_numpy(rd)
+        ok, _, _, tt = traverse._mt_rows(rows, *(x[:, None] for x in (
+            o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])))
+        tt = torch.where(ok & (tt > 0.0) & (tt < 2.0e32), tt, 2.0e32)
+        least = tt.amin(1)
+        ties = ((tt == least[:, None]) & (least < 2.0e32)[:, None]).numpy()
+        least = least.numpy()
+        otm = np.where(least < 1e30, least * np.float32(1.001), 8.0).astype(np.float32)
+        counts = {}
+        for name in AXIS_WALKS:
+            out = {}
+            for dev, st in ((DEVICE, card[name]), ("cpu", cpu[name])):
+                so, sd = _soa(ro, dev), _soa(rd, dev)
+                t, tri = _axis_walk(name, st, so, sd, 2.0e32, False)
+                flag = _axis_walk(name, st, so, sd,
+                                  torch.from_numpy(otm).to(dev), True)
+                out[dev] = (t, tri, flag)
+            (t, tri, flag), (pt, ptri, pflag) = out[DEVICE], out["cpu"]
+            mism = (int((t.view(np.int32) != pt.view(np.int32)).sum())
+                    + int((tri != ptri).sum()) + int((flag != pflag).sum()))
+            hit = least < 1e30
+            good = (t.view(np.int32) == least.view(np.int32)) & np.where(
+                hit, ties[np.arange(len(tri)), np.maximum(tri, 0)] & (tri >= 0),
+                tri == -1) & (flag == hit)
+            counts[name] = int((~good).sum())
+            off[name] += counts[name]
+            check(mism == 0, f"axis queue leaf {leaf}: {name} differs from its "
+                  f"plain version on {mism} values")
+        log(f"  leaf {leaf}: every kernel bitwise its plain version; lanes of "
+            f"{len(ro)} off the brute force {counts}, {int((least < 1e30).sum())} "
+            "lanes hit")
+    return off
+
+
 def main():
     import torch
 
@@ -3192,11 +3710,12 @@ def main():
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    k1_launches, mega = phase_main_path()
+    k1_launches, mega, mega_cfg = phase_main_path()
     rng_launches = phase_rng_paths()
-    village = phase_village_path()
+    village, village_ris = phase_village_path()
     village_compacted = phase_village_compacted(smi)
     _, k1_merged = phase_wavefront_path(mega)
+    cornell_dof = phase_cornell_b3(mega, mega_cfg)
     del mega
     terrain, terrain_merged = phase_terrain_path()
     stream, (r500, cfg500) = phase_stream_paths()
@@ -3231,6 +3750,7 @@ def main():
     phase_small_instanced()
     phase_small_flat_animation()
     v1 = phase_v1_queues(v1_paths, smi)
+    axis_off = phase_axis_queue(smi)
     v1["K8a"]["merged"]["launches"] = (
         v1_paths["v1 cornell PT_WAVEFRONT"][3]["merged"]["K8"])
     # no V1 path of this script runs the wavefront variant on a K8b scene
@@ -3276,9 +3796,11 @@ def main():
     # this slice's paths: each kernel's launches on the paths that put it
     # under a new pack or queue
     k1["paths"] = {f"rng {name}": n["K1"] for name, n in rng_launches.items()}
+    k1["paths"]["cornell DoF"] = cornell_dof["K1"]
     refit_row, rebuilt_row = (p[0] for p in FLAT_ANIM_PATHS)
     paths = {kern: {"village PT_WAVEFRONT compacted": village_compacted[kern],
-                    rebuilt_row: flat_anim[rebuilt_row][kern]}
+                    rebuilt_row: flat_anim[rebuilt_row][kern],
+                    "village RIS": village_ris[kern]}
              for kern in ("K2", "K3")}
     paths.update({kern: {refit_row: flat_anim[refit_row][kern]}
                   for kern in ("K4", "K5")})
@@ -3299,6 +3821,13 @@ def main():
     for name, kern in ((tf.K2, "K2"), (tf.K3, "K3"),
                        ("traverse_streamed", "K4"), ("traverse_binned", "K5")):
         records[name]["paths"] = paths[kern]
+    # each kernel's lanes off the brute force on the axis-aligned queue
+    for name, kern in (("traverse_resident", "K1"), (tf.K2, "K2"),
+                       (tf.K3, "K3"), ("traverse_streamed", "K4"),
+                       ("traverse_binned", "K5"), ("traverse_tlas", "K6"),
+                       ("traverse_tlas_stream", "K7"), ("K8a", "K8a"),
+                       ("K8b", "K8b")):
+        records[name]["axis_lanes_off_brute_force"] = axis_off[kern]
     # traverse_v1.cu holds two kernels, with a record each
     sources = {name: sr for name, sr in KERNELS.items() if name != "traverse_v1"}
     sources.update({name: (KERNELS["traverse_v1"][0], replaces)
@@ -3315,7 +3844,8 @@ def main():
             # no single PyTorch call computes a BVH closest hit
             "library_ms": None,
         })
-        for extra in ("grazing_lanes", "wrapper_ms", "paths"):
+        for extra in ("grazing_lanes", "wrapper_ms", "paths",
+                      "axis_lanes_off_brute_force"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]
         for mode in ("merged", "quantized", "ordered", "multislot", "global"):

@@ -47,9 +47,16 @@ table, and its XLA walk past it is the port's CPU oracle only).
 (LCG, Sobol, Z-Sobol or blue noise); ``set_scene`` and ``configure_for``
 build its tables (``pointsets.build_rng_buffers``). Textured scenes upload a texture atlas and, where a textured
 material can cut, run the alpha test on every route (renderer.py:918-938).
-``set_variant`` selects ``PT_MEGAKERNEL`` (default) or ``PT_WAVEFRONT``, the
-variant that defers each bounce's NEE shadow ray to the next bounce's
-merged dispatch (renderer.py:86-104, 311-321). Each kernel runs on
+``options.light_sampling_variant`` RIS re-lays the emitters in bins of equal
+power for binned RIS light selection, as the reference's binned-lights
+extension does (extensions.py:158-200). ``set_variant`` selects any
+registered variant but ``RQ_CLOSEST`` (renderer.py:290-321):
+``PT_WAVEFRONT`` defers each bounce's NEE shadow ray to the next bounce's
+merged dispatch, ``RT_DEBUG`` and ``GBUFFER`` show the first-hit AOVs
+(``_render_debug_variant``), and every other one renders through the
+megakernel, as there. ``render_ray_stats`` and ``render_debug_image``
+render one sample's ray-count and DEBUG_MODE_* images (renderer.py:
+1589-1650). Each kernel runs on
 ``device="cuda"``, its plain version on ``device="cpu"`` (the tests'
 device). There is no CPU fallback for a CUDA renderer.
 """
@@ -98,6 +105,8 @@ from realtimepathtracingresearchframework_tpu_torch.ops.integrator import (
     pack_attr_table,
     pack_material_table,
     planes_to_image,
+    render_debug_host,
+    render_ray_stats_host,
     swizzle_host,
     trace_paths,
 )
@@ -134,8 +143,9 @@ COMPACT_MIN_TRIS = 16_384
 RESIDENT_MAX_TRIS = 90_000
 
 
-# render variants (renderer.py:86-104): the port runs the megakernel and
-# the wavefront; the others are ROADMAP item 14
+# render variants (renderer.py:86-104): the wavefront and the two debug
+# views have paths of their own, every other variant renders through the
+# megakernel, and RQ_CLOSEST is a query kernel, not a frame renderer
 VARIANT_MEGAKERNEL = "PT_MEGAKERNEL"
 VARIANT_WAVEFRONT = "PT_WAVEFRONT"
 VARIANT_PT = "PT"
@@ -146,7 +156,12 @@ VARIANT_RTP_MEGAKERNEL = "PT_RTP_MEGAKERNEL"
 VARIANT_RT_DEBUG = "RT_DEBUG"
 VARIANT_GBUFFER = "GBUFFER"
 VARIANT_RQ_CLOSEST = "RQ_CLOSEST"
-PORTED_VARIANTS = (VARIANT_MEGAKERNEL, VARIANT_WAVEFRONT)
+# the registered variants in the reference's order (renderer.py:290-304)
+VARIANTS = (
+    VARIANT_TAIL_RECURSIVE, VARIANT_BTD_SHADE, VARIANT_STACK_RECURSIVE,
+    VARIANT_MEGAKERNEL, VARIANT_RTP_MEGAKERNEL, VARIANT_PT,
+    VARIANT_WAVEFRONT, VARIANT_RQ_CLOSEST, VARIANT_GBUFFER, VARIANT_RT_DEBUG,
+)
 
 
 def resident_leaf_size(num_tris: int) -> int:
@@ -243,6 +258,7 @@ class Renderer:
         self._acc_chunks: Optional[List[tuple]] = None
         self._swizzle = None  # (px, py, valid) per-chunk device tensors
         self._num_lights = 0
+        self._bin_size = None  # binned RIS selection's bin width, or None
         self._has_thin = False
         self._has_textures = False
         self._has_alpha = False
@@ -268,33 +284,27 @@ class Renderer:
         self._total_device_bytes = None
         self._prev_view: Optional[ViewBuffers] = None  # of the last AOV pass
         self._aovs: Optional[aov_mod.AOVs] = None
+        self._debug_image: Optional[torch.Tensor] = None  # RT_DEBUG / GBUFFER
 
     def variants(self) -> List[str]:
         """The variant list in the reference's registration order
         (renderer.py:290-304)."""
-        return [
-            VARIANT_TAIL_RECURSIVE, VARIANT_BTD_SHADE, VARIANT_STACK_RECURSIVE,
-            VARIANT_MEGAKERNEL, VARIANT_RTP_MEGAKERNEL, VARIANT_PT,
-            VARIANT_WAVEFRONT, VARIANT_RQ_CLOSEST, VARIANT_GBUFFER,
-            VARIANT_RT_DEBUG,
-        ]
+        return list(VARIANTS)
 
     def supported_variants(self) -> List[str]:
-        """The variants the port renders, in the reference's order
-        (renderer.py:306)."""
-        return [v for v in self.variants() if v in PORTED_VARIANTS]
+        """Every registered variant but ``RQ_CLOSEST``, a query kernel
+        (renderer.py:306-309)."""
+        return [v for v in self.variants() if v != VARIANT_RQ_CLOSEST]
 
     def set_variant(self, name: str) -> bool:
-        """Select the active integrator (renderer.py:311-321). The
-        megakernel and the wavefront are ported; the reference's other
-        variants raise ``NotImplementedError``. An unknown name falls back
-        to the megakernel and returns False, as the reference does."""
-        if name in PORTED_VARIANTS:
+        """Select the active integrator (renderer.py:311-321); an
+        unsupported name falls back to the megakernel and returns False,
+        as the reference does."""
+        if name in self.supported_variants():
             self.active_variant = name
             return True
-        if name in self.variants():
-            raise NotImplementedError(
-                f"the {name} variant is not ported yet (ROADMAP item 14)")
+        warning("unsupported variant %s; falling back to %s", name,
+                VARIANT_MEGAKERNEL)
         self.active_variant = VARIANT_MEGAKERNEL
         return False
 
@@ -319,6 +329,7 @@ class Renderer:
             for _ in range(nc)
         ]
         self._wavefront = None
+        self._debug_image = None
         self.frame_id = 0
 
     def set_scene(self, scene: Scene,
@@ -442,8 +453,21 @@ class Renderer:
     def _lights_and_sky(self, flat, scene_config: SceneConfig):
         """The emitter tables of the posed flat scene and the sky
         (renderer.py:961-1058); the sky is cooked again only when its
-        inputs change, as the reference caches it (renderer.py:985-1004)."""
+        inputs change, as the reference caches it (renderer.py:985-1004).
+        Under the RIS light-sampling variant a scene with emitters has them
+        re-laid by ``lights.equalize_emitter_bins`` in bins of
+        min(bucket count, emitter count) lights, the bucket count at least
+        1, for binned RIS selection (the binned-lights extension,
+        extensions.py:166-200); ``_num_lights`` then counts the padded
+        table, as there."""
         tl = lights_mod.collect_emitters(flat, self._mat_table)
+        self._bin_size = None
+        if (self.options.light_sampling_variant == LIGHT_SAMPLING_VARIANT_RIS
+                and tl.count > 0):
+            self._bin_size = min(
+                max(1, int(self.options.light_sampling_bucket_count)),
+                tl.count)
+            tl = lights_mod.equalize_emitter_bins(tl, self._bin_size)
         self._num_lights = tl.count
         if tl.count == 0:
             tl = lights_mod.empty_lights()
@@ -622,24 +646,23 @@ class Renderer:
         taps are off on two-level scenes, as there; the ``PT_WAVEFRONT``
         variant sets ``wavefront`` (renderer.py:1234-1235). Binned RIS
         light selection is on where the reference's binned-lights extension
-        turns it on: the RIS variant and at least one emitter, with bins of
-        min(bucket count, emitter count) lights (extensions.py:166-200,
-        renderer.py:1116-1124); it is not ported, so such a render raises
-        (``check_supported``)."""
+        turns it on: the RIS variant and at least one emitter, with the bin
+        width of ``_lights_and_sky`` (extensions.py:166-200, renderer.py:
+        1116-1124). ``debug_mode`` stays 0: only ``render_debug_image``
+        sets it, as in the reference (renderer.py:1643-1645)."""
         route = self._route
         # carry compaction of the monolith, on by default with the flat
         # cull (renderer.py:1105-1115)
         compact_lanes = _env_flag("RPTR_COMPACT_LANES",
                                   route.kernel_v3)
-        buckets = int(self.options.light_sampling_bucket_count)
-        use_bins = (self.options.light_sampling_variant
-                    == LIGHT_SAMPLING_VARIANT_RIS and self._num_lights > 0)
+        use_bins = self._bin_size is not None
         return IntegratorConfig(
             two_level=bool(route.tlas),
             tlas_k6=route.tlas == "k6",
             tlas_stream=route.tlas == "k7",
             max_path_depth=int(params.max_path_depth),
-            light_bin_size=min(buckets, self._num_lights) if use_bins else buckets,
+            light_bin_size=(self._bin_size if use_bins else
+                            int(self.options.light_sampling_bucket_count)),
             use_light_bins=use_bins,
             num_lights=int(self._num_lights),
             enable_sun_sky=True,
@@ -652,7 +675,6 @@ class Renderer:
             wavefront=self.active_variant == VARIANT_WAVEFRONT,
             enable_dof=bool(self.options.enable_raytraced_dof)
             and float(params.aperture_radius) > 0.0,
-            debug_mode=int(self.options.debug_mode),
             compact=_env_flag("RPTR_COMPACT", route.compact)
             and not compact_lanes,
             compact_lanes=compact_lanes,
@@ -687,6 +709,9 @@ class Renderer:
         read when it has completed (so the returned ``render_time`` is
         that of the last completed frame, the reference's delayed-timestamp
         design, renderer.py:1405-1436); on the CPU by the host clock."""
+        if self.active_variant in (VARIANT_RT_DEBUG, VARIANT_GBUFFER):
+            return self._render_debug_variant(config)
+        self._debug_image = None
         params = config.params
         spp = int(batch_spp if batch_spp is not None else params.batch_spp)
         if (
@@ -712,6 +737,8 @@ class Renderer:
             shot_offset=self.shot_offset,
             pixel_radius=float(params.pixel_radius),
             bump_scale=float((config.scene_config or SceneConfig()).bump_scale),
+            aperture_radius=float(params.aperture_radius),
+            focus_distance=float(params.focus_distance),
         )
         cfg = self._integrator_config(params)
         # DISCARD_HISTORY (postprocess/reprojection.h:11-18): each frame
@@ -779,8 +806,9 @@ class Renderer:
         supported lattice (then False is returned); a change of
         ``use_tlas`` or ``quantized_geometry`` rebuilds the scene with
         ``set_scene`` at its scene config and animation frame, since those
-        options change what it builds, and a change of ``rng_variant``
-        alone rebuilds the scene's RNG tables. If the rebuild fails, the
+        options change what it builds, a change of ``rng_variant``
+        alone rebuilds the scene's RNG tables, and one of the light-sampling
+        variant or bucket count its light tables. If the rebuild fails, the
         exception is logged, the renderer's last good state (options, scene, buffers)
         is restored and False is returned. Returns True iff the options
         applied unmodified."""
@@ -794,15 +822,25 @@ class Renderer:
             last_good = dict(self.__dict__)  # options, scene and buffers
             try:
                 rng_changed = adjusted.rng_variant != self.options.rng_variant
+                lights_changed = any(
+                    getattr(adjusted, f) != getattr(self.options, f)
+                    for f in ("light_sampling_variant",
+                              "light_sampling_bucket_count"))
                 self.options = adjusted
                 self._wavefront = None  # its programs hold the old options
                 if rebuild:
                     self.set_scene(self.scene, self._scene_config,
                                    frame=self._scene_frame)
-                elif rng_changed and self.device_scene is not None:
-                    self.device_scene = self.device_scene._replace(
-                        rng=pointsets.build_rng_buffers(
-                            int(adjusted.rng_variant), device=self.device))
+                elif self.device_scene is not None:
+                    if rng_changed:
+                        self.device_scene = self.device_scene._replace(
+                            rng=pointsets.build_rng_buffers(
+                                int(adjusted.rng_variant), device=self.device))
+                    if lights_changed:
+                        lights, _ = self._lights_and_sky(self._flat,
+                                                         self._scene_config)
+                        self.device_scene = self.device_scene._replace(
+                            lights=lights)
             except Exception as e:  # revert to the last good state
                 warning("option apply failed (%r); reverting", e)
                 self.__dict__.clear()
@@ -857,7 +895,10 @@ class Renderer:
         the accumulation resolved by ``ops/resolve.py::resolve_channels``
         with the last frame's ``params.exposure`` and
         ``early_tone_mapping_mode`` (renderer.py:1486-1488), on the device,
-        then un-swizzled on the host."""
+        then un-swizzled on the host; after an ``RT_DEBUG`` or ``GBUFFER``
+        frame its image as it is."""
+        if self._debug_image is not None:
+            return self._debug_image.cpu().numpy()
         exposure, tonemap = self._resolve_args
         planes = resolve_mod.resolve_channels(self._planes(), exposure, tonemap)
         return planes_to_image(
@@ -865,7 +906,10 @@ class Renderer:
             self.fb_height, self.rays_per_pass)
 
     def readback_accumulation(self) -> np.ndarray:
-        """Linear HDR accumulation buffer (H, W, 4) float32."""
+        """Linear HDR accumulation buffer (H, W, 4) float32; after an
+        ``RT_DEBUG`` or ``GBUFFER`` frame its image."""
+        if self._debug_image is not None:
+            return self._debug_image.cpu().numpy()
         planes = np.stack([p.cpu().numpy() for p in self._planes()])
         return planes_to_image(
             planes, self.fb_width, self.fb_height, self.rays_per_pass
@@ -999,3 +1043,67 @@ class Renderer:
         if self._aovs is None:
             raise RuntimeError("render_aovs() has not been called")
         return self._aovs[aov_index].cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Debug views and count images (renderer.py:1565-1650)
+    # ------------------------------------------------------------------
+
+    def _render_debug_variant(self, config: FrameConfig) -> RenderStats:
+        """The ``RT_DEBUG`` and ``GBUFFER`` views (renderer.py:1565-1587):
+        first-hit images from the AOV pass. ``RT_DEBUG`` shows the shading
+        normal as 0.5 n + 0.5 where the ray hit (alpha 1), 0 elsewhere;
+        ``GBUFFER`` the albedo with the roughness in alpha. The image is
+        the frame's accumulation and display image; one ray per pixel."""
+        t0 = time.perf_counter()
+        aovs = self.render_aovs(config)
+        if self.active_variant == VARIANT_RT_DEBUG:
+            n = aovs.normal_depth[..., :3]
+            hit = aovs.normal_depth[..., 3:4] < 1.0e16
+            fb = torch.cat([torch.where(hit, n * 0.5 + 0.5, 0.0),
+                            torch.where(hit, 1.0, 0.0)], dim=-1)
+        else:
+            fb = aovs.albedo_roughness
+        self._debug_image = fb
+        self._frame_events = None
+        self._last_render_ms = (time.perf_counter() - t0) * 1e3
+        self._last_rays = [torch.tensor(self.fb_width * self.fb_height)]
+        self.frame_id += 1
+        return self.stats()
+
+    def _count_frame_params(self, params: RenderParams) -> FrameParams:
+        """The frame parameters of the count images: those the reference
+        passes there (renderer.py:1605-1610), the others at their
+        defaults."""
+        return FrameParams(rr_path_depth=int(params.rr_path_depth),
+                           glossy_only_mode=int(params.glossy_only_mode),
+                           sample_offset=self.frame_id,
+                           shot_offset=self.shot_offset)
+
+    def render_ray_stats(self, config: FrameConfig) -> np.ndarray:
+        """Per-pixel traced-ray count (closest + shadow) of one sample, the
+        REPORT_RAY_STATS readback (renderer.py:1589-1615): the monolithic
+        megakernel pass, whatever the variant. Returns (H, W) int32."""
+        params = config.params
+        cfg = self._integrator_config(params)._replace(wavefront=False)
+        img = render_ray_stats_host(
+            self.device_scene, cfg, self._count_frame_params(params),
+            self._view(config.camera), self.fb_width, self.fb_height,
+            self.rays_per_pass)
+        return img.cpu().numpy()
+
+    def render_debug_image(self, config: FrameConfig) -> np.ndarray:
+        """The DEBUG_MODE_* image of one sample selected by
+        ``options.debug_mode`` (renderer.py:1617-1650): any-hit (alpha
+        test) evaluations over the full path or of primary visibility, or
+        the bounce count per pixel, through the monolithic pass. Raises
+        ``ValueError`` under DEBUG_MODE_OFF. Returns (H, W) int32."""
+        if int(self.options.debug_mode) == 0:
+            raise ValueError("options.debug_mode is DEBUG_MODE_OFF")
+        params = config.params
+        cfg = self._integrator_config(params)._replace(
+            debug_mode=int(self.options.debug_mode), wavefront=False)
+        img = render_debug_host(
+            self.device_scene, cfg, self._count_frame_params(params),
+            self._view(config.camera), self.fb_width, self.fb_height,
+            self.rays_per_pass)
+        return img.cpu().numpy()

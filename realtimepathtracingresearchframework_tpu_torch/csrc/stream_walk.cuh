@@ -1,5 +1,6 @@
 // Shared parts of the streamed and two-level kernels: the ray, the slab
-// test and the object ray of an instance (K6, K7). The walks of K4
+// test (with its zero-direction rule, slab_axis) and the object ray of an
+// instance (K6, K7). The walks of K4
 // (traverse_streamed.cu), K5 (traverse_binned.cu), K6 (traverse_tlas.cu)
 // and K7 (traverse_tlas_stream.cu), with warp-shared leaf tests, are
 // tlas_walk.cuh's.
@@ -30,8 +31,10 @@ constexpr float kTMax = 2.0e32f;  // ops/intersect.py T_MAX
 constexpr int kLeaf = 128;        // triangles per leaf tile
 constexpr int kThreads = 128;     // threads per CUDA block
 
+// ops/intersect.py::safe_inv_dir, but +inf for a component of exactly 0
+// (either sign), which slab_axis turns into the zero-direction rule
 __device__ __forceinline__ float safe_inv(float d) {
-  // ops/intersect.py::safe_inv_dir
+  if (d == 0.0f) return INFINITY;
   const float sign = d >= 0.0f ? 1.0f : -1.0f;
   return sign / fmaxf(fabsf(d), 1e-20f);
 }
@@ -87,20 +90,34 @@ struct Best {
   bool blocked;
 };
 
+// One axis of the slab test (ops/intersect.py::slab_interval): the entry
+// and exit t of the slab [lo, hi] (lo <= hi) along a ray from o with
+// i = safe_inv(d): the products of the near and the far plane, which are
+// the plain version's min and max of the two products bit for bit (a
+// product is monotone in each factor). On an axis where d is exactly 0, i
+// is +inf: below the slab both products are +inf and above it both -inf
+// (the slab is empty), inside it the near one is -inf and the far one +inf,
+// and on a face the product 0 x inf is NaN, which the fmaxf / fminf of the
+// callers drop (IEEE maxNum / minNum): the slab is the whole line there, as
+// the plain version's (-inf, +inf). The products with 1e20 would put the
+// exit of a ray on the max face at 0 and miss a box the ray runs along.
+__device__ __forceinline__ void slab_axis(float lo, float hi, float o, float i,
+                                          float& tsmall, float& tbig) {
+  const bool pos = i > 0.0f;
+  tsmall = ((pos ? lo : hi) - o) * i;
+  tbig = ((pos ? hi : lo) - o) * i;
+}
+
 // ops/intersect.py::ray_aabb on the node box b[0:6], segment [tmin, tcap];
 // ``tenter`` receives the entry t
 __device__ __forceinline__ bool slab_entry(const float* b, const Ray& r,
                                            float tcap, float& tenter) {
-  const float t0x = (b[0] - r.ox) * r.ix;
-  const float t0y = (b[1] - r.oy) * r.iy;
-  const float t0z = (b[2] - r.oz) * r.iz;
-  const float t1x = (b[3] - r.ox) * r.ix;
-  const float t1y = (b[4] - r.oy) * r.iy;
-  const float t1z = (b[5] - r.oz) * r.iz;
-  tenter = fmaxf(
-      fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z)), r.tmin);
-  const float texit = fminf(
-      fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z)), tcap);
+  float sx, bx, sy, by, sz, bz;
+  slab_axis(b[0], b[3], r.ox, r.ix, sx, bx);
+  slab_axis(b[1], b[4], r.oy, r.iy, sy, by);
+  slab_axis(b[2], b[5], r.oz, r.iz, sz, bz);
+  tenter = fmaxf(fmaxf(fmaxf(sx, sy), sz), r.tmin);
+  const float texit = fminf(fminf(fminf(bx, by), bz), tcap);
   return tenter <= texit;
 }
 

@@ -48,12 +48,15 @@
 // (flat_cull.cuh::sort_keys); that is the last barrier. Then each warp
 // walks the sorted list on its own, as K3 walks every leaf: the lanes'
 // cursors step together, one survivor a step, each lane's slab test of its
-// segment [tmin, min(tmax, best t)] decides whether it holds the leaf,
+// segment [tmin, leaf_cap(best t)] decides whether it holds the leaf,
 // __ballot_sync collects the holders, and serve_leaves (tlas_walk.cuh)
 // tests the held leaf with RowTiles and the counted scan, up to the leaf's
-// real-row count. The warp stops at the first survivor whose lb exceeds
-// the best t of every lane still walking (strictly: a leaf whose lb equals
-// a lane's best t may hold an exact-t tie with a lower row). Leaves are
+// real-row count. A lane's box test and its stop take its best t raised
+// by 2^-20 of itself (flat_cull.cuh::leaf_cap: a hit on a box's face can
+// lie an ulp before the box's f32 entry, as on rays along leaf-box faces
+// with a zero direction component). The warp stops at the first survivor
+// whose lb exceeds that of every lane still walking (strictly: a leaf
+// whose lb equals it may hold an exact-t tie with a lower row). Leaves are
 // visited by lb, not by index, so a lane takes a hit that ties its best t
 // when its row is lower: before a held leaf whose rows lie below the
 // lane's best row, the lane's best t is raised by one ulp for the test
@@ -103,13 +106,14 @@ __device__ __forceinline__ Best narrow(const unsigned long long* keys,
     for (; s < count; ++s) {
       const unsigned long long key = keys[s];  // one address: a broadcast
       // the keys ascend, so a lane past this leaf's lb is past every later one
-      const bool past = done || key_lb(key) > b.t;
+      const float cap = leaf_cap(b.t);
+      const bool past = done || key_lb(key) > cap;
       if (__all_sync(kFull, past)) {
         s = count;
         break;
       }
       leaf = key_leaf(key);
-      holds = !past && enters(aabbs, lpad, leaf, r, b.t);
+      holds = !past && enters(aabbs, lpad, leaf, r, cap);
       hold = __ballot_sync(kFull, holds);
       if (hold) break;
     }

@@ -34,10 +34,11 @@
 // lanes' cursors over leaves 0..num_leaves-1 step together, one leaf box a
 // step, which the warp reads once (a broadcast), in a tight loop of its own
 // up to the next leaf some lane holds; each lane's exact slab test of its
-// segment [tmin, min(tmax, best t)] decides whether it holds the leaf.
-// Capping by the best hit so far changes nothing (a hit lies inside its
-// leaf's box, so the lane enters the box before the hit, as K1's capped walk
-// does), and it drops every leaf behind the lane's nearest hit.
+// segment [tmin, leaf_cap(best t)] decides whether it holds the leaf: its
+// best t so far raised by 2^-20 of itself (flat_cull.cuh), since a hit on a
+// box's face can lie an ulp before the box's f32 entry, where a test capped
+// at the best t alone would drop a hit that beats it by an ulp. The cap
+// drops every leaf behind the lane's nearest hit.
 // __ballot_sync collects the holders. Where fewer than ``scan_from`` lanes
 // hold the leaf, the warp tests it for each holder in turn with
 // tlas_walk.cuh's test_leaves on the row-major rows (RowTiles: lane j takes
@@ -99,7 +100,7 @@ __global__ void __launch_bounds__(kMaxThreads) precull_kernel(
     bool holds = false;
     unsigned hold = 0;
     for (; l < num_leaves; ++l) {
-      holds = !done && enters(aabbs, lpad, l, r, b.t);
+      holds = !done && enters(aabbs, lpad, l, r, rptr_flat::leaf_cap(b.t));
       hold = __ballot_sync(kFull, holds);
       if (hold) break;
     }

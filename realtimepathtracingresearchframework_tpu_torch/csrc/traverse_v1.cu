@@ -24,9 +24,10 @@
 // u = v = 0. The reference's packet walk (ops/traverse_v1.py::plain: a
 // packet of 512 rays sharing one cursor, a leaf tested by every lane when
 // any lane enters it) differs only where a lane hits a triangle in a leaf
-// whose box its own slab test rejects (a grazing lane: on a box face with a
-// zero direction component, at a corner, or a 1-ulp gap between the slab t
-// and Moller-Trumbore's t), which the packet tests because another lane
+// whose box its own slab test rejects (a grazing lane: at a corner, or a
+// 1-ulp gap between the slab t and Moller-Trumbore's t; a ray along a box
+// face with a zero direction component enters the box, slab_axis), which
+// the packet tests because another lane
 // entered it (ROADMAP queue 3; chip_smoke.py counts them).
 //
 // Design: tlas_walk.cuh's walk_threaded, one template for K8a, K8b and K1:

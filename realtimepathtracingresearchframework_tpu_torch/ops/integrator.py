@@ -49,12 +49,19 @@ with the scene's tables (``DeviceScene.rng``), and ``cfg.compact_lanes``
 runs the bounces past 0 on a coherence-sorted, live-first carry's
 smallest covering prefix (``_compacted_bounces``; integrator.py:1606-1717).
 
-Configurations outside the slice raise ``NotImplementedError`` naming
-their ROADMAP item (``check_supported``).
+Binned RIS light selection (``cfg.use_light_bins``, ``ops/nee.py``),
+thin-lens depth of field (``cfg.enable_dof``, ``camera_setup``) and the
+``DEBUG_MODE_*`` counters (``cfg.debug_mode``: any-hit evaluations over the
+path or at primary visibility, or bounces; ``trace_paths`` returns the count
+as its 4th output) follow the reference (integrator.py:1036-1130,
+1342-1480, 1604-1610, 1722-1726, 1840-1867); ``render_ray_stats_host``
+and ``render_debug_host`` render the one-sample count images of the
+reference's ``make_ray_stats_fn`` and ``make_debug_fn`` (:2154-2238).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -288,8 +295,7 @@ class ViewBuffers(NamedTuple):
 
 class IntegratorConfig(NamedTuple):
     """Static configuration — the reference's IntegratorConfig subset the
-    slice runs, plus the switches of paths it does not run yet (each must
-    stay at its default; see ``check_supported``)."""
+    port runs."""
 
     max_path_depth: int = 9
     light_bin_size: int = 16
@@ -309,7 +315,7 @@ class IntegratorConfig(NamedTuple):
     compact: bool = False  # coherence sort before each dispatch past bounce 0
     compact_lanes: bool = False  # carry compaction of the bounce loop
     wavefront: bool = False
-    debug_mode: int = 0
+    debug_mode: int = 0  # DEBUG_MODE_* heatmap (0: off; see DEBUG_MODES)
     kernel_v3: bool = False  # K2/K3 flat cull instead of the K1 walk
     traversal_v1: bool = False  # the v1 walk K8a/K8b (RPTR_TRAVERSAL_V1)
     kernel_v4: bool = False  # sorted queues on K3 instead of K2
@@ -320,11 +326,11 @@ class IntegratorConfig(NamedTuple):
     aniso_taps: int = 0  # anisotropic texture taps (0: isotropic mip)
 
 
-_UNPORTED = (
-    ("use_light_bins", "binned RIS light sampling", 14),
-    ("enable_dof", "thin-lens depth of field", 14),
-    ("debug_mode", "debug variants", 14),
-)
+# DEBUG_MODE_* values (backend/params.py; render_params.glsl.h:63-70)
+_DBG_ANY_FULL = 1  # any-hit evaluations over the full path
+_DBG_ANY_PRIMARY = 2  # any-hit evaluations of primary visibility
+_DBG_BOUNCE = 3  # bounces
+DEBUG_MODES = (0, _DBG_ANY_FULL, _DBG_ANY_PRIMARY, _DBG_BOUNCE)
 STREAM_CLOSEST = ("sorted", "ordered", "binned", "multislot")
 
 
@@ -337,12 +343,11 @@ def check_stream_closest(strategy: str) -> None:
 
 
 def check_supported(cfg: IntegratorConfig) -> None:
-    """Raise for configurations the port does not run yet."""
-    for field, what, item in _UNPORTED:
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"{what} ({field}) is not ported yet (ROADMAP item {item})"
-            )
+    """Raise ``ValueError`` for a debug mode that is not one of
+    ``DEBUG_MODES``."""
+    if cfg.debug_mode not in DEBUG_MODES:
+        raise ValueError(
+            f"debug_mode={cfg.debug_mode!r}: expected one of {DEBUG_MODES}")
 
 
 class FrameParams(NamedTuple):
@@ -354,6 +359,8 @@ class FrameParams(NamedTuple):
     shot_offset: int = 0  # frame_offset randomization (u32)
     pixel_radius: float = 1.0  # mip footprint scale (camera_footprint0)
     bump_scale: float = 1.0  # normal-map strength (SceneConfig.bump_scale)
+    aperture_radius: float = 0.0  # thin-lens DoF (render_params.glsl.h)
+    focus_distance: float = 1.0
 
 
 def _ocean(y):
@@ -615,9 +622,11 @@ def _any_cut(mask) -> bool:
 
 
 def _hit_alpha_cut(ds: DeviceScene, tri, u, v, inst=None):
-    """True where the hit texel is alpha-cut: the any-hit alpha test of
-    ``generate_candidate_hit`` (integrator.py:456-482). Samples mip 0 of
-    the base-colour texture; ``inst`` (two-level hits) applies the
+    """(cut, evaluated): True where the hit texel is alpha-cut, the any-hit
+    alpha test of ``generate_candidate_hit`` (integrator.py:456-482), and
+    where an any-hit evaluation happened (a hit on an alpha-testable
+    material: the DEBUG_MODE_ANY_HIT_* event, any_hit.glsl:43-59). Samples
+    mip 0 of the base-colour texture; ``inst`` (two-level hits) applies the
     per-instance material offset."""
     c = _fetch_cols_ranges(ds.attr_packed, torch.clamp(tri, min=0).to(torch.int64),
                            [(_A_UV0, _A_TAN), (_A_MID, _A_MID + 1)])
@@ -633,8 +642,8 @@ def _hit_alpha_cut(ds: DeviceScene, tri, u, v, inst=None):
     bc_tid = mc[_M_BCTEX].to(torch.int32)
     flags = mc[_M_FLAGS].to(torch.int32)
     a = sample_atlas(ds.atlas, bc_tid, uv, torch.zeros_like(u))[:, 3]
-    can_cut = (bc_tid >= 0) & ((flags & BASE_MATERIAL_NOALPHA) == 0)
-    return (tri >= 0) & can_cut & (a < ALPHA_CUTOFF)
+    evaluated = (tri >= 0) & (bc_tid >= 0) & ((flags & BASE_MATERIAL_NOALPHA) == 0)
+    return evaluated & (a < ALPHA_CUTOFF), evaluated
 
 
 def _alpha_eps(t):
@@ -644,22 +653,24 @@ def _alpha_eps(t):
 
 def closest_hit_alpha(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
                       rd: Vec3, t_min, t_max, compact: bool = False,
-                      presorted: bool = False):
+                      presorted: bool = False, count_evals: bool = False):
     """Closest hit honouring alpha-cutout textures (integrator.py:581-639):
     re-traces past cut texels up to MAX_ALPHA_HOPS, each hop one dispatch
     of the route over every lane (settled lanes trace an empty segment).
     The loop ends early once no lane is cut, as the reference's
     ``while_loop`` does: one host read per hop. A lane still cut after the
     last hop counts as opaque (:632). Plain ``_closest_hit_dispatch``
-    unless ``cfg.alpha_test``."""
+    unless ``cfg.alpha_test``. With ``count_evals`` returns (hit, the
+    per-lane any-hit evaluation count, int32)."""
     global alpha_hops
     hit = _closest_hit_dispatch(ds, cfg, ro, rd, t_min, t_max, compact=compact,
                                 presorted=presorted)
     if not (cfg.alpha_test and cfg.has_textures):
-        return hit
+        return (hit, torch.zeros_like(hit.tri)) if count_evals else hit
     inst = hit.inst if cfg.two_level else None
     t, tri, u, v = hit.t, hit.tri, hit.u, hit.v
-    cut = _hit_alpha_cut(ds, tri, u, v, inst)
+    cut, evaluated = _hit_alpha_cut(ds, tri, u, v, inst)
+    evals = evaluated.to(torch.int32)
     for _ in range(MAX_ALPHA_HOPS):
         if not _any_cut(cut):
             break
@@ -675,29 +686,38 @@ def closest_hit_alpha(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
         v = torch.where(cut, h.v, v)
         if cfg.two_level:
             inst = torch.where(cut, h.inst, inst)
-        cut = cut & _hit_alpha_cut(ds, tri, u, v, inst)
+        new_cut, evaluated = _hit_alpha_cut(ds, tri, u, v, inst)
+        evals = evals + (cut & evaluated).to(torch.int32)
+        cut = cut & new_cut
     if cfg.two_level:
-        return TwoLevelHit(t=t, tri=tri, u=u, v=v, inst=inst)
-    return Hit(t=t, tri=tri, u=u, v=v)
+        hit = TwoLevelHit(t=t, tri=tri, u=u, v=v, inst=inst)
+    else:
+        hit = Hit(t=t, tri=tri, u=u, v=v)
+    return (hit, evals) if count_evals else hit
 
 
 def occluded_alpha(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3, rd: Vec3,
                    t_min, t_max, compact: bool = False,
-                   sort_shadow: bool = False):
+                   sort_shadow: bool = False, count_evals: bool = False):
     """Shadow-ray visibility honouring alpha cutouts (integrator.py:
     642-780): walks candidate closest hits until a solid blocker or the
     segment's end, one dispatch per hop, ending early as
     ``closest_hit_alpha`` does. A lane still inside cut geometry after the
     last hop counts as blocked (:776-777). Plain ``_occluded_dispatch``
-    unless ``cfg.alpha_test``."""
+    unless ``cfg.alpha_test``. With ``count_evals`` returns (blocked, the
+    per-lane any-hit evaluation count)."""
     global alpha_hops
     if not (cfg.alpha_test and cfg.has_textures):
-        return _occluded_dispatch(ds, cfg, ro, rd, t_min, t_max,
-                                  compact=compact, sort_shadow=sort_shadow)
+        blocked = _occluded_dispatch(ds, cfg, ro, rd, t_min, t_max,
+                                     compact=compact, sort_shadow=sort_shadow)
+        return (blocked, torch.zeros(blocked.shape, dtype=torch.int32,
+                                     device=blocked.device)
+                ) if count_evals else blocked
     hit = _closest_hit_dispatch(ds, cfg, ro, rd, t_min, t_max)
     in_seg = (hit.tri >= 0) & (hit.t < t_max)
-    cut = _hit_alpha_cut(ds, hit.tri, hit.u, hit.v,
-                         hit.inst if cfg.two_level else None)
+    cut, evaluated = _hit_alpha_cut(ds, hit.tri, hit.u, hit.v,
+                                    hit.inst if cfg.two_level else None)
+    evals = (in_seg & evaluated).to(torch.int32)
     blocked = in_seg & ~cut
     live = in_seg & cut
     t = hit.t
@@ -710,35 +730,44 @@ def occluded_alpha(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3, rd: Vec3,
             ds, cfg, ro, rd, torch.where(live, t + eps, t_min),
             torch.where(live, t_max, 0.0), compact=True)
         in_seg = (h.tri >= 0) & (h.t < t_max) & live
-        cut = _hit_alpha_cut(ds, h.tri, h.u, h.v,
-                             h.inst if cfg.two_level else None)
+        cut, evaluated = _hit_alpha_cut(ds, h.tri, h.u, h.v,
+                                        h.inst if cfg.two_level else None)
+        evals = evals + (live & evaluated).to(torch.int32)
         blocked = blocked | (in_seg & ~cut)
         live = in_seg & cut
         t = torch.where(live, h.t, t)
-    return blocked | live
+    blocked = blocked | live
+    return (blocked, evals) if count_evals else blocked
 
 
 def _sample_direct_light(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
                          hit_n: Vec3, hit_gn: Vec3, mat: GLTFMaterial,
                          w_o: Vec3, dir_sample, sel_sample, total_t,
                          active, compact: bool = False,
-                         sort_shadow: bool = False) -> Vec3:
+                         sort_shadow: bool = False,
+                         count_evals: bool = False):
     """sample_direct_light (mc/nee.glsl:32-90) + immediate visibility ray.
 
     Lanes outside ``active`` get an empty shadow segment: their result is
-    discarded by the caller, so they need not walk the BVH."""
+    discarded by the caller, so they need not walk the BVH. With
+    ``count_evals`` every lane traces its segment, as the reference's does,
+    and (contribution, any-hit evaluation count) is returned: the count of
+    a lane outside ``active`` is part of the debug image there."""
     cand = _nee_candidate(
         ds, cfg, hit_p, hit_n, hit_gn, mat, w_o, dir_sample, sel_sample,
         total_t,
     )
     _count_nee_dropped(cand.dropped & active)
-    blocked = occluded_alpha(
-        ds, cfg, hit_p, cand.dir, cand.eps,
-        torch.where(active, cand.shadow_tmax, cand.eps),
-        compact=compact, sort_shadow=sort_shadow,
-    )
+    tmax = cand.shadow_tmax if count_evals else torch.where(
+        active, cand.shadow_tmax, cand.eps)
+    blocked = occluded_alpha(ds, cfg, hit_p, cand.dir, cand.eps, tmax,
+                             compact=compact, sort_shadow=sort_shadow,
+                             count_evals=count_evals)
+    if count_evals:
+        blocked, evals = blocked
     visible = (cand.traced & ~blocked) | cand.uncond
-    return v3.where(visible, cand.contrib, v3.splat(torch.zeros_like(cand.eps)))
+    contrib = v3.where(visible, cand.contrib, v3.splat(torch.zeros_like(cand.eps)))
+    return (contrib, evals) if count_evals else contrib
 
 
 class Footprint(NamedTuple):
@@ -770,8 +799,9 @@ def empty_pend(like) -> PendingNEE:
 
 class Carry(NamedTuple):
     """Per-lane path state between bounces. ``pend`` is the wavefront
-    variant's deferred shadow queue and ``foot`` the texture footprint;
-    each is None when the configuration does not carry it."""
+    variant's deferred shadow queue, ``foot`` the texture footprint and
+    ``dbg`` the debug modes' any-hit evaluation count (int32); each is None
+    when the configuration does not carry it."""
 
     ro: Vec3
     rd: Vec3
@@ -786,6 +816,7 @@ class Carry(NamedTuple):
     rays: torch.Tensor  # per-lane traced-ray count (closest + shadow)
     pend: Optional[PendingNEE] = None  # cfg.wavefront
     foot: Optional[Footprint] = None  # cfg.has_textures
+    dbg: Optional[torch.Tensor] = None  # cfg.debug_mode: any-hit evaluations
 
 
 def _map_lanes(fn, tree, *others):
@@ -856,13 +887,24 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
     monolithic ``trace_paths`` and the wavefront executor). ``t_max0``
     (per lane) bounds the primary segment (integrator.py:1047-1052)."""
     num_bins = max(cfg.num_lights // max(cfg.light_bin_size, 1), 1)
+    count_any = cfg.debug_mode in (_DBG_ANY_FULL, _DBG_ANY_PRIMARY)
+
+    def count(dbg, evals, bounce_count):
+        """The debug count after this bounce's closest-hit evaluations:
+        every one in the full-path mode, the primary rays' in the other
+        (integrator.py:1100-1130)."""
+        if cfg.debug_mode == _DBG_ANY_FULL:
+            return dbg + evals
+        return dbg + torch.where(bounce_count == 0, evals, 0)
 
     def traverse(carry: Carry, compact: bool, presorted: bool):
         """This bounce's closest hits; in the wavefront variant also the
         previous bounce's deferred shadow rays, whose unblocked
         contributions go into ``illum`` before this bounce's sky and
-        emitter terms (integrator.py:1053-1115). Returns (hit, illum)."""
+        emitter terms (integrator.py:1053-1115). Returns (hit, illum, the
+        debug count)."""
         ro, rd, active = carry.ro, carry.rd, carry.active
+        dbg = carry.dbg
         tmax_eff = torch.where(active, T_MAX, 0.0)
         if t_max0 is not None:
             # the bounded primary segment of a ray query
@@ -871,8 +913,13 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
                                    torch.where(active, t_max0, 0.0), tmax_eff)
         alpha = cfg.alpha_test and cfg.has_textures
         if not cfg.wavefront:
-            return closest_hit_alpha(ds, cfg, ro, rd, carry.t_min, tmax_eff,
-                                     compact=compact, presorted=presorted), carry.illum
+            hit = closest_hit_alpha(ds, cfg, ro, rd, carry.t_min, tmax_eff,
+                                    compact=compact, presorted=presorted,
+                                    count_evals=count_any)
+            if count_any:
+                hit, evals = hit
+                dbg = count(dbg, evals, carry.bounce_count)
+            return hit, carry.illum, dbg
         pend = carry.pend
         ntmax_eff = torch.where(pend.traced, pend.tmax, 0.0)
         if cfg.streamed and not alpha:
@@ -896,13 +943,18 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
             # flat cull, two-level and alpha-tested routes: the same
             # deferred structure in two dispatches
             hit = closest_hit_alpha(ds, cfg, ro, rd, carry.t_min, tmax_eff,
-                                    compact=compact, presorted=presorted)
+                                    compact=compact, presorted=presorted,
+                                    count_evals=count_any)
             blocked = occluded_alpha(ds, cfg, ro, pend.dir, pend.tmin,
                                      ntmax_eff, compact=compact,
-                                     sort_shadow=compact)
+                                     sort_shadow=compact, count_evals=count_any)
+            if count_any:
+                (hit, ev_c), (blocked, ev_s) = hit, blocked
+                dbg = (dbg + ev_c + ev_s if cfg.debug_mode == _DBG_ANY_FULL
+                       else count(dbg, ev_c, carry.bounce_count))
         illum = v3.where(pend.traced & ~blocked, carry.illum + pend.contrib,
                          carry.illum)
-        return hit, illum
+        return hit, illum, dbg
 
     def visit_hit(carry: Carry, compact: bool = False,
                   presorted: bool = False):
@@ -910,7 +962,7 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         (carry with the miss handled, hit shading context)."""
         ro, rd, active = carry.ro, carry.rd, carry.active
         rays = carry.rays + active.to(carry.rays.dtype)
-        hit, illum = traverse(carry, compact, presorted)
+        hit, illum, dbg = traverse(carry, compact, presorted)
         pend = empty_pend(carry.t_min) if cfg.wavefront else None
         was_miss = hit.tri < 0
 
@@ -1000,7 +1052,7 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         )
         carry = carry._replace(
             illum=illum, active=active, bounce_count=bounce_count,
-            total_t=total_t, rays=rays, pend=pend,
+            total_t=total_t, rays=rays, pend=pend, dbg=dbg,
         )
         return carry, (p, n_sh, gn, mat, w_o)
 
@@ -1108,7 +1160,7 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         (integrator.py:1380-1400)."""
         p, n_sh, gn, mat, w_o = ctx
         active, throughput = carry.active, carry.throughput
-        total_t = carry.total_t
+        total_t, dbg = carry.total_t, carry.dbg
 
         # ---- RNG draws in reference order (shade_base_material.glsl:60-84)
         # at path-space dims (pathspace.h; integrator.py:1366-1376): the
@@ -1142,10 +1194,17 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
             pend = PendingNEE(cand.dir, cand.eps, cand.shadow_tmax, scaled,
                               cand.traced & active)
         else:
+            # the NEE shadow ray's any-hit evaluations count in the
+            # full-path mode (integrator.py:1400-1410)
+            count_shadow = cfg.debug_mode == _DBG_ANY_FULL
             nee_contrib = _sample_direct_light(
                 ds, cfg, p, n_sh, gn, mat, w_o, pos_sample, sel_sample,
                 total_t, active, compact=compact, sort_shadow=sort_shadow,
+                count_evals=count_shadow,
             )
+            if count_shadow:
+                nee_contrib, evals = nee_contrib
+                dbg = dbg + evals
             illum = v3.where(active, carry.illum + throughput * nee_contrib,
                              carry.illum)
 
@@ -1206,7 +1265,7 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         return carry._replace(
             ro=ro, rd=rd, t_min=t_min, illum=illum, throughput=throughput,
             active=active, prev_pdf=prev_pdf, rng_state=rng_state, rays=rays,
-            pend=pend, foot=foot,
+            pend=pend, foot=foot, dbg=dbg,
         )
 
     return visit_hit, scatter_tail
@@ -1214,10 +1273,11 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
 
 def initial_carry(ro: Vec3, rd: Vec3, rng_state, lane_mask=None,
                   foot: Optional[Footprint] = None,
-                  wavefront: bool = False) -> Carry:
+                  wavefront: bool = False, debug: bool = False) -> Carry:
     """The path state before bounce 0; lanes outside ``lane_mask`` start
     dead. ``foot`` (textured scenes) is the camera footprint, broadcast to
-    the lanes; ``wavefront`` adds the empty deferred shadow queue."""
+    the lanes; ``wavefront`` adds the empty deferred shadow queue and
+    ``debug`` the zero debug count."""
     n = ro.x.shape[0]
     dev = ro.x.device
     zero = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -1237,13 +1297,18 @@ def initial_carry(ro: Vec3, rd: Vec3, rng_state, lane_mask=None,
         rays=torch.zeros(n, dtype=torch.int32, device=dev),
         pend=empty_pend(zero) if wavefront else None,
         foot=foot,
+        dbg=torch.zeros(n, dtype=torch.int32, device=dev) if debug else None,
     )
 
 
 def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
                 ro: Vec3, rd: Vec3, rng_state, lane_mask=None,
                 footprint0=None, t_max0=None):
-    """Trace a batch of paths; returns (rgb Vec3, alpha (N,), rays (N,)).
+    """Trace a batch of paths; returns (rgb Vec3, alpha (N,), rays (N,)),
+    and with ``cfg.debug_mode`` a 4th output, the DEBUG_MODE_* count (N,)
+    int32 (hit.rchit:459-463): any-hit evaluations, or bounces in mode 3;
+    the wavefront variant's last flush of its deferred queue is not
+    counted, as in the reference (integrator.py:1722-1726).
 
     The bounce loop is unrolled in Python (the reference's
     ``cfg.unroll``). The last bounce only traverses and adds emitter/sky
@@ -1268,7 +1333,8 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
             z = torch.zeros((), dtype=torch.float32, device=ro.x.device)
             foot = (z, z, z)
     carry = initial_carry(ro, rd, rng_state, lane_mask, foot=foot,
-                          wavefront=cfg.wavefront)
+                          wavefront=cfg.wavefront,
+                          debug=bool(cfg.debug_mode))
     visit_hit, scatter_tail = _make_bounce_fns(ds, cfg, fp, t_max0)
     n = ro.x.shape[0]
     # carry compaction (integrator.py:1606-1610): not for a bounded primary
@@ -1304,7 +1370,7 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         blocked = occluded_alpha(ds, cfg, carry.ro, pend.dir, pend.tmin,
                                  torch.where(pend.traced, pend.tmax, 0.0))
         illum = v3.where(pend.traced & ~blocked, illum + pend.contrib, illum)
-    bounce_count, rays = carry.bounce_count, carry.rays
+    bounce_count, rays, dbg = carry.bounce_count, carry.rays, carry.dbg
     if lane_id is not None:
         # the carry is in its cumulative sorted order; lane_id maps a sorted
         # slot to its lane, so its inverse gathers lane order back
@@ -1313,6 +1379,9 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         illum = _permute_lanes(illum, inv)
         bounce_count, rays = bounce_count[inv], rays[inv]
     alpha = torch.where(bounce_count == 0, 0.0, 1.0)
+    if cfg.debug_mode:
+        return illum, alpha, rays, (bounce_count if cfg.debug_mode == _DBG_BOUNCE
+                                    else dbg)
     return illum, alpha, rays
 
 
@@ -1460,21 +1529,41 @@ def camera_footprint0(cfg: IntegratorConfig, fp: FrameParams,
 def DIM_CAMERA_END(cfg: IntegratorConfig) -> int:
     """Path-space camera dimension count (pathspace.h; integrator.py:1833):
     the simplified camera uses dims 0-1; thin-lens DoF the full camera with
-    its aperture at dims 4-5, so its bounces start at dim 6."""
+    its aperture at dims 4-5 (``camera_setup``), so its bounces start at dim
+    6."""
     return 6 if cfg.enable_dof else 2
 
 
 def camera_setup(cfg: IntegratorConfig, view: ViewBuffers, px, py, dims,
-                 state, bufs: Optional[pointsets.RngBuffers] = None):
+                 state, bufs: Optional[pointsets.RngBuffers] = None,
+                 fp: Optional[FrameParams] = None):
     """Pixel jitter draw at dims 0-1 + primary ray (perspective.rgen:
-    95-109; integrator.py:1844-1846). ``bufs`` are the RNG variant's tables
-    (``DeviceScene.rng``). Thin-lens DoF is ROADMAP item 14. Returns
-    (state, ro, rd)."""
-    if cfg.enable_dof:
-        raise NotImplementedError("thin-lens DoF is not ported yet (ROADMAP item 14)")
+    95-109; integrator.py:1840-1867). ``bufs`` are the RNG variant's tables
+    (``DeviceScene.rng``). With ``cfg.enable_dof`` the thin lens: an
+    aperture draw at dims 4-5, the origin moved by a disk sample of radius
+    ``fp.aperture_radius`` in the normalised (du, dv) screen basis, and the
+    ray re-aimed at its point at ``fp.focus_distance``. Returns (state, ro,
+    rd)."""
     state, (j0, j1) = pointsets.draw2t(cfg.rng_variant, bufs, state, 0)
     ro, rd = camera_rays_v(view, px, py, dims, j0, j1)
-    return state, ro, rd
+    if not cfg.enable_dof:
+        return state, ro, rd
+    fp = fp if fp is not None else FrameParams()
+    state, (r0, r1) = pointsets.draw2t(cfg.rng_variant, bufs, state, 4)
+    focus = ro + rd * fp.focus_distance
+    phi = (2.0 * math.pi) * r0
+    r = torch.sqrt(r1) * fp.aperture_radius
+    lx, ly = torch.cos(phi) * r, torch.sin(phi) * r
+
+    def unit(a):
+        return a / torch.clamp(torch.sqrt(a[0] * a[0] + a[1] * a[1] + a[2] * a[2]),
+                               min=1e-20)
+
+    du, dv = unit(view.cam_du), unit(view.cam_dv)
+    ro = Vec3(ro.x + lx * du[0] + ly * dv[0],
+              ro.y + lx * du[1] + ly * dv[1],
+              ro.z + lx * du[2] + ly * dv[2])
+    return state, ro, v3.normalize(focus - ro)
 
 
 # ---------------------------------------------------------------------------
@@ -1546,7 +1635,7 @@ def make_pass_fn(ds: DeviceScene, cfg: IntegratorConfig, width: int,
             cfg.rng_variant, sample_index, fp.shot_offset, px, py, width,
             bufs=ds.rng)
         state, ro, rd = camera_setup(cfg, view, px, py, dims, state,
-                                     bufs=ds.rng)
+                                     bufs=ds.rng, fp=fp)
         rgb, alpha, nrays = trace_paths(
             ds, cfg, fp, ro, rd, state, lane_mask=valid,
             footprint0=camera_footprint0(cfg, fp, view, dims, rd))
@@ -1568,3 +1657,53 @@ def blend_sample(acc, samples, valid, blend_k: int) -> None:
             a.copy_(torch.where(valid, smp, 0.0))
         else:
             a.add_((torch.where(valid, smp, a) - a).mul_(w))
+
+
+def _count_image(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
+                 view: ViewBuffers, width: int, height: int, which: int,
+                 rays_per_pass: int):
+    """One sample of every pixel through the monolithic ``trace_paths``,
+    chunk by chunk in the swizzle order; output ``which`` of each lane
+    (dead lanes 0) as an (H, W) int32 image."""
+    check_supported(cfg)
+    dims = (float(width), float(height))
+    px, py, valid, _lin, inv, nc, chunk = swizzle_host(width, height,
+                                                       rays_per_pass)
+    dev = view.cam_pos.device
+
+    def cut(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev).view(nc, chunk)
+
+    px, py, valid = cut(px), cut(py), cut(valid)
+    counts = []
+    for c in range(nc):
+        state = pointsets.make_state(cfg.rng_variant, fp.sample_offset,
+                                     fp.shot_offset, px[c], py[c], width,
+                                     bufs=ds.rng)
+        state, ro, rd = camera_setup(cfg, view, px[c], py[c], dims, state,
+                                     bufs=ds.rng, fp=fp)
+        out = trace_paths(ds, cfg, fp, ro, rd, state, lane_mask=valid[c],
+                          footprint0=camera_footprint0(cfg, fp, view, dims, rd))
+        counts.append(torch.where(valid[c], out[which], 0).to(torch.int32))
+    inv = torch.from_numpy(inv.astype(np.int64)).to(dev)
+    return torch.cat(counts)[inv].reshape(height, width)
+
+
+def render_ray_stats_host(ds: DeviceScene, cfg: IntegratorConfig,
+                          fp: FrameParams, view: ViewBuffers, width: int,
+                          height: int, rays_per_pass: int = RAYS_PER_PASS):
+    """One-sample traced-ray-count image (H, W) int32, closest and shadow
+    rays per pixel: the REPORT_RAY_STATS image (integrator.py:2154-2193,
+    ``make_ray_stats_fn`` and ``render_ray_stats_host`` there)."""
+    return _count_image(ds, cfg, fp, view, width, height, 2, rays_per_pass)
+
+
+def render_debug_host(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
+                      view: ViewBuffers, width: int, height: int,
+                      rays_per_pass: int = RAYS_PER_PASS):
+    """One-sample DEBUG_MODE_* count image (H, W) int32 of
+    ``cfg.debug_mode`` (integrator.py:2196-2238, ``make_debug_fn`` and
+    ``render_debug_host`` there)."""
+    if not cfg.debug_mode:
+        raise ValueError("render_debug_host needs a cfg.debug_mode")
+    return _count_image(ds, cfg, fp, view, width, height, 3, rays_per_pass)

@@ -1,11 +1,13 @@
 """Next-event estimation: light sampling + MIS (SoA).
 
 Port of the reference's ``ops/nee.py`` (nee.py:41-342): solid-angle
-triangle sampling (rendering/lights/tri.glsl:66-155), uniform tri-light
-selection, sun spherical-cap sampling (rendering/lights/sun.glsl) and the
-balance heuristic (nee_interface.glsl:11-15). The reference's
-``smallgather.select_rows`` (a TPU gather workaround) is plain indexing
-here. Binned RIS light selection is ROADMAP item 14 and raises.
+triangle sampling (rendering/lights/tri.glsl:66-155), uniform and binned
+RIS tri-light selection (lights_linear.glsl:20-137), sun spherical-cap
+sampling (rendering/lights/sun.glsl) and the balance heuristic
+(nee_interface.glsl:11-15). The reference's ``smallgather.select_rows``
+(a TPU gather workaround) is plain indexing here, and so is its one-bin
+broadcast of the light table (nee.py:183-195), another TPU gather
+workaround that computes the same values.
 """
 
 from __future__ import annotations
@@ -93,6 +95,15 @@ def triangle_solid_angle_v(v0: Vec3, v1: Vec3, v2: Vec3):
     return 2.0 * _positive_atan(tangent), params
 
 
+def approx_triangle_solid_angle_v(v0: Vec3, v1: Vec3, v2: Vec3):
+    tangent, _ = half_triangle_solid_angle_tan_v(v0, v1, v2)
+    return 2.0 * _positive_atan(tangent)
+
+
+def is_tri_facing_forward_v(v0: Vec3, v1: Vec3, v2: Vec3):
+    return v3.dot(v3.cross(v0, v1), v2) < 0.0
+
+
 def sample_solid_angle_polygon_v(
     v0: Vec3, v1: Vec3, v2: Vec3, solid_angle, params, u0, u1
 ) -> Vec3:
@@ -116,8 +127,10 @@ def sample_solid_angle_polygon_v(
 
 
 # ---------------------------------------------------------------------------
-# Tri-light sampling (lights_linear.glsl:20-127, uniform selection)
+# Tri-light sampling (lights_linear.glsl:20-127)
 # ---------------------------------------------------------------------------
+
+MIN_IRRADIANCE = 6.2e-4 * 0.001  # lights_linear.glsl:40
 
 
 class LightSample(NamedTuple):
@@ -142,17 +155,49 @@ def sample_tri_lights_v(
     use_bins: bool = False,
 ) -> LightSample:
     """Batched tri-light sample. ``dir_sample``/``sel_sample`` are (u0, u1)
-    tuples. Uniform light selection; ``hit_n`` is used only by the binned
-    selector."""
-    if use_bins:
-        raise NotImplementedError(
-            "binned RIS light selection is not ported yet (ROADMAP item 14)"
-        )
+    tuples. ``use_bins``: binned RIS selection (nee.py:161-256), a uniform
+    bin pick, then the bin's ``bin_size`` lights scored by luminance x
+    approximate solid angle where the light faces the hit point and lies
+    above its normal ``hit_n``, and one picked by the scores' CDF; the
+    light table length is then a multiple of ``bin_size`` (padded with
+    zero-radiance lights, ``lights.equalize_emitter_bins``). Otherwise a
+    uniform pick over every light."""
     num_lights = lights.v0.x.shape[0]
-    sx = sel_sample[0] * num_lights
-    light_id = torch.clamp(sx.to(torch.int32), max=num_lights - 1).to(torch.int64)
-    sel_p = torch.full(light_id.shape, 1.0 / num_lights, device=sx.device)
-    mis_den = float(num_lights)
+    if use_bins:
+        num_bins = num_lights // bin_size
+        sx = sel_sample[0] * num_bins
+        bin_id = torch.clamp(sx.to(torch.int32), max=num_bins - 1).to(torch.int64)
+        lid = bin_id[..., None] * bin_size + torch.arange(
+            bin_size, device=sx.device)  # (N, B)
+
+        def gat(col):
+            return Vec3(col.x[lid] - hit_p.x[..., None],
+                        col.y[lid] - hit_p.y[..., None],
+                        col.z[lid] - hit_p.z[..., None])
+
+        lv0, lv1, lv2 = gat(lights.v0), gat(lights.v1), gat(lights.v2)
+        contrib = v3.luminance(lights.radiance)[lid]
+        front = is_tri_facing_forward_v(lv0, lv1, lv2)
+        n_b = Vec3(hit_n.x[..., None], hit_n.y[..., None], hit_n.z[..., None])
+        above = ((v3.dot(lv0, n_b) > 0.0) | (v3.dot(lv1, n_b) > 0.0)
+                 | (v3.dot(lv2, n_b) > 0.0))
+        sa = approx_triangle_solid_angle_v(
+            v3.normalize(lv0), v3.normalize(lv1), v3.normalize(lv2))
+        contrib = torch.where(above & front, contrib * sa, 0.0) + MIN_IRRADIANCE
+        p = contrib / contrib.sum(dim=-1, keepdim=True)
+        cdf = torch.cumsum(p, dim=-1)
+        k = (sel_sample[1][..., None] >= cdf).sum(dim=-1)
+        k = torch.clamp(k, max=bin_size - 1)
+        pk = p.gather(-1, k[..., None])[..., 0]
+        light_id = bin_id * bin_size + k
+        sel_p = (1.0 / num_bins) * pk
+        mis_den = float(num_bins)
+    else:
+        sx = sel_sample[0] * num_lights
+        light_id = torch.clamp(sx.to(torch.int32),
+                               max=num_lights - 1).to(torch.int64)
+        sel_p = torch.full(light_id.shape, 1.0 / num_lights, device=sx.device)
+        mis_den = float(num_lights)
 
     lv0 = _fetch(lights.v0, light_id)
     lv1 = _fetch(lights.v1, light_id)

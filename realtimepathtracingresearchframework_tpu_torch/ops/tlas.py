@@ -281,7 +281,7 @@ def sweep(top_boxes, skip, payload, rays, any_hit: bool, enter):
     row, u, v, inst) with T_MAX and -1 on a miss, or the blocked flags."""
     n, dev = rays.shape[1], rays.device
     ro3 = rays[0:3].T
-    inv3 = safe_inv_dir(rays[3:6].T)
+    inv3, zero3 = safe_inv_dir(rays[3:6].T), rays[3:6].T == 0.0
     tmin, tmax = rays[6], rays[7]
     t_best = tmax.clone()
     best_row = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -298,7 +298,7 @@ def sweep(top_boxes, skip, payload, rays, any_hit: bool, enter):
             continue
         box = top_boxes[j]
         hit_box, _ = ray_aabb(ro3[ids], inv3[ids], box[0:3], box[3:6],
-                              tmin[ids], t_best[ids])
+                              tmin[ids], t_best[ids], zero3[ids])
         if payload[j] < 0:
             cur[ids] = torch.where(hit_box, j + 1, int(skip[j]))
             continue
@@ -336,7 +336,7 @@ def top_entries(top_boxes, leaf_nodes, rays, block: int = 64):
     leaf the walk could enter at cap c has every ancestor open at c too."""
     n = rays.shape[1]
     ro3 = rays[0:3].T[None]
-    inv3 = safe_inv_dir(rays[3:6].T)[None]
+    inv3, zero3 = safe_inv_dir(rays[3:6].T)[None], (rays[3:6].T == 0.0)[None]
     tmin, tmax = rays[6], rays[7]
     live = tmax > tmin
     out = torch.empty((len(leaf_nodes), n), dtype=torch.float32,
@@ -344,7 +344,7 @@ def top_entries(top_boxes, leaf_nodes, rays, block: int = 64):
     for a in range(0, len(leaf_nodes), block):
         box = top_boxes[leaf_nodes[a:a + block]]
         hit, entry = ray_aabb(ro3, inv3, box[:, None, 0:3], box[:, None, 3:6],
-                              tmin, tmax)
+                              tmin, tmax, zero3)
         out[a:a + block] = torch.where(hit & live, entry, float("inf"))
     return out
 

@@ -116,7 +116,8 @@ def walk_ranges(bounds, links, tri_rows, ls: int, ro: Vec3, rd: Vec3, t_min,
     tmin = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(n)
     tmax = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n)
     ro3 = torch.stack([ro.x, ro.y, ro.z], dim=-1)
-    inv3 = safe_inv_dir(torch.stack([rd.x, rd.y, rd.z], dim=-1))
+    rd3 = torch.stack([rd.x, rd.y, rd.z], dim=-1)
+    inv3, zero3 = safe_inv_dir(rd3), rd3 == 0.0
     sub_iota = torch.arange(ls, device=dev)
 
     def per_ray(x, ids):
@@ -136,7 +137,8 @@ def walk_ranges(bounds, links, tri_rows, ls: int, ro: Vec3, rd: Vec3, t_min,
         node = c + per_ray(node0, ids)
         box = bounds[node]
         hit_box, _ = ray_aabb(
-            ro3[ids], inv3[ids], box[:, 0:3], box[:, 3:6], tmin[ids], t_best[ids]
+            ro3[ids], inv3[ids], box[:, 0:3], box[:, 3:6], tmin[ids], t_best[ids],
+            zero3[ids],
         )
         link = links[node].to(torch.int64)
         skip, leaf = link[:, 0], link[:, 1]

@@ -50,6 +50,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops import traverse_stream a
 from realtimepathtracingresearchframework_tpu_torch.ops.intersect import (
     T_MAX,
     safe_inv_dir,
+    slab_interval,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import Hit
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
@@ -106,13 +107,13 @@ def _entry_table(sb: torch.Tensor, rays: torch.Tensor) -> torch.Tensor:
     box; 2e32 where it misses, and for dead lanes (tmax <= tmin)."""
     ro = rays[0:3][:, None, :]  # (3, 1, N)
     inv = safe_inv_dir(rays[3:6])[:, None, :]
+    zero = (rays[3:6] == 0.0)[:, None, :]
     tmin, tmax = rays[6], rays[7]
     bmin = sb[:, 0:3].T[:, :, None]  # (3, S, 1)
     bmax = sb[:, 3:6].T[:, :, None]
-    t0 = (bmin - ro) * inv  # (3, S, N)
-    t1 = (bmax - ro) * inv
-    lo = torch.minimum(t0, t1).amax(dim=0)  # (S, N)
-    hi = torch.maximum(t0, t1).amin(dim=0)
+    tsmall, tbig = slab_interval(bmin, bmax, ro, inv, zero)  # (3, S, N)
+    lo = tsmall.amax(dim=0)  # (S, N)
+    hi = tbig.amin(dim=0)
     entry = torch.maximum(lo, tmin[None])
     ok = (hi >= entry) & (entry <= tmax[None]) & (tmax > tmin)[None]
     return torch.where(ok, entry, _INF)

@@ -48,6 +48,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops import traverse
 from realtimepathtracingresearchframework_tpu_torch.ops.intersect import (
     T_MAX,
     safe_inv_dir,
+    slab_interval,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import Hit
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import (
@@ -157,10 +158,12 @@ def pack_flat(tb, device="cpu") -> FlatBVH:
 
 
 def group_bounds(rays: torch.Tensor, q: int) -> torch.Tensor:
-    """(14, G) packet bounds of each q-lane group over its live lanes
+    """(17, G) packet bounds of each q-lane group over its live lanes
     (traverse_pallas2.block_bounds): rows 0-2 origin min, 3-5 origin max,
     6-8 inverse-direction min, 9-11 inverse-direction max, 12 tmin min,
-    13 tmax max. An all-dead group gets tmax max <= tmin min."""
+    13 tmax max, and rows 14-16 1.0 where a live lane's direction has a
+    component of exactly 0 on that axis, else 0.0. An all-dead group gets
+    tmax max <= tmin min."""
     r = rays.reshape(8, -1, q)
     live = r[7] > r[6]
     inv = safe_inv_dir(r[3:6])
@@ -173,16 +176,24 @@ def group_bounds(rays: torch.Tensor, q: int) -> torch.Tensor:
 
     out = [mn(r[k]) for k in range(3)] + [mx(r[k]) for k in range(3)]
     out += [mn(inv[k]) for k in range(3)] + [mx(inv[k]) for k in range(3)]
-    return torch.stack(out + [mn(r[6]), mx(r[7])])
+    out += [mn(r[6]), mx(r[7])]
+    out += [(live & (r[3 + k] == 0.0)).any(dim=1).to(torch.float32)
+            for k in range(3)]
+    return torch.stack(out)
 
 
-def flat_leaf_bounds(rays: torch.Tensor, aabbs: torch.Tensor, q: int):
+def flat_leaf_bounds(rays: torch.Tensor, aabbs: torch.Tensor, q: int,
+                     exact_zero: bool = True):
     """K2's broad phase: ((G, Lpad) bool, (G, Lpad) f32), True where group
     g's union packet box may meet leaf l (the interval test of
     traverse_pallas3.py:187-226), and the test's lower end ``lb``, the
     entry bound the kernel sorts its survivors by: below the slab entry t
-    (``slab_entry``) of every live lane of the group."""
-    b = group_bounds(rays, q)[:, :, None]  # (14, G, 1)
+    (``slab_entry``) of every live lane of the group. An axis on which a
+    live lane of the group has a zero direction component bounds nothing
+    (that lane's slab is the whole line there, ``slab_interval``);
+    ``exact_zero=False`` is the reference's test, which bounds it by the
+    products with 1e20 (``plain_group`` and ``grazing`` only)."""
+    b = group_bounds(rays, q)[:, :, None]  # (17, G, 1)
     tlo, thi = b[12], b[13]
     lb = tlo.expand(-1, aabbs.shape[1])
     u = thi.expand(-1, aabbs.shape[1])
@@ -200,32 +211,41 @@ def flat_leaf_bounds(rays: torch.Tensor, aabbs: torch.Tensor, q: int):
                              torch.minimum(bhi * ilo, bhi * ihi))
         t1hi = torch.maximum(torch.maximum(blo * ilo, blo * ihi),
                              torch.maximum(bhi * ilo, bhi * ihi))
-        lb = torch.maximum(lb, torch.minimum(t0lo, t1lo))
-        u = torch.minimum(u, torch.maximum(t0hi, t1hi))
-        expand_ok = expand_ok & (torch.maximum(alo, -bhi) <= thi)
+        lo_k = torch.minimum(t0lo, t1lo)
+        hi_k = torch.maximum(t0hi, t1hi)
+        ok_k = torch.maximum(alo, -bhi) <= thi
+        if exact_zero:
+            zero = b[14 + k] > 0.0
+            lo_k = torch.where(zero, -float("inf"), lo_k)
+            hi_k = torch.where(zero, float("inf"), hi_k)
+            ok_k = ok_k | zero
+        lb = torch.maximum(lb, lo_k)
+        u = torch.minimum(u, hi_k)
+        expand_ok = expand_ok & ok_k
     return (lb <= u) & expand_ok & (thi > tlo), lb
 
 
-def flat_leaf_masks(rays: torch.Tensor, aabbs: torch.Tensor, q: int):
+def flat_leaf_masks(rays: torch.Tensor, aabbs: torch.Tensor, q: int,
+                    exact_zero: bool = True):
     """(G, Lpad) bool: the survivors of K2's broad phase
     (``flat_leaf_bounds``)."""
-    return flat_leaf_bounds(rays, aabbs, q)[0]
+    return flat_leaf_bounds(rays, aabbs, q, exact_zero)[0]
 
 
 def slab_entry(rays: torch.Tensor, aabbs: torch.Tensor):
     """(N, Lpad) f32 twice: each lane's slab entry and exit t of its
     segment [tmin, tmax] against every leaf box (traverse_pallas3.py:
-    700-714)."""
+    700-714, with ``slab_interval``'s zero-direction rule)."""
     tmin, tmax = rays[6], rays[7]
     tn = tmin[:, None].expand(-1, aabbs.shape[1])
     tf = tmax[:, None].expand(-1, aabbs.shape[1])
     inv = safe_inv_dir(rays[3:6])
     for k in range(3):
-        o = rays[k][:, None]
-        t0 = (aabbs[k][None] - o) * inv[k][:, None]
-        t1 = (aabbs[3 + k][None] - o) * inv[k][:, None]
-        tn = torch.maximum(tn, torch.minimum(t0, t1))
-        tf = torch.minimum(tf, torch.maximum(t0, t1))
+        tsmall, tbig = slab_interval(
+            aabbs[k][None], aabbs[3 + k][None], rays[k][:, None],
+            inv[k][:, None], (rays[3 + k] == 0.0)[:, None])
+        tn = torch.maximum(tn, tsmall)
+        tf = torch.minimum(tf, tbig)
     return tn, tf
 
 
@@ -358,7 +378,8 @@ def plain_group(bvh: FlatBVH, rays: torch.Tensor, q: int, any_hit: bool):
     survives a q-lane group's broad phase tested for every lane of the
     group (``flat_leaf_masks`` then ``_flush``). The tests and
     ``chip_smoke.py`` hold K2 against it (``grazing``); no route runs it."""
-    return _flush(bvh, rays, flat_leaf_masks(rays, bvh.aabbs, q), q, any_hit)
+    return _flush(bvh, rays, flat_leaf_masks(rays, bvh.aabbs, q, False), q,
+                  any_hit)
 
 
 def grazing(bvh: FlatBVH, rays: torch.Tensor, lanes: torch.Tensor, q: int,
@@ -367,8 +388,9 @@ def grazing(bvh: FlatBVH, rays: torch.Tensor, lanes: torch.Tensor, q: int,
     reference function (``plain_group`` at q, its result ``ref``: (t, row,
     u, v) or blocked flags) differ, is grazing: the reference's hit lies in
     a leaf of the group's survivors whose box the lane's own exact slab
-    test misses (a zero direction component on a box face, a box corner,
-    a 1-ulp gap between the slab t and Möller-Trumbore's t). Closest mode:
+    test misses (a box corner, a 1-ulp gap between the slab t and
+    Möller-Trumbore's t, or a leaf that the reference's broad phase keeps
+    for its group although the lane's test rejects it). Closest mode:
     the leaf of the reference's hit row; any-hit: some surviving leaf that
     the slab test misses blocks the lane's segment."""
     out = []
@@ -377,7 +399,7 @@ def grazing(bvh: FlatBVH, rays: torch.Tensor, lanes: torch.Tensor, q: int,
         own = ray_leaf_hits(r, bvh.aabbs)[0]
         if any_hit:
             survive = flat_leaf_masks(rays[:, j // q * q:(j // q + 1) * q],
-                                      bvh.aabbs, q)[0]
+                                      bvh.aabbs, q, False)[0]
             out.append(bool(ref[j]) and bool(_flush(
                 bvh, r, (survive & ~own)[None], 1, True)[0]))
         else:

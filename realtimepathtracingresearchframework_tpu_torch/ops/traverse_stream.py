@@ -569,7 +569,7 @@ def plain(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool,
     top = bb.top_nodes.cpu().numpy()
     L = bb.sub_leaves
     ro3 = rays[0:3].T
-    inv3 = safe_inv_dir(rays[3:6].T)
+    inv3, zero3 = safe_inv_dir(rays[3:6].T), rays[3:6].T == 0.0
     tmin, tmax = rays[6], rays[7]
     t_best = tmax.clone()
     best_row = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -585,7 +585,7 @@ def plain(bb: StreamedBVHBuffers, rays: torch.Tensor, any_hit: bool,
             continue
         box = bb.top_nodes[j]
         hit_box, _ = ray_aabb(ro3[ids], inv3[ids], box[0:3], box[3:6],
-                              tmin[ids], t_best[ids])
+                              tmin[ids], t_best[ids], zero3[ids])
         skip, sid = int(top[j, 6]), int(top[j, 7])
         if sid < 0:
             cur[ids] = torch.where(hit_box, j + 1, skip)

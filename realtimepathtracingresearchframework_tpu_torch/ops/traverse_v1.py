@@ -17,9 +17,10 @@ Möller-Trumbore over all 128 rows. K8a and K8b walk each ray on its own
 ``ops/traverse.py::walk_ranges`` over the v1 tables, K1's function): a lane
 tests the leaves its own capped slab test enters, not every leaf its packet
 enters. The two agree except on grazing lanes, where a lane hits a triangle
-in a leaf whose box its own slab test rejects (a box face with a zero
-direction component, a corner, or a 1-ulp gap between the slab t and
-Möller-Trumbore's t); ROADMAP queue 3 records the difference.
+in a leaf whose box its own slab test rejects (a corner, or a 1-ulp gap
+between the slab t and Möller-Trumbore's t; a ray along a box face with a
+zero direction component enters the box, ``intersect.slab_interval``);
+ROADMAP queue 3 records the difference.
 
 On a CPU tensor the wrappers run ``plain_lanes`` in either layout; on a
 CUDA tensor they launch ``csrc/traverse_v1.cu`` (built by

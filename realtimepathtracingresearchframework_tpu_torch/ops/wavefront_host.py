@@ -109,7 +109,7 @@ class WavefrontExecutor:
         )
         dims = (float(self.width), float(self.height))
         state, ro, rd = intg.camera_setup(cfg, view, self.px, self.py, dims,
-                                          state, bufs=self.ds.rng)
+                                          state, bufs=self.ds.rng, fp=fp)
         # textured scenes: the camera footprint seeds the carry
         # (wavefront_host.py:179-181)
         carry = intg.initial_carry(

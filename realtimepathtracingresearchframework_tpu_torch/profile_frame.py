@@ -17,11 +17,15 @@ and sky of bench.py's instanced row, on the two-level route
 (``set_animation_frame``) before every frame, as bench.py's row does;
 ``--flattened`` puts an instanced scene on the flattened route instead
 (``options.use_tlas`` off: its BVH is refit or rebuilt by ``--animate``).
-``--rng bn|sobol|zsbl`` picks the RNG variant (``options.rng_variant``).
+``--rng bn|sobol|zsbl`` picks the RNG variant (``options.rng_variant``),
+``--ris`` binned RIS light selection, ``--aperture A [--focus F]``
+thin-lens DoF.
 ``--scene village``: ``procedural.village()`` (80,496 textured triangles)
 with the camera, sun and sky of bench.py's village row, through K2, K3 and
 the wavefront executor. ``--variant PT_WAVEFRONT`` renders through the
-wavefront variant (on cornell: one merged K1 launch per bounce).
+wavefront variant (on cornell: one merged K1 launch per bounce),
+``RT_DEBUG`` and ``GBUFFER`` through the first-hit debug views, the other
+variants through the megakernel.
 ``RPTR_TRAVERSAL_V1=1`` puts cornell, terrain40, terrain200 and the
 village on the v1 route (the monolithic pass through K8a, or K8b past 8,192 padded rows;
 merged K8 launches with ``--variant PT_WAVEFRONT``). At
@@ -37,8 +41,9 @@ and sync calls. The last line is a JSON summary.
 
     python -m realtimepathtracingresearchframework_tpu_torch.profile_frame \
         [--scene cornell|village|terrain200|terrain500|instanced600|instanced500|instanced2500] \
-        [--variant PT_MEGAKERNEL|PT_WAVEFRONT] [--animate] [--quantized] \
-        [--flattened] [--rng uniform|bn|sobol|zsbl] \
+        [--variant PT_MEGAKERNEL|PT_WAVEFRONT|RT_DEBUG|...] [--animate] \
+        [--quantized] [--flattened] [--rng uniform|bn|sobol|zsbl] [--ris] \
+        [--aperture 0.05 --focus 3.2] \
         [--size 1920x1080] \
         [--depth 9] [--frames 5] [--profiled 3] [--out tables.txt]
 
@@ -58,6 +63,7 @@ import numpy as np
 import torch
 
 from realtimepathtracingresearchframework_tpu_torch.backend.params import (
+    LIGHT_SAMPLING_VARIANT_RIS,
     RenderParams,
     SceneConfig,
 )
@@ -65,8 +71,9 @@ from realtimepathtracingresearchframework_tpu_torch.models import procedural
 from realtimepathtracingresearchframework_tpu_torch.models.camera import OrientedCamera
 from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
 from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
-    PORTED_VARIANTS,
     VARIANT_MEGAKERNEL,
+    VARIANT_RQ_CLOSEST,
+    VARIANTS,
     FrameConfig,
     Renderer,
 )
@@ -124,7 +131,8 @@ def union_length(intervals) -> float:
 def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
                 grid: int = 200, num_inst: int = 600,
                 variant: str = VARIANT_MEGAKERNEL, quantized: bool = False,
-                use_tlas: bool = None, rng_variant: int = 0):
+                use_tlas: bool = None, rng_variant: int = 0,
+                ris: bool = False, aperture: float = 0.0, focus: float = None):
     """(Renderer, FrameConfig) of a profiled path: ``"cornell"`` (camera of
     bench.py:91-99), ``"village"`` (``procedural.village(grid)``, sun, sky
     and camera of bench.py:101-113), ``"terrain"``
@@ -135,7 +143,10 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
     scene's tiles as 16-bit codes (``options.quantized_geometry``).
     ``use_tlas=False`` flattens the instanced scene (the reference's
     default for an animated scene: its BVH is refit or rebuilt per frame);
-    ``rng_variant`` is ``options.rng_variant``."""
+    ``rng_variant`` is ``options.rng_variant``; ``ris`` selects binned RIS
+    light selection (``options.light_sampling_variant``); ``aperture`` > 0
+    turns on thin-lens DoF with that ``params.aperture_radius``, focused at
+    ``focus`` (default ``RenderParams.focus_distance``)."""
     two_level = False
     if scene == "cornell":
         vkr_scene = procedural.cornell_box()
@@ -160,14 +171,17 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
     r.options = r.options.replace(use_tlas=two_level,
                                   quantized_geometry=quantized,
                                   rng_variant=int(rng_variant))
+    if ris:
+        r.options = r.options.replace(
+            light_sampling_variant=LIGHT_SAMPLING_VARIANT_RIS)
     r.initialize(*size)
     r.set_scene(Scene.from_vkr_scene(vkr_scene), scene_config=sc)
     r.set_variant(variant)
-    cfg = FrameConfig(
-        camera=cam,
-        params=RenderParams(batch_spp=1, max_path_depth=depth),
-        scene_config=sc,
-    )
+    params = RenderParams(batch_spp=1, max_path_depth=depth,
+                          aperture_radius=float(aperture))
+    if focus is not None:
+        params = params.replace(focus_distance=float(focus))
+    cfg = FrameConfig(camera=cam, params=params, scene_config=sc)
     return r, cfg
 
 
@@ -175,8 +189,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("cornell", "village", *GRIDS, *INSTANCES),
                     default="cornell")
-    ap.add_argument("--variant", choices=PORTED_VARIANTS,
-                    default=VARIANT_MEGAKERNEL)
+    ap.add_argument("--variant", default=VARIANT_MEGAKERNEL,
+                    choices=[v for v in VARIANTS if v != VARIANT_RQ_CLOSEST])
     ap.add_argument("--animate", action="store_true",
                     help="update the TLAS before every frame (instanced scenes)")
     ap.add_argument("--quantized", action="store_true",
@@ -184,6 +198,12 @@ def main(argv=None) -> int:
     ap.add_argument("--flattened", action="store_true",
                     help="an instanced scene without the two-level route")
     ap.add_argument("--rng", choices=RNG_NAMES, default="uniform")
+    ap.add_argument("--ris", action="store_true",
+                    help="binned RIS light selection")
+    ap.add_argument("--aperture", type=float, default=0.0,
+                    help="thin-lens DoF aperture radius (0: pinhole)")
+    ap.add_argument("--focus", type=float, default=None,
+                    help="thin-lens focus distance")
     ap.add_argument("--size", default="1920x1080", help="WxH")
     ap.add_argument("--depth", type=int, default=9)
     ap.add_argument("--frames", type=int, default=5)
@@ -201,7 +221,8 @@ def main(argv=None) -> int:
     ).stdout.strip(), flush=True)
     size = tuple(int(x) for x in args.size.split("x"))
     common = dict(size=size, depth=args.depth, variant=args.variant,
-                  rng_variant=RNG_NAMES.index(args.rng))
+                  rng_variant=RNG_NAMES.index(args.rng), ris=args.ris,
+                  aperture=args.aperture, focus=args.focus)
     if args.scene in ("cornell", "village"):
         r, cfg = frame_setup(args.scene, **common)
     elif args.scene in INSTANCES:
@@ -306,6 +327,7 @@ def main(argv=None) -> int:
             f.write(ka.table(sort_by="self_device_time_total", row_limit=40) + "\n")
     print(json.dumps({
         "scene": args.scene, "variant": r.active_variant, "size": args.size,
+        "ris": args.ris, "aperture": args.aperture,
         "depth": args.depth, "quantized": args.quantized,
         "stream_closest": os.environ.get("RPTR_STREAM_CLOSEST", "sorted"),
         "merged_launches_per_frame": merged, "modes_per_frame": modes,

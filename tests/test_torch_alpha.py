@@ -58,6 +58,20 @@ from realtimepathtracingresearchframework_tpu_torch.ops import traverse_tlas
 CAM = OrientedCamera.look_at([0, 0, 3], [0, 0, -1], fovy=45)
 
 
+def fresh_jax_wavefront():
+    """Re-import the JAX package's ``ops/wavefront_host.py`` when a JAX
+    renderer's ``hot_reload`` in this process (tests/test_backend_features.py
+    on the same xdist worker) has reloaded ``ops/vec3.py`` under it: the
+    executor would keep the old ``Vec3`` class and its ``lax.cond`` would
+    see two (ROADMAP queue 3's order dependence)."""
+    import importlib
+
+    from realtimepathtracingresearchframework_tpu.ops import vec3, wavefront_host
+
+    if wavefront_host.Vec3 is not vec3.Vec3:
+        importlib.reload(wavefront_host)
+
+
 def _alpha_scene(proc, vkr, scene_cls, tex_cls, alpha_checker=True, n=2):
     """tests/test_alpha_test.py:17-57 with the given package's modules."""
     rgba = np.full((n, n, 4), 255, np.uint8)
@@ -168,6 +182,7 @@ def test_village_flat_cull_route(monkeypatch):
     img = r.readback_accumulation()
 
     jsc = JaxSceneConfig(sun_dir=(0.35, 0.8, 0.3), turbidity=3.0)
+    fresh_jax_wavefront()
     jr = JaxRenderer()
     jr.initialize(32, 32)
     jr.set_scene(JaxScene.from_vkr_scene(jproc.village(grid=24)), scene_config=jsc)

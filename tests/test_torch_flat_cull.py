@@ -527,11 +527,15 @@ def test_axis_aligned_rays_against_reference_k1(rng, leaf_size):
     agree on every lane, ids and flags. The port's K2 (= its K1, bitwise)
     differs from them on a counted set of lanes, each an edge lane: the
     port's or the reference's hit lies exactly on an edge of its triangle
-    (an exact barycentric of 0), where the port's per-ray slab test misses
-    a box whose face the ray runs along with a zero direction component
-    and f32 rounding decides Möller-Trumbore's edge test. ROADMAP queue 3
-    records the counts (measured: 424 / 446 / 502 closest and 154 / 196 /
-    301 any-hit lanes of 1,024 at leaf 32 / 64 / 128)."""
+    (an exact barycentric of 0), where f32 rounding decides
+    Möller-Trumbore's edge test (XLA contracts its FMAs). ROADMAP queue 3
+    records the counts: 424 / 446 / 502 closest and 154 / 196 / 301
+    any-hit lanes of 1,024 at leaf 32 / 64 / 128 while the per-ray slab
+    test missed a box whose face a ray runs along with a zero direction
+    component; 165 / 148 / 97 closest and 0 any-hit lanes since it takes
+    such an axis as the whole line (``intersect.slab_interval``;
+    tests/test_torch_slab.py holds every walk to a brute-force
+    Möller-Trumbore there)."""
     bb3, fb = _scene(leaf_size)
     ro, rd = _axis_rays(fb, rng)
     o, d = _soa(ro), _soa(rd)
@@ -586,9 +590,11 @@ def test_entry_bound_is_a_lower_bound(rng, leaf_size, q):
 def _sorted_walk(fb, rays, q, any_hit):
     """A model of the kernel's narrow phase: each group's survivors sorted
     by (lb, leaf); the lanes step through them, each testing a survivor
-    whose box its slab test on [tmin, min(tmax, best t)] enters, the
-    leaf's first least (t, k) taken when t < best t or (t == best t and its
-    row is lower); a lane stops once a survivor's lb exceeds its best t."""
+    whose box its slab test on [tmin, cap] enters, cap = best t + |best t| x
+    2^-20 (``csrc/flat_cull.cuh::leaf_cap``: a hit on a box's face can lie
+    an ulp before the box's f32 entry), the leaf's first least (t, k) taken
+    when t < best t or (t == best t and its row is lower); a lane stops
+    once a survivor's lb exceeds its cap."""
     ls = fb.leaf_size
     keep, lb = tf.flat_leaf_bounds(rays, fb.aabbs, q)
     n = rays.shape[1]
@@ -602,12 +608,13 @@ def _sorted_walk(fb, rays, q, any_hit):
         sl = slice(g * q, (g + 1) * q)
         leaves = torch.nonzero(keep[g, :fb.num_leaves]).squeeze(1).tolist()
         for leaf in sorted(leaves, key=lambda x: (float(lb[g, x]), x)):
-            walking = live[sl] & ~blocked[sl] & ~(lb[g, leaf] > t_best[sl])
+            cap = t_best[sl] + t_best[sl].abs() * 2.0 ** -20
+            walking = live[sl] & ~blocked[sl] & ~(lb[g, leaf] > cap)
             if not walking.any():
                 break
             r = rays[:, sl]
             seg = r.clone()
-            seg[7] = t_best[sl]
+            seg[7] = cap
             tn, tf_ = tf.slab_entry(seg, fb.aabbs[:, leaf:leaf + 1])
             holds = walking & (tn[:, 0] <= tf_[:, 0])
             rows = fb.tri_rows[leaf * ls:leaf * ls + int(fb.real_rows[leaf])]

@@ -302,14 +302,16 @@ def test_wavefront_matches_megakernel(route, monkeypatch):
 
 
 def test_unported_variants_raise():
+    """Every registered variant but RQ_CLOSEST is selectable, as in the
+    reference (renderer.py:306-321); RQ_CLOSEST and an unknown name fall
+    back to the megakernel and return False. tests/test_torch_variants.py
+    renders each one."""
     r = Renderer(device="cpu")
     assert VARIANT_WAVEFRONT in r.variants() and VARIANT_MEGAKERNEL in r.variants()
     for name in r.variants():
-        if name in (VARIANT_MEGAKERNEL, VARIANT_WAVEFRONT):
-            assert r.set_variant(name)
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            r.set_variant(name)
+        assert r.set_variant(name) == (name != "RQ_CLOSEST")
+        assert r.active_variant == (VARIANT_MEGAKERNEL if name == "RQ_CLOSEST"
+                                    else name)
     assert not r.set_variant("NO_SUCH_VARIANT")
     assert r.active_variant == VARIANT_MEGAKERNEL
 

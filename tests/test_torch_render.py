@@ -347,22 +347,21 @@ def test_cuda_renderer_needs_a_card():
 
 PORTED_SWITCHES = ("compact", "two_level", "has_textures", "alpha_test",
                    "wavefront")
+ITEM_14_SWITCHES = ("use_light_bins", "enable_dof", "debug_mode")
 
 
-@pytest.mark.parametrize("field", [f for f, _, _ in ti._UNPORTED]
-                         + list(PORTED_SWITCHES))
+@pytest.mark.parametrize("field", list(ITEM_14_SWITCHES) + list(PORTED_SWITCHES))
 def test_unported_configs_raise(field):
-    """Every unported switch raises naming its ROADMAP item; the
-    coherence-sorted dispatch (``compact``), two-level instancing
-    (``two_level``), textures, the alpha test and the wavefront variant are
-    ported now and pass the check."""
+    """No integrator switch raises any more: the coherence-sorted dispatch
+    (``compact``), two-level instancing (``two_level``), textures, the
+    alpha test and the wavefront variant, and since item 14 binned RIS
+    light selection, thin-lens DoF and the debug counters, all pass the
+    check; a debug mode the reference does not define raises
+    ``ValueError``."""
     value = 1 if field == "debug_mode" else True
-    cfg = ti.IntegratorConfig(**{field: value})
-    if field in PORTED_SWITCHES:
-        ti.check_supported(cfg)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        ti.check_supported(cfg)
+    ti.check_supported(ti.IntegratorConfig(**{field: value}))
+    with pytest.raises(ValueError, match="debug_mode"):
+        ti.check_supported(ti.IntegratorConfig(debug_mode=4))
 
 
 def test_unported_render_options_raise():
@@ -394,10 +393,10 @@ def test_ris_request_follows_the_reference(scene_name, buckets):
     turns it on (the RIS variant and at least one emitter), with the same
     bin width, min(bucket count, emitter count): the port's
     ``use_light_bins`` and ``light_bin_size`` equal the JAX renderer's
-    ``_use_bins`` and ``_effective_bin_size`` under both variants. A RIS
-    render of a scene with emitters raises naming item 14 (binned RIS is not
-    ported); the uniform variant, and RIS on a scene without emitters,
-    render."""
+    ``_use_bins`` and ``_effective_bin_size`` under both variants, and the
+    light table's length (padded to whole bins under RIS) its
+    ``_num_lights``. Every variant renders a finite frame (binned RIS is
+    ported; tests/test_torch_ris.py holds its images to the reference's)."""
     from realtimepathtracingresearchframework_tpu.backend.params import (
         RenderBackendOptions as JaxOptions,
     )
@@ -431,12 +430,9 @@ def test_ris_request_follows_the_reference(scene_name, buckets):
         want = getattr(jr, "_effective_bin_size", buckets)
         assert cfg.light_bin_size == want
         assert want == (min(buckets, r._num_lights) if ris else buckets)
-        if ris:
-            with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-                r.render(FrameConfig(camera=cam, params=params))
-        else:
-            r.render(FrameConfig(camera=cam, params=params))
-            assert np.isfinite(r.readback_accumulation()).all()
+        assert r._num_lights == jr._num_lights
+        r.render(FrameConfig(camera=cam, params=params))
+        assert np.isfinite(r.readback_accumulation()).all()
 
 
 def test_accumulation_blend_is_progressive_mean():

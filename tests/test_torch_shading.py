@@ -181,8 +181,18 @@ def test_sample_tri_lights(rng):
         )):
             close(port, ref, rtol=1e-3)
             close_frac(port, ref, 0.995)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        tn.sample_tri_lights_v(lt, pt, nt, dt[0:2], dt[2:4], 16, True)
+    # binned RIS selection over the 7 lights in one bin (tests/
+    # test_torch_ris.py holds it on several bins and the light ids)
+    sj = jn.sample_tri_lights_v(lj, pj, nj, dj[0:2], dj[2:4], nl, True)
+    st = tn.sample_tri_lights_v(lt, pt, nt, dt[0:2], dt[2:4], nl, True)
+    close(st.dir, sj.dir, atol=1e-5)
+    for f in ("illum", "dist", "pdf", "mis_wpdf"):
+        for port, ref in zip(*(
+            (x,) if not isinstance(x, (tv.Vec3, jv.Vec3)) else tuple(x)
+            for x in (getattr(st, f), getattr(sj, f))
+        )):
+            close(port, ref, rtol=1e-3)
+            close_frac(port, ref, 0.995)
 
 
 def test_sun_sampling_and_mis(rng):

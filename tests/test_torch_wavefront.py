@@ -26,6 +26,7 @@ bench.py's terrain row.
 import dataclasses
 
 import os
+import sys
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -56,6 +57,9 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
     map_rows_to_tris,
 )
 from realtimepathtracingresearchframework_tpu_torch.profile_frame import frame_setup
+
+sys.path.insert(0, __file__.rsplit("/", 1)[0])
+from test_torch_alpha import fresh_jax_wavefront  # noqa: E402
 
 torch.set_num_threads(1)  # see tests/test_torch_render.py
 
@@ -101,6 +105,7 @@ def renders():
     wf = _port()
     mono = _port(RPTR_HOST_WAVEFRONT="0", RPTR_COMPACT_LANES="0")
     _, _, _, cfg = wf
+    fresh_jax_wavefront()
     with _env(RPTR_HOST_WAVEFRONT="1"):
         jr = jrend.Renderer()
         jr.initialize(SIZE, SIZE)
