@@ -237,16 +237,27 @@ Phases (each raises on failure):
      from leaf-box faces of a 1,058-triangle terrain's flat pack at leaf 32,
      64 and 128) through all nine kernels, closest and any-hit, each
      bitwise its plain version on the CPU, the lanes where it differs from
-     a brute-force Moller-Trumbore over every triangle counted and printed.
+     a brute-force Moller-Trumbore over every triangle counted and printed;
+ 20. the image-domain frame path (phase_postprocess): cornell at 1920x1080,
+     depth 9, under REPROJECTION_MODE_ACCUMULATE (window 8), TAA and an
+     upscale of 2, 8 frames with a moving camera: frame ms, K1 and no
+     other, the 3840x2160 display finite, resolved in [0, 1] and within
+     TAA's variance clamp after TAA (its Lanczos history rings past 1,
+     in the reference too), the renderer's
+     timers window for RENDERING, PROCESSING, TAA and READBACK; the chain
+     at 64x36 on the card against the CPU (goldens.compare_card); the raster
+     G-buffer at 1920x1080 (ms) and at 64x36 against the CPU; an LoD scene
+     whose camera crosses a selection change (one rebuild, K1, ray queries
+     equal to the CPU's); a checkpoint round trip on the card (bitwise).
 Every bound counts the rows of each pierced leaf up to its real-row count
 (the rows past it repeat the leaf's last triangle; K4-K7 from their tiles'
 bits), and logs the bound over the padded leaves beside it. Its last two
 lines are the kernels' JSON record (K1, K2, K3, K8a and K8b with their
 kernel-only ms and the wrapper's beside them, K1, K2, K4, K8a and K8b each
 with a merged record, K2, K8a and K8b with their grazing lanes, K1-K5
-with ``paths``: their launches on the paths of 3d, 3e, 5e, 17 and 18,
-every kernel with ``axis_lanes_off_brute_force`` from 19) and the result
-JSON.
+with ``paths``: their launches on the paths of 3d, 3e, 5e, 17, 18 and
+20, every kernel with ``axis_lanes_off_brute_force`` from 19) and the
+result JSON.
 """
 
 import contextlib
@@ -3696,6 +3707,302 @@ def phase_axis_queue(smi):
     return off
 
 
+POST_FRAMES = 8  # frames of the image-domain path with a moving camera
+POST_WINDOW = 8  # its spp_accumulation_window
+POST_UPSCALE = 2  # its render_upscale_factor: a 3840x2160 display
+POST_SMALL = (64, 36)  # the chain and the raster on the card against the CPU
+POST_SMALL_DEPTH = 3
+CHECKPOINT_SIZE = (480, 270)  # the checkpoint round trip, depth 3
+# the LoD scene's mesh (tests/test_torch_lod.py): 4 triangles in LoD group 1
+# and a coarse level of 1
+LOD_FINE = np.array([[[-1, -1, 0], [0, -1, 0], [-0.5, 0, 0]],
+                     [[0, -1, 0], [1, -1, 0], [0.5, 0, 0]],
+                     [[-0.5, 0, 0], [0.5, 0, 0], [0, 1, 0]],
+                     [[-0.5, 0, 0], [0, -1, 0], [0.5, 0, 0]]], np.float32)
+LOD_COARSE = np.array([[[-1, -1, 0], [1, -1, 0], [0, 1, 0]]], np.float32)
+
+
+def _post_config(cfg, upscale=POST_UPSCALE):
+    """``cfg`` under REPROJECTION_MODE_ACCUMULATE (window POST_WINDOW) at
+    ``upscale``, Reinhard-tonemapped so that the display lies in [0, 1]."""
+    import dataclasses
+
+    from realtimepathtracingresearchframework_tpu_torch.backend.params import (
+        REPROJECTION_MODE_ACCUMULATE,
+        TONEMAP_MODE_FAST,
+    )
+
+    return dataclasses.replace(cfg, params=cfg.params.replace(
+        reprojection_mode=REPROJECTION_MODE_ACCUMULATE,
+        spp_accumulation_window=POST_WINDOW, render_upscale_factor=upscale,
+        early_tone_mapping_mode=TONEMAP_MODE_FAST))
+
+
+def _moving(r, cfg, frames, readback=False):
+    """``frames`` frames with the camera moving right 0.02 after each (a
+    copy of cfg's camera); returns the frames' ms by CUDA events around
+    ``render`` (each frame synchronised after its events) and the last
+    display image."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    cam = copy.deepcopy(cfg.camera)
+    frame_ms, disp = [], None
+    for _ in range(frames):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r.render(dataclasses.replace(cfg, camera=cam))
+        end.record()
+        end.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+        if readback:
+            disp = r.readback_framebuffer()
+        cam.move(right=0.02)
+    return frame_ms, disp if readback else r.readback_framebuffer()
+
+
+def _lod_renderer(device):
+    """A renderer at POST_SMALL over the LoD scene (near camera: the base
+    level)."""
+    from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
+        Renderer,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.models import (
+        procedural,
+        vkr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
+
+    vs = procedural.identity_scene(
+        [procedural.make_mesh("fine", LOD_FINE)],
+        [vkr.VkrMaterial(name="m", base_color=np.ones(3, np.float32))])
+    coarse = procedural.make_mesh("fine_lod1", LOD_COARSE)
+    coarse.lod_group = vs.meshes[0].lod_group = 1
+    vs.meshes.append(coarse)
+    vs.lod_groups.append(vkr.VkrLodGroup(mesh_ids=[0, 1],
+                                         detail_reduction=[0.0, 0.5]))
+    r = Renderer(device=device)
+    r.initialize(*POST_SMALL)
+    r.set_scene(Scene.from_vkr_scene(vs))
+    return r
+
+
+def phase_postprocess(smi):
+    """The image-domain frame path (ROADMAP item 20) and what hangs off it:
+    cornell at MAIN_SIZE, depth 9, under REPROJECTION_MODE_ACCUMULATE
+    (window POST_WINDOW), TAA and an upscale of 2, POST_FRAMES frames with
+    the camera moving right 0.02 a frame through the port's Renderer: the
+    frames' ms, K1 and no other kernel launched (its launches counted from
+    0 just before the run and read just after), the 3840x2160 display
+    finite, resolved in [0, 1] and after TAA within its variance clamp of
+    that (Lanczos ringing takes TAA's history past 1, in the reference
+    too), and the renderer's ``timers`` window for
+    RENDERING, PROCESSING, TAA and READBACK (CUDA events read without a
+    sync, READBACK on the host clock). The same chain at POST_SMALL, depth
+    3, three frames, on the card against the CPU (``goldens.compare_card``);
+    the raster G-buffer at MAIN_SIZE (ms by CUDA events) and at POST_SMALL
+    on the card against the CPU (triangle ids, depth within 1e-5 relative);
+    the LoD scene at POST_SMALL through K1 with the camera crossing a
+    selection change (one rebuild), its ray queries equal to the CPU's; a
+    checkpoint round trip on the card at CHECKPOINT_SIZE, depth 3 (save at
+    frame 2, load into a fresh renderer, 2 more frames: bitwise 4
+    uninterrupted frames, on the planar and the upscaled path). Returns
+    K1's launches of the 1080p run."""
+    import dataclasses
+
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch import goldens
+    from realtimepathtracingresearchframework_tpu_torch.backend.params import (
+        RenderParams,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.backend.renderer import (
+        FrameConfig,
+        Renderer,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.models.camera import (
+        OrientedCamera,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        resolve as resolve_mod,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import taa as taa_mod
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.utils.profiling import (
+        ProfilingMarker,
+    )
+
+    t_phase = time.perf_counter()
+    r, cfg = frame_setup("cornell", DEVICE, MAIN_SIZE)
+    r.options = r.options.replace(enable_taa=True)
+    cfg = _post_config(cfg)
+    counters = _counters()
+    torch.cuda.synchronize()
+    for reset, _ in counters.values():
+        reset()
+    frame_ms, disp = _moving(r, cfg, POST_FRAMES, readback=True)
+    launches = {k: read() for k, (_, read) in counters.items()}
+    _only("cornell reprojection + TAA x2", launches, ("K1",))
+    width, height = MAIN_SIZE
+    shape = (height * POST_UPSCALE, width * POST_UPSCALE, 4)
+    # the resolved display before TAA lies in [0, 1]; TAA's Lanczos history
+    # can ring past 1, and its variance clamp bounds each pixel by
+    # [0, max(mean + 3 stddev, pixel + stddev)] of the resolved display, or
+    # leaves the resolved pixel (reprojected off screen), in the reference
+    # too (ops/taa.py). The "stddev", 9/8 (rms - mean), can round an ulp
+    # below 0 where the 3x3 neighbourhood is flat, so the bounds are taken
+    # with the resolved pixel and 0 beside them
+    pre = resolve_mod.resolve_framebuffer(
+        r.accum, float(cfg.params.exposure),
+        int(cfg.params.early_tone_mapping_mode), POST_UPSCALE)
+    mean, stddev = taa_mod._neighborhood_stats(pre)
+    high = torch.maximum(mean + 3.0 * stddev, pre + stddev).cpu().numpy()
+    pre = pre.cpu().numpy()
+    pre_ok = bool(np.isfinite(pre).all() and (pre >= 0).all()
+                  and (pre <= 1).all())
+    disp_ok = bool(np.isfinite(disp).all()
+                   and (disp >= np.minimum(high, 0.0)).all()
+                   and (disp <= np.maximum(high, pre)).all())
+    over_1 = float((disp > 1).any(-1).mean())
+    under_0 = int((disp < 0).sum())
+    markers = (ProfilingMarker.RENDERING, ProfilingMarker.PROCESSING,
+               ProfilingMarker.TAA, ProfilingMarker.READBACK)
+    window = {m.value: [round(x, 3) for x in r.timers.window_stats(m)]
+              for m in markers}
+    log(f"cornell {width}x{height} depth {cfg.params.max_path_depth} "
+        f"ACCUMULATE (window {POST_WINDOW}) + TAA + upscale {POST_UPSCALE}, "
+        f"{POST_FRAMES} frames, camera moving: frame ms "
+        f"{[round(x, 3) for x in frame_ms]}, median of frames 2-"
+        f"{POST_FRAMES} {float(np.median(frame_ms[1:])):.3f} ms by the "
+        f"script's CUDA events; launches {launches}; resolved display "
+        f"before TAA finite and in [0, 1] {pre_ok}; display {disp.shape} "
+        f"finite and within TAA's clamp {disp_ok}, mean "
+        f"{float(disp[..., :3].mean()):.5f}, max "
+        f"{float(disp.max()):.6f}, share of pixels over 1 {over_1:.6f}, "
+        f"channels below 0 {under_0} (min {float(disp.min()):.3e}); timers "
+        f"window (avg, min, max, stddev) ms {window} ({smi})")
+    check(disp.shape == shape, f"reprojection display shape {disp.shape}")
+    check(pre_ok, "reprojection: resolved display not finite and in [0, 1]")
+    check(disp_ok, "reprojection display not finite and within TAA's clamp")
+    check(all(window[m.value][1] > 0 for m in markers),
+          f"a timer marker was not fed: {window}")
+    # the raster G-buffer at MAIN_SIZE on the card
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    gb = r.render_raster_gbuffer(cfg)
+    end.record()
+    end.synchronize()
+    raster_ms = start.elapsed_time(end)
+    raster_ms2 = cuda_ms(lambda: r.render_raster_gbuffer(cfg), 3)
+    covered = float((gb.tri >= 0).float().mean())
+    log(f"raster G-buffer {width}x{height} ({r._flat.num_tris} tris): "
+        f"{raster_ms:.3f} ms first, {raster_ms2:.3f} ms warm (CUDA events), "
+        f"{covered:.4f} of pixels covered")
+    check(gb.tri.shape == (height, width) and covered > 0.5,
+          f"raster G-buffer {tuple(gb.tri.shape)} covers {covered}")
+    del r, gb
+
+    # the chain and the raster at POST_SMALL on the card against the CPU
+    small, rasters = {}, {}
+    for device in (DEVICE, "cpu"):
+        rr, cc = frame_setup("cornell", device, POST_SMALL,
+                             depth=POST_SMALL_DEPTH)
+        rr.options = rr.options.replace(enable_taa=True)
+        cc = _post_config(cc)
+        small[device] = (_moving(rr, cc, 3)[1], rr.readback_accumulation())
+        g = rr.render_raster_gbuffer(cc)
+        rasters[device] = (g.tri.cpu().numpy(), g.depth.cpu().numpy())
+    res = goldens.compare_card(small[DEVICE][0][..., :3], small["cpu"][0][..., :3])
+    res_acc = goldens.compare_card(small[DEVICE][1][..., :3],
+                                   small["cpu"][1][..., :3])
+    tri_differ = int((rasters[DEVICE][0] != rasters["cpu"][0]).sum())
+    same = (rasters[DEVICE][0] == rasters["cpu"][0]) & (rasters["cpu"][0] >= 0)
+    depth_rel = float((np.abs(rasters[DEVICE][1][same] - rasters["cpu"][1][same])
+                       / rasters["cpu"][1][same]).max(initial=0.0))
+    log(f"reprojection + TAA x2 at {POST_SMALL} depth {POST_SMALL_DEPTH}, 3 "
+        f"frames, card against CPU: display {res}, accumulation {res_acc}; "
+        f"raster G-buffer: {tri_differ} pixels of another triangle, depth "
+        f"max relative error {depth_rel:.3e}")
+    check(res["ok"] and res_acc["ok"], "reprojection chain: card against CPU")
+    check(tri_differ == 0 and depth_rel <= 1e-5,
+          f"raster G-buffer: {tri_differ} triangles, depth {depth_rel}")
+
+    # LoD: the camera crosses a selection change
+    lod = {}
+    near = OrientedCamera.look_at([0, 0, 3.0], [0, 0, 0], fovy=50)
+    far = OrientedCamera.look_at([0, 0, 4e4], [0, 0, 0], fovy=50)
+    xs = np.linspace(-1.2, 1.2, 64, dtype=np.float32)
+    o = np.stack([np.repeat(xs, 64), np.tile(xs, 64),
+                  np.full(64 * 64, 5.0, np.float32)], -1)
+    d = np.tile(np.array([[0, 0, -1.0]], np.float32), (64 * 64, 1))
+    lod_launches = None
+    for device in (DEVICE, "cpu"):
+        lr = _lod_renderer(device)
+        if device == DEVICE:
+            for reset, _ in counters.values():
+                reset()
+        tris = []
+        for cam in (near, near, far, far):
+            lr.render(FrameConfig(camera=cam, params=RenderParams(
+                max_path_depth=2)))
+            tris.append(lr._flat.num_tris)
+        if device == DEVICE:
+            torch.cuda.synchronize()
+            lod_launches = {k: read() for k, (_, read) in counters.items()}
+        lod[device] = (lr.lod_rebuilds, tris, lr.render_ray_queries(o, d))
+    rebuilds, tris, (t, tri, u, v) = lod[DEVICE]
+    _, _, (t_c, tri_c, u_c, v_c) = lod["cpu"]
+    hits_equal = bool((tri == tri_c).all() and _bitwise(
+        torch.from_numpy(t), torch.from_numpy(t_c))[0] == 0)
+    log(f"LoD scene at {POST_SMALL}: flattened tris per frame {tris}, "
+        f"{rebuilds} rebuild(s), launches {lod_launches}; ray queries "
+        f"{int((tri >= 0).sum())} hits of {len(tri)}, equal to the CPU's "
+        f"(triangles, t bitwise) {hits_equal}")
+    check(rebuilds == 1 and tris == [4, 4, 1, 1] and lod[DEVICE][0:2]
+          == lod["cpu"][0:2], f"LoD rebuilds {lod}")
+    _only("LoD scene", lod_launches, ("K1",))
+    check(hits_equal, "LoD ray queries: card against CPU")
+
+    # a checkpoint round trip on the card
+    path = os.path.join(REPO, "build", "kernels", "chip_smoke_state.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    trips = {}
+    for upscale in (1, 2):
+        base, cc = frame_setup("cornell", DEVICE, CHECKPOINT_SIZE, depth=3)
+        cc = dataclasses.replace(cc, params=cc.params.replace(
+            render_upscale_factor=upscale))
+        whole = base
+        for _ in range(4):
+            whole.render(cc)
+        first, _ = frame_setup("cornell", DEVICE, CHECKPOINT_SIZE, depth=3)
+        for _ in range(2):
+            first.render(cc)
+        first.save_state(path)
+        resumed = Renderer(device=DEVICE)
+        resumed.set_scene(first.scene, first._scene_config)
+        resumed.load_state(path)
+        for _ in range(2):
+            resumed.render(cc)
+        trips[upscale] = (
+            resumed.readback_accumulation().tobytes()
+            == whole.readback_accumulation().tobytes()
+            and resumed.readback_framebuffer().tobytes()
+            == whole.readback_framebuffer().tobytes()
+            and resumed.frame_id == whole.frame_id == 4)
+    os.remove(path)
+    log(f"checkpoint round trip at {CHECKPOINT_SIZE} depth 3 (save at frame "
+        f"2, load, 2 frames) bitwise 4 uninterrupted frames, by upscale: "
+        f"{trips}; phase in {time.perf_counter() - t_phase:.1f} s")
+    check(all(trips.values()), f"checkpoint round trip: {trips}")
+    return launches
+
+
 def main():
     import torch
 
@@ -3717,6 +4024,7 @@ def main():
     _, k1_merged = phase_wavefront_path(mega)
     cornell_dof = phase_cornell_b3(mega, mega_cfg)
     del mega
+    post_launches = phase_postprocess(smi)
     terrain, terrain_merged = phase_terrain_path()
     stream, (r500, cfg500) = phase_stream_paths()
     strategies, (rq, cfgq) = phase_stream_strategies(r500, cfg500)
@@ -3797,6 +4105,7 @@ def main():
     # under a new pack or queue
     k1["paths"] = {f"rng {name}": n["K1"] for name, n in rng_launches.items()}
     k1["paths"]["cornell DoF"] = cornell_dof["K1"]
+    k1["paths"]["cornell reprojection + TAA x2"] = post_launches["K1"]
     refit_row, rebuilt_row = (p[0] for p in FLAT_ANIM_PATHS)
     paths = {kern: {"village PT_WAVEFRONT compacted": village_compacted[kern],
                     rebuilt_row: flat_anim[rebuilt_row][kern],

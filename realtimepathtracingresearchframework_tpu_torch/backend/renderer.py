@@ -56,9 +56,29 @@ merged dispatch, ``RT_DEBUG`` and ``GBUFFER`` show the first-hit AOVs
 (``_render_debug_variant``), and every other one renders through the
 megakernel, as there. ``render_ray_stats`` and ``render_debug_image``
 render one sample's ray-count and DEBUG_MODE_* images (renderer.py:
-1589-1650). Each kernel runs on
-``device="cuda"``, its plain version on ``device="cpu"`` (the tests'
-device). There is no CPU fallback for a CUDA renderer.
+1589-1650).
+
+The image-domain frame path (renderer.py:1245-1520): under
+``REPROJECTION_MODE_ACCUMULATE``, ``options.enable_taa`` or a
+``render_upscale_factor`` above 1, ``render`` renders the frame on fresh
+chunks through the monolithic pass (``integrator.render_tile_host``),
+reprojects the history by the motion AOV (``ops/taa.py``), starts it anew
+(DISCARD_HISTORY) or averages it in (``resolve.accumulate_history``),
+resolves the display image at the upscale (``resolve.resolve_framebuffer``)
+and runs the TAA processing step (``backend/extensions.py``). The
+accumulation then lives as (H, W, 4) images (``accum``, ``framebuffer``)
+instead of the planar chunks; switching back re-swizzles it. The
+extensions (pointsets, binned lights, and the TAA, example and
+profiling-tools processing steps) contribute the scene's RNG tables and
+light bins and hook the frame; ``timers`` holds the reference's profiling
+markers; ``save_state`` / ``load_state`` checkpoint the accumulation in the
+reference's ``.npz`` keys; ``render_raster_gbuffer`` rasterises the
+flattened scene (``ops/raster.py``); ``hot_reload`` reloads edited
+rendering modules; scenes with LoD groups are re-flattened when the
+camera's LoD selection changes (renderer.py:669-690, 1166-1190,
+1963-1981). Each kernel runs on ``device="cuda"``, its plain version on
+``device="cpu"`` (the tests' device). There is no CPU fallback for a CUDA
+renderer.
 """
 
 from __future__ import annotations
@@ -73,10 +93,13 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from realtimepathtracingresearchframework_tpu_torch.backend import (
+    extensions as ext_mod,
+)
 from realtimepathtracingresearchframework_tpu_torch.backend.params import (
-    LIGHT_SAMPLING_VARIANT_RIS,
     REPROJECTION_MODE_ACCUMULATE,
     REPROJECTION_MODE_DISCARD_HISTORY,
+    RNG_VARIANT_UNIFORM,
     RenderBackendOptions,
     RenderParams,
     SceneConfig,
@@ -101,17 +124,21 @@ from realtimepathtracingresearchframework_tpu_torch.ops.integrator import (
     IntegratorConfig,
     ViewBuffers,
     _closest_hit_dispatch,
+    image_to_planes,
     make_pass_fn,
     pack_attr_table,
     pack_material_table,
     planes_to_image,
     render_debug_host,
     render_ray_stats_host,
+    render_tile_host,
     swizzle_host,
     trace_paths,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
+from realtimepathtracingresearchframework_tpu_torch.ops import raster as raster_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import resolve as resolve_mod
+from realtimepathtracingresearchframework_tpu_torch.ops import taa as taa_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import texture_atlas
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_flat import (
     pack_flat,
@@ -133,7 +160,13 @@ from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 from realtimepathtracingresearchframework_tpu_torch.ops.wavefront_host import (
     WavefrontExecutor,
 )
+from realtimepathtracingresearchframework_tpu_torch.kernels import build as build_mod
+from realtimepathtracingresearchframework_tpu_torch.utils import debug as debug_mod
 from realtimepathtracingresearchframework_tpu_torch.utils.error_io import warning
+from realtimepathtracingresearchframework_tpu_torch.utils.profiling import (
+    DeviceTimers,
+    ProfilingMarker,
+)
 
 # resident-kernel policy (renderer.py:113-124, 605-608): the flat cull and
 # the coherence sort from this many triangles, the resident kernels up to
@@ -274,6 +307,7 @@ class Renderer:
         self._sky_key = self._sky = None  # the cooked sky and its inputs
         self.animation_update = ""  # "refit" or "rebuild": the last
         # set_animation_frame of a flattened scene
+        self.lod_rebuilds = 0  # rebuilds for a change of LoD selection
         self._last_rays: List[torch.Tensor] = []
         self.live_profile: List[int] = []  # wavefront live lanes per bounce
         self._scene_config = SceneConfig()
@@ -285,6 +319,68 @@ class Renderer:
         self._prev_view: Optional[ViewBuffers] = None  # of the last AOV pass
         self._aovs: Optional[aov_mod.AOVs] = None
         self._debug_image: Optional[torch.Tensor] = None  # RT_DEBUG / GBUFFER
+        # the accumulation lives in ONE of two forms (renderer.py:177-189):
+        # the per-chunk channel buffers in swizzle order (the planar fast
+        # path), or (H, W, 4) images (the image-domain paths); ``accum``
+        # and ``framebuffer`` present images either way
+        self._planar = True
+        self._accum_img: Optional[torch.Tensor] = None
+        self._fb_img: Optional[torch.Tensor] = None
+        self._inv = None  # (H * W,) pixel -> swizzle slot on the device
+        self._prev_depth: Optional[torch.Tensor] = None  # ACCUMULATE's
+        # --freeze-frame: re-render the same sample sequence every frame
+        # (frame_id pinned, render_vulkan.cpp:2152-2154)
+        self.freeze_frame = False
+        self.timers = DeviceTimers()
+        # the LoD selection the scene was flattened with (renderer.py:
+        # 674-690): None without LoD groups
+        self._lod_signature = None
+        self._lod_camera_pos = None
+        self._lod_threshold = SceneConfig().lod_threshold
+        # RenderExtension framework (librender/render_backend.h:126-154):
+        # the pointset and binned-lights extensions attach by default;
+        # processing steps are made on demand (renderer.py:214-228)
+        self.extensions: List = ext_mod.create_default_extensions(self)
+        self._processing_steps = {}
+        self._last_config: Optional["FrameConfig"] = None
+        self._last_upscale = 1
+        self._frame_id_at_render = 0
+
+    # ------------------------------------------------------------------
+    # RenderExtension framework (render_vulkan_extensions.cpp:16-84;
+    # renderer.py:251-284)
+    # ------------------------------------------------------------------
+
+    def create_default_extensions(self) -> List:
+        return ext_mod.create_default_extensions(self)
+
+    def create_processing_step(self, step):
+        return ext_mod.create_processing_step(self, step)
+
+    def get_processing_step(self, step):
+        """The processing step's extension, made and initialised once."""
+        ext = self._processing_steps.get(step)
+        if ext is None:
+            ext = self.create_processing_step(step)
+            if ext is not None:
+                ext.initialize(self.fb_width, self.fb_height)
+            self._processing_steps[step] = ext
+        return ext
+
+    def active_extensions(self) -> List:
+        return [e for e in self.extensions if e.is_active_for(self.options)]
+
+    def last_aovs(self):
+        """The AOVs of the frame just rendered, rendered on demand."""
+        if self._aovs is None and self._last_config is not None:
+            self._aovs = self.render_aovs(self._last_config)
+        return self._aovs
+
+    def frame_id_at_last_render(self) -> int:
+        return self._frame_id_at_render
+
+    def last_upscale(self) -> int:
+        return self._last_upscale
 
     def variants(self) -> List[str]:
         """The variant list in the reference's registration order
@@ -309,10 +405,11 @@ class Renderer:
         return False
 
     def initialize(self, fb_width: int, fb_height: int) -> None:
-        """Framebuffer (re)allocation (render_vulkan.cpp:246-370)."""
+        """Framebuffer (re)allocation (render_vulkan.cpp:246-370), then each
+        extension's ``initialize`` (renderer.py:323-335)."""
         self.fb_width = int(fb_width)
         self.fb_height = int(fb_height)
-        px, py, valid, _lin, _inv, nc, chunk = swizzle_host(
+        px, py, valid, _lin, inv, nc, chunk = swizzle_host(
             self.fb_width, self.fb_height, self.rays_per_pass
         )
 
@@ -321,37 +418,97 @@ class Renderer:
             return [t[c].to(self.device) for c in range(nc)]
 
         self._swizzle = (split(px), split(py), split(valid))
-        self._acc_chunks = [
-            tuple(
-                torch.zeros(chunk, dtype=torch.float32, device=self.device)
-                for _ in range(4)
-            )
-            for _ in range(nc)
-        ]
+        self._inv = torch.from_numpy(inv.astype(np.int64)).to(self.device)
+        self._acc_chunks = self._zero_chunks()
+        self._planar = True
+        self._accum_img = self._fb_img = None
         self._wavefront = None
         self._debug_image = None
         self.frame_id = 0
+        for ext in self.extensions:
+            ext.initialize(self.fb_width, self.fb_height)
+        for ext in self._processing_steps.values():
+            if ext is not None:
+                ext.initialize(self.fb_width, self.fb_height)
+
+    def _zero_chunks(self) -> List[tuple]:
+        """Fresh zero channel buffers, four per swizzle chunk."""
+        return [tuple(torch.zeros_like(p, dtype=torch.float32)
+                      for _ in range(4)) for p in self._swizzle[0]]
+
+    # -- accumulation / framebuffer state (planar fast path or image) -----
+
+    def _materialize(self, planes) -> torch.Tensor:
+        """Whole-frame channel planes in swizzle order -> (H, W, 4) image
+        on the device."""
+        return torch.stack(list(planes))[:, self._inv].T.reshape(
+            self.fb_height, self.fb_width, 4)
+
+    @property
+    def accum(self) -> Optional[torch.Tensor]:
+        """The linear accumulation as an (H, W, 4) image on the device."""
+        if self._planar:
+            return (None if self._acc_chunks is None
+                    else self._materialize(self._planes()))
+        return self._accum_img
+
+    @accum.setter
+    def accum(self, value) -> None:
+        self._accum_img = value
+        self._planar = False
+
+    @property
+    def framebuffer(self) -> Optional[torch.Tensor]:
+        """The sRGB display image, (H * u, W * u, 4) on the device."""
+        if self._planar:
+            if self._acc_chunks is None:
+                return None
+            exposure, tonemap = self._resolve_args
+            return self._materialize(resolve_mod.resolve_channels(
+                self._planes(), exposure, tonemap))
+        return self._fb_img
+
+    @framebuffer.setter
+    def framebuffer(self, value) -> None:
+        # the image-domain paths set accum first (which leaves planar mode)
+        self._fb_img = value
 
     def set_scene(self, scene: Scene,
                   scene_config: SceneConfig = SceneConfig(),
                   frame: int = 0) -> None:
-        """Scene upload: flatten, BVH build + resident pack and attribute
-        tables in BVH-row order, or the streamed pack and attribute tables
-        in source-triangle order, or with ``options.use_tlas`` the
-        two-level build and attribute tables in object-space mesh order;
-        lights and sky. ``frame`` is the animation frame of the instance
-        transforms (the reference's ``_rebuild_scene(frame)``)."""
+        """Scene upload (``_rebuild_scene``), then each extension's
+        ``update_scene_from_backend`` (renderer.py:472-478). ``frame`` is
+        the animation frame of the instance transforms."""
         self.scene = scene
+        self._rebuild_scene(scene_config, frame=frame)
+        for ext in self.extensions:
+            ext.update_scene_from_backend(scene)
+
+    def _rebuild_scene(self, scene_config: SceneConfig, frame: int = 0,
+                       camera_pos=None) -> None:
+        """Flatten ``self.scene`` at ``frame`` with the LoD levels that
+        ``camera_pos`` selects (the base levels when None), then the BVH
+        build + resident pack and attribute tables in BVH-row order, or the
+        streamed pack and attribute tables in source-triangle order, or
+        with ``options.use_tlas`` the two-level build and attribute tables
+        in object-space mesh order; lights, sky and RNG tables
+        (renderer.py:652-1068). The LoD selection, its camera and threshold
+        are kept for ``render`` and ``set_animation_frame``
+        (renderer.py:674-690)."""
+        scene = self.scene
         self._scene_config = scene_config
-        flat = scene.flatten_world(frame=frame,
+        flat = scene.flatten_world(frame=frame, camera_pos=camera_pos,
                                    lod_threshold=scene_config.lod_threshold)
-        if scene.has_lod_groups():
-            raise NotImplementedError(
-                "LoD re-selection is not ported yet (ROADMAP item 21)"
-            )
+        self._lod_signature = (
+            scene.lod_selection(camera_pos, scene_config.lod_threshold, frame)
+            if scene.has_lod_groups() else None)
+        self._lod_camera_pos = (None if camera_pos is None
+                                else np.asarray(camera_pos, np.float32))
+        self._lod_threshold = scene_config.lod_threshold
         dev = self.device
         self._scene_frame = frame
         shade, tlas, k6, k7 = flat, None, None, None
+        self._tlas_build_seconds = 0.0
         if self.options.use_tlas:
             # attributes from the object-space flatten in source order;
             # the lights still come from the world flatten (renderer.py:769)
@@ -387,6 +544,8 @@ class Renderer:
                                      leaf_size=route.leaf_size)
             bvh, ix = self._pack_resident_route(flat)
         self.setup_seconds = time.perf_counter() - t0
+        self.timers.add(ProfilingMarker.BUILD_BLAS,
+                        (self.setup_seconds - self._tlas_build_seconds) * 1e3)
         if route.streamed:
             print(f"set_scene: streamed pack of {flat.num_tris} tris into "
                   f"{bvh.num_subtrees} subtrees of {bvh.sub_leaves} leaves, "
@@ -414,12 +573,7 @@ class Renderer:
         mats = pack_material_table(mat_table).to(dev)
         self._flat = flat
         self._sky_key = None  # cook the sky anew for a new scene
-        lights, sky = self._lights_and_sky(flat, scene_config)
-        # the RNG variant's tables: the port builds them here (and in
-        # configure_for) where the reference's pointset extensions
-        # contribute them (extensions.py:120-155, renderer.py:1042-1045)
-        rng = pointsets.build_rng_buffers(int(self.options.rng_variant),
-                                          device=dev)
+        lights, sky, rng = self._scene_payload(flat, scene_config)
         self.device_scene = DeviceScene(
             bvh=bvh, attr_packed=self._attr_table(shade, ix), mat_packed=mats,
             lights=lights, sky=sky, tlas=tlas, tlas_k6=k6, tlas_stream=k7,
@@ -450,24 +604,28 @@ class Renderer:
         })
         return pack_attr_table(rows, rows).to(self.device)
 
-    def _lights_and_sky(self, flat, scene_config: SceneConfig):
-        """The emitter tables of the posed flat scene and the sky
-        (renderer.py:961-1058); the sky is cooked again only when its
-        inputs change, as the reference caches it (renderer.py:985-1004).
-        Under the RIS light-sampling variant a scene with emitters has them
-        re-laid by ``lights.equalize_emitter_bins`` in bins of
-        min(bucket count, emitter count) lights, the bucket count at least
-        1, for binned RIS selection (the binned-lights extension,
-        extensions.py:166-200); ``_num_lights`` then counts the padded
-        table, as there."""
-        tl = lights_mod.collect_emitters(flat, self._mat_table)
-        self._bin_size = None
-        if (self.options.light_sampling_variant == LIGHT_SAMPLING_VARIANT_RIS
-                and tl.count > 0):
-            self._bin_size = min(
-                max(1, int(self.options.light_sampling_bucket_count)),
-                tl.count)
-            tl = lights_mod.equalize_emitter_bins(tl, self._bin_size)
+    def _scene_payload(self, flat, scene_config: SceneConfig):
+        """The emitter tables of the posed flat scene, the sky and the RNG
+        tables (renderer.py:961-1058). The active extensions contribute to
+        the payload (extensions.py): under the RIS light-sampling variant
+        the binned-lights extension re-lays a scene's emitters in bins of
+        min(bucket count, emitter count) lights for binned RIS selection
+        (``_bin_size``; ``_num_lights`` then counts the padded table), and
+        the pointset extension of a table-based RNG variant builds its
+        tables; without one the LCG's empty tables stand. The sky is cooked
+        again only when its inputs change, as the reference caches it
+        (renderer.py:985-1004)."""
+        payload = {"emitters": lights_mod.collect_emitters(flat, self._mat_table),
+                   "use_bins": False}
+        for ext in self.active_extensions():
+            ext.contribute_scene_payload(payload, scene_config)
+        tl = payload["emitters"]
+        use_bins = bool(payload["use_bins"]) and tl.count > 0
+        self._bin_size = int(payload["bin_size"]) if use_bins else None
+        rng = payload.get("rng")
+        if rng is None:
+            rng = pointsets.build_rng_buffers(RNG_VARIANT_UNIFORM,
+                                              device=self.device)
         self._num_lights = tl.count
         if tl.count == 0:
             tl = lights_mod.empty_lights()
@@ -483,7 +641,7 @@ class Renderer:
                 scene_config.albedo, has_area_lights=self._num_lights > 0,
                 device=self.device)
             self._sky_key = key
-        return lights, self._sky
+        return lights, self._sky, rng
 
     def _set_two_level(self, mesh_tris, binding, frame: int):
         """The two-level build of ``set_scene`` (renderer.py:692-769): the
@@ -512,7 +670,12 @@ class Renderer:
                 traverse_tlas_stream.pick_chunk_tris(sizes))
             self._k7_static = traverse_tlas_stream.pack_tlas_stream_static(
                 mesh_tris, device=self.device)
-        return self._build_tlas_buffers(self.scene.instance_transforms(frame))
+        t0 = time.perf_counter()
+        out = self._build_tlas_buffers(self.scene.instance_transforms(frame))
+        self._tlas_build_seconds = time.perf_counter() - t0
+        self.timers.add(ProfilingMarker.BUILD_TLAS,
+                        self._tlas_build_seconds * 1e3)
+        return out
 
     def _build_tlas_buffers(self, transforms):
         """One frame's TLAS side (renderer.py:610-650): instance boxes, the
@@ -559,14 +722,19 @@ class Renderer:
         self.device_scene = self.device_scene._replace(
             tlas=tb, tlas_k6=k6, tlas_stream=k7)
         self.tlas_update_seconds = time.perf_counter() - t0
+        self.timers.add(ProfilingMarker.UPDATE_TLAS,
+                        self.tlas_update_seconds * 1e3)
         self._scene_frame = frame
         self._wavefront = None
         self.frame_id = 0  # the next frame blends as the first sample
 
     def _animate_flattened(self, frame: int, scene_config: SceneConfig) -> None:
         """The flattened branch of set_animation_frame (renderer.py:
-        1963-2060, without its LoD part, ROADMAP item 21). The scene is
-        flattened at ``frame``; with ``options.force_bvh_rebuild`` or at
+        1963-2060). On a scene with LoD groups the flatten reuses the
+        selection the topology was built over (its camera and threshold),
+        and a frame that changes that selection rebuilds the scene
+        (``_rebuild_scene``, counted in ``lod_rebuilds``) instead of
+        refitting. The scene is flattened at ``frame``; with ``options.force_bvh_rebuild`` or at
         most ``options.rebuild_triangle_budget`` triangles the BVH is
         rebuilt (the Morton builder on the resident routes, a full
         ``pack_streamed`` on the streamed one), else refit over its
@@ -582,11 +750,23 @@ class Renderer:
         cache key, so its executor is not stale on this branch; the port
         drops its executor."""
         scene = self.scene
-        if scene.has_lod_groups():
-            raise NotImplementedError(
-                "LoD re-selection is not ported yet (ROADMAP item 21)")
-        flat = scene.flatten_world(frame=frame,
-                                   lod_threshold=scene_config.lod_threshold)
+        lod_cam, lod_thr = self._lod_camera_pos, self._lod_threshold
+        if scene.has_lod_groups() and (
+                scene.lod_selection(lod_cam, lod_thr, frame)
+                != self._lod_signature):
+            t0 = time.perf_counter()
+            self._rebuild_scene(scene_config, frame=frame, camera_pos=lod_cam)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.tlas_update_seconds = time.perf_counter() - t0
+            self.timers.add(ProfilingMarker.BUILD_TLAS,
+                            self.tlas_update_seconds * 1e3)
+            self.animation_update = "rebuild"
+            self.lod_rebuilds += 1
+            self.frame_id = 0
+            return
+        flat = scene.flatten_world(frame=frame, camera_pos=lod_cam,
+                                   lod_threshold=lod_thr)
         rebuild = (self.options.force_bvh_rebuild
                    or flat.num_tris <= self.options.rebuild_triangle_budget)
         route, dev = self._route, self.device
@@ -616,12 +796,15 @@ class Renderer:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.tlas_update_seconds = time.perf_counter() - t0
+        self.timers.add(ProfilingMarker.BUILD_TLAS if rebuild
+                        else ProfilingMarker.UPDATE_TLAS,
+                        self.tlas_update_seconds * 1e3)
         self.animation_update = "rebuild" if rebuild else "refit"
         self._flat = flat
-        lights, sky = self._lights_and_sky(flat, scene_config)
+        lights, sky, rng = self._scene_payload(flat, scene_config)
         self.device_scene = self.device_scene._replace(
             bvh=bvh, attr_packed=self._attr_table(flat, ix), lights=lights,
-            sky=sky)
+            sky=sky, rng=rng)
         self._scene_frame = frame
         self._wavefront = None
         self.frame_id = 0  # the next frame blends as the first sample
@@ -647,7 +830,7 @@ class Renderer:
         variant sets ``wavefront`` (renderer.py:1234-1235). Binned RIS
         light selection is on where the reference's binned-lights extension
         turns it on: the RIS variant and at least one emitter, with the bin
-        width of ``_lights_and_sky`` (extensions.py:166-200, renderer.py:
+        width of ``_scene_payload`` (extensions.py:166-200, renderer.py:
         1116-1124). ``debug_mode`` stays 0: only ``render_debug_image``
         sets it, as in the reference (renderer.py:1643-1645)."""
         route = self._route
@@ -702,27 +885,40 @@ class Renderer:
 
     def render(self, config: FrameConfig,
                batch_spp: Optional[int] = None) -> RenderStats:
-        """One frame: ``batch_spp`` samples per pixel, each as one pass
-        per chunk, accumulated in place. Returns ``stats()`` once every
-        pass is queued on the device, without synchronising: on a card the
-        frame is timed by a pair of CUDA events around its queued work,
-        read when it has completed (so the returned ``render_time`` is
-        that of the last completed frame, the reference's delayed-timestamp
-        design, renderer.py:1405-1436); on the CPU by the host clock."""
+        """One frame of ``batch_spp`` samples per pixel (renderer.py:
+        1161-1519). Returns ``stats()`` once every pass is queued on the
+        device, without synchronising: on a card the frame is timed by a
+        pair of CUDA events around its queued work, read when it has
+        completed (so the returned ``render_time`` is that of the last
+        completed frame, the reference's delayed-timestamp design,
+        renderer.py:1405-1436); on the CPU by the host clock. The same
+        times go to ``timers`` as RENDERING.
+
+        On a scene with LoD groups, a camera whose LoD selection differs
+        from the scene's rebuilds it first (``lod_rebuilds``) and restarts
+        the accumulation. Without ACCUMULATE, TAA or an upscale the frame
+        takes the planar fast path: each sample as one pass per chunk (or
+        the wavefront executor's bounce-major passes), accumulated in place
+        into the chunk buffers, resolved at the readback. Otherwise the
+        image-domain path (``_render_image``). ``frame_id`` advances by
+        the samples unless ``freeze_frame``."""
         if self.active_variant in (VARIANT_RT_DEBUG, VARIANT_GBUFFER):
             return self._render_debug_variant(config)
         self._debug_image = None
         params = config.params
         spp = int(batch_spp if batch_spp is not None else params.batch_spp)
-        if (
-            params.reprojection_mode == REPROJECTION_MODE_ACCUMULATE
-            or self.options.enable_taa
-            or int(params.render_upscale_factor) != 1
-        ):
-            raise NotImplementedError(
-                "reprojection, TAA and upscaling are not ported yet "
-                "(ROADMAP item 20)"
-            )
+        sc = config.scene_config or SceneConfig()
+        if self.scene is not None and self._lod_signature is not None:
+            # re-flatten and rebuild only when the selected LoD set changes
+            # (no thrash while the camera stays within a level's band)
+            cam_pos = np.asarray(config.camera.pos, np.float32)
+            sig = self.scene.lod_selection(cam_pos, sc.lod_threshold,
+                                           self._scene_frame)
+            if sig != self._lod_signature:
+                self._rebuild_scene(sc, frame=self._scene_frame,
+                                    camera_pos=cam_pos)
+                self.lod_rebuilds += 1
+                self.reset_accumulation()
         cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
         self._read_frame_time(wait=False)  # the previous frame's, if done
@@ -736,11 +932,58 @@ class Renderer:
             sample_offset=self.frame_id,
             shot_offset=self.shot_offset,
             pixel_radius=float(params.pixel_radius),
-            bump_scale=float((config.scene_config or SceneConfig()).bump_scale),
+            bump_scale=float(sc.bump_scale),
             aperture_radius=float(params.aperture_radius),
             focus_distance=float(params.focus_distance),
         )
         cfg = self._integrator_config(params)
+        # the state the processing extensions read (renderer.py:1237-1242)
+        self._aovs = None
+        self._last_config = config
+        self._last_upscale = int(params.render_upscale_factor)
+        self._frame_id_at_render = self.frame_id
+        for ext in self.active_extensions():
+            ext.preprocess()
+        fast = (params.reprojection_mode != REPROJECTION_MODE_ACCUMULATE
+                and not self.options.enable_taa
+                and int(params.render_upscale_factor) == 1)
+        if fast:
+            self._render_planar(params, cfg, fp, view, spp)
+        else:
+            self._render_image(config, cfg, fp, view, spp)
+        if cuda:
+            events[1].record()
+            self._frame_events = events
+            self.timers.add_events(ProfilingMarker.RENDERING, *events)
+        else:
+            self._last_render_ms = (time.perf_counter() - t0) * 1e3
+            self.timers.add(ProfilingMarker.RENDERING, self._last_render_ms)
+        self.timers.end_frame()
+        if not self.freeze_frame:
+            self.frame_id += spp
+        return self.stats()
+
+    def _check_pass(self, acc, s: int, c: int) -> None:
+        """Under ``utils.debug.enable_nan_debugging``: the pass's chunk
+        accumulators must be finite (a device sync)."""
+        debug_mod.check_pass_finite(acc, self.frame_id, s, c)
+
+    def _render_planar(self, params, cfg, fp, view, spp: int) -> None:
+        """The planar fast path (renderer.py:1263-1440). An image history
+        (a checkpoint, an image-domain frame) is re-swizzled into the chunk
+        buffers first when samples are accumulated (renderer.py:
+        1296-1331)."""
+        if not self._planar:
+            if self.frame_id > 0 and self._accum_img is not None:
+                planes = torch.from_numpy(image_to_planes(
+                    self._accum_img.cpu().numpy(), self.fb_width,
+                    self.fb_height, self.rays_per_pass)).to(self.device)
+                self._acc_chunks = [
+                    tuple(p.contiguous() for p in ch.unbind(0))
+                    for ch in planes.split(self._swizzle[0][0].shape[0], dim=1)]
+            else:
+                self._acc_chunks = self._zero_chunks()
+            self._planar = True
         # DISCARD_HISTORY (postprocess/reprojection.h:11-18): each frame
         # stands alone, blended as if the accumulator were empty
         discard = params.reprojection_mode == REPROJECTION_MODE_DISCARD_HISTORY
@@ -759,6 +1002,8 @@ class Renderer:
             for s in range(spp):
                 rays.append(wf.render_sample(fp, view, self._acc_chunks, s,
                                              base_k))
+                for c, acc in enumerate(self._acc_chunks):
+                    self._check_pass(acc, s, c)
             self.live_profile = wf.live_profile
         else:
             self.live_profile = []
@@ -768,18 +1013,64 @@ class Renderer:
                 for c, acc in enumerate(self._acc_chunks):
                     rays.append(pass_fn(fp, view, acc, px_c[c], py_c[c],
                                         valid_c[c], s, base_k))
+                    self._check_pass(acc, s, c)
         self._last_rays = rays
-        self.frame_id += spp
         # the display resolve is deferred to the readback (renderer.py:
-        # 1402-1404)
+        # 1399-1404)
         self._resolve_args = (float(params.exposure),
                               int(params.early_tone_mapping_mode))
-        if cuda:
-            events[1].record()
-            self._frame_events = events
+
+    def _render_image(self, config: FrameConfig, cfg, fp, view,
+                      spp: int) -> None:
+        """The image-domain frame (renderer.py:1442-1505): the frame's
+        samples on fresh chunks through the monolithic pass, whatever the
+        route would take on the fast path (renderer.py:1256-1262),
+        assembled to an image; a planar history becomes the image history
+        first (renderer.py:1448-1451). Then ACCUMULATE reprojects the
+        history by this frame's motion AOV against the previous frame's
+        depth, with the bounded window ``params.spp_accumulation_window``
+        (a first frame, or one without a previous depth, stands alone);
+        DISCARD_HISTORY keeps the frame alone; otherwise the history
+        average. The display image is resolved at the upscale, and the TAA
+        processing step runs on it (with the motion repeated by the
+        upscale) under ``options.enable_taa``."""
+        params = config.params
+        pass_fn = make_pass_fn(self.device_scene, cfg, self.fb_width,
+                               self.fb_height)
+        new_accum, rays = render_tile_host(
+            pass_fn, fp, view, self.fb_width, self.fb_height, spp,
+            (*self._swizzle, self._inv),
+            on_pass=self._check_pass if debug_mod.nan_debugging() else None)
+        self.live_profile = []
+        if self._planar:
+            self.accum = self.accum  # leaving the fast path: image history
+        if params.reprojection_mode == REPROJECTION_MODE_ACCUMULATE:
+            aovs = self._aovs = self.render_aovs(config)
+            prev_accum = self.accum
+            depth = aovs.normal_depth[..., 3]
+            if self._prev_depth is None or self.frame_id == 0:
+                self.accum = new_accum
+            else:
+                self.accum = taa_mod.reproject_and_accumulate(
+                    new_accum, prev_accum, aovs.motion_jitter[..., :2], depth,
+                    self._prev_depth, int(params.spp_accumulation_window),
+                    self.frame_id, spp)
+            self._prev_depth = depth
+        elif params.reprojection_mode == REPROJECTION_MODE_DISCARD_HISTORY:
+            self.accum = new_accum
         else:
-            self._last_render_ms = (time.perf_counter() - t0) * 1e3
-        return self.stats()
+            self.accum = resolve_mod.accumulate_history(
+                self.accum, new_accum, self.frame_id, spp)
+        with self.timers.interval(ProfilingMarker.PROCESSING, self.device):
+            self.framebuffer = resolve_mod.resolve_framebuffer(
+                self.accum, float(params.exposure),
+                int(params.early_tone_mapping_mode),
+                int(params.render_upscale_factor))
+        if self.options.enable_taa:
+            taa_ext = self.get_processing_step(ext_mod.RenderProcessingStep.TAA)
+            if taa_ext is not None and taa_ext.is_active_for(self.options):
+                taa_ext.process()
+        self._last_rays = rays
 
     def reset_accumulation(self) -> None:
         """The next frame blends as the first sample (renderer.py:1074)."""
@@ -801,20 +1092,31 @@ class Renderer:
         return (not adj), (options.replace(**adj) if adj else options)
 
     def configure_for(self, options) -> bool:
-        """Apply options (renderer.py:425-470, without the extensions'
-        negotiation, ROADMAP item 21): invalid values are clamped to the
-        supported lattice (then False is returned); a change of
-        ``use_tlas`` or ``quantized_geometry`` rebuilds the scene with
-        ``set_scene`` at its scene config and animation frame, since those
-        options change what it builds, a change of ``rng_variant``
-        alone rebuilds the scene's RNG tables, and one of the light-sampling
-        variant or bucket count its light tables. If the rebuild fails, the
-        exception is logged, the renderer's last good state (options, scene, buffers)
-        is restored and False is returned. Returns True iff the options
+        """Apply options (renderer.py:425-470): invalid values are clamped
+        to the supported lattice (then False is returned), and each
+        extension active for them may clamp further
+        (``normalize_options``, then False is returned) or refuse them
+        (``configure_for``; then they are not applied and False is
+        returned). A change of ``use_tlas`` or ``quantized_geometry``
+        rebuilds the scene (``_rebuild_scene``) at its scene config,
+        animation frame and LoD camera, since those options change what it
+        builds; a change of ``rng_variant`` or of the light-sampling
+        variant or bucket count alone rebuilds the scene's lights and RNG
+        tables (``_scene_payload``). If the rebuild fails, the exception is
+        logged, the renderer's last good state (options, scene, buffers) is
+        restored and False is returned. Returns True iff the options
         applied unmodified."""
         ok, adjusted = self._validate_options(options)
         if not ok:
             warning("invalid render options; auto-adjusted to supported values")
+        # extension option negotiation (app.cpp:391-396)
+        for ext in self.extensions:
+            if ext.is_active_for(adjusted):
+                norm = ext.normalize_options(adjusted)
+                if norm != adjusted:
+                    adjusted, ok = norm, False
+                if not ext.configure_for(adjusted):
+                    return False
         if adjusted != self.options:
             rebuild = self.scene is not None and any(
                 getattr(adjusted, f) != getattr(self.options, f)
@@ -829,18 +1131,15 @@ class Renderer:
                 self.options = adjusted
                 self._wavefront = None  # its programs hold the old options
                 if rebuild:
-                    self.set_scene(self.scene, self._scene_config,
-                                   frame=self._scene_frame)
-                elif self.device_scene is not None:
-                    if rng_changed:
-                        self.device_scene = self.device_scene._replace(
-                            rng=pointsets.build_rng_buffers(
-                                int(adjusted.rng_variant), device=self.device))
-                    if lights_changed:
-                        lights, _ = self._lights_and_sky(self._flat,
+                    self._rebuild_scene(self._scene_config,
+                                        frame=self._scene_frame,
+                                        camera_pos=self._lod_camera_pos)
+                elif self.device_scene is not None and (rng_changed
+                                                        or lights_changed):
+                    lights, _, rng = self._scene_payload(self._flat,
                                                          self._scene_config)
-                        self.device_scene = self.device_scene._replace(
-                            lights=lights)
+                    self.device_scene = self.device_scene._replace(
+                        lights=lights, rng=rng)
             except Exception as e:  # revert to the last good state
                 warning("option apply failed (%r); reverting", e)
                 self.__dict__.clear()
@@ -891,29 +1190,71 @@ class Renderer:
         return [torch.cat([c[k] for c in self._acc_chunks]) for k in range(4)]
 
     def readback_framebuffer(self) -> np.ndarray:
-        """The sRGB display image (H, W, 4) float32 (renderer.py:1525-1552):
-        the accumulation resolved by ``ops/resolve.py::resolve_channels``
-        with the last frame's ``params.exposure`` and
-        ``early_tone_mapping_mode`` (renderer.py:1486-1488), on the device,
-        then un-swizzled on the host; after an ``RT_DEBUG`` or ``GBUFFER``
-        frame its image as it is."""
+        """The sRGB display image (H * u, W * u, 4) float32 (renderer.py:
+        1525-1552). On the planar path the accumulation is resolved by
+        ``ops/resolve.py::resolve_channels`` with the last frame's
+        ``params.exposure`` and ``early_tone_mapping_mode`` (renderer.py:
+        1486-1488) on the device (PROCESSING), then un-swizzled on the host;
+        on the image-domain path it is the frame's display image. After an
+        ``RT_DEBUG`` or ``GBUFFER`` frame its image as it is. READBACK
+        times the call on the host clock."""
         if self._debug_image is not None:
             return self._debug_image.cpu().numpy()
-        exposure, tonemap = self._resolve_args
-        planes = resolve_mod.resolve_channels(self._planes(), exposure, tonemap)
-        return planes_to_image(
-            np.stack([p.cpu().numpy() for p in planes]), self.fb_width,
-            self.fb_height, self.rays_per_pass)
+        t0 = time.perf_counter()
+        if self._planar:
+            exposure, tonemap = self._resolve_args
+            with self.timers.interval(ProfilingMarker.PROCESSING, self.device):
+                planes = resolve_mod.resolve_channels(self._planes(), exposure,
+                                                      tonemap)
+            out = planes_to_image(
+                np.stack([p.cpu().numpy() for p in planes]), self.fb_width,
+                self.fb_height, self.rays_per_pass)
+        else:
+            out = self._fb_img.cpu().numpy()
+        self.timers.add(ProfilingMarker.READBACK,
+                        (time.perf_counter() - t0) * 1e3)
+        return out
 
     def readback_accumulation(self) -> np.ndarray:
         """Linear HDR accumulation buffer (H, W, 4) float32; after an
         ``RT_DEBUG`` or ``GBUFFER`` frame its image."""
         if self._debug_image is not None:
             return self._debug_image.cpu().numpy()
+        if not self._planar:
+            return self._accum_img.cpu().numpy()
         planes = np.stack([p.cpu().numpy() for p in self._planes()])
         return planes_to_image(
             planes, self.fb_width, self.fb_height, self.rays_per_pass
         )
+
+    # ------------------------------------------------------------------
+    # Checkpoint / resume (renderer.py:1656-1682)
+    # ------------------------------------------------------------------
+
+    def save_state(self, path: str) -> None:
+        """Checkpoint the progressive render: the accumulation image and
+        the sample bookkeeping, in the reference's ``.npz`` keys (accum,
+        frame_id, shot_offset, fb_width, fb_height), so that either
+        renderer resumes the other's checkpoint."""
+        np.savez_compressed(
+            path, accum=self.accum.cpu().numpy(), frame_id=self.frame_id,
+            shot_offset=self.shot_offset, fb_width=self.fb_width,
+            fb_height=self.fb_height)
+
+    def load_state(self, path: str) -> None:
+        """Resume a checkpointed accumulation (re-initialising at its size
+        when it differs); ``render`` then adds samples from ``frame_id`` as
+        an uninterrupted run would (the RNG seeds on the sample index)."""
+        with np.load(path) as z:
+            w, h = int(z["fb_width"]), int(z["fb_height"])
+            if (w, h) != (self.fb_width, self.fb_height):
+                self.initialize(w, h)
+            self.accum = torch.from_numpy(
+                np.ascontiguousarray(z["accum"], np.float32)).to(self.device)
+            self.frame_id = int(z["frame_id"])
+            self.shot_offset = int(z["shot_offset"])
+        self.framebuffer = resolve_mod.resolve_framebuffer(self.accum, 0.0,
+                                                           tonemap_mode=0)
 
     def _view(self, camera) -> ViewBuffers:
         """The camera's view basis on the device."""
@@ -1107,3 +1448,100 @@ class Renderer:
             self._view(config.camera), self.fb_width, self.fb_height,
             self.rays_per_pass)
         return img.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Raster G-buffer (renderer.py:2066-2084)
+    # ------------------------------------------------------------------
+
+    def render_raster_gbuffer(self, config: FrameConfig) -> raster_mod.GBuffer:
+        """The optional raster G-buffer path (the ENABLE_RASTER pipeline):
+        z-buffered albedo, shading normal, depth and triangle id of the
+        renderer's flattened scene (``ops/raster.py``), without ray
+        tracing; (H, W[, 3]) tensors on the device."""
+        flat, dev = self._flat, self.device
+
+        def t(a, dtype=np.float32):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+        pos, du, dv, tl = config.camera.view_basis(self.fb_width, self.fb_height)
+        return raster_mod.raster_gbuffer(
+            t(flat.v0), t(flat.e1), t(flat.e2), t(flat.n0), t(flat.n1),
+            t(flat.n2), t(self._mat_table.base_color), t(flat.material_id,
+                                                         np.int32),
+            t(pos), t(du), t(dv), t(tl), self.fb_width, self.fb_height)
+
+    # ------------------------------------------------------------------
+    # Hot reload (renderer.py:2128-2182)
+    # ------------------------------------------------------------------
+
+    # the rendering modules eligible for hot reload, in dependency order
+    # (leaves first, the integrator last): the analogue of the reference's
+    # shader-source staleness check and recompile (gpu_programs.cpp:
+    # 180-229). A module that imports another as a module object sees the
+    # reload in place; the names this module imports from them are rebound
+    # (``_HOT_RELOAD_NAMES``)
+    _HOT_RELOAD_MODULES = (
+        "ops.vec3", "ops.rng", "ops.sobol", "ops.pointsets_tables",
+        "ops.pointsets", "ops.texture_atlas", "ops.bsdf_gltf",
+        "ops.intersect", "ops.nee", "ops.resolve", "ops.taa", "ops.raster",
+        "ops.traverse", "ops.traverse_resident", "ops.tlas",
+        "ops.traverse_stream", "ops.traverse_binned", "ops.traverse_flat",
+        "ops.traverse_tlas", "ops.traverse_tlas_stream", "ops.traverse_v1",
+        "ops.aov", "ops.wavefront_host", "ops.integrator",
+    )
+    _HOT_RELOAD_NAMES = {
+        "ops.vec3": ("Vec3",),
+        "ops.intersect": ("T_MAX",),
+        "ops.traverse": ("map_rows_to_tris",),
+        "ops.traverse_resident": ("pack_resident",),
+        "ops.traverse_flat": ("pack_flat",),
+        "ops.wavefront_host": ("WavefrontExecutor",),
+        "ops.integrator": (
+            "RAYS_PER_PASS", "STREAM_CLOSEST", "DeviceScene", "FrameParams",
+            "IntegratorConfig", "ViewBuffers", "_closest_hit_dispatch",
+            "image_to_planes", "make_pass_fn", "pack_attr_table",
+            "pack_material_table", "planes_to_image", "render_debug_host",
+            "render_ray_stats_host", "render_tile_host", "swizzle_host",
+            "trace_paths"),
+    }
+
+    def hot_reload(self) -> bool:
+        """Reload the edited rendering modules (renderer.py:2140-2182):
+        the first call records each loaded module's source mtime; a later
+        call reloads, in dependency order, every module from the first one
+        whose source is newer, rebinds the names this module imported from
+        them and drops the wavefront executor (its programs hold the old
+        code). An edited ``csrc/*.cu`` or ``*.cuh`` is rebuilt at the next
+        launch, since ``kernels/build.py`` keys each library by its
+        sources' hash; the loaded libraries are dropped here so that the
+        new one is loaded. Returns whether any module was reloaded."""
+        import importlib
+        import sys
+
+        pkg = "realtimepathtracingresearchframework_tpu_torch"
+        stale = False
+        reloaded = []
+        for rel in self._HOT_RELOAD_MODULES:
+            mod = sys.modules.get(f"{pkg}.{rel}")
+            if mod is None or not getattr(mod, "__file__", None):
+                continue
+            try:
+                src_mtime = os.path.getmtime(mod.__file__)
+            except OSError:
+                continue
+            loaded = getattr(mod, "__hot_mtime__", None)
+            if loaded is None and not stale:
+                mod.__hot_mtime__ = src_mtime
+                continue
+            if stale or (loaded is not None and src_mtime > loaded):
+                importlib.reload(mod)
+                mod.__hot_mtime__ = os.path.getmtime(mod.__file__)
+                stale = True  # reload everything downstream of an edit
+                reloaded.append(rel)
+        g = globals()
+        for rel in reloaded:
+            for name in self._HOT_RELOAD_NAMES.get(rel, ()):
+                g[name] = getattr(sys.modules[f"{pkg}.{rel}"], name)
+        build_mod._loaded.clear()
+        self._wavefront = None
+        return stale

@@ -110,9 +110,13 @@ REF_MEAN_REL = 1e-4
 # comparison: the textured golden turns the walks' last-bit u/v
 # differences into texel colour
 FRAC_GATES = {"cornell_textured": {"golden": 0.03, "ref": 0.02}}
+# the gate of the image-domain frames (ACCUMULATE, TAA, upscale) of
+# cornell_diffuse's scene against the JAX renderer's: cornell_diffuse's,
+# reading the relative L1 error as the RNG goldens do (see the docstring)
+REPROJECTION = "cornell_reprojection"
 # the goldens whose golden and op-by-op gates read the relative L1 error in
 # the mean relative error's place, at the same limit (see the docstring)
-L1_GATED = frozenset(RNG_NAMES)
+L1_GATED = frozenset(RNG_NAMES + (REPROJECTION,))
 
 
 def checker(n: int = 16) -> np.ndarray:

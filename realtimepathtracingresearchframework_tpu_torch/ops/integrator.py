@@ -57,6 +57,9 @@ as its 4th output) follow the reference (integrator.py:1036-1130,
 1342-1480, 1604-1610, 1722-1726, 1840-1867); ``render_ray_stats_host``
 and ``render_debug_host`` render the one-sample count images of the
 reference's ``make_ray_stats_fn`` and ``make_debug_fn`` (:2154-2238).
+``render_tile_host`` renders the image-domain path's frame on fresh chunks
+(:2259-2305), and ``image_to_planes`` re-swizzles an image history into
+the planar layout (:2036-2042).
 """
 
 from __future__ import annotations
@@ -1612,6 +1615,40 @@ def planes_to_image(planes_np: np.ndarray, width: int, tile_h: int,
     """Host blit: planar-swizzled (4, n_pad) -> (tile_h, width, 4)."""
     inv_np = swizzle_host(width, tile_h, rays_per_pass)[4]
     return np.ascontiguousarray(planes_np[:, inv_np].T).reshape(tile_h, width, 4)
+
+
+def image_to_planes(img: np.ndarray, width: int, tile_h: int,
+                    rays_per_pass: int = RAYS_PER_PASS) -> np.ndarray:
+    """Host re-swizzle, the inverse of ``planes_to_image``: (tile_h, width,
+    4) -> planar-swizzled (4, n_pad), padding slots 0 (integrator.py:
+    2036-2042)."""
+    lin_np = swizzle_host(width, tile_h, rays_per_pass)[3]
+    flat = np.concatenate(
+        [img.reshape(-1, 4), np.zeros((1, 4), img.dtype)], axis=0)
+    return np.ascontiguousarray(flat[lin_np].T)
+
+
+def render_tile_host(pass_fn, fp: FrameParams, view: ViewBuffers, width: int,
+                     height: int, spp: int, tables, on_pass=None):
+    """One frame of ``spp`` samples on fresh zero chunks, blended from base
+    0, assembled to an (H, W, 4) image of the samples' mean
+    (integrator.py:2259-2305): one ``pass_fn`` (``make_pass_fn``) call per
+    (sample, chunk), as the planar path runs them. ``tables`` is the
+    frame's (px, py, valid) chunk lists and its (H * W,) pixel -> slot
+    index on the device. ``on_pass(acc, s, c)`` runs after each pass.
+    Returns (image, the per-pass ray counts as device scalars)."""
+    px_c, py_c, valid_c, inv = tables
+    accs = [tuple(torch.zeros_like(p, dtype=torch.float32) for _ in range(4))
+            for p in px_c]
+    rays = []
+    for s in range(spp):
+        for c, acc in enumerate(accs):
+            rays.append(pass_fn(fp, view, acc, px_c[c], py_c[c], valid_c[c],
+                                s, 0))
+            if on_pass is not None:
+                on_pass(acc, s, c)
+    planes = torch.stack([torch.cat([a[k] for a in accs]) for k in range(4)])
+    return planes[:, inv].T.reshape(height, width, 4), rays
 
 
 def make_pass_fn(ds: DeviceScene, cfg: IntegratorConfig, width: int,

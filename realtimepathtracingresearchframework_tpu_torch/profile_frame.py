@@ -19,7 +19,10 @@ and sky of bench.py's instanced row, on the two-level route
 (``options.use_tlas`` off: its BVH is refit or rebuilt by ``--animate``).
 ``--rng bn|sobol|zsbl`` picks the RNG variant (``options.rng_variant``),
 ``--ris`` binned RIS light selection, ``--aperture A [--focus F]``
-thin-lens DoF.
+thin-lens DoF. ``--accumulate`` (REPROJECTION_MODE_ACCUMULATE, window 8),
+``--taa`` (``options.enable_taa``) and ``--upscale N``
+(``render_upscale_factor``) put the frame on the image-domain path and
+print the renderer's timers window (RENDERING, PROCESSING, TAA).
 ``--scene village``: ``procedural.village()`` (80,496 textured triangles)
 with the camera, sun and sky of bench.py's village row, through K2, K3 and
 the wavefront executor. ``--variant PT_WAVEFRONT`` renders through the
@@ -43,7 +46,7 @@ and sync calls. The last line is a JSON summary.
         [--scene cornell|village|terrain200|terrain500|instanced600|instanced500|instanced2500] \
         [--variant PT_MEGAKERNEL|PT_WAVEFRONT|RT_DEBUG|...] [--animate] \
         [--quantized] [--flattened] [--rng uniform|bn|sobol|zsbl] [--ris] \
-        [--aperture 0.05 --focus 3.2] \
+        [--aperture 0.05 --focus 3.2] [--accumulate] [--taa] [--upscale 2] \
         [--size 1920x1080] \
         [--depth 9] [--frames 5] [--profiled 3] [--out tables.txt]
 
@@ -53,6 +56,7 @@ and sync calls. The last line is a JSON summary.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -64,6 +68,7 @@ import torch
 
 from realtimepathtracingresearchframework_tpu_torch.backend.params import (
     LIGHT_SAMPLING_VARIANT_RIS,
+    REPROJECTION_MODE_ACCUMULATE,
     RenderParams,
     SceneConfig,
 )
@@ -93,6 +98,9 @@ from realtimepathtracingresearchframework_tpu_torch.ops import (
     traverse_tlas_stream as tts,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_v1 as tv
+from realtimepathtracingresearchframework_tpu_torch.utils.profiling import (
+    ProfilingMarker,
+)
 
 SIZE = (1920, 1080)
 # traversal kernels: the launch counter and a substring of the kernel name
@@ -204,6 +212,11 @@ def main(argv=None) -> int:
                     help="thin-lens DoF aperture radius (0: pinhole)")
     ap.add_argument("--focus", type=float, default=None,
                     help="thin-lens focus distance")
+    ap.add_argument("--accumulate", action="store_true",
+                    help="REPROJECTION_MODE_ACCUMULATE, window 8")
+    ap.add_argument("--taa", action="store_true", help="options.enable_taa")
+    ap.add_argument("--upscale", type=int, default=1,
+                    help="render_upscale_factor")
     ap.add_argument("--size", default="1920x1080", help="WxH")
     ap.add_argument("--depth", type=int, default=9)
     ap.add_argument("--frames", type=int, default=5)
@@ -233,6 +246,11 @@ def main(argv=None) -> int:
                              quantized=args.quantized, **common)
     if args.animate and args.scene not in INSTANCES:
         ap.error("--animate needs an instanced scene")
+    r.options = r.options.replace(enable_taa=args.taa)
+    cfg = dataclasses.replace(cfg, params=cfg.params.replace(
+        render_upscale_factor=args.upscale, spp_accumulation_window=8,
+        **({"reprojection_mode": REPROJECTION_MODE_ACCUMULATE}
+           if args.accumulate else {})))
     print(f"{args.scene} {args.size} depth {args.depth} {r.active_variant}: "
           f"set-up {r.setup_seconds:.3f} s, route {r._route}, textures "
           f"{r._has_textures}, alpha test {r._has_alpha}", flush=True)
@@ -320,6 +338,10 @@ def main(argv=None) -> int:
         print(f"  {t / 1e3 / nf:9.3f} ms/frame {c / nf:8.0f} calls  {name[:100]}")
     for name, (t, c) in sorted(host.items()):
         print(f"  host {name}: {c / nf:.0f} per frame, {t / 1e3 / nf:.3f} ms/frame")
+    timers = {m.value: r.timers.window_stats(m) for m in (
+        ProfilingMarker.RENDERING, ProfilingMarker.PROCESSING,
+        ProfilingMarker.TAA)}
+    print(f"  timers window (avg, min, max, stddev) ms: {timers}")
     if args.out:
         ka = prof.key_averages()
         with open(args.out, "w") as f:
@@ -329,6 +351,8 @@ def main(argv=None) -> int:
         "scene": args.scene, "variant": r.active_variant, "size": args.size,
         "ris": args.ris, "aperture": args.aperture,
         "depth": args.depth, "quantized": args.quantized,
+        "accumulate": args.accumulate, "taa": args.taa,
+        "upscale": args.upscale, "timers": timers,
         "stream_closest": os.environ.get("RPTR_STREAM_CLOSEST", "sorted"),
         "merged_launches_per_frame": merged, "modes_per_frame": modes,
         "alpha_per_frame": alpha, "nee_dropped_per_frame": dropped,

@@ -4,14 +4,16 @@ TPU-native equivalent of:
 - RAII ``ProfilingScope`` with static per-site records and hierarchical dump
   (``util/profiling.h:8-68``).
 - GPU timestamp markers (``vulkan/profiling/profiling_scopes.h:20-198``):
-  the marker taxonomy is kept; device timing is measured by bracketing
-  dispatches with a device synchronize (the PyTorch port's copy of the
-  reference module; the bracket synchronizes the stream, like a timestamp
-  pair at queue granularity).
+  the marker taxonomy is kept. The PyTorch port's copy of the reference
+  module: ``DeviceTimers.interval`` brackets device work with a pair of
+  CUDA events on a card (a timestamp pair at queue granularity, read once
+  the work has completed, so the frame loop never waits for it) and with
+  the host clock on the CPU; ``time`` brackets with a device synchronize.
 """
 
 from __future__ import annotations
 
+import collections
 import enum
 import time
 import threading
@@ -117,6 +119,9 @@ class DeviceTimers:
 
     def __init__(self):
         self._frame: Dict[str, float] = {}
+        self._frame_events: List[tuple] = []  # (name, start, end) CUDA events
+        # frames ended whose events have not all completed, oldest first
+        self._pending = collections.deque()
         self._history: Dict[str, List[float]] = {}
         self.stats: Dict[str, OnlineStats] = {}
 
@@ -140,21 +145,63 @@ class DeviceTimers:
         name = marker.value
         self._frame[name] = self._frame.get(name, 0.0) + ms
 
+    def add_events(self, marker: ProfilingMarker, start, end) -> None:
+        """Add the device interval between two recorded CUDA events to this
+        frame; it is read once ``end`` has completed."""
+        self._frame_events.append((marker.value, start, end))
+
+    @contextmanager
+    def interval(self, marker: ProfilingMarker, device):
+        """Time the work queued inside the block: by CUDA events on a CUDA
+        ``device`` (no synchronisation), else by the host clock."""
+        if getattr(device, "type", device) == "cuda":
+            import torch
+
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self.add_events(marker, start, end)
+        else:
+            t0 = time.perf_counter()
+            yield
+            self.add(marker, (time.perf_counter() - t0) * 1e3)
+
     def end_frame(self) -> Dict[str, float]:
-        """Roll the per-frame timings into the sliding window; returns them."""
+        """End the frame: its timings go into the sliding window once its
+        device intervals have completed (frames in order). Returns its host
+        timings."""
         frame = dict(self._frame)
-        for name, ms in frame.items():
-            hist = self._history.setdefault(name, [])
-            hist.append(ms)
-            if len(hist) > self.WINDOW:
-                hist.pop(0)
-            st = self.stats.setdefault(name, OnlineStats())
-            st.add(ms)
+        self._pending.append((dict(frame), self._frame_events))
         self._frame.clear()
+        self._frame_events = []
+        self.poll()
         return frame
 
+    def poll(self, wait: bool = False) -> None:
+        """Roll every ended frame whose device intervals have completed into
+        the window, oldest first; ``wait`` waits for them all."""
+        while self._pending:
+            frame, events = self._pending[0]
+            if not wait and not all(e.query() for _, _, e in events):
+                return
+            for name, start, end in events:
+                end.synchronize()
+                frame[name] = frame.get(name, 0.0) + start.elapsed_time(end)
+            self._pending.popleft()
+            for name, ms in frame.items():
+                hist = self._history.setdefault(name, [])
+                hist.append(ms)
+                if len(hist) > self.WINDOW:
+                    hist.pop(0)
+                st = self.stats.setdefault(name, OnlineStats())
+                st.add(ms)
+
     def window_stats(self, marker: ProfilingMarker):
-        """(avg, mn, mx, stddev) over the sliding window for a marker."""
+        """(avg, mn, mx, stddev) over the sliding window for a marker, after
+        waiting for the frames still in flight."""
+        self.poll(wait=True)
         hist = self._history.get(marker.value)
         if not hist:
             return (0.0, 0.0, 0.0, 0.0)

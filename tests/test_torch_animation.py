@@ -24,8 +24,7 @@
   each leaf's real-row count read from the tiles' bits.
 - One 32x32 frame of the flattened field after ``set_animation_frame(2)``
   against the JAX renderer's: rays exact, radiance at
-  ``goldens.compare_ref``'s gate.
-- A scene with LoD groups still raises, naming ROADMAP item 21.
+  ``goldens.compare_ref``'s gate. LoD scenes are tests/test_torch_lod.py's.
 
 The JAX renderer's frame-2 state is shared through a module fixture.
 """
@@ -277,14 +276,3 @@ def test_animated_frame_matches_jax(route_env, jax_frame2):
     assert np.isfinite(img).all() and 0.3 < img[..., 3].mean() < 1.0
     res = goldens.compare_ref(img[..., :3], jimg[..., :3].astype(np.float64))
     assert res["ok"], res
-
-
-def test_lod_scene_still_raises(route_env, monkeypatch):
-    """LoD re-selection is ROADMAP item 21: set_scene raises on a scene
-    with LoD groups, and so does set_animation_frame."""
-    r = _port_field("k1", "refit", frame=0)
-    monkeypatch.setattr(type(r.scene), "has_lod_groups", lambda self: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        r.set_animation_frame(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        r.set_scene(r.scene)

@@ -128,3 +128,18 @@ def test_sobol_matrices_match():
     port, ref = tsobol.sobol_matrices(), jsobol.sobol_matrices()
     assert port.dtype == ref.dtype == np.uint32 and port.shape == (128, 32)
     np.testing.assert_array_equal(port, ref)
+
+
+def test_halton_matches():
+    """The port's copy of the Halton(2,3) table: the radical inverse, the
+    table and the centred jitter, equal to the reference's."""
+    from realtimepathtracingresearchframework_tpu.utils import halton as jh
+    from realtimepathtracingresearchframework_tpu_torch.utils import halton as th
+
+    for i in (0, 1, 2, 7, 63, 64, 1000):
+        for base in (2, 3, 5):
+            assert th.radical_inverse(i, base) == jh.radical_inverse(i, base)
+    for n in (8, 64):
+        np.testing.assert_array_equal(th.halton_23(n), jh.halton_23(n))
+    for f in (0, 1, 63, 64, 65, 1000):
+        np.testing.assert_array_equal(th.halton_jitter(f), jh.halton_jitter(f))

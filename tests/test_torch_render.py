@@ -276,9 +276,10 @@ def test_no_jax_in_the_port():
     (the two-level modules ``ops/tlas.py``, ``ops/traverse_tlas.py`` and
     ``ops/traverse_tlas_stream.py`` among them) and chip_smoke.py, render a
     16x16 frame on the CPU with the port's own scene modules, an animated
-    frame of an instanced scene on the two-level route and a textured
-    village through the ``PT_WAVEFRONT`` variant, and look at
-    sys.modules."""
+    frame of an instanced scene on the two-level route, a textured
+    village through the ``PT_WAVEFRONT`` variant, then through the
+    image-domain path (ACCUMULATE, TAA and an upscale of 2, with the
+    extensions) and the raster G-buffer, and look at sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import realtimepathtracingresearchframework_tpu_torch as pkg\n"
@@ -307,8 +308,15 @@ def test_no_jax_in_the_port():
         "assert r.set_variant('PT_WAVEFRONT') and r._has_textures\n"
         "r.render(FrameConfig())\n"
         "assert (r.readback_accumulation() == r.readback_accumulation()).all()\n"
+        "from realtimepathtracingresearchframework_tpu_torch.backend.params"
+        " import RenderParams\n"
+        "r.options = r.options.replace(enable_taa=True)\n"
+        "r.render(FrameConfig(params=RenderParams(reprojection_mode=2,\n"
+        "                                         render_upscale_factor=2)))\n"
+        "assert r.readback_framebuffer().shape == (32, 32, 4)\n"
+        "assert r.render_raster_gbuffer(FrameConfig()).tri.shape == (16, 16)\n"
         "for m in ('tlas', 'traverse_tlas', 'traverse_tlas_stream',\n"
-        "          'texture_atlas'):\n"
+        "          'texture_atlas', 'taa', 'raster'):\n"
         "    assert pkg.__name__ + '.ops.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'realtimepathtracingresearchframework_tpu')]\n"
@@ -362,21 +370,6 @@ def test_unported_configs_raise(field):
     ti.check_supported(ti.IntegratorConfig(**{field: value}))
     with pytest.raises(ValueError, match="debug_mode"):
         ti.check_supported(ti.IntegratorConfig(debug_mode=4))
-
-
-def test_unported_render_options_raise():
-    from realtimepathtracingresearchframework_tpu.backend.params import (
-        REPROJECTION_MODE_ACCUMULATE,
-        RenderParams,
-    )
-
-    scene, cam, params, sc = goldens.config("sun_sky")
-    r = Renderer(device="cpu")
-    r.initialize(16, 16)
-    r.set_scene(scene, scene_config=sc)
-    p = RenderParams(reprojection_mode=REPROJECTION_MODE_ACCUMULATE)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        r.render(FrameConfig(camera=cam, params=p))
 
 
 RIS_SCENES = {  # name -> (golden whose scene it is, or None: the village; emitters)
