@@ -249,14 +249,24 @@ Phases (each raises on failure):
      G-buffer at 1920x1080 (ms) and at 64x36 against the CPU; an LoD scene
      whose camera crosses a selection change (one rebuild, K1, ray queries
      equal to the CPU's); a checkpoint round trip on the card (bitwise).
+ 21. the app shell (phase_app): ``python -m ...app.cli cornell --disable-ui
+     --png`` as a process at 1920x1080; in process ``--disable-ui``,
+     ``--validation`` (4 spp), ``--profiling`` (8 frames: the reference's
+     CSV columns, a row per frame, each row's render time its own frame's
+     CUDA-event time), ``--data-capture`` (2 spp, 2 viewpoints: every file
+     the reference names, finite) and the interactive viewer (one /frame
+     of 1920x1080, a key that moves the camera, /quit), K1 and no other in
+     each; four fresh renderers' first frames without and with a joined
+     ``warmup_async`` (walls, bitwise-equal images); ``--validation`` at
+     64x36 on the card against ``--backend cpu`` (goldens.compare_card).
 Every bound counts the rows of each pierced leaf up to its real-row count
 (the rows past it repeat the leaf's last triangle; K4-K7 from their tiles'
 bits), and logs the bound over the padded leaves beside it. Its last two
 lines are the kernels' JSON record (K1, K2, K3, K8a and K8b with their
 kernel-only ms and the wrapper's beside them, K1, K2, K4, K8a and K8b each
 with a merged record, K2, K8a and K8b with their grazing lanes, K1-K5
-with ``paths``: their launches on the paths of 3d, 3e, 5e, 17, 18 and
-20, every kernel with ``axis_lanes_off_brute_force`` from 19) and the
+with ``paths``: their launches on the paths of 3d, 3e, 5e, 17, 18, 20
+and 21, every kernel with ``axis_lanes_off_brute_force`` from 19) and the
 result JSON.
 """
 
@@ -4003,6 +4013,267 @@ def phase_postprocess(smi):
     return launches
 
 
+# the reference's profiling CSV columns: app/benchmark.py's five, then the
+# profiling-tools extension's 32-frame window of each marker
+# (extensions.py::ProfilingToolsExtension.csv_header)
+PROFILING_COLUMNS = [
+    "frames_total", "keyframe", "frames_accumulated", "render_time_ms",
+    "app_time_ms"] + [
+    f"{m}_{s}_ms" for m in ("buildblas", "buildtlas", "rendering",
+                            "processing", "taa", "readback")
+    for s in ("avg", "min", "max", "stddev")]
+APP_PROFILING_FRAMES = 8
+APP_SMALL = (64, 36)  # the card-against-CPU validation run
+CAPTURE_KINDS = ("albedo_roughness", "motion_jitter", "normal_depth", "rgba")
+
+
+def _counted(fn):
+    """fn() with every kernel's launch count set to 0 just before it;
+    returns (its result, the counts just after)."""
+    import torch
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    for reset, _ in counters.values():
+        reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: read() for k, (_, read) in counters.items()}
+
+
+def _check_profiling_csv(path):
+    """The CSV has the reference's columns and one row per frame; each
+    row's render time is positive, and the rendering window's min, max and
+    mean after row k (the profiling-tools columns, read from the frames'
+    own CUDA events) are those of the render times of rows 1..k, so each
+    row's time is its own frame's (``sync_interval`` 1). Returns the
+    render times."""
+    with open(path) as f:
+        rows = [line.split(", ") for line in f.read().splitlines()]
+    check(rows[0] == PROFILING_COLUMNS, f"profiling CSV header {rows[0]}")
+    check(len(rows) == APP_PROFILING_FRAMES + 1,
+          f"profiling CSV has {len(rows) - 1} rows")
+    col = {name: i for i, name in enumerate(rows[0])}
+    times = [float(r[col["render_time_ms"]]) for r in rows[1:]]
+    check(all(t > 0.0 for t in times), f"profiling render times {times}")
+    for k, row in enumerate(rows[1:], start=1):
+        seen = times[:k]
+        check(float(row[col["rendering_min_ms"]]) == min(seen)
+              and float(row[col["rendering_max_ms"]]) == max(seen)
+              and abs(float(row[col["rendering_avg_ms"]])
+                      - sum(seen) / k) <= 1e-4,
+              f"profiling row {k}: the rendering window {row[13:17]} is not "
+              f"that of the rows' render times {seen}")
+    return times
+
+
+def _viewer_run(cli, argv, tmp):
+    """The interactive viewer the CLI starts, on a thread: the CLI's
+    renderer and state (``cli.setup``), ``warmup_async`` ahead of it,
+    ``InteractiveViewer(port=0, watch_rebuild=False)`` with its ini in
+    ``tmp``. Reads one /frame (a PNG of the frame size), posts one /input
+    key until the camera moves, and /quit. Returns the walls (s): to the
+    first served frame, to the camera's move."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from realtimepathtracingresearchframework_tpu_torch.app.viewer import (
+        InteractiveViewer,
+    )
+
+    r, ims, bundle, config = cli.setup(cli.build_parser().parse_args(argv))
+    t0 = time.perf_counter()
+    r.warmup_async(config.params)
+    viewer = InteractiveViewer(r, bundle, ims, port=0, watch_rebuild=False,
+                               app_ini=os.path.join(tmp, "app.ini"))
+    url = f"http://127.0.0.1:{viewer.port}"
+    result = {}
+
+    def run():
+        try:
+            result["frames"] = viewer.run()
+        except Exception as e:  # reported below
+            result["error"] = e
+
+    def post(path, body=b"{}"):
+        req = urllib.request.Request(url + path, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.read()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    walls = {}
+    try:
+        png = b""
+        while not png.startswith(b"\x89PNG") and thread.is_alive():
+            check(time.perf_counter() - t0 < 300, "viewer: no frame in 300 s")
+            with urllib.request.urlopen(url + "/frame", timeout=60) as resp:
+                png = resp.read()
+            time.sleep(0.05)
+        walls["first frame"] = time.perf_counter() - t0
+        check(png.startswith(b"\x89PNG"), f"viewer ended: {result}")
+        size = (int.from_bytes(png[16:20], "big"),
+                int.from_bytes(png[20:24], "big"))
+        check(size == (r.fb_width, r.fb_height), f"viewer frame {size}")
+        pos0 = np.array(bundle.scene.camera.position, np.float64)
+        t1 = time.perf_counter()
+        post("/input", json.dumps({"keys": ["w"], "drag": [0, 0, 0],
+                                   "wheel": 0}).encode())
+        while np.allclose(bundle.scene.camera.position, pos0):
+            check(time.perf_counter() - t1 < 120 and thread.is_alive(),
+                  f"viewer: the camera did not move ({result})")
+            time.sleep(0.05)
+        walls["camera moved"] = time.perf_counter() - t1
+        post("/input", json.dumps({"keys": [], "drag": [0, 0, 0],
+                                   "wheel": 0}).encode())
+    finally:
+        try:
+            post("/quit")
+        except urllib.error.URLError:
+            pass  # the server is already down; the join below reports why
+        thread.join(timeout=120)
+    check(not thread.is_alive(), "viewer thread did not end after /quit")
+    check("error" not in result, f"viewer failed: {result.get('error')!r}")
+    check(os.path.exists(os.path.join(tmp, "app.ini")), "viewer: no ini saved")
+    walls["frames"] = result["frames"]
+    return walls
+
+
+def phase_app(smi):
+    """The app shell on the card (ROADMAP item 21, slice F2), cornell at
+    MAIN_SIZE, the CLI's defaults (depth 9, binned RIS light sampling), in
+    a temporary directory: ``python -m ...app.cli cornell --disable-ui
+    --png`` as a subprocess (exit 0, a finite PNG of the frame size); in
+    process through ``cli.main``: ``--disable-ui``, ``--validation`` at 4
+    spp, ``--profiling`` over APP_PROFILING_FRAMES frames (the reference's
+    columns, one row per frame, each row's render time its own frame's:
+    ``_check_profiling_csv``) and ``--data-capture`` at 2 spp with 2
+    POI-derived viewpoints (every file the reference names, finite); the
+    interactive viewer (``_viewer_run``); each with its launch counts set
+    to 0 just before and read just after: K1 and no other. Then the
+    warm-up: four fresh renderers from ``cli.setup`` (the kernels built and
+    loaded), without, with, with and without a joined ``warmup_async``,
+    their first frames' walls and bitwise-equal images; and ``--validation``
+    at APP_SMALL, 4 spp, on the card against ``--backend cpu``
+    (``goldens.compare_card``). Every wall is printed with the card.
+    Returns K1's launches by mode."""
+    import tempfile
+
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch import goldens
+    from realtimepathtracingresearchframework_tpu_torch.app import cli
+    from realtimepathtracingresearchframework_tpu_torch.utils import image_io
+
+    t_phase = time.perf_counter()
+    walls, launches = {}, {}
+    width, height = MAIN_SIZE
+    img = ["--img", str(width), str(height)]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="rptr_app_") as tmp:
+        def png(name):
+            px = image_io.read_png(os.path.join(tmp, name))
+            check(px.shape[:2] == (height, width), f"{name}: {px.shape}")
+            x = px.astype(np.float32) / 255.0
+            check(np.isfinite(x).all() and x.min() >= 0 and x.max() <= 1
+                  and x[..., :3].mean() > 0, f"{name}: empty or out of [0, 1]")
+            return float(x[..., :3].mean())
+
+        def run_cli(label, argv):
+            os.chdir(tmp)
+            t0 = time.perf_counter()
+            try:
+                rc, counts = _counted(lambda: cli.main(["cornell", *argv]))
+            finally:
+                walls[label] = time.perf_counter() - t0
+                os.chdir(cwd)
+            check(rc == 0, f"app {label}: exit {rc}")
+            _only(f"app {label}", counts, ("K1",))
+            launches[label] = counts["K1"]
+
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.app.cli", "cornell",
+             "--disable-ui", "--png"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        walls["entry point (process)"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"app entry point exit {proc.returncode}:"
+              f"\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        means = {"entry point": png("out.png")}
+        run_cli("disable-ui", [*img, "--disable-ui", "--png"])
+        means["disable-ui"] = png("out.png")
+        run_cli("validation", [*img, "--validation", "v", "--validation-spp", "4",
+                            "--png"])
+        means["validation"] = png("v_0004.png")
+        run_cli("profiling", [*img, "--profiling", "p", "--profiling-frames",
+                           str(APP_PROFILING_FRAMES)])
+        times = _check_profiling_csv(os.path.join(tmp, "p.csv"))
+        run_cli("data capture", [*img, "--data-capture", "d",
+                              "--data-capture-spp", "2",
+                              "--data-capture-viewpoints", "2"])
+        names = sorted(f"d_{k}_{a}.exr" for k in ("0000", "0001", "vp00", "vp01")
+                       for a in CAPTURE_KINDS)
+        got = sorted(n for n in os.listdir(tmp) if n.startswith("d_"))
+        check(got == names, f"data capture wrote {got}")
+        for name in names:
+            x = image_io.read_exr_rgba(os.path.join(tmp, name))
+            check(x.shape == (height, width, 4) and np.isfinite(x).all(),
+                  f"{name}: shape {x.shape}, not finite")
+        viewer, counts = _counted(lambda: _viewer_run(
+            cli, ["cornell", *img], tmp))
+        _only("app viewer", counts, ("K1",))
+        launches["viewer"] = counts["K1"]
+
+        # the warm-up's first-frame saving, kernels already built and loaded
+        args = cli.build_parser().parse_args(["cornell", *img])
+        first, warm_s, images = [], [], []
+        for warm in (False, True, True, False):
+            r, _, _, config = cli.setup(args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if warm:
+                r.warmup_async(config.params).join()
+                torch.cuda.synchronize()
+                warm_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            r.render(config)
+            torch.cuda.synchronize()
+            first.append(time.perf_counter() - t0)
+            images.append(r.readback_accumulation())
+            del r
+        same = all(x.tobytes() == images[0].tobytes() for x in images)
+        check(same, "a frame after warmup_async differs from one without")
+
+        # card against CPU at APP_SMALL
+        small = ["--img", str(APP_SMALL[0]), str(APP_SMALL[1]),
+                 "--validation-spp", "4"]
+        run_cli("small validation", [*small, "--validation", "card"])
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            check(cli.main(["cornell", *small, "--validation", "cpu",
+                            "--backend", "cpu"]) == 0, "CPU validation")
+            walls["small validation, CPU"] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        card_cpu = goldens.compare_card(
+            image_io.read_pfm(os.path.join(tmp, "card_0004.pfm")),
+            image_io.read_pfm(os.path.join(tmp, "cpu_0004.pfm")))
+        check(card_cpu["ok"], f"app validation card against CPU: {card_cpu}")
+    walls = {k: round(v, 3) for k, v in walls.items()}
+    log(f"app phase on {smi}: walls s {walls}; images' means {means}; "
+        f"profiling render ms {times}; viewer {viewer}; K1 launches {launches}")
+    log(f"app warm-up on {smi}: first-frame walls s without, with, with, "
+        f"without a joined warmup_async {[round(x, 4) for x in first]}, the "
+        f"warm-ups {[round(x, 4) for x in warm_s]} s, frames bitwise equal "
+        f"{same}; card against CPU at {APP_SMALL}, 4 spp: {card_cpu}; phase in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -4025,6 +4296,7 @@ def main():
     cornell_dof = phase_cornell_b3(mega, mega_cfg)
     del mega
     post_launches = phase_postprocess(smi)
+    app_launches = phase_app(smi)
     terrain, terrain_merged = phase_terrain_path()
     stream, (r500, cfg500) = phase_stream_paths()
     strategies, (rq, cfgq) = phase_stream_strategies(r500, cfg500)
@@ -4106,6 +4378,7 @@ def main():
     k1["paths"] = {f"rng {name}": n["K1"] for name, n in rng_launches.items()}
     k1["paths"]["cornell DoF"] = cornell_dof["K1"]
     k1["paths"]["cornell reprojection + TAA x2"] = post_launches["K1"]
+    k1["paths"].update({f"app {mode}": n for mode, n in app_launches.items()})
     refit_row, rebuilt_row = (p[0] for p in FLAT_ANIM_PATHS)
     paths = {kern: {"village PT_WAVEFRONT compacted": village_compacted[kern],
                     rebuilt_row: flat_anim[rebuilt_row][kern],

@@ -18,6 +18,11 @@ Layer map:
                   the bounce-major wavefront executor, resolve
   - ``kernels`` : nvcc build + ctypes loading of ``csrc/*.cu``
   - ``backend`` : params and the ``Renderer`` (explicit ``device``)
+  - ``app``     : the CLI (``python -m ...app.cli``), its run modes
+                  (validation, profiling, data capture), the localhost
+                  viewer, ini state and relaunch-on-rebuild
+  - ``tools``   : scene and texture tools (vkr2obj, vktconvert, vktinfo,
+                  the Blender exporter's core, prepare_sobol)
   - ``utils``   : color, image IO (PFM/EXR), compare, profiling
 """
 

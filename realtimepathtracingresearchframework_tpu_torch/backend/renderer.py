@@ -76,15 +76,19 @@ reference's ``.npz`` keys; ``render_raster_gbuffer`` rasterises the
 flattened scene (``ops/raster.py``); ``hot_reload`` reloads edited
 rendering modules; scenes with LoD groups are re-flattened when the
 camera's LoD selection changes (renderer.py:669-690, 1166-1190,
-1963-1981). Each kernel runs on ``device="cuda"``, its plain version on
-``device="cpu"`` (the tests' device). There is no CPU fallback for a CUDA
-renderer.
+1963-1981). ``warmup_async`` builds and loads the route's kernels and runs
+a first pass on a thread ahead of the first frame (renderer.py:532-590);
+``sync_interval`` sets how often ``render`` waits for a frame's end
+(renderer.py:141-144). Each kernel runs on ``device="cuda"``, its plain
+version on ``device="cpu"`` (the tests' device). There is no CPU fallback
+for a CUDA renderer.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from types import SimpleNamespace
@@ -140,6 +144,9 @@ from realtimepathtracingresearchframework_tpu_torch.ops import raster as raster_
 from realtimepathtracingresearchframework_tpu_torch.ops import resolve as resolve_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import taa as taa_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import texture_atlas
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_binned
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat
+from realtimepathtracingresearchframework_tpu_torch.ops import traverse_resident
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse_flat import (
     pack_flat,
 )
@@ -248,6 +255,23 @@ def route_for(num_tris: int) -> Route:
     )
 
 
+def route_kernels(route: Route) -> List[str]:
+    """The ``csrc/<name>.cu`` sources whose kernels a route launches (the
+    names ``kernels/build.py`` builds): K1 on the resident route, K2 and K3
+    on the flat cull, K4 and K5 streamed, K6 or K7 two-level, K8a/K8b
+    (one source) under V1."""
+    if route.tlas:
+        return [traverse_tlas.KERNEL if route.tlas == "k6"
+                else traverse_tlas_stream.KERNEL]
+    if route.streamed:
+        return [traverse_stream.KERNEL, traverse_binned.KERNEL]
+    if route.v1:
+        return [traverse_v1.KERNEL]
+    if route.kernel_v3:
+        return [traverse_flat.K2, traverse_flat.K3]
+    return [traverse_resident.KERNEL]
+
+
 @dataclass
 class RenderStats:
     """librender/render_backend.h:15-24 (renderer.py:126-134)."""
@@ -271,6 +295,10 @@ class FrameConfig:
 
 class Renderer:
     """Render backend on one torch device."""
+
+    # a frame's completion is waited for every this many frames (renderer.
+    # py:141-144); in between, ``render`` returns without a sync
+    SYNC_INTERVAL = 16
 
     def __init__(self, device="cuda", rays_per_pass: int = RAYS_PER_PASS):
         self.device = torch.device(device)
@@ -314,6 +342,12 @@ class Renderer:
         self._scene_frame = 0
         self._frame_events = None  # CUDA events around the last frame
         self._last_render_ms = 0.0
+        # every sync_interval-th frame render() waits for the frame's end
+        # (1: each call's stats carry that call's own frame time)
+        self.sync_interval = self.SYNC_INTERVAL
+        self._frames_since_sync = 0
+        self._warmup: Optional[threading.Thread] = None  # warmup_async's
+        self._warmup_error: Optional[BaseException] = None
         self._resolve_args = (0.0, -1)  # exposure, early tone mapping mode
         self._total_device_bytes = None
         self._prev_view: Optional[ViewBuffers] = None  # of the last AOV pass
@@ -886,12 +920,15 @@ class Renderer:
     def render(self, config: FrameConfig,
                batch_spp: Optional[int] = None) -> RenderStats:
         """One frame of ``batch_spp`` samples per pixel (renderer.py:
-        1161-1519). Returns ``stats()`` once every pass is queued on the
-        device, without synchronising: on a card the frame is timed by a
-        pair of CUDA events around its queued work, read when it has
-        completed (so the returned ``render_time`` is that of the last
-        completed frame, the reference's delayed-timestamp design,
-        renderer.py:1405-1436); on the CPU by the host clock. The same
+        1161-1519). A pending ``warmup_async`` is joined first, and its
+        exception, if it raised one, is raised here. Returns ``stats()``
+        once every pass is queued on the device: on a card the frame is
+        timed by a pair of CUDA events around its queued work, read when it
+        has completed, so the returned ``render_time`` is that of the last
+        completed frame (the reference's delayed-timestamp design,
+        renderer.py:1405-1436); every ``sync_interval``-th frame waits for
+        its end event, so with ``sync_interval`` 1 each call returns its own
+        frame's time. On the CPU the host clock times the call. The same
         times go to ``timers`` as RENDERING.
 
         On a scene with LoD groups, a camera whose LoD selection differs
@@ -902,6 +939,7 @@ class Renderer:
         into the chunk buffers, resolved at the readback. Otherwise the
         image-domain path (``_render_image``). ``frame_id`` advances by
         the samples unless ``freeze_frame``."""
+        self._join_warmup()
         if self.active_variant in (VARIANT_RT_DEBUG, VARIANT_GBUFFER):
             return self._render_debug_variant(config)
         self._debug_image = None
@@ -919,7 +957,7 @@ class Renderer:
                                     camera_pos=cam_pos)
                 self.lod_rebuilds += 1
                 self.reset_accumulation()
-        cuda = self.device.type == "cuda"
+        cuda = self._times_by_events()
         t0 = time.perf_counter()
         self._read_frame_time(wait=False)  # the previous frame's, if done
         if cuda:
@@ -955,6 +993,10 @@ class Renderer:
             events[1].record()
             self._frame_events = events
             self.timers.add_events(ProfilingMarker.RENDERING, *events)
+            self._frames_since_sync += 1
+            if self._frames_since_sync >= self.sync_interval:
+                self._read_frame_time(wait=True)
+                self._frames_since_sync = 0
         else:
             self._last_render_ms = (time.perf_counter() - t0) * 1e3
             self.timers.add(ProfilingMarker.RENDERING, self._last_render_ms)
@@ -962,6 +1004,69 @@ class Renderer:
         if not self.freeze_frame:
             self.frame_id += spp
         return self.stats()
+
+    def _times_by_events(self) -> bool:
+        """Frames are timed by CUDA events on a card, by the host clock on
+        the CPU."""
+        return self.device.type == "cuda"
+
+    def warmup_async(self, params: Optional[RenderParams] = None
+                     ) -> threading.Thread:
+        """The background pipeline build (renderer.py:532-590,
+        render_vulkan.cpp:139-155): on a thread, build and load the
+        libraries of the kernels the scene's route launches
+        (``route_kernels``, through ``kernels/build.py``), then run one pass
+        of chunk 0 at the frame size with ``params`` (default
+        ``RenderParams()``) from the default camera into scratch buffers.
+        No sample reaches the accumulation, and ``frame_id`` and
+        ``shot_offset`` stay as they are; the pass does count its kernel
+        launches and its dropped NEE samples. Returns the started thread.
+        The next ``render`` (or ray query, AOV or count-image pass) joins
+        it before it launches anything, since the kernels launch on the
+        calling thread's current stream, and raises the warm-up's
+        exception if it failed."""
+        self._join_warmup()  # one warm-up at a time
+        params = params or RenderParams()
+        cfg = self._integrator_config(params)
+        names = route_kernels(self._route)
+        ds, dev = self.device_scene, self.device
+        width, height = self.fb_width, self.fb_height
+        px, py, valid = (c[0] for c in self._swizzle)
+        view = self._view(OrientedCamera())
+        fp = FrameParams(rr_path_depth=int(params.rr_path_depth),
+                         glossy_only_mode=int(params.glossy_only_mode),
+                         sample_offset=0, shot_offset=0)
+
+        def work():
+            try:
+                if dev.type == "cuda":
+                    build_mod.build_many(names)
+                    for name in names:
+                        build_mod.load(name)
+                pass_fn = make_pass_fn(ds, cfg, width, height)
+                scratch = tuple(torch.zeros_like(px, dtype=torch.float32)
+                                for _ in range(4))
+                pass_fn(fp, view, scratch, px, py, valid, 0, 0)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            except Exception as e:  # raised again by the joining call
+                self._warmup_error = e
+
+        self._warmup = threading.Thread(target=work, name="rptr-warmup",
+                                        daemon=True)
+        self._warmup.start()
+        return self._warmup
+
+    def _join_warmup(self) -> None:
+        """Wait for a pending ``warmup_async``; raise its exception."""
+        thread = self._warmup
+        if thread is None:
+            return
+        thread.join()
+        self._warmup = None
+        error, self._warmup_error = self._warmup_error, None
+        if error is not None:
+            raise error
 
     def _check_pass(self, acc, s: int, c: int) -> None:
         """Under ``utils.debug.enable_nan_debugging``: the pass's chunk
@@ -1284,6 +1389,7 @@ class Renderer:
         queries with ``spp_per_query`` samples each, the radiance capture
         path (``_render_integrator_queries``); returns (N, 4) float32 RGBA,
         alpha 1 where the path hit anything."""
+        self._join_warmup()
         if variant not in (None, VARIANT_RQ_CLOSEST):
             return self._render_integrator_queries(
                 origins, dirs, t_max, variant, spp_per_query, params)
@@ -1365,6 +1471,7 @@ class Renderer:
         """The first-hit AOV pass (``ops/aov.py``) at the next sample's
         jitter; motion is taken against the previous call's view (the
         same view on the first call), which this call then replaces."""
+        self._join_warmup()
         params = config.params
         view = self._view(config.camera)
         prev = self._prev_view if self._prev_view is not None else view
@@ -1424,6 +1531,7 @@ class Renderer:
         """Per-pixel traced-ray count (closest + shadow) of one sample, the
         REPORT_RAY_STATS readback (renderer.py:1589-1615): the monolithic
         megakernel pass, whatever the variant. Returns (H, W) int32."""
+        self._join_warmup()
         params = config.params
         cfg = self._integrator_config(params)._replace(wavefront=False)
         img = render_ray_stats_host(
@@ -1438,6 +1546,7 @@ class Renderer:
         test) evaluations over the full path or of primary visibility, or
         the bounce count per pixel, through the monolithic pass. Raises
         ``ValueError`` under DEBUG_MODE_OFF. Returns (H, W) int32."""
+        self._join_warmup()
         if int(self.options.debug_mode) == 0:
             raise ValueError("options.debug_mode is DEBUG_MODE_OFF")
         params = config.params

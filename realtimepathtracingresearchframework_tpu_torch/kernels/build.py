@@ -9,7 +9,9 @@ contraction and no flushing of denormals, which is what lets each kernel
 equal its plain PyTorch version bitwise.
 
 There is no fallback: if nvcc is missing or the build fails, ``build``
-raises with the compiler's message.
+raises with the compiler's message. ``build_many`` and ``load`` hold one
+process-wide lock, so threads (``Renderer.warmup_async`` and the first
+frame) build and load each library once.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
@@ -32,6 +35,7 @@ NVCC_FLAGS = (
 BUILD_TIMEOUT_S = 600
 
 _loaded: dict = {}  # name -> ctypes.CDLL, one load per process
+_lock = threading.RLock()  # held by build_many and load (load builds)
 
 
 def find_nvcc() -> str:
@@ -65,37 +69,41 @@ def build_many(names, verbose: bool = False) -> list:
     process per source, all started together; returns the library paths.
     ``verbose`` rebuilds, adds ``-Xptxas -v`` and prints the compiler's
     report (registers, shared memory, spills)."""
-    outs = [library_path(name) for name in names]
-    todo = [(n, o) for n, o in zip(names, outs) if verbose or not o.exists()]
-    if not todo:
+    with _lock:
+        outs = [library_path(name) for name in names]
+        todo = [(n, o) for n, o in zip(names, outs) if verbose or not o.exists()]
+        if not todo:
+            return outs
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for name, out in todo:
+            # unique per process and thread: other processes may build the
+            # same library into the same directory
+            tmp = out.with_name(
+                f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+            if verbose:
+                cmd[1:1] = ["-Xptxas", "-v"]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for name, out, tmp, proc in procs:
+            try:
+                stdout, stderr = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {name}.cu (exit "
+                              f"{proc.returncode}):\n{stderr}{stdout}")
+                continue
+            if verbose:
+                print(f"{name}.cu:\n{stderr.strip()}")
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
         return outs
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name, out in todo:
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for name, out, tmp, proc in procs:
-        try:
-            stdout, stderr = proc.communicate(timeout=BUILD_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed to build {name}.cu (exit "
-                          f"{proc.returncode}):\n{stderr}{stdout}")
-            continue
-        if verbose:
-            print(f"{name}.cu:\n{stderr.strip()}")
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return outs
 
 
 def build(name: str, verbose: bool = False) -> Path:
@@ -106,8 +114,9 @@ def build(name: str, verbose: bool = False) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` (built if needed)."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _loaded[name] = lib
-    return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            _loaded[name] = lib
+        return lib

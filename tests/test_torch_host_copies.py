@@ -143,3 +143,79 @@ def test_halton_matches():
         np.testing.assert_array_equal(th.halton_23(n), jh.halton_23(n))
     for f in (0, 1, 63, 64, 65, 1000):
         np.testing.assert_array_equal(th.halton_jitter(f), jh.halton_jitter(f))
+
+
+def _renamed(path):
+    """A module's source with the port's package name written as the JAX
+    package's."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, path)) as f:
+        return f.read().replace("realtimepathtracingresearchframework_tpu_torch",
+                                "realtimepathtracingresearchframework_tpu")
+
+
+@pytest.mark.parametrize("rel", ["app/imstate.py", "app/benchmark.py",
+                                 "app/state.py"])
+def test_app_copies_are_the_reference_renamed(rel):
+    """The app shell's pure-numpy modules are the reference's, only the
+    package name differs (imports of the port's own error_io, online_stats,
+    params, renderer and camera)."""
+    port = _renamed(f"realtimepathtracingresearchframework_tpu_torch/{rel}")
+    ref = _renamed(f"realtimepathtracingresearchframework_tpu/{rel}")
+    assert port == ref
+
+
+def test_relaunch_watcher_logic_matches():
+    """``app/relaunch.py``'s watcher and relaunch are the reference's; the
+    one difference is what it watches: the reference's ``.py`` files, the
+    port's ``.py`` files and its CUDA sources (``SOURCE_SUFFIXES``), whose
+    edit rebuilds a kernel on relaunch."""
+    import inspect
+
+    from realtimepathtracingresearchframework_tpu.app import relaunch as jrel
+    from realtimepathtracingresearchframework_tpu_torch.app import relaunch as trel
+
+    for name in ("RebuildWatcher", "relaunch"):
+        assert inspect.getsource(getattr(trel, name)) == inspect.getsource(
+            getattr(jrel, name))
+    port = inspect.getsource(trel._package_sources).replace(
+        "_torch as pkg", " as pkg").replace(
+        "f.endswith(SOURCE_SUFFIXES)", 'f.endswith(".py")')
+    assert port == inspect.getsource(jrel._package_sources)
+    assert trel.SOURCE_SUFFIXES == (".py", ".cu", ".cuh")
+
+
+def test_benchmark_csv_matches(tmp_path):
+    """BenchmarkInfo over OnlineStats: the same CSV bytes and statistics
+    from the same frames and extension columns."""
+    from realtimepathtracingresearchframework_tpu.app import benchmark as jb
+    from realtimepathtracingresearchframework_tpu_torch.app import benchmark as tb
+
+    class Source:
+        def __init__(self):
+            self.n = 0
+
+        def csv_header(self):
+            return ["x_ms", "y_ms"]
+
+        def csv_values(self):
+            self.n += 1
+            return [self.n * 0.5, 1.0 / self.n]
+
+    rng = np.random.default_rng(2)
+    times = rng.random((9, 2)) * 20
+    out = []
+    for tag, mod in (("j", jb), ("t", tb)):
+        bi = mod.BenchmarkInfo()
+        bi.register_source(Source())
+        bi.open_csv(str(tmp_path / f"{tag}.csv"))
+        for k, (r, a) in enumerate(times):
+            bi.aggregate_frame(float(r), float(a))
+            bi.write_csv(k // 3, k % 3 + 1, float(r), float(a))
+        bi.close_csv()
+        out.append((bi.p50_render_time(), bi.render_time_stats.mean,
+                    bi.app_time_stats.variance, bi.frames_total))
+    assert (tmp_path / "j.csv").read_bytes() == (tmp_path / "t.csv").read_bytes()
+    assert out[0] == out[1]

@@ -270,16 +270,18 @@ def test_card_gate():
     assert not goldens.compare_card(spots, cpu)["ok"]
 
 
-def test_no_jax_in_the_port():
+def test_no_jax_in_the_port(tmp_path):
     """The port imports torch and never jax, nor any module of the JAX
     package: in a fresh interpreter, import every module of the port
     (the two-level modules ``ops/tlas.py``, ``ops/traverse_tlas.py`` and
-    ``ops/traverse_tlas_stream.py`` among them) and chip_smoke.py, render a
-    16x16 frame on the CPU with the port's own scene modules, an animated
-    frame of an instanced scene on the two-level route, a textured
-    village through the ``PT_WAVEFRONT`` variant, then through the
-    image-domain path (ACCUMULATE, TAA and an upscale of 2, with the
-    extensions) and the raster G-buffer, and look at sys.modules."""
+    ``ops/traverse_tlas_stream.py`` among them, the app shell and every
+    CLI tool) and chip_smoke.py, render a 16x16 frame on the CPU with the
+    port's own scene modules, an animated frame of an instanced scene on
+    the two-level route, a textured village through the ``PT_WAVEFRONT``
+    variant, then through the image-domain path (ACCUMULATE, TAA and an
+    upscale of 2, with the extensions) and the raster G-buffer, run the
+    port's CLI headless (``--backend cpu --disable-ui``) in a temporary
+    directory, and look at sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import realtimepathtracingresearchframework_tpu_torch as pkg\n"
@@ -318,6 +320,18 @@ def test_no_jax_in_the_port():
         "for m in ('tlas', 'traverse_tlas', 'traverse_tlas_stream',\n"
         "          'texture_atlas', 'taa', 'raster'):\n"
         "    assert pkg.__name__ + '.ops.' + m in sys.modules, m\n"
+        "import os\n"
+        f"os.chdir({str(tmp_path)!r})\n"
+        "from realtimepathtracingresearchframework_tpu_torch.app import cli\n"
+        "assert cli.main(['cornell', '--backend', 'cpu', '--img', '16', '16',\n"
+        "                 '--max-depth', '2', '--disable-ui']) == 0\n"
+        "assert os.listdir('.') == ['out.exr']\n"
+        "for m in ('vkr2obj', 'vktconvert', 'vktinfo', 'blender_vkr',\n"
+        "          'prepare_sobol'):\n"
+        "    assert pkg.__name__ + '.tools.' + m in sys.modules, m\n"
+        "for m in ('cli', 'modes', 'viewer', 'state', 'imstate', 'datacapture',\n"
+        "          'relaunch', 'benchmark'):\n"
+        "    assert pkg.__name__ + '.app.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'realtimepathtracingresearchframework_tpu')]\n"
         "assert not bad, bad\n"
