@@ -259,15 +259,30 @@ Phases (each raises on failure):
      each; four fresh renderers' first frames without and with a joined
      ``warmup_async`` (walls, bitwise-equal images); ``--validation`` at
      64x36 on the card against ``--backend cpu`` (goldens.compare_card).
+ 22. multi-device rendering (phase_multi_device) on min(max(2, cards), 4)
+     devices, distinct cards where there are that many, else cuda:0
+     repeated (printed): cornell at 1920x1080 depth 9 (2 frames, 68 K1
+     launches a frame), the village at 1920x1080 depth 9 through the
+     monolith (the wavefront executor is off on several devices; the
+     single renderer runs with RPTR_HOST_WAVEFRONT=0; K2, K3) and the
+     instanced600 bench row (512x384, depth 3, 8 animated frames, K7), each
+     on Renderer(devices=...) and on a single-device renderer in the same
+     process: every frame bitwise, equal launches and rays, every replica's
+     tensors and chunk c's accumulators on their device, each kernel's
+     launches tallied by the device they ran on, the walls beside the
+     single device's; build_sharded_render at 1920x1080 over two 540-row
+     bands bitwise render_tile of the whole frame; dryrun_multichip(4); the
+     CLI with --devices 1 at 1920x1080 and with one device more than the
+     cards (the reference's error).
 Every bound counts the rows of each pierced leaf up to its real-row count
 (the rows past it repeat the leaf's last triangle; K4-K7 from their tiles'
 bits), and logs the bound over the padded leaves beside it. Its last two
 lines are the kernels' JSON record (K1, K2, K3, K8a and K8b with their
 kernel-only ms and the wrapper's beside them, K1, K2, K4, K8a and K8b each
 with a merged record, K2, K8a and K8b with their grazing lanes, K1-K5
-with ``paths``: their launches on the paths of 3d, 3e, 5e, 17, 18, 20
-and 21, every kernel with ``axis_lanes_off_brute_force`` from 19) and the
-result JSON.
+and K7 with ``paths``: their launches on the paths of 3d, 3e, 5e, 17, 18,
+20, 21 and 22, every kernel with ``axis_lanes_off_brute_force`` from 19)
+and the result JSON.
 """
 
 import contextlib
@@ -4274,6 +4289,339 @@ def phase_app(smi):
     return launches
 
 
+MULTI_FRAMES = 2  # timed frames of the multi-device cornell and village paths
+SHARD_SIZE = MAIN_SIZE  # the sharded render: two 540-row bands at 1080p
+
+
+def _multi_devices():
+    """The devices of phase 22: min(max(2, cards), 4) of them, distinct
+    cards where there are that many, else cuda:0 repeated."""
+    import torch
+
+    count = torch.cuda.device_count()
+    n = min(max(2, count), 4)
+    if count >= n:
+        return [f"cuda:{i}" for i in range(n)], count
+    return ["cuda:0"] * n, count
+
+
+def _sync_all():
+    """Wait for every card's work (``torch.cuda.synchronize()`` waits for
+    the current device only)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+@contextlib.contextmanager
+def _per_device_launches():
+    """Tally K1, K2, K3 and K7 launches by the device they run on, through
+    their counted launch functions (each wrapper checks that every operand
+    lies on that device). Yields {(kernel, device): launches}."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_resident as tr,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import (
+        traverse_tlas_stream as tts,
+    )
+
+    tally = {}
+    k1, flat, k7 = tr._launch, tf._launch, tts.launch
+
+    def note(kernel, dev):
+        key = (kernel, str(dev))
+        tally[key] = tally.get(key, 0) + 1
+
+    def k1_launch(bvh, comps, *a, **kw):
+        note("K1", comps[0].device)
+        return k1(bvh, comps, *a, **kw)
+
+    def flat_launch(name, bvh, rays, *a, **kw):
+        note("K2" if name == tf.K2 else "K3", rays.device)
+        return flat(name, bvh, rays, *a, **kw)
+
+    def k7_launch(static, fr, rays, *a, **kw):
+        note("K7", rays.device)
+        return k7(static, fr, rays, *a, **kw)
+
+    tr._launch, tf._launch, tts.launch = k1_launch, flat_launch, k7_launch
+    try:
+        yield tally
+    finally:
+        tr._launch, tf._launch, tts.launch = k1, flat, k7
+
+
+def _multi_frames(r, cfg, frames, animate=False):
+    """A warm-up frame, then ``frames`` frames, each timed by the host clock
+    to the end of every card's work, with a TLAS update before each under
+    ``animate`` (frame (f + 1) % 16, frame 0 before the warm-up, as
+    ``_timed_frames``). Every count is set to 0 just before the frames and
+    read just after. Returns (launches, per-device launches, frame walls
+    ms, the last frame's accumulation, its rays)."""
+    counters = _counters()
+    if animate:
+        r.set_animation_frame(0)
+    r.render(cfg)
+    _sync_all()
+    for reset, _ in counters.values():
+        reset()
+    walls, images = [], []
+    with _per_device_launches() as tally:
+        for f in range(frames):
+            t0 = time.perf_counter()
+            if animate:
+                r.set_animation_frame((f + 1) % ANIM_FRAMES)
+            r.render(cfg)
+            _sync_all()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if animate:
+                images.append(r.readback_accumulation())
+    launches = {k: read() for k, (_, read) in counters.items()}
+    images.append(r.readback_accumulation())
+    return launches, dict(tally), walls, images, r.last_frame_rays()
+
+
+def _replicas_on_their_devices(label, r):
+    """Every tensor leaf of each replica lies on its device, and chunk c's
+    accumulators on devices[c % n]."""
+    import torch
+
+    def leaves(tree, out):
+        if isinstance(tree, torch.Tensor):
+            out.append(tree)
+        elif isinstance(tree, (tuple, list)):
+            for v in tree:
+                leaves(v, out)
+        return out
+
+    for ds, dev in zip(r._device_scenes, r.devices):
+        bad = [t.device for t in leaves(ds, []) if t.device != dev]
+        check(not bad, f"{label}: replica on {dev} holds tensors on {set(bad)}")
+    n = len(r.devices)
+    for c, acc in enumerate(r._acc_chunks):
+        check(all(a.device == r.devices[c % n] for a in acc),
+              f"{label}: chunk {c} not on {r.devices[c % n]}")
+
+
+def _on_every_device(label, tally, kernels, devices):
+    """On distinct cards, each of ``kernels`` launched on every one of
+    ``devices`` (the per-device tally of ``_per_device_launches``); with
+    cuda:0 repeated there is one device to see."""
+    for k in kernels:
+        for dev in sorted(set(devices)):
+            check(tally.get((k, dev), 0) > 0,
+                  f"{label}: no {k} launch on {dev}, tally {tally}")
+
+
+def _multi_pair(label, scene, devices, kernels, frames, size, depth=9,
+                single_env=None, animate=False, **kw):
+    """One path on a single-device renderer and on a renderer over
+    ``devices``, in the same process: walls, launches (each run's
+    counts), the per-device tally, and every compared frame bitwise.
+    Returns the multi-device run's launches."""
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    runs = {}
+    for tag, devs in (("single", None), ("multi", devices)):
+        with env(**((single_env or {}) if devs is None else {})):
+            t0 = time.perf_counter()
+            r, cfg = frame_setup(scene, DEVICE, size, depth, devices=devs, **kw)
+            setup_s = time.perf_counter() - t0
+            runs[tag] = (r, *_multi_frames(r, cfg, frames, animate), setup_s)
+            check(r._wavefront is None, f"{label} {tag}: the wavefront executor "
+                  "ran (the monolith is compared)")
+    (r1, l1, _, w1, im1, rays1, s1), (rm, lm, tally, wm, imm, raysm, sm) = (
+        runs["single"], runs["multi"])
+    check(rm._multi and len(rm._device_scenes) == len(devices),
+          f"{label}: not a {len(devices)}-device renderer")
+    _replicas_on_their_devices(label, rm)
+    _only(f"{label} multi-device", lm, kernels)
+    _only(f"{label} single-device", l1, kernels)
+    check(lm == l1, f"{label}: launches {lm} against the single device's {l1}")
+    same = all(np.array_equal(a, b) for a, b in zip(im1, imm))
+    check(same and len(im1) == len(imm), f"{label}: multi-device frames differ "
+          "from the single device's")
+    check(rays1 == raysm, f"{label}: rays {raysm} against {rays1}")
+    stats = rm.stats()
+    log(f"phase 22 {label} {size[0]}x{size[1]} depth {depth} on {len(devices)} "
+        f"devices ({', '.join(devices)}): frame walls ms "
+        f"{[round(x, 3) for x in wm]} (median {float(np.median(wm)):.3f}) "
+        f"beside the single device's {[round(x, 3) for x in w1]} (median "
+        f"{float(np.median(w1)):.3f}), set-up {sm:.2f} s beside {s1:.2f} s, "
+        f"Renderer.stats().render_time {stats.render_time:.3f} ms (host clock "
+        f"over the sync_interval window), launches {lm} over {frames} frames "
+        f"(per frame { {k: n / frames for k, n in lm.items() if n} }), by "
+        f"device {tally}, "
+        f"{raysm} rays in the last frame, {len(imm)} frames bitwise the single "
+        f"device's")
+    return lm, tally, float(np.median(wm)), float(np.median(w1))
+
+
+def phase_multi_device(smi):
+    """Phase 22: the multi-device paths on min(max(2, cards), 4) devices
+    (distinct cards where there are that many, else cuda:0 repeated), each
+    bitwise the single-device frames in the same process, beside their
+    walls: cornell at MAIN_SIZE depth 9 (K1), the village at MAIN_SIZE
+    depth 9 through the monolith (RPTR_HOST_WAVEFRONT=0 on the single
+    renderer; K2, K3), the instanced600 bench row (512x384, depth 3, 8
+    animated frames, K7; one swizzle chunk, so the first device only) and
+    instanced600 at MAIN_SIZE (depth 3, 2 animated frames, K7 over 4
+    chunks, so every device's refreshed replica); ``build_sharded_render``
+    at 1080p over two 540-row bands against ``render_tile`` of the whole
+    frame; ``dryrun_multichip(4)``; the CLI with ``--devices 1``, with
+    ``--devices`` the number of cards where there are 2 or more (the same
+    image), and with more devices than cards (the reference's error). On
+    distinct cards every kernel of a multi-chunk path must launch on every
+    card. Returns each kernel's launches on these paths."""
+    import tempfile
+
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.app import cli
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator as I
+    from realtimepathtracingresearchframework_tpu_torch.parallel import dryrun
+    from realtimepathtracingresearchframework_tpu_torch.parallel.render_sharded import (
+        build_sharded_render,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+    from realtimepathtracingresearchframework_tpu_torch.utils.error_io import (
+        RenderError,
+    )
+
+    t_phase = time.perf_counter()
+    devices, count = _multi_devices()
+    log(f"phase 22: {count} card(s) ({smi}); multi-device paths on "
+        f"{len(devices)} devices: {devices} "
+        f"({'distinct cards' if len(set(devices)) == len(devices) else 'cuda:0 repeated'})")
+    paths = {"K1": {}, "K2": {}, "K3": {}, "K7": {}}
+    launches, tally, *_ = _multi_pair("cornell", "cornell", devices, ("K1",),
+                                      MULTI_FRAMES, MAIN_SIZE)
+    check(launches["K1"] == 68 * MULTI_FRAMES,
+          f"cornell multi-device: {launches['K1']} K1 launches in "
+          f"{MULTI_FRAMES} frames, not 68 a frame")
+    _on_every_device("cornell", tally, ("K1",), devices)
+    paths["K1"]["multi-device cornell 1080p"] = launches["K1"]
+    launches, tally, *_ = _multi_pair(
+        "village monolith", "village", devices, ("K2", "K3"), 1, MAIN_SIZE,
+        single_env={"RPTR_HOST_WAVEFRONT": "0"})
+    # K2 on every card; K3 not on cuda:0 of four: chunk 0, the top rows, is
+    # sky after bounce 0
+    _on_every_device("village monolith", tally, ("K2",), devices)
+    for k in ("K2", "K3"):
+        paths[k]["multi-device village 1080p monolith"] = launches[k]
+    label, num_inst, size, depth, frames, _ = TLAS_PATHS[0]
+    launches, *_ = _multi_pair(label, "instanced", devices, ("K7",), frames,
+                               size, depth, animate=True, num_inst=num_inst)
+    paths["K7"][f"multi-device {label} (one chunk: first device only)"] = (
+        launches["K7"])
+    label, num_inst, size, *_ = TLAS_PATHS[1]
+    launches, tally, *_ = _multi_pair(
+        f"{label} animated", "instanced", devices, ("K7",), MULTI_FRAMES,
+        size, 3, animate=True, num_inst=num_inst)
+    _on_every_device(f"{label} animated", tally, ("K7",), devices)
+    paths["K7"][f"multi-device {label} depth 3 animated"] = launches["K7"]
+
+    # the row-band sharded render: two 540-row bands
+    bands = devices[:2]
+    r, cfg = frame_setup("cornell", DEVICE, SHARD_SIZE)
+    w, h = SHARD_SIZE
+    icfg = r._integrator_config(cfg.params)
+    view = r._view(cfg.camera)
+    fp = I.FrameParams()
+    f = build_sharded_render(bands, icfg, w, h)
+    counters = _counters()
+    walls = {}
+    for tag, fn in (("single", lambda: I.render_tile(r.device_scene, icfg, fp,
+                                                      view, w, h, 1)),
+                    ("sharded", lambda: f(r.device_scene, fp, view, 1)),
+                    ("single ", lambda: I.render_tile(r.device_scene, icfg, fp,
+                                                       view, w, h, 1)),
+                    ("sharded ", lambda: f(r.device_scene, fp, view, 1))):
+        _sync_all()
+        for reset, _ in counters.values():
+            reset()
+        t0 = time.perf_counter()
+        img, rays = fn()
+        _sync_all()
+        walls[tag] = ((time.perf_counter() - t0) * 1e3, img, int(rays),
+                      {k: read() for k, (_, read) in counters.items()})
+    single, sharded = walls["single "], walls["sharded "]
+    check(sharded[1].shape == (h, w, 4) and sharded[1].device == torch.device(
+        bands[0]), f"sharded 1080p: {sharded[1].shape} on {sharded[1].device}")
+    check(torch.equal(single[1], sharded[1]) and single[2] == sharded[2],
+          "sharded 1080p is not bitwise the single-device frame")
+    _only("sharded 1080p", sharded[3], ("K1",))
+    check(sharded[3] == single[3], f"sharded 1080p launches {sharded[3]} "
+          f"against {single[3]}")
+    paths["K1"]["sharded 1080p (2 bands)"] = sharded[3]["K1"]
+    log(f"phase 22 sharded {w}x{h} over {bands} (540-row bands), 1 spp depth "
+        f"9: walls ms {walls['sharded'][0]:.3f}, {sharded[0]:.3f} beside "
+        f"render_tile of the whole frame {walls['single'][0]:.3f}, "
+        f"{single[0]:.3f}; {sharded[2]} rays, launches {sharded[3]}, bitwise "
+        f"the single-device frame")
+    del r, walls, single, sharded
+
+    t0 = time.perf_counter()
+    out, launches = _counted(lambda: dryrun.dryrun_multichip(4))
+    paths["K1"]["dryrun_multichip(4)"] = launches["K1"]
+    check(out["rays"] > 0 and out["rays2"] > 0 and launches["K1"] > 0,
+          f"dryrun_multichip(4): {out['rays']}, {out['rays2']} rays, {launches}")
+    log(f"phase 22 dryrun_multichip(4): {(time.perf_counter() - t0):.2f} s, "
+        f"launches {launches}")
+
+    cwd = os.getcwd()
+    n_cards = len(set(devices)) if len(set(devices)) > 1 else 1
+    cli_runs = {}
+    with tempfile.TemporaryDirectory(prefix="rptr_multi_") as tmp:
+        try:
+            for n in sorted({1, n_cards}):
+                os.makedirs(os.path.join(tmp, str(n)))
+                os.chdir(os.path.join(tmp, str(n)))
+                t0 = time.perf_counter()
+                with _per_device_launches() as tally:
+                    rc, launches = _counted(lambda: cli.main(
+                        ["cornell", "--img", str(MAIN_SIZE[0]),
+                         str(MAIN_SIZE[1]), "--devices", str(n),
+                         "--disable-ui"]))
+                wall = time.perf_counter() - t0
+                check(rc == 0 and os.listdir(".") == ["out.exr"],
+                      f"cli --devices {n}: rc {rc}, files {os.listdir('.')}")
+                _only(f"cli --devices {n}", launches, ("K1",))
+                if n > 1:
+                    _on_every_device(f"cli --devices {n}", tally, ("K1",),
+                                     [f"cuda:{i}" for i in range(n)])
+                paths["K1"][f"cli --devices {n}"] = launches["K1"]
+                with open("out.exr", "rb") as fh:
+                    cli_runs[n] = (wall, launches, dict(tally), fh.read())
+            check(cli_runs[n_cards][3] == cli_runs[1][3],
+                  f"cli --devices {n_cards}: out.exr differs from --devices 1's")
+            os.chdir(tmp)
+            too_many = count + 1
+            try:
+                cli.main(["cornell", "--img", "64", "36", "--devices",
+                          str(too_many), "--disable-ui"])
+                raised = None
+            except RenderError as e:
+                raised = str(e)
+            check(raised == f"--devices {too_many} but only {count} devices "
+                  "available", f"cli --devices {too_many}: {raised!r}")
+        finally:
+            os.chdir(cwd)
+    for n, (wall, launches, tally, _) in cli_runs.items():
+        log(f"phase 22 cli --devices {n} at {MAIN_SIZE[0]}x{MAIN_SIZE[1]}: "
+            f"{wall:.2f} s, launches {launches}, by device {tally}")
+    log(f"phase 22 cli: out.exr of --devices {n_cards} the same bytes as "
+        f"--devices 1's; --devices {too_many}: {raised!r}")
+    log(f"phase 22 in {time.perf_counter() - t_phase:.1f} s; paths {paths}")
+    return paths
+
+
 def main():
     import torch
 
@@ -4339,6 +4687,7 @@ def main():
     v1_launches = {label: p[2] for label, p in v1_paths.items()}
     del v1_paths
     phase_queries()
+    multi_paths = phase_multi_device(smi)
     from realtimepathtracingresearchframework_tpu_torch.ops import traverse_flat as tf
     from realtimepathtracingresearchframework_tpu_torch.ops import (
         traverse_tlas as tt,
@@ -4403,6 +4752,11 @@ def main():
     for name, kern in ((tf.K2, "K2"), (tf.K3, "K3"),
                        ("traverse_streamed", "K4"), ("traverse_binned", "K5")):
         records[name]["paths"] = paths[kern]
+    # phase 22's multi-device paths
+    records["traverse_tlas_stream"]["paths"] = {}
+    for name, kern in (("traverse_resident", "K1"), (tf.K2, "K2"),
+                       (tf.K3, "K3"), ("traverse_tlas_stream", "K7")):
+        records[name]["paths"].update(multi_paths[kern])
     # each kernel's lanes off the brute force on the axis-aligned queue
     for name, kern in (("traverse_resident", "K1"), (tf.K2, "K2"),
                        (tf.K3, "K3"), ("traverse_streamed", "K4"),

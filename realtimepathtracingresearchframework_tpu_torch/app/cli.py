@@ -17,11 +17,12 @@ The port of the reference's ``app/cli.py``: the same flags and load order
 over the port's ``Renderer``. ``--backend cuda`` (the default) renders on
 card ``--device`` and raises without one; ``--backend cpu`` runs each
 kernel's plain version on the CPU. There is no fallback from one to the
-other. ``--devices`` above 1 raises (multi-card rendering is not in the
-port yet). ``setup`` builds the scene, state and renderer for parsed
-arguments; ``main`` then runs the mode. ``Renderer.warmup_async`` runs
-ahead of the interactive viewer only, and is joined before ``main``
-returns.
+other. ``--devices N`` above 1 renders on cards 0 to N - 1
+(``Renderer(devices=...)``; more than ``torch.cuda.device_count()``
+raises), or with ``--backend cpu`` on N replicas on the CPU. ``setup``
+builds the scene, state and renderer for parsed arguments; ``main`` then
+runs the mode. ``Renderer.warmup_async`` runs ahead of the interactive
+viewer only, and is joined before ``main`` returns.
 
 Run: ``python -m realtimepathtracingresearchframework_tpu_torch.app.cli
 cornell [--disable-ui | --validation P | --profiling P | --data-capture P]``.
@@ -75,7 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", "--vulkan-device", type=int, default=0)
     p.add_argument(
         "--devices", type=int, default=1,
-        help="render across N cards (SURVEY 5.8); only 1 in the port yet",
+        help="render across N cards (SURVEY 5.8); replicas with --backend cpu",
     )
     p.add_argument("--disable-ui", action="store_true")
     p.add_argument("--freeze-frame", action="store_true")
@@ -268,19 +269,21 @@ def setup(args):
     camera = bundle.scene.camera.to_camera()
 
     if args.devices > 1:
-        avail = torch.cuda.device_count()
-        if args.devices > avail:
-            throw_error(
-                "--devices %d but only %d devices available",
-                args.devices, avail,
-            )
-        throw_error(
-            "--devices %d: rendering across several cards is not in the "
-            "port yet (ROADMAP item 22)", args.devices,
+        if args.backend == "cuda":
+            avail = torch.cuda.device_count()
+            if args.devices > avail:
+                throw_error(
+                    "--devices %d but only %d devices available",
+                    args.devices, avail,
+                )
+            devices = [f"cuda:{i}" for i in range(args.devices)]
+        else:  # replicas on the CPU, as the reference's virtual devices
+            devices = ["cpu"] * args.devices
+        renderer = Renderer(devices=devices)
+    else:
+        renderer = Renderer(
+            device=f"cuda:{args.device}" if args.backend == "cuda" else "cpu"
         )
-    renderer = Renderer(
-        device=f"cuda:{args.device}" if args.backend == "cuda" else "cpu"
-    )
     # explicit --variant wins, else the ini-persisted viewer selection
     # (app/state.py ApplicationState.variant), else the megakernel
     renderer.set_variant(

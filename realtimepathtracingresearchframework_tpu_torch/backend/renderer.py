@@ -82,6 +82,13 @@ a first pass on a thread ahead of the first frame (renderer.py:532-590);
 (renderer.py:141-144). Each kernel runs on ``device="cuda"``, its plain
 version on ``device="cpu"`` (the tests' device). There is no CPU fallback
 for a CUDA renderer.
+
+``Renderer(devices=[...])`` renders across several devices (renderer.py:
+154-168): one replica of the device scene per device
+(``parallel.mesh.replicate``, tensors only), the planar frame's swizzle
+chunks round-robin over them, gathered on the first device at the readback;
+everything else runs on the first device, and the wavefront executor is
+off. Each kernel's wrapper launches on its operands' device.
 """
 
 from __future__ import annotations
@@ -136,7 +143,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.integrator import (
     render_debug_host,
     render_ray_stats_host,
     render_tile_host,
-    swizzle_host,
+    tile_tables,
     trace_paths,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
@@ -168,6 +175,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.wavefront_host import (
     WavefrontExecutor,
 )
 from realtimepathtracingresearchframework_tpu_torch.kernels import build as build_mod
+from realtimepathtracingresearchframework_tpu_torch.parallel.mesh import replicate
 from realtimepathtracingresearchframework_tpu_torch.utils import debug as debug_mod
 from realtimepathtracingresearchframework_tpu_torch.utils.error_io import warning
 from realtimepathtracingresearchframework_tpu_torch.utils.profiling import (
@@ -294,26 +302,44 @@ class FrameConfig:
 
 
 class Renderer:
-    """Render backend on one torch device."""
+    """Render backend on one torch device, or on several
+    (``devices``)."""
 
     # a frame's completion is waited for every this many frames (renderer.
     # py:141-144); in between, ``render`` returns without a sync
     SYNC_INTERVAL = 16
 
-    def __init__(self, device="cuda", rays_per_pass: int = RAYS_PER_PASS):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Renderer(device='cuda'): torch.cuda.is_available() is False"
-            )
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+    def __init__(self, device="cuda", devices=None,
+                 rays_per_pass: int = RAYS_PER_PASS):
+        """``devices``: render across several devices (renderer.py:
+        154-168). The planar frame's swizzle chunks go round-robin over
+        them, chunk c on ``devices[c % n]`` with its own pass program and
+        accumulators, each device on its own replica of the device scene
+        (``parallel.mesh.replicate``: tensor leaves only). The image-domain
+        frames, the AOV and ray-query passes, the count and debug images
+        and the raster G-buffer run on the first device, as the reference's
+        do. A device may repeat (``["cpu"] * 4``, or ``cuda:0`` on a
+        machine with one card)."""
+        self.devices = [torch.device(d) for d in (devices or [device])]
+        for dev in self.devices:
+            if dev.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"Renderer(device={str(dev)!r}): "
+                    "torch.cuda.is_available() is False"
+                )
+            if dev.type not in ("cuda", "cpu"):
+                raise ValueError(f"unsupported device {dev}")
+        self.device = self.devices[0]
+        self._multi = len(self.devices) > 1
+        # per-device replicas of device_scene and their copy memos
+        self._device_scenes: List[Optional[DeviceScene]] = []
+        self._replica_memos = [{} for _ in self.devices]
         self.rays_per_pass = int(rays_per_pass)
         self.options = RenderBackendOptions()
         self.fb_width = 0
         self.fb_height = 0
         self.scene: Optional[Scene] = None
-        self.device_scene: Optional[DeviceScene] = None
+        self.device_scene = None
         self.frame_id = 0  # accumulated samples (render_vulkan.cpp:2152)
         self.shot_offset = 0
         self._acc_chunks: Optional[List[tuple]] = None
@@ -341,6 +367,8 @@ class Renderer:
         self._scene_config = SceneConfig()
         self._scene_frame = 0
         self._frame_events = None  # CUDA events around the last frame
+        self._win_t0 = None  # several cards: the host-clock window's start
+        self._window_closed = False  # several cards: a window has ended
         self._last_render_ms = 0.0
         # every sync_interval-th frame render() waits for the frame's end
         # (1: each call's stats carry that call's own frame time)
@@ -379,6 +407,27 @@ class Renderer:
         self._last_config: Optional["FrameConfig"] = None
         self._last_upscale = 1
         self._frame_id_at_render = 0
+
+    @property
+    def device_scene(self) -> Optional[DeviceScene]:
+        """The device scene on the first device."""
+        return self._device_scene
+
+    @device_scene.setter
+    def device_scene(self, ds: Optional[DeviceScene]) -> None:
+        """Set the scene and refresh every device's replica of it
+        (renderer.py:1059-1064, 1925-1942): on several devices only the
+        tensors that changed since the last refresh are copied (an
+        animation frame's TLAS side, a refit BVH, new lights), and the
+        host metadata (numpy arrays, ints; K7's static pack) is never
+        moved."""
+        self._device_scene = ds
+        if not self._multi or ds is None:
+            self._device_scenes = [ds] * len(self.devices)
+            return
+        self._device_scenes = [
+            replicate(ds, dev, memo)
+            for dev, memo in zip(self.devices, self._replica_memos)]
 
     # ------------------------------------------------------------------
     # RenderExtension framework (render_vulkan_extensions.cpp:16-84;
@@ -440,19 +489,18 @@ class Renderer:
 
     def initialize(self, fb_width: int, fb_height: int) -> None:
         """Framebuffer (re)allocation (render_vulkan.cpp:246-370), then each
-        extension's ``initialize`` (renderer.py:323-335)."""
+        extension's ``initialize`` (renderer.py:323-335). Swizzle chunk c's
+        tables and accumulators live on ``devices[c % n]``."""
         self.fb_width = int(fb_width)
         self.fb_height = int(fb_height)
-        px, py, valid, _lin, inv, nc, chunk = swizzle_host(
-            self.fb_width, self.fb_height, self.rays_per_pass
-        )
-
-        def split(a):
-            t = torch.from_numpy(np.ascontiguousarray(a.reshape(nc, chunk)))
-            return [t[c].to(self.device) for c in range(nc)]
-
-        self._swizzle = (split(px), split(py), split(valid))
-        self._inv = torch.from_numpy(inv.astype(np.int64)).to(self.device)
+        # the frame's tables on the first device (the image-domain path's)
+        *first, self._inv = tile_tables(self.fb_width, self.fb_height,
+                                        self.device,
+                                        rays_per_pass=self.rays_per_pass)
+        self._swizzle_first = tuple(first)
+        n = len(self.devices)
+        self._swizzle = tuple([t.to(self.devices[c % n]) for c, t in
+                               enumerate(chunks)] for chunks in first)
         self._acc_chunks = self._zero_chunks()
         self._planar = True
         self._accum_img = self._fb_img = None
@@ -906,11 +954,13 @@ class Renderer:
     def _use_wavefront_host(self, cfg: IntegratorConfig) -> bool:
         """renderer.py:480-499: the bounce-major executor by default where
         the flat cull runs; ``RPTR_HOST_WAVEFRONT=1/0`` forces it. Never
-        with debug counters, the wavefront variant or depth 1."""
+        on several devices (its queue is frame-global), with debug
+        counters, the wavefront variant or depth 1."""
         want = _env_flag("RPTR_HOST_WAVEFRONT",
                          self._route.kernel_v3)
         return (
             want
+            and not self._multi
             and not cfg.debug_mode
             and not cfg.wavefront
             and cfg.max_path_depth > 1
@@ -928,7 +978,11 @@ class Renderer:
         completed frame (the reference's delayed-timestamp design,
         renderer.py:1405-1436); every ``sync_interval``-th frame waits for
         its end event, so with ``sync_interval`` 1 each call returns its own
-        frame's time. On the CPU the host clock times the call. The same
+        frame's time. On several cards the host clock times each window of
+        ``sync_interval`` frames, from the first frame's start to the end of
+        every device's work, which the last frame waits for; the frame time
+        is the window's mean, and before the first window ends the call's
+        own wall. On the CPU the host clock times the call. The same
         times go to ``timers`` as RENDERING.
 
         On a scene with LoD groups, a camera whose LoD selection differs
@@ -958,11 +1012,14 @@ class Renderer:
                 self.lod_rebuilds += 1
                 self.reset_accumulation()
         cuda = self._times_by_events()
+        window = not cuda and self._times_by_window()
         t0 = time.perf_counter()
         self._read_frame_time(wait=False)  # the previous frame's, if done
         if cuda:
             events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
             events[0].record()
+        elif window and self._win_t0 is None:
+            self._win_t0 = t0
         view = self._view(config.camera)
         fp = FrameParams(
             rr_path_depth=int(params.rr_path_depth),
@@ -997,6 +1054,13 @@ class Renderer:
             if self._frames_since_sync >= self.sync_interval:
                 self._read_frame_time(wait=True)
                 self._frames_since_sync = 0
+        elif window:
+            self._frames_since_sync += 1
+            if self._frames_since_sync >= self.sync_interval:
+                self._close_window()
+            elif not self._window_closed:  # until then: the call's wall
+                self._last_render_ms = (time.perf_counter() - t0) * 1e3
+            self.timers.add(ProfilingMarker.RENDERING, self._last_render_ms)
         else:
             self._last_render_ms = (time.perf_counter() - t0) * 1e3
             self.timers.add(ProfilingMarker.RENDERING, self._last_render_ms)
@@ -1006,9 +1070,29 @@ class Renderer:
         return self.stats()
 
     def _times_by_events(self) -> bool:
-        """Frames are timed by CUDA events on a card, by the host clock on
+        """Frames are timed by CUDA events on one card, by the host clock on
         the CPU."""
-        return self.device.type == "cuda"
+        return self.device.type == "cuda" and not self._multi
+
+    def _times_by_window(self) -> bool:
+        """On several cards frames are timed by the host clock over each
+        ``sync_interval`` window (``_close_window``): events on one card
+        miss the others' work, and events of two cards cannot be
+        subtracted."""
+        return self._multi and any(d.type == "cuda" for d in self.devices)
+
+    def _close_window(self) -> None:
+        """End the host-clock window: wait for every device, then take the
+        mean wall of the window's frames as the frame time (renderer.py:
+        1405-1436)."""
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        self._last_render_ms = ((time.perf_counter() - self._win_t0)
+                                / self._frames_since_sync * 1e3)
+        self._frames_since_sync = 0
+        self._win_t0 = None
+        self._window_closed = True
 
     def warmup_async(self, params: Optional[RenderParams] = None
                      ) -> threading.Thread:
@@ -1017,7 +1101,8 @@ class Renderer:
         libraries of the kernels the scene's route launches
         (``route_kernels``, through ``kernels/build.py``), then run one pass
         of chunk 0 at the frame size with ``params`` (default
-        ``RenderParams()``) from the default camera into scratch buffers.
+        ``RenderParams()``) from the default camera into scratch buffers,
+        on every device of the renderer (renderer.py:564-580).
         No sample reaches the accumulation, and ``frame_id`` and
         ``shot_offset`` stay as they are; the pass does count its kernel
         launches and its dropped NEE samples. Returns the started thread.
@@ -1029,9 +1114,9 @@ class Renderer:
         params = params or RenderParams()
         cfg = self._integrator_config(params)
         names = route_kernels(self._route)
-        ds, dev = self.device_scene, self.device
+        scenes, devices = list(self._device_scenes), self.devices
         width, height = self.fb_width, self.fb_height
-        px, py, valid = (c[0] for c in self._swizzle)
+        chunk0 = [c[0] for c in self._swizzle]
         view = self._view(OrientedCamera())
         fp = FrameParams(rr_path_depth=int(params.rr_path_depth),
                          glossy_only_mode=int(params.glossy_only_mode),
@@ -1039,16 +1124,19 @@ class Renderer:
 
         def work():
             try:
-                if dev.type == "cuda":
+                if any(d.type == "cuda" for d in devices):
                     build_mod.build_many(names)
                     for name in names:
                         build_mod.load(name)
-                pass_fn = make_pass_fn(ds, cfg, width, height)
-                scratch = tuple(torch.zeros_like(px, dtype=torch.float32)
-                                for _ in range(4))
-                pass_fn(fp, view, scratch, px, py, valid, 0, 0)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
+                for ds, dev in zip(scenes, devices):
+                    px, py, valid = (t.to(dev) for t in chunk0)
+                    pass_fn = make_pass_fn(ds, cfg, width, height)
+                    scratch = tuple(torch.zeros_like(px, dtype=torch.float32)
+                                    for _ in range(4))
+                    pass_fn(fp, replicate(view, dev), scratch, px, py, valid,
+                            0, 0)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
             except Exception as e:  # raised again by the joining call
                 self._warmup_error = e
 
@@ -1077,15 +1165,18 @@ class Renderer:
         """The planar fast path (renderer.py:1263-1440). An image history
         (a checkpoint, an image-domain frame) is re-swizzled into the chunk
         buffers first when samples are accumulated (renderer.py:
-        1296-1331)."""
+        1296-1331), and split over the devices. On several devices chunk c
+        renders on ``devices[c % n]`` through that device's replica of the
+        scene (renderer.py:1272-1295, 1366-1380)."""
         if not self._planar:
             if self.frame_id > 0 and self._accum_img is not None:
                 planes = torch.from_numpy(image_to_planes(
                     self._accum_img.cpu().numpy(), self.fb_width,
-                    self.fb_height, self.rays_per_pass)).to(self.device)
+                    self.fb_height, self.rays_per_pass))
                 self._acc_chunks = [
-                    tuple(p.contiguous() for p in ch.unbind(0))
-                    for ch in planes.split(self._swizzle[0][0].shape[0], dim=1)]
+                    tuple(p.contiguous().to(px.device) for p in ch.unbind(0))
+                    for ch, px in zip(planes.split(
+                        self._swizzle[0][0].shape[0], dim=1), self._swizzle[0])]
             else:
                 self._acc_chunks = self._zero_chunks()
             self._planar = True
@@ -1112,12 +1203,15 @@ class Renderer:
             self.live_profile = wf.live_profile
         else:
             self.live_profile = []
-            pass_fn = make_pass_fn(self.device_scene, cfg, self.fb_width,
-                                   self.fb_height)
+            n = len(self.devices)
+            pass_fns = [make_pass_fn(ds, cfg, self.fb_width, self.fb_height)
+                        for ds in self._device_scenes]
+            views = [view] + [replicate(view, d) for d in self.devices[1:]]
             for s in range(spp):
                 for c, acc in enumerate(self._acc_chunks):
-                    rays.append(pass_fn(fp, view, acc, px_c[c], py_c[c],
-                                        valid_c[c], s, base_k))
+                    rays.append(pass_fns[c % n](fp, views[c % n], acc,
+                                                px_c[c], py_c[c], valid_c[c],
+                                                s, base_k))
                     self._check_pass(acc, s, c)
         self._last_rays = rays
         # the display resolve is deferred to the readback (renderer.py:
@@ -1138,13 +1232,14 @@ class Renderer:
         DISCARD_HISTORY keeps the frame alone; otherwise the history
         average. The display image is resolved at the upscale, and the TAA
         processing step runs on it (with the motion repeated by the
-        upscale) under ``options.enable_taa``."""
+        upscale) under ``options.enable_taa``. On several devices all of it
+        runs on the first (renderer.py:1442-1449)."""
         params = config.params
         pass_fn = make_pass_fn(self.device_scene, cfg, self.fb_width,
                                self.fb_height)
         new_accum, rays = render_tile_host(
             pass_fn, fp, view, self.fb_width, self.fb_height, spp,
-            (*self._swizzle, self._inv),
+            (*self._swizzle_first, self._inv),
             on_pass=self._check_pass if debug_mod.nan_debugging() else None)
         self.live_profile = []
         if self._planar:
@@ -1259,7 +1354,12 @@ class Renderer:
 
     def _read_frame_time(self, wait: bool) -> None:
         """Take the last frame's time from its CUDA events once its work
-        has completed (``wait``: wait for it); no host sync otherwise."""
+        has completed (``wait``: wait for it); no host sync otherwise. On
+        several cards ``wait`` ends the host-clock window early."""
+        if self._times_by_window():
+            if wait and self._frames_since_sync:
+                self._close_window()
+            return
         events = self._frame_events
         if events is not None and (wait or events[1].query()):
             events[1].synchronize()
@@ -1270,7 +1370,8 @@ class Renderer:
         """The reference's ``stats`` (renderer.py:1694-1733): the last
         completed frame's time, the accumulated samples, and the device
         allocator's current and peak bytes and the card's total (read once;
-        0 on the CPU).
+        0 on the CPU), of the first device on several, as the reference
+        reads its first device.
         ``rays_per_second`` is -1 unless ``force_rays``, which reads the
         ray count and waits for the last frame."""
         self._read_frame_time(wait=force_rays)
@@ -1291,8 +1392,11 @@ class Renderer:
             max_device_bytes_allocated=peak, total_device_bytes=total)
 
     def _planes(self):
-        """The accumulation's four channel planes over the whole frame."""
-        return [torch.cat([c[k] for c in self._acc_chunks]) for k in range(4)]
+        """The accumulation's four channel planes over the whole frame, on
+        the first device: on several devices the chunks are gathered there,
+        the framebuffer all-gather of the reference (renderer.py:350-365)."""
+        return [torch.cat([c[k].to(self.device) for c in self._acc_chunks])
+                for k in range(4)]
 
     def readback_framebuffer(self) -> np.ndarray:
         """The sRGB display image (H * u, W * u, 4) float32 (renderer.py:
@@ -1610,7 +1714,7 @@ class Renderer:
             "IntegratorConfig", "ViewBuffers", "_closest_hit_dispatch",
             "image_to_planes", "make_pass_fn", "pack_attr_table",
             "pack_material_table", "planes_to_image", "render_debug_host",
-            "render_ray_stats_host", "render_tile_host", "swizzle_host",
+            "render_ray_stats_host", "render_tile_host", "tile_tables",
             "trace_paths"),
     }
 

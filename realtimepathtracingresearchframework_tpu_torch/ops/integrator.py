@@ -58,8 +58,10 @@ as its 4th output) follow the reference (integrator.py:1036-1130,
 and ``render_debug_host`` render the one-sample count images of the
 reference's ``make_ray_stats_fn`` and ``make_debug_fn`` (:2154-2238).
 ``render_tile_host`` renders the image-domain path's frame on fresh chunks
-(:2259-2305), and ``image_to_planes`` re-swizzles an image history into
-the planar layout (:2036-2042).
+(:2259-2305), ``render_tile`` a pixel tile of the frame, the unit of the
+multi-device renders (:1876-1916; ``parallel/render_sharded.py``), and
+``image_to_planes`` re-swizzles an image history into the planar layout
+(:2036-2042).
 """
 
 from __future__ import annotations
@@ -1649,6 +1651,46 @@ def render_tile_host(pass_fn, fp: FrameParams, view: ViewBuffers, width: int,
                 on_pass(acc, s, c)
     planes = torch.stack([torch.cat([a[k] for a in accs]) for k in range(4)])
     return planes[:, inv].T.reshape(height, width, 4), rays
+
+
+def tile_tables(tile_w: int, tile_h: int, device, x0: int = 0, y0: int = 0,
+                rays_per_pass: int = RAYS_PER_PASS):
+    """``render_tile_host``'s ``tables`` for a ``tile_w`` x ``tile_h`` pixel
+    tile whose corner is frame pixel (x0, y0), on ``device``: the tile's
+    swizzle chunks with frame pixel coordinates, and its (tile_h * tile_w,)
+    pixel -> slot index."""
+    px, py, valid, _lin, inv, nc, chunk = swizzle_host(tile_w, tile_h,
+                                                       rays_per_pass)
+
+    def split(a):
+        t = torch.from_numpy(np.ascontiguousarray(a.reshape(nc, chunk)))
+        t = t.to(device)
+        return [t[c] for c in range(nc)]
+
+    return (split(px + np.int32(x0)), split(py + np.int32(y0)), split(valid),
+            torch.from_numpy(inv.astype(np.int64)).to(device))
+
+
+def render_tile(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
+                view: ViewBuffers, width: int, height: int, spp: int,
+                y0: int = 0, tile_h: Optional[int] = None, x0: int = 0,
+                tile_w: Optional[int] = None, tables=None):
+    """``spp`` samples of a pixel tile (integrator.py:1876-1916): the
+    (tile_h, tile_w, 4) mean of the samples (radiance, alpha) and the
+    tile's traced rays (a device scalar). The tile is ``tile_w`` x
+    ``tile_h`` pixels from frame pixel (x0, y0), the whole frame by
+    default; ``width`` and ``height`` stay the frame's, so the camera
+    mapping and the RNG's pixel keying are those of the whole frame and a
+    tile's pixels equal the whole frame's. Runs on the device of ``ds``
+    and ``view``; ``tables`` (``tile_tables``) may be passed to reuse
+    them."""
+    tile_h = height if tile_h is None else int(tile_h)
+    tile_w = width if tile_w is None else int(tile_w)
+    if tables is None:
+        tables = tile_tables(tile_w, tile_h, view.cam_pos.device, x0, y0)
+    img, rays = render_tile_host(make_pass_fn(ds, cfg, width, height), fp,
+                                 view, tile_w, tile_h, spp, tables)
+    return img, torch.stack(rays).sum()
 
 
 def make_pass_fn(ds: DeviceScene, cfg: IntegratorConfig, width: int,

@@ -140,7 +140,8 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
                 grid: int = 200, num_inst: int = 600,
                 variant: str = VARIANT_MEGAKERNEL, quantized: bool = False,
                 use_tlas: bool = None, rng_variant: int = 0,
-                ris: bool = False, aperture: float = 0.0, focus: float = None):
+                ris: bool = False, aperture: float = 0.0, focus: float = None,
+                devices=None):
     """(Renderer, FrameConfig) of a profiled path: ``"cornell"`` (camera of
     bench.py:91-99), ``"village"`` (``procedural.village(grid)``, sun, sky
     and camera of bench.py:101-113), ``"terrain"``
@@ -154,7 +155,8 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
     ``rng_variant`` is ``options.rng_variant``; ``ris`` selects binned RIS
     light selection (``options.light_sampling_variant``); ``aperture`` > 0
     turns on thin-lens DoF with that ``params.aperture_radius``, focused at
-    ``focus`` (default ``RenderParams.focus_distance``)."""
+    ``focus`` (default ``RenderParams.focus_distance``); ``devices`` renders
+    across several devices (``Renderer(devices=...)``)."""
     two_level = False
     if scene == "cornell":
         vkr_scene = procedural.cornell_box()
@@ -175,7 +177,7 @@ def frame_setup(scene: str, device="cuda", size=SIZE, depth: int = 9,
         two_level = True if use_tlas is None else use_tlas
     else:
         raise KeyError(scene)
-    r = Renderer(device=device)
+    r = Renderer(device=device, devices=devices)
     r.options = r.options.replace(use_tlas=two_level,
                                   quantized_geometry=quantized,
                                   rng_variant=int(rng_variant))

@@ -435,14 +435,29 @@ def test_cli_cuda_backend_has_no_fallback(tmp_path, monkeypatch):
 
 
 def test_cli_devices_above_one_raise(tmp_path, monkeypatch):
+    """``--devices`` above the card count raises the reference's error; up
+    to it the CLI builds a renderer over cards 0 to N - 1 (here, without a
+    card, that renderer raises), and with ``--backend cpu`` over N CPU
+    replicas (tests/test_torch_parallel.py renders through them)."""
     monkeypatch.chdir(tmp_path)
-    argv = BASE + ["--devices", "2", "--disable-ui"]
+    argv = ["cornell", "--img", str(SIZE), str(SIZE), "--max-depth",
+            str(DEPTH), "--devices", "2", "--disable-ui"]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RenderError, match="only 1 devices available"):
         tcli.main(argv)
+    made = []
+
+    def stand_in(**kw):  # records the devices and stops before the scene
+        made.append(kw)
+        raise RuntimeError("stop")
+
+    monkeypatch.setattr(tcli, "Renderer", stand_in)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(RenderError, match="ROADMAP item 22"):
+    with pytest.raises(RuntimeError, match="stop"):
         tcli.main(argv)
+    with pytest.raises(RuntimeError, match="stop"):
+        tcli.main(BASE + ["--devices", "3", "--disable-ui"])
+    assert made == [{"devices": ["cuda:0", "cuda:1"]}, {"devices": ["cpu"] * 3}]
     assert not list(tmp_path.iterdir())
 
 

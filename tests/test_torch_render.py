@@ -281,7 +281,9 @@ def test_no_jax_in_the_port(tmp_path):
     variant, then through the image-domain path (ACCUMULATE, TAA and an
     upscale of 2, with the extensions) and the raster G-buffer, run the
     port's CLI headless (``--backend cpu --disable-ui``) in a temporary
-    directory, and look at sys.modules."""
+    directory, the multi-device modules (``parallel/*.py``:
+    ``dryrun_multichip`` on two CPU replicas, the CLI with ``--devices
+    2``), and look at sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import realtimepathtracingresearchframework_tpu_torch as pkg\n"
@@ -332,6 +334,12 @@ def test_no_jax_in_the_port(tmp_path):
         "for m in ('cli', 'modes', 'viewer', 'state', 'imstate', 'datacapture',\n"
         "          'relaunch', 'benchmark'):\n"
         "    assert pkg.__name__ + '.app.' + m in sys.modules, m\n"
+        "from realtimepathtracingresearchframework_tpu_torch.parallel import dryrun\n"
+        "assert dryrun.dryrun_multichip(2, device='cpu')['rays'] > 0\n"
+        "assert cli.main(['cornell', '--backend', 'cpu', '--img', '16', '16',\n"
+        "                 '--max-depth', '2', '--disable-ui', '--devices', '2']) == 0\n"
+        "for m in ('mesh', 'render_sharded', 'dryrun'):\n"
+        "    assert pkg.__name__ + '.parallel.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'realtimepathtracingresearchframework_tpu')]\n"
         "assert not bad, bad\n"
