@@ -181,6 +181,8 @@ from realtimepathtracingresearchframework_tpu_torch.utils.error_io import warnin
 from realtimepathtracingresearchframework_tpu_torch.utils.profiling import (
     DeviceTimers,
     ProfilingMarker,
+    host_read,
+    host_sync,
 )
 
 # resident-kernel policy (renderer.py:113-124, 605-608): the flat cull and
@@ -1085,9 +1087,10 @@ class Renderer:
         """End the host-clock window: wait for every device, then take the
         mean wall of the window's frames as the frame time (renderer.py:
         1405-1436)."""
-        for dev in dict.fromkeys(self.devices):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        with host_sync("frame_event"):
+            for dev in dict.fromkeys(self.devices):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         self._last_render_ms = ((time.perf_counter() - self._win_t0)
                                 / self._frames_since_sync * 1e3)
         self._frames_since_sync = 0
@@ -1354,17 +1357,20 @@ class Renderer:
 
     def _read_frame_time(self, wait: bool) -> None:
         """Take the last frame's time from its CUDA events once its work
-        has completed (``wait``: wait for it); no host sync otherwise. On
-        several cards ``wait`` ends the host-clock window early."""
+        has completed (``wait``: wait for it, ``host_read("frame_event")``);
+        no host sync otherwise. On several cards ``wait`` ends the
+        host-clock window early."""
         if self._times_by_window():
             if wait and self._frames_since_sync:
                 self._close_window()
             return
         events = self._frame_events
-        if events is not None and (wait or events[1].query()):
-            events[1].synchronize()
-            self._last_render_ms = events[0].elapsed_time(events[1])
-            self._frame_events = None
+        if events is None or not (wait or events[1].query()):
+            return
+        if wait:
+            host_read("frame_event", events[1])
+        self._last_render_ms = events[0].elapsed_time(events[1])
+        self._frame_events = None
 
     def stats(self, force_rays: bool = False) -> RenderStats:
         """The reference's ``stats`` (renderer.py:1694-1733): the last
@@ -1466,10 +1472,14 @@ class Renderer:
                                                            tonemap_mode=0)
 
     def _view(self, camera) -> ViewBuffers:
-        """The camera's view basis on the device."""
-        return ViewBuffers(*(
-            torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
-            for a in camera.view_basis(self.fb_width, self.fb_height)))
+        """The camera's view basis on the device: one copy a buffer, each
+        waiting for the device's queue (``host_sync("view_upload")``)."""
+        bufs = []
+        for a in camera.view_basis(self.fb_width, self.fb_height):
+            with host_sync("view_upload"):
+                bufs.append(torch.from_numpy(np.asarray(a, np.float32))
+                            .to(self.device))
+        return ViewBuffers(*bufs)
 
     # ------------------------------------------------------------------
     # Ray queries (render_vulkan.cpp:430-455, 1867-1877)

@@ -119,6 +119,10 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import
     pack_resident,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
+from realtimepathtracingresearchframework_tpu_torch.utils.profiling import (
+    host_read,
+    span,
+)
 
 RAY_EPSILON = 5.0e-6  # vulkan/gpu_params.glsl:28
 RAYS_PER_PASS = 524288  # rays in flight per pass (integrator.py:71)
@@ -607,23 +611,20 @@ def _occluded_dispatch(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
 
 MAX_ALPHA_HOPS = 4  # candidate-hit re-trace budget (generate_candidate_hit)
 ALPHA_CUTOFF = 0.5  # punch-through threshold
-# alpha-test work in this process: re-trace dispatches, and host reads of
-# "is any lane still cut" (one before each possible hop); reset with
-# reset_alpha_counts
+# alpha-test re-trace dispatches in this process (reset with
+# reset_alpha_counts); the host reads of "is any lane still cut", one before
+# each possible hop, count as profiling.host_syncs["alpha_cut"]
 alpha_hops = 0
-alpha_reads = 0
 
 
 def reset_alpha_counts() -> None:
-    global alpha_hops, alpha_reads
-    alpha_hops = alpha_reads = 0
+    global alpha_hops
+    alpha_hops = 0
 
 
 def _any_cut(mask) -> bool:
     """One host read: does any lane still sit on a cut texel?"""
-    global alpha_reads
-    alpha_reads += 1
-    return bool(mask.any())
+    return host_read("alpha_cut", mask.any())
 
 
 def _hit_alpha_cut(ds: DeviceScene, tri, u, v, inst=None):
@@ -674,8 +675,9 @@ def closest_hit_alpha(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
         return (hit, torch.zeros_like(hit.tri)) if count_evals else hit
     inst = hit.inst if cfg.two_level else None
     t, tri, u, v = hit.t, hit.tri, hit.u, hit.v
-    cut, evaluated = _hit_alpha_cut(ds, tri, u, v, inst)
-    evals = evaluated.to(torch.int32)
+    with span("rptr.shade"):
+        cut, evaluated = _hit_alpha_cut(ds, tri, u, v, inst)
+        evals = evaluated.to(torch.int32)
     for _ in range(MAX_ALPHA_HOPS):
         if not _any_cut(cut):
             break
@@ -691,9 +693,10 @@ def closest_hit_alpha(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3,
         v = torch.where(cut, h.v, v)
         if cfg.two_level:
             inst = torch.where(cut, h.inst, inst)
-        new_cut, evaluated = _hit_alpha_cut(ds, tri, u, v, inst)
-        evals = evals + (cut & evaluated).to(torch.int32)
-        cut = cut & new_cut
+        with span("rptr.shade"):
+            new_cut, evaluated = _hit_alpha_cut(ds, tri, u, v, inst)
+            evals = evals + (cut & evaluated).to(torch.int32)
+            cut = cut & new_cut
     if cfg.two_level:
         hit = TwoLevelHit(t=t, tri=tri, u=u, v=v, inst=inst)
     else:
@@ -719,12 +722,13 @@ def occluded_alpha(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3, rd: Vec3,
                                      device=blocked.device)
                 ) if count_evals else blocked
     hit = _closest_hit_dispatch(ds, cfg, ro, rd, t_min, t_max)
-    in_seg = (hit.tri >= 0) & (hit.t < t_max)
-    cut, evaluated = _hit_alpha_cut(ds, hit.tri, hit.u, hit.v,
-                                    hit.inst if cfg.two_level else None)
-    evals = (in_seg & evaluated).to(torch.int32)
-    blocked = in_seg & ~cut
-    live = in_seg & cut
+    with span("rptr.shade"):
+        in_seg = (hit.tri >= 0) & (hit.t < t_max)
+        cut, evaluated = _hit_alpha_cut(ds, hit.tri, hit.u, hit.v,
+                                        hit.inst if cfg.two_level else None)
+        evals = (in_seg & evaluated).to(torch.int32)
+        blocked = in_seg & ~cut
+        live = in_seg & cut
     t = hit.t
     for _ in range(MAX_ALPHA_HOPS):
         if not _any_cut(live):
@@ -734,12 +738,13 @@ def occluded_alpha(ds: DeviceScene, cfg: IntegratorConfig, ro: Vec3, rd: Vec3,
         h = _closest_hit_dispatch(
             ds, cfg, ro, rd, torch.where(live, t + eps, t_min),
             torch.where(live, t_max, 0.0), compact=True)
-        in_seg = (h.tri >= 0) & (h.t < t_max) & live
-        cut, evaluated = _hit_alpha_cut(ds, h.tri, h.u, h.v,
-                                        h.inst if cfg.two_level else None)
-        evals = evals + (live & evaluated).to(torch.int32)
-        blocked = blocked | (in_seg & ~cut)
-        live = in_seg & cut
+        with span("rptr.shade"):
+            in_seg = (h.tri >= 0) & (h.t < t_max) & live
+            cut, evaluated = _hit_alpha_cut(ds, h.tri, h.u, h.v,
+                                            h.inst if cfg.two_level else None)
+            evals = evals + (live & evaluated).to(torch.int32)
+            blocked = blocked | (in_seg & ~cut)
+            live = in_seg & cut
         t = torch.where(live, h.t, t)
     blocked = blocked | live
     return (blocked, evals) if count_evals else blocked
@@ -765,9 +770,10 @@ def _sample_direct_light(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
     _count_nee_dropped(cand.dropped & active)
     tmax = cand.shadow_tmax if count_evals else torch.where(
         active, cand.shadow_tmax, cand.eps)
-    blocked = occluded_alpha(ds, cfg, hit_p, cand.dir, cand.eps, tmax,
-                             compact=compact, sort_shadow=sort_shadow,
-                             count_evals=count_evals)
+    with span("rptr.shadow"):
+        blocked = occluded_alpha(ds, cfg, hit_p, cand.dir, cand.eps, tmax,
+                                 compact=compact, sort_shadow=sort_shadow,
+                                 count_evals=count_evals)
     if count_evals:
         blocked, evals = blocked
     visible = (cand.traced & ~blocked) | cand.uncond
@@ -868,14 +874,6 @@ def _carry_coherence_key(ro: Vec3, rd: Vec3, live, lo, hi):
 # quantized to the traversal block so every prefix dispatches whole blocks
 _COMPACT_LANE_QUANTUM = 1024
 _COMPACT_MAX_HALVINGS = 5  # smallest prefix = n/32
-# carry compaction in this process: (bounce, live lanes, prefix lanes) of
-# each compacted bounce of every trace_paths call, in call order; reset
-# with reset_compaction_log
-compaction_log = []
-
-
-def reset_compaction_log() -> None:
-    compaction_log.clear()
 
 
 def _mat3_apply(m, x: Vec3) -> Vec3:
@@ -903,162 +901,179 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         return dbg + torch.where(bounce_count == 0, evals, 0)
 
     def traverse(carry: Carry, compact: bool, presorted: bool):
-        """This bounce's closest hits; in the wavefront variant also the
-        previous bounce's deferred shadow rays, whose unblocked
-        contributions go into ``illum`` before this bounce's sky and
-        emitter terms (integrator.py:1053-1115). Returns (hit, illum, the
-        debug count)."""
+        """This bounce's closest hits (span ``rptr.closest``); in the
+        wavefront variant also the previous bounce's deferred shadow rays
+        (``rptr.nee`` > ``rptr.shadow``, or in the closest dispatch where
+        one launch takes both queues), whose unblocked contributions go
+        into ``illum`` before this bounce's sky and emitter terms
+        (integrator.py:1053-1115). Returns (hit, illum, the debug count)."""
         ro, rd, active = carry.ro, carry.rd, carry.active
         dbg = carry.dbg
-        tmax_eff = torch.where(active, T_MAX, 0.0)
-        if t_max0 is not None:
-            # the bounded primary segment of a ray query
-            # (RenderRayQuery.t_max); later bounces are unbounded
-            tmax_eff = torch.where(carry.bounce_count == 0,
-                                   torch.where(active, t_max0, 0.0), tmax_eff)
         alpha = cfg.alpha_test and cfg.has_textures
-        if not cfg.wavefront:
-            hit = closest_hit_alpha(ds, cfg, ro, rd, carry.t_min, tmax_eff,
-                                    compact=compact, presorted=presorted,
-                                    count_evals=count_any)
-            if count_any:
-                hit, evals = hit
-                dbg = count(dbg, evals, carry.bounce_count)
-            return hit, carry.illum, dbg
-        pend = carry.pend
-        ntmax_eff = torch.where(pend.traced, pend.tmax, 0.0)
-        if cfg.streamed and not alpha:
-            # K4 for the closest queue, one binned K5 round for the shadows
-            hit = _closest_hit_dispatch(ds, cfg, ro, rd, carry.t_min, tmax_eff)
-            blocked = traverse_binned.occluded_binned(
-                ds.bvh, ro, pend.dir, pend.tmin, ntmax_eff, rounds=1)
-        elif cfg.traversal_v1 and not alpha:
-            # the v1 route: both queues in one merged K8 launch
-            # (integrator.py:1070-1080)
-            hit, blocked = traverse_v1.closest_and_occluded_v1(
-                ds.bvh, (*ro, *rd), carry.t_min, tmax_eff,
-                (*ro, *pend.dir), pend.tmin, ntmax_eff, map_tri=False,
-                compact=compact)
-        elif not (cfg.streamed or cfg.kernel_v3 or cfg.two_level or alpha):
-            # the K1 route: both queues in one merged launch
-            hit, blocked = closest_and_occluded_resident(
-                ds.bvh, (*ro, *rd), carry.t_min, tmax_eff,
-                (*ro, *pend.dir), pend.tmin, ntmax_eff, compact=compact)
-        else:
-            # flat cull, two-level and alpha-tested routes: the same
-            # deferred structure in two dispatches
-            hit = closest_hit_alpha(ds, cfg, ro, rd, carry.t_min, tmax_eff,
-                                    compact=compact, presorted=presorted,
-                                    count_evals=count_any)
-            blocked = occluded_alpha(ds, cfg, ro, pend.dir, pend.tmin,
-                                     ntmax_eff, compact=compact,
-                                     sort_shadow=compact, count_evals=count_any)
-            if count_any:
-                (hit, ev_c), (blocked, ev_s) = hit, blocked
-                dbg = (dbg + ev_c + ev_s if cfg.debug_mode == _DBG_ANY_FULL
-                       else count(dbg, ev_c, carry.bounce_count))
-        illum = v3.where(pend.traced & ~blocked, carry.illum + pend.contrib,
-                         carry.illum)
+        with span("rptr.closest"):
+            tmax_eff = torch.where(active, T_MAX, 0.0)
+            if t_max0 is not None:
+                # the bounded primary segment of a ray query
+                # (RenderRayQuery.t_max); later bounces are unbounded
+                tmax_eff = torch.where(carry.bounce_count == 0,
+                                       torch.where(active, t_max0, 0.0),
+                                       tmax_eff)
+            if not cfg.wavefront:
+                hit = closest_hit_alpha(ds, cfg, ro, rd, carry.t_min, tmax_eff,
+                                        compact=compact, presorted=presorted,
+                                        count_evals=count_any)
+                if count_any:
+                    hit, evals = hit
+                    dbg = count(dbg, evals, carry.bounce_count)
+                return hit, carry.illum, dbg
+            pend = carry.pend
+            ntmax_eff = torch.where(pend.traced, pend.tmax, 0.0)
+            blocked = None
+            if cfg.streamed and not alpha:
+                # K4 for the closest queue, one binned K5 round for the
+                # shadows
+                hit = _closest_hit_dispatch(ds, cfg, ro, rd, carry.t_min,
+                                            tmax_eff)
+            elif cfg.traversal_v1 and not alpha:
+                # the v1 route: both queues in one merged K8 launch
+                # (integrator.py:1070-1080)
+                hit, blocked = traverse_v1.closest_and_occluded_v1(
+                    ds.bvh, (*ro, *rd), carry.t_min, tmax_eff,
+                    (*ro, *pend.dir), pend.tmin, ntmax_eff, map_tri=False,
+                    compact=compact)
+            elif not (cfg.streamed or cfg.kernel_v3 or cfg.two_level or alpha):
+                # the K1 route: both queues in one merged launch
+                hit, blocked = closest_and_occluded_resident(
+                    ds.bvh, (*ro, *rd), carry.t_min, tmax_eff,
+                    (*ro, *pend.dir), pend.tmin, ntmax_eff, compact=compact)
+            else:
+                # flat cull, two-level and alpha-tested routes: the same
+                # deferred structure in two dispatches
+                hit = closest_hit_alpha(ds, cfg, ro, rd, carry.t_min, tmax_eff,
+                                        compact=compact, presorted=presorted,
+                                        count_evals=count_any)
+        with span("rptr.nee"):
+            if blocked is None:
+                with span("rptr.shadow"):
+                    if cfg.streamed and not alpha:
+                        blocked = traverse_binned.occluded_binned(
+                            ds.bvh, ro, pend.dir, pend.tmin, ntmax_eff,
+                            rounds=1)
+                    else:
+                        blocked = occluded_alpha(
+                            ds, cfg, ro, pend.dir, pend.tmin, ntmax_eff,
+                            compact=compact, sort_shadow=compact,
+                            count_evals=count_any)
+                        if count_any:
+                            (hit, ev_c), (blocked, ev_s) = hit, blocked
+                            dbg = (dbg + ev_c + ev_s
+                                   if cfg.debug_mode == _DBG_ANY_FULL
+                                   else count(dbg, ev_c, carry.bounce_count))
+            illum = v3.where(pend.traced & ~blocked, carry.illum + pend.contrib,
+                             carry.illum)
         return hit, illum, dbg
 
     def visit_hit(carry: Carry, compact: bool = False,
                   presorted: bool = False):
-        """Traverse + hit attributes + textures + emitter MIS. Returns
-        (carry with the miss handled, hit shading context)."""
+        """Traverse + hit attributes + textures + emitter MIS (span
+        ``rptr.shade`` after the traversal's). Returns (carry with the miss
+        handled, hit shading context)."""
         ro, rd, active = carry.ro, carry.rd, carry.active
-        rays = carry.rays + active.to(carry.rays.dtype)
         hit, illum, dbg = traverse(carry, compact, presorted)
-        pend = empty_pend(carry.t_min) if cfg.wavefront else None
-        was_miss = hit.tri < 0
+        with span("rptr.shade"):
+            rays = carry.rays + active.to(carry.rays.dtype)
+            pend = empty_pend(carry.t_min) if cfg.wavefront else None
+            was_miss = hit.tri < 0
 
-        # ---- miss: sky (pt_megakernel.glsl:480-489)
-        sky = _sky_illum(ds, rd, carry.prev_pdf, cfg)
-        illum = v3.where(active & was_miss, illum + carry.throughput * sky, illum)
-        active = active & ~was_miss
+            # ---- miss: sky (pt_megakernel.glsl:480-489)
+            sky = _sky_illum(ds, rd, carry.prev_pdf, cfg)
+            illum = v3.where(active & was_miss, illum + carry.throughput * sky,
+                             illum)
+            active = active & ~was_miss
 
-        # ---- hit attributes (rt/hit.glsl:63-92), row-indexed tables; uv,
-        # tangent and texel density only when texturing
-        tri = torch.clamp(hit.tri, min=0).to(torch.int64)
-        attr_ranges = ([(_A_E1, _A_MID + 1)] if cfg.has_textures
-                       else [(_A_E1, _A_UV0), (_A_MID, _A_MID + 1)])
-        c = _fetch_cols_ranges(ds.attr_packed, tri, attr_ranges)
-        e1 = Vec3(c[_A_E1], c[_A_E1 + 1], c[_A_E1 + 2])
-        e2 = Vec3(c[_A_E2], c[_A_E2 + 1], c[_A_E2 + 2])
-        b1, b2 = hit.u, hit.v
-        b0 = 1.0 - b1 - b2
-        n_sh = Vec3(
-            c[_A_N0] * b0 + c[_A_N1] * b1 + c[_A_N2] * b2,
-            c[_A_N0 + 1] * b0 + c[_A_N1 + 1] * b1 + c[_A_N2 + 1] * b2,
-            c[_A_N0 + 2] * b0 + c[_A_N1 + 2] * b1 + c[_A_N2 + 2] * b2,
-        )
-        if cfg.two_level:
-            # object -> world: edges by the instance's linear part A,
-            # normals by A^-T (integrator.py:1158-1169)
-            inst = torch.clamp(hit.inst, min=0).to(torch.int64)
-            lin = ds.tlas.inst_linear[inst]
-            lin_it = ds.tlas.inst_inv_t[inst]
-            e1 = _mat3_apply(lin, e1)
-            e2 = _mat3_apply(lin, e2)
-            n_sh = _mat3_apply(lin_it, n_sh)
-        gn_raw = v3.cross(e1, e2)
-        gn_raw = v3.where(v3.dot(n_sh, gn_raw) < 0.0, -gn_raw, gn_raw)
-        gn_len = v3.length(gn_raw)  # 2*area
-        gn = gn_raw * (1.0 / torch.clamp(gn_len, min=1e-20))
-        # approx solid angle of the hit triangle as seen from the origin
-        approx_sa = (
-            (0.5 * gn_len)
-            * v3.dot(gn, rd).abs()
-            / torch.clamp(hit.t * hit.t, min=1e-20)
-        )
-        n_sh = v3.normalize(n_sh)
+            # ---- hit attributes (rt/hit.glsl:63-92), row-indexed tables; uv,
+            # tangent and texel density only when texturing
+            tri = torch.clamp(hit.tri, min=0).to(torch.int64)
+            attr_ranges = ([(_A_E1, _A_MID + 1)] if cfg.has_textures
+                           else [(_A_E1, _A_UV0), (_A_MID, _A_MID + 1)])
+            c = _fetch_cols_ranges(ds.attr_packed, tri, attr_ranges)
+            e1 = Vec3(c[_A_E1], c[_A_E1 + 1], c[_A_E1 + 2])
+            e2 = Vec3(c[_A_E2], c[_A_E2 + 1], c[_A_E2 + 2])
+            b1, b2 = hit.u, hit.v
+            b0 = 1.0 - b1 - b2
+            n_sh = Vec3(
+                c[_A_N0] * b0 + c[_A_N1] * b1 + c[_A_N2] * b2,
+                c[_A_N0 + 1] * b0 + c[_A_N1 + 1] * b1 + c[_A_N2 + 1] * b2,
+                c[_A_N0 + 2] * b0 + c[_A_N1 + 2] * b1 + c[_A_N2 + 2] * b2,
+            )
+            if cfg.two_level:
+                # object -> world: edges by the instance's linear part A,
+                # normals by A^-T (integrator.py:1158-1169)
+                inst = torch.clamp(hit.inst, min=0).to(torch.int64)
+                lin = ds.tlas.inst_linear[inst]
+                lin_it = ds.tlas.inst_inv_t[inst]
+                e1 = _mat3_apply(lin, e1)
+                e2 = _mat3_apply(lin, e2)
+                n_sh = _mat3_apply(lin_it, n_sh)
+            gn_raw = v3.cross(e1, e2)
+            gn_raw = v3.where(v3.dot(n_sh, gn_raw) < 0.0, -gn_raw, gn_raw)
+            gn_len = v3.length(gn_raw)  # 2*area
+            gn = gn_raw * (1.0 / torch.clamp(gn_len, min=1e-20))
+            # approx solid angle of the hit triangle as seen from the origin
+            approx_sa = (
+                (0.5 * gn_len)
+                * v3.dot(gn, rd).abs()
+                / torch.clamp(hit.t * hit.t, min=1e-20)
+            )
+            n_sh = v3.normalize(n_sh)
 
-        mid = c[_A_MID].to(torch.int64)
-        if cfg.two_level:
-            mid = mid + ds.tlas.inst_mat_offset[inst]
-        mat_ranges = ([(_M_BASE, _M_NMTEX + 1)] if cfg.has_textures
-                      else [(_M_BASE, _M_BCTEX)])
-        if cfg.thin_transmission:
-            mat_ranges = mat_ranges + [(_M_CCGLOSS, _M_CCGLOSS + 1)]
-        mc = _fetch_cols_ranges(ds.mat_packed, mid, mat_ranges)
-        mat = _material_from_cols(mc, thin=cfg.thin_transmission)
+            mid = c[_A_MID].to(torch.int64)
+            if cfg.two_level:
+                mid = mid + ds.tlas.inst_mat_offset[inst]
+            mat_ranges = ([(_M_BASE, _M_NMTEX + 1)] if cfg.has_textures
+                          else [(_M_BASE, _M_BCTEX)])
+            if cfg.thin_transmission:
+                mat_ranges = mat_ranges + [(_M_CCGLOSS, _M_CCGLOSS + 1)]
+            mc = _fetch_cols_ranges(ds.mat_packed, mid, mat_ranges)
+            mat = _material_from_cols(mc, thin=cfg.thin_transmission)
 
-        p = ro + rd * hit.t
-        w_o = -rd
+            p = ro + rd * hit.t
+            w_o = -rd
 
-        # two-sided flip (pt_megakernel.glsl:622-634)
-        backface = v3.dot(w_o, gn) < 0.0
-        flip = backface & ~mat.onesided
-        n_sh = v3.where(flip, -n_sh, n_sh)
-        gn = v3.where(flip, -gn, gn)
+            # two-sided flip (pt_megakernel.glsl:622-634)
+            backface = v3.dot(w_o, gn) < 0.0
+            flip = backface & ~mat.onesided
+            n_sh = v3.where(flip, -n_sh, n_sh)
+            gn = v3.where(flip, -gn, gn)
 
-        total_t = torch.where(active, carry.total_t + hit.t, carry.total_t)
+            total_t = torch.where(active, carry.total_t + hit.t, carry.total_t)
 
-        if cfg.has_textures:
-            mat, n_sh = shade_textures(carry, c, mc, mat, n_sh, gn, rd, total_t,
-                                       inst if cfg.two_level else None,
-                                       lin if cfg.two_level else None, b0, b1, b2)
+            if cfg.has_textures:
+                mat, n_sh = shade_textures(carry, c, mc, mat, n_sh, gn, rd, total_t,
+                                           inst if cfg.two_level else None,
+                                           lin if cfg.two_level else None, b0, b1, b2)
 
-        # ---- emitter hit MIS (shade_base_material.glsl:33-39)
-        emit_intensity = mc[_M_EMIT]
-        emit_radiance = mat.base_color * emit_intensity
-        has_emit = emit_intensity > 0.0
-        wpdf_light = (1.0 - ds.sky.sun_radiance[3]) * nee_mod.approx_tri_lights_pdf(
-            approx_sa, max(cfg.num_lights, 1), num_bins, cfg.use_light_bins
-        )
-        w_emit = nee_mod.nee_mis_heuristic(1.0, carry.prev_pdf, 1.0, wpdf_light)
-        illum = v3.where(
-            active & has_emit,
-            illum + carry.throughput * emit_radiance * w_emit,
-            illum,
-        )
+            # ---- emitter hit MIS (shade_base_material.glsl:33-39)
+            emit_intensity = mc[_M_EMIT]
+            emit_radiance = mat.base_color * emit_intensity
+            has_emit = emit_intensity > 0.0
+            wpdf_light = (1.0 - ds.sky.sun_radiance[3]) * nee_mod.approx_tri_lights_pdf(
+                approx_sa, max(cfg.num_lights, 1), num_bins, cfg.use_light_bins
+            )
+            w_emit = nee_mod.nee_mis_heuristic(1.0, carry.prev_pdf, 1.0, wpdf_light)
+            illum = v3.where(
+                active & has_emit,
+                illum + carry.throughput * emit_radiance * w_emit,
+                illum,
+            )
 
-        bounce_count = torch.where(
-            active, carry.bounce_count + 1, carry.bounce_count
-        )
-        carry = carry._replace(
-            illum=illum, active=active, bounce_count=bounce_count,
-            total_t=total_t, rays=rays, pend=pend, dbg=dbg,
-        )
+            bounce_count = torch.where(
+                active, carry.bounce_count + 1, carry.bounce_count
+            )
+            carry = carry._replace(
+                illum=illum, active=active, bounce_count=bounce_count,
+                total_t=total_t, rays=rays, pend=pend, dbg=dbg,
+            )
         return carry, (p, n_sh, gn, mat, w_o)
 
     def shade_textures(carry: Carry, c, mc, mat: GLTFMaterial, n_sh: Vec3,
@@ -1162,116 +1177,121 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         final bounce. ``sort_shadow``: the NEE occlusion queue (origins =
         fresh hit points) gets its own coherence sort. In the wavefront
         variant the shadow ray is queued for the next visit instead
-        (integrator.py:1380-1400)."""
+        (integrator.py:1380-1400). Spans: the RNG draws, then the BSDF
+        sample and roulette in ``rptr.shade``, NEE between them in
+        ``rptr.nee``."""
         p, n_sh, gn, mat, w_o = ctx
         active, throughput = carry.active, carry.throughput
         total_t, dbg = carry.total_t, carry.dbg
 
-        # ---- RNG draws in reference order (shade_base_material.glsl:60-84)
-        # at path-space dims (pathspace.h; integrator.py:1366-1376): the
-        # bounce block starts at DIM_CAMERA_END + 8b, light dims first
-        # {sel: +0, pos: +2}, then vertex dims {dir: +4, lobe: +6}, and
-        # roulette reuses the free-path slot {+7}
-        dim_base = DIM_CAMERA_END(cfg) + 8 * int(bounce)
-        rv, bufs = cfg.rng_variant, ds.rng
-        rng_state, pos_sample = pointsets.draw2t(rv, bufs, carry.rng_state,
-                                                 dim_base + 2)
-        rng_state, sel_sample = pointsets.draw2t(rv, bufs, rng_state, dim_base)
-        rng_state, lobe_sample = pointsets.draw2t(rv, bufs, rng_state,
-                                                  dim_base + 6)
-        rng_state, dir_sample = pointsets.draw2t(rv, bufs, rng_state,
-                                                 dim_base + 4)
+        with span("rptr.shade"):
+            # ---- RNG draws in reference order (shade_base_material.glsl:60-84)
+            # at path-space dims (pathspace.h; integrator.py:1366-1376): the
+            # bounce block starts at DIM_CAMERA_END + 8b, light dims first
+            # {sel: +0, pos: +2}, then vertex dims {dir: +4, lobe: +6}, and
+            # roulette reuses the free-path slot {+7}
+            dim_base = DIM_CAMERA_END(cfg) + 8 * int(bounce)
+            rv, bufs = cfg.rng_variant, ds.rng
+            rng_state, pos_sample = pointsets.draw2t(rv, bufs, carry.rng_state,
+                                                     dim_base + 2)
+            rng_state, sel_sample = pointsets.draw2t(rv, bufs, rng_state, dim_base)
+            rng_state, lobe_sample = pointsets.draw2t(rv, bufs, rng_state,
+                                                      dim_base + 6)
+            rng_state, dir_sample = pointsets.draw2t(rv, bufs, rng_state,
+                                                     dim_base + 4)
 
-        # ---- NEE (one shadow ray per active lane)
-        rays = carry.rays + active.to(carry.rays.dtype)
-        pend = carry.pend
-        if cfg.wavefront:
-            # queue the candidate's shadow ray; a degenerate segment is
-            # visible without tracing and applies here (per lane it is one
-            # or the other, so the megakernel's accumulation order holds)
-            cand = _nee_candidate(ds, cfg, p, n_sh, gn, mat, w_o, pos_sample,
-                                  sel_sample, total_t)
-            _count_nee_dropped(cand.dropped & active)
-            scaled = throughput * cand.contrib
-            illum = v3.where(cand.uncond & active, carry.illum + scaled,
-                             carry.illum)
-            had_nee = active  # lanes owning a queued shadow ray
-            pend = PendingNEE(cand.dir, cand.eps, cand.shadow_tmax, scaled,
-                              cand.traced & active)
-        else:
-            # the NEE shadow ray's any-hit evaluations count in the
-            # full-path mode (integrator.py:1400-1410)
-            count_shadow = cfg.debug_mode == _DBG_ANY_FULL
-            nee_contrib = _sample_direct_light(
-                ds, cfg, p, n_sh, gn, mat, w_o, pos_sample, sel_sample,
-                total_t, active, compact=compact, sort_shadow=sort_shadow,
-                count_evals=count_shadow,
+        with span("rptr.nee"):
+            # ---- NEE (one shadow ray per active lane)
+            rays = carry.rays + active.to(carry.rays.dtype)
+            pend = carry.pend
+            if cfg.wavefront:
+                # queue the candidate's shadow ray; a degenerate segment is
+                # visible without tracing and applies here (per lane it is one
+                # or the other, so the megakernel's accumulation order holds)
+                cand = _nee_candidate(ds, cfg, p, n_sh, gn, mat, w_o, pos_sample,
+                                      sel_sample, total_t)
+                _count_nee_dropped(cand.dropped & active)
+                scaled = throughput * cand.contrib
+                illum = v3.where(cand.uncond & active, carry.illum + scaled,
+                                 carry.illum)
+                had_nee = active  # lanes owning a queued shadow ray
+                pend = PendingNEE(cand.dir, cand.eps, cand.shadow_tmax, scaled,
+                                  cand.traced & active)
+            else:
+                # the NEE shadow ray's any-hit evaluations count in the
+                # full-path mode (integrator.py:1400-1410)
+                count_shadow = cfg.debug_mode == _DBG_ANY_FULL
+                nee_contrib = _sample_direct_light(
+                    ds, cfg, p, n_sh, gn, mat, w_o, pos_sample, sel_sample,
+                    total_t, active, compact=compact, sort_shadow=sort_shadow,
+                    count_evals=count_shadow,
+                )
+                if count_shadow:
+                    nee_contrib, evals = nee_contrib
+                    dbg = dbg + evals
+                illum = v3.where(active, carry.illum + throughput * nee_contrib,
+                                 carry.illum)
+
+        with span("rptr.shade"):
+            # glossy-only debug mode (shade_base_material.glsl:69-70)
+            if fp.glossy_only_mode != 0:
+                glossy = (mat.roughness < 0.1) & (mat.ior != 1.0)
+                active = active & glossy
+
+            # ---- BSDF sample
+            vx, vy = nee_mod.ortho_frame_v(n_sh)
+            weight, w_i, _spdf, mis_wpdf = sample_gltf_brdf_v(
+                mat, n_sh, w_o, vx, vy, dir_sample, lobe_sample,
+                cfg.has_transmission, cfg.thin_transmission,
             )
-            if count_shadow:
-                nee_contrib, evals = nee_contrib
-                dbg = dbg + evals
-            illum = v3.where(active, carry.illum + throughput * nee_contrib,
-                             carry.illum)
+            valid_dir = v3.dot(w_i, n_sh) * v3.dot(w_i, gn) > 0.0
+            weight_zero = (weight.x == 0.0) & (weight.y == 0.0) & (weight.z == 0.0)
+            terminate = (mis_wpdf == 0.0) | weight_zero | ~valid_dir
+            keep = active & ~terminate
+            throughput = v3.where(keep, throughput * weight, throughput)
+            prev_pdf = torch.where(keep, mis_wpdf, carry.prev_pdf)
+            active = keep
 
-        # glossy-only debug mode (shade_base_material.glsl:69-70)
-        if fp.glossy_only_mode != 0:
-            glossy = (mat.roughness < 0.1) & (mat.ior != 1.0)
-            active = active & glossy
+            foot = carry.foot
+            if cfg.has_textures:
+                # transport the texture footprint across the bounce
+                # (pt_megakernel.glsl:698-701)
+                do_ref = active & (v3.dot(w_i, n_sh) * v3.dot(w_o, n_sh) > -0.999)
+                ref = _reflect_footprint_v(w_i, carry.rd, *foot)
+                foot = Footprint(*(torch.where(do_ref, r, f)
+                                   for r, f in zip(ref, foot)))
 
-        # ---- BSDF sample
-        vx, vy = nee_mod.ortho_frame_v(n_sh)
-        weight, w_i, _spdf, mis_wpdf = sample_gltf_brdf_v(
-            mat, n_sh, w_o, vx, vy, dir_sample, lobe_sample,
-            cfg.has_transmission, cfg.thin_transmission,
-        )
-        valid_dir = v3.dot(w_i, n_sh) * v3.dot(w_i, gn) > 0.0
-        weight_zero = (weight.x == 0.0) & (weight.y == 0.0) & (weight.z == 0.0)
-        terminate = (mis_wpdf == 0.0) | weight_zero | ~valid_dir
-        keep = active & ~terminate
-        throughput = v3.where(keep, throughput * weight, throughput)
-        prev_pdf = torch.where(keep, mis_wpdf, carry.prev_pdf)
-        active = keep
+            rd = v3.where(active, w_i, carry.rd)
+            if cfg.wavefront:
+                # the next visit's deferred shadow ray starts at THIS hit point,
+                # also on lanes whose path just ended
+                ro = v3.where(active | had_nee, p, carry.ro)
+            else:
+                ro = v3.where(active, p, carry.ro)
+            t_min = (v3.length(ro) + total_t) * RAY_EPSILON
 
-        foot = carry.foot
-        if cfg.has_textures:
-            # transport the texture footprint across the bounce
-            # (pt_megakernel.glsl:698-701)
-            do_ref = active & (v3.dot(w_i, n_sh) * v3.dot(w_o, n_sh) > -0.999)
-            ref = _reflect_footprint_v(w_i, carry.rd, *foot)
-            foot = Footprint(*(torch.where(do_ref, r, f)
-                               for r, f in zip(ref, foot)))
+            # ---- Russian roulette (pt_megakernel.glsl:713-730)
+            rng_state, rr_sample = pointsets.draw1(rv, bufs, rng_state, dim_base + 7)
+            prefix = v3.max_component(throughput)
+            rr_prob = torch.where(
+                carry.bounce_count > 6,
+                torch.clamp(prefix, max=0.95),
+                torch.clamp(prefix, max=1.0),
+            )
+            do_rr = active & (carry.bounce_count >= fp.rr_path_depth)
+            survive = rr_sample < rr_prob
+            throughput = v3.where(
+                do_rr & survive,
+                throughput * (1.0 / torch.clamp(rr_prob, min=1e-9)),
+                throughput,
+            )
+            active = active & (~do_rr | survive)
 
-        rd = v3.where(active, w_i, carry.rd)
-        if cfg.wavefront:
-            # the next visit's deferred shadow ray starts at THIS hit point,
-            # also on lanes whose path just ended
-            ro = v3.where(active | had_nee, p, carry.ro)
-        else:
-            ro = v3.where(active, p, carry.ro)
-        t_min = (v3.length(ro) + total_t) * RAY_EPSILON
-
-        # ---- Russian roulette (pt_megakernel.glsl:713-730)
-        rng_state, rr_sample = pointsets.draw1(rv, bufs, rng_state, dim_base + 7)
-        prefix = v3.max_component(throughput)
-        rr_prob = torch.where(
-            carry.bounce_count > 6,
-            torch.clamp(prefix, max=0.95),
-            torch.clamp(prefix, max=1.0),
-        )
-        do_rr = active & (carry.bounce_count >= fp.rr_path_depth)
-        survive = rr_sample < rr_prob
-        throughput = v3.where(
-            do_rr & survive,
-            throughput * (1.0 / torch.clamp(rr_prob, min=1e-9)),
-            throughput,
-        )
-        active = active & (~do_rr | survive)
-
-        return carry._replace(
-            ro=ro, rd=rd, t_min=t_min, illum=illum, throughput=throughput,
-            active=active, prev_pdf=prev_pdf, rng_state=rng_state, rays=rays,
-            pend=pend, foot=foot, dbg=dbg,
-        )
+            return carry._replace(
+                ro=ro, rd=rd, t_min=t_min, illum=illum, throughput=throughput,
+                active=active, prev_pdf=prev_pdf, rng_state=rng_state, rays=rays,
+                pend=pend, foot=foot, dbg=dbg,
+            )
 
     return visit_hit, scatter_tail
 
@@ -1329,17 +1349,23 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
     from a zero footprint, as the reference does. ``t_max0`` (per lane, or
     None) bounds the primary segment, as a ray query's t_max does
     (integrator.py:1047-1052).
+
+    Spans (``utils.profiling.span``): ``rptr.camera`` for the initial
+    carry, ``rptr.bounce.<b>`` around each bounce, after its host read
+    of whether any lane is live (``host_read("live")``), and ``rptr.blend``
+    for the resolve to lane order.
     """
     check_supported(cfg)
     foot = None
-    if cfg.has_textures:
-        foot = footprint0
-        if foot is None:
-            z = torch.zeros((), dtype=torch.float32, device=ro.x.device)
-            foot = (z, z, z)
-    carry = initial_carry(ro, rd, rng_state, lane_mask, foot=foot,
-                          wavefront=cfg.wavefront,
-                          debug=bool(cfg.debug_mode))
+    with span("rptr.camera"):
+        if cfg.has_textures:
+            foot = footprint0
+            if foot is None:
+                z = torch.zeros((), dtype=torch.float32, device=ro.x.device)
+                foot = (z, z, z)
+        carry = initial_carry(ro, rd, rng_state, lane_mask, foot=foot,
+                              wavefront=cfg.wavefront,
+                              debug=bool(cfg.debug_mode))
     visit_hit, scatter_tail = _make_bounce_fns(ds, cfg, fp, t_max0)
     n = ro.x.shape[0]
     # carry compaction (integrator.py:1606-1610): not for a bounded primary
@@ -1356,34 +1382,41 @@ def trace_paths(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
         live = carry.active.any()
         if cfg.wavefront:
             live = live | carry.pend.traced.any()
-        if not bool(live):
+        if not host_read("live", live):
             break
-        compact = cfg.compact and i > 0
-        carry, ctx = visit_hit(carry, compact=compact)
-        if i < cfg.max_path_depth - 1:
-            carry = scatter_tail(carry, ctx, i, compact=compact,
-                                 sort_shadow=i > 0)
+        with span("rptr.bounce", i):
+            compact = cfg.compact and i > 0
+            carry, ctx = visit_hit(carry, compact=compact)
+            if i < cfg.max_path_depth - 1:
+                carry = scatter_tail(carry, ctx, i, compact=compact,
+                                     sort_shadow=i > 0)
     if use_lane_compact:
         carry, lane_id = _compacted_bounces(ds, cfg, carry, sizes, visit_hit,
                                             scatter_tail)
     illum = carry.illum
-    if cfg.wavefront and bool(carry.pend.traced.any()):
+    if cfg.wavefront and host_read("wavefront_flush",
+                                   carry.pend.traced.any()):
         # a shadow queue that no later visit resolved (integrator.py:
         # 1695-1713): never with the standard depth schedule, whose last
         # bounce queues nothing
         pend = carry.pend
-        blocked = occluded_alpha(ds, cfg, carry.ro, pend.dir, pend.tmin,
-                                 torch.where(pend.traced, pend.tmax, 0.0))
-        illum = v3.where(pend.traced & ~blocked, illum + pend.contrib, illum)
+        with span("rptr.nee"):
+            with span("rptr.shadow"):
+                blocked = occluded_alpha(
+                    ds, cfg, carry.ro, pend.dir, pend.tmin,
+                    torch.where(pend.traced, pend.tmax, 0.0))
+            illum = v3.where(pend.traced & ~blocked, illum + pend.contrib,
+                             illum)
     bounce_count, rays, dbg = carry.bounce_count, carry.rays, carry.dbg
-    if lane_id is not None:
-        # the carry is in its cumulative sorted order; lane_id maps a sorted
-        # slot to its lane, so its inverse gathers lane order back
-        # (integrator.py:1715-1717)
-        inv = inverse_permutation(lane_id)
-        illum = _permute_lanes(illum, inv)
-        bounce_count, rays = bounce_count[inv], rays[inv]
-    alpha = torch.where(bounce_count == 0, 0.0, 1.0)
+    with span("rptr.blend"):
+        if lane_id is not None:
+            # the carry is in its cumulative sorted order; lane_id maps a
+            # sorted slot to its lane, so its inverse gathers lane order
+            # back (integrator.py:1715-1717)
+            inv = inverse_permutation(lane_id)
+            illum = _permute_lanes(illum, inv)
+            bounce_count, rays = bounce_count[inv], rays[inv]
+        alpha = torch.where(bounce_count == 0, 0.0, 1.0)
     if cfg.debug_mode:
         return illum, alpha, rays, (bounce_count if cfg.debug_mode == _DBG_BOUNCE
                                     else dbg)
@@ -1397,10 +1430,11 @@ def _compacted_bounces(ds: DeviceScene, cfg: IntegratorConfig, carry: Carry,
     those with a queued shadow ray included, first), then the bounce on the
     smallest prefix in ``sizes`` that holds every live lane, presorted, its
     NEE queue sorted by its own origins; the dead tail rides along. One
-    host read per bounce, the live count, picks the prefix (and ends the
-    loop when no lane is live). Every kernel is a per-lane function, so no
-    lane's result depends on the order. Returns (carry in sorted order,
-    lane_id: the lane of each sorted slot)."""
+    host read per bounce, the live count (``host_read("compaction_live")``),
+    picks the prefix (and ends the loop when no lane is live). Every kernel
+    is a per-lane function, so no lane's result depends on the order.
+    Returns (carry in sorted order, lane_id: the lane of each sorted
+    slot)."""
     n = carry.active.shape[0]
     lo, hi = _scene_bounds_of(ds)
     lane_id = torch.arange(n, device=carry.active.device)
@@ -1408,21 +1442,24 @@ def _compacted_bounces(ds: DeviceScene, cfg: IntegratorConfig, carry: Carry,
         live = carry.active
         if cfg.wavefront:
             live = live | carry.pend.traced
-        live_cnt = int(live.sum())
+        live_cnt = host_read("compaction_live", live.sum())
         if live_cnt == 0:
             break
-        perm = torch.argsort(_carry_coherence_key(carry.ro, carry.rd, live,
-                                                  lo, hi), stable=True)
-        carry = _permute_lanes(carry, perm)
-        lane_id = lane_id[perm]
-        m = min(w for w in sizes if live_cnt <= w)
-        compaction_log.append((b, live_cnt, m))
-        head = _map_lanes(lambda a: a[:m], carry)
-        head, ctx = visit_hit(head, compact=False, presorted=True)
-        if b < cfg.max_path_depth - 1:
-            head = scatter_tail(head, ctx, b, compact=False, sort_shadow=True)
-        carry = head if m == n else _map_lanes(
-            lambda h, a: torch.cat([h, a[m:]]), head, carry)
+        with span("rptr.bounce", b):
+            with span("rptr.sort"):
+                perm = torch.argsort(_carry_coherence_key(
+                    carry.ro, carry.rd, live, lo, hi), stable=True)
+                carry = _permute_lanes(carry, perm)
+                lane_id = lane_id[perm]
+            m = min(w for w in sizes if live_cnt <= w)
+            head = _map_lanes(lambda a: a[:m], carry)
+            head, ctx = visit_hit(head, compact=False, presorted=True)
+            if b < cfg.max_path_depth - 1:
+                head = scatter_tail(head, ctx, b, compact=False,
+                                    sort_shadow=True)
+            with span("rptr.sort"):
+                carry = head if m == n else _map_lanes(
+                    lambda h, a: torch.cat([h, a[m:]]), head, carry)
     return carry, lane_id
 
 
@@ -1707,19 +1744,24 @@ def make_pass_fn(ds: DeviceScene, cfg: IntegratorConfig, width: int,
                 s: int, blend_base: int):
         """``s`` is the in-batch sample index and ``blend_base`` the
         number of samples already in ``acc`` (process_samples.comp:
-        116-131: ``acc += (x - acc) / (k + 1)``, applied per sample)."""
-        sample_index = (fp.sample_offset + s) & M32
-        blend_k = blend_base + s
-        state = pointsets.make_state(
-            cfg.rng_variant, sample_index, fp.shot_offset, px, py, width,
-            bufs=ds.rng)
-        state, ro, rd = camera_setup(cfg, view, px, py, dims, state,
-                                     bufs=ds.rng, fp=fp)
-        rgb, alpha, nrays = trace_paths(
-            ds, cfg, fp, ro, rd, state, lane_mask=valid,
-            footprint0=camera_footprint0(cfg, fp, view, dims, rd))
-        blend_sample(acc, (rgb.x, rgb.y, rgb.z, alpha), valid, blend_k)
-        return nrays.sum()
+        116-131: ``acc += (x - acc) / (k + 1)``, applied per sample).
+        Span ``rptr.pass``."""
+        with span("rptr.pass"):
+            sample_index = (fp.sample_offset + s) & M32
+            blend_k = blend_base + s
+            with span("rptr.camera"):
+                state = pointsets.make_state(
+                    cfg.rng_variant, sample_index, fp.shot_offset, px, py,
+                    width, bufs=ds.rng)
+                state, ro, rd = camera_setup(cfg, view, px, py, dims, state,
+                                             bufs=ds.rng, fp=fp)
+                foot = camera_footprint0(cfg, fp, view, dims, rd)
+            rgb, alpha, nrays = trace_paths(
+                ds, cfg, fp, ro, rd, state, lane_mask=valid, footprint0=foot)
+            with span("rptr.blend"):
+                blend_sample(acc, (rgb.x, rgb.y, rgb.z, alpha), valid,
+                             blend_k)
+                return nrays.sum()
 
     return pass_fn
 

@@ -13,6 +13,10 @@ from __future__ import annotations
 
 import torch
 
+from realtimepathtracingresearchframework_tpu_torch.utils.profiling import (
+    host_sync,
+)
+
 T_MAX = 2.0e32  # reference uses 2.e32f (pt_megakernel.glsl:326)
 EPS_DET = 1e-12
 
@@ -55,7 +59,9 @@ def slab_interval(lo, hi, o, inv, zero):
     tsmall = torch.minimum(t0, t1)
     tbig = torch.maximum(t0, t1)
     inside = (lo <= o) & (o <= hi)
-    inf = torch.tensor(float("inf"), dtype=tsmall.dtype, device=tsmall.device)
+    with host_sync("slab_inf"):  # a copy to the device that waits
+        inf = torch.tensor(float("inf"), dtype=tsmall.dtype,
+                           device=tsmall.device)
     tsmall = torch.where(zero, torch.where(inside, -inf, inf), tsmall)
     tbig = torch.where(zero, torch.where(inside, inf, -inf), tbig)
     return tsmall, tbig

@@ -63,6 +63,9 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse_stream import (
     StreamedBVHBuffers,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
+from realtimepathtracingresearchframework_tpu_torch.utils.profiling import (
+    host_sync,
+)
 
 KERNEL = "traverse_binned"  # csrc/traverse_binned.cu
 DEFAULT_BLOCK = 512
@@ -92,13 +95,17 @@ def reset_launches() -> None:
 
 def subtree_bounds(bb: StreamedBVHBuffers) -> torch.Tensor:
     """(S, 8) f32: row s is subtree s's top-tree leaf row [min3, max3,
-    skip, s] (a top leaf's payload is its subtree id)."""
+    skip, s] (a top leaf's payload is its subtree id). Each boolean mask's
+    index reads its count back (``host_sync("subtree_rows")``)."""
     top = bb.top_nodes
     sid = top[:, 7].to(torch.int64)
     leaf = sid >= 0
     out = torch.zeros((bb.num_subtrees, 8), dtype=torch.float32,
                       device=top.device)
-    out[sid[leaf]] = top[leaf]
+    with host_sync("subtree_rows"):
+        rows = sid[leaf]
+    with host_sync("subtree_rows"):
+        out[rows] = top[leaf]
     return out
 
 
@@ -153,7 +160,9 @@ def _bin_layout(sid, s: int, block: int, n_pad: int):
     pstart = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                         torch.cumsum(padded, 0)[:-1]])
     pos = pstart[b] + (rank - start[b])
-    fill = torch.cat([pstart[1:], torch.tensor([n_pad], device=dev)])
+    with host_sync("bin_fill"):  # a copy to the device that waits
+        n_pad_t = torch.tensor([n_pad], device=dev)
+    fill = torch.cat([pstart[1:], n_pad_t])
     slot = torch.arange(n_pad, device=dev)
     bin_of = torch.searchsorted(fill, slot, side="right")
     bin_c = torch.clamp(bin_of, max=s)

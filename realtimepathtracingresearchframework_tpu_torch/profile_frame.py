@@ -39,8 +39,9 @@ each, then ``--profiled`` frames under ``torch.profiler``. Prints the card's nam
 scene's set-up seconds, the frame times, the device kernels per frame,
 their summed time and the union of their intervals (the device busy share
 is that union over the profiled wall), the traversal kernels' launches,
-time and share of device time, the largest kernels, and the host's launch
-and sync calls. The last line is a JSON summary.
+time and share of device time, the blocking host reads by site
+(``utils.profiling.host_syncs``), the largest kernels, and the host's
+launch and sync calls. The last line is a JSON summary.
 
     python -m realtimepathtracingresearchframework_tpu_torch.profile_frame \
         [--scene cornell|village|terrain200|terrain500|instanced600|instanced500|instanced2500] \
@@ -98,6 +99,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops import (
     traverse_tlas_stream as tts,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_v1 as tv
+from realtimepathtracingresearchframework_tpu_torch.utils import profiling
 from realtimepathtracingresearchframework_tpu_torch.utils.profiling import (
     ProfilingMarker,
 )
@@ -288,6 +290,7 @@ def main(argv=None) -> int:
         mod.reset_launches()
     integrator.reset_alpha_counts()
     integrator.reset_nee_dropped()
+    profiling.reset_host_syncs()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(nf):
@@ -303,7 +306,8 @@ def main(argv=None) -> int:
              "K7 global": tts.launches_k7_global / nf,
              "multislot": tb.multislot_dispatches / nf}
     alpha = {"hops": integrator.alpha_hops / nf,
-             "reads": integrator.alpha_reads / nf}
+             "reads": profiling.host_syncs["alpha_cut"] / nf}
+    syncs = {site: n / nf for site, n in sorted(profiling.host_syncs.items())}
     dropped = integrator.nee_dropped() / nf
 
     events = prof.events()
@@ -333,7 +337,7 @@ def main(argv=None) -> int:
     print(f"  merged two-queue launches per frame {merged}, modes per "
           f"frame {modes}, alpha test "
           f"per frame {alpha}, NEE samples dropped as non-finite per frame "
-          f"{dropped}")
+          f"{dropped}, blocking host reads per frame by site {syncs}")
     if r.live_profile:
         print(f"  live lanes per bounce (last frame): {r.live_profile}")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
@@ -358,6 +362,7 @@ def main(argv=None) -> int:
         "stream_closest": os.environ.get("RPTR_STREAM_CLOSEST", "sorted"),
         "merged_launches_per_frame": merged, "modes_per_frame": modes,
         "alpha_per_frame": alpha, "nee_dropped_per_frame": dropped,
+        "host_syncs_per_frame": syncs,
         "animate": args.animate, "tlas_update_ms": updates,
         "setup_s": r.setup_seconds, "rays_per_frame": r.last_frame_rays(),
         "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,

@@ -9,17 +9,24 @@ TPU-native equivalent of:
   CUDA events on a card (a timestamp pair at queue granularity, read once
   the work has completed, so the frame loop never waits for it) and with
   the host clock on the CPU; ``time`` brackets with a device synchronize.
+- The frame path's tracer (no reference counterpart): ``span`` names a
+  stage of the frame as a ``torch.profiler.record_function`` range while
+  a profiler records, and ``host_read`` / ``host_sync`` count and span each
+  blocking device-to-host read (``host_syncs``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import enum
 import time
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+import torch
 
 from realtimepathtracingresearchframework_tpu_torch.utils.online_stats import OnlineStats
 
@@ -134,8 +141,6 @@ class DeviceTimers:
         yield out
         val = out.get("result", result_to_block)
         if val is not None:
-            import torch
-
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
         dt_ms = (time.perf_counter() - t0) * 1e3
@@ -155,8 +160,6 @@ class DeviceTimers:
         """Time the work queued inside the block: by CUDA events on a CUDA
         ``device`` (no synchronisation), else by the host clock."""
         if getattr(device, "type", device) == "cuda":
-            import torch
-
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -209,3 +212,57 @@ class DeviceTimers:
         for v in hist:
             st.add(v)
         return (st.mean, st.minimum, st.maximum, st.stddev)
+
+
+# ---------------------------------------------------------------------------
+# Stage spans and counted host syncs of the frame path
+# ---------------------------------------------------------------------------
+
+# a profiler's trace holds the spans as ``user_annotation`` ranges on the
+# clock of its CUDA activities, so a kernel belongs to the innermost stage
+# open at its launch and an idle gap of the device to the span the host was
+# in. Spans, outermost first: rptr.pass (a monolithic chunk pass or the
+# executor's whole-frame sample) > rptr.bounce.<b> > the stages rptr.closest,
+# rptr.shade, rptr.nee (> rptr.shadow) and rptr.sort; rptr.camera and
+# rptr.blend lie in the pass, outside its bounces; rptr.sync.<site> around
+# each blocking read, inside whatever stage makes it
+SYNC_PREFIX = "rptr.sync."
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch.autograd._profiler_enabled
+
+# blocking device-to-host reads by site since the last reset_host_syncs()
+host_syncs: Dict[str, int] = collections.Counter()
+
+
+def span(name: str, part=None):
+    """``torch.profiler.record_function(name)`` while a profiler records
+    (``name.<part>`` with a ``part``), else a shared no-op context: one
+    check, and nothing allocated, launched or read."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    if part is not None:
+        name = f"{name}.{part}"
+    return torch.profiler.record_function(name)
+
+
+def host_sync(site: str):
+    """Count one blocking read at ``site`` and return its span
+    (``rptr.sync.<site>``), for a read that an operation makes implicitly
+    (a boolean mask's index, a host-to-device copy that waits)."""
+    host_syncs[site] += 1
+    return span("rptr.sync", site)
+
+
+def host_read(site: str, value):
+    """The frame path's blocking read of ``value`` at ``site``, counted and
+    spanned by ``host_sync``: a one-element tensor's Python value, or, for
+    a CUDA event, the wait for its completion (returns None)."""
+    with host_sync(site):
+        if isinstance(value, torch.Tensor):
+            return value.item()
+        value.synchronize()
+        return None
+
+
+def reset_host_syncs() -> None:
+    host_syncs.clear()

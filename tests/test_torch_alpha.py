@@ -54,6 +54,7 @@ from realtimepathtracingresearchframework_tpu_torch.models.scene import Scene
 from realtimepathtracingresearchframework_tpu_torch.models.texture import Texture
 from realtimepathtracingresearchframework_tpu_torch.ops import integrator as ti
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_tlas
+from realtimepathtracingresearchframework_tpu_torch.utils import profiling
 
 CAM = OrientedCamera.look_at([0, 0, 3], [0, 0, -1], fovy=45)
 
@@ -104,6 +105,7 @@ def _render_pair(alpha_checker, size, two_level=False):
     r.initialize(size, size)
     r.set_scene(_alpha_scene(tproc, tvkr, Scene, Texture, alpha_checker))
     ti.reset_alpha_counts()
+    profiling.reset_host_syncs()
     r.render(FrameConfig(camera=CAM, params=RenderParams(max_path_depth=1)))
     img = r.readback_accumulation()
     jr = JaxRenderer()
@@ -137,6 +139,7 @@ def test_alpha_cutout_reveals_background():
     r, img, jr, ref = _render_pair(True, 16)
     assert r._has_alpha and jr._has_alpha
     assert ti.alpha_hops > 0  # the primaries re-traced past cut texels
+    assert profiling.host_syncs["alpha_cut"] >= ti.alpha_hops
     _check_cutout(img)
     _check_matches(r, img, jr, ref)
 
@@ -144,7 +147,7 @@ def test_alpha_cutout_reveals_background():
 def test_opaque_texture_disables_alpha_path():
     r, img, jr, ref = _render_pair(False, 8)
     assert not r._has_alpha and not jr._has_alpha
-    assert ti.alpha_hops == ti.alpha_reads == 0
+    assert ti.alpha_hops == profiling.host_syncs["alpha_cut"] == 0
     assert (img[..., :3].sum(-1) < 3.0).all()
     _check_matches(r, img, jr, ref)
 
