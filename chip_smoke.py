@@ -7,13 +7,14 @@ non-zero, printing no result, without them or outside a checkout.
 
 Phases (each raises on failure):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the nine traversal kernels from their eight sources, one nvcc
-     each, all at once: K1 (csrc/traverse_resident.cu), K2
-     (csrc/traverse_flat_cull.cu), K3 (csrc/traverse_precull.cu), K4
-     (csrc/traverse_streamed.cu), K5 (csrc/traverse_binned.cu), K6
-     (csrc/traverse_tlas.cu), K7 (csrc/traverse_tlas_stream.cu), K8a and
-     K8b (csrc/traverse_v1.cu), with nvcc's registers and spills of every
-     instance;
+  2. build: the nine traversal kernels from their eight sources and the
+     two fused shading kernels from theirs, one nvcc each, all at once: K1
+     (csrc/traverse_resident.cu), K2 (csrc/traverse_flat_cull.cu), K3
+     (csrc/traverse_precull.cu), K4 (csrc/traverse_streamed.cu), K5
+     (csrc/traverse_binned.cu), K6 (csrc/traverse_tlas.cu), K7
+     (csrc/traverse_tlas_stream.cu), K8a and K8b (csrc/traverse_v1.cu),
+     shade_hit and shade_scatter (csrc/shade.cu), with nvcc's registers
+     and spills of every instance;
   3. the cornell main path: 1920x1080, 1 spp, depth 9, one warm-up frame
      and timed frames; K1 must launch, K2-K5 not;
   3b. the village path: procedural.village(), 80,496 textured triangles, at
@@ -39,6 +40,16 @@ Phases (each raises on failure):
      RPTR_COMPACT_LANES=0 (equal rays, bitwise or within rtol 3e-5 / atol
      1e-7, printed); K2 and K3 against their plain versions and K1 on the
      first compacted queue; K2 and K3 must launch and no other;
+  3f. the fused shading kernels (csrc/shade.cu, shade_hit and
+     shade_scatter) against their plain versions on the bounce-0 and
+     bounce-1 carries of chunk 2 of the 1080p sample 0 of each case of
+     SHADE_CASES: the village (textured) and terrain500 (untextured), the
+     village under RIS and in the wavefront variant, cornell with a glass
+     material with the sun and sky off and in the glossy-only mode: per
+     kernel and bounce the fields that differ, with their lanes and
+     largest difference (none may: SHADE_LANES_OFF), the kernel-only ms
+     beside the bytes bound and the plain version's ms, and the wrappers'
+     launch counts;
   4. the terrain200 path: procedural.terrain(grid=200), 80,000 tris, at
      1920x1080, 1 spp, depth 9, through the wavefront executor: one
      warm-up frame and timed frames; K2 and K3 must launch, K1, K4, K5 not;
@@ -274,6 +285,10 @@ Phases (each raises on failure):
      bands bitwise render_tile of the whole frame; dryrun_multichip(4); the
      CLI with --devices 1 at 1920x1080 and with one device more than the
      cards (the reference's error).
+Every timed path also counts the fused shading kernels' launches and reads
+the renderer's fused share of its last frame: either both kernels launch and
+the share is 100%, or neither does and it is 0%; the village and terrain500
+paths must read 100%, the instanced (two-level) paths 0%.
 Every bound counts the rows of each pierced leaf up to its real-row count
 (the rows past it repeat the leaf's last triangle; K4-K7 from their tiles'
 bits), and logs the bound over the padded leaves beside it. Its last two
@@ -281,7 +296,10 @@ lines are the kernels' JSON record (K1, K2, K3, K8a and K8b with their
 kernel-only ms and the wrapper's beside them, K1, K2, K4, K8a and K8b each
 with a merged record, K2, K8a and K8b with their grazing lanes, K1-K5
 and K7 with ``paths``: their launches on the paths of 3d, 3e, 5e, 17, 18,
-20, 21 and 22, every kernel with ``axis_lanes_off_brute_force`` from 19)
+20, 21 and 22, every kernel with ``axis_lanes_off_brute_force`` from 19;
+shade_hit and shade_scatter with their launches on the village and
+terrain500 1080p paths of 3b and 5 as ``paths``, their kernel-only, plain
+and bound ms of 3f's village bounce 0 and ``carries`` with every row of 3f)
 and the result JSON.
 """
 
@@ -314,12 +332,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                              f"{REF}/traverse_tlas_stream.py:276"),
     "traverse_v1": (f"{PKG}/csrc/traverse_v1.cu",
                     f"{REF}/traverse_pallas.py:433"),
+    # the port's eager shading; the reference shades in XLA
+    "shade": (f"{PKG}/csrc/shade.cu", None),
 }
 # the two records of traverse_v1.cu: K8a (row-major table) replaces
 # traverse_pallas.py::_kernel (pallas_call at :433), K8b (field-major)
 # ::_kernel_lane (pallas_call at :452)
 V1_KERNELS = {"K8a": f"{REF}/traverse_pallas.py:433",
               "K8b": f"{REF}/traverse_pallas.py:452"}
+# the two records of shade.cu, which replaces no TPU kernel
+SHADE_KERNELS = ("shade_hit", "shade_scatter")
 V1_PATHS = (  # label, frame_setup scene, grid, timed frames, kernel
     ("v1 cornell 1080p", "cornell", 200, 2, "K8a"),
     ("v1 terrain40 1080p", "terrain", 40, 2, "K8a"),
@@ -332,6 +354,9 @@ QUEUE = 262_144
 TIMED_FRAMES = 4
 STREAM_FRAMES = 3  # timed frames of the terrain500 1080p path
 MAIN_SIZE = (1920, 1080)
+# the share of a fused shading launch's lanes on which a field may differ
+# from the plain version (PERF.md names each field that does)
+SHADE_LANES_OFF = 0.0
 BENCH_SIZE = (512, 384)  # bench.py's terrain row
 STREAM_GRID = 500  # procedural.terrain(grid=500): 500,000 tris
 TLAS_PATHS = (  # label, instances, size, depth, timed frames, kernel
@@ -1208,6 +1233,7 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
         TONEMAP_MODE_FAST,
     )
     from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+    from realtimepathtracingresearchframework_tpu_torch.ops import shade
     from realtimepathtracingresearchframework_tpu_torch.utils import profiling
 
     # the display image's tone map (Reinhard) keeps it in [0, 1]; it only
@@ -1222,6 +1248,7 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
     integrator.reset_alpha_counts()
     integrator.reset_nee_dropped()
     profiling.reset_host_syncs()
+    shade.reset_launches()
     t0 = time.perf_counter()
     if animate:
         r.set_animation_frame(0)
@@ -1247,6 +1274,8 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
         frame_ms.append(start.elapsed_time(end))
         rays.append(r.last_frame_rays())
     launches = {k: read() for k, (_, read) in counters.items()}
+    shaded = dict(shade.launches)
+    share = r.shade_fused_share
     modes = _mode_counts()
     merged = _merged_counts()
     alpha = {"hops": integrator.alpha_hops / (frames + 1),
@@ -1279,7 +1308,8 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
         f"script's CUDA events, {stats.render_time:.3f} ms by "
         f"Renderer.stats().render_time, {anim}launches {launches} ("
         f"{frames + 1} frames), of them merged {merged}, modes {modes}, "
-        f"alpha test per frame "
+        f"fused shading launches {shaded} (last frame's fused share "
+        f"{share}%), alpha test per frame "
         f"{alpha}, NEE samples dropped as non-finite per frame {dropped}, "
         f"live lanes per bounce "
         f"{r.live_profile}, peak memory {peak / 2**20:.1f} MiB, image finite "
@@ -1295,12 +1325,18 @@ def _timed_frames(label, r, cfg, frames=TIMED_FRAMES, animate=False):
     check(dropped <= 1e-6 * rays[0], f"{label}: {dropped} NEE samples per "
           f"frame dropped as non-finite, of {rays[0]} rays")
     check(img.shape == (height, width, 4), f"{label} image shape {img.shape}")
+    # the route the renderer took is the one the kernels ran: every frame
+    # through both fused kernels, or none through either
+    check((share, all(shaded.values())) in ((100.0, True), (0.0, False))
+          and any(shaded.values()) == all(shaded.values()),
+          f"{label}: fused shading share {share}%, launches {shaded}")
     rec = {"frame_ms": float(np.median(frame_ms)), "mrays": mrays,
            "update_ms": float(np.median(update_ms)), "marker_ms": marker_ms,
            "total_ms": float(np.median(total_ms)),
            "per_frame": {k: n / (frames + 1) for k, n in launches.items()},
            "merged": merged, "modes": modes, "alpha": alpha,
-           "nee_dropped": dropped, "rays": rays[0]}
+           "nee_dropped": dropped, "rays": rays[0], "shade": shaded,
+           "shade_fused_share": share}
     return launches, rec
 
 
@@ -1322,8 +1358,8 @@ def phase_village_path():
     """procedural.village() at MAIN_SIZE, 1 spp, depth 9, with bench.py's
     village camera, sun and sky, through the wavefront executor; then the
     mip levels against the CPU and this slice's village phases
-    (``phase_village_b3``). Returns the launch counts of this run and of
-    the RIS path."""
+    (``phase_village_b3``). Returns the launch counts of this run, of the
+    RIS path and of the fused shading kernels in this run."""
     from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
         frame_setup,
     )
@@ -1341,6 +1377,8 @@ def phase_village_path():
     launches, rec = _timed_frames("village path", r, cfg)
     check(r._wavefront is not None, "village did not take the wavefront executor")
     _only("village path", launches, ("K2", "K3"))
+    check(rec["shade_fused_share"] == 100.0,
+          f"village path: fused shading share {rec['shade_fused_share']}%")
     log(f"village summary: set-up {r.setup_seconds:.3f} s, frame "
         f"{rec['frame_ms']:.3f} ms, {rec['mrays']:.3f} Mray/s, K2 "
         f"{rec['per_frame']['K2']:.2f} and K3 {rec['per_frame']['K3']:.2f} "
@@ -1349,7 +1387,7 @@ def phase_village_path():
     with env(RPTR_TRAVERSAL_V3="0"):
         r_cpu, _ = frame_setup("village", "cpu", MAIN_SIZE)
     village_mip_flips(r, cfg, r_cpu)
-    return launches, phase_village_b3(r, cfg, r_cpu)
+    return launches, phase_village_b3(r, cfg, r_cpu), rec["shade"]
 
 
 def village_mip_flips(r, cfg, r_cpu, chunk=2):
@@ -1362,14 +1400,14 @@ def village_mip_flips(r, cfg, r_cpu, chunk=2):
 
     from realtimepathtracingresearchframework_tpu_torch.ops import integrator
     from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
-    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
-        frame_setup,
-    )
+    from realtimepathtracingresearchframework_tpu_torch.ops import shade
 
     width, height = MAIN_SIZE
     dims = (float(width), float(height))
     out = {}
-    orig = integrator.sample_atlas
+    orig = shade.sample_atlas
+    # the lookups of the plain stage on both (the card's kernel equals it)
+    fused_fns = shade.shade_hit, shade.shade_scatter
     for label, rr in ((DEVICE, r), ("cpu", r_cpu)):
         dev = rr.device
         cfg_i = rr._integrator_config(cfg.params)._replace(
@@ -1383,15 +1421,18 @@ def village_mip_flips(r, cfg, r_cpu, chunk=2):
         carry = integrator.initial_carry(
             ro, rd, state, valid,
             foot=integrator.camera_footprint0(cfg_i, fp, view, dims, rd))
-        visit, scatter = integrator._make_bounce_fns(rr.device_scene, cfg_i, fp)
         seen = []
 
         def spy(atlas, tid, uv, mip):
             seen.append((tid.cpu(), mip.cpu()))
             return orig(atlas, tid, uv, mip)
 
-        integrator.sample_atlas = spy
+        shade.sample_atlas = spy
+        shade.shade_hit = shade.shade_hit_plain
+        shade.shade_scatter = shade.shade_scatter_plain
         try:
+            visit, scatter = integrator._make_bounce_fns(rr.device_scene,
+                                                         cfg_i, fp)
             rows = []
             for b in range(2):
                 seen.clear()
@@ -1402,7 +1443,8 @@ def village_mip_flips(r, cfg, r_cpu, chunk=2):
                              torch.round(mip), ctx[0].x.cpu()))
                 carry = scatter(carry, ctx, b)
         finally:
-            integrator.sample_atlas = orig
+            shade.sample_atlas = orig
+            shade.shade_hit, shade.shade_scatter = fused_fns
         out[label] = rows
     shares = []
     for b in range(2):
@@ -1415,6 +1457,189 @@ def village_mip_flips(r, cfg, r_cpu, chunk=2):
         f"bounce 1 {shares[1][0]} of {shares[1][1]} (lanes with the same hit "
         f"point on both)")
     return shares
+
+
+# label: (frame_setup scene, its options, IntegratorConfig changes,
+# FrameParams changes, glass); every one on chunk 2 of the 1080p frame: the
+# village (textured) and terrain500 (untextured), the village under RIS
+# light selection (the binned light count of the emitter's MIS) and in the
+# wavefront variant (the deferred shadow queue and its origin rule), cornell
+# with a glass material (the transmission lobe) with the sun and sky off
+# and in the glossy-only mode
+SHADE_CASES = {
+    "village": ("village", {"grid": 200}, {}, {}, False),
+    "terrain500": ("terrain", {"grid": STREAM_GRID}, {}, {}, False),
+    "village RIS": ("village", {"grid": 200, "ris": True}, {}, {}, False),
+    "village wavefront": ("village", {"grid": 200}, {"wavefront": True}, {},
+                          False),
+    "cornell glass, sun off": ("cornell", {}, {"enable_sun_sky": False}, {},
+                               True),
+    "cornell glass, glossy only": ("cornell", {}, {}, {"glossy_only_mode": 1},
+                                   True),
+}
+SHADE_CHUNK = 2
+
+
+def _glass(ds):
+    """``ds`` with its first material (cornell's white) a smooth glass, so
+    that its lanes take the transmission lobe and pass the glossy-only
+    mask (as tests/test_torch_fused_shade.py's ``glass``)."""
+    from realtimepathtracingresearchframework_tpu_torch.ops import shade_common as sc
+
+    m = ds.mat_packed.clone()
+    m[sc._M_STRANS, 0] = 0.9
+    m[sc._M_IOR, 0] = 1.5
+    m[sc._M_ROUGH, 0] = 0.05
+    m[sc._M_METAL, 0] = 0.0
+    return ds._replace(mat_packed=m)
+
+
+def _stage_bytes(run, out, x, ds, cfg, hit: bool) -> int:
+    """The bytes one fused shading launch over the lanes of ``x`` needs:
+    each lane's operands and results once (an array that two fields share,
+    such as the base and transmission colours, once), and for shade_hit the
+    attribute and material rows its lanes gather (the distinct rows, the
+    columns it reads: textured 27 and 13, else 16 and 10) and on textured
+    scenes the atlas (texels and descriptors) once."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import shade
+    from realtimepathtracingresearchframework_tpu_torch.ops import shade_common as sc
+
+    n = x.active.shape[0]
+    ops = run.keep[0] if hit else run.keep
+    arrays = {a.data_ptr(): a for a in (*ops, *shade.fields(out).values())
+              if a is not None}
+    total = n * sum(a.element_size() for a in arrays.values())
+    if hit:
+        tri = torch.clamp(x.hit.tri, min=0).to(torch.int64)
+        mid = ds.attr_packed[sc._A_MID][tri].to(torch.int64)
+        cols = (27, 13) if cfg.has_textures else (16, 10)
+        total += 4 * (cols[0] * int(torch.unique(tri).numel())
+                      + cols[1] * int(torch.unique(mid).numel()))
+        if cfg.has_textures:
+            total += sum(a.numel() * a.element_size()
+                         for a in (ds.atlas.texels, ds.atlas.desc))
+    return total
+
+
+def compare_shade(label, r, cfg, chunk, bounces=2, iters=20, cfg_changes=None,
+                  fp_changes=None, ds=None):
+    """Both fused shading kernels (csrc/shade.cu) against their plain
+    versions on the card, on the bounce-0 and bounce-1 carries of chunk
+    ``chunk`` of ``r``'s 1080p sample 0 (the monolith's bounce functions),
+    lane for lane: for each kernel and bounce, the fields that differ with
+    their lanes and largest difference, the kernel-only ms (raw launches),
+    the plain version's ms and the bytes bound. ``cfg_changes`` and
+    ``fp_changes`` change the integrator's configuration and frame
+    parameters, ``ds`` stands in for ``r``'s device scene. Returns the
+    rows."""
+    import torch
+
+    from realtimepathtracingresearchframework_tpu_torch.ops import integrator
+    from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
+    from realtimepathtracingresearchframework_tpu_torch.ops import shade
+
+    width, height = r.fb_width, r.fb_height
+    dims = (float(width), float(height))
+    icfg = r._integrator_config(cfg.params)._replace(
+        compact=False, compact_lanes=False, **(cfg_changes or {}))
+    check(shade.fused(icfg), f"{label}: the config takes the plain stage")
+    fp = _frame_params(r, cfg)._replace(**(fp_changes or {}))
+    ds = r.device_scene if ds is None else ds
+    px, py, valid = (x[chunk] for x in r._swizzle)
+    view = r._view(cfg.camera)
+    state = pointsets.make_state(icfg.rng_variant, 0, fp.shot_offset, px, py,
+                                 width, bufs=ds.rng)
+    state, ro, rd = integrator.camera_setup(icfg, view, px, py, dims, state,
+                                            bufs=ds.rng, fp=fp)
+    carry = integrator.initial_carry(
+        ro, rd, state, valid,
+        foot=integrator.camera_footprint0(icfg, fp, view, dims, rd),
+        wavefront=icfg.wavefront)
+    rows = []
+    bounce = [0]
+    kernels = shade.shade_hit, shade.shade_scatter
+
+    def both(name, kernel, plain, bind, hit):
+        def fn(ds_, cfg_, fp_, x):
+            got = kernel(ds_, cfg_, fp_, x)
+            want = plain(ds_, cfg_, fp_, x)
+            torch.cuda.synchronize()
+            run, out = bind(ds_, cfg_, fp_, x)
+            n = x.active.shape[0]
+            nbytes = _stage_bytes(run, out, x, ds_, cfg_, hit)
+            rows.append({
+                "case": label, "kernel": name, "bounce": bounce[0], "lanes": n,
+                "active": int(x.active.sum()),
+                "differ": shade.differences(got, want),
+                "ms": raw_ms(run, iters),
+                "plain_ms": cuda_ms(lambda: plain(ds_, cfg_, fp_, x), 3),
+                "bytes": nbytes, "bound_ms": nbytes / 3.35e12 * 1e3})
+            return want
+
+        return fn
+
+    shade.reset_launches()
+    shade.shade_hit = both("shade_hit", kernels[0], shade.shade_hit_plain,
+                           shade.bind_hit, True)
+    shade.shade_scatter = both("shade_scatter", kernels[1],
+                               shade.shade_scatter_plain, shade.bind_scatter,
+                               False)
+    try:
+        visit, scatter = integrator._make_bounce_fns(ds, icfg, fp)
+        for b in range(bounces):
+            bounce[0] = b
+            carry, ctx = visit(carry)
+            carry = scatter(carry, ctx, b)
+    finally:
+        shade.shade_hit, shade.shade_scatter = kernels
+    for row in rows:
+        log(f"fused shading, {label} chunk {chunk} bounce {row['bounce']}: "
+            f"{row['kernel']} on {row['lanes']} lanes ({row['active']} "
+            f"active): fields that differ from the plain version "
+            f"{row['differ'] or 'none'}; kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.2f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bytes'] / row['lanes']:.1f} B a lane; share "
+            f"{row['bound_ms'] / row['ms']:.3f})")
+    log(f"fused shading, {label}: wrapper launches {shade.launches} "
+        f"({bounces} of each compared)")
+    check(shade.launches == dict.fromkeys(shade.launches, bounces),
+          f"{label}: wrapper launches {shade.launches}, {bounces} of each "
+          "expected")
+    return rows
+
+
+def phase_fused_shade():
+    """The fused shading kernels against their plain versions on the
+    bounce-0 and bounce-1 carries of each case of ``SHADE_CASES`` at 1080p
+    (``compare_shade``). Fails where a field differs on more than
+    ``SHADE_LANES_OFF`` of a launch's lanes. Returns the rows of every
+    case."""
+    from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
+        frame_setup,
+    )
+
+    out = {}
+    renderers = {}
+    for label, (scene, setup, cfg_changes, fp_changes, glass) in (
+            SHADE_CASES.items()):
+        key = (scene, tuple(sorted(setup.items())))
+        if key not in renderers:
+            renderers.clear()  # one scene on the card at a time
+            renderers[key] = frame_setup(scene, DEVICE, MAIN_SIZE, **setup)
+        r, cfg = renderers[key]
+        out[label] = compare_shade(
+            label, r, cfg, SHADE_CHUNK, cfg_changes=cfg_changes,
+            fp_changes=fp_changes, ds=_glass(r.device_scene) if glass else None)
+    renderers.clear()
+    for label, rows in out.items():
+        for row in rows:
+            for name, (lanes, big) in row["differ"].items():
+                check(lanes <= SHADE_LANES_OFF * row["lanes"],
+                      f"{label} {row['kernel']} bounce {row['bounce']}: "
+                      f"{name} differs on {lanes} lanes (largest {big})")
+    return out
 
 
 def phase_wavefront_path(mega):
@@ -1470,8 +1695,8 @@ def phase_terrain_path():
 def phase_stream_paths():
     """procedural.terrain(grid=500) on the streamed route at MAIN_SIZE, 1 spp,
     depth 9, and at the bench's BENCH_SIZE, 1 spp, depth 3. Returns
-    {label: (launches, merged launches)} and the 1080p path's (renderer,
-    frame config)."""
+    {label: (launches, merged launches, fused shading launches)} and the
+    1080p path's (renderer, frame config)."""
     from realtimepathtracingresearchframework_tpu_torch.profile_frame import (
         frame_setup,
     )
@@ -1490,7 +1715,9 @@ def phase_stream_paths():
         launches, rec = _timed_frames(label, r, cfg, frames)
         check(r._wavefront is None, f"{label} took the wavefront executor")
         _only(label, launches, ("K4", "K5"))
-        out[label] = launches, rec["merged"]
+        check(rec["shade_fused_share"] == 100.0,
+              f"{label}: fused shading share {rec['shade_fused_share']}%")
+        out[label] = launches, rec["merged"], rec["shade"]
         if main is None:
             main = (r, cfg)
     return out, main
@@ -2074,6 +2301,9 @@ def phase_tlas_paths():
         launches, rec = _timed_frames(label, r, cfg, frames, animate=True)
         check(r._wavefront is None, f"{label} took the wavefront executor")
         _only(label, launches, (kernel,))
+        # two-level scenes shade through the plain stage (shade.fused)
+        check(rec["shade_fused_share"] == 0.0,
+              f"{label}: fused shading share {rec['shade_fused_share']}%")
         log(f"{label} summary: set-up {r.setup_seconds:.3f} s, TLAS update "
             f"{rec['update_ms']:.3f} ms, frame {rec['frame_ms']:.3f} ms "
             f"({rec['total_ms']:.3f} ms with the update), {rec['mrays']:.3f} "
@@ -4637,7 +4867,8 @@ def main():
     phase_build()
     k1_launches, mega, mega_cfg = phase_main_path()
     rng_launches = phase_rng_paths()
-    village, village_ris = phase_village_path()
+    village, village_ris, village_shade = phase_village_path()
+    shade_rows = phase_fused_shade()
     village_compacted = phase_village_compacted(smi)
     _, k1_merged = phase_wavefront_path(mega)
     cornell_dof = phase_cornell_b3(mega, mega_cfg)
@@ -4692,7 +4923,7 @@ def main():
         traverse_tlas as tt,
     )
 
-    main_stream, stream_merged = stream["terrain500 1080p"]
+    main_stream, stream_merged, stream_shade = stream["terrain500 1080p"]
     # the merged launches of the runs the single-mode counts come from (no
     # route of the port, nor of the reference, reaches K2's and K4's merged
     # modes: only tests and this script's parity phases launch them)
@@ -4763,10 +4994,33 @@ def main():
                        ("traverse_tlas_stream", "K7"), ("K8a", "K8a"),
                        ("K8b", "K8b")):
         records[name]["axis_lanes_off_brute_force"] = axis_off[kern]
-    # traverse_v1.cu holds two kernels, with a record each
-    sources = {name: sr for name, sr in KERNELS.items() if name != "traverse_v1"}
+    # shade.cu's two kernels: their launches on the cells' main paths, the
+    # times of 3f's village bounce 0 (the widest textured launch) and every
+    # row of 3f under ``carries``
+    for kern in SHADE_KERNELS:
+        rows = [row for case_rows in shade_rows.values() for row in case_rows
+                if row["kernel"] == kern]
+        head = next(row for row in rows
+                    if row["case"] == "village" and row["bounce"] == 0)
+        records[kern] = {
+            "launches": village_shade[kern] + stream_shade[kern],
+            "max_abs_err": max((big for row in rows
+                                for _, big in row["differ"].values()),
+                               default=0.0),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "paths": {"village 1080p": village_shade[kern],
+                      "terrain500 1080p": stream_shade[kern]},
+            "carries": {f"{row['case']} bounce {row['bounce']}": {
+                k: row[k] for k in ("lanes", "active", "ms", "plain_ms",
+                                    "bytes", "bound_ms")} for row in rows},
+        }
+    # traverse_v1.cu and shade.cu hold two kernels each, with a record each
+    sources = {name: sr for name, sr in KERNELS.items()
+               if name not in ("traverse_v1", "shade")}
     sources.update({name: (KERNELS["traverse_v1"][0], replaces)
                     for name, replaces in V1_KERNELS.items()})
+    sources.update({name: KERNELS["shade"] for name in SHADE_KERNELS})
     kernels = []
     for name, (source, replaces) in sources.items():
         rec = records[name]
@@ -4776,11 +5030,12 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
-            # no single PyTorch call computes a BVH closest hit
+            # no single PyTorch call computes a BVH closest hit, nor a
+            # bounce's shading
             "library_ms": None,
         })
         for extra in ("grazing_lanes", "wrapper_ms", "paths",
-                      "axis_lanes_off_brute_force"):
+                      "axis_lanes_off_brute_force", "carries"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]
         for mode in ("merged", "quantized", "ordered", "multislot", "global"):

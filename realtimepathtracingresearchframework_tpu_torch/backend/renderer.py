@@ -149,6 +149,7 @@ from realtimepathtracingresearchframework_tpu_torch.ops.integrator import (
 from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
 from realtimepathtracingresearchframework_tpu_torch.ops import raster as raster_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import resolve as resolve_mod
+from realtimepathtracingresearchframework_tpu_torch.ops import shade as shade_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import taa as taa_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import texture_atlas
 from realtimepathtracingresearchframework_tpu_torch.ops import traverse_binned
@@ -181,8 +182,10 @@ from realtimepathtracingresearchframework_tpu_torch.utils.error_io import warnin
 from realtimepathtracingresearchframework_tpu_torch.utils.profiling import (
     DeviceTimers,
     ProfilingMarker,
+    fused_shade_share,
     host_read,
     host_sync,
+    reset_shaded,
 )
 
 # resident-kernel policy (renderer.py:113-124, 605-608): the flat cull and
@@ -364,6 +367,9 @@ class Renderer:
         self.animation_update = ""  # "refit" or "rebuild": the last
         # set_animation_frame of a flattened scene
         self.lod_rebuilds = 0  # rebuilds for a change of LoD selection
+        # percent of the last frame's shaded bounces that ran the fused
+        # rptr.shade kernels (ops/shade.py; profiling.shaded_bounces)
+        self.shade_fused_share = 0.0
         self._last_rays: List[torch.Tensor] = []
         self.live_profile: List[int] = []  # wavefront live lanes per bounce
         self._scene_config = SceneConfig()
@@ -999,6 +1005,7 @@ class Renderer:
         if self.active_variant in (VARIANT_RT_DEBUG, VARIANT_GBUFFER):
             return self._render_debug_variant(config)
         self._debug_image = None
+        reset_shaded()
         params = config.params
         spp = int(batch_spp if batch_spp is not None else params.batch_spp)
         sc = config.scene_config or SceneConfig()
@@ -1066,6 +1073,7 @@ class Renderer:
         else:
             self._last_render_ms = (time.perf_counter() - t0) * 1e3
             self.timers.add(ProfilingMarker.RENDERING, self._last_render_ms)
+        self.shade_fused_share = fused_shade_share()
         self.timers.end_frame()
         if not self.freeze_frame:
             self.frame_id += spp
@@ -1102,7 +1110,9 @@ class Renderer:
         """The background pipeline build (renderer.py:532-590,
         render_vulkan.cpp:139-155): on a thread, build and load the
         libraries of the kernels the scene's route launches
-        (``route_kernels``, through ``kernels/build.py``), then run one pass
+        (``route_kernels``, and the fused shading kernels where
+        ``shade.fused`` admits the configuration, through
+        ``kernels/build.py``), then run one pass
         of chunk 0 at the frame size with ``params`` (default
         ``RenderParams()``) from the default camera into scratch buffers,
         on every device of the renderer (renderer.py:564-580).
@@ -1116,7 +1126,9 @@ class Renderer:
         self._join_warmup()  # one warm-up at a time
         params = params or RenderParams()
         cfg = self._integrator_config(params)
-        names = route_kernels(self._route)
+        # the route's walks, and the fused shading kernels where they shade
+        names = route_kernels(self._route) + (
+            [shade_mod.KERNEL] if shade_mod.fused(cfg) else [])
         scenes, devices = list(self._device_scenes), self.devices
         width, height = self.fb_width, self.fb_height
         chunk0 = [c[0] for c in self._swizzle]

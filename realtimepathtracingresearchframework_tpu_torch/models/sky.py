@@ -101,8 +101,8 @@ def _sun_radiance_rgb(sun_y: float, turbidity: float) -> np.ndarray:
 
 def _params(device, sun_dir, sun_radiance, scale, perez=None, zenith=None,
             configs=None, radiances=None) -> SkyParams:
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32)).to(device)
+    def f32(a):  # contiguous: the fused shading kernel reads the tables flat
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
 
     return SkyParams(
         perez=f32(np.zeros((3, 5)) if perez is None else perez),

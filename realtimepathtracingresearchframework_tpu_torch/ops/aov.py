@@ -26,6 +26,7 @@ import torch
 
 from realtimepathtracingresearchframework_tpu_torch.ops import integrator as intg
 from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
+from realtimepathtracingresearchframework_tpu_torch.ops import shade_common as sc
 from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 
@@ -65,29 +66,29 @@ def render_aovs(ds: intg.DeviceScene, cfg: intg.IntegratorConfig,
     hit = intg._closest_hit_dispatch(ds, cfg, ro, rd, 0.0, T_MAX)
     was_hit = hit.tri >= 0
     tri = torch.clamp(hit.tri, min=0).to(torch.int64)
-    c = intg._fetch_cols_ranges(ds.attr_packed, tri,
-                                [(intg._A_N0, intg._A_UV0),
-                                 (intg._A_MID, intg._A_MID + 1)])
+    c = sc._fetch_cols_ranges(ds.attr_packed, tri,
+                                [(sc._A_N0, sc._A_UV0),
+                                 (sc._A_MID, sc._A_MID + 1)])
     b1, b2 = hit.u, hit.v
     b0 = 1.0 - b1 - b2
-    n_sh = Vec3(*(c[intg._A_N0 + k] * b0 + c[intg._A_N1 + k] * b1
-                  + c[intg._A_N2 + k] * b2 for k in range(3)))
-    mid = c[intg._A_MID].to(torch.int64)
+    n_sh = Vec3(*(c[sc._A_N0 + k] * b0 + c[sc._A_N1 + k] * b1
+                  + c[sc._A_N2 + k] * b2 for k in range(3)))
+    mid = c[sc._A_MID].to(torch.int64)
     if cfg.two_level:
         # object -> world by the instance's A^-T (see visit_hit)
         inst = torch.clamp(hit.inst, min=0).to(torch.int64)
-        n_sh = intg._mat3_apply(ds.tlas.inst_inv_t[inst], n_sh)
+        n_sh = sc._mat3_apply(ds.tlas.inst_inv_t[inst], n_sh)
         mid = mid + ds.tlas.inst_mat_offset[inst].to(torch.int64)
     norm = torch.sqrt(n_sh.x * n_sh.x + n_sh.y * n_sh.y + n_sh.z * n_sh.z)
     n_sh = Vec3(*(x / torch.clamp(norm, min=1e-20) for x in n_sh))
-    mc = intg._fetch_cols_ranges(ds.mat_packed, mid,
-                                 [(intg._M_BASE, intg._M_ROUGH + 1)])
+    mc = sc._fetch_cols_ranges(ds.mat_packed, mid,
+                                 [(sc._M_BASE, sc._M_ROUGH + 1)])
 
     def on_hit(x, miss):
         return torch.where(was_hit, x, miss)
 
-    albedo = [on_hit(mc[intg._M_BASE + k], 0.0) for k in range(3)]
-    rough = on_hit(mc[intg._M_ROUGH], 1.0)
+    albedo = [on_hit(mc[sc._M_BASE + k], 0.0) for k in range(3)]
+    rough = on_hit(mc[sc._M_ROUGH], 1.0)
     normal = [on_hit(x, 0.0) for x in n_sh]
     depth = on_hit(hit.t, T_MAX)
     # motion in NDC units (aov.py:125-132): 2 x the UV delta, as the

@@ -41,6 +41,11 @@ maps at a mip chosen from the ray-differential footprint that the carry
 transports across bounces (integrator.py:1205-1318, 1432-1443); with
 ``cfg.alpha_test`` closest hits and shadow rays re-trace past alpha-cut
 texels (``closest_hit_alpha``, ``occluded_alpha``; integrator.py:446-780).
+The ``rptr.shade`` stage of a bounce goes through ``ops/shade.py``: on the
+card two fused kernels where ``shade.fused`` admits the configuration, else
+their plain versions (always on the CPU). The scene tables' column layout,
+the footprint transforms, the sky term and the deferred shadow queue that
+both modules use live in ``ops/shade_common.py``.
 The ``PT_WAVEFRONT`` variant (``cfg.wavefront``) defers each bounce's NEE
 shadow ray to the next bounce, where on the K1 route both queues go to the
 card as one merged launch (integrator.py:1021-1115, 1380-1400). The RNG
@@ -74,28 +79,41 @@ import torch
 
 from realtimepathtracingresearchframework_tpu_torch.models.material import (
     BASE_MATERIAL_NOALPHA,
-    BASE_MATERIAL_ONESIDED,
-    BASE_MATERIAL_THIN,
 )
 from realtimepathtracingresearchframework_tpu_torch.models.sky import (
     SkyParams,
-    sky_radiance_v,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops import nee as nee_mod
 from realtimepathtracingresearchframework_tpu_torch.ops import pointsets
+from realtimepathtracingresearchframework_tpu_torch.ops import shade as shade_mod
+from realtimepathtracingresearchframework_tpu_torch.ops.shade_common import (
+    ATTR_W,
+    MAT_W,
+    RAY_EPSILON,
+    Footprint,
+    PendingNEE,
+    _A_MID,
+    _A_TAN,
+    _A_UV0,
+    _A_UV1,
+    _A_UV2,
+    _M_BCTEX,
+    _M_FLAGS,
+    _dpdxy_to_footprint_v,
+    _fetch_cols_ranges,
+    empty_pend,
+)
 from realtimepathtracingresearchframework_tpu_torch.ops import vec3 as v3
 from realtimepathtracingresearchframework_tpu_torch.ops.bsdf_gltf import (
     GLTFMaterial,
     gltf_bsdf_v,
     gltf_wpdf_v,
-    sample_gltf_brdf_v,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.intersect import T_MAX
 from realtimepathtracingresearchframework_tpu_torch.ops.rng import M32
 from realtimepathtracingresearchframework_tpu_torch.ops.texture_atlas import (
     TextureAtlas,
     sample_atlas,
-    sample_atlas_aniso,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.tlas import TwoLevelHit
 from realtimepathtracingresearchframework_tpu_torch.ops.traverse import (
@@ -120,35 +138,12 @@ from realtimepathtracingresearchframework_tpu_torch.ops.traverse_resident import
 )
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
 from realtimepathtracingresearchframework_tpu_torch.utils.profiling import (
+    count_shaded,
     host_read,
     span,
 )
 
-RAY_EPSILON = 5.0e-6  # vulkan/gpu_params.glsl:28
 RAYS_PER_PASS = 524288  # rays in flight per pass (integrator.py:71)
-
-
-# ---------------------------------------------------------------------------
-# Scene tables, stored TRANSPOSED as (W, T) f32 like the reference's: a
-# fetch of one row range by a per-lane index gives one contiguous 1-D
-# tensor per attribute (the SoA layout the shading math wants). Integer
-# columns are float VALUES (exact below 2^24), never bit patterns.
-# ---------------------------------------------------------------------------
-
-ATTR_W = 32
-_A_E1, _A_E2 = 0, 3
-_A_N0, _A_N1, _A_N2 = 6, 9, 12
-_A_UV0, _A_UV1, _A_UV2 = 15, 17, 19
-_A_TAN = 21  # 4 wide (xyz + handedness)
-_A_DENS = 25
-_A_MID = 26  # material id as float value
-
-MAT_W = 16
-_M_BASE = 0  # 3 wide
-_M_ROUGH, _M_SPEC, _M_METAL, _M_IOR = 3, 4, 5, 6
-_M_STRANS, _M_EMIT = 7, 8
-_M_FLAGS, _M_BCTEX, _M_SPTEX, _M_NMTEX = 9, 10, 11, 12  # float values
-_M_CCGLOSS = 13  # clearcoat_gloss (thin-transmission reflective roughness)
 
 
 class DeviceScene(NamedTuple):
@@ -256,43 +251,6 @@ def device_scene_from_numpy(arrays: dict, device) -> DeviceScene:
     )
 
 
-def _fetch_cols_ranges(tbl_t, idx, ranges):
-    """Fetch the table rows in ``ranges`` at per-lane index ``idx``:
-    {absolute_row: (N,) column}."""
-    rows = [r for a, b in ranges for r in range(a, b)]
-    sub = torch.cat([tbl_t[a:b] for a, b in ranges], dim=0)
-    cols = sub.index_select(1, idx)
-    return {r: cols[i] for i, r in enumerate(rows)}
-
-
-def _material_from_cols(c, thin: bool = False) -> GLTFMaterial:
-    """Fetched material columns -> SoA GLTFMaterial. ``thin`` applies the
-    THIN_TRANSMISSION load rule (gltf_bsdf.glsl:47-56)."""
-    base = Vec3(c[_M_BASE], c[_M_BASE + 1], c[_M_BASE + 2])
-    flags = c[_M_FLAGS].to(torch.int32)
-    roughness = c[_M_ROUGH]
-    transmission_roughness = None
-    if thin:
-        thin_lane = (
-            ((flags & BASE_MATERIAL_THIN) != 0)
-            & (c[_M_STRANS] > 0.0)
-            & (c[_M_IOR] > 1.0)
-        )
-        transmission_roughness = roughness
-        roughness = torch.where(thin_lane, torch.sqrt(c[_M_CCGLOSS]), roughness)
-    return GLTFMaterial(
-        base_color=base,
-        metallic=c[_M_METAL],
-        specular=c[_M_SPEC],
-        roughness=roughness,
-        ior=c[_M_IOR],
-        specular_transmission=c[_M_STRANS],
-        transmission_color=base,
-        onesided=(flags & BASE_MATERIAL_ONESIDED) != 0,
-        transmission_roughness=transmission_roughness,
-    )
-
-
 class ViewBuffers(NamedTuple):
     """ViewParams analogue (vulkan/gpu_params.glsl:61-87): (3,) f32."""
 
@@ -370,34 +328,6 @@ class FrameParams(NamedTuple):
     bump_scale: float = 1.0  # normal-map strength (SceneConfig.bump_scale)
     aperture_radius: float = 0.0  # thin-lens DoF (render_params.glsl.h)
     focus_distance: float = 1.0
-
-
-def _ocean(y):
-    """0.7*(1-|y|)^5 below the horizon (pt_megakernel.glsl:118-122), with
-    the fifth power multiplied out as XLA does."""
-    a = torch.clamp(1.0 - y.abs(), min=0.0)
-    a2 = a * a
-    return torch.where(y <= 0.0, 0.7 * (a * (a2 * a2)), 1.0)
-
-
-def _sky_illum(ds: DeviceScene, rd: Vec3, prev_pdf, cfg: IntegratorConfig) -> Vec3:
-    """compute_sky_illum (pt_megakernel.glsl:113-149)."""
-    zero = v3.splat(torch.zeros_like(rd.x))
-    if not cfg.enable_sun_sky:
-        return zero
-    atm = v3.vabs(sky_radiance_v(ds.sky, rd))
-    # sun disk with MIS vs NEE sun sampling
-    ocean = _ocean(rd.y)
-    dm = v3.normalize(Vec3(rd.x, rd.y.abs(), rd.z))
-    sd = ds.sky.sun_dir
-    in_cap = (dm.x * sd[0] + dm.y * sd[1] + dm.z * sd[2]) >= ds.sky.sun_cos_angle
-    sr = ds.sky.sun_radiance
-    sun = v3.where(
-        in_cap, Vec3(sr[0] * ocean, sr[1] * ocean, sr[2] * ocean), zero
-    )
-    light_pdf = sr[3] * nee_mod.sun_dir_pdf(ds.sky.sun_cos_angle)
-    w = nee_mod.nee_mis_heuristic(1.0, prev_pdf, 1.0, light_pdf)
-    return atm + v3.vabs(sun) * w
 
 
 class NEECandidate(NamedTuple):
@@ -781,33 +711,6 @@ def _sample_direct_light(ds: DeviceScene, cfg: IntegratorConfig, hit_p: Vec3,
     return (contrib, evals) if count_evals else contrib
 
 
-class Footprint(NamedTuple):
-    """Per-lane ray-differential texture footprint: the symmetric 2x2
-    covariance (F00, F11, F01) of footprint.glsl."""
-
-    a: torch.Tensor
-    b: torch.Tensor
-    c: torch.Tensor
-
-
-class PendingNEE(NamedTuple):
-    """The wavefront's deferred NEE shadow ray of each lane
-    (integrator.py:1526-1531), resolved by the next ``visit_hit``."""
-
-    dir: Vec3
-    tmin: torch.Tensor
-    tmax: torch.Tensor
-    contrib: Vec3  # throughput-scaled contribution if unblocked
-    traced: torch.Tensor  # bool: a shadow ray is queued for this lane
-
-
-def empty_pend(like) -> PendingNEE:
-    """No queued shadow ray, on ``like``'s lanes."""
-    z = torch.zeros_like(like)
-    return PendingNEE(Vec3(z, z + 1.0, z), z, z, Vec3(z, z, z),
-                      torch.zeros(like.shape, dtype=torch.bool, device=like.device))
-
-
 class Carry(NamedTuple):
     """Per-lane path state between bounces. ``pend`` is the wavefront
     variant's deferred shadow queue, ``foot`` the texture footprint and
@@ -876,21 +779,19 @@ _COMPACT_LANE_QUANTUM = 1024
 _COMPACT_MAX_HALVINGS = 5  # smallest prefix = n/32
 
 
-def _mat3_apply(m, x: Vec3) -> Vec3:
-    """Per-lane (N, 9) row-major 3x3 matrices times a Vec3 (the
-    reference's ``einsum("nab,nb->na")``)."""
-    return Vec3(*(m[:, 3 * a] * x.x + m[:, 3 * a + 1] * x.y + m[:, 3 * a + 2] * x.z
-                  for a in range(3)))
-
-
 def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
                      t_max0=None):
     """The per-bounce closures (visit_hit + scatter_tail), elementwise
     over the lane axis: any caller may run them on any lane prefix (the
     monolithic ``trace_paths`` and the wavefront executor). ``t_max0``
     (per lane) bounds the primary segment (integrator.py:1047-1052)."""
-    num_bins = max(cfg.num_lights // max(cfg.light_bin_size, 1), 1)
     count_any = cfg.debug_mode in (_DBG_ANY_FULL, _DBG_ANY_PRIMARY)
+    # the rptr.shade stage: its two kernels where they implement the
+    # configuration, else its plain version, on the card too
+    fused = shade_mod.fused(cfg)
+    shade_hit = shade_mod.shade_hit if fused else shade_mod.shade_hit_plain
+    shade_scatter = (shade_mod.shade_scatter if fused
+                     else shade_mod.shade_scatter_plain)
 
     def count(dbg, evals, bounce_count):
         """The debug count after this bounce's closest-hit evaluations:
@@ -975,201 +876,25 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
 
     def visit_hit(carry: Carry, compact: bool = False,
                   presorted: bool = False):
-        """Traverse + hit attributes + textures + emitter MIS (span
-        ``rptr.shade`` after the traversal's). Returns (carry with the miss
+        """Traverse, then the ``rptr.shade`` stage's first part
+        (``shade.shade_hit``: hit attributes, textures, sky and emitter
+        MIS), fused where ``shade.fused`` admits the configuration, counted
+        by path (``profiling.count_shaded``). Returns (carry with the miss
         handled, hit shading context)."""
-        ro, rd, active = carry.ro, carry.rd, carry.active
         hit, illum, dbg = traverse(carry, compact, presorted)
         with span("rptr.shade"):
-            rays = carry.rays + active.to(carry.rays.dtype)
-            pend = empty_pend(carry.t_min) if cfg.wavefront else None
-            was_miss = hit.tri < 0
-
-            # ---- miss: sky (pt_megakernel.glsl:480-489)
-            sky = _sky_illum(ds, rd, carry.prev_pdf, cfg)
-            illum = v3.where(active & was_miss, illum + carry.throughput * sky,
-                             illum)
-            active = active & ~was_miss
-
-            # ---- hit attributes (rt/hit.glsl:63-92), row-indexed tables; uv,
-            # tangent and texel density only when texturing
-            tri = torch.clamp(hit.tri, min=0).to(torch.int64)
-            attr_ranges = ([(_A_E1, _A_MID + 1)] if cfg.has_textures
-                           else [(_A_E1, _A_UV0), (_A_MID, _A_MID + 1)])
-            c = _fetch_cols_ranges(ds.attr_packed, tri, attr_ranges)
-            e1 = Vec3(c[_A_E1], c[_A_E1 + 1], c[_A_E1 + 2])
-            e2 = Vec3(c[_A_E2], c[_A_E2 + 1], c[_A_E2 + 2])
-            b1, b2 = hit.u, hit.v
-            b0 = 1.0 - b1 - b2
-            n_sh = Vec3(
-                c[_A_N0] * b0 + c[_A_N1] * b1 + c[_A_N2] * b2,
-                c[_A_N0 + 1] * b0 + c[_A_N1 + 1] * b1 + c[_A_N2 + 1] * b2,
-                c[_A_N0 + 2] * b0 + c[_A_N1 + 2] * b1 + c[_A_N2 + 2] * b2,
-            )
-            if cfg.two_level:
-                # object -> world: edges by the instance's linear part A,
-                # normals by A^-T (integrator.py:1158-1169)
-                inst = torch.clamp(hit.inst, min=0).to(torch.int64)
-                lin = ds.tlas.inst_linear[inst]
-                lin_it = ds.tlas.inst_inv_t[inst]
-                e1 = _mat3_apply(lin, e1)
-                e2 = _mat3_apply(lin, e2)
-                n_sh = _mat3_apply(lin_it, n_sh)
-            gn_raw = v3.cross(e1, e2)
-            gn_raw = v3.where(v3.dot(n_sh, gn_raw) < 0.0, -gn_raw, gn_raw)
-            gn_len = v3.length(gn_raw)  # 2*area
-            gn = gn_raw * (1.0 / torch.clamp(gn_len, min=1e-20))
-            # approx solid angle of the hit triangle as seen from the origin
-            approx_sa = (
-                (0.5 * gn_len)
-                * v3.dot(gn, rd).abs()
-                / torch.clamp(hit.t * hit.t, min=1e-20)
-            )
-            n_sh = v3.normalize(n_sh)
-
-            mid = c[_A_MID].to(torch.int64)
-            if cfg.two_level:
-                mid = mid + ds.tlas.inst_mat_offset[inst]
-            mat_ranges = ([(_M_BASE, _M_NMTEX + 1)] if cfg.has_textures
-                          else [(_M_BASE, _M_BCTEX)])
-            if cfg.thin_transmission:
-                mat_ranges = mat_ranges + [(_M_CCGLOSS, _M_CCGLOSS + 1)]
-            mc = _fetch_cols_ranges(ds.mat_packed, mid, mat_ranges)
-            mat = _material_from_cols(mc, thin=cfg.thin_transmission)
-
-            p = ro + rd * hit.t
-            w_o = -rd
-
-            # two-sided flip (pt_megakernel.glsl:622-634)
-            backface = v3.dot(w_o, gn) < 0.0
-            flip = backface & ~mat.onesided
-            n_sh = v3.where(flip, -n_sh, n_sh)
-            gn = v3.where(flip, -gn, gn)
-
-            total_t = torch.where(active, carry.total_t + hit.t, carry.total_t)
-
-            if cfg.has_textures:
-                mat, n_sh = shade_textures(carry, c, mc, mat, n_sh, gn, rd, total_t,
-                                           inst if cfg.two_level else None,
-                                           lin if cfg.two_level else None, b0, b1, b2)
-
-            # ---- emitter hit MIS (shade_base_material.glsl:33-39)
-            emit_intensity = mc[_M_EMIT]
-            emit_radiance = mat.base_color * emit_intensity
-            has_emit = emit_intensity > 0.0
-            wpdf_light = (1.0 - ds.sky.sun_radiance[3]) * nee_mod.approx_tri_lights_pdf(
-                approx_sa, max(cfg.num_lights, 1), num_bins, cfg.use_light_bins
-            )
-            w_emit = nee_mod.nee_mis_heuristic(1.0, carry.prev_pdf, 1.0, wpdf_light)
-            illum = v3.where(
-                active & has_emit,
-                illum + carry.throughput * emit_radiance * w_emit,
-                illum,
-            )
-
-            bounce_count = torch.where(
-                active, carry.bounce_count + 1, carry.bounce_count
-            )
+            o = shade_hit(ds, cfg, fp, shade_mod.HitIn(
+                ro=carry.ro, rd=carry.rd, illum=illum,
+                throughput=carry.throughput, active=carry.active,
+                prev_pdf=carry.prev_pdf, bounce_count=carry.bounce_count,
+                total_t=carry.total_t, rays=carry.rays, hit=hit,
+                foot=carry.foot))
+            count_shaded(fused)
             carry = carry._replace(
-                illum=illum, active=active, bounce_count=bounce_count,
-                total_t=total_t, rays=rays, pend=pend, dbg=dbg,
+                illum=o.illum, active=o.active, bounce_count=o.bounce_count,
+                total_t=o.total_t, rays=o.rays, pend=o.pend, dbg=dbg,
             )
-        return carry, (p, n_sh, gn, mat, w_o)
-
-    def shade_textures(carry: Carry, c, mc, mat: GLTFMaterial, n_sh: Vec3,
-                       gn: Vec3, rd: Vec3, total_t, inst, lin, b0, b1, b2):
-        """The texture stage of visit_hit (rt/material_textures.glsl,
-        integrator.py:1205-1318): base colour, specular/roughness and the
-        normal map, sampled at the mip of the transported footprint
-        elongated along the grazing tangent and scaled by the path length,
-        or with ``cfg.aniso_taps`` along the footprint's major axis.
-        Returns (material, shading normal)."""
-        uv = torch.stack([
-            c[_A_UV0] * b0 + c[_A_UV1] * b1 + c[_A_UV2] * b2,
-            c[_A_UV0 + 1] * b0 + c[_A_UV1 + 1] * b1 + c[_A_UV2 + 1] * b2,
-        ], dim=-1)
-        density = c[_A_DENS]
-        if inst is not None:
-            # object-space density scales by 1/|s| in world units
-            density = density / torch.clamp(ds.tlas.inst_scale[inst], min=1e-8)
-        dpdx, dpdy = _footprint_to_dpdxy_v(rd, *carry.foot)
-        dt_un = rd - gn * v3.dot(rd, gn)
-        cos2 = torch.clamp(1.0 - v3.dot(dt_un, dt_un), min=0.0)
-        elong_s = 1.0 / torch.clamp(torch.sqrt(cos2) + cos2, min=1e-6)
-        ex = dt_un * elong_s
-        dpdx_e = dpdx + ex * v3.dot(dpdx, dt_un)
-        dpdy_e = dpdy + ex * v3.dot(dpdy, dt_un)
-        footprint_world = (
-            torch.maximum(v3.length(dpdx_e), v3.length(dpdy_e)) * total_t)
-
-        if cfg.aniso_taps > 0 and inst is None:
-            # the (elongated, path-scaled) footprint vectors projected onto
-            # the triangle's uv parametrisation via the edge metric
-            e1v = Vec3(c[_A_E1], c[_A_E1 + 1], c[_A_E1 + 2])
-            e2v = Vec3(c[_A_E2], c[_A_E2 + 1], c[_A_E2 + 2])
-            g11 = v3.dot(e1v, e1v)
-            g12 = v3.dot(e1v, e2v)
-            g22 = v3.dot(e2v, e2v)
-            det = torch.clamp(g11 * g22 - g12 * g12, min=1e-20)
-            du1 = c[_A_UV1] - c[_A_UV0]
-            dv1 = c[_A_UV1 + 1] - c[_A_UV0 + 1]
-            du2 = c[_A_UV2] - c[_A_UV0]
-            dv2 = c[_A_UV2 + 1] - c[_A_UV0 + 1]
-
-            def duv_of(dp):
-                w = dp * total_t
-                p1 = v3.dot(w, e1v)
-                p2 = v3.dot(w, e2v)
-                a = (p1 * g22 - p2 * g12) / det
-                b = (p2 * g11 - p1 * g12) / det
-                return torch.stack([a * du1 + b * du2, a * dv1 + b * dv2], dim=-1)
-
-            duvdx, duvdy = duv_of(dpdx_e), duv_of(dpdy_e)
-
-            def tex_sample(tid):
-                return sample_atlas_aniso(ds.atlas, tid, uv, duvdx, duvdy,
-                                          taps=int(cfg.aniso_taps))
-        else:
-            def tex_sample(tid):
-                base_w = ds.atlas.desc[torch.clamp(tid, min=0).to(torch.int64),
-                                       0, 1].to(torch.float32)
-                mip = torch.log2(torch.clamp(footprint_world * density * base_w,
-                                             min=1.0))
-                return sample_atlas(ds.atlas, tid, uv, mip)
-
-        bc_tid = mc[_M_BCTEX].to(torch.int32)
-        bc = tex_sample(bc_tid)
-        base = v3.where(bc_tid >= 0, Vec3(bc[:, 0], bc[:, 1], bc[:, 2]),
-                        mat.base_color)
-        mat = mat._replace(base_color=base, transmission_color=base)
-
-        sp_tid = mc[_M_SPTEX].to(torch.int32)
-        sp = tex_sample(sp_tid)
-        has_sp = sp_tid >= 0
-        mat = mat._replace(
-            roughness=torch.where(has_sp, sp[:, 1], mat.roughness),
-            metallic=torch.where(has_sp, sp[:, 2], mat.metallic),
-        )
-
-        # normal mapping in the uv tangent frame (pt_megakernel.glsl:636-648)
-        nm_tid = mc[_M_NMTEX].to(torch.int32)
-        nm = tex_sample(nm_tid)
-        tn = Vec3(
-            (nm[:, 0] * 2.0 - 1.0) * fp.bump_scale,
-            (nm[:, 1] * 2.0 - 1.0) * fp.bump_scale,
-            nm[:, 2] * 2.0 - 1.0,
-        )
-        tang = Vec3(c[_A_TAN], c[_A_TAN + 1], c[_A_TAN + 2])
-        if inst is not None:
-            tang = _mat3_apply(lin, tang)
-        tang = v3.normalize(tang - n_sh * v3.dot(tang, n_sh))
-        hand = c[_A_TAN + 3]
-        if inst is not None:
-            hand = hand * ds.tlas.inst_sign[inst]
-        bitan = v3.cross(n_sh, tang) * hand
-        n_mapped = v3.normalize(tang * tn.x + bitan * tn.y + n_sh * tn.z)
-        ok_nm = (nm_tid >= 0) & (v3.length(tn) > 1e-4)
-        return mat, v3.where(ok_nm, n_mapped, n_sh)
+        return carry, (o.p, o.n_sh, o.gn, o.mat, o.w_o)
 
     def scatter_tail(carry: Carry, ctx, bounce: int, compact: bool = False,
                      sort_shadow: bool = False) -> Carry:
@@ -1214,7 +939,6 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
                 scaled = throughput * cand.contrib
                 illum = v3.where(cand.uncond & active, carry.illum + scaled,
                                  carry.illum)
-                had_nee = active  # lanes owning a queued shadow ray
                 pend = PendingNEE(cand.dir, cand.eps, cand.shadow_tmax, scaled,
                                   cand.traced & active)
             else:
@@ -1233,64 +957,20 @@ def _make_bounce_fns(ds: DeviceScene, cfg: IntegratorConfig, fp: FrameParams,
                                  carry.illum)
 
         with span("rptr.shade"):
-            # glossy-only debug mode (shade_base_material.glsl:69-70)
-            if fp.glossy_only_mode != 0:
-                glossy = (mat.roughness < 0.1) & (mat.ior != 1.0)
-                active = active & glossy
-
-            # ---- BSDF sample
-            vx, vy = nee_mod.ortho_frame_v(n_sh)
-            weight, w_i, _spdf, mis_wpdf = sample_gltf_brdf_v(
-                mat, n_sh, w_o, vx, vy, dir_sample, lobe_sample,
-                cfg.has_transmission, cfg.thin_transmission,
-            )
-            valid_dir = v3.dot(w_i, n_sh) * v3.dot(w_i, gn) > 0.0
-            weight_zero = (weight.x == 0.0) & (weight.y == 0.0) & (weight.z == 0.0)
-            terminate = (mis_wpdf == 0.0) | weight_zero | ~valid_dir
-            keep = active & ~terminate
-            throughput = v3.where(keep, throughput * weight, throughput)
-            prev_pdf = torch.where(keep, mis_wpdf, carry.prev_pdf)
-            active = keep
-
-            foot = carry.foot
-            if cfg.has_textures:
-                # transport the texture footprint across the bounce
-                # (pt_megakernel.glsl:698-701)
-                do_ref = active & (v3.dot(w_i, n_sh) * v3.dot(w_o, n_sh) > -0.999)
-                ref = _reflect_footprint_v(w_i, carry.rd, *foot)
-                foot = Footprint(*(torch.where(do_ref, r, f)
-                                   for r, f in zip(ref, foot)))
-
-            rd = v3.where(active, w_i, carry.rd)
-            if cfg.wavefront:
-                # the next visit's deferred shadow ray starts at THIS hit point,
-                # also on lanes whose path just ended
-                ro = v3.where(active | had_nee, p, carry.ro)
-            else:
-                ro = v3.where(active, p, carry.ro)
-            t_min = (v3.length(ro) + total_t) * RAY_EPSILON
-
-            # ---- Russian roulette (pt_megakernel.glsl:713-730)
+            # the glossy-only mask, BSDF sample, footprint transport, next
+            # ray and Russian roulette (shade.shade_scatter) on the
+            # roulette's draw (pt_megakernel.glsl:713-730)
             rng_state, rr_sample = pointsets.draw1(rv, bufs, rng_state, dim_base + 7)
-            prefix = v3.max_component(throughput)
-            rr_prob = torch.where(
-                carry.bounce_count > 6,
-                torch.clamp(prefix, max=0.95),
-                torch.clamp(prefix, max=1.0),
-            )
-            do_rr = active & (carry.bounce_count >= fp.rr_path_depth)
-            survive = rr_sample < rr_prob
-            throughput = v3.where(
-                do_rr & survive,
-                throughput * (1.0 / torch.clamp(rr_prob, min=1e-9)),
-                throughput,
-            )
-            active = active & (~do_rr | survive)
-
+            o = shade_scatter(ds, cfg, fp, shade_mod.ScatterIn(
+                ro=carry.ro, rd=carry.rd, throughput=throughput, active=active,
+                prev_pdf=carry.prev_pdf, bounce_count=carry.bounce_count,
+                total_t=total_t, foot=carry.foot, p=p, n_sh=n_sh, gn=gn,
+                w_o=w_o, mat=mat, dir_sample=dir_sample,
+                lobe_sample=lobe_sample, rr_sample=rr_sample))
             return carry._replace(
-                ro=ro, rd=rd, t_min=t_min, illum=illum, throughput=throughput,
-                active=active, prev_pdf=prev_pdf, rng_state=rng_state, rays=rays,
-                pend=pend, foot=foot, dbg=dbg,
+                ro=o.ro, rd=o.rd, t_min=o.t_min, illum=illum,
+                throughput=o.throughput, active=o.active, prev_pdf=o.prev_pdf,
+                rng_state=rng_state, rays=rays, pend=pend, foot=o.foot, dbg=dbg,
             )
 
     return visit_hit, scatter_tail
@@ -1489,68 +1169,6 @@ def camera_rays_v(view: ViewBuffers, px, py, dims, j0, j1):
 # Ray-differential texture footprint (rt/footprint.glsl; integrator.py:
 # 1752-1830)
 # ---------------------------------------------------------------------------
-
-
-def _dpdxy_to_footprint_v(rd: Vec3, dpdx: Vec3, dpdy: Vec3):
-    """dpdxy_to_footprint (footprint.glsl:10-15): the symmetric 2x2
-    covariance of the pixel differentials in the ray-perpendicular basis,
-    stored as (F00, F11, F01)."""
-    t, b = nee_mod.ortho_frame_v(rd)
-    tx, ty = v3.dot(t, dpdx), v3.dot(t, dpdy)
-    bx, by = v3.dot(b, dpdx), v3.dot(b, dpdy)
-    return Footprint(tx * tx + ty * ty, bx * bx + by * by, tx * bx + ty * by)
-
-
-def _footprint_to_dpdxy_v(rd: Vec3, fa, fb, fc):
-    """footprint_to_dpdxy (footprint.glsl:44-61): eigen-decompose F back
-    into two world-space differential vectors."""
-    B = fa + fb
-    C = fa * fb - fc * fc
-    D = torch.sqrt(torch.clamp(B * B * 0.25 - C, min=0.0))
-    ev0 = 0.5 * B - D
-    ev1 = 0.5 * B + D
-    use = fc.abs() > 3.0e-39
-    x0x = torch.where(use, fc, 1.0)
-    x0y = torch.where(use, ev0 - fa, 0.0)
-    x1x = torch.where(use, ev1 - fb, 0.0)
-    x1y = torch.where(use, fc, 1.0)
-    inv0 = 1.0 / torch.clamp(torch.sqrt(x0x * x0x + x0y * x0y), min=1e-30)
-    inv1 = 1.0 / torch.clamp(torch.sqrt(x1x * x1x + x1y * x1y), min=1e-30)
-    s0 = torch.sqrt(torch.clamp(ev0, min=0.0)) * inv0
-    s1 = torch.sqrt(torch.clamp(ev1, min=0.0)) * inv1
-    t, b = nee_mod.ortho_frame_v(rd)
-    dpdx = Vec3(
-        (t.x * x0x + b.x * x0y) * s0,
-        (t.y * x0x + b.y * x0y) * s0,
-        (t.z * x0x + b.z * x0y) * s0,
-    )
-    dpdy = Vec3(
-        (t.x * x1x + b.x * x1y) * s1,
-        (t.y * x1x + b.y * x1y) * s1,
-        (t.z * x1x + b.z * x1y) * s1,
-    )
-    return dpdx, dpdy
-
-
-def _reflect_footprint_v(w_i: Vec3, rd: Vec3, fa, fb, fc):
-    """reflect_footprint (footprint.glsl:37-42): mirror the footprint
-    across the half-vector and re-express it in the new ray's basis."""
-    n = v3.normalize(w_i - rd)
-    ts, bs = nee_mod.ortho_frame_v(rd)
-    rt = ts - n * (2.0 * v3.dot(n, ts))
-    rb = bs - n * (2.0 * v3.dot(n, bs))
-    td, bd = nee_mod.ortho_frame_v(w_i)
-    t00, t01 = v3.dot(td, rt), v3.dot(td, rb)
-    t10, t11 = v3.dot(bd, rt), v3.dot(bd, rb)
-    m00 = t00 * fa + t01 * fc
-    m01 = t00 * fc + t01 * fb
-    m10 = t10 * fa + t11 * fc
-    m11 = t10 * fc + t11 * fb
-    return Footprint(
-        m00 * t00 + m01 * t01,
-        m10 * t10 + m11 * t11,
-        m00 * t10 + m01 * t11,
-    )
 
 
 def camera_footprint0(cfg: IntegratorConfig, fp: FrameParams,

@@ -12,7 +12,8 @@ TPU-native equivalent of:
 - The frame path's tracer (no reference counterpart): ``span`` names a
   stage of the frame as a ``torch.profiler.record_function`` range while
   a profiler records, and ``host_read`` / ``host_sync`` count and span each
-  blocking device-to-host read (``host_syncs``).
+  blocking device-to-host read (``host_syncs``); ``count_shaded`` counts
+  the shaded bounces by path (``shaded_bounces``).
 """
 
 from __future__ import annotations
@@ -233,6 +234,11 @@ _profiler_enabled = torch.autograd._profiler_enabled
 # blocking device-to-host reads by site since the last reset_host_syncs()
 host_syncs: Dict[str, int] = collections.Counter()
 
+# shaded bounces by path since the last reset_shaded(): "fused" (the
+# rptr.shade stage's two kernels, ops/shade.py; their plain versions on CPU
+# tensors) or "plain" (the configurations the kernels do not implement)
+shaded_bounces: Dict[str, int] = collections.Counter()
+
 
 def span(name: str, part=None):
     """``torch.profiler.record_function(name)`` while a profiler records
@@ -266,3 +272,19 @@ def host_read(site: str, value):
 
 def reset_host_syncs() -> None:
     host_syncs.clear()
+
+
+def count_shaded(fused: bool) -> None:
+    """Count one shaded bounce on the path ``ops/shade.fused`` chose."""
+    shaded_bounces["fused" if fused else "plain"] += 1
+
+
+def reset_shaded() -> None:
+    shaded_bounces.clear()
+
+
+def fused_shade_share() -> float:
+    """Percent of the shaded bounces since the last ``reset_shaded`` that
+    took the fused path (0 when none was shaded)."""
+    total = shaded_bounces["fused"] + shaded_bounces["plain"]
+    return 100.0 * shaded_bounces["fused"] / total if total else 0.0

@@ -67,6 +67,7 @@ from realtimepathtracingresearchframework_tpu_torch.models.texture import (
     build_mip_chain,
 )
 from realtimepathtracingresearchframework_tpu_torch.ops import integrator as ti
+from realtimepathtracingresearchframework_tpu_torch.ops import shade_common as tsc
 from realtimepathtracingresearchframework_tpu_torch.ops import pointsets as tps
 from realtimepathtracingresearchframework_tpu_torch.ops import texture_atlas as tta
 from realtimepathtracingresearchframework_tpu_torch.ops.vec3 import Vec3
@@ -136,11 +137,11 @@ def test_scene_tables_match():
     ref = np.asarray(ji.pack_attr_table(jf, jf))
     port = ti.pack_attr_table(tf_, tf_).numpy()
     np.testing.assert_array_equal(port, ref)
-    assert np.abs(port[ti._A_UV0:ti._A_DENS + 1]).max() > 0
+    assert np.abs(port[tsc._A_UV0:tsc._A_DENS + 1]).max() > 0
     ref = np.asarray(ji.pack_material_table(jflat.material_table()))
     port = ti.pack_material_table(tscene.material_table()).numpy()
     np.testing.assert_array_equal(port, ref)
-    assert (port[ti._M_BCTEX] >= 0).any() and (port[ti._M_NMTEX] >= 0).any()
+    assert (port[tsc._M_BCTEX] >= 0).any() and (port[tsc._M_NMTEX] >= 0).any()
 
 
 def _atlases():
@@ -220,17 +221,17 @@ def test_footprint_functions_match():
         fj = ji._dpdxy_to_footprint_v(jv(rd), jv(dpdx), jv(dpdy))
         dj = ji._footprint_to_dpdxy_v(jv(rd), *fj)
         rj = ji._reflect_footprint_v(jv(wi), jv(rd), *fj)
-    ft = ti._dpdxy_to_footprint_v(tv(rd), tv(dpdx), tv(dpdy))
+    ft = tsc._dpdxy_to_footprint_v(tv(rd), tv(dpdx), tv(dpdy))
     close(ft, fj)
     # the rest from the reference's own footprint, so each function is
     # held on its own
     fjt = [torch.from_numpy(np.array(f)) for f in fj]
-    dt = ti._footprint_to_dpdxy_v(tv(rd), *fjt)
+    dt = tsc._footprint_to_dpdxy_v(tv(rd), *fjt)
     # the two differential vectors together: the small eigenvalue
     # 0.5 B - D cancels, so its vector is held to the footprint's scale,
     # at 1e-5 (measured 3.3e-6)
     close((*dt[0], *dt[1]), (*dj[0], *dj[1]), 1e-5)
-    close(ti._reflect_footprint_v(tv(wi), tv(rd), *fjt), rj)
+    close(tsc._reflect_footprint_v(tv(wi), tv(rd), *fjt), rj)
 
     # the camera footprint of a 48x36 frame
     cam = OrientedCamera.look_at([0, 1.4, 3.0], [0, 0.2, 0.0], fovy=60)
